@@ -1,0 +1,23 @@
+from .autoencoders import (
+    AE_CLASSES,
+    ContrastiveAutoencoder,
+    DenoisingAutoencoder,
+    VariationalAutoencoder,
+    build_autoencoder,
+)
+from .convert import (
+    autoencoder_state_dict_from_jax,
+    load_autoencoder_pth,
+    minilm_state_dict_from_jax,
+)
+
+__all__ = [
+    "AE_CLASSES",
+    "ContrastiveAutoencoder",
+    "DenoisingAutoencoder",
+    "VariationalAutoencoder",
+    "build_autoencoder",
+    "autoencoder_state_dict_from_jax",
+    "load_autoencoder_pth",
+    "minilm_state_dict_from_jax",
+]
