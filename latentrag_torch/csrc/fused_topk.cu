@@ -1,9 +1,12 @@
 // Fused distance + top-k for Hopper (sm_90a): the CUDA port of the JAX
 // package's Pallas kernels in ops/pallas_topk.py.
 //
-//   partial_kernel<TQ, FOLD=true>  replaces _fold_kernel  (pallas_topk.py:162-179,
-//                                  _fold_body :114-159)
-//   partial_kernel<TQ, FOLD=false> replaces _exact_kernel (pallas_topk.py:182-221)
+//   partial_kernel<TQ, FOLD=true,  BIN=false> replaces _fold_kernel
+//                                  (pallas_topk.py:162-179, _fold_body :114-159)
+//   partial_kernel<TQ, FOLD=false, BIN=false> replaces _exact_kernel
+//                                  (pallas_topk.py:182-221)
+//   partial_kernel<TQ, FOLD=true,  BIN=true>  replaces _binary_fold_kernel
+//                                  (pallas_topk.py:354-401)
 //   merge_kernel                   has no TPU counterpart: the TPU grid ran the
 //                                  corpus tiles in order and carried the running
 //                                  top-k in VMEM scratch; here slabs run in
@@ -14,7 +17,12 @@
 //               = 2 q.c - |q|^2 - corpus_sq[c] (euclidean / mahalanobis on whitened
 //                                               inputs; |q|^2 from the stored values)
 //   accumulated in fp32 from fp32 or bf16 inputs; the [Q, N] score matrix is
-//   never written to device memory. Scores become order-preserving int32 keys
+//   never written to device memory.
+//   binary: score(q, c) = sum_{j<d} bf16(q_j) * (2 bit_j(c) - 1), accumulated
+//   in fp32 (pad bits past d never count), from a row-major store of packed
+//   sign words [N, ceil(d/32)] (bit j of word w <-> dim 32w + j). Each stage
+//   unpacks to +-1.0f in shared memory, so the unpacked [N, d] corpus never
+//   exists in device memory either. Scores become order-preserving int32 keys
 //   (_monotone_i32). Rows >= n never win.
 //   exact: the top-k of (key desc, row asc) over all rows: ties go to the lower row.
 //   fold:  per aligned tile of block_n rows (block_n = 4096 by default), each of
@@ -42,6 +50,12 @@
 // lists live in shared memory (registers would spill at k = 128), one warp
 // keeps one query's list sorted, and a per-list threshold rejects almost
 // every candidate with one compare.
+//
+// The binary flavour moves 1/16 of the bf16 corpus bytes (8 B a row at
+// d = 64) through the same scoring loop, so it is arithmetic-bound like the
+// fold; it reads the row-major store with 4-byte loads (one word a thread
+// a stage), which any W = ceil(d/32) keeps aligned, so no layout change is
+// needed to serve d = 48 or d = 384.
 //
 // Launch: one C function per kernel, plain C interface, loaded with ctypes.
 // Each runs on the caller's stream, allocates nothing, and returns
@@ -198,13 +212,47 @@ __device__ __forceinline__ void stage_commit(const uint4 (&buf)[8], float* Cs,
     }
 }
 
+// Binary stage: rows [t0, t0 + TN) x words [d0/32, d0/32 + 2), one 4-byte
+// word per thread (NTHREADS == 2 * TN); words past the row's last are 0
+// and only ever fill dims the score loop does not read.
+static_assert(NTHREADS == 2 * TN, "one packed word per thread per stage");
+static_assert(DCH == 64, "a stage spans two packed words");
+
+__device__ __forceinline__ void bin_fetch(uint4 (&buf)[8], const void* cp,
+                                          int n, int words, int t0, int d0,
+                                          int tid) {
+    const int row = t0 + (tid >> 1), w = (d0 >> 5) + (tid & 1);
+    buf[0].x = (row < n && w < words)
+                   ? __ldg((const unsigned*)cp + (size_t)row * words + w)
+                   : 0u;
+}
+
+__device__ __forceinline__ void bin_commit(const uint4 (&buf)[8], float* Cs,
+                                           int tid) {
+    const int r = tid >> 1, dd0 = (tid & 1) << 5;
+    const unsigned w = buf[0].x;
+#pragma unroll
+    for (int b = 0; b < 32; ++b)
+        Cs[cs_index(dd0 + b, r)] = ((w >> b) & 1u) ? 1.0f : -1.0f;
+}
+
+// Fetch one stage into registers, from the packed store (BIN) or with
+// 16-byte loads.
+template <bool BIN>
+__device__ __forceinline__ void fetch_stage(uint4 (&buf)[8], const void* cp,
+                                            int n, int d, int bf16, int t0,
+                                            int d0, int tid) {
+    if constexpr (BIN) bin_fetch(buf, cp, n, (d + 31) >> 5, t0, d0, tid);
+    else stage_fetch(buf, cp, n, d, bf16, t0, d0, tid);
+}
+
 // grid: (query tiles of TQ, corpus slabs of slab_rows rows). Each block
 // writes its queries' top-k of its slab to out[slab, q, :]. slab_rows is a
 // multiple of block_n in fold mode, so fold tiles never straddle slabs.
 // With vec set, the next stage's loads are in flight while this stage is
 // scored; otherwise (d not a multiple of DCH) each stage loads element by
-// element.
-template <int TQ, bool FOLD>
+// element. BIN stages are always fetched ahead.
+template <int TQ, bool FOLD, bool BIN>
 __global__ void __launch_bounds__(NTHREADS, 2)
 partial_kernel(const void* __restrict__ qp, const void* __restrict__ cp,
                const float* __restrict__ csq, int nq, int n, int d, int k,
@@ -257,8 +305,10 @@ partial_kernel(const void* __restrict__ qp, const void* __restrict__ cp,
 
     const int n_dch = (d + DCH - 1) / DCH;
     const int n_stages = row1 > row0 ? ((row1 - row0 + TN - 1) / TN) * n_dch : 0;
+    const bool staged = BIN || vec;
     uint4 buf[8];
-    if (vec && n_stages > 0) stage_fetch(buf, cp, n, d, bf16, row0, 0, tid);
+    if (staged && n_stages > 0)
+        fetch_stage<BIN>(buf, cp, n, d, bf16, row0, 0, tid);
     float acc[QPT][CPT];
 
     for (int st = 0; st < n_stages; ++st) {
@@ -272,7 +322,9 @@ partial_kernel(const void* __restrict__ qp, const void* __restrict__ cp,
                 for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
         }
         __syncthreads();  // the previous stage is done with Cs
-        if (vec) {
+        if constexpr (BIN) {
+            bin_commit(buf, Cs, tid);
+        } else if (vec) {
             stage_commit(buf, Cs, bf16, tid);
         } else {
             for (int e = tid; e < TN * dc; e += NTHREADS) {
@@ -283,10 +335,10 @@ partial_kernel(const void* __restrict__ qp, const void* __restrict__ cp,
             }
         }
         __syncthreads();
-        if (vec && st + 1 < n_stages) {
+        if (staged && st + 1 < n_stages) {
             const int nsub = (st + 1) / n_dch;
-            stage_fetch(buf, cp, n, d, bf16, row0 + nsub * TN,
-                        (st + 1 - nsub * n_dch) * DCH, tid);
+            fetch_stage<BIN>(buf, cp, n, d, bf16, row0 + nsub * TN,
+                             (st + 1 - nsub * n_dch) * DCH, tid);
         }
         for (int dd = 0; dd < dc; ++dd) {
             const float4 cv = *reinterpret_cast<const float4*>(
@@ -411,17 +463,17 @@ merge_kernel(const int* __restrict__ pk, const int* __restrict__ pi, int S,
     }
 }
 
-template <int TQ, bool FOLD>
+template <int TQ, bool FOLD, bool BIN>
 static int launch_partial(dim3 grid, size_t smem, cudaStream_t st,
                           const void* q, const void* c, const float* csq,
                           int nq, int n, int d, int k, int bf16, int euclid,
                           int block_n, int slab_rows, int vec, int* ok,
                           int* oi) {
     cudaError_t e = cudaFuncSetAttribute(
-        partial_kernel<TQ, FOLD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        partial_kernel<TQ, FOLD, BIN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    partial_kernel<TQ, FOLD><<<grid, NTHREADS, smem, st>>>(
+    partial_kernel<TQ, FOLD, BIN><<<grid, NTHREADS, smem, st>>>(
         q, c, csq, nq, n, d, k, bf16, euclid, block_n, slab_rows, vec, ok, oi);
     return (int)cudaGetLastError();
 }
@@ -434,28 +486,29 @@ size_t lr_topk_partial_smem(int tq, int d, int k) {
            (size_t)tq * TN * 8 + (size_t)tq * k * 8;
 }
 
-// Returns a cudaError_t; -1 for a TQ the library was not built for.
+// Returns a cudaError_t; -1 for a TQ the library was not built for or a
+// binary search that is not a fold. binary: c is the packed sign words
+// [n, ceil(d/32)] and q is bf16.
 int lr_topk_partial(const void* q, const void* c, const float* csq, int nq,
                     int n, int d, int k, int bf16, int euclid, int fold,
-                    int block_n, int slab_rows, int tq, int vec, int* out_k,
-                    int* out_i, void* stream) {
+                    int block_n, int slab_rows, int tq, int vec, int binary,
+                    int* out_k, int* out_i, void* stream) {
+    if (binary && !fold) return -1;
     const size_t smem = lr_topk_partial_smem(tq, d, k);
     dim3 grid((nq + tq - 1) / tq, (n + slab_rows - 1) / slab_rows);
     cudaStream_t st = (cudaStream_t)stream;
-#define LR_CASE(T)                                                           \
-    if (tq == T)                                                             \
-        return fold ? launch_partial<T, true>(grid, smem, st, q, c, csq, nq, \
-                                              n, d, k, bf16, euclid,         \
-                                              block_n, slab_rows, vec,       \
-                                              out_k, out_i)                  \
-                    : launch_partial<T, false>(grid, smem, st, q, c, csq,    \
-                                               nq, n, d, k, bf16, euclid,    \
-                                               block_n, slab_rows, vec,      \
-                                               out_k, out_i);
+#define LR_ARGS grid, smem, st, q, c, csq, nq, n, d, k, bf16, euclid, \
+                block_n, slab_rows, vec, out_k, out_i
+#define LR_CASE(T)                                                   \
+    if (tq == T)                                                     \
+        return binary ? launch_partial<T, true, true>(LR_ARGS)       \
+               : fold ? launch_partial<T, true, false>(LR_ARGS)      \
+                      : launch_partial<T, false, false>(LR_ARGS);
     LR_CASE(32)
     LR_CASE(16)
     LR_CASE(8)
 #undef LR_CASE
+#undef LR_ARGS
     return -1;
 }
 

@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``. The
 library lands in ``latentrag_torch/_build/`` (listed in ``.gitignore``)
-under a name keyed by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads at once. Nothing is built when
-a module is imported: only the first kernel launch on a CUDA tensor
-calls ``load_library``.
+under a name keyed by a hash of the flags and of the source with every
+file it includes from ``csrc/``, so an edited source or header rebuilds
+and an unchanged one loads at once. Nothing is built when a module is
+imported: only the first kernel launch on a CUDA tensor calls
+``load_library``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,6 +29,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 # seconds spent in nvcc per library, for the record of a run
@@ -46,10 +49,31 @@ def _nvcc() -> str:
     )
 
 
+def sources(name: str) -> list[str]:
+    """``csrc/<name>.cu`` and every file it includes from ``csrc/`` with
+    ``#include "..."``, transitively, as paths relative to ``csrc/``."""
+    seen: list[str] = []
+    todo = [f"{name}.cu"]
+    while todo:
+        rel = todo.pop()
+        if rel in seen:
+            continue
+        seen.append(rel)
+        with open(os.path.join(CSRC, rel), encoding="utf-8") as f:
+            text = f.read()
+        todo += [inc for inc in _INCLUDE.findall(text)
+                 if os.path.isfile(os.path.join(CSRC, inc))]
+    return sorted(seen)
+
+
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, keyed by a hash of the flags and of every
+    source it is built from, so an edited header rebuilds too."""
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for rel in sources(name):
+        digest.update(rel.encode())
+        with open(os.path.join(CSRC, rel), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -14,17 +14,24 @@ The port of the JAX package's ``ops/pallas_topk.py``:
   XLA's ``approx_max_k`` played on the TPU): the fold kernel at a tile
   width and candidate count chosen from ``recall_target``
   (``fold_plan``), then the exact rescore, keeping the best k.
+* ``binary_fused_topk_raw`` replaces ``_binary_fold_kernel``
+  (pallas_topk.py:354-401): the fold over a packed sign-bit store, scored
+  against bf16 queries. ``binary_fused_topk`` adds the exact sign-dot
+  rescore of the winners (``pallas_binary_topk``, pallas_topk.py:404-508,
+  which is also the name here for the transposed layout), and
+  ``approx_binary_fused_topk`` is the binary store's stage 1 on the card,
+  planned by ``fold_plan`` as the float route is.
 
-On a CUDA tensor ``fused_topk_raw`` launches the kernels of
-``csrc/fused_topk.cu`` (a partial kernel per query tile and corpus slab,
-then a merge kernel across slabs) or raises; on a CPU tensor it runs
-``fused_topk_raw_reference``, which repeats the JAX algorithm step by
+On a CUDA tensor ``fused_topk_raw`` and ``binary_fused_topk_raw`` launch
+the kernels of ``csrc/fused_topk.cu`` (a partial kernel per query tile and
+corpus slab, then a merge kernel across slabs) or raise; on a CPU tensor
+they run their plain versions, which repeat the JAX algorithm step by
 step, fold included. The kernel source says what bounds it on the H100 and
 what its design does about that.
 
-``launches`` counts kernel launches per mode (a call that launches the
-partial and the merge kernel counts once); plain-version calls do not
-count.
+``launches`` counts kernel launches per kernel (``fold``, ``exact``,
+``binary_fold``; a call that launches the partial and the merge kernel
+counts once); plain-version calls do not count.
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ _EXACT_SLAB_UNIT = 512  # exact slabs need no fold alignment
 _DIM_STAGE = 64  # feature dims per shared-memory stage (DCH in the source)
 FOLD_OVERSAMPLE = 4  # candidates per wanted row on the approximate route
 
-launches = {"fold": 0, "exact": 0}
+launches = {"fold": 0, "exact": 0, "binary_fold": 0}
 
 
 def reset_launches() -> None:
@@ -127,40 +134,17 @@ def _corpus_sq(corpus, corpus_sq):
     return corpus_sq.float()
 
 
-def fused_topk_raw_reference(
-    queries: torch.Tensor,
-    corpus: torch.Tensor,
-    corpus_sq: torch.Tensor | None = None,
-    *,
-    k: int,
-    metric: str = "cosine",
-    mode: str = "fold",
-    block_n: int = 4096,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version of the kernels: the JAX algorithm tile by
-    tile, on any device. A stable descending sort stands for the TPU's
-    max-extraction passes (both keep the first occurrence of a tie)."""
-    k_eff = _validate(queries, corpus, corpus_sq, k, mode, block_n)
-    euclid = _metric_kind(metric) == "euclidean"
-    nq, d = queries.shape
-    n = corpus.shape[0]
-    dev = queries.device
-    q = queries.float()
-    if euclid:
-        q_sq = torch.sum(torch.square(q), dim=1, keepdim=True)
-        csq = _corpus_sq(corpus, corpus_sq)
+def _plain_topk(score_tile, nq, n, k_eff, mode, block_n, dev):
+    """The JAX kernels' tile loop in PyTorch: ``score_tile(base, end)``
+    gives the [Q, block_n] fp32 scores of rows [base, base + block_n)
+    (rows from ``end`` on are padding and never win). A stable descending
+    sort stands for the TPU's max-extraction passes (both keep the first
+    occurrence of a tie)."""
     run_v = torch.full((nq, k_eff), _MIN_I32, dtype=torch.int32, device=dev)
     run_i = torch.zeros((nq, k_eff), dtype=torch.int32, device=dev)
     local = torch.arange(block_n, dtype=torch.int32, device=dev)
     for base in range(0, n, block_n):
-        end = min(base + block_n, n)
-        tile = torch.zeros((block_n, d), dtype=torch.float32, device=dev)
-        tile[: end - base] = corpus[base:end].float()
-        s = q @ tile.T
-        if euclid:
-            cs = torch.zeros(block_n, dtype=torch.float32, device=dev)
-            cs[: end - base] = csq[base:end]
-            s = 2.0 * s - q_sq - cs[None, :]
+        s = score_tile(base, min(base + block_n, n))
         valid = (local + base) < n
         mono = _monotone_i32(s)
         if mode == "fold":
@@ -184,6 +168,41 @@ def fused_topk_raw_reference(
     return _unmonotone_f32(run_v), run_i
 
 
+def fused_topk_raw_reference(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    corpus_sq: torch.Tensor | None = None,
+    *,
+    k: int,
+    metric: str = "cosine",
+    mode: str = "fold",
+    block_n: int = 4096,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the kernels: the JAX algorithm tile by
+    tile, on any device."""
+    k_eff = _validate(queries, corpus, corpus_sq, k, mode, block_n)
+    euclid = _metric_kind(metric) == "euclidean"
+    nq, d = queries.shape
+    n = corpus.shape[0]
+    dev = queries.device
+    q = queries.float()
+    if euclid:
+        q_sq = torch.sum(torch.square(q), dim=1, keepdim=True)
+        csq = _corpus_sq(corpus, corpus_sq)
+
+    def score_tile(base, end):
+        tile = torch.zeros((block_n, d), dtype=torch.float32, device=dev)
+        tile[: end - base] = corpus[base:end].float()
+        s = q @ tile.T
+        if euclid:
+            cs = torch.zeros(block_n, dtype=torch.float32, device=dev)
+            cs[: end - base] = csq[base:end]
+            s = 2.0 * s - q_sq - cs[None, :]
+        return s
+
+    return _plain_topk(score_tile, nq, n, k_eff, mode, block_n, dev)
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
@@ -194,7 +213,7 @@ def _library() -> ctypes.CDLL:
     lib.lr_topk_partial_smem.restype = ctypes.c_size_t
     lib.lr_topk_partial_smem.argtypes = [i, i, i]
     lib.lr_topk_partial.restype = i
-    lib.lr_topk_partial.argtypes = [p, p, p] + [i] * 11 + [p, p, p]
+    lib.lr_topk_partial.argtypes = [p, p, p] + [i] * 12 + [p, p, p]
     lib.lr_topk_merge.restype = i
     lib.lr_topk_merge.argtypes = [p, p] + [i] * 5 + [p, p, p]
     lib.lr_error_string.restype = ctypes.c_char_p
@@ -218,22 +237,20 @@ def _check(lib, code: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {msg} (code {code})")
 
 
-def _fused_topk_raw_cuda(queries, corpus, corpus_sq, k_eff, euclid, mode,
-                         block_n):
+def _launch(queries, corpus, csq, *, d, k_eff, block_n, fold, euclid=False,
+            vec=False, binary=False):
+    """Run the partial kernel over query tiles x corpus slabs, then the
+    merge kernel across slabs; returns the [Q, k] (keys, rows) as int32.
+    Queries are bf16 or fp32; the corpus has their dtype, or is the
+    packed sign words when ``binary``."""
     for name, t in (("queries", queries), ("corpus", corpus)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     lib = _library()
-    nq, d = queries.shape
+    nq = queries.shape[0]
     n = corpus.shape[0]
     dev = queries.device
     tq = _pick_tq(lib, d, k_eff)
-    csq = None
-    if euclid:
-        csq = _corpus_sq(corpus, corpus_sq).contiguous()
-    fold = mode == "fold"
-    # 16-byte corpus loads need whole 64-dim stages and an aligned base
-    vec = d % _DIM_STAGE == 0 and corpus.data_ptr() % 16 == 0
     unit = block_n if fold else _EXACT_SLAB_UNIT
     n_units = -(-n // unit)
     q_tiles = -(-nq // tq)
@@ -255,9 +272,9 @@ def _fused_topk_raw_cuda(queries, corpus, corpus_sq, k_eff, euclid, mode,
         code = lib.lr_topk_partial(
             queries.data_ptr(), corpus.data_ptr(),
             csq.data_ptr() if csq is not None else None,
-            nq, n, d, k_eff, int(corpus.dtype == torch.bfloat16), int(euclid),
-            int(fold), block_n, slab_rows, tq, int(vec),
-            part_k.data_ptr(), part_i.data_ptr(), stream,
+            nq, n, d, k_eff, int(queries.dtype == torch.bfloat16),
+            int(euclid), int(fold), block_n, slab_rows, tq, int(vec),
+            int(binary), part_k.data_ptr(), part_i.data_ptr(), stream,
         )
         _check(lib, code, "fused top-k partial kernel")
         if n_slabs > 1:
@@ -266,6 +283,18 @@ def _fused_topk_raw_cuda(queries, corpus, corpus_sq, k_eff, euclid, mode,
                 int(fold), block_n, out_k.data_ptr(), out_i.data_ptr(), stream,
             )
             _check(lib, code, "fused top-k merge kernel")
+    return out_k, out_i
+
+
+def _fused_topk_raw_cuda(queries, corpus, corpus_sq, k_eff, euclid, mode,
+                         block_n):
+    d = queries.shape[1]
+    csq = _corpus_sq(corpus, corpus_sq).contiguous() if euclid else None
+    # 16-byte corpus loads need whole 64-dim stages and an aligned base
+    vec = d % _DIM_STAGE == 0 and corpus.data_ptr() % 16 == 0
+    out_k, out_i = _launch(queries, corpus, csq, d=d, k_eff=k_eff,
+                           block_n=block_n, fold=mode == "fold",
+                           euclid=euclid, vec=vec)
     launches[mode] += 1
     return _unmonotone_f32(out_k), out_i
 
@@ -383,4 +412,148 @@ def approx_fused_topk(
     _, idx = fused_topk_raw(queries, corpus, k=cand, metric=metric,
                             mode="fold", block_n=block_n)
     scores, idx = rescore_candidates(queries, corpus, idx, metric)
+    return scores[:, :k_eff], idx[:, :k_eff]
+
+
+# ---------------------------------------------------------------- binary
+
+
+def _validate_binary(queries, packed, d, k, block_n):
+    if block_n > (1 << _IDX_BITS) or block_n % _LANES:
+        raise ValueError(
+            f"block_n must be <= {1 << _IDX_BITS} and a multiple of {_LANES}"
+        )
+    if queries.ndim != 2 or packed.ndim != 2:
+        raise ValueError("queries and packed must be 2-D")
+    if queries.shape[1] != d:
+        raise ValueError(f"queries dim {queries.shape[1]} != d {d}")
+    if packed.dtype != torch.int32 or packed.shape[1] != -(-d // 32):
+        raise ValueError(
+            f"packed must be int32 sign words [N, {-(-d // 32)}] "
+            f"(got {packed.dtype} {tuple(packed.shape)})"
+        )
+    if queries.device != packed.device:
+        raise ValueError("queries and packed must be on one device")
+    n = packed.shape[0]
+    if n == 0:
+        raise ValueError("empty corpus")
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    k_eff = min(k, n)
+    if k_eff > FOLD_MAX_K:
+        raise ValueError(
+            f"the binary fold supports k <= {FOLD_MAX_K} (got {k_eff})"
+        )
+    return k_eff
+
+
+def binary_fused_topk_raw_reference(
+    queries: torch.Tensor, packed: torch.Tensor, *, d: int, k: int,
+    block_n: int = 4096,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the binary kernel, on any device:
+    ``pallas_binary_topk``'s fold tile by tile, each tile unpacked to +-1
+    and scored against the bf16-rounded queries in fp32."""
+    from .binary import binary_unpack
+
+    k_eff = _validate_binary(queries, packed, d, k, block_n)
+    dev = queries.device
+    q = queries.to(torch.bfloat16).float()
+
+    def score_tile(base, end):
+        tile = torch.zeros((block_n, d), dtype=torch.float32, device=dev)
+        tile[: end - base] = binary_unpack(packed[base:end], d).float()
+        return q @ tile.T
+
+    return _plain_topk(score_tile, queries.shape[0], packed.shape[0], k_eff,
+                       "fold", block_n, dev)
+
+
+def binary_fused_topk_raw(
+    queries: torch.Tensor, packed: torch.Tensor, *, d: int, k: int,
+    block_n: int = 4096,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused packed-binary fold top-k. ``packed`` is the row-major store
+    ``ops.binary.binary_quantize`` makes ([N, ceil(d/32)] int32 words).
+    Returns (19-bit-quantized sign-dot scores [Q, k] f32, ids [Q, k] i32):
+    the fold keys mapped back to fp32. k clips to N and must be <= 128.
+
+    On a CUDA tensor this launches the binary flavour of the partial
+    kernel in ``csrc/fused_topk.cu`` (the corpus unpacks to +-1 in shared
+    memory, so neither the [Q, N] scores nor an unpacked corpus ever
+    exists in device memory) or raises; on a CPU tensor it runs
+    ``binary_fused_topk_raw_reference``."""
+    k_eff = _validate_binary(queries, packed, d, k, block_n)
+    if queries.device.type == "cpu":
+        return binary_fused_topk_raw_reference(queries, packed, d=d, k=k,
+                                               block_n=block_n)
+    if queries.device.type != "cuda":
+        raise ValueError(f"unsupported device {queries.device}")
+    q = queries.to(torch.bfloat16).contiguous()
+    out_k, out_i = _launch(q, packed, None, d=d, k_eff=k_eff,
+                           block_n=block_n, fold=True, binary=True)
+    launches["binary_fold"] += 1
+    return _unmonotone_f32(out_k), out_i
+
+
+def rescore_binary_candidates(
+    queries: torch.Tensor, packed: torch.Tensor, idx: torch.Tensor, d: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact sign-dot scores of the candidate rows ``idx`` [Q, k] against
+    the bf16-rounded queries (the estimator the search used), sorted best
+    first (stable)."""
+    from .binary import binary_unpack
+
+    nq, kk = idx.shape
+    rows = binary_unpack(packed[idx.reshape(-1).long()], d).float()
+    qf = queries.to(torch.bfloat16).float()
+    scores = torch.sum(qf[:, None, :] * rows.reshape(nq, kk, d), dim=2)
+    order = torch.sort(scores, dim=1, descending=True, stable=True)[1]
+    return torch.gather(scores, 1, order), torch.gather(idx, 1, order)
+
+
+def binary_fused_topk(
+    queries: torch.Tensor, packed: torch.Tensor, *, d: int, k: int,
+    block_n: int = 4096,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``binary_fused_topk_raw`` + the exact sign-dot rescore of the k
+    winners and a stable sort (``pallas_binary_topk``'s wrapper)."""
+    _, idx = binary_fused_topk_raw(queries, packed, d=d, k=k,
+                                   block_n=block_n)
+    return rescore_binary_candidates(queries, packed, idx, d)
+
+
+def pallas_binary_topk(
+    queries: torch.Tensor, packed_t: torch.Tensor, *, d: int, k: int,
+    block_n: int = 4096,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's name and layout: ``binary_fused_topk`` over the
+    transposed store [ceil(d/32), N] (``binary_quantize_t``). The kernel
+    reads rows, so the store is transposed back first."""
+    return binary_fused_topk(queries, packed_t.T.contiguous(), d=d, k=k,
+                             block_n=block_n)
+
+
+def approx_binary_fused_topk(
+    queries: torch.Tensor, packed: torch.Tensor, *, d: int, k: int,
+    recall_target: float = 0.99,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The binary store's stage 1 on the card (the part XLA's
+    ``approx_max_k`` played on the TPU): the binary fold at the tile width
+    and candidate count ``fold_plan`` sets, the candidates rescored to
+    exact sign-dots, the best k kept. The fold holds at most 128
+    candidates and there is no exact binary kernel, so k above 128
+    raises (the store asks for binary_oversample x k)."""
+    n = packed.shape[0]
+    k_eff = min(k, n)
+    if k_eff > FOLD_MAX_K:
+        raise ValueError(
+            f"the binary store's stage 1 on CUDA takes at most {FOLD_MAX_K} "
+            f"candidates (asked for {k_eff}); lower top_k or "
+            "retrieval.binary_oversample"
+        )
+    block_n, cand = fold_plan(n, k_eff, recall_target)
+    _, idx = binary_fused_topk_raw(queries, packed, d=d, k=cand,
+                                   block_n=block_n)
+    scores, idx = rescore_binary_candidates(queries, packed, idx, d)
     return scores[:, :k_eff], idx[:, :k_eff]

@@ -37,6 +37,7 @@ def _make_dense(cfg: RetrievalConfig, device) -> DenseRetriever:
         block_size=cfg.block_size,
         recall_target=cfg.recall_target,
         store_dtype=cfg.store_dtype,
+        binary_oversample=cfg.binary_oversample,
         device=device,
     )
 

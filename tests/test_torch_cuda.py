@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from latentrag_torch.ops import binary as tb
 from latentrag_torch.ops import fused_topk as ft
 
 pytestmark = pytest.mark.cuda
@@ -54,7 +55,7 @@ def test_launch_counts_and_validation(cuda):
     ft.fused_topk(q, c, k=5, mode="fold")
     ft.fused_topk(q, c, k=5, mode="exact")
     ft.approx_fused_topk(q, c, k=5)
-    assert ft.launches == {"fold": 2, "exact": 1}
+    assert ft.launches == {"fold": 2, "exact": 1, "binary_fold": 0}
     with pytest.raises(ValueError, match="contiguous"):
         ft.fused_topk_raw(q, c.T.contiguous().T, k=5)
 
@@ -92,3 +93,52 @@ def test_main_path_on_card(cuda, tmp_path):
     assert rc == 0
     assert ft.launches["fold"] >= 1 and ft.launches["exact"] >= 1
     assert np.isfinite(results[0]["doc_scores"]).all()
+
+
+def _binary_data(cuda, d, nq=37, n=9000, seed=0):
+    """Seeded bf16 queries and the packed sign words of a unit corpus."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((nq, d), generator=g, device=cuda).bfloat16()
+    c = torch.nn.functional.normalize(
+        torch.randn((n, d), generator=g, device=cuda), dim=1)
+    return q, tb.binary_quantize(c)
+
+
+@pytest.mark.parametrize("block_n", [4096, 512])
+@pytest.mark.parametrize("d", [64, 48])
+def test_binary_kernel_matches_plain(cuda, d, block_n):
+    """d=48 pads each row's last word; N=9000 is not a multiple of the
+    tile; 37 queries leave a ragged query tile."""
+    q, packed = _binary_data(cuda, d)
+    s_k, i_k = ft.binary_fused_topk_raw(q, packed, d=d, k=16,
+                                        block_n=block_n)
+    s_p, i_p = ft.binary_fused_topk_raw_reference(q, packed, d=d, k=16,
+                                                  block_n=block_n)
+    same = i_k == i_p
+    assert same.float().mean().item() >= 0.99
+    e_k, j_k = ft.rescore_binary_candidates(q, packed, i_k, d)
+    e_p, j_p = ft.rescore_binary_candidates(q, packed, i_p, d)
+    eq = j_k == j_p
+    tol = 1e-5 + 1e-6 * e_p.abs()
+    assert bool(((e_k - e_p).abs() <= tol)[eq].all())
+
+
+def test_binary_launch_counts_and_store(cuda):
+    q, packed = _binary_data(cuda, 64, n=3000)
+    ft.reset_launches()
+    ft.binary_fused_topk(q, packed, d=64, k=5)
+    ft.approx_binary_fused_topk(q, packed, d=64, k=40)
+    assert ft.launches == {"fold": 0, "exact": 0, "binary_fold": 2}
+    with pytest.raises(ValueError, match="at most 128"):
+        ft.approx_binary_fused_topk(q, packed, d=64, k=129)
+
+    from latentrag_torch.retrieval import DenseRetriever
+
+    emb = torch.randn((3000, 64), generator=torch.Generator().manual_seed(1))
+    r = DenseRetriever(store_dtype="binary", device="cuda")
+    ft.reset_launches()
+    r.build(emb.numpy(), [str(i) for i in range(3000)])
+    s, i = r.search(emb[:20].numpy(), 10)
+    assert ft.launches["binary_fold"] == 2  # self-check and search
+    assert (i[:, 0] == np.arange(20)).all() and np.isfinite(s).all()
+    assert r._corpus.is_cuda and r._corpus.dtype == torch.int32
