@@ -11,7 +11,10 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    and fold modes x cosine, euclidean, whitened mahalanobis x bf16 and fp32
    stores, at the reference config (Q=2000, N=315, d=64, k=10), at
    Q=1024, N=1,000,000, d=64, k=10, at a ragged Q=37, N=5003, d=384 with
-   k in {1, 64, 128}, and exact mode at k=300;
+   k in {1, 64, 128}, and exact mode at k=300, and the fold as the main
+   path plans it (Q=2000, N=2000, 128-row tiles, 40 candidates); each
+   check also holds that the C kernel that ran is the one the store's
+   dtype routes to (bf16 folds: fold_mma_kernel);
 2b. holds the binary fold kernel against its plain version: the reference
    and 1M shapes at d=64 and the ragged shape at d=384 and d=48 (pad
    bits), k in {10, 80, 128}, at block_n 4096 and at ``fold_plan``'s width;
@@ -27,8 +30,11 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
 3c. builds a binary ``DenseRetriever`` over 1M seeded unit vectors (d=64),
    searches 1024 queries at k=10, and holds the same kernel-vs-plain
    agreement; Recall@10 against exact fp32 search is reported;
-4. times each kernel, its plain version and torch.matmul + torch.topk (a
-   yardstick the port never calls) with CUDA events, beside the bound;
+4. times each kernel, its plain version and torch.matmul + torch.topk at
+   the kernel call's k (a yardstick the port never calls) with CUDA
+   events, beside the bound, at the reference, the main path's own
+   (Q=2000, N=1997, fold only) and the 1M shapes; each record names the C
+   kernels that ran;
 4b. the same for the binary kernel at the reference and 1M shapes (the
    yardstick reads the corpus pre-unpacked to +-1 bf16, 16x the bytes),
    and the kernel alone over 100M packed rows;
@@ -141,6 +147,7 @@ def check_kernels(torch, failures: list) -> dict:
                             q, c, k=k, metric=metric, mode=mode,
                             block_n=block_n)
                         torch.cuda.synchronize()
+                        ran = ft.last_kernel
                         s_p, i_p = (ref_exact if mode == "exact" else
                                     ft.fused_topk_raw_reference(
                                         q, c, k=k, metric=metric, mode=mode,
@@ -154,19 +161,23 @@ def check_kernels(torch, failures: list) -> dict:
                         max_err = err.max().item() if err.numel() else 0.0
                         rec = {"shape": label, "metric": metric,
                                "store": dname, "mode": mode, "k": k,
-                               "block_n": block_n,
+                               "block_n": block_n, "c_kernel": ran,
                                "id_match": id_match, "max_abs_err": max_err}
-                        ok = True
+                        # bf16 folds run the tensor-core kernel, all
+                        # else partial_kernel
+                        want = ("fold_mma_kernel" if mode == "fold"
+                                and dname == "bfloat16" else "partial_kernel<")
+                        ok = ran.startswith(want)
                         if mode == "exact":
                             tol = EXACT_SCORE_ATOL + EXACT_SCORE_RTOL * s_p.abs()
                             within = bool(((s_k - s_p).abs() <= tol)[same].all())
-                            ok = id_match >= EXACT_ID_MATCH and within
+                            ok = ok and id_match >= EXACT_ID_MATCH and within
                         else:
                             ex = ref_exact[1]
                             hits = (i_k[:, :, None] == ex[:, None, :]).any(-1)
                             recall = hits.float().mean().item()
                             rec["recall_vs_exact"] = recall
-                            ok = id_match >= FOLD_ID_MATCH and (
+                            ok = ok and id_match >= FOLD_ID_MATCH and (
                                 k != 10 or recall >= FOLD_RECALL)
                         worst[mode] = max(worst[mode], max_err)
                         rec["ok"] = ok
@@ -339,6 +350,28 @@ def time_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
+def device_split(torch, fn, reps: int = 5) -> dict | None:
+    """Mean device ms of each CUDA kernel ``fn`` launches, from
+    ``torch.profiler`` over ``reps`` calls after a warm-up; None when the
+    profiler records no device time here."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0)
+        if us:
+            out[ev.key.split("(")[0]] = us / 1e3 / reps
+    return out or None
+
+
 def bound(nq, n, d, k, dname) -> tuple[float, str]:
     size = 2 if dname == "bfloat16" else 4
     by_bytes = (nq * d * size + n * d * size + nq * k * 8) / HBM_BYTES_PER_S
@@ -349,31 +382,41 @@ def bound(nq, n, d, k, dname) -> tuple[float, str]:
 
 
 def time_kernels(torch) -> dict:
-    """Phase 4: kernel, plain and library times at the two reference
-    shapes, bf16 cosine store (the main path's). The fold runs as the
-    approximate route plans it (``ft.fold_plan``: tile width and 4x
-    candidates at recall_target 0.99); the exact kernel at k=10."""
+    """Phase 4: kernel, plain and library times, bf16 cosine store (the
+    main path's), at the reference shape, the main path's own (2000
+    queries over its 1997 unique contexts; fold only) and 1M. The fold
+    runs as the approximate route plans it (``ft.fold_plan``: tile width
+    and 4x candidates at recall_target 0.99); the exact kernel at k=10.
+    The library call is timed beside each kernel call at that call's k."""
     from latentrag_torch.ops import fused_topk as ft
 
     out = {}
-    for label, nq, n, d in (("reference", 2000, 315, 64),
-                            ("1m", 1024, 1_000_000, 64)):
+    for label, nq, n, d, modes in (
+            ("reference", 2000, 315, 64, ("fold", "exact")),
+            ("main_plan", 2000, 1997, 64, ("fold",)),
+            ("1m", 1024, 1_000_000, 64, ("fold", "exact"))):
         k = 10
         q, c = make_case(torch, "cosine", torch.bfloat16, nq, n, d, 99)
-        lib_ms = time_ms(
-            torch, lambda: torch.topk(torch.matmul(q, c.T).float(), k, dim=1))
         block_n, cand = ft.fold_plan(n, k, 0.99)
-        for mode, kk, bn in (("fold", cand, block_n), ("exact", k, 4096)):
+        for mode in modes:
+            kk, bn = (cand, block_n) if mode == "fold" else (k, 4096)
+            lib_ms = time_ms(torch, lambda: torch.topk(
+                torch.matmul(q, c.T).float(), kk, dim=1))
             kern = time_ms(torch, lambda: ft.fused_topk_raw(
                 q, c, k=kk, metric="cosine", mode=mode, block_n=bn))
+            ran = ft.last_kernel
             plain = time_ms(torch, lambda: ft.fused_topk_raw_reference(
                 q, c, k=kk, metric="cosine", mode=mode, block_n=bn),
                 reps=20, warmup=1)
             b_ms, b_by = bound(nq, n, d, kk, "bfloat16")
             rec = {"shape": label, "mode": mode, "Q": nq, "N": n, "d": d,
-                   "k": kk, "block_n": bn, "store": "bfloat16", "ms": kern,
-                   "plain_ms": plain, "library_ms": lib_ms,
-                   "library_k": k, "bound_ms": b_ms, "bound_by": b_by}
+                   "k": kk, "block_n": bn, "store": "bfloat16",
+                   "c_kernel": ran, "ms": kern, "plain_ms": plain,
+                   "library_ms": lib_ms, "library_k": kk, "bound_ms": b_ms,
+                   "bound_by": b_by}
+            if mode == "fold":  # device ms of each kernel the call launches
+                rec["device_ms"] = device_split(torch, lambda: ft.fused_topk_raw(
+                    q, c, k=kk, metric="cosine", mode=mode, block_n=bn))
             record("kernel_time", **rec)
             out[(label, mode)] = rec
         del q, c
@@ -618,12 +661,14 @@ def time_binary(torch) -> dict:
                 torch.matmul(qb, pm1.T).float(), kk, dim=1))
             kern = time_ms(torch, lambda: ft.binary_fused_topk_raw(
                 q, pk, d=d, k=kk, block_n=bn))
+            ran = ft.last_kernel
             plain = time_ms(torch, lambda: ft.binary_fused_topk_raw_reference(
                 q, pk, d=d, k=kk, block_n=bn), reps=20, warmup=1)
             b_ms, b_by = binary_bound(nq, n, d, kk)
             rec = {"shape": label, "case": tag, "Q": nq, "N": n, "d": d,
-                   "k": kk, "block_n": bn, "ms": kern, "plain_ms": plain,
-                   "library_ms": lib_ms, "library_reads_bytes_x": 16,
+                   "k": kk, "block_n": bn, "c_kernel": ran, "ms": kern,
+                   "plain_ms": plain, "library_ms": lib_ms,
+                   "library_k": kk, "library_reads_bytes_x": 16,
                    "bound_ms": b_ms, "bound_by": b_by}
             record("binary_kernel_time", **rec)
             out[(label, tag)] = rec
@@ -640,8 +685,10 @@ def time_binary(torch) -> dict:
         q, pk, d=d, k=cand, block_n=block_n), reps=5, warmup=1)
     b_ms, b_by = binary_bound(nq, n, d, cand)
     rec = {"shape": "100m", "case": "plan", "Q": nq, "N": n, "d": d,
-           "k": cand, "block_n": block_n, "ms": kern, "plain_ms": None,
-           "library_ms": None, "packed_bytes": pk.numel() * 4,
+           "k": cand, "block_n": block_n, "c_kernel": ft.last_kernel,
+           "ms": kern, "plain_ms": None, "library_ms": None,
+           "library_not_timed": "its fp32 score matrix would be 410 GB",
+           "packed_bytes": pk.numel() * 4,
            "bound_ms": b_ms, "bound_by": b_by}
     record("binary_kernel_time", **rec)
     out[("100m", "plan")] = rec
@@ -693,12 +740,13 @@ def main() -> int:
     times.update(time_binary(torch))
 
     kernels = []
-    for mode, fn_line in (("fold", 162), ("exact", 182)):
+    for mode, fn_line, source in (("fold", 162, "fold_mma.cuh"),
+                                  ("exact", 182, "fused_topk.cu")):
         t = times[("reference", mode)]
         kernels.append({
             "name": f"fused_topk_{mode}",
             "route": "cuda",
-            "source": "latentrag_torch/csrc/fused_topk.cu",
+            "source": f"latentrag_torch/csrc/{source}",
             "replaces": f"latentrag_tpu/ops/pallas_topk.py:{fn_line}",
             "launches": launches[mode],
             "max_abs_err": worst[mode],

@@ -1,0 +1,703 @@
+// The fold (kernel 1) for bf16 inputs on Hopper's tensor cores: replaces
+// _fold_kernel (pallas_topk.py:162-179, _fold_body :114-159) for bf16
+// stores. Included by fused_topk.cu, whose header states the contract this
+// kernel keeps: 19-bit keys with a 13-bit tile column, the fold per aligned
+// block_n tile over 128 lanes, and the top-k of the union under (quantized
+// key desc, tile asc, column desc). fp32 stores keep partial_kernel's FMA
+// flavour: the tensor cores would round fp32 inputs to bf16 or TF32.
+//
+//   fold_mma_kernel   one block = 64 queries x one corpus slab; 8 warps, a
+//                     pair of warps per 16 queries, each warp 64 of the 128
+//                     columns of every 128-row sub-tile
+//   fold_merge_kernel one warp per query merges the slabs' sorted lists
+//
+// Scores. Each warp pair owns one m16 row block of queries; a warp's bf16
+// A fragments come from a swizzled copy of the query tile in shared memory
+// (once when d <= 64, once per 64-dim chunk otherwise). Corpus stages of 128 rows x 64
+// dims (16 KB, plus the rows' norms^2 for euclidean) arrive by 16-byte
+// cp.async into a ring of 3 stages, swizzled (16-byte chunk c of row r at
+// c ^ (r & 7)) so that ldmatrix reads them without bank conflicts, and
+// feed mma.sync.m16n8k16 bf16 -> fp32: products of bf16 values are exact,
+// only the order of the fp32 sums differs from the TPU's matrix unit. Dims
+// past d are zero in the stage and in the query tile and add nothing. A d
+// that is not a multiple of 8, or a corpus not 16-byte aligned, loads its
+// stages element by element instead of by cp.async.
+//
+// The fold in registers. In the C fragment layout a thread holds the same
+// (query, column mod 128) slots in every 128-row sub-tile: rows g and g+8,
+// columns 64h + 8j + 2t + {0,1} for j < 8 (h: the warp's half). So the
+// packed max (mono & ~IDX_MASK) | tile column of each of its 32 slots
+// stays in registers across the block_n / 128 sub-tiles of a tile; with
+// 32 accumulators beside them a thread fits the registers of 2 blocks of
+// 8 warps an SM (the integer epilogue needs the warps). The metric and
+// the corpus's ragged last sub-tile pick one of four unrolled copies of
+// this epilogue, so the common one has no branch and no row check.
+//
+// Candidate lists. At each tile flush a warp pair passes its 16 x 128 lane
+// winners through shared memory (one query's 128 winners, 4 a lane), and
+// each warp of the pair keeps the lists of 8 of its 16 queries; each
+// query keeps its best k, sorted, in shared memory, and works on them in
+// registers as a list of KP = 32, 64 or 128 entries (the least >= k; the
+// kernel is instantiated for each). The order is one signed 64-bit
+// compare: key64 = quantized key << 32 | (R - tile_base + column),
+// R = (n_tiles - 1) * block_n, so a larger low word is an earlier tile,
+// then a higher column. Winners that do not beat the list's k-th are
+// dropped with one compare; up to KP / 8 passers are inserted one by one
+// (a warp count and one shuffle shift); more are packed densely and merged
+// in chunks of KP: a bitonic sort of the chunk, one compare per entry
+// against the list, one bitonic merge, O(log^2 KP) shuffle steps however
+// many rows pass -- the TPU's batched list upkeep (_fold_body: top-k of
+// the tile, then a merge with the running k).
+//
+// Plan (the wrapper's): grid = (ceil(Q / 64), slabs); the corpus splits
+// into slabs of whole block_n tiles, as many as fill the card's resident
+// block slots (occupancy x SMs) for the query tiles at hand, at least one.
+// With one slab the partial kernel writes the fp32 scores (the quantized
+// keys mapped back) and int32 ids itself; otherwise each slab writes its
+// sorted key64 list and fold_merge_kernel merges the slabs pairwise with
+// bitonic merges and writes scores and ids. No torch work follows.
+//
+// Bound. At d = 64 a 128-row sub-tile is 4 k-steps of mma for each warp,
+// then about 4 integer ops per score on the CUDA cores to fold it. At
+// 1024 x 1M that is 1.0e9 scores x 4 / (132 SMs x 64 INT32 lanes x
+// ~1.75 GHz) ~ 0.28 ms, while the products at even half the bf16 peak
+// take 0.27 ms: the epilogue, not the matrix units' issue rate, sets the
+// pace, so mma.sync (not wgmma/TMA) and a lean fold are the design. At the
+// main path's 128-row tiles every sub-tile flushes, and the list upkeep --
+// bitonic networks, chains of dependent shuffles -- bounds it by latency,
+// which the pairs halve by sharing each flush.
+
+#define FM_WARPS 8
+#define FM_THREADS (FM_WARPS * 32)
+#define FM_PAIRS (FM_WARPS / 2)                    // a pair shares 16 queries
+#define FM_TQ (FM_PAIRS * 16)                      // queries per block
+#define FM_NST 3                                   // stages in the ring
+#define FM_STAGE_BYTES (TN * DCH * 2)              // 128 rows x 64 bf16
+#define FM_SLOT_BYTES (FM_STAGE_BYTES + TN * 4)    // + the rows' norms^2
+#define FM_TSTRIDE 136                             // ints a row of the flush buffer
+#define FM_FULL 0xffffffffu
+
+typedef long long i64;
+#define EMPTY64 LLONG_MIN
+
+static_assert(TN == 128 && DCH == 64, "stages of 128 rows x 64 dims");
+
+__device__ __forceinline__ unsigned fm_smem(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Byte offset of 16-byte chunk c (8 dims) of row r in a [rows][64] bf16 tile.
+__device__ __forceinline__ int fm_swz(int r, int c) {
+    return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ void fm_cp16(unsigned dst, const void* src,
+                                        int bytes) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void fm_cp4(unsigned dst, const void* src,
+                                       int bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void fm_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fm_wait_ring() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(FM_NST - 2) : "memory");
+}
+
+__device__ __forceinline__ void fm_ldsm4(unsigned (&r)[4], unsigned addr) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void fm_mma(float (&c)[4], const unsigned (&a)[4],
+                                       unsigned b0, unsigned b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 8 bf16 values [dim, dim + 8) of one row, zero past d (any alignment).
+__device__ __forceinline__ uint4 fm_row8(const unsigned short* p, int d,
+                                         int dim) {
+    unsigned h[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) h[e] = dim + e < d ? p[dim + e] : 0u;
+    return make_uint4(h[0] | (h[1] << 16), h[2] | (h[3] << 16),
+                      h[4] | (h[5] << 16), h[6] | (h[7] << 16));
+}
+
+// Stage = rows [t0, t0 + 128) x dims [d0, d0 + 64) into a ring slot, and
+// for euclidean the rows' norms^2 after it. Rows >= n and dims >= d are 0.
+__device__ __forceinline__ void fm_load_stage(
+    unsigned char* slot, const __nv_bfloat16* c, const float* csq, int n,
+    int d, int t0, int d0, int vec, int euclid, int tid) {
+    const unsigned base = fm_smem(slot);
+#pragma unroll
+    for (int u = 0; u < (TN * 8) / FM_THREADS; ++u) {
+        const int v = tid + FM_THREADS * u, r = v >> 3, ch = v & 7;
+        const int row = t0 + r, dim = d0 + 8 * ch;
+        const bool in = row < n && dim < d;
+        if (vec) {
+            fm_cp16(base + fm_swz(r, ch),
+                    in ? (const void*)(c + (size_t)row * d + dim) : (const void*)c,
+                    in ? 16 : 0);
+        } else {
+            *reinterpret_cast<uint4*>(slot + fm_swz(r, ch)) =
+                in ? fm_row8((const unsigned short*)c + (size_t)row * d, d, dim)
+                   : make_uint4(0u, 0u, 0u, 0u);
+        }
+    }
+    if (euclid && tid < TN) {
+        const int row = t0 + tid;
+        fm_cp4(base + FM_STAGE_BYTES + 4 * tid, row < n ? csq + row : csq,
+               row < n ? 4 : 0);
+    }
+}
+
+__device__ __forceinline__ i64 fm_shfl(i64 v, int src) {
+    const int lo = __shfl_sync(FM_FULL, (int)v, src);
+    const int hi = __shfl_sync(FM_FULL, (int)(v >> 32), src);
+    return (i64)(((unsigned long long)(unsigned)hi << 32) | (unsigned)lo);
+}
+
+__device__ __forceinline__ i64 fm_shfl_xor(i64 v, int m) {
+    const int lo = __shfl_xor_sync(FM_FULL, (int)v, m);
+    const int hi = __shfl_xor_sync(FM_FULL, (int)(v >> 32), m);
+    return (i64)(((unsigned long long)(unsigned)hi << 32) | (unsigned)lo);
+}
+
+__device__ __forceinline__ i64 fm_shfl_up(i64 v) {
+    const int lo = __shfl_up_sync(FM_FULL, (int)v, 1);
+    const int hi = __shfl_up_sync(FM_FULL, (int)(v >> 32), 1);
+    return (i64)(((unsigned long long)(unsigned)hi << 32) | (unsigned)lo);
+}
+
+__device__ __forceinline__ i64 fm_max(i64 a, i64 b) { return a > b ? a : b; }
+__device__ __forceinline__ i64 fm_min(i64 a, i64 b) { return a < b ? a : b; }
+
+// Compare-exchange of a (lower index) and b: desc puts the larger first.
+__device__ __forceinline__ void fm_cas(i64& a, i64& b, bool desc) {
+    const i64 hi = fm_max(a, b), lo = fm_min(a, b);
+    a = desc ? hi : lo;
+    b = desc ? lo : hi;
+}
+
+// Barrier of the two warps of a pair (named barriers 1 .. FM_PAIRS).
+__device__ __forceinline__ void fm_pair_sync(int pair) {
+    asm volatile("bar.sync %0, 64;\n" :: "r"(pair + 1) : "memory");
+}
+
+// A sorted list of N = 32 E keys is held E a lane, blocked: lane l holds
+// entries E l .. E l + E - 1. Entry i, broadcast to the warp.
+template <int E>
+__device__ __forceinline__ i64 fm_at(const i64 (&v)[E], int i) {
+    const int e = i % E;
+    i64 x = v[0];
+#pragma unroll
+    for (int j = 1; j < E; ++j) x = e == j ? v[j] : x;
+    return fm_shfl(x, i / E);
+}
+
+// Bitonic sort of N = 32 E keys; ascending if ASC.
+template <int E, bool ASC>
+__device__ __forceinline__ void fm_sort(i64 (&v)[E], int lane) {
+#pragma unroll
+    for (int s = 2; s <= 32 * E; s <<= 1) {
+#pragma unroll
+        for (int j = s >> 1; j > 0; j >>= 1) {
+            if (j >= E) {
+                const int lm = j / E;
+                const bool lower = (lane & lm) == 0;
+#pragma unroll
+                for (int e = 0; e < E; ++e) {
+                    const bool desc = (((E * lane + e) & s) == 0) != ASC;
+                    const i64 o = fm_shfl_xor(v[e], lm);
+                    v[e] = lower == desc ? fm_max(v[e], o) : fm_min(v[e], o);
+                }
+            } else {
+#pragma unroll
+                for (int e = 0; e < E; ++e) {
+                    if (e & j) continue;
+                    fm_cas(v[e], v[e | j], (((E * lane + e) & s) == 0) != ASC);
+                }
+            }
+        }
+    }
+}
+
+// A bitonic sequence of N = 32 E keys, sorted descending.
+template <int E>
+__device__ __forceinline__ void fm_merge(i64 (&v)[E], int lane) {
+#pragma unroll
+    for (int j = 16 * E; j > 0; j >>= 1) {
+        if (j >= E) {
+            const int lm = j / E;
+            const bool lower = (lane & lm) == 0;
+#pragma unroll
+            for (int e = 0; e < E; ++e) {
+                const i64 o = fm_shfl_xor(v[e], lm);
+                v[e] = lower ? fm_max(v[e], o) : fm_min(v[e], o);
+            }
+        } else {
+#pragma unroll
+            for (int e = 0; e < E; ++e) {
+                if (e & j) continue;
+                fm_cas(v[e], v[e | j], true);
+            }
+        }
+    }
+}
+
+// Insert c into the descending list v (the last entry falls off).
+template <int E>
+__device__ __forceinline__ void fm_insert(i64 (&v)[E], i64 c, int lane) {
+    unsigned cnt = 0;
+#pragma unroll
+    for (int e = 0; e < E; ++e) cnt += v[e] > c;
+    const int pos = (int)__reduce_add_sync(FM_FULL, cnt);
+    const i64 prev = fm_shfl_up(v[E - 1]);  // lane - 1's last entry
+#pragma unroll
+    for (int e = E - 1; e >= 0; --e) {
+        const int i = E * lane + e;
+        const i64 below = e ? v[e - 1] : prev;
+        v[e] = i < pos ? v[e] : (i == pos ? c : below);
+    }
+}
+
+// Offer one query's 128 lane winners (4 a lane) to its sorted list Lq[0, k),
+// held in registers as a list of 32 E >= k entries. Winners that do not
+// beat the k-th are dropped; up to 4 E passers are inserted one by one;
+// more are packed into cbuf (128 keys of warp scratch) and merged in
+// chunks of 32 E: sort the chunk ascending, keep the larger of it and the
+// list entry by entry (a bitonic sequence holding the best 32 E of both),
+// merge. Entries past k in the registers are real but unkept.
+template <int E>
+__device__ __forceinline__ void fm_offer(i64* Lq, int k, const i64 (&cand)[4],
+                                         int lane, i64* cbuf) {
+    const i64 kth = Lq[k - 1];
+    unsigned m[4];
+    int np = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+        m[e] = __ballot_sync(FM_FULL, cand[e] > kth);
+        np += __popc(m[e]);
+    }
+    if (np == 0) return;  // uniform
+    i64 v[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+        const int i = E * lane + e;
+        v[e] = i < k ? Lq[i] : EMPTY64;
+    }
+    if (np <= 4 * E) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            unsigned mm = m[e];
+            while (mm) {
+                const int src = __ffs(mm) - 1;
+                mm &= mm - 1;
+                fm_insert<E>(v, fm_shfl(cand[e], src), lane);
+            }
+        }
+    } else {
+        const unsigned below = (1u << lane) - 1u;
+        int base = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            if ((m[e] >> lane) & 1u) cbuf[base + __popc(m[e] & below)] = cand[e];
+            base += __popc(m[e]);
+        }
+        __syncwarp();
+        for (int c0 = 0; c0 < np; c0 += 32 * E) {
+            i64 x[E];
+#pragma unroll
+            for (int e = 0; e < E; ++e) {
+                const int i = c0 + E * lane + e;
+                x[e] = i < np ? cbuf[i] : EMPTY64;
+            }
+            fm_sort<E, true>(x, lane);
+#pragma unroll
+            for (int e = 0; e < E; ++e) v[e] = fm_max(v[e], x[e]);
+            fm_merge<E>(v, lane);
+        }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+        const int i = E * lane + e;
+        if (i < k) Lq[i] = v[e];
+    }
+    __syncwarp();
+}
+
+// Fold one 128-row sub-tile's scores into the lane maxima. local0 is the
+// tile column of the thread's first slot; columns from `valid` on are
+// rows >= n (EDGE only); cq holds the rows' norms^2 from the thread's
+// first slot on (EUCLID only).
+template <bool EUCLID, bool EDGE>
+__device__ __forceinline__ void fm_fold(int (&folded)[8][4],
+                                        const float (&acc)[8][4], int local0,
+                                        int valid, float qs0, float qs1,
+                                        const float* cq) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int col = 8 * j + h;
+            float s0 = acc[j][h], s1 = acc[j][2 + h];
+            if (EUCLID) {
+                const float cs = cq[col];
+                s0 = 2.0f * s0 - qs0 - cs;
+                s1 = 2.0f * s1 - qs1 - cs;
+            }
+            // (monotone_i32(s) & ~IDX_MASK) | column: the column's bits are
+            // below the key's, so the sign's flip and the column are one xor
+            const int b0 = __float_as_int(s0), b1 = __float_as_int(s1);
+            const int lc = local0 + col;
+            int p0 = (b0 & ~IDX_MASK) ^ (((b0 >> 31) & (0x7FFFFFFF & ~IDX_MASK)) ^ lc);
+            int p1 = (b1 & ~IDX_MASK) ^ (((b1 >> 31) & (0x7FFFFFFF & ~IDX_MASK)) ^ lc);
+            if (EDGE && col >= valid) p0 = p1 = MIN_I32;
+            folded[j][h] = max(folded[j][h], p0);
+            folded[j][2 + h] = max(folded[j][2 + h], p1);
+        }
+    }
+}
+
+// key64 of a packed lane winner of the tile at row base `tile_base`.
+__device__ __forceinline__ i64 fm_key(int p, unsigned low_base) {
+    if (p == MIN_I32) return EMPTY64;
+    const unsigned low = low_base + (unsigned)(p & IDX_MASK);
+    return (i64)(((unsigned long long)(unsigned)(p & ~IDX_MASK) << 32) | low);
+}
+
+// fp32 score and corpus row of a key64 (R = (n_tiles - 1) * block_n).
+__device__ __forceinline__ void fm_decode(i64 key, unsigned R, int block_n,
+                                          float* s, int* row) {
+    const int q = (int)(key >> 32);
+    *s = __int_as_float(q >= 0 ? q : (q ^ 0x7FFFFFFF));
+    const unsigned low = (unsigned)key;
+    const unsigned col = low % (unsigned)block_n;
+    *row = (int)(R - low + 2u * col);  // tile base R - (low - col), + col
+}
+
+// grid: (ceil(nq / FM_TQ), slabs of slab_rows rows, a multiple of block_n).
+// Lists are held E = KP / 32 a lane in registers (KP >= k). final_out (one
+// slab): write out_s / out_i; else part[slab, q, :] keys.
+template <int E>
+__global__ void __launch_bounds__(FM_THREADS, 2)
+fold_mma_kernel(const __nv_bfloat16* __restrict__ qp,
+                const __nv_bfloat16* __restrict__ cp,
+                const float* __restrict__ csq, int nq, int n, int d, int k,
+                int euclid, int block_n, int slab_rows, int vec, int final_out,
+                i64* __restrict__ part, float* __restrict__ out_s,
+                int* __restrict__ out_i) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int n_dch = (d + DCH - 1) / DCH;
+    unsigned char* ring = smem;                            // FM_NST slots
+    unsigned char* Qs = ring + FM_NST * FM_SLOT_BYTES;     // [n_dch][64][64] bf16
+    float* qsq = (float*)(Qs + n_dch * FM_TQ * 128);       // [64]
+    int* Tb = (int*)(qsq + FM_TQ);                         // [4 pairs][8][136]
+    i64* Cb = (i64*)(Tb + FM_PAIRS * 8 * FM_TSTRIDE);      // [8 warps][128]
+    i64* L = Cb + FM_WARPS * 128;                          // [64][k]
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    // warp = (pair of 16 queries, half of the 128 columns)
+    const int pair = warp >> 1, hc = warp & 1, c64 = 64 * hc;
+    const int q0 = blockIdx.x * FM_TQ, wq0 = pair * 16;
+    const bool active = q0 + wq0 < nq;  // uniform per pair
+    const int row0 = blockIdx.y * slab_rows;
+    const int row1 = min(row0 + slab_rows, n);
+    const int n_sub = (row1 - row0 + TN - 1) / TN;
+    const int n_st = n_sub * n_dch;
+    const int n_tiles = (n + block_n - 1) / block_n;
+    const unsigned R = (unsigned)(n_tiles - 1) * (unsigned)block_n;
+
+    // the ring's first stages go out before the query tile is read
+#pragma unroll
+    for (int s = 0; s < FM_NST - 1; ++s) {
+        if (s < n_st)
+            fm_load_stage(ring + s * FM_SLOT_BYTES, cp, csq, n, d,
+                          row0 + (s / n_dch) * TN, (s % n_dch) * DCH, vec,
+                          euclid, tid);
+        fm_commit();
+    }
+    for (int v = tid; v < FM_TQ * n_dch * 8; v += FM_THREADS) {
+        const int r = v / (n_dch * 8), cc = v - r * (n_dch * 8);
+        const int q = q0 + r;
+        *reinterpret_cast<uint4*>(Qs + (cc >> 3) * FM_TQ * 128 +
+                                  fm_swz(r, cc & 7)) =
+            q < nq ? fm_row8((const unsigned short*)qp + (size_t)q * d, d, 8 * cc)
+                   : make_uint4(0u, 0u, 0u, 0u);
+    }
+    for (int e = tid; e < FM_TQ * k; e += FM_THREADS) L[e] = EMPTY64;
+    __syncthreads();
+    if (euclid && tid < FM_TQ) {  // |q|^2 of the stored bf16 values
+        float s = 0.f;
+        for (int dd = 0; dd < d; ++dd) {
+            const unsigned short h = *reinterpret_cast<const unsigned short*>(
+                Qs + (dd >> 6) * FM_TQ * 128 + fm_swz(tid, (dd >> 3) & 7) +
+                2 * (dd & 7));
+            const float x = __uint_as_float((unsigned)h << 16);
+            s += x * x;
+        }
+        qsq[tid] = s;
+    }
+    // (qsq is read after the first stage's barrier)
+
+    float acc[8][4];
+    int folded[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) folded[j][e] = MIN_I32;
+    unsigned afr[4][4];
+    int* T = Tb + pair * 8 * FM_TSTRIDE;
+    i64* cbuf = Cb + warp * 128;
+
+    for (int st = 0; st < n_st; ++st) {
+        fm_wait_ring();
+        __syncthreads();  // stage st is in; stage st - 1's slot is free
+        {
+            const int s2 = st + FM_NST - 1;
+            if (s2 < n_st)
+                fm_load_stage(ring + (s2 % FM_NST) * FM_SLOT_BYTES, cp, csq,
+                              n, d, row0 + (s2 / n_dch) * TN,
+                              (s2 % n_dch) * DCH, vec, euclid, tid);
+            fm_commit();
+        }
+        if (!active) continue;
+        const int sub = st / n_dch, dci = st - sub * n_dch;
+        const int t0 = row0 + sub * TN;
+        const unsigned char* S = ring + (st % FM_NST) * FM_SLOT_BYTES;
+        if (dci == 0) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+        }
+        if (n_dch > 1 || st == 0) {
+            const unsigned char* Qc = Qs + dci * FM_TQ * 128;
+#pragma unroll
+            for (int s = 0; s < 4; ++s)
+                fm_ldsm4(afr[s],
+                         fm_smem(Qc + fm_swz(wq0 + (lane & 7) + (lane & 8),
+                                             2 * s + (lane >> 4))));
+        }
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+#pragma unroll
+            for (int jp = 0; jp < 4; ++jp) {
+                unsigned b[4];
+                fm_ldsm4(b, fm_smem(S + fm_swz(c64 + 16 * jp + (lane & 7) +
+                                                   ((lane >> 4) << 3),
+                                               2 * s + ((lane >> 3) & 1))));
+                fm_mma(acc[2 * jp], afr[s], b[0], b[1]);
+                fm_mma(acc[2 * jp + 1], afr[s], b[2], b[3]);
+            }
+        }
+        if (dci != n_dch - 1) continue;  // more dims of this sub-tile to come
+
+        // fold this sub-tile's scores into the lane maxima; the metric and
+        // the corpus's ragged end choose one branch-free copy
+        const int tile = t0 / block_n, tile_base = tile * block_n;
+        const int lb = t0 - tile_base;
+        const int local0 = lb + c64 + 2 * t4, valid = n - t0 - c64 - 2 * t4;
+        const float* cq =
+            reinterpret_cast<const float*>(S + FM_STAGE_BYTES) + c64 + 2 * t4;
+        if (euclid) {
+            const float qs0 = qsq[wq0 + g], qs1 = qsq[wq0 + g + 8];
+            if (t0 + TN > n)
+                fm_fold<true, true>(folded, acc, local0, valid, qs0, qs1, cq);
+            else
+                fm_fold<true, false>(folded, acc, local0, valid, qs0, qs1, cq);
+        } else if (t0 + TN > n) {
+            fm_fold<false, true>(folded, acc, local0, valid, 0.f, 0.f, cq);
+        } else {
+            fm_fold<false, false>(folded, acc, local0, valid, 0.f, 0.f, cq);
+        }
+        const bool flush = lb + TN == block_n || t0 + TN >= row1;
+        if (!flush) continue;  // uniform across the warp
+
+        // flush: rows g (half 0) and g + 8 (half 1) of the pair's 16
+        // queries; both warps write their columns, then each keeps the
+        // lists of 4 of the 8 queries
+        const unsigned low_base = R - (unsigned)tile_base;
+#pragma unroll 1
+        for (int half = 0; half < 2; ++half) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+                *reinterpret_cast<int2*>(
+                    &T[g * FM_TSTRIDE + c64 + 8 * j + 2 * t4]) =
+                    half ? make_int2(folded[j][2], folded[j][3])
+                         : make_int2(folded[j][0], folded[j][1]);
+            fm_pair_sync(pair);
+#pragma unroll 1
+            for (int r = 4 * hc; r < 4 * hc + 4; ++r) {
+                const int qi = wq0 + 8 * half + r;
+                if (q0 + qi >= nq) break;  // uniform
+                const int4 pv =
+                    *reinterpret_cast<const int4*>(&T[r * FM_TSTRIDE + 4 * lane]);
+                const i64 cand[4] = {
+                    fm_key(pv.x, low_base), fm_key(pv.y, low_base),
+                    fm_key(pv.z, low_base), fm_key(pv.w, low_base)};
+                fm_offer<E>(L + (size_t)qi * k, k, cand, lane, cbuf);
+            }
+            fm_pair_sync(pair);  // before the next half overwrites T
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) folded[j][e] = MIN_I32;
+    }
+
+    if (!active) return;
+    for (int r = 0; r < 8; ++r) {  // the warp's 8 queries: 4 of each half
+        const int qi = wq0 + 8 * (r >> 2) + 4 * hc + (r & 3);
+        const int q = q0 + qi;
+        if (q >= nq) continue;
+        const i64* Lq = L + (size_t)qi * k;
+        for (int i = lane; i < k; i += 32) {
+            const size_t o = (size_t)q * k + i;
+            if (final_out) {
+                fm_decode(Lq[i], R, block_n, out_s + o, out_i + o);
+            } else {
+                part[(size_t)blockIdx.y * nq * k + o] = Lq[i];
+            }
+        }
+    }
+}
+
+// One warp per query: start from slab 0's sorted list; merge in each other
+// slab's list (read reversed, so ascending) with one bitonic merge.
+template <int E>
+__global__ void __launch_bounds__(FM_THREADS)
+fold_merge_kernel(const i64* __restrict__ part, int S, int nq, int k,
+                  int block_n, unsigned R, float* __restrict__ out_s,
+                  int* __restrict__ out_i) {
+    const int lane = threadIdx.x & 31;
+    const int q = blockIdx.x * FM_WARPS + (threadIdx.x >> 5);
+    if (q >= nq) return;  // whole warp leaves together
+    i64 v[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+        const int i = E * lane + e;
+        v[e] = i < k ? part[(size_t)q * k + i] : EMPTY64;
+    }
+    for (int s = 1; s < S; ++s) {
+        const i64* p = part + ((size_t)s * nq + q) * k;
+        if (p[0] <= fm_at<E>(v, k - 1)) continue;  // uniform: nothing enters
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+            const int src = 32 * E - 1 - (E * lane + e);
+            v[e] = fm_max(v[e], src < k ? p[src] : EMPTY64);
+        }
+        fm_merge<E>(v, lane);
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+        const int i = E * lane + e;
+        if (i < k) {
+            const size_t o = (size_t)q * k + i;
+            fm_decode(v[e], R, block_n, out_s + o, out_i + o);
+        }
+    }
+}
+
+// Each kernel instance's dynamic shared memory is raised to the card's
+// opt-in limit once per device, not on every call.
+template <int E>
+static int fm_prepare() {
+    static unsigned ready = 0;  // bit per device
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 32 && (ready >> dev) & 1u) return 0;
+    int optin = 0;
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaFuncSetAttribute(fold_mma_kernel<E>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 32) ready |= 1u << dev;
+    return 0;
+}
+
+template <int E>
+static int fm_occupancy(size_t smem) {
+    int e = fm_prepare<E>();
+    if (e) return -e;
+    int blocks = 0;
+    e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, fold_mma_kernel<E>, FM_THREADS, smem);
+    return e ? -e : blocks;
+}
+
+template <int E>
+static int fm_launch(const void* q, const void* c, const float* csq, int nq,
+                     int n, int d, int k, int euclid, int block_n,
+                     int slab_rows, int vec, long long* part, float* out_s,
+                     int* out_i, size_t smem, cudaStream_t st) {
+    int e = fm_prepare<E>();
+    if (e) return e;
+    const int n_slabs = (n + slab_rows - 1) / slab_rows;
+    const unsigned R =
+        (unsigned)((n + block_n - 1) / block_n - 1) * (unsigned)block_n;
+    dim3 grid((nq + FM_TQ - 1) / FM_TQ, n_slabs);
+    fold_mma_kernel<E><<<grid, FM_THREADS, smem, st>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)c, csq, nq, n, d, k,
+        euclid, block_n, slab_rows, vec, n_slabs == 1, part, out_s, out_i);
+    e = (int)cudaGetLastError();
+    if (e || n_slabs == 1) return e;
+    fold_merge_kernel<E><<<(nq + FM_WARPS - 1) / FM_WARPS, FM_THREADS, 0, st>>>(
+        part, n_slabs, nq, k, block_n, R, out_s, out_i);
+    return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+// Dynamic shared memory of one fold_mma_kernel block.
+size_t lr_fold_mma_smem(int d, int k) {
+    const size_t n_dch = (size_t)(d + DCH - 1) / DCH;
+    return (size_t)FM_NST * FM_SLOT_BYTES + n_dch * FM_TQ * 128 +
+           FM_TQ * 4 + (size_t)FM_PAIRS * 8 * FM_TSTRIDE * 4 +
+           (size_t)FM_WARPS * 128 * 8 + (size_t)FM_TQ * k * 8;
+}
+
+// Resident fold_mma_kernel blocks per SM at (d, k) on the current device
+// (0: does not fit); a negative cudaError_t on failure.
+int lr_fold_mma_occupancy(int d, int k) {
+    const size_t smem = lr_fold_mma_smem(d, k);
+    return k <= 32 ? fm_occupancy<1>(smem)
+         : k <= 64 ? fm_occupancy<2>(smem) : fm_occupancy<4>(smem);
+}
+
+// The bf16 fold: fold_mma_kernel over (query tiles x slabs), then, with
+// more than one slab, fold_merge_kernel; lists of 32, 64 or 128 entries
+// in registers, the least that holds k. part is [slabs, nq, k] int64
+// scratch (unused with one slab). Returns a cudaError_t.
+int lr_fold_mma(const void* q, const void* c, const float* csq, int nq, int n,
+                int d, int k, int euclid, int block_n, int slab_rows, int vec,
+                long long* part, float* out_s, int* out_i, void* stream) {
+    const size_t smem = lr_fold_mma_smem(d, k);
+    cudaStream_t st = (cudaStream_t)stream;
+#define FM_ARGS q, c, csq, nq, n, d, k, euclid, block_n, slab_rows, vec, part, \
+                out_s, out_i, smem, st
+    return k <= 32 ? fm_launch<1>(FM_ARGS)
+         : k <= 64 ? fm_launch<2>(FM_ARGS) : fm_launch<4>(FM_ARGS);
+#undef FM_ARGS
+}
+
+}  // extern "C"

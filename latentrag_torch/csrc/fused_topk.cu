@@ -1,8 +1,10 @@
 // Fused distance + top-k for Hopper (sm_90a): the CUDA port of the JAX
 // package's Pallas kernels in ops/pallas_topk.py.
 //
-//   partial_kernel<TQ, FOLD=true,  BIN=false> replaces _fold_kernel
+//   fold_mma_kernel (fold_mma.cuh) replaces _fold_kernel
 //                                  (pallas_topk.py:162-179, _fold_body :114-159)
+//                                  for bf16 stores, on the tensor cores;
+//   partial_kernel<TQ, FOLD=true,  BIN=false> replaces it for fp32 stores
 //   partial_kernel<TQ, FOLD=false, BIN=false> replaces _exact_kernel
 //                                  (pallas_topk.py:182-221)
 //   partial_kernel<TQ, FOLD=true,  BIN=true>  replaces _binary_fold_kernel
@@ -37,9 +39,10 @@
 //
 // Bound on the H100: at the main path's shapes (d = 64, k = 10) the work is
 // 2*Q*N*d operations against N*d*2 bytes of bf16 corpus, far above the card's
-// ridge point, so the limit is arithmetic. This first kernel scores with
+// ridge point, so the limit is arithmetic. partial_kernel scores with
 // fp32 FMAs (67 TFLOP/s peak, not the 989 TFLOP/s of bf16 tensor cores);
-// mma/wgmma tiles are later work. What the design does about the bound it
+// the bf16 fold has moved to mma.sync tiles (fold_mma.cuh), the exact and
+// binary flavours are still to follow. What the design does about the bound it
 // has: each block keeps its query tile resident in shared memory and streams
 // corpus stages (128 rows x 64 dims) through it, loading the next stage with
 // 16-byte loads while the current one is scored, so global latency hides
@@ -530,3 +533,5 @@ const char* lr_error_string(int code) {
 }
 
 }  // extern "C"
+
+#include "fold_mma.cuh"

@@ -26,12 +26,16 @@ On a CUDA tensor ``fused_topk_raw`` and ``binary_fused_topk_raw`` launch
 the kernels of ``csrc/fused_topk.cu`` (a partial kernel per query tile and
 corpus slab, then a merge kernel across slabs) or raise; on a CPU tensor
 they run their plain versions, which repeat the JAX algorithm step by
-step, fold included. The kernel source says what bounds it on the H100 and
-what its design does about that.
+step, fold included. The fold over a bf16 store runs its own kernels,
+``csrc/fold_mma.cuh`` (tensor-core score tiles, batched list upkeep), which
+write the scores and ids themselves; fp32 stores keep the FMA flavour. The
+kernel sources say what bounds them on the H100 and what their designs do
+about that.
 
 ``launches`` counts kernel launches per kernel (``fold``, ``exact``,
 ``binary_fold``; a call that launches the partial and the merge kernel
-counts once); plain-version calls do not count.
+counts once); plain-version calls do not count. ``last_kernel`` names the
+C kernels the latest launch ran.
 """
 
 from __future__ import annotations
@@ -54,7 +58,10 @@ _EXACT_SLAB_UNIT = 512  # exact slabs need no fold alignment
 _DIM_STAGE = 64  # feature dims per shared-memory stage (DCH in the source)
 FOLD_OVERSAMPLE = 4  # candidates per wanted row on the approximate route
 
+_FM_TQ = 64  # queries per block of the bf16 fold kernel (FM_TQ)
+
 launches = {"fold": 0, "exact": 0, "binary_fold": 0}
+last_kernel: str | None = None
 
 
 def reset_launches() -> None:
@@ -216,9 +223,20 @@ def _library() -> ctypes.CDLL:
     lib.lr_topk_partial.argtypes = [p, p, p] + [i] * 12 + [p, p, p]
     lib.lr_topk_merge.restype = i
     lib.lr_topk_merge.argtypes = [p, p] + [i] * 5 + [p, p, p]
+    lib.lr_fold_mma_smem.restype = ctypes.c_size_t
+    lib.lr_fold_mma_smem.argtypes = [i, i]
+    lib.lr_fold_mma_occupancy.restype = i
+    lib.lr_fold_mma_occupancy.argtypes = [i, i]
+    lib.lr_fold_mma.restype = i
+    lib.lr_fold_mma.argtypes = [p, p, p] + [i] * 8 + [p, p, p, p]
     lib.lr_error_string.restype = ctypes.c_char_p
     lib.lr_error_string.argtypes = [i]
     return lib
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _pick_tq(lib, d: int, k: int) -> int:
@@ -237,15 +255,19 @@ def _check(lib, code: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {msg} (code {code})")
 
 
+def _require_contiguous(queries, corpus) -> None:
+    for name, t in (("queries", queries), ("corpus", corpus)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 def _launch(queries, corpus, csq, *, d, k_eff, block_n, fold, euclid=False,
             vec=False, binary=False):
     """Run the partial kernel over query tiles x corpus slabs, then the
     merge kernel across slabs; returns the [Q, k] (keys, rows) as int32.
     Queries are bf16 or fp32; the corpus has their dtype, or is the
     packed sign words when ``binary``."""
-    for name, t in (("queries", queries), ("corpus", corpus)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _require_contiguous(queries, corpus)
     lib = _library()
     nq = queries.shape[0]
     n = corpus.shape[0]
@@ -254,9 +276,8 @@ def _launch(queries, corpus, csq, *, d, k_eff, block_n, fold, euclid=False,
     unit = block_n if fold else _EXACT_SLAB_UNIT
     n_units = -(-n // unit)
     q_tiles = -(-nq // tq)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # enough blocks for two per SM; each slab a whole number of fold tiles
-    want = max(1, math.ceil(2 * sms / q_tiles))
+    want = max(1, math.ceil(2 * _sm_count(dev.index) / q_tiles))
     slab_rows = -(-n_units // min(n_units, want)) * unit
     n_slabs = -(-n // slab_rows)
 
@@ -283,13 +304,76 @@ def _launch(queries, corpus, csq, *, d, k_eff, block_n, fold, euclid=False,
                 int(fold), block_n, out_k.data_ptr(), out_i.data_ptr(), stream,
             )
             _check(lib, code, "fused top-k merge kernel")
+    global last_kernel
+    last_kernel = (
+        f"partial_kernel<{tq},{str(fold).lower()},{str(binary).lower()}>"
+        + ("+merge_kernel" if n_slabs > 1 else "")
+    )
     return out_k, out_i
+
+
+@functools.cache
+def _fold_mma_slots(index: int, d: int, k: int) -> int:
+    """Resident blocks of the bf16 fold kernel the card holds at (d, k)."""
+    lib = _library()
+    with torch.cuda.device(index):
+        per_sm = lib.lr_fold_mma_occupancy(d, k)
+    if per_sm < 0:
+        _check(lib, -per_sm, "bf16 fold kernel occupancy")
+    if per_sm == 0:
+        raise ValueError(
+            f"d={d}, k={k} needs more shared memory than one block has "
+            f"({lib.lr_fold_mma_smem(d, k)} bytes)"
+        )
+    return per_sm * _sm_count(index)
+
+
+def _fold_mma(queries, corpus, csq, *, k_eff, block_n, euclid):
+    """The bf16 fold on the tensor cores (``csrc/fold_mma.cuh``): the
+    corpus in slabs of whole tiles, as many as fill the card's resident
+    block slots for the query tiles at hand; the kernels write the fp32
+    scores and int32 ids."""
+    _require_contiguous(queries, corpus)
+    nq, d = queries.shape
+    n = corpus.shape[0]
+    dev = queries.device
+    lib = _library()
+    slots = _fold_mma_slots(dev.index, d, k_eff)
+    n_tiles = -(-n // block_n)
+    want = min(n_tiles, max(1, slots // -(-nq // _FM_TQ)))
+    slab_rows = -(-n_tiles // want) * block_n
+    n_slabs = -(-n // slab_rows)
+    scores = torch.empty((nq, k_eff), dtype=torch.float32, device=dev)
+    ids = torch.empty((nq, k_eff), dtype=torch.int32, device=dev)
+    part = (torch.empty((n_slabs, nq, k_eff), dtype=torch.int64, device=dev)
+            if n_slabs > 1 else None)
+    # cp.async stages need 16-byte rows and an aligned base
+    vec = d % 8 == 0 and corpus.data_ptr() % 16 == 0
+    with torch.cuda.device(dev):
+        code = lib.lr_fold_mma(
+            queries.data_ptr(), corpus.data_ptr(),
+            csq.data_ptr() if csq is not None else None,
+            nq, n, d, k_eff, int(euclid), block_n, slab_rows, int(vec),
+            part.data_ptr() if part is not None else None,
+            scores.data_ptr(), ids.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _check(lib, code, "bf16 fold kernel")
+    global last_kernel
+    last_kernel = "fold_mma_kernel" + ("+fold_merge_kernel"
+                                       if n_slabs > 1 else "")
+    return scores, ids
 
 
 def _fused_topk_raw_cuda(queries, corpus, corpus_sq, k_eff, euclid, mode,
                          block_n):
     d = queries.shape[1]
     csq = _corpus_sq(corpus, corpus_sq).contiguous() if euclid else None
+    if mode == "fold" and corpus.dtype == torch.bfloat16:
+        out = _fold_mma(queries, corpus, csq, k_eff=k_eff, block_n=block_n,
+                        euclid=euclid)
+        launches["fold"] += 1
+        return out
     # 16-byte corpus loads need whole 64-dim stages and an aligned base
     vec = d % _DIM_STAGE == 0 and corpus.data_ptr() % 16 == 0
     out_k, out_i = _launch(queries, corpus, csq, d=d, k_eff=k_eff,

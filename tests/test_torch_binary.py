@@ -243,32 +243,35 @@ def test_binary_wrapper_validates():
 
 
 def _stores(rng, n=3000, d=64, oversample=8):
+    """Each store builds from its own copy: ``torch.as_tensor`` shares the
+    caller's numpy buffer, and the JAX store must not see the port's."""
     emb = rng.standard_normal((n, d)).astype(np.float32)
     texts = [f"t{i}" for i in range(n)]
     j = JaxDense(store_dtype="binary", backend="xla",
                  binary_oversample=oversample)
-    j.build(emb, texts)
+    j.build(emb.copy(), texts)
     t = DenseRetriever(store_dtype="binary", binary_oversample=oversample,
                        device="cpu")
-    t.build(emb, texts)
+    t.build(emb.copy(), texts)
     return emb, j, t
 
 
 @pytest.mark.parametrize("k", [1, 10])
 def test_binary_store_matches_jax(rng, k):
     emb, j, t = _stores(rng)
+    # the stores first: only the packed words live on the device, the
+    # SQ8 codes and their scale on the host, all bit-identical
+    assert t._corpus.dtype == torch.int32 and t._corpus.shape == (3000, 2)
+    np.testing.assert_array_equal(_words(t._corpus),
+                                  np.asarray(j._corpus_dev))
+    np.testing.assert_array_equal(t._rescore_host, j._rescore_host)
+    assert t._corpus_scale == float(j._corpus_scale)
     q = rng.standard_normal((13, 64)).astype(np.float32)
-    s_j, i_j = j.search(q, k)
-    s_t, i_t = t.search(q, k)
+    s_j, i_j = j.search(q.copy(), k)
+    s_t, i_t = t.search(q.copy(), k)
     same = i_t == i_j
     assert same.mean() >= 0.99
     np.testing.assert_allclose(s_t[same], s_j[same], atol=1e-5)
-    # only the packed words live on the device; the codes on the host
-    assert t._corpus.dtype == torch.int32 and t._corpus.shape == (3000, 2)
-    np.testing.assert_array_equal(t._rescore_host, j._rescore_host)
-    assert t._corpus_scale == float(j._corpus_scale)
-    np.testing.assert_array_equal(_words(t._corpus),
-                                  np.asarray(j._corpus_dev))
 
 
 def test_binary_store_self_check_and_clamps(rng, caplog):

@@ -49,6 +49,64 @@ def test_kernel_matches_plain(cuda, mode, metric, store, d):
         assert bool(((s_k - s_p).abs() <= tol)[same].all())
 
 
+@pytest.mark.parametrize("k", [1, 10, 40, 128])
+@pytest.mark.parametrize("block_n", [128, 4096])
+@pytest.mark.parametrize("d", [48, 64, 384])
+@pytest.mark.parametrize("metric", ["cosine", "euclidean"])
+def test_bf16_fold_kernel_matches_plain(cuda, metric, d, block_n, k):
+    """The tensor-core fold (csrc/fold_mma.cuh). N=5003 is not a multiple
+    of 128; 100 queries leave a ragged query tile with an idle warp pair;
+    d=48 zero-fills stage dims, d=384 takes six 64-dim chunks."""
+    q, c = _data(cuda, torch.bfloat16, nq=100, n=5003, d=d)
+    if metric == "cosine":
+        q = torch.nn.functional.normalize(q.float(), dim=1).bfloat16()
+        c = torch.nn.functional.normalize(c.float(), dim=1).bfloat16()
+    s_k, i_k = ft.fused_topk_raw(q, c, k=k, metric=metric, mode="fold",
+                                 block_n=block_n)
+    assert ft.last_kernel.startswith("fold_mma_kernel")
+    s_p, i_p = ft.fused_topk_raw_reference(q, c, k=k, metric=metric,
+                                           mode="fold", block_n=block_n)
+    same = i_k == i_p
+    assert same.float().mean().item() >= 0.99
+    # equal ids carry the same 19-bit key, up to one key step (10 bits of
+    # mantissa kept) where the fp32 sums ran in another order
+    step = 2.0 ** -10 * s_p.abs() + 1e-6
+    assert bool(((s_k - s_p).abs() <= step)[same].all())
+
+
+@pytest.mark.parametrize("case", ["one_slab", "element_loads"])
+def test_bf16_fold_kernel_paths(cuda, case):
+    """One slab: the partial kernel writes scores and ids itself. A corpus
+    whose base is not 16-byte aligned loads its stages element by element."""
+    q, c = _data(cuda, torch.bfloat16, nq=70, n=3000)
+    if case == "element_loads":
+        buf = torch.empty(c.numel() + 1, dtype=c.dtype, device=cuda)
+        c = buf[1:].view(c.shape).copy_(c)
+        assert c.data_ptr() % 16 != 0 and c.is_contiguous()
+    s_k, i_k = ft.fused_topk_raw(q, c, k=40, metric="euclidean",
+                                 mode="fold", block_n=4096)
+    if case == "one_slab":
+        assert ft.last_kernel == "fold_mma_kernel"
+    s_p, i_p = ft.fused_topk_raw_reference(q, c, k=40, metric="euclidean",
+                                           mode="fold", block_n=4096)
+    assert (i_k == i_p).float().mean().item() >= 0.99
+
+
+def test_fold_routes_by_store_dtype(cuda):
+    """bf16 stores take the tensor-core fold, fp32 the FMA flavour; both
+    count as launches of the fold."""
+    q, c = _data(cuda, torch.float32, n=3000)
+    ft.reset_launches()
+    ft.fused_topk_raw(q, c, k=10, mode="fold")
+    assert ft.last_kernel.startswith("partial_kernel<") and \
+        ",true,false>" in ft.last_kernel
+    ft.fused_topk_raw(q.bfloat16(), c.bfloat16(), k=10, mode="fold")
+    assert ft.last_kernel.startswith("fold_mma_kernel")
+    ft.fused_topk_raw(q.bfloat16(), c.bfloat16(), k=10, mode="exact")
+    assert ft.last_kernel.startswith("partial_kernel<")
+    assert ft.launches == {"fold": 2, "exact": 1, "binary_fold": 0}
+
+
 def test_launch_counts_and_validation(cuda):
     q, c = _data(cuda, torch.float32, n=500)
     ft.reset_launches()

@@ -132,6 +132,70 @@ def test_slab_split_then_merge_equals_whole(rng, mode):
     np.testing.assert_array_equal(merged, whole.numpy())
 
 
+def _order_key(qkey, rows, n, block_n):
+    """The bf16 fold kernel's total order as one int64 (csrc/fold_mma.cuh):
+    quantized key << 32 | (R - tile base + column), R = (n_tiles - 1) *
+    block_n; a larger key is better."""
+    rows = rows.long()
+    base = rows // block_n * block_n
+    r = (-(-n // block_n) - 1) * block_n
+    return (qkey.long() << 32) | (r - base + (rows - base))
+
+
+def _rows_of_key(key, n, block_n):
+    """The kernel's decode: tile base R - (low - column), plus column."""
+    low = key & 0xFFFFFFFF
+    r = (-(-n // block_n) - 1) * block_n
+    return r - low + 2 * (low % block_n)
+
+
+def test_order_key_sorts_as_the_plain_fold(rng):
+    """Small integer vectors make every score exact in fp32 and tie often;
+    duplicated rows tie across tiles. Sorting every lane winner by the
+    64-bit key gives the plain fold's ids, order included."""
+    n, block_n, k = 1000, 256, 60
+    q = torch.from_numpy(rng.integers(-2, 3, (6, 8)).astype(np.float32))
+    base = rng.integers(-2, 3, (40, 8)).astype(np.float32)
+    c = torch.from_numpy(base[rng.integers(0, 40, n)])
+    s, ids = ft.fused_topk_raw(q, c, k=k, metric="dot", mode="fold",
+                               block_n=block_n)
+    mono = ft._monotone_i32(q @ c.T)
+    keys = []
+    for lo in range(0, n, block_n):
+        tile = torch.full((6, block_n), ft._MIN_I32, dtype=torch.int32)
+        cols = torch.arange(min(block_n, n - lo), dtype=torch.int32)
+        tile[:, cols.long()] = (mono[:, lo : lo + len(cols)]
+                                & ~ft._IDX_MASK) | cols
+        win = tile.view(6, -1, 128).amax(dim=1)
+        keys.append(_order_key(win & ~ft._IDX_MASK,
+                               lo + (win & ft._IDX_MASK), n, block_n))
+    top = torch.sort(torch.cat(keys, 1), dim=1, descending=True)[0][:, :k]
+    np.testing.assert_array_equal(_rows_of_key(top, n, block_n).numpy(),
+                                  ids.numpy())
+    out = _order_key(ft._monotone_i32(s), ids, n, block_n)
+    assert bool((out[:, :-1] > out[:, 1:]).all())  # strictly descending
+    # the case holds ties of the quantized key across tiles
+    qk = ft._monotone_i32(s)
+    tiles = ids // block_n
+    tie = (qk[:, :-1] == qk[:, 1:]) & (tiles[:, :-1] != tiles[:, 1:])
+    assert bool(tie.any())
+
+
+@pytest.mark.parametrize("metric", ["cosine", "euclidean"])
+def test_plain_fold_matches_pallas_at_main_plan(rng, metric):
+    """The fold as the main path's approximate route plans it
+    (``fold_plan``: 128-row tiles, 40 candidates) on a bf16 store."""
+    qj, cj, qt, ct = _inputs(rng, metric, "bfloat16", nq=16, n=300)
+    s_j, i_j = pallas_topk_raw(qj, cj, k=40, metric=metric, mode="fold",
+                               block_q=8, block_n=128, interpret=True)
+    s_t, i_t = ft.fused_topk_raw(qt, ct, k=40, metric=metric, mode="fold",
+                                 block_n=128)
+    same = i_t.numpy() == np.asarray(i_j)
+    assert same.mean() >= 0.99
+    np.testing.assert_allclose(s_t.numpy()[same], np.asarray(s_j)[same],
+                               rtol=2e-3, atol=2e-3)
+
+
 def test_wrapper_validates():
     q = torch.zeros(2, 8)
     c = torch.zeros(300, 8)
