@@ -15,9 +15,14 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    path plans it (Q=2000, N=2000, 128-row tiles, 40 candidates); each
    check also holds that the C kernel that ran is the one the store's
    dtype routes to (bf16 folds: fold_mma_kernel);
-2b. holds the binary fold kernel against its plain version: the reference
-   and 1M shapes at d=64 and the ragged shape at d=384 and d=48 (pad
-   bits), k in {10, 80, 128}, at block_n 4096 and at ``fold_plan``'s width;
+2b. holds the binary fold kernel (tensor cores, ``fold_mma_kernel<bin>``)
+   against its plain version: the reference and 1M shapes at d=64 and the
+   ragged shape at d=384 and d=48 (pad bits), and the binary main path's
+   own (Q=2000, N=1997, d=64), k in {10, 80, 128}, at block_n 4096 and at
+   ``fold_plan``'s width; then the exact binary kernel
+   (``partial_kernel<TQ,false,true>``, past 128 candidates) against
+   ``binary_topk`` at k from 129 to 2048, at the main path's shape at its
+   k=160 (four slabs and the merge); each check holds which C kernel ran;
 3. drives the main path through ``latentrag_torch.main.main`` at the full
    MiniLM-L6 width in bf16 with a seeded 384->512->64 VAE: synthetic data,
    2000 queries, a bf16 cosine store, top_k=10, kernel=auto; checks that the
@@ -26,18 +31,22 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
 3b. drives the same entry point with ``retrieval.store_dtype=binary`` and
    checks that the binary kernel launched (self-check and search); on the
    same latents, the cascade with the kernel as stage 1 and with its plain
-   version at the same plan must retrieve the same docs;
+   version at the same plan must retrieve the same docs; then again at
+   ``retrieval.top_k=20``, whose 160 candidates the exact binary kernel
+   serves;
 3c. builds a binary ``DenseRetriever`` over 1M seeded unit vectors (d=64),
    searches 1024 queries at k=10, and holds the same kernel-vs-plain
    agreement; Recall@10 against exact fp32 search is reported;
 4. times each kernel, its plain version and torch.matmul + torch.topk at
    the kernel call's k (a yardstick the port never calls) with CUDA
    events, beside the bound, at the reference, the main path's own
-   (Q=2000, N=1997, fold only) and the 1M shapes; each record names the C
+   (Q=2000, N=1997, fold only) and the 1M shapes, and kernel 1's fp32
+   flavour at the reference and 1M shapes; each record names the C
    kernels that ran;
-4b. the same for the binary kernel at the reference and 1M shapes (the
-   yardstick reads the corpus pre-unpacked to +-1 bf16, 16x the bytes),
-   and the kernel alone over 100M packed rows;
+4b. the same for the binary fold kernel at the reference and 1M shapes
+   (the yardstick reads the corpus pre-unpacked to +-1 bf16, 16x the
+   bytes) with a profiler device split, the exact binary kernel at k=160
+   there, and the fold kernel alone over 100M packed rows;
 5. prints a ``kernels`` JSON line and, last, the device line.
 
 Every check that fails exits non-zero. Without CUDA, or without the
@@ -75,6 +84,10 @@ BIN_SCORE_ATOL, BIN_SCORE_RTOL = 1e-5, 1e-6
 BIN_RECALL = 0.95  # candidate recall vs the exact sign-dot top-k, at k=10
 BIN_DOC_AGREE = 0.99  # cascade with kernel vs plain stage 1, same plan
 BIN_METRIC_TOL = 0.01
+# k of the exact binary checks per shape (above the fold's 128; 2048 is
+# the kernel's limit and clips to N=315 on the reference shape)
+BIN_EXACT_KS = {"reference": (160, 2048), "1m": (160,),
+                "ragged": (129, 300, 2048), "main_plan": (160,)}
 
 
 def fail(msg: str) -> None:
@@ -196,13 +209,14 @@ def write_vae(torch, path: str) -> None:
     torch.save(VariationalAutoencoder(384, 64, 512).state_dict(), path)
 
 
-def main_overrides(workdir: str, kernel: str, store: str) -> list:
+def main_overrides(workdir: str, kernel: str, store: str,
+                   top_k: int = 10) -> list:
     return [
         "data.dataset=synthetic", "data.max_samples=2000",
         "encoder.dtype=bfloat16",
         f"models.vae.checkpoint={workdir}/vae.pth",
         f"retrieval.store_dtype={store}", "retrieval.metric=cosine",
-        "retrieval.top_k=10", f"retrieval.kernel={kernel}",
+        f"retrieval.top_k={top_k}", f"retrieval.kernel={kernel}",
         f"paths.data_dir={workdir}/data",
         f"paths.checkpoints_dir={workdir}/ckpt",
         f"paths.logs_dir={workdir}/logs",
@@ -212,20 +226,20 @@ def main_overrides(workdir: str, kernel: str, store: str) -> list:
 
 
 def run_main(torch, workdir: str, kernel: str,
-             store: str = "bfloat16") -> dict:
+             store: str = "bfloat16", top_k: int = 10) -> dict:
     from latentrag_torch import main as cli
 
     results: list = []
     argv = ["--ae_type", "vae", "--device", "cuda", "--tag",
-            f"smoke_{kernel}_{store}", "--set",
-            *main_overrides(workdir, kernel, store)]
+            f"smoke_{kernel}_{store}_{top_k}", "--set",
+            *main_overrides(workdir, kernel, store, top_k)]
     t0 = time.perf_counter()
     rc = cli.main(argv, results=results)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if rc != 0 or len(results) != 1:
-        fail(f"main({kernel}, {store}) returned {rc} with {len(results)} "
-             "results")
+        fail(f"main({kernel}, {store}, top_k={top_k}) returned {rc} with "
+             f"{len(results)} results")
     res = results[0]
     res["wall_s"] = wall
     return res
@@ -417,8 +431,32 @@ def time_kernels(torch) -> dict:
             if mode == "fold":  # device ms of each kernel the call launches
                 rec["device_ms"] = device_split(torch, lambda: ft.fused_topk_raw(
                     q, c, k=kk, metric="cosine", mode=mode, block_n=bn))
+                rec["blocks_per_sm"] = ft._fold_mma_slots(
+                    q.device.index, d, kk, False) // ft._sm_count(q.device.index)
             record("kernel_time", **rec)
             out[(label, mode)] = rec
+        del q, c
+        torch.cuda.empty_cache()
+    # kernel 1's fp32 flavour (fp32 stores: partial_kernel<TQ,true,false>)
+    # at the plan, beside the fp32 library call at the same k
+    for label, nq, n in (("reference", 2000, 315), ("1m", 1024, 1_000_000)):
+        q, c = make_case(torch, "cosine", torch.float32, nq, n, 64, 98)
+        bn, kk = ft.fold_plan(n, 10, 0.99)
+        lib_ms = time_ms(torch, lambda: torch.topk(torch.matmul(q, c.T), kk,
+                                                   dim=1))
+        kern = time_ms(torch, lambda: ft.fused_topk_raw(
+            q, c, k=kk, metric="cosine", mode="fold", block_n=bn))
+        ran = ft.last_kernel
+        plain = time_ms(torch, lambda: ft.fused_topk_raw_reference(
+            q, c, k=kk, metric="cosine", mode="fold", block_n=bn),
+            reps=20, warmup=1)
+        b_ms, b_by = bound(nq, n, 64, kk, "float32")
+        rec = {"shape": label, "mode": "fold", "Q": nq, "N": n, "d": 64,
+               "k": kk, "block_n": bn, "store": "float32", "c_kernel": ran,
+               "ms": kern, "plain_ms": plain, "library_ms": lib_ms,
+               "library_k": kk, "bound_ms": b_ms, "bound_by": b_by}
+        record("kernel_time", **rec)
+        out[(label, "fold_fp32")] = rec
         del q, c
         torch.cuda.empty_cache()
     return out
@@ -436,15 +474,21 @@ def binary_case(torch, nq, n, d, seed):
     return q, binary_quantize(c)
 
 
-def check_binary_kernel(torch, failures: list) -> float:
-    """Phase 2b: the binary fold kernel against its plain version; returns
-    the largest rescored-score error at equal ids."""
+def check_binary_kernel(torch, failures: list) -> dict:
+    """Phase 2b: the binary fold kernel against its plain version, then the
+    exact binary kernel against ``binary_topk``; returns the largest
+    rescored-score error at equal ids of the fold and the largest score
+    error of the exact kernel."""
     from latentrag_torch.ops import binary as tb
     from latentrag_torch.ops import fused_topk as ft
 
-    worst = 0.0
+    worst = {"binary_fold": 0.0, "binary_exact": 0.0}
+    # "main_plan" is the binary main path's stage 1 (1997 unique contexts):
+    # the fold at k=128 on fold_plan's 128-row tile, the exact kernel at
+    # k=160 over four 512-row slabs and its merge
     shapes = [("reference", 2000, 315, 64), ("1m", 1024, 1_000_000, 64),
-              ("ragged", 37, 5003, 384), ("ragged", 37, 5003, 48)]
+              ("ragged", 37, 5003, 384), ("ragged", 37, 5003, 48),
+              ("main_plan", 2000, 1997, 64)]
     for seed, (label, nq, n, d) in enumerate(shapes, start=200):
         q, pk = binary_case(torch, nq, n, d, seed)
         exact_i = tb.binary_topk(q, pk, d, 10)[1]
@@ -453,6 +497,7 @@ def check_binary_kernel(torch, failures: list) -> float:
                 _, i_k = ft.binary_fused_topk_raw(q, pk, d=d, k=k,
                                                   block_n=block_n)
                 torch.cuda.synchronize()
+                ran = ft.last_kernel
                 _, i_p = ft.binary_fused_topk_raw_reference(
                     q, pk, d=d, k=k, block_n=block_n)
                 id_match = (i_k == i_p).float().mean().item()
@@ -463,18 +508,40 @@ def check_binary_kernel(torch, failures: list) -> float:
                 max_err = err.max().item() if err.numel() else 0.0
                 tol = BIN_SCORE_ATOL + BIN_SCORE_RTOL * s_p.abs()[eq]
                 rec = {"shape": label, "Q": nq, "N": n, "d": d, "k": k,
-                       "block_n": block_n, "id_match": id_match,
-                       "max_abs_err": max_err}
-                ok = id_match >= BIN_ID_MATCH and bool((err <= tol).all())
+                       "block_n": block_n, "c_kernel": ran,
+                       "id_match": id_match, "max_abs_err": max_err}
+                ok = (ran.startswith("fold_mma_kernel<bin>")
+                      and id_match >= BIN_ID_MATCH
+                      and bool((err <= tol).all()))
                 if k == 10:
                     hits = (i_k[:, :, None] == exact_i[:, None, :]).any(-1)
                     rec["recall_vs_exact"] = hits.float().mean().item()
                     ok = ok and rec["recall_vs_exact"] >= BIN_RECALL
                 rec["ok"] = ok
                 record("binary_kernel_check", **rec)
-                worst = max(worst, max_err)
+                worst["binary_fold"] = max(worst["binary_fold"], max_err)
                 if not ok:
                     failures.append(f"binary kernel check {rec}")
+        # the exact flavour, past the fold's 128 candidates (k clips to N)
+        for k in BIN_EXACT_KS[label]:
+            s_k, i_k = ft.binary_exact_topk_raw(q, pk, d=d, k=k)
+            torch.cuda.synchronize()
+            ran = ft.last_kernel
+            s_p, i_p = tb.binary_topk(q, pk, d, k)
+            same = i_k == i_p
+            id_match = same.float().mean().item()
+            err = (s_k - s_p).abs()[same]
+            max_err = err.max().item() if err.numel() else 0.0
+            tol = EXACT_SCORE_ATOL + EXACT_SCORE_RTOL * s_p.abs()[same]
+            ok = (ran.startswith("partial_kernel<") and ",false,true>" in ran
+                  and id_match >= EXACT_ID_MATCH and bool((err <= tol).all()))
+            rec = {"shape": label, "Q": nq, "N": n, "d": d, "k": k,
+                   "k_eff": int(i_k.shape[1]), "c_kernel": ran,
+                   "id_match": id_match, "max_abs_err": max_err, "ok": ok}
+            record("binary_exact_check", **rec)
+            worst["binary_exact"] = max(worst["binary_exact"], max_err)
+            if not ok:
+                failures.append(f"binary exact check {rec}")
         del q, pk
         torch.cuda.empty_cache()
     return worst
@@ -482,8 +549,10 @@ def check_binary_kernel(torch, failures: list) -> float:
 
 def plain_cascade(torch, r, queries, k):
     """The binary store's search with the plain version of the kernel as
-    stage 1, at the plan the store uses on the card, and the same stage 2.
-    Returns host numpy (scores, ids)."""
+    stage 1, at the plan the store uses on the card (above 128 candidates
+    the exact search's plain version), and the same stage 2. Returns host
+    numpy (scores, ids)."""
+    from latentrag_torch.ops import binary as tb
     from latentrag_torch.ops import fused_topk as ft
     from latentrag_torch.ops.distances import prepare_for_metric
     from latentrag_torch.retrieval.rescore import exact_rescore_topk
@@ -491,11 +560,14 @@ def plain_cascade(torch, r, queries, k):
     q = prepare_for_metric(torch.as_tensor(queries).float().cuda(),
                            r.metric, r._whitener)
     ok = min(r.binary_oversample * k, r._corpus_n)
-    block_n, cand = ft.fold_plan(r._corpus_n, ok,
-                                 r._effective_recall_target(k))
-    _, idx = ft.binary_fused_topk_raw_reference(q, r._corpus, d=r._dim,
-                                                k=cand, block_n=block_n)
-    _, idx = ft.rescore_binary_candidates(q, r._corpus, idx, r._dim)
+    if ok > ft.FOLD_MAX_K:
+        idx = tb.binary_topk(q, r._corpus, r._dim, ok)[1]
+    else:
+        block_n, cand = ft.fold_plan(r._corpus_n, ok,
+                                     r._effective_recall_target(k))
+        _, idx = ft.binary_fused_topk_raw_reference(q, r._corpus, d=r._dim,
+                                                    k=cand, block_n=block_n)
+        _, idx = ft.rescore_binary_candidates(q, r._corpus, idx, r._dim)
     return exact_rescore_topk(
         q.cpu().numpy(), lambda i: r._rescore_host[i],
         idx[:, :ok].cpu().numpy(), k, metric="dot", scale=r._corpus_scale)
@@ -529,9 +601,12 @@ def slot_agreement(a, b) -> float:
     return same / max(slots, 1)
 
 
-def check_binary_main_path(torch, failures: list, oracle: dict) -> dict:
-    """Phase 3b: ``main`` with the binary store; returns the launch counts
-    of that run."""
+def check_binary_main_path(torch, failures: list, oracle: dict,
+                           top_k: int = 10) -> dict:
+    """Phase 3b: ``main`` with the binary store at ``top_k``; returns the
+    launch counts of that run. Stage 1 asks for binary_oversample x top_k
+    candidates: the fold serves up to 128 (80 at top_k=10), the exact
+    binary kernel more (160 at top_k=20)."""
     import numpy as np
 
     from latentrag_torch.data import get_examples, load_evaluation_data
@@ -544,10 +619,11 @@ def check_binary_main_path(torch, failures: list, oracle: dict) -> dict:
     with tempfile.TemporaryDirectory(prefix="lr_smoke_bin_") as wd:
         write_vae(torch, f"{wd}/vae.pth")
         ft.reset_launches()
-        res = run_main(torch, wd, "auto", store="binary")
+        res = run_main(torch, wd, "auto", store="binary", top_k=top_k)
         main_launches = dict(ft.launches)
         # the same latents, through the port's own compressor
-        cfg = apply_overrides(Config(), main_overrides(wd, "auto", "binary"))
+        cfg = apply_overrides(Config(), main_overrides(wd, "auto", "binary",
+                                                       top_k))
         queries, corpus, relevant = load_evaluation_data(get_examples(cfg))
         comp = PipelineRunner(cfg, ae_type="vae",
                               device="cuda")._ensure_compressor(corpus)
@@ -555,11 +631,11 @@ def check_binary_main_path(torch, failures: list, oracle: dict) -> dict:
         q_emb = comp.encode_text(list(queries))
         r = build_retriever(c_emb, list(corpus), None, cfg.retrieval,
                             device="cuda")
-        _, i_kern = r.search(q_emb, 10)
-        _, i_plain = plain_cascade(torch, r, q_emb, 10)
-        split = search_split(torch, r, q_emb, 10)
+        _, i_kern = r.search(q_emb, top_k)
+        _, i_plain = plain_cascade(torch, r, q_emb, top_k)
+        split = search_split(torch, r, q_emb, top_k)
     ds = np.asarray(res["doc_scores"])
-    if ds.shape != (res["n_queries"], 10) or not np.isfinite(ds).all():
+    if ds.shape != (res["n_queries"], top_k) or not np.isfinite(ds).all():
         failures.append(f"binary doc_scores shape {ds.shape} or non-finite")
     names = cfg.evaluation.retrieval_metrics
     rows = lambda ids: [[int(j) for j in row if j >= 0] for row in ids]  # noqa: E731
@@ -568,7 +644,7 @@ def check_binary_main_path(torch, failures: list, oracle: dict) -> dict:
     agree = slot_agreement(rows(i_kern), rows(i_plain))
     deltas = {m: abs(m_kern[m]["mean"] - m_plain[m]["mean"]) for m in m_kern}
     record(
-        "binary_main_path", n_queries=res["n_queries"],
+        "binary_main_path", top_k=top_k, n_queries=res["n_queries"],
         n_corpus=res["n_corpus"], dim_out=res["dim_out"],
         metrics={m: v["mean"] for m, v in res["retrieval_metrics"].items()},
         bf16_oracle_metrics={m: v["mean"] for m, v in
@@ -581,10 +657,15 @@ def check_binary_main_path(torch, failures: list, oracle: dict) -> dict:
             rows(i_kern), res["retrieved_doc_ids"]),
         rerun_search_split=split,
     )
-    if main_launches["binary_fold"] < 2:
+    # the self-check runs the fold; the search runs the fold up to 128
+    # candidates and the exact binary kernel past them
+    want = ({"binary_fold": 1, "binary_exact": 1}
+            if r.binary_oversample * top_k > ft.FOLD_MAX_K
+            else {"binary_fold": 2})
+    if any(main_launches[key] < n for key, n in want.items()):
         failures.append(
-            f"binary kernel launched {main_launches['binary_fold']} times "
-            "on the binary main path (want self-check + search)")
+            f"binary main path at top_k={top_k} launched {main_launches} "
+            f"(want at least {want}: self-check + search)")
     if agree < BIN_DOC_AGREE:
         failures.append(f"binary stage-1 doc agreement {agree} < "
                         f"{BIN_DOC_AGREE}")
@@ -642,10 +723,13 @@ def binary_bound(nq, n, d, k) -> tuple[float, str]:
 
 
 def time_binary(torch) -> dict:
-    """Phase 4b: the binary kernel, its plain version and the yardstick
-    (torch.matmul + torch.topk over the corpus pre-unpacked to +-1 bf16),
-    at the candidates and tile width the store plans (ok = 8 x 10) and at
-    k=10 with the 4096-row tile; then the kernel alone over 100M rows."""
+    """Phase 4b: the binary fold kernel, its plain version and the
+    yardstick (torch.matmul + torch.topk over the corpus pre-unpacked to
+    +-1 bf16), at the candidates and tile width the store plans (ok = 8 x
+    10) and at k=10 with the 4096-row tile, with a profiler device split at
+    the plan; the exact binary kernel at k=160 (the store's stage 1 at
+    top_k=20) beside its plain version ``binary_topk`` and the yardstick at
+    that k; then the fold kernel alone over 100M rows."""
     from latentrag_torch.ops import binary as tb
     from latentrag_torch.ops import fused_topk as ft
 
@@ -670,8 +754,30 @@ def time_binary(torch) -> dict:
                    "plain_ms": plain, "library_ms": lib_ms,
                    "library_k": kk, "library_reads_bytes_x": 16,
                    "bound_ms": b_ms, "bound_by": b_by}
+            if tag == "plan":
+                rec["device_ms"] = device_split(
+                    torch, lambda: ft.binary_fused_topk_raw(
+                        q, pk, d=d, k=kk, block_n=bn))
+                rec["blocks_per_sm"] = ft._fold_mma_slots(
+                    q.device.index, d, kk, True) // ft._sm_count(q.device.index)
             record("binary_kernel_time", **rec)
             out[(label, tag)] = rec
+        kk = 160
+        lib_ms = time_ms(torch, lambda: torch.topk(
+            torch.matmul(qb, pm1.T).float(), kk, dim=1))
+        kern = time_ms(torch, lambda: ft.binary_exact_topk_raw(
+            q, pk, d=d, k=kk))
+        ran = ft.last_kernel
+        plain = time_ms(torch, lambda: tb.binary_topk(q, pk, d, kk),
+                        reps=20, warmup=1)
+        b_ms, b_by = binary_bound(nq, n, d, min(kk, n))
+        rec = {"shape": label, "case": "exact160", "Q": nq, "N": n, "d": d,
+               "k": kk, "c_kernel": ran, "ms": kern, "plain_ms": plain,
+               "library_ms": lib_ms, "library_k": kk,
+               "library_reads_bytes_x": 16, "bound_ms": b_ms,
+               "bound_by": b_by}
+        record("binary_kernel_time", **rec)
+        out[(label, "exact160")] = rec
         del q, pk, qb, pm1
         torch.cuda.empty_cache()
     nq, n = 1024, 100_000_000
@@ -723,7 +829,7 @@ def main() -> int:
 
     failures: list = []
     worst = check_kernels(torch, failures)
-    worst["binary_fold"] = check_binary_kernel(torch, failures)
+    worst.update(check_binary_kernel(torch, failures))
     if failures:
         fail("; ".join(failures[:5]))
     launches, oracle = check_main_path(torch, failures)
@@ -731,6 +837,10 @@ def main() -> int:
         fail("; ".join(failures))
     launches["binary_fold"] = check_binary_main_path(
         torch, failures, oracle)["binary_fold"]
+    if failures:
+        fail("; ".join(failures))
+    launches["binary_exact"] = check_binary_main_path(
+        torch, failures, oracle, top_k=20)["binary_exact"]
     if failures:
         fail("; ".join(failures))
     check_binary_capacity(torch, failures)
@@ -760,7 +870,7 @@ def main() -> int:
     kernels.append({
         "name": "binary_fused_topk_fold",
         "route": "cuda",
-        "source": "latentrag_torch/csrc/fused_topk.cu",
+        "source": "latentrag_torch/csrc/fold_mma.cuh",
         "replaces": "latentrag_tpu/ops/pallas_topk.py:354",
         "launches": launches["binary_fold"],
         "max_abs_err": worst["binary_fold"],
@@ -769,6 +879,22 @@ def main() -> int:
         "library_ms": t["library_ms"],
         "shape": f"Q=2000 N=315 d=64 k={t['k']} block_n={t['block_n']} "
                  "packed sign words, bf16 queries",
+    })
+    t = times[("reference", "exact160")]
+    kernels.append({
+        "name": "binary_exact_topk",
+        "route": "cuda",
+        "source": "latentrag_torch/csrc/fused_topk.cu",
+        # the store's exact sign-dot stage 1 (latentrag_tpu/retrieval/
+        # dense.py:1172), past the fold's 128 candidates
+        "replaces": "latentrag_tpu/ops/binary.py:129",
+        "launches": launches["binary_exact"],
+        "max_abs_err": worst["binary_exact"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],
+        "shape": f"Q=2000 N=315 d=64 k={t['k']} packed sign words, "
+                 "bf16 queries",
     })
     if "jax" in sys.modules:
         fail("jax was imported")

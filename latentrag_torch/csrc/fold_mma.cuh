@@ -5,6 +5,8 @@
 // block_n tile over 128 lanes, and the top-k of the union under (quantized
 // key desc, tile asc, column desc). fp32 stores keep partial_kernel's FMA
 // flavour: the tensor cores would round fp32 inputs to bf16 or TF32.
+// fold_mma_kernel<E, BIN = true> is the binary fold (kernel 3): it replaces
+// _binary_fold_kernel (pallas_topk.py:354-401) with the same machinery.
 //
 //   fold_mma_kernel   one block = 64 queries x one corpus slab; 8 warps, a
 //                     pair of warps per 16 queries, each warp 64 of the 128
@@ -66,6 +68,24 @@
 // main path's 128-row tiles every sub-tile flushes, and the list upkeep --
 // bitonic networks, chains of dependent shuffles -- bounds it by latency,
 // which the pairs halve by sharing each flush.
+//
+// The binary fold. Sign bits and bf16 queries are exact bf16 inputs to the
+// same mma.sync (+-1 times a bf16 value is exact), so it keeps the bf16
+// fold's contract: only the order of the fp32 sums differs from the plain
+// version. Its stages move 1/16 of the bytes: the packed words of 128 rows
+// x 64 dims (1 KB, two words a row) arrive by 4-byte cp.async into the
+// ring, reading the row-major store [N, ceil(d/32)] as it is, and after the
+// stage's barrier every thread unpacks its share once for the whole block
+// into the swizzled [128][64] bf16 stage that the ldmatrix path reads: a
+// set bit becomes 0x3F80 (+1), a clear one 0xBF80 (-1); a second barrier
+// then releases the products. Pad bits past d and words past the row's
+// last unpack to -1 and meet zero query dims, so they add nothing. With
+// d <= 64 the A fragments are loaded once before the loop and the unpacked
+// stage takes the query tile's room, so the list-of-128 instance -- the
+// binary store always asks the fold for 128 candidates -- fits two blocks
+// an SM. It is bound as the bf16 fold is: by the fold and the list upkeep,
+// not by its bytes (8 B a row at d = 64), so the tensor cores and the lean
+// fold are the design here too.
 
 #define FM_WARPS 8
 #define FM_THREADS (FM_WARPS * 32)
@@ -74,6 +94,7 @@
 #define FM_NST 3                                   // stages in the ring
 #define FM_STAGE_BYTES (TN * DCH * 2)              // 128 rows x 64 bf16
 #define FM_SLOT_BYTES (FM_STAGE_BYTES + TN * 4)    // + the rows' norms^2
+#define FM_WSLOT_BYTES (TN * 2 * 4)                // binary: 128 rows x 2 words
 #define FM_TSTRIDE 136                             // ints a row of the flush buffer
 #define FM_FULL 0xffffffffu
 
@@ -81,9 +102,20 @@ typedef long long i64;
 #define EMPTY64 LLONG_MIN
 
 static_assert(TN == 128 && DCH == 64, "stages of 128 rows x 64 dims");
+static_assert(FM_THREADS == 2 * TN, "one sign word a thread a binary stage");
 
 __device__ __forceinline__ unsigned fm_smem(const void* p) {
     return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Bytes of the query tile's region: the bf16 query tile, and for the
+// binary fold the unpacked stage too (in the tile's own room when d <= 64,
+// since the A fragments are then read once before the loop).
+__host__ __device__ __forceinline__ int fm_qu_bytes(int n_dch, bool bin) {
+    const int qs = n_dch * FM_TQ * 128;
+    if (!bin) return qs;
+    return n_dch > 1 ? qs + FM_STAGE_BYTES
+                     : (qs > FM_STAGE_BYTES ? qs : FM_STAGE_BYTES);
 }
 
 // Byte offset of 16-byte chunk c (8 dims) of row r in a [rows][64] bf16 tile.
@@ -163,6 +195,65 @@ __device__ __forceinline__ void fm_load_stage(
         fm_cp4(base + FM_STAGE_BYTES + 4 * tid, row < n ? csq + row : csq,
                row < n ? 4 : 0);
     }
+}
+
+// Binary stage = the sign words of rows [t0, t0 + 128) x dims [d0, d0 + 64)
+// into a ring slot (word j of row r at 2 r + j), one 4-byte cp.async a
+// thread; rows >= n and words past the row's last (of `words`) are 0.
+__device__ __forceinline__ void fm_load_words(unsigned char* slot,
+                                              const unsigned* c, int n,
+                                              int words, int t0, int d0,
+                                              int tid) {
+    const int row = t0 + (tid >> 1), w = (d0 >> 5) + (tid & 1);
+    const bool in = row < n && w < words;
+    fm_cp4(fm_smem(slot) + 4 * tid,
+           in ? (const void*)(c + (size_t)row * words + w) : (const void*)c,
+           in ? 4 : 0);
+}
+
+// Sign bits 0 and 1 of t as two bf16 values in one word, bit 0 in the low
+// half: a set bit is 0x3F80 (+1.0), a clear one 0xBF80 (-1.0).
+__device__ __forceinline__ unsigned fm_pm1x2(unsigned t) {
+    return 0xBF80BF80u ^ ((t & 1u) << 15) ^ ((t & 2u) << 30);
+}
+
+// Unpack a binary ring slot into the swizzled [128][64] bf16 stage U: a
+// 16-byte chunk (8 dims) is one byte of a word, 4 chunks a thread.
+__device__ __forceinline__ void fm_unpack(unsigned char* U,
+                                          const unsigned char* slot, int tid) {
+    const unsigned* wd = reinterpret_cast<const unsigned*>(slot);
+#pragma unroll
+    for (int u = 0; u < (TN * 8) / FM_THREADS; ++u) {
+        const int v = tid + FM_THREADS * u, r = v >> 3, ch = v & 7;
+        const unsigned b = wd[2 * r + (ch >> 2)] >> (8 * (ch & 3));
+        *reinterpret_cast<uint4*>(U + fm_swz(r, ch)) =
+            make_uint4(fm_pm1x2(b), fm_pm1x2(b >> 2), fm_pm1x2(b >> 4),
+                       fm_pm1x2(b >> 6));
+    }
+}
+
+// One stage of the corpus into a ring slot: bf16 rows, or the binary
+// fold's sign words.
+template <bool BIN>
+__device__ __forceinline__ void fm_stage(unsigned char* slot, const void* cp,
+                                         const float* csq, int n, int d,
+                                         int t0, int d0, int vec, int euclid,
+                                         int tid) {
+    if constexpr (BIN)
+        fm_load_words(slot, (const unsigned*)cp, n, (d + 31) >> 5, t0, d0, tid);
+    else
+        fm_load_stage(slot, (const __nv_bfloat16*)cp, csq, n, d, t0, d0, vec,
+                      euclid, tid);
+}
+
+// The A fragments of a warp's 16 queries for one 64-dim chunk Qc.
+__device__ __forceinline__ void fm_load_a(unsigned (&afr)[4][4],
+                                          const unsigned char* Qc, int wq0,
+                                          int lane) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+        fm_ldsm4(afr[s], fm_smem(Qc + fm_swz(wq0 + (lane & 7) + (lane & 8),
+                                             2 * s + (lane >> 4))));
 }
 
 __device__ __forceinline__ i64 fm_shfl(i64 v, int src) {
@@ -393,20 +484,24 @@ __device__ __forceinline__ void fm_decode(i64 key, unsigned R, int block_n,
 
 // grid: (ceil(nq / FM_TQ), slabs of slab_rows rows, a multiple of block_n).
 // Lists are held E = KP / 32 a lane in registers (KP >= k). final_out (one
-// slab): write out_s / out_i; else part[slab, q, :] keys.
-template <int E>
+// slab): write out_s / out_i; else part[slab, q, :] keys. BIN: cp is the
+// packed sign words [n, ceil(d/32)] (euclid and vec are 0).
+template <int E, bool BIN>
 __global__ void __launch_bounds__(FM_THREADS, 2)
 fold_mma_kernel(const __nv_bfloat16* __restrict__ qp,
-                const __nv_bfloat16* __restrict__ cp,
+                const void* __restrict__ cp,
                 const float* __restrict__ csq, int nq, int n, int d, int k,
                 int euclid, int block_n, int slab_rows, int vec, int final_out,
                 i64* __restrict__ part, float* __restrict__ out_s,
                 int* __restrict__ out_i) {
     extern __shared__ __align__(16) unsigned char smem[];
+    constexpr int SLOT = BIN ? FM_WSLOT_BYTES : FM_SLOT_BYTES;
     const int n_dch = (d + DCH - 1) / DCH;
     unsigned char* ring = smem;                            // FM_NST slots
-    unsigned char* Qs = ring + FM_NST * FM_SLOT_BYTES;     // [n_dch][64][64] bf16
-    float* qsq = (float*)(Qs + n_dch * FM_TQ * 128);       // [64]
+    unsigned char* Qs = ring + FM_NST * SLOT;              // [n_dch][64][64] bf16
+    // BIN: the unpacked stage [128][64] bf16
+    unsigned char* U = Qs + (n_dch > 1 ? n_dch * FM_TQ * 128 : 0);
+    float* qsq = (float*)(Qs + fm_qu_bytes(n_dch, BIN));   // [64]
     int* Tb = (int*)(qsq + FM_TQ);                         // [4 pairs][8][136]
     i64* Cb = (i64*)(Tb + FM_PAIRS * 8 * FM_TSTRIDE);      // [8 warps][128]
     i64* L = Cb + FM_WARPS * 128;                          // [64][k]
@@ -428,7 +523,7 @@ fold_mma_kernel(const __nv_bfloat16* __restrict__ qp,
 #pragma unroll
     for (int s = 0; s < FM_NST - 1; ++s) {
         if (s < n_st)
-            fm_load_stage(ring + s * FM_SLOT_BYTES, cp, csq, n, d,
+            fm_stage<BIN>(ring + s * SLOT, cp, csq, n, d,
                           row0 + (s / n_dch) * TN, (s % n_dch) * DCH, vec,
                           euclid, tid);
         fm_commit();
@@ -455,6 +550,12 @@ fold_mma_kernel(const __nv_bfloat16* __restrict__ qp,
         qsq[tid] = s;
     }
     // (qsq is read after the first stage's barrier)
+    // with one 64-dim chunk the A fragments are read once: the binary fold
+    // here, before its first unpack takes the query tile's room; the bf16
+    // fold at the loop's first stage, since loading them here makes ptxas
+    // spill its k <= 64 instance (104 bytes), ~9 % slower at 1M rows
+    unsigned afr[4][4];
+    if (BIN && n_dch == 1) fm_load_a(afr, Qs, wq0, lane);
 
     float acc[8][4];
     int folded[8][4];
@@ -462,39 +563,37 @@ fold_mma_kernel(const __nv_bfloat16* __restrict__ qp,
     for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) folded[j][e] = MIN_I32;
-    unsigned afr[4][4];
     int* T = Tb + pair * 8 * FM_TSTRIDE;
     i64* cbuf = Cb + warp * 128;
 
     for (int st = 0; st < n_st; ++st) {
         fm_wait_ring();
-        __syncthreads();  // stage st is in; stage st - 1's slot is free
+        __syncthreads();  // stage st is in; stage st - 1's slot (and U) free
         {
             const int s2 = st + FM_NST - 1;
             if (s2 < n_st)
-                fm_load_stage(ring + (s2 % FM_NST) * FM_SLOT_BYTES, cp, csq,
-                              n, d, row0 + (s2 / n_dch) * TN,
-                              (s2 % n_dch) * DCH, vec, euclid, tid);
+                fm_stage<BIN>(ring + (s2 % FM_NST) * SLOT, cp, csq, n, d,
+                              row0 + (s2 / n_dch) * TN, (s2 % n_dch) * DCH,
+                              vec, euclid, tid);
             fm_commit();
+        }
+        const unsigned char* S = ring + (st % FM_NST) * SLOT;
+        if constexpr (BIN) {  // every warp unpacks its share, active or not
+            fm_unpack(U, S, tid);
+            __syncthreads();
+            S = U;
         }
         if (!active) continue;
         const int sub = st / n_dch, dci = st - sub * n_dch;
         const int t0 = row0 + sub * TN;
-        const unsigned char* S = ring + (st % FM_NST) * FM_SLOT_BYTES;
         if (dci == 0) {
 #pragma unroll
             for (int j = 0; j < 8; ++j)
 #pragma unroll
                 for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
         }
-        if (n_dch > 1 || st == 0) {
-            const unsigned char* Qc = Qs + dci * FM_TQ * 128;
-#pragma unroll
-            for (int s = 0; s < 4; ++s)
-                fm_ldsm4(afr[s],
-                         fm_smem(Qc + fm_swz(wq0 + (lane & 7) + (lane & 8),
-                                             2 * s + (lane >> 4))));
-        }
+        if (n_dch > 1 || (!BIN && st == 0))
+            fm_load_a(afr, Qs + dci * FM_TQ * 128, wq0, lane);
 #pragma unroll
         for (int s = 0; s < 4; ++s) {
 #pragma unroll
@@ -617,7 +716,7 @@ fold_merge_kernel(const i64* __restrict__ part, int S, int nq, int k,
 
 // Each kernel instance's dynamic shared memory is raised to the card's
 // opt-in limit once per device, not on every call.
-template <int E>
+template <int E, bool BIN>
 static int fm_prepare() {
     static unsigned ready = 0;  // bit per device
     int dev = 0;
@@ -628,37 +727,37 @@ static int fm_prepare() {
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
     if (e != cudaSuccess) return (int)e;
-    e = cudaFuncSetAttribute(fold_mma_kernel<E>,
+    e = cudaFuncSetAttribute(fold_mma_kernel<E, BIN>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (e != cudaSuccess) return (int)e;
     if (dev < 32) ready |= 1u << dev;
     return 0;
 }
 
-template <int E>
+template <int E, bool BIN>
 static int fm_occupancy(size_t smem) {
-    int e = fm_prepare<E>();
+    int e = fm_prepare<E, BIN>();
     if (e) return -e;
     int blocks = 0;
     e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, fold_mma_kernel<E>, FM_THREADS, smem);
+        &blocks, fold_mma_kernel<E, BIN>, FM_THREADS, smem);
     return e ? -e : blocks;
 }
 
-template <int E>
+template <int E, bool BIN>
 static int fm_launch(const void* q, const void* c, const float* csq, int nq,
                      int n, int d, int k, int euclid, int block_n,
                      int slab_rows, int vec, long long* part, float* out_s,
                      int* out_i, size_t smem, cudaStream_t st) {
-    int e = fm_prepare<E>();
+    int e = fm_prepare<E, BIN>();
     if (e) return e;
     const int n_slabs = (n + slab_rows - 1) / slab_rows;
     const unsigned R =
         (unsigned)((n + block_n - 1) / block_n - 1) * (unsigned)block_n;
     dim3 grid((nq + FM_TQ - 1) / FM_TQ, n_slabs);
-    fold_mma_kernel<E><<<grid, FM_THREADS, smem, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)c, csq, nq, n, d, k,
-        euclid, block_n, slab_rows, vec, n_slabs == 1, part, out_s, out_i);
+    fold_mma_kernel<E, BIN><<<grid, FM_THREADS, smem, st>>>(
+        (const __nv_bfloat16*)q, c, csq, nq, n, d, k, euclid, block_n,
+        slab_rows, vec, n_slabs == 1, part, out_s, out_i);
     e = (int)cudaGetLastError();
     if (e || n_slabs == 1) return e;
     fold_merge_kernel<E><<<(nq + FM_WARPS - 1) / FM_WARPS, FM_THREADS, 0, st>>>(
@@ -666,38 +765,50 @@ static int fm_launch(const void* q, const void* c, const float* csq, int nq,
     return (int)cudaGetLastError();
 }
 
+// F<E, BIN>(args) for the least list of 32, 64 or 128 entries that holds k.
+#define FM_DISPATCH(F, ARGS)                                                  \
+    (binary ? (k <= 32 ? F<1, true>(ARGS) : k <= 64 ? F<2, true>(ARGS)        \
+                                                    : F<4, true>(ARGS))       \
+            : (k <= 32 ? F<1, false>(ARGS) : k <= 64 ? F<2, false>(ARGS)      \
+                                                     : F<4, false>(ARGS)))
+
 extern "C" {
 
-// Dynamic shared memory of one fold_mma_kernel block.
-size_t lr_fold_mma_smem(int d, int k) {
-    const size_t n_dch = (size_t)(d + DCH - 1) / DCH;
-    return (size_t)FM_NST * FM_SLOT_BYTES + n_dch * FM_TQ * 128 +
-           FM_TQ * 4 + (size_t)FM_PAIRS * 8 * FM_TSTRIDE * 4 +
+// Dynamic shared memory of one fold_mma_kernel block (binary: the binary
+// fold's).
+size_t lr_fold_mma_smem(int d, int k, int binary) {
+    const int n_dch = (d + DCH - 1) / DCH;
+    return (size_t)FM_NST * (binary ? FM_WSLOT_BYTES : FM_SLOT_BYTES) +
+           fm_qu_bytes(n_dch, binary != 0) + FM_TQ * 4 +
+           (size_t)FM_PAIRS * 8 * FM_TSTRIDE * 4 +
            (size_t)FM_WARPS * 128 * 8 + (size_t)FM_TQ * k * 8;
 }
 
 // Resident fold_mma_kernel blocks per SM at (d, k) on the current device
 // (0: does not fit); a negative cudaError_t on failure.
-int lr_fold_mma_occupancy(int d, int k) {
-    const size_t smem = lr_fold_mma_smem(d, k);
-    return k <= 32 ? fm_occupancy<1>(smem)
-         : k <= 64 ? fm_occupancy<2>(smem) : fm_occupancy<4>(smem);
+int lr_fold_mma_occupancy(int d, int k, int binary) {
+    const size_t smem = lr_fold_mma_smem(d, k, binary);
+    return FM_DISPATCH(fm_occupancy, smem);
 }
 
-// The bf16 fold: fold_mma_kernel over (query tiles x slabs), then, with
-// more than one slab, fold_merge_kernel; lists of 32, 64 or 128 entries
-// in registers, the least that holds k. part is [slabs, nq, k] int64
-// scratch (unused with one slab). Returns a cudaError_t.
+// The bf16 fold (binary = 0: c is bf16 [n, d]) or the binary fold
+// (binary = 1: c is the packed sign words [n, ceil(d/32)]; euclid = 0):
+// fold_mma_kernel over (query tiles x slabs), then, with more than one
+// slab, fold_merge_kernel; lists of 32, 64 or 128 entries in registers,
+// the least that holds k. part is [slabs, nq, k] int64 scratch (unused
+// with one slab). Returns a cudaError_t.
 int lr_fold_mma(const void* q, const void* c, const float* csq, int nq, int n,
                 int d, int k, int euclid, int block_n, int slab_rows, int vec,
-                long long* part, float* out_s, int* out_i, void* stream) {
-    const size_t smem = lr_fold_mma_smem(d, k);
+                int binary, long long* part, float* out_s, int* out_i,
+                void* stream) {
+    const size_t smem = lr_fold_mma_smem(d, k, binary);
     cudaStream_t st = (cudaStream_t)stream;
 #define FM_ARGS q, c, csq, nq, n, d, k, euclid, block_n, slab_rows, vec, part, \
                 out_s, out_i, smem, st
-    return k <= 32 ? fm_launch<1>(FM_ARGS)
-         : k <= 64 ? fm_launch<2>(FM_ARGS) : fm_launch<4>(FM_ARGS);
+    return FM_DISPATCH(fm_launch, FM_ARGS);
 #undef FM_ARGS
 }
 
 }  // extern "C"
+
+#undef FM_DISPATCH

@@ -1,14 +1,19 @@
 // Fused distance + top-k for Hopper (sm_90a): the CUDA port of the JAX
 // package's Pallas kernels in ops/pallas_topk.py.
 //
-//   fold_mma_kernel (fold_mma.cuh) replaces _fold_kernel
+//   fold_mma_kernel<E, false> (fold_mma.cuh) replaces _fold_kernel
 //                                  (pallas_topk.py:162-179, _fold_body :114-159)
 //                                  for bf16 stores, on the tensor cores;
 //   partial_kernel<TQ, FOLD=true,  BIN=false> replaces it for fp32 stores
 //   partial_kernel<TQ, FOLD=false, BIN=false> replaces _exact_kernel
 //                                  (pallas_topk.py:182-221)
-//   partial_kernel<TQ, FOLD=true,  BIN=true>  replaces _binary_fold_kernel
-//                                  (pallas_topk.py:354-401)
+//   fold_mma_kernel<E, true>  (fold_mma.cuh) replaces _binary_fold_kernel
+//                                  (pallas_topk.py:354-401), on the tensor cores
+//   partial_kernel<TQ, FOLD=false, BIN=true>  replaces the exact sign-dot
+//                                  search binary_topk (the JAX package's
+//                                  ops/binary.py:129) where the binary
+//                                  store's stage 1 asks for more candidates
+//                                  than the fold's 128 lanes hold
 //   merge_kernel                   has no TPU counterpart: the TPU grid ran the
 //                                  corpus tiles in order and carried the running
 //                                  top-k in VMEM scratch; here slabs run in
@@ -23,8 +28,8 @@
 //   binary: score(q, c) = sum_{j<d} bf16(q_j) * (2 bit_j(c) - 1), accumulated
 //   in fp32 (pad bits past d never count), from a row-major store of packed
 //   sign words [N, ceil(d/32)] (bit j of word w <-> dim 32w + j). Each stage
-//   unpacks to +-1.0f in shared memory, so the unpacked [N, d] corpus never
-//   exists in device memory either. Scores become order-preserving int32 keys
+//   unpacks to +-1 in shared memory (fp32 here, bf16 in fold_mma.cuh), so the
+//   unpacked [N, d] corpus never exists in device memory either. Scores become order-preserving int32 keys
 //   (_monotone_i32). Rows >= n never win.
 //   exact: the top-k of (key desc, row asc) over all rows: ties go to the lower row.
 //   fold:  per aligned tile of block_n rows (block_n = 4096 by default), each of
@@ -41,8 +46,8 @@
 // 2*Q*N*d operations against N*d*2 bytes of bf16 corpus, far above the card's
 // ridge point, so the limit is arithmetic. partial_kernel scores with
 // fp32 FMAs (67 TFLOP/s peak, not the 989 TFLOP/s of bf16 tensor cores);
-// the bf16 fold has moved to mma.sync tiles (fold_mma.cuh), the exact and
-// binary flavours are still to follow. What the design does about the bound it
+// the bf16 and binary folds have moved to mma.sync tiles (fold_mma.cuh), the
+// exact flavours are still to follow. What the design does about the bound it
 // has: each block keeps its query tile resident in shared memory and streams
 // corpus stages (128 rows x 64 dims) through it, loading the next stage with
 // 16-byte loads while the current one is scored, so global latency hides
@@ -54,11 +59,11 @@
 // keeps one query's list sorted, and a per-list threshold rejects almost
 // every candidate with one compare.
 //
-// The binary flavour moves 1/16 of the bf16 corpus bytes (8 B a row at
-// d = 64) through the same scoring loop, so it is arithmetic-bound like the
-// fold; it reads the row-major store with 4-byte loads (one word a thread
-// a stage), which any W = ceil(d/32) keeps aligned, so no layout change is
-// needed to serve d = 48 or d = 384.
+// The exact binary flavour moves 1/16 of the bf16 corpus bytes (8 B a row
+// at d = 64) through the same scoring loop, so it is arithmetic-bound like
+// the rest; it reads the row-major store with 4-byte loads (one word a
+// thread a stage), which any W = ceil(d/32) keeps aligned, so no layout
+// change is needed to serve d = 48 or d = 384.
 //
 // Launch: one C function per kernel, plain C interface, loaded with ctypes.
 // Each runs on the caller's stream, allocates nothing, and returns
@@ -490,13 +495,13 @@ size_t lr_topk_partial_smem(int tq, int d, int k) {
 }
 
 // Returns a cudaError_t; -1 for a TQ the library was not built for or a
-// binary search that is not a fold. binary: c is the packed sign words
+// binary fold (fold_mma.cuh has it). binary: c is the packed sign words
 // [n, ceil(d/32)] and q is bf16.
 int lr_topk_partial(const void* q, const void* c, const float* csq, int nq,
                     int n, int d, int k, int bf16, int euclid, int fold,
                     int block_n, int slab_rows, int tq, int vec, int binary,
                     int* out_k, int* out_i, void* stream) {
-    if (binary && !fold) return -1;
+    if (binary && fold) return -1;
     const size_t smem = lr_topk_partial_smem(tq, d, k);
     dim3 grid((nq + tq - 1) / tq, (n + slab_rows - 1) / slab_rows);
     cudaStream_t st = (cudaStream_t)stream;
@@ -504,7 +509,7 @@ int lr_topk_partial(const void* q, const void* c, const float* csq, int nq,
                 block_n, slab_rows, vec, out_k, out_i
 #define LR_CASE(T)                                                   \
     if (tq == T)                                                     \
-        return binary ? launch_partial<T, true, true>(LR_ARGS)       \
+        return binary ? launch_partial<T, false, true>(LR_ARGS)      \
                : fold ? launch_partial<T, true, false>(LR_ARGS)      \
                       : launch_partial<T, false, false>(LR_ARGS);
     LR_CASE(32)

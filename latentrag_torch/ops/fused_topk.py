@@ -20,22 +20,25 @@ The port of the JAX package's ``ops/pallas_topk.py``:
   rescore of the winners (``pallas_binary_topk``, pallas_topk.py:404-508,
   which is also the name here for the transposed layout), and
   ``approx_binary_fused_topk`` is the binary store's stage 1 on the card,
-  planned by ``fold_plan`` as the float route is.
+  planned by ``fold_plan`` as the float route is; above the fold's 128
+  candidates it takes ``binary_exact_topk_raw``, the exact sign-dot search
+  (``ops/binary.py``'s ``binary_topk`` in a kernel), as the float route
+  takes the exact kernel.
 
-On a CUDA tensor ``fused_topk_raw`` and ``binary_fused_topk_raw`` launch
-the kernels of ``csrc/fused_topk.cu`` (a partial kernel per query tile and
-corpus slab, then a merge kernel across slabs) or raise; on a CPU tensor
-they run their plain versions, which repeat the JAX algorithm step by
-step, fold included. The fold over a bf16 store runs its own kernels,
-``csrc/fold_mma.cuh`` (tensor-core score tiles, batched list upkeep), which
-write the scores and ids themselves; fp32 stores keep the FMA flavour. The
-kernel sources say what bounds them on the H100 and what their designs do
-about that.
+On a CUDA tensor the raw functions launch the kernels of
+``csrc/fused_topk.cu`` (a partial kernel per query tile and corpus slab,
+then a merge kernel across slabs) or raise; on a CPU tensor they run their
+plain versions, which repeat the JAX algorithm step by step, fold
+included. The folds over a bf16 store and over the packed binary store run
+their own kernels, ``csrc/fold_mma.cuh`` (tensor-core score tiles, batched
+list upkeep), which write the scores and ids themselves; fp32 stores keep
+the FMA flavour. The kernel sources say what bounds them on the H100 and
+what their designs do about that.
 
 ``launches`` counts kernel launches per kernel (``fold``, ``exact``,
-``binary_fold``; a call that launches the partial and the merge kernel
-counts once); plain-version calls do not count. ``last_kernel`` names the
-C kernels the latest launch ran.
+``binary_fold``, ``binary_exact``; a call that launches the partial and
+the merge kernel counts once); plain-version calls do not count.
+``last_kernel`` names the C kernels the latest launch ran.
 """
 
 from __future__ import annotations
@@ -60,7 +63,7 @@ FOLD_OVERSAMPLE = 4  # candidates per wanted row on the approximate route
 
 _FM_TQ = 64  # queries per block of the bf16 fold kernel (FM_TQ)
 
-launches = {"fold": 0, "exact": 0, "binary_fold": 0}
+launches = {"fold": 0, "exact": 0, "binary_fold": 0, "binary_exact": 0}
 last_kernel: str | None = None
 
 
@@ -224,11 +227,11 @@ def _library() -> ctypes.CDLL:
     lib.lr_topk_merge.restype = i
     lib.lr_topk_merge.argtypes = [p, p] + [i] * 5 + [p, p, p]
     lib.lr_fold_mma_smem.restype = ctypes.c_size_t
-    lib.lr_fold_mma_smem.argtypes = [i, i]
+    lib.lr_fold_mma_smem.argtypes = [i, i, i]
     lib.lr_fold_mma_occupancy.restype = i
-    lib.lr_fold_mma_occupancy.argtypes = [i, i]
+    lib.lr_fold_mma_occupancy.argtypes = [i, i, i]
     lib.lr_fold_mma.restype = i
-    lib.lr_fold_mma.argtypes = [p, p, p] + [i] * 8 + [p, p, p, p]
+    lib.lr_fold_mma.argtypes = [p, p, p] + [i] * 9 + [p, p, p, p]
     lib.lr_error_string.restype = ctypes.c_char_p
     lib.lr_error_string.argtypes = [i]
     return lib
@@ -313,32 +316,34 @@ def _launch(queries, corpus, csq, *, d, k_eff, block_n, fold, euclid=False,
 
 
 @functools.cache
-def _fold_mma_slots(index: int, d: int, k: int) -> int:
-    """Resident blocks of the bf16 fold kernel the card holds at (d, k)."""
+def _fold_mma_slots(index: int, d: int, k: int, binary: bool) -> int:
+    """Resident blocks of the bf16 or binary fold kernel the card holds at
+    (d, k)."""
     lib = _library()
     with torch.cuda.device(index):
-        per_sm = lib.lr_fold_mma_occupancy(d, k)
+        per_sm = lib.lr_fold_mma_occupancy(d, k, int(binary))
     if per_sm < 0:
-        _check(lib, -per_sm, "bf16 fold kernel occupancy")
+        _check(lib, -per_sm, "fold kernel occupancy")
     if per_sm == 0:
         raise ValueError(
             f"d={d}, k={k} needs more shared memory than one block has "
-            f"({lib.lr_fold_mma_smem(d, k)} bytes)"
+            f"({lib.lr_fold_mma_smem(d, k, int(binary))} bytes)"
         )
     return per_sm * _sm_count(index)
 
 
-def _fold_mma(queries, corpus, csq, *, k_eff, block_n, euclid):
-    """The bf16 fold on the tensor cores (``csrc/fold_mma.cuh``): the
-    corpus in slabs of whole tiles, as many as fill the card's resident
-    block slots for the query tiles at hand; the kernels write the fp32
-    scores and int32 ids."""
+def _fold_mma(queries, corpus, csq, *, d, k_eff, block_n, euclid,
+              binary=False):
+    """The bf16 fold, or with ``binary`` the fold over packed sign words,
+    on the tensor cores (``csrc/fold_mma.cuh``): the corpus in slabs of
+    whole tiles, as many as fill the card's resident block slots for the
+    query tiles at hand; the kernels write the fp32 scores and int32 ids."""
     _require_contiguous(queries, corpus)
-    nq, d = queries.shape
+    nq = queries.shape[0]
     n = corpus.shape[0]
     dev = queries.device
     lib = _library()
-    slots = _fold_mma_slots(dev.index, d, k_eff)
+    slots = _fold_mma_slots(dev.index, d, k_eff, binary)
     n_tiles = -(-n // block_n)
     want = min(n_tiles, max(1, slots // -(-nq // _FM_TQ)))
     slab_rows = -(-n_tiles // want) * block_n
@@ -347,21 +352,22 @@ def _fold_mma(queries, corpus, csq, *, k_eff, block_n, euclid):
     ids = torch.empty((nq, k_eff), dtype=torch.int32, device=dev)
     part = (torch.empty((n_slabs, nq, k_eff), dtype=torch.int64, device=dev)
             if n_slabs > 1 else None)
-    # cp.async stages need 16-byte rows and an aligned base
-    vec = d % 8 == 0 and corpus.data_ptr() % 16 == 0
+    # bf16 cp.async stages need 16-byte rows and an aligned base (the
+    # binary stages move 4-byte words)
+    vec = not binary and d % 8 == 0 and corpus.data_ptr() % 16 == 0
     with torch.cuda.device(dev):
         code = lib.lr_fold_mma(
             queries.data_ptr(), corpus.data_ptr(),
             csq.data_ptr() if csq is not None else None,
             nq, n, d, k_eff, int(euclid), block_n, slab_rows, int(vec),
-            part.data_ptr() if part is not None else None,
+            int(binary), part.data_ptr() if part is not None else None,
             scores.data_ptr(), ids.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _check(lib, code, "bf16 fold kernel")
+    _check(lib, code, "binary fold kernel" if binary else "bf16 fold kernel")
     global last_kernel
-    last_kernel = "fold_mma_kernel" + ("+fold_merge_kernel"
-                                       if n_slabs > 1 else "")
+    last_kernel = ("fold_mma_kernel<bin>" if binary else "fold_mma_kernel") + (
+        "+fold_merge_kernel" if n_slabs > 1 else "")
     return scores, ids
 
 
@@ -370,8 +376,8 @@ def _fused_topk_raw_cuda(queries, corpus, corpus_sq, k_eff, euclid, mode,
     d = queries.shape[1]
     csq = _corpus_sq(corpus, corpus_sq).contiguous() if euclid else None
     if mode == "fold" and corpus.dtype == torch.bfloat16:
-        out = _fold_mma(queries, corpus, csq, k_eff=k_eff, block_n=block_n,
-                        euclid=euclid)
+        out = _fold_mma(queries, corpus, csq, d=d, k_eff=k_eff,
+                        block_n=block_n, euclid=euclid)
         launches["fold"] += 1
         return out
     # 16-byte corpus loads need whole 64-dim stages and an aligned base
@@ -502,7 +508,8 @@ def approx_fused_topk(
 # ---------------------------------------------------------------- binary
 
 
-def _validate_binary(queries, packed, d, k, block_n):
+def _validate_binary(queries, packed, d, k, block_n=_LANES,
+                     max_k=FOLD_MAX_K, what="the binary fold"):
     if block_n > (1 << _IDX_BITS) or block_n % _LANES:
         raise ValueError(
             f"block_n must be <= {1 << _IDX_BITS} and a multiple of {_LANES}"
@@ -524,10 +531,8 @@ def _validate_binary(queries, packed, d, k, block_n):
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     k_eff = min(k, n)
-    if k_eff > FOLD_MAX_K:
-        raise ValueError(
-            f"the binary fold supports k <= {FOLD_MAX_K} (got {k_eff})"
-        )
+    if k_eff > max_k:
+        raise ValueError(f"{what} supports k <= {max_k} (got {k_eff})")
     return k_eff
 
 
@@ -562,11 +567,11 @@ def binary_fused_topk_raw(
     Returns (19-bit-quantized sign-dot scores [Q, k] f32, ids [Q, k] i32):
     the fold keys mapped back to fp32. k clips to N and must be <= 128.
 
-    On a CUDA tensor this launches the binary flavour of the partial
-    kernel in ``csrc/fused_topk.cu`` (the corpus unpacks to +-1 in shared
-    memory, so neither the [Q, N] scores nor an unpacked corpus ever
-    exists in device memory) or raises; on a CPU tensor it runs
-    ``binary_fused_topk_raw_reference``."""
+    On a CUDA tensor this launches the binary fold of
+    ``csrc/fold_mma.cuh`` (each stage of sign words unpacks to +-1 bf16 in
+    shared memory for the tensor cores, so neither the [Q, N] scores nor
+    an unpacked corpus ever exists in device memory) or raises; on a CPU
+    tensor it runs ``binary_fused_topk_raw_reference``."""
     k_eff = _validate_binary(queries, packed, d, k, block_n)
     if queries.device.type == "cpu":
         return binary_fused_topk_raw_reference(queries, packed, d=d, k=k,
@@ -574,9 +579,36 @@ def binary_fused_topk_raw(
     if queries.device.type != "cuda":
         raise ValueError(f"unsupported device {queries.device}")
     q = queries.to(torch.bfloat16).contiguous()
-    out_k, out_i = _launch(q, packed, None, d=d, k_eff=k_eff,
-                           block_n=block_n, fold=True, binary=True)
+    out = _fold_mma(q, packed, None, d=d, k_eff=k_eff, block_n=block_n,
+                    euclid=False, binary=True)
     launches["binary_fold"] += 1
+    return out
+
+
+def binary_exact_topk_raw(
+    queries: torch.Tensor, packed: torch.Tensor, *, d: int, k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact packed-binary top-k: (sign-dot scores [Q, k] f32, ids [Q, k]
+    i32) against the bf16-rounded queries, best first, ties to the lower
+    row. k clips to N and must be <= 2048.
+
+    On a CUDA tensor this launches the exact binary flavour of the partial
+    kernel in ``csrc/fused_topk.cu`` (``partial_kernel<TQ, false, true>``,
+    the slab merge after it) or raises; on a CPU tensor it runs its plain
+    version, ``ops.binary.binary_topk``."""
+    from .binary import binary_topk
+
+    k_eff = _validate_binary(queries, packed, d, k, max_k=EXACT_MAX_K,
+                             what="the exact binary search")
+    if queries.device.type == "cpu":
+        s, i = binary_topk(queries, packed, d, k_eff)
+        return s, i.to(torch.int32)
+    if queries.device.type != "cuda":
+        raise ValueError(f"unsupported device {queries.device}")
+    q = queries.to(torch.bfloat16).contiguous()
+    out_k, out_i = _launch(q, packed, None, d=d, k_eff=k_eff,
+                           block_n=_EXACT_SLAB_UNIT, fold=False, binary=True)
+    launches["binary_exact"] += 1
     return _unmonotone_f32(out_k), out_i
 
 
@@ -625,17 +657,13 @@ def approx_binary_fused_topk(
     """The binary store's stage 1 on the card (the part XLA's
     ``approx_max_k`` played on the TPU): the binary fold at the tile width
     and candidate count ``fold_plan`` sets, the candidates rescored to
-    exact sign-dots, the best k kept. The fold holds at most 128
-    candidates and there is no exact binary kernel, so k above 128
-    raises (the store asks for binary_oversample x k)."""
+    exact sign-dots, the best k kept. k above the fold's 128 candidates
+    (the store asks for binary_oversample x k) takes the exact binary
+    search, whose scores are already exact; above 2048 it raises."""
     n = packed.shape[0]
     k_eff = min(k, n)
     if k_eff > FOLD_MAX_K:
-        raise ValueError(
-            f"the binary store's stage 1 on CUDA takes at most {FOLD_MAX_K} "
-            f"candidates (asked for {k_eff}); lower top_k or "
-            "retrieval.binary_oversample"
-        )
+        return binary_exact_topk_raw(queries, packed, d=d, k=k_eff)
     block_n, cand = fold_plan(n, k_eff, recall_target)
     _, idx = binary_fused_topk_raw(queries, packed, d=d, k=cand,
                                    block_n=block_n)

@@ -220,8 +220,104 @@ def test_approx_binary_route_recall(rng):
     # score multisets: the route finds the exact top-80 scores
     match = np.mean(np.sort(s1.numpy(), 1) == np.sort(s0.numpy(), 1))
     assert match >= 0.99
-    with pytest.raises(ValueError, match="at most 128"):
-        ft.approx_binary_fused_topk(qt, packed, d=64, k=129)
+    # above the fold's 128 candidates the route is the exact search, up to
+    # the exact kernel's 2048
+    s2, i2 = ft.approx_binary_fused_topk(qt, packed, d=64, k=129)
+    s3, i3 = tb.binary_topk(qt, packed, 64, 129)
+    assert i2.dtype == torch.int32 and torch.equal(i2, i3.to(torch.int32))
+    assert torch.equal(s2, s3)
+    with pytest.raises(ValueError, match="k <= 2048"):
+        ft.approx_binary_fused_topk(qt, packed, d=64, k=2049)
+
+
+@pytest.mark.parametrize("k", [160, 300])
+@pytest.mark.parametrize("d", [64, 48])
+def test_approx_binary_route_above_128_matches_jax(rng, d, k):
+    """The binary store's stage 1 at ok = binary_oversample x k > 128 (k=20
+    at 8x): the route gives the plain exact search's ids and scores, which
+    are the JAX package's exact sign-dot top-k (``binary_topk`` at
+    recall_target=1.0; the store calls it at dense.py:1172)."""
+    x, q = _unit(rng, 3000, d), rng.standard_normal((16, d)).astype(np.float32)
+    packed = tb.binary_quantize(torch.from_numpy(x))
+    qt = torch.from_numpy(q)
+    s_r, i_r = ft.approx_binary_fused_topk(qt, packed, d=d, k=k)
+    s_p, i_p = tb.binary_topk(qt, packed, d, k)
+    np.testing.assert_array_equal(i_r.numpy(), i_p.numpy())
+    np.testing.assert_array_equal(s_r.numpy(), s_p.numpy())
+    s_j, i_j = jb.binary_topk(q, jb.binary_quantize(x), d=d, k=k,
+                              recall_target=1.0)
+    # sign-dots tie where rows share their bits: ids on >= 99 % of slots,
+    # scores as multisets
+    assert np.mean(i_r.numpy() == np.asarray(i_j)) >= 0.99
+    np.testing.assert_allclose(np.sort(s_r.numpy(), 1),
+                               np.sort(np.asarray(s_j), 1), atol=1e-5)
+    assert bool((s_r[:, :-1] >= s_r[:, 1:]).all())
+
+
+def test_binary_exact_raw_plain_version(rng):
+    """On a CPU tensor the exact binary entry is ``binary_topk`` with int32
+    ids; k clips to N and above 2048 it raises."""
+    x = _unit(rng, 40, 48)
+    packed = tb.binary_quantize(torch.from_numpy(x))
+    q = torch.from_numpy(x[:3])
+    s, i = ft.binary_exact_topk_raw(q, packed, d=48, k=50)
+    assert s.shape == (3, 40) and i.dtype == torch.int32
+    assert (i[:, 0] == torch.arange(3, dtype=torch.int32)).all()
+    with pytest.raises(ValueError, match="exact binary search supports k <= 2048"):
+        ft.binary_exact_topk_raw(q, torch.zeros((3000, 2), dtype=torch.int32),
+                                 d=48, k=2049)
+
+
+def _stage_unpack_mirror(words: np.ndarray, d: int) -> np.ndarray:
+    """numpy mirror of the binary fold's stage (csrc/fold_mma.cuh:
+    fm_load_words, fm_unpack, fm_pm1x2): per 64-dim stage, row r's two
+    words (0 past the row's last word), chunk ch of 8 dims = byte ch & 3 of
+    word ch >> 2, each pair of bits one word of two bf16 (bit 0 in the low
+    half; set -> 0x3F80, clear -> 0xBF80). Returns the bf16 bits
+    [N, stages x 64] as uint16."""
+    n, w = words.shape
+    n_dch = -(-d // 64)
+    out = np.empty((n, 64 * n_dch), np.uint16)
+    for dci in range(n_dch):
+        for ch in range(8):
+            wi = 2 * dci + (ch >> 2)
+            word = words[:, wi] if wi < w else np.zeros(n, np.uint32)
+            b = (word >> np.uint32(8 * (ch & 3))) & np.uint32(0xFF)
+            for p in range(4):
+                t = b >> np.uint32(2 * p)
+                pair = (np.uint32(0xBF80BF80)
+                        ^ ((t & np.uint32(1)) << np.uint32(15))
+                        ^ ((t & np.uint32(2)) << np.uint32(30)))
+                col = 64 * dci + 8 * ch + 2 * p
+                out[:, col] = (pair & np.uint32(0xFFFF)).astype(np.uint16)
+                out[:, col + 1] = (pair >> np.uint32(16)).astype(np.uint16)
+    return out
+
+
+@pytest.mark.parametrize("d", [64, 48, 384])
+def test_stage_unpack_mirror_matches_binary_unpack(rng, d):
+    """The kernel's unpack gives +-1.0 bf16 equal to ``binary_unpack`` on
+    dims < d; dims past d (pad bits, absent words) are finite (-1.0), and
+    meet zero query dims, so the stage's sign-dots are the exact ones."""
+    x = rng.standard_normal((130, d)).astype(np.float32)
+    packed = tb.binary_quantize(torch.from_numpy(x))
+    bits = _stage_unpack_mirror(_words(packed), d)
+    assert set(np.unique(bits).tolist()) <= {0x3F80, 0xBF80}
+    vals = (bits.astype(np.uint32) << np.uint32(16)).view(np.float32)
+    np.testing.assert_array_equal(vals[:, :d],
+                                  tb.binary_unpack(packed, d).numpy())
+    np.testing.assert_array_equal(vals[:, d:], -1.0)
+    q = rng.standard_normal((5, d)).astype(np.float32)
+    qb = torch.from_numpy(q).bfloat16().float().numpy()
+    q_pad = np.zeros((5, vals.shape[1]), np.float32)  # the query tile
+    q_pad[:, :d] = qb
+    want = qb @ np.where(x >= 0, 1.0, -1.0).astype(np.float32).T
+    np.testing.assert_allclose(q_pad @ vals.T, want, rtol=1e-6, atol=1e-6)
+    # the 1024 chunks of a stage land on distinct 16-byte slots of the
+    # swizzled [128][64] bf16 stage (fm_swz)
+    slots = {r * 128 + ((ch ^ (r & 7)) << 4)
+             for r in range(128) for ch in range(8)}
+    assert len(slots) == 1024 and max(slots) == 128 * 128 - 16
 
 
 def test_binary_wrapper_validates():
@@ -256,7 +352,7 @@ def _stores(rng, n=3000, d=64, oversample=8):
     return emb, j, t
 
 
-@pytest.mark.parametrize("k", [1, 10])
+@pytest.mark.parametrize("k", [1, 10, 20])
 def test_binary_store_matches_jax(rng, k):
     emb, j, t = _stores(rng)
     # the stores first: only the packed words live on the device, the

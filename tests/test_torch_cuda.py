@@ -104,7 +104,8 @@ def test_fold_routes_by_store_dtype(cuda):
     assert ft.last_kernel.startswith("fold_mma_kernel")
     ft.fused_topk_raw(q.bfloat16(), c.bfloat16(), k=10, mode="exact")
     assert ft.last_kernel.startswith("partial_kernel<")
-    assert ft.launches == {"fold": 2, "exact": 1, "binary_fold": 0}
+    assert ft.launches == {"fold": 2, "exact": 1, "binary_fold": 0,
+                           "binary_exact": 0}
 
 
 def test_launch_counts_and_validation(cuda):
@@ -113,7 +114,8 @@ def test_launch_counts_and_validation(cuda):
     ft.fused_topk(q, c, k=5, mode="fold")
     ft.fused_topk(q, c, k=5, mode="exact")
     ft.approx_fused_topk(q, c, k=5)
-    assert ft.launches == {"fold": 2, "exact": 1, "binary_fold": 0}
+    assert ft.launches == {"fold": 2, "exact": 1, "binary_fold": 0,
+                           "binary_exact": 0}
     with pytest.raises(ValueError, match="contiguous"):
         ft.fused_topk_raw(q, c.T.contiguous().T, k=5)
 
@@ -170,6 +172,7 @@ def test_binary_kernel_matches_plain(cuda, d, block_n):
     q, packed = _binary_data(cuda, d)
     s_k, i_k = ft.binary_fused_topk_raw(q, packed, d=d, k=16,
                                         block_n=block_n)
+    assert ft.last_kernel.startswith("fold_mma_kernel<bin>")
     s_p, i_p = ft.binary_fused_topk_raw_reference(q, packed, d=d, k=16,
                                                   block_n=block_n)
     same = i_k == i_p
@@ -186,9 +189,15 @@ def test_binary_launch_counts_and_store(cuda):
     ft.reset_launches()
     ft.binary_fused_topk(q, packed, d=64, k=5)
     ft.approx_binary_fused_topk(q, packed, d=64, k=40)
-    assert ft.launches == {"fold": 0, "exact": 0, "binary_fold": 2}
-    with pytest.raises(ValueError, match="at most 128"):
-        ft.approx_binary_fused_topk(q, packed, d=64, k=129)
+    assert ft.launches == {"fold": 0, "exact": 0, "binary_fold": 2,
+                           "binary_exact": 0}
+    # above 128 candidates the route takes the exact binary kernel
+    ft.approx_binary_fused_topk(q, packed, d=64, k=129)
+    assert ft.launches["binary_exact"] == 1
+    assert ft.last_kernel.startswith("partial_kernel<") and \
+        ",false,true>" in ft.last_kernel
+    with pytest.raises(ValueError, match="k <= 2048"):
+        ft.approx_binary_fused_topk(q, packed, d=64, k=2049)
 
     from latentrag_torch.retrieval import DenseRetriever
 
@@ -200,3 +209,67 @@ def test_binary_launch_counts_and_store(cuda):
     assert ft.launches["binary_fold"] == 2  # self-check and search
     assert (i[:, 0] == np.arange(20)).all() and np.isfinite(s).all()
     assert r._corpus.is_cuda and r._corpus.dtype == torch.int32
+
+
+@pytest.mark.parametrize("k", [10, 80, 128])
+@pytest.mark.parametrize("block_n", [128, 4096])
+@pytest.mark.parametrize("d", [64, 48, 384])
+def test_binary_fold_kernel_matches_plain(cuda, d, block_n, k):
+    """The binary fold on the tensor cores (fold_mma_kernel<E, true>).
+    N=5003 is not a multiple of 128; 100 queries leave a ragged query tile
+    with an idle warp pair; d=48 has pad bits in word 1, d=384 is 12 words
+    a row in six 64-dim stages."""
+    q, packed = _binary_data(cuda, d, nq=100, n=5003, seed=d + k)
+    s_k, i_k = ft.binary_fused_topk_raw(q, packed, d=d, k=k, block_n=block_n)
+    assert ft.last_kernel.startswith("fold_mma_kernel<bin>")
+    s_p, i_p = ft.binary_fused_topk_raw_reference(q, packed, d=d, k=k,
+                                                  block_n=block_n)
+    same = i_k == i_p
+    assert same.float().mean().item() >= 0.99
+    # equal ids carry the same 19-bit key, up to one key step
+    step = 2.0 ** -10 * s_p.abs() + 1e-6
+    assert bool(((s_k - s_p).abs() <= step)[same].all())
+
+
+def test_binary_fold_kernel_one_slab(cuda):
+    """One 4096-row tile: the partial kernel writes scores and ids itself."""
+    q, packed = _binary_data(cuda, 64, nq=70, n=3000)
+    _, i_k = ft.binary_fused_topk_raw(q, packed, d=64, k=40, block_n=4096)
+    assert ft.last_kernel == "fold_mma_kernel<bin>"
+    _, i_p = ft.binary_fused_topk_raw_reference(q, packed, d=64, k=40,
+                                                block_n=4096)
+    assert (i_k == i_p).float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize("k", [129, 300, 2048])
+@pytest.mark.parametrize("d", [64, 48])
+def test_binary_exact_kernel_matches_plain(cuda, d, k):
+    """The exact binary flavour (partial_kernel<TQ, false, true>) against
+    ``binary_topk``: ties to the lower row in both, fp32 sums in another
+    order."""
+    q, packed = _binary_data(cuda, d, nq=37, n=5003, seed=k)
+    s_k, i_k = ft.binary_exact_topk_raw(q, packed, d=d, k=k)
+    assert ft.last_kernel.startswith("partial_kernel<") and \
+        ",false,true>" in ft.last_kernel
+    s_p, i_p = tb.binary_topk(q, packed, d, k)
+    same = i_k == i_p
+    assert same.float().mean().item() >= 0.999
+    tol = 1e-4 + 1e-5 * s_p.abs()
+    assert bool(((s_k - s_p).abs() <= tol)[same].all())
+
+
+def test_binary_store_top_k_20_launches(cuda):
+    """top_k=20 asks stage 1 for 8 x 20 = 160 candidates: the search takes
+    the exact binary kernel, the self-check (k=4, 32 candidates) the fold."""
+    from latentrag_torch.retrieval import DenseRetriever
+
+    emb = torch.randn((3000, 64), generator=torch.Generator().manual_seed(2))
+    r = DenseRetriever(store_dtype="binary", device="cuda")
+    r.build(emb.numpy(), [str(i) for i in range(3000)], sanity_check=False)
+    ft.reset_launches()
+    assert r._self_check()
+    s, i = r.search(emb[:20].numpy(), 20)
+    assert ft.launches == {"fold": 0, "exact": 0, "binary_fold": 1,
+                           "binary_exact": 1}
+    assert i.shape == (20, 20) and (i[:, 0] == np.arange(20)).all()
+    assert np.isfinite(s).all()

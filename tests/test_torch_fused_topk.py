@@ -219,10 +219,13 @@ def test_cpu_path_counts_no_launches(rng):
     c = torch.from_numpy(rng.standard_normal((50, 8)).astype(np.float32))
     ft.fused_topk(q, c, k=4, mode="fold")
     ft.fused_topk(q, c, k=4, mode="exact")
-    packed = torch.zeros((50, 1), dtype=torch.int32)
+    packed = torch.zeros((200, 1), dtype=torch.int32)
     ft.binary_fused_topk(q, packed, d=8, k=4)
     ft.approx_binary_fused_topk(q, packed, d=8, k=4)
-    assert ft.launches == {"fold": 0, "exact": 0, "binary_fold": 0}
+    ft.approx_binary_fused_topk(q, packed, d=8, k=150)  # the exact search
+    ft.binary_exact_topk_raw(q, packed, d=8, k=4)
+    assert ft.launches == {"fold": 0, "exact": 0, "binary_fold": 0,
+                           "binary_exact": 0}
 
 
 @pytest.mark.parametrize("n,k,rt,want", [
