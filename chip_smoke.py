@@ -11,23 +11,29 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    and fold modes x cosine, euclidean, whitened mahalanobis x bf16 and fp32
    stores, at the reference config (Q=2000, N=315, d=64, k=10), at
    Q=1024, N=1,000,000, d=64, k=10, at a ragged Q=37, N=5003, d=384 with
-   k in {1, 64, 128}, and exact mode at k=300, and the fold as the main
-   path plans it (Q=2000, N=2000, 128-row tiles, 40 candidates); each
+   k in {1, 64, 128}, and exact mode at k=300, the fold as the main
+   path plans it (Q=2000, N=2000, 128-row tiles, 40 candidates), and exact
+   mode at the main path's top_k=150 shape (Q=2000, N=1997, k=150); each
    check also holds that the C kernel that ran is the one the store's
-   dtype routes to (bf16 folds: fold_mma_kernel);
+   dtype routes to (bf16: fold_mma_kernel and exact_mma_kernel, fp32:
+   partial_kernel);
 2b. holds the binary fold kernel (tensor cores, ``fold_mma_kernel<bin>``)
    against its plain version: the reference and 1M shapes at d=64 and the
    ragged shape at d=384 and d=48 (pad bits), and the binary main path's
    own (Q=2000, N=1997, d=64), k in {10, 80, 128}, at block_n 4096 and at
    ``fold_plan``'s width; then the exact binary kernel
-   (``partial_kernel<TQ,false,true>``, past 128 candidates) against
-   ``binary_topk`` at k from 129 to 2048, at the main path's shape at its
-   k=160 (four slabs and the merge); each check holds which C kernel ran;
+   (``exact_mma_kernel<bin>``, past 128 candidates) against ``binary_topk``
+   at k from 129 to 2048, at the main path's shape at its k=160; each
+   check holds which C kernel ran;
 3. drives the main path through ``latentrag_torch.main.main`` at the full
    MiniLM-L6 width in bf16 with a seeded 384->512->64 VAE: synthetic data,
    2000 queries, a bf16 cosine store, top_k=10, kernel=auto; checks that the
-   fused kernels launched during that run, then runs the same pipeline with
-   kernel=xla_exact (matmul + torch.topk, the oracle) and compares;
+   fold kernel served the search and the self-check and the exact kernel
+   did not launch, runs it once more in the same process (its search time
+   warm), then runs the same pipeline with kernel=xla_exact (matmul +
+   torch.topk, the oracle) and compares; then both again at top_k=150,
+   whose search the bf16 exact kernel serves (the instance phase 2 checked
+   at that shape);
 3b. drives the same entry point with ``retrieval.store_dtype=binary`` and
    checks that the binary kernel launched (self-check and search); on the
    same latents, the cascade with the kernel as stage 1 and with its plain
@@ -36,17 +42,20 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    serves;
 3c. builds a binary ``DenseRetriever`` over 1M seeded unit vectors (d=64),
    searches 1024 queries at k=10, and holds the same kernel-vs-plain
-   agreement; Recall@10 against exact fp32 search is reported;
+   agreement; Recall@10 against exact fp32 search is reported; then at
+   top_k=300, whose 2400 candidates take the blocked route;
 4. times each kernel, its plain version and torch.matmul + torch.topk at
    the kernel call's k (a yardstick the port never calls) with CUDA
    events, beside the bound, at the reference, the main path's own
    (Q=2000, N=1997, fold only) and the 1M shapes, and kernel 1's fp32
    flavour at the reference and 1M shapes; each record names the C
-   kernels that ran;
+   kernels that ran; the exact kernel at k=10 and k=160, with a profiler
+   device split;
 4b. the same for the binary fold kernel at the reference and 1M shapes
    (the yardstick reads the corpus pre-unpacked to +-1 bf16, 16x the
    bytes) with a profiler device split, the exact binary kernel at k=160
-   there, and the fold kernel alone over 100M packed rows;
+   there (split too), the blocked route at 2400 candidates over 1M, and
+   the fold kernel alone over 100M packed rows;
 5. prints a ``kernels`` JSON line and, last, the device line.
 
 Every check that fails exits non-zero. Without CUDA, or without the
@@ -136,13 +145,16 @@ def check_kernels(torch, failures: list) -> dict:
 
     worst = {"fold": 0.0, "exact": 0.0}
     # (label, Q, N, d, ks, fold tile width); "main_plan" is the fold as the
-    # main path's approximate route runs it (ft.fold_plan at N=2000, k=10)
+    # main path's approximate route runs it (ft.fold_plan at N=2000, k=10),
+    # "main_exact" the exact kernel as the main path at top_k=150 runs it
+    # (2000 queries over its 1997 unique contexts)
     shapes = [
         ("reference", 2000, 315, 64, [10], 4096),
         ("1m", 1024, 1_000_000, 64, [10], 4096),
         ("ragged", 37, 5003, 384, [1, 64, 128], 4096),
         ("exact_k300", 37, 5003, 384, [300], 4096),
         ("main_plan", 2000, 2000, 64, [40], 128),
+        ("main_exact", 2000, 1997, 64, [150], 4096),
     ]
     seed = 0
     for label, nq, n, d, ks, block_n in shapes:
@@ -176,10 +188,11 @@ def check_kernels(torch, failures: list) -> dict:
                                "store": dname, "mode": mode, "k": k,
                                "block_n": block_n, "c_kernel": ran,
                                "id_match": id_match, "max_abs_err": max_err}
-                        # bf16 folds run the tensor-core kernel, all
-                        # else partial_kernel
-                        want = ("fold_mma_kernel" if mode == "fold"
-                                and dname == "bfloat16" else "partial_kernel<")
+                        # bf16 stores run the tensor-core kernels, fp32
+                        # stores partial_kernel
+                        want = ("partial_kernel<" if dname == "float32"
+                                else "fold_mma_kernel" if mode == "fold"
+                                else "exact_mma_kernel")
                         ok = ran.startswith(want)
                         if mode == "exact":
                             tol = EXACT_SCORE_ATOL + EXACT_SCORE_RTOL * s_p.abs()
@@ -193,6 +206,9 @@ def check_kernels(torch, failures: list) -> dict:
                             ok = ok and id_match >= FOLD_ID_MATCH and (
                                 k != 10 or recall >= FOLD_RECALL)
                         worst[mode] = max(worst[mode], max_err)
+                        if (label, metric, dname) == (
+                                "main_exact", "cosine", "bfloat16"):
+                            worst["main_exact_kernel"] = ran
                         rec["ok"] = ok
                         record("kernel_check", **rec)
                         if not ok:
@@ -245,10 +261,12 @@ def run_main(torch, workdir: str, kernel: str,
     return res
 
 
-def check_main_path(torch, failures: list) -> tuple[dict, dict]:
+def check_main_path(torch, failures: list,
+                    exact_kernel: str) -> tuple[dict, dict, dict]:
     """Phase 3: the entry point at full MiniLM-L6 width; returns the fused
-    kernels' launch counts from the kernel=auto run and the oracle's
-    result."""
+    kernels' launch counts from the kernel=auto runs at top_k=10 and
+    top_k=150, and the top_k=10 oracle's result. ``exact_kernel`` names
+    the C kernels phase 2 checked at the top_k=150 search's shape."""
     import numpy as np
 
     from latentrag_torch.ops import fused_topk as ft
@@ -258,18 +276,26 @@ def check_main_path(torch, failures: list) -> tuple[dict, dict]:
         ft.reset_launches()
         res = run_main(torch, wd, "auto")
         main_launches = dict(ft.launches)
+        again = run_main(torch, wd, "auto")  # the same run, warm
         oracle = run_main(torch, wd, "xla_exact")
         encode_breakdown(torch, wd)
-    ds = np.asarray(res["doc_scores"])
-    if ds.shape != (res["n_queries"], 10) or not np.isfinite(ds).all():
-        failures.append(f"doc_scores shape {ds.shape} or non-finite values")
+        # top_k=150: past the fold's 128, the bf16 exact kernel's search
+        ft.reset_launches()
+        res150 = run_main(torch, wd, "auto", top_k=150)
+        launches150 = dict(ft.launches)
+        ran150 = ft.last_kernel
+        oracle150 = run_main(torch, wd, "xla_exact", top_k=150)
+    for r, k in ((res, 10), (res150, 150)):
+        ds = np.asarray(r["doc_scores"])
+        if ds.shape != (r["n_queries"], k) or not np.isfinite(ds).all():
+            failures.append(f"doc_scores at top_k={k}: shape {ds.shape} or "
+                            "non-finite values")
     if res["dim_in"] != 384 or res["dim_out"] != 64:
         failures.append(f"dims {res['dim_in']}->{res['dim_out']}")
-    a, b = res["retrieved_doc_ids"], oracle["retrieved_doc_ids"]
-    slots = sum(len(r) for r in b)
-    agree = sum(
-        sum(1 for x, y in zip(ra, rb) if x == y) for ra, rb in zip(a, b)
-    ) / max(slots, 1)
+    agree = slot_agreement(res["retrieved_doc_ids"],
+                           oracle["retrieved_doc_ids"])
+    agree150 = slot_agreement(res150["retrieved_doc_ids"],
+                              oracle150["retrieved_doc_ids"])
     deltas = {
         m: abs(res["retrieval_metrics"][m]["mean"]
                - oracle["retrieval_metrics"][m]["mean"])
@@ -281,6 +307,7 @@ def check_main_path(torch, failures: list) -> tuple[dict, dict]:
         metrics={m: v["mean"] for m, v in res["retrieval_metrics"].items()},
         timings_s=res["timings"], wall_s=res["wall_s"],
         launches=main_launches,
+        second_run_search_s=again["timings"]["search_s"],
     )
     record(
         "main_path_oracle", kernel="xla_exact",
@@ -288,15 +315,33 @@ def check_main_path(torch, failures: list) -> tuple[dict, dict]:
         timings_s=oracle["timings"], doc_id_agreement=agree,
         metric_deltas=deltas,
     )
-    if main_launches["fold"] < 1:
-        failures.append("the fold kernel did not launch on the main path")
-    if main_launches["exact"] < 1:
-        failures.append("the exact kernel (self-check) did not launch")
+    record(
+        "main_path_top_k_150", launches=launches150, c_kernel=ran150,
+        metrics={m: v["mean"] for m, v in res150["retrieval_metrics"].items()},
+        oracle_metrics={m: v["mean"] for m, v in
+                        oracle150["retrieval_metrics"].items()},
+        timings_s=res150["timings"], oracle_timings_s=oracle150["timings"],
+        doc_id_agreement=agree150,
+    )
+    # the self-check searches as the queries do: the fold serves both
+    if main_launches["fold"] < 2:
+        failures.append("the fold kernel did not serve the main path's "
+                        f"search and self-check: {main_launches}")
+    if main_launches["exact"] != 0:
+        failures.append(f"the exact kernel launched at top_k=10: "
+                        f"{main_launches}")
     if agree < MAIN_DOC_AGREE:
         failures.append(f"doc id agreement {agree} < {MAIN_DOC_AGREE}")
     if max(deltas.values()) > MAIN_METRIC_TOL:
         failures.append(f"metric deltas {deltas} > {MAIN_METRIC_TOL}")
-    return main_launches, oracle
+    if launches150["exact"] < 1 or ran150 != exact_kernel:
+        failures.append(f"the bf16 exact kernel phase 2 checked "
+                        f"({exact_kernel}) did not serve top_k=150: "
+                        f"{launches150}, last kernel {ran150}")
+    if agree150 < MAIN_DOC_AGREE:
+        failures.append(f"top_k=150 doc id agreement {agree150} < "
+                        f"{MAIN_DOC_AGREE}")
+    return main_launches, oracle, launches150
 
 
 def encode_breakdown(torch, workdir: str) -> None:
@@ -395,25 +440,36 @@ def bound(nq, n, d, k, dname) -> tuple[float, str]:
     return by_ops * 1e3, "operations"
 
 
+def blocks_per_sm(ft, kernel: str, dev: int, d: int, k: int,
+                  binary: bool) -> int:
+    """Resident blocks an SM of the fold or exact tensor-core kernel at
+    (d, k)."""
+    slots = ft._fold_mma_slots if kernel == "fold" else ft._exact_mma_slots
+    return slots(dev, d, k, binary) // ft._sm_count(dev)
+
+
 def time_kernels(torch) -> dict:
     """Phase 4: kernel, plain and library times, bf16 cosine store (the
     main path's), at the reference shape, the main path's own (2000
     queries over its 1997 unique contexts; fold only) and 1M. The fold
     runs as the approximate route plans it (``ft.fold_plan``: tile width
-    and 4x candidates at recall_target 0.99); the exact kernel at k=10.
-    The library call is timed beside each kernel call at that call's k."""
+    and 4x candidates at recall_target 0.99); the exact kernel at k=10 and
+    at k=160 (a float store's search past the fold's 128). The library
+    call is timed beside each kernel call at that call's k; each
+    tensor-core call also gets a profiler device split."""
     from latentrag_torch.ops import fused_topk as ft
 
     out = {}
     for label, nq, n, d, modes in (
-            ("reference", 2000, 315, 64, ("fold", "exact")),
+            ("reference", 2000, 315, 64, ("fold", "exact", "exact_k160")),
             ("main_plan", 2000, 1997, 64, ("fold",)),
-            ("1m", 1024, 1_000_000, 64, ("fold", "exact"))):
-        k = 10
+            ("1m", 1024, 1_000_000, 64, ("fold", "exact", "exact_k160"))):
         q, c = make_case(torch, "cosine", torch.bfloat16, nq, n, d, 99)
-        block_n, cand = ft.fold_plan(n, k, 0.99)
-        for mode in modes:
-            kk, bn = (cand, block_n) if mode == "fold" else (k, 4096)
+        block_n, cand = ft.fold_plan(n, 10, 0.99)
+        for case in modes:
+            mode = "fold" if case == "fold" else "exact"
+            kk, bn = {"fold": (cand, block_n), "exact": (10, 4096),
+                      "exact_k160": (160, 4096)}[case]
             lib_ms = time_ms(torch, lambda: torch.topk(
                 torch.matmul(q, c.T).float(), kk, dim=1))
             kern = time_ms(torch, lambda: ft.fused_topk_raw(
@@ -428,16 +484,16 @@ def time_kernels(torch) -> dict:
                    "c_kernel": ran, "ms": kern, "plain_ms": plain,
                    "library_ms": lib_ms, "library_k": kk, "bound_ms": b_ms,
                    "bound_by": b_by}
-            if mode == "fold":  # device ms of each kernel the call launches
-                rec["device_ms"] = device_split(torch, lambda: ft.fused_topk_raw(
-                    q, c, k=kk, metric="cosine", mode=mode, block_n=bn))
-                rec["blocks_per_sm"] = ft._fold_mma_slots(
-                    q.device.index, d, kk, False) // ft._sm_count(q.device.index)
+            # device ms of each kernel the call launches
+            rec["device_ms"] = device_split(torch, lambda: ft.fused_topk_raw(
+                q, c, k=kk, metric="cosine", mode=mode, block_n=bn))
+            rec["blocks_per_sm"] = blocks_per_sm(ft, mode, q.device.index,
+                                                 d, kk, False)
             record("kernel_time", **rec)
-            out[(label, mode)] = rec
+            out[(label, case)] = rec
         del q, c
         torch.cuda.empty_cache()
-    # kernel 1's fp32 flavour (fp32 stores: partial_kernel<TQ,true,false>)
+    # kernel 1's fp32 flavour (fp32 stores: partial_kernel<TQ,true>)
     # at the plan, beside the fp32 library call at the same k
     for label, nq, n in (("reference", 2000, 315), ("1m", 1024, 1_000_000)):
         q, c = make_case(torch, "cosine", torch.float32, nq, n, 64, 98)
@@ -532,8 +588,8 @@ def check_binary_kernel(torch, failures: list) -> dict:
             id_match = same.float().mean().item()
             err = (s_k - s_p).abs()[same]
             max_err = err.max().item() if err.numel() else 0.0
-            tol = EXACT_SCORE_ATOL + EXACT_SCORE_RTOL * s_p.abs()[same]
-            ok = (ran.startswith("partial_kernel<") and ",false,true>" in ran
+            tol = BIN_SCORE_ATOL + BIN_SCORE_RTOL * s_p.abs()[same]
+            ok = (ran.startswith("exact_mma_kernel<bin>")
                   and id_match >= EXACT_ID_MATCH and bool((err <= tol).all()))
             rec = {"shape": label, "Q": nq, "N": n, "d": d, "k": k,
                    "k_eff": int(i_k.shape[1]), "c_kernel": ran,
@@ -621,6 +677,7 @@ def check_binary_main_path(torch, failures: list, oracle: dict,
         ft.reset_launches()
         res = run_main(torch, wd, "auto", store="binary", top_k=top_k)
         main_launches = dict(ft.launches)
+        ran = ft.last_kernel  # the search's stage 1 launched last
         # the same latents, through the port's own compressor
         cfg = apply_overrides(Config(), main_overrides(wd, "auto", "binary",
                                                        top_k))
@@ -650,7 +707,7 @@ def check_binary_main_path(torch, failures: list, oracle: dict,
         bf16_oracle_metrics={m: v["mean"] for m, v in
                              oracle["retrieval_metrics"].items()},
         timings_s=res["timings"], wall_s=res["wall_s"],
-        launches=main_launches,
+        launches=main_launches, c_kernel=ran,
         kernel_vs_plain_stage1_doc_agreement=agree,
         kernel_vs_plain_stage1_metric_deltas=deltas,
         rerun_vs_main_doc_agreement=slot_agreement(
@@ -659,13 +716,16 @@ def check_binary_main_path(torch, failures: list, oracle: dict,
     )
     # the self-check runs the fold; the search runs the fold up to 128
     # candidates and the exact binary kernel past them
-    want = ({"binary_fold": 1, "binary_exact": 1}
-            if r.binary_oversample * top_k > ft.FOLD_MAX_K
-            else {"binary_fold": 2})
+    exact = r.binary_oversample * top_k > ft.FOLD_MAX_K
+    want = {"binary_fold": 1, "binary_exact": 1} if exact else {
+        "binary_fold": 2}
     if any(main_launches[key] < n for key, n in want.items()):
         failures.append(
             f"binary main path at top_k={top_k} launched {main_launches} "
             f"(want at least {want}: self-check + search)")
+    if not (ran or "").startswith(
+            "exact_mma_kernel<bin>" if exact else "fold_mma_kernel<bin>"):
+        failures.append(f"binary main path at top_k={top_k} ran {ran}")
     if agree < BIN_DOC_AGREE:
         failures.append(f"binary stage-1 doc agreement {agree} < "
                         f"{BIN_DOC_AGREE}")
@@ -675,7 +735,9 @@ def check_binary_main_path(torch, failures: list, oracle: dict,
 
 
 def check_binary_capacity(torch, failures: list) -> None:
-    """Phase 3c: a binary DenseRetriever over 1M seeded unit vectors."""
+    """Phase 3c: a binary DenseRetriever over 1M seeded unit vectors, at
+    k=10 and at k=300 (2400 candidates: the blocked route)."""
+    from latentrag_torch.ops import fused_topk as ft
     from latentrag_torch.ops.topk import exact_topk
     from latentrag_torch.retrieval import DenseRetriever
 
@@ -706,6 +768,21 @@ def check_binary_capacity(torch, failures: list) -> None:
     if agree < BIN_DOC_AGREE:
         failures.append(f"1M binary stage-1 agreement {agree} < "
                         f"{BIN_DOC_AGREE}")
+    ft.reset_launches()
+    _, i300 = r.search(q, 300)
+    launches300 = dict(ft.launches)
+    split300 = search_split(torch, r, q, 300)
+    _, i300_plain = plain_cascade(torch, r, q, 300)
+    agree300 = slot_agreement(i300.tolist(), i300_plain.tolist())
+    record("binary_capacity_top_k_300", N=n, Q=nq, d=d, k=300,
+           candidates=min(r.binary_oversample * 300, n), **split300,
+           launches=launches300, kernel_vs_plain_stage1_agreement=agree300)
+    if launches300["binary_blocked"] < 1:
+        failures.append(f"the 1M binary store at top_k=300 did not take "
+                        f"the blocked route: {launches300}")
+    if agree300 < BIN_DOC_AGREE:
+        failures.append(f"1M binary top_k=300 stage-1 agreement {agree300} "
+                        f"< {BIN_DOC_AGREE}")
     del x, q, r
     torch.cuda.empty_cache()
 
@@ -729,7 +806,10 @@ def time_binary(torch) -> dict:
     10) and at k=10 with the 4096-row tile, with a profiler device split at
     the plan; the exact binary kernel at k=160 (the store's stage 1 at
     top_k=20) beside its plain version ``binary_topk`` and the yardstick at
-    that k; then the fold kernel alone over 100M rows."""
+    that k, with a device split; at 1M the blocked route at 2400
+    candidates (the store's stage 1 at top_k=300; itself plain PyTorch,
+    so its plain time is its own); then the fold kernel alone over 100M
+    rows."""
     from latentrag_torch.ops import binary as tb
     from latentrag_torch.ops import fused_topk as ft
 
@@ -758,8 +838,8 @@ def time_binary(torch) -> dict:
                 rec["device_ms"] = device_split(
                     torch, lambda: ft.binary_fused_topk_raw(
                         q, pk, d=d, k=kk, block_n=bn))
-                rec["blocks_per_sm"] = ft._fold_mma_slots(
-                    q.device.index, d, kk, True) // ft._sm_count(q.device.index)
+                rec["blocks_per_sm"] = blocks_per_sm(
+                    ft, "fold", q.device.index, d, kk, True)
             record("binary_kernel_time", **rec)
             out[(label, tag)] = rec
         kk = 160
@@ -775,9 +855,27 @@ def time_binary(torch) -> dict:
                "k": kk, "c_kernel": ran, "ms": kern, "plain_ms": plain,
                "library_ms": lib_ms, "library_k": kk,
                "library_reads_bytes_x": 16, "bound_ms": b_ms,
-               "bound_by": b_by}
+               "bound_by": b_by,
+               "device_ms": device_split(torch, lambda: ft.binary_exact_topk_raw(
+                   q, pk, d=d, k=kk)),
+               "blocks_per_sm": blocks_per_sm(ft, "exact", q.device.index, d,
+                                              min(kk, n), True)}
         record("binary_kernel_time", **rec)
         out[(label, "exact160")] = rec
+        if label == "1m":
+            kk = 2400
+            lib_ms = time_ms(torch, lambda: torch.topk(
+                torch.matmul(qb, pm1.T).float(), kk, dim=1), reps=5)
+            kern = time_ms(torch, lambda: ft.approx_binary_fused_topk(
+                q, pk, d=d, k=kk), reps=5, warmup=1)
+            b_ms, b_by = binary_bound(nq, n, d, kk)
+            rec = {"shape": label, "case": "blocked2400", "Q": nq, "N": n,
+                   "d": d, "k": kk, "c_kernel": None, "ms": kern,
+                   "plain_ms": kern, "library_ms": lib_ms, "library_k": kk,
+                   "library_reads_bytes_x": 16, "bound_ms": b_ms,
+                   "bound_by": b_by}
+            record("binary_kernel_time", **rec)
+            out[(label, "blocked2400")] = rec
         del q, pk, qb, pm1
         torch.cuda.empty_cache()
     nq, n = 1024, 100_000_000
@@ -832,9 +930,11 @@ def main() -> int:
     worst.update(check_binary_kernel(torch, failures))
     if failures:
         fail("; ".join(failures[:5]))
-    launches, oracle = check_main_path(torch, failures)
+    launches, oracle, launches150 = check_main_path(
+        torch, failures, worst.pop("main_exact_kernel"))
     if failures:
         fail("; ".join(failures))
+    launches["exact"] = launches150["exact"]  # the bf16 main at top_k=150
     launches["binary_fold"] = check_binary_main_path(
         torch, failures, oracle)["binary_fold"]
     if failures:
@@ -851,7 +951,7 @@ def main() -> int:
 
     kernels = []
     for mode, fn_line, source in (("fold", 162, "fold_mma.cuh"),
-                                  ("exact", 182, "fused_topk.cu")):
+                                  ("exact", 182, "exact_mma.cuh")):
         t = times[("reference", mode)]
         kernels.append({
             "name": f"fused_topk_{mode}",
@@ -884,7 +984,7 @@ def main() -> int:
     kernels.append({
         "name": "binary_exact_topk",
         "route": "cuda",
-        "source": "latentrag_torch/csrc/fused_topk.cu",
+        "source": "latentrag_torch/csrc/exact_mma.cuh",
         # the store's exact sign-dot stage 1 (latentrag_tpu/retrieval/
         # dense.py:1172), past the fold's 128 candidates
         "replaces": "latentrag_tpu/ops/binary.py:129",

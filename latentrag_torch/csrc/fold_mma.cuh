@@ -538,14 +538,14 @@ fold_mma_kernel(const __nv_bfloat16* __restrict__ qp,
     }
     for (int e = tid; e < FM_TQ * k; e += FM_THREADS) L[e] = EMPTY64;
     __syncthreads();
-    if (euclid && tid < FM_TQ) {  // |q|^2 of the stored bf16 values
-        float s = 0.f;
+    if (euclid && tid < FM_TQ) {  // |q|^2 of the stored bf16 values, dim
+        float s = 0.f;             // by dim, rounded as the plain version
         for (int dd = 0; dd < d; ++dd) {
             const unsigned short h = *reinterpret_cast<const unsigned short*>(
                 Qs + (dd >> 6) * FM_TQ * 128 + fm_swz(tid, (dd >> 3) & 7) +
                 2 * (dd & 7));
             const float x = __uint_as_float((unsigned)h << 16);
-            s += x * x;
+            s = __fadd_rn(s, __fmul_rn(x, x));
         }
         qsq[tid] = s;
     }

@@ -4,33 +4,37 @@
 //   fold_mma_kernel<E, false> (fold_mma.cuh) replaces _fold_kernel
 //                                  (pallas_topk.py:162-179, _fold_body :114-159)
 //                                  for bf16 stores, on the tensor cores;
-//   partial_kernel<TQ, FOLD=true,  BIN=false> replaces it for fp32 stores
-//   partial_kernel<TQ, FOLD=false, BIN=false> replaces _exact_kernel
-//                                  (pallas_topk.py:182-221)
+//   partial_kernel<TQ, FOLD=true>  replaces it for fp32 stores
+//   exact_mma_kernel<KP, false> (exact_mma.cuh) replaces _exact_kernel
+//                                  (pallas_topk.py:182-221) for bf16 stores,
+//                                  on the tensor cores
+//   partial_kernel<TQ, FOLD=false> replaces it for fp32 stores
 //   fold_mma_kernel<E, true>  (fold_mma.cuh) replaces _binary_fold_kernel
 //                                  (pallas_topk.py:354-401), on the tensor cores
-//   partial_kernel<TQ, FOLD=false, BIN=true>  replaces the exact sign-dot
+//   exact_mma_kernel<KP, true> (exact_mma.cuh) replaces the exact sign-dot
 //                                  search binary_topk (the JAX package's
 //                                  ops/binary.py:129) where the binary
 //                                  store's stage 1 asks for more candidates
 //                                  than the fold's 128 lanes hold
-//   merge_kernel                   has no TPU counterpart: the TPU grid ran the
-//                                  corpus tiles in order and carried the running
+//   merge_kernel                   partial_kernel's slab merge, with no TPU
+//                                  counterpart: the TPU grid ran the corpus
+//                                  tiles in order and carried the running
 //                                  top-k in VMEM scratch; here slabs run in
 //                                  parallel and this kernel merges their lists.
 //
 // What is computed (the TPU kernels' contract, not their block structure):
 //   score(q, c) = q.c                          (cosine / dot: inputs pre-normalized)
 //               = 2 q.c - |q|^2 - corpus_sq[c] (euclidean / mahalanobis on whitened
-//                                               inputs; |q|^2 from the stored values)
+//                                               inputs; |q|^2 from the stored values,
+//                                               dim by dim, rounded as row_sq)
 //   accumulated in fp32 from fp32 or bf16 inputs; the [Q, N] score matrix is
 //   never written to device memory.
 //   binary: score(q, c) = sum_{j<d} bf16(q_j) * (2 bit_j(c) - 1), accumulated
 //   in fp32 (pad bits past d never count), from a row-major store of packed
 //   sign words [N, ceil(d/32)] (bit j of word w <-> dim 32w + j). Each stage
-//   unpacks to +-1 in shared memory (fp32 here, bf16 in fold_mma.cuh), so the
-//   unpacked [N, d] corpus never exists in device memory either. Scores become order-preserving int32 keys
-//   (_monotone_i32). Rows >= n never win.
+//   unpacks to +-1 bf16 in shared memory (fold_mma.cuh), so the unpacked
+//   [N, d] corpus never exists in device memory either. Scores become
+//   order-preserving int32 keys (_monotone_i32). Rows >= n never win.
 //   exact: the top-k of (key desc, row asc) over all rows: ties go to the lower row.
 //   fold:  per aligned tile of block_n rows (block_n = 4096 by default), each of
 //          the 128 lanes (lane = column mod 128) keeps the max packed value
@@ -44,10 +48,11 @@
 //
 // Bound on the H100: at the main path's shapes (d = 64, k = 10) the work is
 // 2*Q*N*d operations against N*d*2 bytes of bf16 corpus, far above the card's
-// ridge point, so the limit is arithmetic. partial_kernel scores with
-// fp32 FMAs (67 TFLOP/s peak, not the 989 TFLOP/s of bf16 tensor cores);
-// the bf16 and binary folds have moved to mma.sync tiles (fold_mma.cuh), the
-// exact flavours are still to follow. What the design does about the bound it
+// ridge point, so the limit is arithmetic. partial_kernel scores fp32
+// stores with fp32 FMAs (67 TFLOP/s peak, not the 989 TFLOP/s of bf16
+// tensor cores), which keeps their scores exact fp32; bf16 and binary
+// stores run on mma.sync tiles (fold_mma.cuh, exact_mma.cuh). What the
+// design does about the bound it
 // has: each block keeps its query tile resident in shared memory and streams
 // corpus stages (128 rows x 64 dims) through it, loading the next stage with
 // 16-byte loads while the current one is scored, so global latency hides
@@ -58,12 +63,6 @@
 // lists live in shared memory (registers would spill at k = 128), one warp
 // keeps one query's list sorted, and a per-list threshold rejects almost
 // every candidate with one compare.
-//
-// The exact binary flavour moves 1/16 of the bf16 corpus bytes (8 B a row
-// at d = 64) through the same scoring loop, so it is arithmetic-bound like
-// the rest; it reads the row-major store with 4-byte loads (one word a
-// thread a stage), which any W = ceil(d/32) keeps aligned, so no layout
-// change is needed to serve d = 48 or d = 384.
 //
 // Launch: one C function per kernel, plain C interface, loaded with ctypes.
 // Each runs on the caller's stream, allocates nothing, and returns
@@ -154,11 +153,6 @@ __device__ void warp_consume(const int* ck, const int* ci, int ncand,
     }
 }
 
-__device__ __forceinline__ float load_elem(const void* p, size_t i, int bf16) {
-    if (bf16) return __bfloat162float(((const __nv_bfloat16*)p)[i]);
-    return ((const float*)p)[i];
-}
-
 // A stage is rows [t0, t0 + TN) x dims [d0, d0 + DCH) of the corpus, held
 // in shared memory transposed ([DCH][TN], fp32). The 4-column groups are
 // swizzled by (dd >> 3) & 7, so the loads' transposed stores and the score
@@ -167,104 +161,46 @@ __device__ __forceinline__ int cs_index(int dd, int r) {
     return dd * TN + ((((r >> 2) ^ ((dd >> 3) & 7))) << 2) + (r & 3);
 }
 
-// 16-byte loads of one stage into registers: bf16 4 per thread, fp32 8.
+// 16-byte loads of one fp32 stage into registers, 8 per thread.
 // Needs d % DCH == 0 and a 16-byte aligned corpus (the wrapper checks).
-__device__ __forceinline__ void stage_fetch(uint4 (&buf)[8], const void* cp,
-                                            int n, int d, int bf16, int t0,
-                                            int d0, int tid) {
+__device__ __forceinline__ void stage_fetch(uint4 (&buf)[8], const float* cp,
+                                            int n, int d, int t0, int d0,
+                                            int tid) {
     const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-    if (bf16) {
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-            const int v = tid + NTHREADS * u, r = v >> 3, j = v & 7;
-            const int row = t0 + r;
-            buf[u] = row < n ? __ldg(reinterpret_cast<const uint4*>(
-                         (const __nv_bfloat16*)cp + (size_t)row * d + d0 + 8 * j))
-                             : zero;
-        }
-    } else {
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-            const int v = tid + NTHREADS * u, r = v >> 4, j = v & 15;
-            const int row = t0 + r;
-            buf[u] = row < n ? __ldg(reinterpret_cast<const uint4*>(
-                         (const float*)cp + (size_t)row * d + d0 + 4 * j))
-                             : zero;
-        }
+    for (int u = 0; u < 8; ++u) {
+        const int v = tid + NTHREADS * u, r = v >> 4, j = v & 15;
+        const int row = t0 + r;
+        buf[u] = row < n ? __ldg(reinterpret_cast<const uint4*>(
+                     cp + (size_t)row * d + d0 + 4 * j))
+                         : zero;
     }
 }
 
 __device__ __forceinline__ void stage_commit(const uint4 (&buf)[8], float* Cs,
-                                             int bf16, int tid) {
-    if (bf16) {
+                                             int tid) {
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-            const int v = tid + NTHREADS * u, r = v >> 3, j = v & 7;
-            const unsigned w[4] = {buf[u].x, buf[u].y, buf[u].z, buf[u].w};
-#pragma unroll
-            for (int h = 0; h < 4; ++h) {  // bf16 is the top half of an fp32
-                Cs[cs_index(8 * j + 2 * h, r)] = __uint_as_float(w[h] << 16);
-                Cs[cs_index(8 * j + 2 * h + 1, r)] =
-                    __uint_as_float(w[h] & 0xFFFF0000u);
-            }
-        }
-    } else {
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-            const int v = tid + NTHREADS * u, r = v >> 4, j = v & 15;
-            Cs[cs_index(4 * j, r)] = __uint_as_float(buf[u].x);
-            Cs[cs_index(4 * j + 1, r)] = __uint_as_float(buf[u].y);
-            Cs[cs_index(4 * j + 2, r)] = __uint_as_float(buf[u].z);
-            Cs[cs_index(4 * j + 3, r)] = __uint_as_float(buf[u].w);
-        }
+    for (int u = 0; u < 8; ++u) {
+        const int v = tid + NTHREADS * u, r = v >> 4, j = v & 15;
+        Cs[cs_index(4 * j, r)] = __uint_as_float(buf[u].x);
+        Cs[cs_index(4 * j + 1, r)] = __uint_as_float(buf[u].y);
+        Cs[cs_index(4 * j + 2, r)] = __uint_as_float(buf[u].z);
+        Cs[cs_index(4 * j + 3, r)] = __uint_as_float(buf[u].w);
     }
 }
 
-// Binary stage: rows [t0, t0 + TN) x words [d0/32, d0/32 + 2), one 4-byte
-// word per thread (NTHREADS == 2 * TN); words past the row's last are 0
-// and only ever fill dims the score loop does not read.
-static_assert(NTHREADS == 2 * TN, "one packed word per thread per stage");
-static_assert(DCH == 64, "a stage spans two packed words");
-
-__device__ __forceinline__ void bin_fetch(uint4 (&buf)[8], const void* cp,
-                                          int n, int words, int t0, int d0,
-                                          int tid) {
-    const int row = t0 + (tid >> 1), w = (d0 >> 5) + (tid & 1);
-    buf[0].x = (row < n && w < words)
-                   ? __ldg((const unsigned*)cp + (size_t)row * words + w)
-                   : 0u;
-}
-
-__device__ __forceinline__ void bin_commit(const uint4 (&buf)[8], float* Cs,
-                                           int tid) {
-    const int r = tid >> 1, dd0 = (tid & 1) << 5;
-    const unsigned w = buf[0].x;
-#pragma unroll
-    for (int b = 0; b < 32; ++b)
-        Cs[cs_index(dd0 + b, r)] = ((w >> b) & 1u) ? 1.0f : -1.0f;
-}
-
-// Fetch one stage into registers, from the packed store (BIN) or with
-// 16-byte loads.
-template <bool BIN>
-__device__ __forceinline__ void fetch_stage(uint4 (&buf)[8], const void* cp,
-                                            int n, int d, int bf16, int t0,
-                                            int d0, int tid) {
-    if constexpr (BIN) bin_fetch(buf, cp, n, (d + 31) >> 5, t0, d0, tid);
-    else stage_fetch(buf, cp, n, d, bf16, t0, d0, tid);
-}
-
-// grid: (query tiles of TQ, corpus slabs of slab_rows rows). Each block
+// grid: (query tiles of TQ, corpus slabs of slab_rows rows); fp32 queries
+// and corpus. Each block
 // writes its queries' top-k of its slab to out[slab, q, :]. slab_rows is a
 // multiple of block_n in fold mode, so fold tiles never straddle slabs.
 // With vec set, the next stage's loads are in flight while this stage is
 // scored; otherwise (d not a multiple of DCH) each stage loads element by
-// element. BIN stages are always fetched ahead.
-template <int TQ, bool FOLD, bool BIN>
+// element.
+template <int TQ, bool FOLD>
 __global__ void __launch_bounds__(NTHREADS, 2)
-partial_kernel(const void* __restrict__ qp, const void* __restrict__ cp,
+partial_kernel(const float* __restrict__ qp, const float* __restrict__ cp,
                const float* __restrict__ csq, int nq, int n, int d, int k,
-               int bf16, int euclid, int block_n, int slab_rows, int vec,
+               int euclid, int block_n, int slab_rows, int vec,
                int* __restrict__ out_k, int* __restrict__ out_i) {
     extern __shared__ __align__(16) unsigned char smem[];
     float* QsT = (float*)smem;                // [d, TQ], query tile transposed
@@ -284,7 +220,7 @@ partial_kernel(const void* __restrict__ qp, const void* __restrict__ cp,
     for (int e = tid; e < TQ * d; e += NTHREADS) {
         const int qi = e / d, dd = e - qi * d;
         const int q = q0 + qi;
-        QsT[dd * TQ + qi] = q < nq ? load_elem(qp, (size_t)q * d + dd, bf16) : 0.f;
+        QsT[dd * TQ + qi] = q < nq ? qp[(size_t)q * d + dd] : 0.f;
     }
     for (int e = tid; e < TQ * k; e += NTHREADS) {
         LK[e] = EMPTY_KEY;
@@ -293,7 +229,8 @@ partial_kernel(const void* __restrict__ qp, const void* __restrict__ cp,
     __syncthreads();
     if (tid < TQ) {
         float s = 0.f;
-        for (int dd = 0; dd < d; ++dd) s += QsT[dd * TQ + tid] * QsT[dd * TQ + tid];
+        for (int dd = 0; dd < d; ++dd)  // rounded as the plain version
+            s = __fadd_rn(s, __fmul_rn(QsT[dd * TQ + tid], QsT[dd * TQ + tid]));
         qsq[tid] = s;
     }
 
@@ -313,10 +250,8 @@ partial_kernel(const void* __restrict__ qp, const void* __restrict__ cp,
 
     const int n_dch = (d + DCH - 1) / DCH;
     const int n_stages = row1 > row0 ? ((row1 - row0 + TN - 1) / TN) * n_dch : 0;
-    const bool staged = BIN || vec;
     uint4 buf[8];
-    if (staged && n_stages > 0)
-        fetch_stage<BIN>(buf, cp, n, d, bf16, row0, 0, tid);
+    if (vec && n_stages > 0) stage_fetch(buf, cp, n, d, row0, 0, tid);
     float acc[QPT][CPT];
 
     for (int st = 0; st < n_stages; ++st) {
@@ -330,23 +265,21 @@ partial_kernel(const void* __restrict__ qp, const void* __restrict__ cp,
                 for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
         }
         __syncthreads();  // the previous stage is done with Cs
-        if constexpr (BIN) {
-            bin_commit(buf, Cs, tid);
-        } else if (vec) {
-            stage_commit(buf, Cs, bf16, tid);
+        if (vec) {
+            stage_commit(buf, Cs, tid);
         } else {
             for (int e = tid; e < TN * dc; e += NTHREADS) {
                 const int r = e / dc, dd = e - r * dc;
                 const int row = t0 + r;
                 Cs[cs_index(dd, r)] =
-                    row < n ? load_elem(cp, (size_t)row * d + d0 + dd, bf16) : 0.f;
+                    row < n ? cp[(size_t)row * d + d0 + dd] : 0.f;
             }
         }
         __syncthreads();
-        if (staged && st + 1 < n_stages) {
+        if (vec && st + 1 < n_stages) {
             const int nsub = (st + 1) / n_dch;
-            fetch_stage<BIN>(buf, cp, n, d, bf16, row0 + nsub * TN,
-                             (st + 1 - nsub * n_dch) * DCH, tid);
+            stage_fetch(buf, cp, n, d, row0 + nsub * TN,
+                        (st + 1 - nsub * n_dch) * DCH, tid);
         }
         for (int dd = 0; dd < dc; ++dd) {
             const float4 cv = *reinterpret_cast<const float4*>(
@@ -471,18 +404,18 @@ merge_kernel(const int* __restrict__ pk, const int* __restrict__ pi, int S,
     }
 }
 
-template <int TQ, bool FOLD, bool BIN>
+template <int TQ, bool FOLD>
 static int launch_partial(dim3 grid, size_t smem, cudaStream_t st,
-                          const void* q, const void* c, const float* csq,
-                          int nq, int n, int d, int k, int bf16, int euclid,
+                          const float* q, const float* c, const float* csq,
+                          int nq, int n, int d, int k, int euclid,
                           int block_n, int slab_rows, int vec, int* ok,
                           int* oi) {
     cudaError_t e = cudaFuncSetAttribute(
-        partial_kernel<TQ, FOLD, BIN>,
+        partial_kernel<TQ, FOLD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    partial_kernel<TQ, FOLD, BIN><<<grid, NTHREADS, smem, st>>>(
-        q, c, csq, nq, n, d, k, bf16, euclid, block_n, slab_rows, vec, ok, oi);
+    partial_kernel<TQ, FOLD><<<grid, NTHREADS, smem, st>>>(
+        q, c, csq, nq, n, d, k, euclid, block_n, slab_rows, vec, ok, oi);
     return (int)cudaGetLastError();
 }
 
@@ -494,24 +427,22 @@ size_t lr_topk_partial_smem(int tq, int d, int k) {
            (size_t)tq * TN * 8 + (size_t)tq * k * 8;
 }
 
-// Returns a cudaError_t; -1 for a TQ the library was not built for or a
-// binary fold (fold_mma.cuh has it). binary: c is the packed sign words
-// [n, ceil(d/32)] and q is bf16.
-int lr_topk_partial(const void* q, const void* c, const float* csq, int nq,
-                    int n, int d, int k, int bf16, int euclid, int fold,
-                    int block_n, int slab_rows, int tq, int vec, int binary,
-                    int* out_k, int* out_i, void* stream) {
-    if (binary && fold) return -1;
+// fp32 queries and corpus (the bf16 and binary flavours are the mma
+// kernels'). Returns a cudaError_t; -1 for a TQ the library was not built
+// for.
+int lr_topk_partial(const float* q, const float* c, const float* csq, int nq,
+                    int n, int d, int k, int euclid, int fold, int block_n,
+                    int slab_rows, int tq, int vec, int* out_k, int* out_i,
+                    void* stream) {
     const size_t smem = lr_topk_partial_smem(tq, d, k);
     dim3 grid((nq + tq - 1) / tq, (n + slab_rows - 1) / slab_rows);
     cudaStream_t st = (cudaStream_t)stream;
-#define LR_ARGS grid, smem, st, q, c, csq, nq, n, d, k, bf16, euclid, \
-                block_n, slab_rows, vec, out_k, out_i
+#define LR_ARGS grid, smem, st, q, c, csq, nq, n, d, k, euclid, block_n, \
+                slab_rows, vec, out_k, out_i
 #define LR_CASE(T)                                                   \
     if (tq == T)                                                     \
-        return binary ? launch_partial<T, false, true>(LR_ARGS)      \
-               : fold ? launch_partial<T, true, false>(LR_ARGS)      \
-                      : launch_partial<T, false, false>(LR_ARGS);
+        return fold ? launch_partial<T, true>(LR_ARGS)               \
+                    : launch_partial<T, false>(LR_ARGS);
     LR_CASE(32)
     LR_CASE(16)
     LR_CASE(8)
@@ -540,3 +471,4 @@ const char* lr_error_string(int code) {
 }  // extern "C"
 
 #include "fold_mma.cuh"
+#include "exact_mma.cuh"

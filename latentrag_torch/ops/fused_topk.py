@@ -7,7 +7,8 @@ The port of the JAX package's ``ops/pallas_topk.py``:
   ``mode="fold"`` replaces ``_fold_kernel`` (pallas_topk.py:162-179) and
   returns 19-bit-quantized scores; ``mode="exact"`` replaces
   ``_exact_kernel`` (pallas_topk.py:182-221) and returns exact scores,
-  ties to the lower corpus row.
+  ties to the lower corpus row. On the card it takes k <= ``EXACT_MAX_K``
+  (the exact kernels' lists) and raises past it.
 * ``fused_topk`` is ``pallas_topk`` (pallas_topk.py:515-559): the raw
   search, then an fp32 rescore of the k winners and a stable sort.
 * ``approx_fused_topk`` is the approximate route on the card (the part
@@ -24,21 +25,40 @@ The port of the JAX package's ``ops/pallas_topk.py``:
   candidates it takes ``binary_exact_topk_raw``, the exact sign-dot search
   (``ops/binary.py``'s ``binary_topk`` in a kernel), as the float route
   takes the exact kernel.
+* Past ``EXACT_MAX_K`` (2048) the two approximate routes, and only they,
+  take a blocked search on any device: the corpus scored in blocks by
+  ``torch.matmul`` and each block's top k merged with the running list
+  (``ops.topk.exact_topk``; the binary store's ``ops.binary.binary_topk``),
+  so the [Q, N] score matrix never exists beyond one block. That is the
+  port of the JAX package's own route there, XLA's ``approx_max_k`` over a
+  ``dot_general`` outside any Pallas kernel (the JAX package's
+  ``ops/topk.py:209-277`` and ``ops/binary.py:151-177``). The route is
+  chosen by k, never by a failure; the kernels' own entries
+  (``fused_topk_raw(mode="exact")``, ``binary_exact_topk_raw``) raise past
+  it on the card.
 
 On a CUDA tensor the raw functions launch the kernels of
-``csrc/fused_topk.cu`` (a partial kernel per query tile and corpus slab,
-then a merge kernel across slabs) or raise; on a CPU tensor they run their
-plain versions, which repeat the JAX algorithm step by step, fold
-included. The folds over a bf16 store and over the packed binary store run
-their own kernels, ``csrc/fold_mma.cuh`` (tensor-core score tiles, batched
-list upkeep), which write the scores and ids themselves; fp32 stores keep
-the FMA flavour. The kernel sources say what bounds them on the H100 and
-what their designs do about that.
+``csrc/fused_topk.cu`` or raise; on a CPU tensor they run their plain
+versions, which repeat the JAX algorithm step by step, fold included.
+bf16 and packed binary stores run tensor-core kernels that write the
+scores and ids themselves: the folds in ``csrc/fold_mma.cuh``, the exact
+searches in ``csrc/exact_mma.cuh`` (batched list upkeep in both); fp32
+stores keep the FMA flavour (``partial_kernel`` per query tile and corpus
+slab, then ``merge_kernel``). The kernel sources say what bounds them on
+the H100 and what their designs do about that.
 
 ``launches`` counts kernel launches per kernel (``fold``, ``exact``,
-``binary_fold``, ``binary_exact``; a call that launches the partial and
-the merge kernel counts once); plain-version calls do not count.
-``last_kernel`` names the C kernels the latest launch ran.
+``binary_fold``, ``binary_exact``; a call that launches a partial and a
+merge kernel counts once) and the blocked route's calls on the card
+(``blocked``, ``binary_blocked``); plain-version calls and the blocked
+route on the CPU do not count. ``last_kernel`` names the C kernels the
+latest launch ran.
+
+Euclidean scores are 2 q.c - |q|^2 - |c|^2. Every kernel and the plain
+version sum |q|^2 in one order (``row_sq``: column by column from 0, each
+product and each sum rounded to fp32, no fused multiply-add), so the
+kernels' scores differ from the plain version's only by the order of the
+q.c sums.
 """
 
 from __future__ import annotations
@@ -54,7 +74,7 @@ _IDX_BITS = 13  # tile-local column bits => block_n <= 8192
 _IDX_MASK = (1 << _IDX_BITS) - 1
 _LANES = 128
 FOLD_MAX_K = _LANES
-EXACT_MAX_K = 2048  # list of 8 queries x 2048 x 8 B fits one block's shared memory
+EXACT_MAX_K = 2048  # the exact kernels' lists; the routes block past it
 _SMEM_LIMIT = 227 * 1024  # bytes of shared memory one H100 block may use
 _TQ_CHOICES = (32, 16, 8)
 _EXACT_SLAB_UNIT = 512  # exact slabs need no fold alignment
@@ -62,8 +82,13 @@ _DIM_STAGE = 64  # feature dims per shared-memory stage (DCH in the source)
 FOLD_OVERSAMPLE = 4  # candidates per wanted row on the approximate route
 
 _FM_TQ = 64  # queries per block of the bf16 fold kernel (FM_TQ)
+# the exact tensor-core kernel splits the corpus into slabs only while each
+# keeps at least this many 128-row sub-tiles: a smaller slab does not pay
+# for the merge launch after it
+_EM_MIN_SLAB_SUBTILES = 8
 
-launches = {"fold": 0, "exact": 0, "binary_fold": 0, "binary_exact": 0}
+launches = {"fold": 0, "exact": 0, "binary_fold": 0, "binary_exact": 0,
+            "blocked": 0, "binary_blocked": 0}
 last_kernel: str | None = None
 
 
@@ -125,15 +150,23 @@ def _validate(queries, corpus, corpus_sq, k, mode, block_n):
         raise ValueError(
             f"fold mode supports k <= {FOLD_MAX_K} (got {k_eff}); use exact mode"
         )
-    if mode == "exact" and k_eff > EXACT_MAX_K:
-        raise ValueError(
-            f"exact mode supports k <= {EXACT_MAX_K} (got {k_eff})"
-        )
     if corpus_sq is not None and (
         corpus_sq.shape != (n,) or corpus_sq.device != corpus.device
     ):
         raise ValueError("corpus_sq must be [N] on the corpus's device")
     return k_eff
+
+
+def row_sq(x: torch.Tensor) -> torch.Tensor:
+    """fp32 norms² of the rows of ``x`` [R, d] in the kernels' order:
+    column by column from 0, each product and each sum rounded to fp32
+    (the kernels use ``__fmul_rn`` / ``__fadd_rn``, so no fused
+    multiply-add), so a kernel and its plain version agree bit for bit."""
+    x = x.float()
+    s = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    for j in range(x.shape[1]):
+        s = s + x[:, j] * x[:, j]
+    return s
 
 
 def _corpus_sq(corpus, corpus_sq):
@@ -197,7 +230,7 @@ def fused_topk_raw_reference(
     dev = queries.device
     q = queries.float()
     if euclid:
-        q_sq = torch.sum(torch.square(q), dim=1, keepdim=True)
+        q_sq = row_sq(q)[:, None]
         csq = _corpus_sq(corpus, corpus_sq)
 
     def score_tile(base, end):
@@ -223,7 +256,7 @@ def _library() -> ctypes.CDLL:
     lib.lr_topk_partial_smem.restype = ctypes.c_size_t
     lib.lr_topk_partial_smem.argtypes = [i, i, i]
     lib.lr_topk_partial.restype = i
-    lib.lr_topk_partial.argtypes = [p, p, p] + [i] * 12 + [p, p, p]
+    lib.lr_topk_partial.argtypes = [p, p, p] + [i] * 10 + [p, p, p]
     lib.lr_topk_merge.restype = i
     lib.lr_topk_merge.argtypes = [p, p] + [i] * 5 + [p, p, p]
     lib.lr_fold_mma_smem.restype = ctypes.c_size_t
@@ -232,6 +265,14 @@ def _library() -> ctypes.CDLL:
     lib.lr_fold_mma_occupancy.argtypes = [i, i, i]
     lib.lr_fold_mma.restype = i
     lib.lr_fold_mma.argtypes = [p, p, p] + [i] * 9 + [p, p, p, p]
+    lib.lr_exact_mma_queries.restype = i
+    lib.lr_exact_mma_queries.argtypes = [i]
+    lib.lr_exact_mma_smem.restype = ctypes.c_size_t
+    lib.lr_exact_mma_smem.argtypes = [i, i, i]
+    lib.lr_exact_mma_occupancy.restype = i
+    lib.lr_exact_mma_occupancy.argtypes = [i, i, i]
+    lib.lr_exact_mma.restype = i
+    lib.lr_exact_mma.argtypes = [p, p, p] + [i] * 8 + [p, p, p, p]
     lib.lr_error_string.restype = ctypes.c_char_p
     lib.lr_error_string.argtypes = [i]
     return lib
@@ -265,11 +306,11 @@ def _require_contiguous(queries, corpus) -> None:
 
 
 def _launch(queries, corpus, csq, *, d, k_eff, block_n, fold, euclid=False,
-            vec=False, binary=False):
+            vec=False):
     """Run the partial kernel over query tiles x corpus slabs, then the
     merge kernel across slabs; returns the [Q, k] (keys, rows) as int32.
-    Queries are bf16 or fp32; the corpus has their dtype, or is the
-    packed sign words when ``binary``."""
+    Queries and corpus are fp32 (the bf16 flavours have their own
+    kernels)."""
     _require_contiguous(queries, corpus)
     lib = _library()
     nq = queries.shape[0]
@@ -296,9 +337,8 @@ def _launch(queries, corpus, csq, *, d, k_eff, block_n, fold, euclid=False,
         code = lib.lr_topk_partial(
             queries.data_ptr(), corpus.data_ptr(),
             csq.data_ptr() if csq is not None else None,
-            nq, n, d, k_eff, int(queries.dtype == torch.bfloat16),
-            int(euclid), int(fold), block_n, slab_rows, tq, int(vec),
-            int(binary), part_k.data_ptr(), part_i.data_ptr(), stream,
+            nq, n, d, k_eff, int(euclid), int(fold), block_n, slab_rows, tq,
+            int(vec), part_k.data_ptr(), part_i.data_ptr(), stream,
         )
         _check(lib, code, "fused top-k partial kernel")
         if n_slabs > 1:
@@ -308,10 +348,8 @@ def _launch(queries, corpus, csq, *, d, k_eff, block_n, fold, euclid=False,
             )
             _check(lib, code, "fused top-k merge kernel")
     global last_kernel
-    last_kernel = (
-        f"partial_kernel<{tq},{str(fold).lower()},{str(binary).lower()}>"
-        + ("+merge_kernel" if n_slabs > 1 else "")
-    )
+    last_kernel = (f"partial_kernel<{tq},{str(fold).lower()}>"
+                   + ("+merge_kernel" if n_slabs > 1 else ""))
     return out_k, out_i
 
 
@@ -371,14 +409,92 @@ def _fold_mma(queries, corpus, csq, *, d, k_eff, block_n, euclid,
     return scores, ids
 
 
+@functools.cache
+def _exact_mma_slots(index: int, d: int, k: int, binary: bool) -> int:
+    """Resident blocks of the bf16 or binary exact kernel the card holds
+    at (d, k)."""
+    lib = _library()
+    with torch.cuda.device(index):
+        per_sm = lib.lr_exact_mma_occupancy(d, k, int(binary))
+    if per_sm < 0:
+        _check(lib, -per_sm, "exact kernel occupancy")
+    if per_sm == 0:
+        raise ValueError(
+            f"d={d}, k={k} needs more shared memory than one block has "
+            f"({lib.lr_exact_mma_smem(d, k, int(binary))} bytes)"
+        )
+    return per_sm * _sm_count(index)
+
+
+def _exact_mma(queries, corpus, csq, *, d, k_eff, euclid, binary=False):
+    """The exact bf16 search, or with ``binary`` the exact sign-dot
+    search, on the tensor cores (``csrc/exact_mma.cuh``), k <= 2048: the
+    corpus in slabs of whole 128-row sub-tiles, as many as fill the card's
+    resident block slots for the query tiles at hand while each keeps
+    ``_EM_MIN_SLAB_SUBTILES``; the kernels write the fp32 scores and int32
+    ids."""
+    _require_contiguous(queries, corpus)
+    nq = queries.shape[0]
+    n = corpus.shape[0]
+    dev = queries.device
+    lib = _library()
+    slots = _exact_mma_slots(dev.index, d, k_eff, binary)
+    q_tiles = -(-nq // lib.lr_exact_mma_queries(k_eff))
+    n_sub = -(-n // _LANES)
+    want = max(1, min(n_sub // _EM_MIN_SLAB_SUBTILES, slots // q_tiles))
+    slab_rows = -(-n_sub // want) * _LANES
+    n_slabs = -(-n // slab_rows)
+    scores = torch.empty((nq, k_eff), dtype=torch.float32, device=dev)
+    ids = torch.empty((nq, k_eff), dtype=torch.int32, device=dev)
+    part = (torch.empty((n_slabs, nq, k_eff), dtype=torch.int64, device=dev)
+            if n_slabs > 1 else None)
+    vec = not binary and d % 8 == 0 and corpus.data_ptr() % 16 == 0
+    with torch.cuda.device(dev):
+        code = lib.lr_exact_mma(
+            queries.data_ptr(), corpus.data_ptr(),
+            csq.data_ptr() if csq is not None else None,
+            nq, n, d, k_eff, int(euclid), slab_rows, int(vec), int(binary),
+            part.data_ptr() if part is not None else None,
+            scores.data_ptr(), ids.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _check(lib, code,
+           "exact binary kernel" if binary else "bf16 exact kernel")
+    global last_kernel
+    last_kernel = ("exact_mma_kernel<bin>" if binary else "exact_mma_kernel") + (
+        "+exact_merge_kernel" if n_slabs > 1 else "")
+    return scores, ids
+
+
+def _blocked_topk(queries, corpus, k_eff, metric):
+    """``approx_fused_topk``'s route past ``EXACT_MAX_K``: ``exact_topk``
+    (one ``torch.matmul`` and ``torch.topk`` a block, merged with the
+    running list), fp32 scores of the stored values. Counts ``blocked`` on
+    the card."""
+    from .topk import exact_topk
+
+    s, i = exact_topk(queries, corpus, k=k_eff, metric=metric)
+    if queries.device.type == "cuda":
+        launches["blocked"] += 1
+    return s, i.to(torch.int32)
+
+
 def _fused_topk_raw_cuda(queries, corpus, corpus_sq, k_eff, euclid, mode,
                          block_n):
+    if mode == "exact" and k_eff > EXACT_MAX_K:
+        raise ValueError(
+            f"the exact kernels take k <= {EXACT_MAX_K} (got {k_eff}); "
+            "approx_fused_topk takes the blocked route past it")
     d = queries.shape[1]
     csq = _corpus_sq(corpus, corpus_sq).contiguous() if euclid else None
-    if mode == "fold" and corpus.dtype == torch.bfloat16:
-        out = _fold_mma(queries, corpus, csq, d=d, k_eff=k_eff,
-                        block_n=block_n, euclid=euclid)
-        launches["fold"] += 1
+    if corpus.dtype == torch.bfloat16:
+        if mode == "fold":
+            out = _fold_mma(queries, corpus, csq, d=d, k_eff=k_eff,
+                            block_n=block_n, euclid=euclid)
+        else:
+            out = _exact_mma(queries, corpus, csq, d=d, k_eff=k_eff,
+                             euclid=euclid)
+        launches[mode] += 1
         return out
     # 16-byte corpus loads need whole 64-dim stages and an aligned base
     vec = d % _DIM_STAGE == 0 and corpus.data_ptr() % 16 == 0
@@ -405,8 +521,9 @@ def fused_topk_raw(
     raw, with optional ``corpus_sq`` row norms²; mahalanobis: whitened,
     scored as euclidean in the whitened space). ``mode='fold'`` scores are
     19-bit-quantized (``fused_topk`` rescores them); ``mode='exact'``
-    scores are exact. k is clipped to N; fold takes k <= 128, exact
-    k <= 2048."""
+    scores are exact. k is clipped to N; fold takes k <= 128; on a CUDA
+    tensor exact mode takes k <= ``EXACT_MAX_K`` and raises past it (the
+    plain version on a CPU tensor answers at any k)."""
     k_eff = _validate(queries, corpus, corpus_sq, k, mode, block_n)
     if queries.device.type == "cpu":
         return fused_topk_raw_reference(
@@ -493,9 +610,12 @@ def approx_fused_topk(
     recall_target: float = 0.99,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The approximate route: fold candidates per ``fold_plan``, rescored
-    exactly; k above the fold's 128 takes the exact kernel. Returned
-    scores are exact fp32 scores of the selected rows."""
+    exactly; k above the fold's 128 takes the exact kernel, and above
+    ``EXACT_MAX_K`` the blocked route. Returned scores are exact fp32
+    scores of the selected rows."""
     k_eff = min(k, corpus.shape[0])
+    if k_eff > EXACT_MAX_K:
+        return _blocked_topk(queries, corpus, k_eff, metric)
     if k_eff > FOLD_MAX_K:
         return fused_topk(queries, corpus, k=k, metric=metric, mode="exact")
     block_n, cand = fold_plan(corpus.shape[0], k_eff, recall_target)
@@ -509,7 +629,7 @@ def approx_fused_topk(
 
 
 def _validate_binary(queries, packed, d, k, block_n=_LANES,
-                     max_k=FOLD_MAX_K, what="the binary fold"):
+                     max_k=FOLD_MAX_K):
     if block_n > (1 << _IDX_BITS) or block_n % _LANES:
         raise ValueError(
             f"block_n must be <= {1 << _IDX_BITS} and a multiple of {_LANES}"
@@ -531,8 +651,9 @@ def _validate_binary(queries, packed, d, k, block_n=_LANES,
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     k_eff = min(k, n)
-    if k_eff > max_k:
-        raise ValueError(f"{what} supports k <= {max_k} (got {k_eff})")
+    if max_k is not None and k_eff > max_k:
+        raise ValueError(f"the binary {'fold' if max_k == FOLD_MAX_K else 'exact'}"
+                         f" kernel takes k <= {max_k} (got {k_eff})")
     return k_eff
 
 
@@ -590,26 +711,26 @@ def binary_exact_topk_raw(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact packed-binary top-k: (sign-dot scores [Q, k] f32, ids [Q, k]
     i32) against the bf16-rounded queries, best first, ties to the lower
-    row. k clips to N and must be <= 2048.
+    row. k clips to N.
 
-    On a CUDA tensor this launches the exact binary flavour of the partial
-    kernel in ``csrc/fused_topk.cu`` (``partial_kernel<TQ, false, true>``,
-    the slab merge after it) or raises; on a CPU tensor it runs its plain
-    version, ``ops.binary.binary_topk``."""
+    On a CUDA tensor this launches the exact binary kernel of
+    ``csrc/exact_mma.cuh`` (``exact_mma_kernel<KP, true>``, the slab merge
+    after it, k <= ``EXACT_MAX_K``) or raises; on a CPU tensor it runs its
+    plain version, ``ops.binary.binary_topk``, at any k."""
     from .binary import binary_topk
 
-    k_eff = _validate_binary(queries, packed, d, k, max_k=EXACT_MAX_K,
-                             what="the exact binary search")
     if queries.device.type == "cpu":
+        k_eff = _validate_binary(queries, packed, d, k, max_k=None)
         s, i = binary_topk(queries, packed, d, k_eff)
         return s, i.to(torch.int32)
     if queries.device.type != "cuda":
         raise ValueError(f"unsupported device {queries.device}")
+    k_eff = _validate_binary(queries, packed, d, k, max_k=EXACT_MAX_K)
     q = queries.to(torch.bfloat16).contiguous()
-    out_k, out_i = _launch(q, packed, None, d=d, k_eff=k_eff,
-                           block_n=_EXACT_SLAB_UNIT, fold=False, binary=True)
+    out = _exact_mma(q, packed, None, d=d, k_eff=k_eff, euclid=False,
+                     binary=True)
     launches["binary_exact"] += 1
-    return _unmonotone_f32(out_k), out_i
+    return out
 
 
 def rescore_binary_candidates(
@@ -659,9 +780,18 @@ def approx_binary_fused_topk(
     and candidate count ``fold_plan`` sets, the candidates rescored to
     exact sign-dots, the best k kept. k above the fold's 128 candidates
     (the store asks for binary_oversample x k) takes the exact binary
-    search, whose scores are already exact; above 2048 it raises."""
+    search, whose scores are already exact, and above ``EXACT_MAX_K`` the
+    blocked route: ``binary_topk`` itself, counted as ``binary_blocked`` on
+    the card."""
+    from .binary import binary_topk
+
     n = packed.shape[0]
     k_eff = min(k, n)
+    if k_eff > EXACT_MAX_K:
+        s, i = binary_topk(queries, packed, d, k_eff)
+        if queries.device.type == "cuda":
+            launches["binary_blocked"] += 1
+        return s, i.to(torch.int32)
     if k_eff > FOLD_MAX_K:
         return binary_exact_topk_raw(queries, packed, d=d, k=k_eff)
     block_n, cand = fold_plan(n, k_eff, recall_target)

@@ -24,8 +24,9 @@
   rescores them exactly on the host against the SQ8 codes, and the
   results come back as host numpy;
 * a post-build self-search: the first corpus row must retrieve itself
-  top-1, through the exact fused kernel (float stores) or through the
-  cascade (binary store, probe = the dequantized SQ8 row).
+  top-1, searched through the store's configured backend (float stores)
+  or through the cascade (binary store, probe = the dequantized SQ8 row),
+  as the JAX package's check searches (its dense.py:657-665).
 
 The JAX package's ``_self_check`` turned any exception into a silent
 rebuild. Here a kernel that fails to build or launch raises; only a wrong
@@ -173,13 +174,11 @@ class DenseRetriever:
             self.build(x, texts, doc_ids, sanity_check=False)
 
     def _self_check(self) -> bool:
-        """The first corpus row must come back top-1: searched through the
-        exact fused kernel (float stores) or through the cascade (binary
-        store). Kernel build and launch errors propagate."""
+        """The first corpus row must come back top-1, searched as a query
+        would be: through the configured backend (float stores) or the
+        cascade (binary store). Kernel build and launch errors propagate."""
         probe = self._corpus_row(0)[None, :]
-        _, idx = self._search_prepared(
-            probe, min(4, self._corpus_n), backend="pallas_exact"
-        )
+        _, idx = self._search_prepared(probe, min(4, self._corpus_n))
         return int(idx[0, 0]) == 0
 
     def _corpus_row(self, i: int) -> torch.Tensor:
@@ -192,14 +191,13 @@ class DenseRetriever:
 
     # --------------------------------------------------------------- search
 
-    def _search_prepared(self, q: torch.Tensor, k: int,
-                         backend: str | None = None):
+    def _search_prepared(self, q: torch.Tensor, k: int):
         """Top-k of queries already in the prepared space: (scores [Q, k]
         f32, indices [Q, k]), tensors on the device (host numpy from the
         binary store)."""
         if self._rescore_host is not None:
             return self._search_cascade(q, k)
-        backend = backend or self._resolve_backend()
+        backend = self._resolve_backend()
         q = q.to(self._corpus.dtype).contiguous()
         if backend == "xla":
             return approx_topk(

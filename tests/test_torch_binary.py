@@ -220,14 +220,13 @@ def test_approx_binary_route_recall(rng):
     # score multisets: the route finds the exact top-80 scores
     match = np.mean(np.sort(s1.numpy(), 1) == np.sort(s0.numpy(), 1))
     assert match >= 0.99
-    # above the fold's 128 candidates the route is the exact search, up to
-    # the exact kernel's 2048
-    s2, i2 = ft.approx_binary_fused_topk(qt, packed, d=64, k=129)
-    s3, i3 = tb.binary_topk(qt, packed, 64, 129)
-    assert i2.dtype == torch.int32 and torch.equal(i2, i3.to(torch.int32))
-    assert torch.equal(s2, s3)
-    with pytest.raises(ValueError, match="k <= 2048"):
-        ft.approx_binary_fused_topk(qt, packed, d=64, k=2049)
+    # above the fold's 128 candidates the route is the exact search, and
+    # past the exact kernel's 2048 its blocked route: the same answer
+    for k in (129, 2049):
+        s2, i2 = ft.approx_binary_fused_topk(qt, packed, d=64, k=k)
+        s3, i3 = tb.binary_topk(qt, packed, 64, k)
+        assert i2.dtype == torch.int32 and torch.equal(i2, i3.to(torch.int32))
+        assert torch.equal(s2, s3)
 
 
 @pytest.mark.parametrize("k", [160, 300])
@@ -256,16 +255,19 @@ def test_approx_binary_route_above_128_matches_jax(rng, d, k):
 
 def test_binary_exact_raw_plain_version(rng):
     """On a CPU tensor the exact binary entry is ``binary_topk`` with int32
-    ids; k clips to N and above 2048 it raises."""
+    ids; k clips to N, and past the kernel's 2048 it answers (on the card
+    the entry raises there)."""
     x = _unit(rng, 40, 48)
     packed = tb.binary_quantize(torch.from_numpy(x))
     q = torch.from_numpy(x[:3])
     s, i = ft.binary_exact_topk_raw(q, packed, d=48, k=50)
     assert s.shape == (3, 40) and i.dtype == torch.int32
     assert (i[:, 0] == torch.arange(3, dtype=torch.int32)).all()
-    with pytest.raises(ValueError, match="exact binary search supports k <= 2048"):
-        ft.binary_exact_topk_raw(q, torch.zeros((3000, 2), dtype=torch.int32),
-                                 d=48, k=2049)
+    s, i = ft.binary_exact_topk_raw(
+        q, torch.zeros((3000, 2), dtype=torch.int32), d=48, k=2049)
+    # every row scores alike: ties go to the lower row
+    assert s.shape == (3, 2049) and i.dtype == torch.int32
+    assert (i == torch.arange(2049, dtype=torch.int32)).all()
 
 
 def _stage_unpack_mirror(words: np.ndarray, d: int) -> np.ndarray:

@@ -93,19 +93,23 @@ def test_bf16_fold_kernel_paths(cuda, case):
 
 
 def test_fold_routes_by_store_dtype(cuda):
-    """bf16 stores take the tensor-core fold, fp32 the FMA flavour; both
-    count as launches of the fold."""
+    """bf16 stores take the tensor-core kernels, fp32 the FMA flavour; each
+    counts as a launch of its mode."""
     q, c = _data(cuda, torch.float32, n=3000)
     ft.reset_launches()
     ft.fused_topk_raw(q, c, k=10, mode="fold")
     assert ft.last_kernel.startswith("partial_kernel<") and \
-        ",true,false>" in ft.last_kernel
+        ",true>" in ft.last_kernel
     ft.fused_topk_raw(q.bfloat16(), c.bfloat16(), k=10, mode="fold")
     assert ft.last_kernel.startswith("fold_mma_kernel")
     ft.fused_topk_raw(q.bfloat16(), c.bfloat16(), k=10, mode="exact")
-    assert ft.last_kernel.startswith("partial_kernel<")
-    assert ft.launches == {"fold": 2, "exact": 1, "binary_fold": 0,
-                           "binary_exact": 0}
+    assert ft.last_kernel.startswith("exact_mma_kernel")
+    ft.fused_topk_raw(q, c, k=10, mode="exact")
+    assert ft.last_kernel.startswith("partial_kernel<") and \
+        ",false>" in ft.last_kernel
+    assert ft.launches == {"fold": 2, "exact": 2, "binary_fold": 0,
+                           "binary_exact": 0, "blocked": 0,
+                           "binary_blocked": 0}
 
 
 def test_launch_counts_and_validation(cuda):
@@ -115,7 +119,17 @@ def test_launch_counts_and_validation(cuda):
     ft.fused_topk(q, c, k=5, mode="exact")
     ft.approx_fused_topk(q, c, k=5)
     assert ft.launches == {"fold": 2, "exact": 1, "binary_fold": 0,
-                           "binary_exact": 0}
+                           "binary_exact": 0, "blocked": 0,
+                           "binary_blocked": 0}
+    # past the exact kernels' 2048 the blocked route, counted apart
+    big = _data(cuda, torch.float32, n=2100)[1]
+    s, i = ft.approx_fused_topk(q, big, k=2050)
+    assert ft.launches["blocked"] == 1 and ft.launches["exact"] == 1
+    s_p, i_p = ft.fused_topk_raw_reference(q, big, k=2050, mode="exact")
+    assert (i == i_p).float().mean().item() >= 0.99
+    # the exact kernels' own entry takes no k past their lists
+    with pytest.raises(ValueError, match="k <= 2048"):
+        ft.fused_topk_raw(q, big, k=2050, mode="exact")
     with pytest.raises(ValueError, match="contiguous"):
         ft.fused_topk_raw(q, c.T.contiguous().T, k=5)
 
@@ -151,7 +165,8 @@ def test_main_path_on_card(cuda, tmp_path):
         f"paths.logs_dir={base}/logs", "logging.log_to_file=false",
     ], results=results)
     assert rc == 0
-    assert ft.launches["fold"] >= 1 and ft.launches["exact"] >= 1
+    # the self-check searches through the configured route, as the search
+    assert ft.launches["fold"] >= 2 and ft.launches["exact"] == 0
     assert np.isfinite(results[0]["doc_scores"]).all()
 
 
@@ -190,14 +205,18 @@ def test_binary_launch_counts_and_store(cuda):
     ft.binary_fused_topk(q, packed, d=64, k=5)
     ft.approx_binary_fused_topk(q, packed, d=64, k=40)
     assert ft.launches == {"fold": 0, "exact": 0, "binary_fold": 2,
-                           "binary_exact": 0}
+                           "binary_exact": 0, "blocked": 0,
+                           "binary_blocked": 0}
     # above 128 candidates the route takes the exact binary kernel
     ft.approx_binary_fused_topk(q, packed, d=64, k=129)
     assert ft.launches["binary_exact"] == 1
-    assert ft.last_kernel.startswith("partial_kernel<") and \
-        ",false,true>" in ft.last_kernel
+    assert ft.last_kernel.startswith("exact_mma_kernel<bin>")
+    # past 2048 its blocked route, counted apart
+    s, i = ft.approx_binary_fused_topk(q, packed, d=64, k=2049)
+    assert ft.launches["binary_blocked"] == 1 and i.shape == (37, 2049)
+    assert ft.launches["binary_exact"] == 1
     with pytest.raises(ValueError, match="k <= 2048"):
-        ft.approx_binary_fused_topk(q, packed, d=64, k=2049)
+        ft.binary_exact_topk_raw(q, packed, d=64, k=2049)
 
     from latentrag_torch.retrieval import DenseRetriever
 
@@ -241,16 +260,16 @@ def test_binary_fold_kernel_one_slab(cuda):
     assert (i_k == i_p).float().mean().item() >= 0.99
 
 
-@pytest.mark.parametrize("k", [129, 300, 2048])
-@pytest.mark.parametrize("d", [64, 48])
+@pytest.mark.parametrize("k", [129, 160, 300, 1024, 2048])
+@pytest.mark.parametrize("d", [64, 48, 384])
 def test_binary_exact_kernel_matches_plain(cuda, d, k):
-    """The exact binary flavour (partial_kernel<TQ, false, true>) against
-    ``binary_topk``: ties to the lower row in both, fp32 sums in another
-    order."""
+    """The exact binary kernel on the tensor cores (exact_mma_kernel<KP,
+    true>) against ``binary_topk``: ties to the lower row in both, fp32
+    sums in another order. 37 queries over N=5003 run many slabs and the
+    merge."""
     q, packed = _binary_data(cuda, d, nq=37, n=5003, seed=k)
     s_k, i_k = ft.binary_exact_topk_raw(q, packed, d=d, k=k)
-    assert ft.last_kernel.startswith("partial_kernel<") and \
-        ",false,true>" in ft.last_kernel
+    assert ft.last_kernel.startswith("exact_mma_kernel<bin>")
     s_p, i_p = tb.binary_topk(q, packed, d, k)
     same = i_k == i_p
     assert same.float().mean().item() >= 0.999
@@ -270,6 +289,54 @@ def test_binary_store_top_k_20_launches(cuda):
     assert r._self_check()
     s, i = r.search(emb[:20].numpy(), 20)
     assert ft.launches == {"fold": 0, "exact": 0, "binary_fold": 1,
-                           "binary_exact": 1}
+                           "binary_exact": 1, "blocked": 0,
+                           "binary_blocked": 0}
     assert i.shape == (20, 20) and (i[:, 0] == np.arange(20)).all()
     assert np.isfinite(s).all()
+
+
+@pytest.mark.parametrize("k", [1, 10, 64, 128, 160, 300, 2048])
+@pytest.mark.parametrize("metric", ["cosine", "euclidean"])
+def test_bf16_exact_kernel_matches_plain(cuda, metric, k):
+    """The bf16 exact kernel on the tensor cores (exact_mma_kernel<KP,
+    false>) against its plain version: 37 queries over N=5003 run many
+    slabs and the merge; ties to the lower row in both."""
+    q, c = _data(cuda, torch.bfloat16, nq=37, n=5003, seed=k)
+    if metric == "cosine":
+        q = torch.nn.functional.normalize(q.float(), dim=1).bfloat16()
+        c = torch.nn.functional.normalize(c.float(), dim=1).bfloat16()
+    s_k, i_k = ft.fused_topk_raw(q, c, k=k, metric=metric, mode="exact")
+    assert ft.last_kernel.startswith("exact_mma_kernel")
+    assert "<bin>" not in ft.last_kernel
+    s_p, i_p = ft.fused_topk_raw_reference(q, c, k=k, metric=metric,
+                                           mode="exact")
+    same = i_k == i_p
+    assert same.float().mean().item() >= 0.999
+    tol = 1e-4 + 1e-5 * s_p.abs()
+    assert bool(((s_k - s_p).abs() <= tol)[same].all())
+
+
+@pytest.mark.parametrize("case", ["one_slab", "element_loads", "binary"])
+def test_exact_kernel_one_slab_and_loads(cuda, case):
+    """2000 queries over 315 rows fill the card with one slab: the kernel
+    writes scores and ids itself. A corpus base that is not 16-byte
+    aligned loads its stages element by element."""
+    if case == "binary":
+        q, packed = _binary_data(cuda, 64, nq=2000, n=315)
+        s_k, i_k = ft.binary_exact_topk_raw(q, packed, d=64, k=160)
+        assert ft.last_kernel == "exact_mma_kernel<bin>"
+        s_p, i_p = tb.binary_topk(q, packed, 64, 160)
+    else:
+        q, c = _data(cuda, torch.bfloat16, nq=2000, n=315)
+        if case == "element_loads":
+            buf = torch.empty(c.numel() + 1, dtype=c.dtype, device=cuda)
+            c = buf[1:].view(c.shape).copy_(c)
+            assert c.data_ptr() % 16 != 0 and c.is_contiguous()
+        s_k, i_k = ft.fused_topk_raw(q, c, k=10, metric="euclidean",
+                                     mode="exact")
+        if case == "one_slab":
+            assert ft.last_kernel == "exact_mma_kernel"
+        s_p, i_p = ft.fused_topk_raw_reference(q, c, k=10,
+                                               metric="euclidean",
+                                               mode="exact")
+    assert (i_k == i_p).float().mean().item() >= 0.999

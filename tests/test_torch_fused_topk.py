@@ -201,8 +201,10 @@ def test_wrapper_validates():
     c = torch.zeros(300, 8)
     with pytest.raises(ValueError, match="fold mode supports"):
         ft.fused_topk_raw(q, c, k=129, mode="fold")
-    with pytest.raises(ValueError, match="exact mode supports"):
-        ft.fused_topk_raw(q, torch.zeros(3000, 8), k=2049, mode="exact")
+    # on a CPU tensor exact mode is the plain version, which answers past
+    # the exact kernels' 2048 (on the card the entry raises there)
+    s, i = ft.fused_topk_raw(q, torch.zeros(3000, 8), k=2049, mode="exact")
+    assert s.shape == i.shape == (2, 2049) and i.dtype == torch.int32
     with pytest.raises(ValueError, match="share a dtype"):
         ft.fused_topk_raw(q.bfloat16(), c, k=3)
     with pytest.raises(ValueError, match="multiple of"):
@@ -224,8 +226,12 @@ def test_cpu_path_counts_no_launches(rng):
     ft.approx_binary_fused_topk(q, packed, d=8, k=4)
     ft.approx_binary_fused_topk(q, packed, d=8, k=150)  # the exact search
     ft.binary_exact_topk_raw(q, packed, d=8, k=4)
+    ft.approx_fused_topk(q, torch.zeros((2100, 8)), k=2050)  # blocked route
+    ft.binary_exact_topk_raw(q, torch.zeros((2100, 1), dtype=torch.int32),
+                             d=8, k=2050)
     assert ft.launches == {"fold": 0, "exact": 0, "binary_fold": 0,
-                           "binary_exact": 0}
+                           "binary_exact": 0, "blocked": 0,
+                           "binary_blocked": 0}
 
 
 @pytest.mark.parametrize("n,k,rt,want", [
