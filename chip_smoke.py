@@ -16,7 +16,7 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    mode at the main path's top_k=150 shape (Q=2000, N=1997, k=150); each
    check also holds that the C kernel that ran is the one the store's
    dtype routes to (bf16: fold_mma_kernel and exact_mma_kernel, fp32:
-   partial_kernel);
+   their 3xTF32 instances fold_mma_kernel<f32> and exact_mma_kernel<f32>);
 2b. holds the binary fold kernel (tensor cores, ``fold_mma_kernel<bin>``)
    against its plain version: the reference and 1M shapes at d=64 and the
    ragged shape at d=384 and d=48 (pad bits), and the binary main path's
@@ -31,9 +31,12 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    fold kernel served the search and the self-check and the exact kernel
    did not launch, runs it once more in the same process (its search time
    warm), then runs the same pipeline with kernel=xla_exact (matmul +
-   torch.topk, the oracle) and compares; then both again at top_k=150,
+   torch.topk, the oracle) and compares (recording, where their docs
+   differ, the score gaps at those slots); then both again at top_k=150,
    whose search the bf16 exact kernel serves (the instance phase 2 checked
-   at that shape);
+   at that shape); then all of it again over an fp32 store
+   (``retrieval.store_dtype=float32``), whose fold and exact kernels are
+   the 3xTF32 instances;
 3b. drives the same entry point with ``retrieval.store_dtype=binary`` and
    checks that the binary kernel launched (self-check and search); on the
    same latents, the cascade with the kernel as stage 1 and with its plain
@@ -47,10 +50,10 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
 4. times each kernel, its plain version and torch.matmul + torch.topk at
    the kernel call's k (a yardstick the port never calls) with CUDA
    events, beside the bound, at the reference, the main path's own
-   (Q=2000, N=1997, fold only) and the 1M shapes, and kernel 1's fp32
-   flavour at the reference and 1M shapes; each record names the C
-   kernels that ran; the exact kernel at k=10 and k=160, with a profiler
-   device split;
+   (Q=2000, N=1997, bf16 fold only) and the 1M shapes, over bf16 and fp32
+   stores; the exact kernel at k=10 and k=160; each record names the C
+   kernels that ran and has a profiler device split and the kernel's
+   resident blocks an SM;
 4b. the same for the binary fold kernel at the reference and 1M shapes
    (the yardstick reads the corpus pre-unpacked to +-1 bf16, 16x the
    bytes) with a profiler device split, the exact binary kernel at k=160
@@ -72,7 +75,11 @@ import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / fp32 FMA
+# the card's fastest rates for the work at each store's accuracy: dense bf16
+# tensor cores; for fp32 stores 3xTF32 on the tensor cores, three TF32
+# products (495 TFLOP/s dense) for each fp32-accurate one, which beats the
+# 67 TFLOP/s of fp32 FMAs, so every fp32 kernel is held to that bound
+PEAK_OPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
 
 # tolerances of the kernel-vs-plain checks
 EXACT_ID_MATCH = 0.999
@@ -143,7 +150,7 @@ def check_kernels(torch, failures: list) -> dict:
     """Phase 2: every kernel against its plain version on the card."""
     from latentrag_torch.ops import fused_topk as ft
 
-    worst = {"fold": 0.0, "exact": 0.0}
+    worst = {"fold": 0.0, "exact": 0.0, "fold_fp32": 0.0, "exact_fp32": 0.0}
     # (label, Q, N, d, ks, fold tile width); "main_plan" is the fold as the
     # main path's approximate route runs it (ft.fold_plan at N=2000, k=10),
     # "main_exact" the exact kernel as the main path at top_k=150 runs it
@@ -188,12 +195,11 @@ def check_kernels(torch, failures: list) -> dict:
                                "store": dname, "mode": mode, "k": k,
                                "block_n": block_n, "c_kernel": ran,
                                "id_match": id_match, "max_abs_err": max_err}
-                        # bf16 stores run the tensor-core kernels, fp32
-                        # stores partial_kernel
-                        want = ("partial_kernel<" if dname == "float32"
-                                else "fold_mma_kernel" if mode == "fold"
-                                else "exact_mma_kernel")
-                        ok = ran.startswith(want)
+                        # each store runs its instance of the tensor-core
+                        # kernels: bf16, or fp32 in 3xTF32
+                        want = f"{mode}_mma_kernel" + (
+                            "<f32>" if dname == "float32" else "")
+                        ok = ran.split("+")[0] == want
                         if mode == "exact":
                             tol = EXACT_SCORE_ATOL + EXACT_SCORE_RTOL * s_p.abs()
                             within = bool(((s_k - s_p).abs() <= tol)[same].all())
@@ -205,10 +211,10 @@ def check_kernels(torch, failures: list) -> dict:
                             rec["recall_vs_exact"] = recall
                             ok = ok and id_match >= FOLD_ID_MATCH and (
                                 k != 10 or recall >= FOLD_RECALL)
-                        worst[mode] = max(worst[mode], max_err)
-                        if (label, metric, dname) == (
-                                "main_exact", "cosine", "bfloat16"):
-                            worst["main_exact_kernel"] = ran
+                        key = mode + ("_fp32" if dname == "float32" else "")
+                        worst[key] = max(worst[key], max_err)
+                        if (label, metric) == ("main_exact", "cosine"):
+                            worst[f"main_exact_kernel_{dname}"] = ran
                         rec["ok"] = ok
                         record("kernel_check", **rec)
                         if not ok:
@@ -261,86 +267,95 @@ def run_main(torch, workdir: str, kernel: str,
     return res
 
 
-def check_main_path(torch, failures: list,
-                    exact_kernel: str) -> tuple[dict, dict, dict]:
-    """Phase 3: the entry point at full MiniLM-L6 width; returns the fused
-    kernels' launch counts from the kernel=auto runs at top_k=10 and
-    top_k=150, and the top_k=10 oracle's result. ``exact_kernel`` names
-    the C kernels phase 2 checked at the top_k=150 search's shape."""
+def check_main_path(torch, failures: list, exact_kernel: str,
+                    store: str = "bfloat16") -> tuple[dict, dict, dict]:
+    """Phase 3: the entry point at full MiniLM-L6 width over a ``store``
+    (bf16 or fp32) store; returns the fused kernels' launch counts from the
+    kernel=auto runs at top_k=10 and top_k=150, and the top_k=10 oracle's
+    result. ``exact_kernel`` names the C kernels phase 2 checked at the
+    top_k=150 search's shape for this store."""
     import numpy as np
 
     from latentrag_torch.ops import fused_topk as ft
 
+    tag = "" if store == "bfloat16" else "_fp32"
     with tempfile.TemporaryDirectory(prefix="lr_smoke_") as wd:
         write_vae(torch, f"{wd}/vae.pth")
         ft.reset_launches()
-        res = run_main(torch, wd, "auto")
+        res = run_main(torch, wd, "auto", store)
         main_launches = dict(ft.launches)
-        again = run_main(torch, wd, "auto")  # the same run, warm
-        oracle = run_main(torch, wd, "xla_exact")
-        encode_breakdown(torch, wd)
-        # top_k=150: past the fold's 128, the bf16 exact kernel's search
+        ran10 = ft.last_kernel
+        again = run_main(torch, wd, "auto", store)  # the same run, warm
+        oracle = run_main(torch, wd, "xla_exact", store)
+        if store == "bfloat16":
+            encode_breakdown(torch, wd)
+        # top_k=150: past the fold's 128, the exact kernel's search
         ft.reset_launches()
-        res150 = run_main(torch, wd, "auto", top_k=150)
+        res150 = run_main(torch, wd, "auto", store, top_k=150)
         launches150 = dict(ft.launches)
         ran150 = ft.last_kernel
-        oracle150 = run_main(torch, wd, "xla_exact", top_k=150)
+        oracle150 = run_main(torch, wd, "xla_exact", store, top_k=150)
     for r, k in ((res, 10), (res150, 150)):
         ds = np.asarray(r["doc_scores"])
         if ds.shape != (r["n_queries"], k) or not np.isfinite(ds).all():
-            failures.append(f"doc_scores at top_k={k}: shape {ds.shape} or "
-                            "non-finite values")
+            failures.append(f"{store} doc_scores at top_k={k}: shape "
+                            f"{ds.shape} or non-finite values")
     if res["dim_in"] != 384 or res["dim_out"] != 64:
         failures.append(f"dims {res['dim_in']}->{res['dim_out']}")
     agree = slot_agreement(res["retrieved_doc_ids"],
                            oracle["retrieved_doc_ids"])
     agree150 = slot_agreement(res150["retrieved_doc_ids"],
                               oracle150["retrieved_doc_ids"])
-    deltas = {
-        m: abs(res["retrieval_metrics"][m]["mean"]
-               - oracle["retrieval_metrics"][m]["mean"])
-        for m in res["retrieval_metrics"]
-    }
+    deltas, deltas150 = ({
+        m: abs(r["retrieval_metrics"][m]["mean"]
+               - o["retrieval_metrics"][m]["mean"])
+        for m in r["retrieval_metrics"]
+    } for r, o in ((res, oracle), (res150, oracle150)))
     record(
-        "main_path", n_queries=res["n_queries"], n_corpus=res["n_corpus"],
-        dim_in=res["dim_in"], dim_out=res["dim_out"],
+        "main_path" + tag, store=store, n_queries=res["n_queries"],
+        n_corpus=res["n_corpus"], dim_in=res["dim_in"],
+        dim_out=res["dim_out"],
         metrics={m: v["mean"] for m, v in res["retrieval_metrics"].items()},
         timings_s=res["timings"], wall_s=res["wall_s"],
-        launches=main_launches,
+        launches=main_launches, c_kernel=ran10,
         second_run_search_s=again["timings"]["search_s"],
     )
     record(
-        "main_path_oracle", kernel="xla_exact",
+        "main_path" + tag + "_oracle", kernel="xla_exact",
         metrics={m: v["mean"] for m, v in oracle["retrieval_metrics"].items()},
         timings_s=oracle["timings"], doc_id_agreement=agree,
-        metric_deltas=deltas,
+        metric_deltas=deltas, misses=slot_misses(res, oracle),
     )
     record(
-        "main_path_top_k_150", launches=launches150, c_kernel=ran150,
+        "main_path" + tag + "_top_k_150", launches=launches150,
+        c_kernel=ran150,
         metrics={m: v["mean"] for m, v in res150["retrieval_metrics"].items()},
         oracle_metrics={m: v["mean"] for m, v in
                         oracle150["retrieval_metrics"].items()},
         timings_s=res150["timings"], oracle_timings_s=oracle150["timings"],
-        doc_id_agreement=agree150,
+        doc_id_agreement=agree150, metric_deltas=deltas150,
+        misses=slot_misses(res150, oracle150),
     )
     # the self-check searches as the queries do: the fold serves both
-    if main_launches["fold"] < 2:
-        failures.append("the fold kernel did not serve the main path's "
-                        f"search and self-check: {main_launches}")
+    fold_kernel = "fold_mma_kernel" + ("<f32>" if tag else "")
+    if main_launches["fold"] < 2 or ran10.split("+")[0] != fold_kernel:
+        failures.append(f"the {store} fold kernel did not serve the main "
+                        f"path's search and self-check: {main_launches}, "
+                        f"last kernel {ran10}")
     if main_launches["exact"] != 0:
-        failures.append(f"the exact kernel launched at top_k=10: "
+        failures.append(f"the exact kernel launched at top_k=10 ({store}): "
                         f"{main_launches}")
-    if agree < MAIN_DOC_AGREE:
-        failures.append(f"doc id agreement {agree} < {MAIN_DOC_AGREE}")
-    if max(deltas.values()) > MAIN_METRIC_TOL:
-        failures.append(f"metric deltas {deltas} > {MAIN_METRIC_TOL}")
     if launches150["exact"] < 1 or ran150 != exact_kernel:
-        failures.append(f"the bf16 exact kernel phase 2 checked "
+        failures.append(f"the {store} exact kernel phase 2 checked "
                         f"({exact_kernel}) did not serve top_k=150: "
                         f"{launches150}, last kernel {ran150}")
-    if agree150 < MAIN_DOC_AGREE:
-        failures.append(f"top_k=150 doc id agreement {agree150} < "
-                        f"{MAIN_DOC_AGREE}")
+    for k, a, dl in ((10, agree, deltas), (150, agree150, deltas150)):
+        if a < MAIN_DOC_AGREE:
+            failures.append(f"{store} top_k={k} doc id agreement {a} < "
+                            f"{MAIN_DOC_AGREE}")
+        if max(dl.values()) > MAIN_METRIC_TOL:
+            failures.append(f"{store} top_k={k} metric deltas {dl} > "
+                            f"{MAIN_METRIC_TOL}")
     return main_launches, oracle, launches150
 
 
@@ -440,33 +455,44 @@ def bound(nq, n, d, k, dname) -> tuple[float, str]:
     return by_ops * 1e3, "operations"
 
 
-def blocks_per_sm(ft, kernel: str, dev: int, d: int, k: int,
-                  binary: bool) -> int:
-    """Resident blocks an SM of the fold or exact tensor-core kernel at
-    (d, k)."""
+def blocks_per_sm(ft, kernel: str, dev: int, d: int, k: int, op: int) -> int:
+    """Resident blocks an SM of the fold or exact tensor-core kernel for
+    operand kind ``op`` at (d, k)."""
     slots = ft._fold_mma_slots if kernel == "fold" else ft._exact_mma_slots
-    return slots(dev, d, k, binary) // ft._sm_count(dev)
+    return slots(dev, d, k, op) // ft._sm_count(dev)
+
+
+# phase 4's calls: (store, shape, Q, N, d, cases); the fold at the plan,
+# the exact kernel at k=10 and k=160
+TIMED = (
+    ("bfloat16", "reference", 2000, 315, 64, ("fold", "exact", "exact_k160")),
+    ("bfloat16", "main_plan", 2000, 1997, 64, ("fold",)),
+    ("bfloat16", "1m", 1024, 1_000_000, 64, ("fold", "exact", "exact_k160")),
+    ("float32", "reference", 2000, 315, 64, ("fold", "exact", "exact_k160")),
+    ("float32", "1m", 1024, 1_000_000, 64, ("fold", "exact", "exact_k160")),
+)
 
 
 def time_kernels(torch) -> dict:
-    """Phase 4: kernel, plain and library times, bf16 cosine store (the
-    main path's), at the reference shape, the main path's own (2000
-    queries over its 1997 unique contexts; fold only) and 1M. The fold
-    runs as the approximate route plans it (``ft.fold_plan``: tile width
-    and 4x candidates at recall_target 0.99); the exact kernel at k=10 and
-    at k=160 (a float store's search past the fold's 128). The library
-    call is timed beside each kernel call at that call's k; each
-    tensor-core call also gets a profiler device split."""
+    """Phase 4: kernel, plain and library times, cosine, over bf16 stores
+    (the main path's) and fp32 stores, at the reference shape, the main
+    path's own (2000 queries over its 1997 unique contexts; bf16 fold only)
+    and 1M. The fold runs as the approximate route plans it
+    (``ft.fold_plan``: tile width and 4x candidates at recall_target 0.99);
+    the exact kernel at k=10 and at k=160 (a float store's search past the
+    fold's 128). The library call (``torch.matmul`` in the store's dtype,
+    fp32 sums, then ``torch.topk``) is timed beside each kernel call at
+    that call's k; each call also gets a profiler device split and the
+    kernel's resident blocks an SM. Keys: (shape, case) for bf16,
+    (shape, case + "_fp32") for fp32."""
     from latentrag_torch.ops import fused_topk as ft
 
     out = {}
-    for label, nq, n, d, modes in (
-            ("reference", 2000, 315, 64, ("fold", "exact", "exact_k160")),
-            ("main_plan", 2000, 1997, 64, ("fold",)),
-            ("1m", 1024, 1_000_000, 64, ("fold", "exact", "exact_k160"))):
-        q, c = make_case(torch, "cosine", torch.bfloat16, nq, n, d, 99)
+    for store, label, nq, n, d, cases in TIMED:
+        q, c = make_case(torch, "cosine", getattr(torch, store), nq, n, d,
+                         99 if store == "bfloat16" else 98)
         block_n, cand = ft.fold_plan(n, 10, 0.99)
-        for case in modes:
+        for case in cases:
             mode = "fold" if case == "fold" else "exact"
             kk, bn = {"fold": (cand, block_n), "exact": (10, 4096),
                       "exact_k160": (160, 4096)}[case]
@@ -478,41 +504,20 @@ def time_kernels(torch) -> dict:
             plain = time_ms(torch, lambda: ft.fused_topk_raw_reference(
                 q, c, k=kk, metric="cosine", mode=mode, block_n=bn),
                 reps=20, warmup=1)
-            b_ms, b_by = bound(nq, n, d, kk, "bfloat16")
+            b_ms, b_by = bound(nq, n, d, kk, store)
             rec = {"shape": label, "mode": mode, "Q": nq, "N": n, "d": d,
-                   "k": kk, "block_n": bn, "store": "bfloat16",
+                   "k": kk, "block_n": bn, "store": store,
                    "c_kernel": ran, "ms": kern, "plain_ms": plain,
                    "library_ms": lib_ms, "library_k": kk, "bound_ms": b_ms,
                    "bound_by": b_by}
             # device ms of each kernel the call launches
             rec["device_ms"] = device_split(torch, lambda: ft.fused_topk_raw(
                 q, c, k=kk, metric="cosine", mode=mode, block_n=bn))
-            rec["blocks_per_sm"] = blocks_per_sm(ft, mode, q.device.index,
-                                                 d, kk, False)
+            op = ft._OP_F32 if store == "float32" else ft._OP_BF16
+            rec["blocks_per_sm"] = blocks_per_sm(
+                ft, mode, q.device.index, d, min(kk, n), op)
             record("kernel_time", **rec)
-            out[(label, case)] = rec
-        del q, c
-        torch.cuda.empty_cache()
-    # kernel 1's fp32 flavour (fp32 stores: partial_kernel<TQ,true>)
-    # at the plan, beside the fp32 library call at the same k
-    for label, nq, n in (("reference", 2000, 315), ("1m", 1024, 1_000_000)):
-        q, c = make_case(torch, "cosine", torch.float32, nq, n, 64, 98)
-        bn, kk = ft.fold_plan(n, 10, 0.99)
-        lib_ms = time_ms(torch, lambda: torch.topk(torch.matmul(q, c.T), kk,
-                                                   dim=1))
-        kern = time_ms(torch, lambda: ft.fused_topk_raw(
-            q, c, k=kk, metric="cosine", mode="fold", block_n=bn))
-        ran = ft.last_kernel
-        plain = time_ms(torch, lambda: ft.fused_topk_raw_reference(
-            q, c, k=kk, metric="cosine", mode="fold", block_n=bn),
-            reps=20, warmup=1)
-        b_ms, b_by = bound(nq, n, 64, kk, "float32")
-        rec = {"shape": label, "mode": "fold", "Q": nq, "N": n, "d": 64,
-               "k": kk, "block_n": bn, "store": "float32", "c_kernel": ran,
-               "ms": kern, "plain_ms": plain, "library_ms": lib_ms,
-               "library_k": kk, "bound_ms": b_ms, "bound_by": b_by}
-        record("kernel_time", **rec)
-        out[(label, "fold_fp32")] = rec
+            out[(label, case + ("_fp32" if store == "float32" else ""))] = rec
         del q, c
         torch.cuda.empty_cache()
     return out
@@ -655,6 +660,28 @@ def slot_agreement(a, b) -> float:
     same = sum(sum(1 for x, y in zip(ra, rb) if x == y)
                for ra, rb in zip(a, b))
     return same / max(slots, 1)
+
+
+def slot_misses(r: dict, o: dict) -> dict:
+    """Where a main run's doc ids differ from the oracle's, slot by slot:
+    how many slots, the share of the oracle's docs found at any slot of the
+    same query, and the largest score gap between the two runs at such a
+    slot (both rank by fp32 scores of the rows they chose, so a swap of
+    near-tied docs shows a gap at the size of fp32 rounding, a missed doc
+    a larger one)."""
+    import numpy as np
+
+    k = np.asarray(o["doc_scores"]).shape[1]
+    ids_r, ids_o = (np.asarray([row + [-1] * (k - len(row))
+                                for row in x["retrieved_doc_ids"]])
+                    for x in (r, o))
+    diff = ids_r != ids_o
+    gaps = np.abs(np.asarray(r["doc_scores"], np.float64)
+                  - np.asarray(o["doc_scores"], np.float64))[diff]
+    found = (ids_o[:, :, None] == ids_r[:, None, :]).any(-1)
+    return {"slots": int(diff.sum()),
+            "set_agreement": float(found.mean()),
+            "max_score_gap": float(gaps.max()) if gaps.size else 0.0}
 
 
 def check_binary_main_path(torch, failures: list, oracle: dict,
@@ -839,7 +866,7 @@ def time_binary(torch) -> dict:
                     torch, lambda: ft.binary_fused_topk_raw(
                         q, pk, d=d, k=kk, block_n=bn))
                 rec["blocks_per_sm"] = blocks_per_sm(
-                    ft, "fold", q.device.index, d, kk, True)
+                    ft, "fold", q.device.index, d, kk, ft._OP_BIN)
             record("binary_kernel_time", **rec)
             out[(label, tag)] = rec
         kk = 160
@@ -859,7 +886,7 @@ def time_binary(torch) -> dict:
                "device_ms": device_split(torch, lambda: ft.binary_exact_topk_raw(
                    q, pk, d=d, k=kk)),
                "blocks_per_sm": blocks_per_sm(ft, "exact", q.device.index, d,
-                                              min(kk, n), True)}
+                                              min(kk, n), ft._OP_BIN)}
         record("binary_kernel_time", **rec)
         out[(label, "exact160")] = rec
         if label == "1m":
@@ -931,10 +958,17 @@ def main() -> int:
     if failures:
         fail("; ".join(failures[:5]))
     launches, oracle, launches150 = check_main_path(
-        torch, failures, worst.pop("main_exact_kernel"))
+        torch, failures, worst.pop("main_exact_kernel_bfloat16"))
     if failures:
         fail("; ".join(failures))
     launches["exact"] = launches150["exact"]  # the bf16 main at top_k=150
+    # the same runs over an fp32 store: its kernels' main path
+    launches32, _, launches32_150 = check_main_path(
+        torch, failures, worst.pop("main_exact_kernel_float32"), "float32")
+    if failures:
+        fail("; ".join(failures))
+    launches["fold_fp32"] = launches32["fold"]
+    launches["exact_fp32"] = launches32_150["exact"]
     launches["binary_fold"] = check_binary_main_path(
         torch, failures, oracle)["binary_fold"]
     if failures:
@@ -952,20 +986,21 @@ def main() -> int:
     kernels = []
     for mode, fn_line, source in (("fold", 162, "fold_mma.cuh"),
                                   ("exact", 182, "exact_mma.cuh")):
-        t = times[("reference", mode)]
-        kernels.append({
-            "name": f"fused_topk_{mode}",
-            "route": "cuda",
-            "source": f"latentrag_torch/csrc/{source}",
-            "replaces": f"latentrag_tpu/ops/pallas_topk.py:{fn_line}",
-            "launches": launches[mode],
-            "max_abs_err": worst[mode],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
-            "shape": f"Q=2000 N=315 d=64 k={t['k']} block_n={t['block_n']} "
-                     "bf16 cosine",
-        })
+        for tag, store in (("", "bf16"), ("_fp32", "fp32")):
+            t = times[("reference", mode + tag)]
+            kernels.append({
+                "name": f"fused_topk_{mode}{tag}",
+                "route": "cuda",
+                "source": f"latentrag_torch/csrc/{source}",
+                "replaces": f"latentrag_tpu/ops/pallas_topk.py:{fn_line}",
+                "launches": launches[mode + tag],
+                "max_abs_err": worst[mode + tag],
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"],
+                "shape": f"Q=2000 N=315 d=64 k={t['k']} "
+                         f"block_n={t['block_n']} {store} cosine",
+            })
     t = times[("reference", "plan")]
     kernels.append({
         "name": "binary_fused_topk_fold",

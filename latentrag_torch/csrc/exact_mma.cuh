@@ -1,24 +1,30 @@
-// The exact top-k on Hopper's tensor cores, for bf16 stores (kernel 2,
-// replaces _exact_kernel, pallas_topk.py:182-221) and for the packed binary
-// store (the exact sign-dot search binary_topk, the JAX package's
-// ops/binary.py:129, which the binary store calls past the fold's 128
-// candidates). Included by fused_topk.cu after fold_mma.cuh, whose stage
-// machinery it reuses unchanged: the 3-stage swizzled cp.async ring, the
-// binary word stages unpacked to +-1 bf16 (0x3F80 / 0xBF80), ldmatrix and
-// mma.sync.m16n8k16 bf16 -> fp32. fp32 stores keep partial_kernel: exact
-// fp32 scores are their contract, and the tensor cores would round them.
+// The exact top-k on Hopper's tensor cores (kernel 2, replaces
+// _exact_kernel, pallas_topk.py:182-221) for bf16 stores
+// (exact_mma_kernel<KP, OP_BF16>) and fp32 stores (<KP, OP_F32>), and for
+// the packed binary store (<KP, OP_BIN>: the exact sign-dot search
+// binary_topk, the JAX package's ops/binary.py:129, which the binary store
+// calls past the fold's 128 candidates). Included by fused_topk.cu after
+// fold_mma.cuh, whose stage machinery it reuses unchanged: the 3-stage
+// swizzled cp.async ring of 128-byte rows (64 bf16 or 32 fp32 dims), the
+// binary word stages unpacked to +-1 bf16 (0x3F80 / 0xBF80), ldmatrix, and
+// mma.sync.m16n8k16 bf16 -> fp32 or, for fp32 stores, m16n8k8 tf32 in
+// 3xTF32 (fm_split4 / fm_mma3: each fp32 operand split into rounded tf32 hi
+// and lo parts, a product lo.hi' + hi.lo' + hi.hi'; fused_topk.cu states
+// the contract and its error).
 //
-//   exact_mma_kernel<KP, BIN>  one block = one m16 tile of queries x one
+//   exact_mma_kernel<KP, OP>   one block = one m16 tile of queries x one
 //                              corpus slab; 8 warps, each 16 of the 128
 //                              columns of every 128-row sub-tile
 //   exact_merge_kernel<KP>     one block per query merges the slabs' lists
 //
 // Contract. The top k of (score desc, row asc): ties go to the lower row,
 // as in the plain versions. bf16 x bf16 and bf16 x +-1 products are exact,
-// so only the order of the fp32 sums differs from them. Euclidean scores
-// are 2 q.c - |q|^2 - corpus_sq[c]; the kernel sums |q|^2 of the stored
-// bf16 values in the one order every kernel and the plain version use
-// (em_row_sq: dim by dim from 0, each product and sum rounded, no FMA),
+// so only the order of the fp32 sums differs from them; fp32 products in
+// 3xTF32 are within ~3 x 2^-22 of exact, the size of that order's
+// differences, and the scores the kernel returns are its fp32 sums.
+// Euclidean scores are 2 q.c - |q|^2 - corpus_sq[c]; the kernel sums |q|^2
+// of the stored values in the one order every kernel and the plain version
+// use (fm_row_sq: dim by dim from 0, each product and sum rounded, no FMA),
 // since a sum of d squares in another order moves every score of a query
 // alike and, at d = 384, by enough to round near-equal scores apart
 // differently.
@@ -50,9 +56,11 @@
 // to KP = 512 (128 KB), and past that the m16 tile carries QB = 8192 / KP
 // real queries (8 at 1024, 4 at 2048; the other rows are zero and never
 // append), so a block never needs more than 128 KB for them. At k = 160
-// (KP = 256) the binary instance takes ~87 KB and the bf16 one ~117 KB;
-// at k = 10 (KP = 128) the bf16 one ~102 KB: two blocks an SM, one for
-// the bf16 KP = 256 instance.
+// (KP = 256) the binary instance takes ~87 KB and the bf16 one ~117 KB
+// (fp32: its query tile is twice the bytes, +2 KB at d = 64); at k = 10
+// (KP = 128) the bf16 one ~102 KB: two blocks an SM, one for the bf16 and
+// fp32 KP = 256 instances. The fp32 query tile at d = 384 (24 KB) still
+// fits beside the 128 KB of lists.
 //
 // Plan (the wrapper's): grid = (ceil(Q / QB), slabs); slabs of whole
 // 128-row sub-tiles, as many as fill the card's resident block slots for
@@ -65,8 +73,13 @@
 // follows.
 //
 // Bound. The products are 2 Q N d operations at the bf16 tensor-core peak
-// (0.13 ms at 1024 x 1M, d = 64) and the bytes are the corpus once (128 MB
-// bf16, 8 MB binary: 0.04 / 0.003 ms), so the bound is the operations. An
+// (0.13 ms at 1024 x 1M, d = 64; fp32: 3 x 2 Q N d at the TF32 peak, 0.8
+// ms) and the bytes are the corpus once (128 MB bf16, 256 MB fp32, 8 MB
+// binary: 0.04 / 0.08 / 0.003 ms), so the bound is the operations. The
+// fp32 flavour also splits each A and B fragment value on the CUDA cores
+// (two roundings and a subtraction; each B fragment feeds one warp, so no
+// split is shared), adds each k step's sum to the running one, and takes
+// two 32-dim stages a sub-tile at d = 64. An
 // m16 tile has only 16 queries, so each B fragment feeds one mma, and the
 // corpus is read once per query tile (from the 50 MB L2 where it fits);
 // what sets the pace at scale is the per-score filter on the CUDA cores
@@ -85,8 +98,9 @@ __host__ __device__ constexpr int em_qb(int kp) {
 __host__ __device__ constexpr int em_buf(int kp) { return kp < 256 ? 256 : kp; }
 
 // Dynamic shared memory of one exact_mma_kernel block.
-__host__ __device__ inline size_t em_smem_bytes(int d, int kp, bool bin) {
-    const int n_dch = (d + DCH - 1) / DCH;
+__host__ __device__ inline size_t em_smem_bytes(int d, int kp, int op) {
+    const bool bin = op == OP_BIN;
+    const int n_dch = (d + fm_dch(op) - 1) / fm_dch(op);
     return (size_t)FM_NST * (bin ? FM_WSLOT_BYTES : FM_SLOT_BYTES) +
            (bin ? FM_STAGE_BYTES : 0) + (size_t)n_dch * EM_QROWS * 128 +
            EM_QROWS * 8 + (size_t)em_qb(kp) * (kp + em_buf(kp)) * 8 +
@@ -101,21 +115,6 @@ __device__ __forceinline__ float em_score(i64 key) {
 
 __device__ __forceinline__ int em_row(i64 key) {
     return INT_MAX - (int)(unsigned)key;
-}
-
-// |q|^2 of query row r of the swizzled tile Qs ([n_dch][16][64] bf16):
-// dims 0, 1, ... d - 1 in turn, each product and each sum rounded to fp32
-// (the plain version's row_sq repeats it with torch ops).
-__device__ float em_row_sq(const unsigned char* Qs, int r, int d) {
-    float s = 0.f;
-    for (int dd = 0; dd < d; ++dd) {
-        const unsigned short h = *reinterpret_cast<const unsigned short*>(
-            Qs + (dd >> 6) * EM_QROWS * 128 + fm_swz(r, (dd >> 3) & 7) +
-            2 * (dd & 7));
-        const float x = __uint_as_float((unsigned)h << 16);
-        s = __fadd_rn(s, __fmul_rn(x, x));
-    }
-    return s;
 }
 
 // Index of the lower element of compare pair t of a bitonic step of
@@ -195,21 +194,24 @@ __device__ void em_flush(i64* L, i64* B, int* cnt, i64* thr, float* thr_f,
 
 // grid: (ceil(nq / QB), slabs of slab_rows rows, a multiple of 128).
 // final_out (one slab): write out_s / out_i; else part[slab, q, :] keys.
-// BIN: cp is the packed sign words [n, ceil(d/32)] (euclid and vec are 0).
-template <int KP, bool BIN>
+// qp and cp as fold_mma_kernel's: bf16 (OP_BF16), fp32 (OP_F32), or bf16
+// queries and packed sign words [n, ceil(d/32)] (OP_BIN; euclid and vec 0).
+template <int KP, int OP>
 __global__ void __launch_bounds__(FM_THREADS, 2)
-exact_mma_kernel(const __nv_bfloat16* __restrict__ qp,
+exact_mma_kernel(const void* __restrict__ qp,
                  const void* __restrict__ cp, const float* __restrict__ csq,
                  int nq, int n, int d, int k, int euclid, int slab_rows,
                  int vec, int final_out, i64* __restrict__ part,
                  float* __restrict__ out_s, int* __restrict__ out_i) {
     constexpr int QB = em_qb(KP), BUF = em_buf(KP);
+    constexpr bool BIN = OP == OP_BIN;
     constexpr int SLOT = BIN ? FM_WSLOT_BYTES : FM_SLOT_BYTES;
+    constexpr int CH = fm_dch(OP);
     extern __shared__ __align__(16) unsigned char smem[];
-    const int n_dch = (d + DCH - 1) / DCH;
+    const int n_dch = (d + CH - 1) / CH;
     unsigned char* ring = smem;                                // FM_NST slots
     unsigned char* U = ring + FM_NST * SLOT;                   // BIN: [128][64] bf16
-    unsigned char* Qs = U + (BIN ? FM_STAGE_BYTES : 0);        // [n_dch][16][64] bf16
+    unsigned char* Qs = U + (BIN ? FM_STAGE_BYTES : 0);        // [n_dch][16][128 B]
     i64* thr = (i64*)(Qs + n_dch * EM_QROWS * 128);            // [16] k-th keys
     i64* L = thr + EM_QROWS;                                   // [QB][KP] lists
     i64* B = L + QB * KP;                                      // [QB][BUF] buffers
@@ -232,9 +234,9 @@ exact_mma_kernel(const __nv_bfloat16* __restrict__ qp,
 #pragma unroll
     for (int s = 0; s < FM_NST - 1; ++s) {
         if (s < n_st)
-            fm_stage<BIN>(ring + s * SLOT, cp, csq, n, d,
-                          row0 + (s / n_dch) * TN, (s % n_dch) * DCH, vec,
-                          euclid, tid);
+            fm_stage<OP>(ring + s * SLOT, cp, csq, n, d,
+                         row0 + (s / n_dch) * TN, (s % n_dch) * CH, vec,
+                         euclid, tid);
         fm_commit();
     }
     for (int v = tid; v < EM_QROWS * n_dch * 8; v += FM_THREADS) {
@@ -242,9 +244,8 @@ exact_mma_kernel(const __nv_bfloat16* __restrict__ qp,
         const int q = q0 + r;
         *reinterpret_cast<uint4*>(Qs + (cc >> 3) * EM_QROWS * 128 +
                                   fm_swz(r, cc & 7)) =
-            (r < QB && q < nq)
-                ? fm_row8((const unsigned short*)qp + (size_t)q * d, d, 8 * cc)
-                : make_uint4(0u, 0u, 0u, 0u);
+            (r < QB && q < nq) ? fm_chunk<OP>(qp, q, d, (CH / 8) * cc)
+                               : make_uint4(0u, 0u, 0u, 0u);
     }
     for (int e = tid; e < QB * KP; e += FM_THREADS) L[e] = EMPTY64;
     if (tid < EM_QROWS) {
@@ -254,21 +255,22 @@ exact_mma_kernel(const __nv_bfloat16* __restrict__ qp,
     }
     __syncthreads();
     if (tid < EM_QROWS)  // read after the first stage's barrier
-        qsq[tid] = euclid && tid < QB && q0 + tid < nq ? em_row_sq(Qs, tid, d)
-                                                       : 0.f;
+        qsq[tid] = euclid && tid < QB && q0 + tid < nq
+                       ? fm_row_sq<OP>(Qs, EM_QROWS, tid, d)
+                       : 0.f;
     unsigned afr[4][4];
     if (n_dch == 1) fm_load_a(afr, Qs, 0, lane);
 
     float acc[2][4];
     for (int st = 0; st < n_st; ++st) {
-        fm_wait_ring();
+        fm_wait_ring<FM_NST>();
         __syncthreads();  // stage st is in; stage st - 1's slot (and U) free
         {
             const int s2 = st + FM_NST - 1;
             if (s2 < n_st)
-                fm_stage<BIN>(ring + (s2 % FM_NST) * SLOT, cp, csq, n, d,
-                              row0 + (s2 / n_dch) * TN, (s2 % n_dch) * DCH,
-                              vec, euclid, tid);
+                fm_stage<OP>(ring + (s2 % FM_NST) * SLOT, cp, csq, n, d,
+                             row0 + (s2 / n_dch) * TN, (s2 % n_dch) * CH,
+                             vec, euclid, tid);
             fm_commit();
         }
         const unsigned char* S = ring + (st % FM_NST) * SLOT;
@@ -286,13 +288,20 @@ exact_mma_kernel(const __nv_bfloat16* __restrict__ qp,
                 for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
         }
         if (n_dch > 1) fm_load_a(afr, Qs + dci * EM_QROWS * 128, 0, lane);
+        // four k steps of 16 bf16 dims, or of 8 fp32 dims in 3xTF32
 #pragma unroll
         for (int s = 0; s < 4; ++s) {
             unsigned b[4];
             fm_ldsm4(b, fm_smem(S + fm_swz(wc + (lane & 7) + ((lane >> 4) << 3),
                                            2 * s + ((lane >> 3) & 1))));
-            fm_mma(acc[0], afr[s], b[0], b[1]);
-            fm_mma(acc[1], afr[s], b[2], b[3]);
+            if constexpr (OP == OP_F32) {
+                unsigned ah[4], al[4];
+                fm_split4(afr[s], ah, al);
+                fm_mma3_x2(acc[0], acc[1], ah, al, b);
+            } else {
+                fm_mma(acc[0], afr[s], b[0], b[1]);
+                fm_mma(acc[1], afr[s], b[2], b[3]);
+            }
         }
         if (dci != n_dch - 1) continue;  // more dims of this sub-tile to come
 
@@ -390,7 +399,7 @@ exact_merge_kernel(const i64* __restrict__ part, int S, int nq, int k,
 
 // Each kernel instance's dynamic shared memory is raised to the card's
 // opt-in limit once per device, not on every call.
-template <int KP, bool BIN>
+template <int KP, int OP>
 static int em_prepare() {
     static unsigned ready = 0;  // bit per device
     int dev = 0;
@@ -401,35 +410,35 @@ static int em_prepare() {
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
     if (e != cudaSuccess) return (int)e;
-    e = cudaFuncSetAttribute(exact_mma_kernel<KP, BIN>,
+    e = cudaFuncSetAttribute(exact_mma_kernel<KP, OP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (e != cudaSuccess) return (int)e;
     if (dev < 32) ready |= 1u << dev;
     return 0;
 }
 
-template <int KP, bool BIN>
+template <int KP, int OP>
 static int em_occupancy(size_t smem) {
-    int e = em_prepare<KP, BIN>();
+    int e = em_prepare<KP, OP>();
     if (e) return -e;
     int blocks = 0;
     e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, exact_mma_kernel<KP, BIN>, FM_THREADS, smem);
+        &blocks, exact_mma_kernel<KP, OP>, FM_THREADS, smem);
     return e ? -e : blocks;
 }
 
-template <int KP, bool BIN>
+template <int KP, int OP>
 static int em_launch(const void* q, const void* c, const float* csq,
                      int nq, int n, int d, int k, int euclid,
                      int slab_rows, int vec, long long* part, float* out_s,
                      int* out_i, size_t smem, cudaStream_t st) {
-    int e = em_prepare<KP, BIN>();
+    int e = em_prepare<KP, OP>();
     if (e) return e;
     const int n_slabs = (n + slab_rows - 1) / slab_rows;
     dim3 grid((nq + em_qb(KP) - 1) / em_qb(KP), n_slabs);
-    exact_mma_kernel<KP, BIN><<<grid, FM_THREADS, smem, st>>>(
-        (const __nv_bfloat16*)q, c, csq, nq, n, d, k, euclid, slab_rows,
-        vec, n_slabs == 1, part, out_s, out_i);
+    exact_mma_kernel<KP, OP><<<grid, FM_THREADS, smem, st>>>(
+        q, c, csq, nq, n, d, k, euclid, slab_rows, vec, n_slabs == 1, part,
+        out_s, out_i);
     e = (int)cudaGetLastError();
     if (e || n_slabs == 1) return e;
     exact_merge_kernel<KP><<<nq, FM_THREADS, 0, st>>>(part, n_slabs, nq, k,
@@ -443,47 +452,52 @@ static int em_kp(int k) {
     return kp;
 }
 
-// F<KP, BIN>(args) for the list of KP = em_kp(k) entries (k <= 2048).
-#define EM_DISPATCH(F, ARGS)                                                 \
-    (binary ? (kp == 128 ? F<128, true>(ARGS) : kp == 256 ? F<256, true>(ARGS) \
-               : kp == 512 ? F<512, true>(ARGS)                              \
-               : kp == 1024 ? F<1024, true>(ARGS) : F<2048, true>(ARGS))     \
-            : (kp == 128 ? F<128, false>(ARGS)                               \
-               : kp == 256 ? F<256, false>(ARGS)                             \
-               : kp == 512 ? F<512, false>(ARGS)                             \
-               : kp == 1024 ? F<1024, false>(ARGS) : F<2048, false>(ARGS)))
+// F<KP, OP>(args) for the list of KP = em_kp(k) entries (k <= 2048) and
+// the operand kind op.
+#define EM_DISPATCH_OP(F, O, ...)                                             \
+    (kp == 128    ? F<128, O>(__VA_ARGS__)                                    \
+     : kp == 256  ? F<256, O>(__VA_ARGS__)                                    \
+     : kp == 512  ? F<512, O>(__VA_ARGS__)                                    \
+     : kp == 1024 ? F<1024, O>(__VA_ARGS__)                                   \
+                  : F<2048, O>(__VA_ARGS__))
+#define EM_DISPATCH(F, ARGS)                                                  \
+    (op == OP_BIN   ? EM_DISPATCH_OP(F, OP_BIN, ARGS)                         \
+     : op == OP_F32 ? EM_DISPATCH_OP(F, OP_F32, ARGS)                         \
+                    : EM_DISPATCH_OP(F, OP_BF16, ARGS))
 
 extern "C" {
 
 // Queries a block of exact_mma_kernel carries at k (its grid's x unit).
 int lr_exact_mma_queries(int k) { return em_qb(em_kp(k)); }
 
-size_t lr_exact_mma_smem(int d, int k, int binary) {
-    return em_smem_bytes(d, em_kp(k), binary != 0);
+size_t lr_exact_mma_smem(int d, int k, int op) {
+    return em_smem_bytes(d, em_kp(k), op);
 }
 
-// Resident exact_mma_kernel blocks per SM at (d, k) on the current device
-// (0: does not fit); a negative cudaError_t on failure; -1 past k = 2048.
-int lr_exact_mma_occupancy(int d, int k, int binary) {
+// Resident exact_mma_kernel blocks per SM at (d, k, op) on the current
+// device (0: does not fit); a negative cudaError_t on failure; -1 past
+// k = 2048.
+int lr_exact_mma_occupancy(int d, int k, int op) {
     if (k < 1 || k > 2048) return -1;
     const int kp = em_kp(k);
-    const size_t smem = em_smem_bytes(d, kp, binary != 0);
+    const size_t smem = em_smem_bytes(d, kp, op);
     return EM_DISPATCH(em_occupancy, smem);
 }
 
-// The exact bf16 search (binary = 0: c is bf16 [n, d]) or the exact
-// sign-dot search (binary = 1: c is the packed sign words [n, ceil(d/32)];
-// euclid = 0): exact_mma_kernel over (query tiles x slabs), then, with more
-// than one slab, exact_merge_kernel. csq is the rows' norms^2 (euclid
-// only). part is [slabs, nq, k] int64 scratch (unused with
-// one slab). Returns a cudaError_t, -1 past k = 2048.
+// The exact search over bf16 (op = OP_BF16: q, c bf16 [nq, d], [n, d]) or
+// fp32 (OP_F32: fp32, 3xTF32 products) stores, or the exact sign-dot search
+// (OP_BIN: bf16 queries, c the packed sign words [n, ceil(d/32)]; euclid =
+// 0): exact_mma_kernel over (query tiles x slabs), then, with more than
+// one slab, exact_merge_kernel. csq is the rows' norms^2 (euclid only).
+// part is [slabs, nq, k] int64 scratch (unused with one slab). Returns a
+// cudaError_t, -1 past k = 2048.
 int lr_exact_mma(const void* q, const void* c, const float* csq,
                  int nq, int n, int d, int k, int euclid,
-                 int slab_rows, int vec, int binary, long long* part,
+                 int slab_rows, int vec, int op, long long* part,
                  float* out_s, int* out_i, void* stream) {
     if (k < 1 || k > 2048) return -1;
     const int kp = em_kp(k);
-    const size_t smem = em_smem_bytes(d, kp, binary != 0);
+    const size_t smem = em_smem_bytes(d, kp, op);
     cudaStream_t st = (cudaStream_t)stream;
 #define EM_ARGS q, c, csq, nq, n, d, k, euclid, slab_rows, vec, part, \
                 out_s, out_i, smem, st
@@ -494,3 +508,4 @@ int lr_exact_mma(const void* q, const void* c, const float* csq,
 }  // extern "C"
 
 #undef EM_DISPATCH
+#undef EM_DISPATCH_OP

@@ -1,12 +1,11 @@
-// The fold (kernel 1) for bf16 inputs on Hopper's tensor cores: replaces
-// _fold_kernel (pallas_topk.py:162-179, _fold_body :114-159) for bf16
-// stores. Included by fused_topk.cu, whose header states the contract this
-// kernel keeps: 19-bit keys with a 13-bit tile column, the fold per aligned
-// block_n tile over 128 lanes, and the top-k of the union under (quantized
-// key desc, tile asc, column desc). fp32 stores keep partial_kernel's FMA
-// flavour: the tensor cores would round fp32 inputs to bf16 or TF32.
-// fold_mma_kernel<E, BIN = true> is the binary fold (kernel 3): it replaces
-// _binary_fold_kernel (pallas_topk.py:354-401) with the same machinery.
+// The fold (kernel 1) on Hopper's tensor cores: replaces _fold_kernel
+// (pallas_topk.py:162-179, _fold_body :114-159) for bf16 stores
+// (fold_mma_kernel<E, OP_BF16>) and fp32 stores (<E, OP_F32>), and as
+// fold_mma_kernel<E, OP_BIN> the binary fold (kernel 3, _binary_fold_kernel,
+// pallas_topk.py:354-401). Included by fused_topk.cu, whose header states
+// the contract this kernel keeps: 19-bit keys with a 13-bit tile column, the
+// fold per aligned block_n tile over 128 lanes, the top-k of the union under
+// (quantized key desc, tile asc, column desc), and 3xTF32 products for fp32.
 //
 //   fold_mma_kernel   one block = 64 queries x one corpus slab; 8 warps, a
 //                     pair of warps per 16 queries, each warp 64 of the 128
@@ -86,6 +85,26 @@
 // an SM. It is bound as the bf16 fold is: by the fold and the list upkeep,
 // not by its bytes (8 B a row at d = 64), so the tensor cores and the lean
 // fold are the design here too.
+//
+// The fp32 fold. A stage of 128 rows x 32 fp32 dims is the same 128-byte
+// rows and 16 KB as a bf16 stage, so the ring, its swizzle and the
+// ldmatrix addressing carry over: ldmatrix.x4 .b16 on 16-byte rows of four
+// fp32 values hands lane (g, t) the value at row g, column t, which is the
+// tf32 A layout of mma.sync.m16n8k8 (a0 at (g, t), a2 at (g, t + 4)) and
+// its .col B layout (b0 = corpus[row g][dim t], b1 = dim t + 4), so the
+// bf16 k16 step's two 16-byte chunks are one k8 step here and the C layout,
+// and with it the fold, is the bf16 one. Each fragment splits in registers
+// into tf32 hi and lo parts (fm_split4, see fused_topk.cu) and a k8 step is
+// three mma (lo.hi, hi.lo, hi.hi) from zero, added to the running fp32 sum
+// with a rounded add (fm_mma3 says why); zero rows and dims split into
+// zeros. The query tile stays fp32 in shared memory, so the |q|^2 prologue
+// reads the stored values. d = 64 takes two stages a sub-tile; the
+// list-of-128 instance keeps a ring of 2 stages so that d = 384 still fits
+// a block.
+// Bound: 16 dims take six m16n8k8 tf32 mma (two k8 steps of three) where
+// bf16 takes one m16n8k16 of the same tensor-core time: 3 x 2 Q N d
+// operations at the 495 TFLOP/s TF32 rate (165 TFLOP/s of fp32-accurate
+// products), plus the splits on the CUDA cores.
 
 #define FM_WARPS 8
 #define FM_THREADS (FM_WARPS * 32)
@@ -104,21 +123,33 @@ typedef long long i64;
 static_assert(TN == 128 && DCH == 64, "stages of 128 rows x 64 dims");
 static_assert(FM_THREADS == 2 * TN, "one sign word a thread a binary stage");
 
+// Dims a stage (and a query-tile chunk) holds: 128 bytes a row.
+__host__ __device__ constexpr int fm_dch(int op) {
+    return op == OP_F32 ? DCH / 2 : DCH;
+}
+
+// Stages in the ring of fold_mma_kernel<E, OP>: the fp32 list-of-128
+// instance keeps 2, so that its fp32 query tile fits a block at d = 384.
+__host__ __device__ constexpr int fm_nst(int e, int op) {
+    return op == OP_F32 && e == 4 ? 2 : FM_NST;
+}
+
 __device__ __forceinline__ unsigned fm_smem(const void* p) {
     return (unsigned)__cvta_generic_to_shared(p);
 }
 
-// Bytes of the query tile's region: the bf16 query tile, and for the
-// binary fold the unpacked stage too (in the tile's own room when d <= 64,
-// since the A fragments are then read once before the loop).
-__host__ __device__ __forceinline__ int fm_qu_bytes(int n_dch, bool bin) {
+// Bytes of the query tile's region: the bf16 or fp32 query tile, and for
+// the binary fold the unpacked stage too (in the tile's own room when d <=
+// 64, since the A fragments are then read once before the loop).
+__host__ __device__ __forceinline__ int fm_qu_bytes(int n_dch, int op) {
     const int qs = n_dch * FM_TQ * 128;
-    if (!bin) return qs;
+    if (op != OP_BIN) return qs;
     return n_dch > 1 ? qs + FM_STAGE_BYTES
                      : (qs > FM_STAGE_BYTES ? qs : FM_STAGE_BYTES);
 }
 
-// Byte offset of 16-byte chunk c (8 dims) of row r in a [rows][64] bf16 tile.
+// Byte offset of 16-byte chunk c (8 bf16 or 4 fp32 dims) of row r in a tile
+// of 128-byte rows.
 __device__ __forceinline__ int fm_swz(int r, int c) {
     return r * 128 + ((c ^ (r & 7)) << 4);
 }
@@ -139,8 +170,9 @@ __device__ __forceinline__ void fm_commit() {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+template <int NST>
 __device__ __forceinline__ void fm_wait_ring() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(FM_NST - 2) : "memory");
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(NST - 2) : "memory");
 }
 
 __device__ __forceinline__ void fm_ldsm4(unsigned (&r)[4], unsigned addr) {
@@ -169,25 +201,49 @@ __device__ __forceinline__ uint4 fm_row8(const unsigned short* p, int d,
                       h[4] | (h[5] << 16), h[6] | (h[7] << 16));
 }
 
-// Stage = rows [t0, t0 + 128) x dims [d0, d0 + 64) into a ring slot, and
-// for euclidean the rows' norms^2 after it. Rows >= n and dims >= d are 0.
+// 4 fp32 values [dim, dim + 4) of one row, zero past d (any alignment).
+__device__ __forceinline__ uint4 fm_row4(const float* p, int d, int dim) {
+    unsigned h[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+        h[e] = dim + e < d ? __float_as_uint(p[dim + e]) : 0u;
+    return make_uint4(h[0], h[1], h[2], h[3]);
+}
+
+// The 16-byte chunk from dim on of row `row` of a [*, d] matrix: 8 bf16
+// values, or 4 fp32 for OP_F32; zero past d.
+template <int OP>
+__device__ __forceinline__ uint4 fm_chunk(const void* m, size_t row, int d,
+                                          int dim) {
+    if constexpr (OP == OP_F32)
+        return fm_row4((const float*)m + row * d, d, dim);
+    else
+        return fm_row8((const unsigned short*)m + row * d, d, dim);
+}
+
+// Stage = rows [t0, t0 + 128) x dims [d0, d0 + fm_dch(OP)) of a bf16 or
+// fp32 corpus into a ring slot, and for euclidean the rows' norms^2 after
+// it. Rows >= n and dims >= d are 0.
+template <int OP>
 __device__ __forceinline__ void fm_load_stage(
-    unsigned char* slot, const __nv_bfloat16* c, const float* csq, int n,
-    int d, int t0, int d0, int vec, int euclid, int tid) {
+    unsigned char* slot, const void* c, const float* csq, int n, int d,
+    int t0, int d0, int vec, int euclid, int tid) {
+    constexpr int ES = OP == OP_F32 ? 4 : 2;  // bytes a value
     const unsigned base = fm_smem(slot);
 #pragma unroll
     for (int u = 0; u < (TN * 8) / FM_THREADS; ++u) {
         const int v = tid + FM_THREADS * u, r = v >> 3, ch = v & 7;
-        const int row = t0 + r, dim = d0 + 8 * ch;
+        const int row = t0 + r, dim = d0 + (16 / ES) * ch;
         const bool in = row < n && dim < d;
         if (vec) {
             fm_cp16(base + fm_swz(r, ch),
-                    in ? (const void*)(c + (size_t)row * d + dim) : (const void*)c,
+                    in ? (const void*)((const unsigned char*)c +
+                                       ((size_t)row * d + dim) * ES)
+                       : c,
                     in ? 16 : 0);
         } else {
             *reinterpret_cast<uint4*>(slot + fm_swz(r, ch)) =
-                in ? fm_row8((const unsigned short*)c + (size_t)row * d, d, dim)
-                   : make_uint4(0u, 0u, 0u, 0u);
+                in ? fm_chunk<OP>(c, row, d, dim) : make_uint4(0u, 0u, 0u, 0u);
         }
     }
     if (euclid && tid < TN) {
@@ -232,28 +288,131 @@ __device__ __forceinline__ void fm_unpack(unsigned char* U,
     }
 }
 
-// One stage of the corpus into a ring slot: bf16 rows, or the binary
-// fold's sign words.
-template <bool BIN>
+// One stage of the corpus into a ring slot: bf16 or fp32 rows, or the
+// binary fold's sign words.
+template <int OP>
 __device__ __forceinline__ void fm_stage(unsigned char* slot, const void* cp,
                                          const float* csq, int n, int d,
                                          int t0, int d0, int vec, int euclid,
                                          int tid) {
-    if constexpr (BIN)
+    if constexpr (OP == OP_BIN)
         fm_load_words(slot, (const unsigned*)cp, n, (d + 31) >> 5, t0, d0, tid);
     else
-        fm_load_stage(slot, (const __nv_bfloat16*)cp, csq, n, d, t0, d0, vec,
-                      euclid, tid);
+        fm_load_stage<OP>(slot, cp, csq, n, d, t0, d0, vec, euclid, tid);
 }
 
-// The A fragments of a warp's 16 queries for one 64-dim chunk Qc.
+// Row r's value at dim dd of a swizzled query tile of `rows` rows a chunk
+// (bf16 values, or fp32 for OP_F32).
+template <int OP>
+__device__ __forceinline__ float fm_qval(const unsigned char* Qs, int rows,
+                                         int r, int dd) {
+    if constexpr (OP == OP_F32)
+        return *reinterpret_cast<const float*>(
+            Qs + (dd >> 5) * rows * 128 + fm_swz(r, (dd >> 2) & 7) +
+            4 * (dd & 3));
+    const unsigned short h = *reinterpret_cast<const unsigned short*>(
+        Qs + (dd >> 6) * rows * 128 + fm_swz(r, (dd >> 3) & 7) + 2 * (dd & 7));
+    return __uint_as_float((unsigned)h << 16);
+}
+
+// |q|^2 of row r of a query tile: dims 0, 1, ... d - 1 in turn, each
+// product and each sum rounded to fp32 (the plain version's row_sq repeats
+// it with torch ops).
+template <int OP>
+__device__ float fm_row_sq(const unsigned char* Qs, int rows, int r, int d) {
+    float s = 0.f;
+    for (int dd = 0; dd < d; ++dd) {
+        const float x = fm_qval<OP>(Qs, rows, r, dd);
+        s = __fadd_rn(s, __fmul_rn(x, x));
+    }
+    return s;
+}
+
+// The A fragment of a warp's 16 queries for k step s of one chunk Qc.
+__device__ __forceinline__ void fm_load_a1(unsigned (&a)[4],
+                                           const unsigned char* Qc, int wq0,
+                                           int lane, int s) {
+    fm_ldsm4(a, fm_smem(Qc + fm_swz(wq0 + (lane & 7) + (lane & 8),
+                                    2 * s + (lane >> 4))));
+}
+
+// The A fragments of a warp's 16 queries for the four k steps of Qc.
 __device__ __forceinline__ void fm_load_a(unsigned (&afr)[4][4],
                                           const unsigned char* Qc, int wq0,
                                           int lane) {
 #pragma unroll
-    for (int s = 0; s < 4; ++s)
-        fm_ldsm4(afr[s], fm_smem(Qc + fm_swz(wq0 + (lane & 7) + (lane & 8),
-                                             2 * s + (lane >> 4))));
+    for (int s = 0; s < 4; ++s) fm_load_a1(afr[s], Qc, wq0, lane, s);
+}
+
+// tf32_rna(x) as the bits of an fp32 value: the magnitude rounded to 10
+// mantissa bits, ties away from zero, low 13 bits zero -- what
+// cvt.rna.tf32.f32 gives for finite x, in two integer ops. On an H100 the
+// fp32 kernels ran 8-15 % faster at 1024 x 1M this way than with the cvt,
+// which issues on the slower conversion path.
+__device__ __forceinline__ unsigned fm_tf32(float x) {
+    return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// 3xTF32 split of four fp32 values (as bits): hi = tf32_rna(x), lo =
+// tf32_rna(x - hi); x - hi is exact in fp32.
+__device__ __forceinline__ void fm_split4(const unsigned (&x)[4],
+                                          unsigned (&hi)[4],
+                                          unsigned (&lo)[4]) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+        const float v = __uint_as_float(x[e]);
+        hi[e] = fm_tf32(v);
+        lo[e] = fm_tf32(__fsub_rn(v, __uint_as_float(hi[e])));
+    }
+}
+
+__device__ __forceinline__ void fm_mma_tf32(float (&c)[4],
+                                            const unsigned (&a)[4],
+                                            unsigned b0, unsigned b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a.b for one k8 step in 3xTF32. The tensor cores truncate as they
+// accumulate, so a running sum kept in the mma's C would lose up to an ulp
+// of itself at every one of its 3 d / 8 mma, all in one direction: at d =
+// 384 that is several times the error of plain fp32 sums (a CPU model of
+// it: tests/test_torch_tf32.py). So the step's three products (the cross
+// terms, then hi.hi) sum from zero, where the truncation is relative to
+// the small step sum and its sign varies from step to step, and join c by
+// a round-to-nearest fp32 add.
+__device__ __forceinline__ void fm_mma3(float (&c)[4], const unsigned (&ah)[4],
+                                        const unsigned (&al)[4], unsigned bh0,
+                                        unsigned bh1, unsigned bl0,
+                                        unsigned bl1) {
+    float p[4];
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%10, %10, %10, %10};\n"
+        : "=f"(p[0]), "=f"(p[1]), "=f"(p[2]), "=f"(p[3])
+        : "r"(al[0]), "r"(al[1]), "r"(al[2]), "r"(al[3]), "r"(bh0), "r"(bh1),
+          "f"(0.f));
+    fm_mma_tf32(p, ah, bl0, bl1);
+    fm_mma_tf32(p, ah, bh0, bh1);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[e] = __fadd_rn(c[e], p[e]);
+}
+
+// c0 += a.b and c1 += a.b' for one k8 step of two n8 blocks in 3xTF32, A
+// already split; b: ldmatrix.x4 of the two blocks' fp32 B fragments.
+__device__ __forceinline__ void fm_mma3_x2(float (&c0)[4], float (&c1)[4],
+                                           const unsigned (&ah)[4],
+                                           const unsigned (&al)[4],
+                                           const unsigned (&b)[4]) {
+    unsigned bh[4], bl[4];
+    fm_split4(b, bh, bl);
+    fm_mma3(c0, ah, al, bh[0], bh[1], bl[0], bl[1]);
+    fm_mma3(c1, ah, al, bh[2], bh[3], bl[2], bl[3]);
 }
 
 __device__ __forceinline__ i64 fm_shfl(i64 v, int src) {
@@ -484,24 +643,26 @@ __device__ __forceinline__ void fm_decode(i64 key, unsigned R, int block_n,
 
 // grid: (ceil(nq / FM_TQ), slabs of slab_rows rows, a multiple of block_n).
 // Lists are held E = KP / 32 a lane in registers (KP >= k). final_out (one
-// slab): write out_s / out_i; else part[slab, q, :] keys. BIN: cp is the
-// packed sign words [n, ceil(d/32)] (euclid and vec are 0).
-template <int E, bool BIN>
+// slab): write out_s / out_i; else part[slab, q, :] keys. qp and cp are
+// bf16 [nq, d] and [n, d] (OP_BF16), fp32 (OP_F32), or bf16 queries and the
+// packed sign words [n, ceil(d/32)] (OP_BIN; euclid and vec are 0).
+template <int E, int OP>
 __global__ void __launch_bounds__(FM_THREADS, 2)
-fold_mma_kernel(const __nv_bfloat16* __restrict__ qp,
-                const void* __restrict__ cp,
+fold_mma_kernel(const void* __restrict__ qp, const void* __restrict__ cp,
                 const float* __restrict__ csq, int nq, int n, int d, int k,
                 int euclid, int block_n, int slab_rows, int vec, int final_out,
                 i64* __restrict__ part, float* __restrict__ out_s,
                 int* __restrict__ out_i) {
     extern __shared__ __align__(16) unsigned char smem[];
+    constexpr bool BIN = OP == OP_BIN;
     constexpr int SLOT = BIN ? FM_WSLOT_BYTES : FM_SLOT_BYTES;
-    const int n_dch = (d + DCH - 1) / DCH;
-    unsigned char* ring = smem;                            // FM_NST slots
-    unsigned char* Qs = ring + FM_NST * SLOT;              // [n_dch][64][64] bf16
+    constexpr int NST = fm_nst(E, OP), CH = fm_dch(OP);
+    const int n_dch = (d + CH - 1) / CH;
+    unsigned char* ring = smem;                            // NST slots
+    unsigned char* Qs = ring + NST * SLOT;                 // [n_dch][64][128 B]
     // BIN: the unpacked stage [128][64] bf16
     unsigned char* U = Qs + (n_dch > 1 ? n_dch * FM_TQ * 128 : 0);
-    float* qsq = (float*)(Qs + fm_qu_bytes(n_dch, BIN));   // [64]
+    float* qsq = (float*)(Qs + fm_qu_bytes(n_dch, OP));    // [64]
     int* Tb = (int*)(qsq + FM_TQ);                         // [4 pairs][8][136]
     i64* Cb = (i64*)(Tb + FM_PAIRS * 8 * FM_TSTRIDE);      // [8 warps][128]
     i64* L = Cb + FM_WARPS * 128;                          // [64][k]
@@ -521,11 +682,11 @@ fold_mma_kernel(const __nv_bfloat16* __restrict__ qp,
 
     // the ring's first stages go out before the query tile is read
 #pragma unroll
-    for (int s = 0; s < FM_NST - 1; ++s) {
+    for (int s = 0; s < NST - 1; ++s) {
         if (s < n_st)
-            fm_stage<BIN>(ring + s * SLOT, cp, csq, n, d,
-                          row0 + (s / n_dch) * TN, (s % n_dch) * DCH, vec,
-                          euclid, tid);
+            fm_stage<OP>(ring + s * SLOT, cp, csq, n, d,
+                         row0 + (s / n_dch) * TN, (s % n_dch) * CH, vec,
+                         euclid, tid);
         fm_commit();
     }
     for (int v = tid; v < FM_TQ * n_dch * 8; v += FM_THREADS) {
@@ -533,27 +694,20 @@ fold_mma_kernel(const __nv_bfloat16* __restrict__ qp,
         const int q = q0 + r;
         *reinterpret_cast<uint4*>(Qs + (cc >> 3) * FM_TQ * 128 +
                                   fm_swz(r, cc & 7)) =
-            q < nq ? fm_row8((const unsigned short*)qp + (size_t)q * d, d, 8 * cc)
+            q < nq ? fm_chunk<OP>(qp, q, d, (CH / 8) * cc)
                    : make_uint4(0u, 0u, 0u, 0u);
     }
     for (int e = tid; e < FM_TQ * k; e += FM_THREADS) L[e] = EMPTY64;
     __syncthreads();
-    if (euclid && tid < FM_TQ) {  // |q|^2 of the stored bf16 values, dim
-        float s = 0.f;             // by dim, rounded as the plain version
-        for (int dd = 0; dd < d; ++dd) {
-            const unsigned short h = *reinterpret_cast<const unsigned short*>(
-                Qs + (dd >> 6) * FM_TQ * 128 + fm_swz(tid, (dd >> 3) & 7) +
-                2 * (dd & 7));
-            const float x = __uint_as_float((unsigned)h << 16);
-            s = __fadd_rn(s, __fmul_rn(x, x));
-        }
-        qsq[tid] = s;
-    }
+    // |q|^2 of the stored values, dim by dim, rounded as the plain version
+    if (euclid && tid < FM_TQ) qsq[tid] = fm_row_sq<OP>(Qs, FM_TQ, tid, d);
     // (qsq is read after the first stage's barrier)
     // with one 64-dim chunk the A fragments are read once: the binary fold
     // here, before its first unpack takes the query tile's room; the bf16
     // fold at the loop's first stage, since loading them here makes ptxas
-    // spill its k <= 64 instance (104 bytes), ~9 % slower at 1M rows
+    // spill its k <= 64 instance (104 bytes), ~9 % slower at 1M rows. The
+    // fp32 fold loads and splits one k step's fragment at a time: the tf32
+    // parts of all four take 32 registers it does not have
     unsigned afr[4][4];
     if (BIN && n_dch == 1) fm_load_a(afr, Qs, wq0, lane);
 
@@ -567,17 +721,17 @@ fold_mma_kernel(const __nv_bfloat16* __restrict__ qp,
     i64* cbuf = Cb + warp * 128;
 
     for (int st = 0; st < n_st; ++st) {
-        fm_wait_ring();
+        fm_wait_ring<NST>();
         __syncthreads();  // stage st is in; stage st - 1's slot (and U) free
         {
-            const int s2 = st + FM_NST - 1;
+            const int s2 = st + NST - 1;
             if (s2 < n_st)
-                fm_stage<BIN>(ring + (s2 % FM_NST) * SLOT, cp, csq, n, d,
-                              row0 + (s2 / n_dch) * TN, (s2 % n_dch) * DCH,
-                              vec, euclid, tid);
+                fm_stage<OP>(ring + (s2 % NST) * SLOT, cp, csq, n, d,
+                             row0 + (s2 / n_dch) * TN, (s2 % n_dch) * CH,
+                             vec, euclid, tid);
             fm_commit();
         }
-        const unsigned char* S = ring + (st % FM_NST) * SLOT;
+        const unsigned char* S = ring + (st % NST) * SLOT;
         if constexpr (BIN) {  // every warp unpacks its share, active or not
             fm_unpack(U, S, tid);
             __syncthreads();
@@ -592,18 +746,30 @@ fold_mma_kernel(const __nv_bfloat16* __restrict__ qp,
 #pragma unroll
                 for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
         }
-        if (n_dch > 1 || (!BIN && st == 0))
-            fm_load_a(afr, Qs + dci * FM_TQ * 128, wq0, lane);
+        const unsigned char* Qc = Qs + dci * FM_TQ * 128;
+        if (OP != OP_F32 && (n_dch > 1 || (!BIN && st == 0)))
+            fm_load_a(afr, Qc, wq0, lane);
+        // four k steps of 16 bf16 dims, or of 8 fp32 dims in 3xTF32
 #pragma unroll
         for (int s = 0; s < 4; ++s) {
+            unsigned ah[4], al[4];  // OP_F32: the A fragment's tf32 parts
+            if constexpr (OP == OP_F32) {
+                unsigned a[4];
+                fm_load_a1(a, Qc, wq0, lane, s);
+                fm_split4(a, ah, al);
+            }
 #pragma unroll
             for (int jp = 0; jp < 4; ++jp) {
                 unsigned b[4];
                 fm_ldsm4(b, fm_smem(S + fm_swz(c64 + 16 * jp + (lane & 7) +
                                                    ((lane >> 4) << 3),
                                                2 * s + ((lane >> 3) & 1))));
-                fm_mma(acc[2 * jp], afr[s], b[0], b[1]);
-                fm_mma(acc[2 * jp + 1], afr[s], b[2], b[3]);
+                if constexpr (OP == OP_F32) {
+                    fm_mma3_x2(acc[2 * jp], acc[2 * jp + 1], ah, al, b);
+                } else {
+                    fm_mma(acc[2 * jp], afr[s], b[0], b[1]);
+                    fm_mma(acc[2 * jp + 1], afr[s], b[2], b[3]);
+                }
             }
         }
         if (dci != n_dch - 1) continue;  // more dims of this sub-tile to come
@@ -716,7 +882,7 @@ fold_merge_kernel(const i64* __restrict__ part, int S, int nq, int k,
 
 // Each kernel instance's dynamic shared memory is raised to the card's
 // opt-in limit once per device, not on every call.
-template <int E, bool BIN>
+template <int E, int OP>
 static int fm_prepare() {
     static unsigned ready = 0;  // bit per device
     int dev = 0;
@@ -727,37 +893,37 @@ static int fm_prepare() {
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
     if (e != cudaSuccess) return (int)e;
-    e = cudaFuncSetAttribute(fold_mma_kernel<E, BIN>,
+    e = cudaFuncSetAttribute(fold_mma_kernel<E, OP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (e != cudaSuccess) return (int)e;
     if (dev < 32) ready |= 1u << dev;
     return 0;
 }
 
-template <int E, bool BIN>
+template <int E, int OP>
 static int fm_occupancy(size_t smem) {
-    int e = fm_prepare<E, BIN>();
+    int e = fm_prepare<E, OP>();
     if (e) return -e;
     int blocks = 0;
     e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, fold_mma_kernel<E, BIN>, FM_THREADS, smem);
+        &blocks, fold_mma_kernel<E, OP>, FM_THREADS, smem);
     return e ? -e : blocks;
 }
 
-template <int E, bool BIN>
+template <int E, int OP>
 static int fm_launch(const void* q, const void* c, const float* csq, int nq,
                      int n, int d, int k, int euclid, int block_n,
                      int slab_rows, int vec, long long* part, float* out_s,
                      int* out_i, size_t smem, cudaStream_t st) {
-    int e = fm_prepare<E, BIN>();
+    int e = fm_prepare<E, OP>();
     if (e) return e;
     const int n_slabs = (n + slab_rows - 1) / slab_rows;
     const unsigned R =
         (unsigned)((n + block_n - 1) / block_n - 1) * (unsigned)block_n;
     dim3 grid((nq + FM_TQ - 1) / FM_TQ, n_slabs);
-    fold_mma_kernel<E, BIN><<<grid, FM_THREADS, smem, st>>>(
-        (const __nv_bfloat16*)q, c, csq, nq, n, d, k, euclid, block_n,
-        slab_rows, vec, n_slabs == 1, part, out_s, out_i);
+    fold_mma_kernel<E, OP><<<grid, FM_THREADS, smem, st>>>(
+        q, c, csq, nq, n, d, k, euclid, block_n, slab_rows, vec, n_slabs == 1,
+        part, out_s, out_i);
     e = (int)cudaGetLastError();
     if (e || n_slabs == 1) return e;
     fold_merge_kernel<E><<<(nq + FM_WARPS - 1) / FM_WARPS, FM_THREADS, 0, st>>>(
@@ -765,43 +931,50 @@ static int fm_launch(const void* q, const void* c, const float* csq, int nq,
     return (int)cudaGetLastError();
 }
 
-// F<E, BIN>(args) for the least list of 32, 64 or 128 entries that holds k.
+// List entries a lane for k: the least list of 32, 64 or 128 that holds it.
+static int fm_e(int k) { return k <= 32 ? 1 : k <= 64 ? 2 : 4; }
+
+// F<E, OP>(args) for E = fm_e(k) and the operand kind op.
+#define FM_DISPATCH_OP(F, O, ...)                                             \
+    (k <= 32   ? F<1, O>(__VA_ARGS__)                                         \
+     : k <= 64 ? F<2, O>(__VA_ARGS__)                                         \
+               : F<4, O>(__VA_ARGS__))
 #define FM_DISPATCH(F, ARGS)                                                  \
-    (binary ? (k <= 32 ? F<1, true>(ARGS) : k <= 64 ? F<2, true>(ARGS)        \
-                                                    : F<4, true>(ARGS))       \
-            : (k <= 32 ? F<1, false>(ARGS) : k <= 64 ? F<2, false>(ARGS)      \
-                                                     : F<4, false>(ARGS)))
+    (op == OP_BIN   ? FM_DISPATCH_OP(F, OP_BIN, ARGS)                         \
+     : op == OP_F32 ? FM_DISPATCH_OP(F, OP_F32, ARGS)                         \
+                    : FM_DISPATCH_OP(F, OP_BF16, ARGS))
 
 extern "C" {
 
-// Dynamic shared memory of one fold_mma_kernel block (binary: the binary
-// fold's).
-size_t lr_fold_mma_smem(int d, int k, int binary) {
-    const int n_dch = (d + DCH - 1) / DCH;
-    return (size_t)FM_NST * (binary ? FM_WSLOT_BYTES : FM_SLOT_BYTES) +
-           fm_qu_bytes(n_dch, binary != 0) + FM_TQ * 4 +
+// Dynamic shared memory of one fold_mma_kernel<fm_e(k), op> block.
+size_t lr_fold_mma_smem(int d, int k, int op) {
+    const int n_dch = (d + fm_dch(op) - 1) / fm_dch(op);
+    return (size_t)fm_nst(fm_e(k), op) *
+               (op == OP_BIN ? FM_WSLOT_BYTES : FM_SLOT_BYTES) +
+           fm_qu_bytes(n_dch, op) + FM_TQ * 4 +
            (size_t)FM_PAIRS * 8 * FM_TSTRIDE * 4 +
            (size_t)FM_WARPS * 128 * 8 + (size_t)FM_TQ * k * 8;
 }
 
-// Resident fold_mma_kernel blocks per SM at (d, k) on the current device
-// (0: does not fit); a negative cudaError_t on failure.
-int lr_fold_mma_occupancy(int d, int k, int binary) {
-    const size_t smem = lr_fold_mma_smem(d, k, binary);
+// Resident fold_mma_kernel blocks per SM at (d, k, op) on the current
+// device (0: does not fit); a negative cudaError_t on failure.
+int lr_fold_mma_occupancy(int d, int k, int op) {
+    const size_t smem = lr_fold_mma_smem(d, k, op);
     return FM_DISPATCH(fm_occupancy, smem);
 }
 
-// The bf16 fold (binary = 0: c is bf16 [n, d]) or the binary fold
-// (binary = 1: c is the packed sign words [n, ceil(d/32)]; euclid = 0):
+// The fold over bf16 (op = OP_BF16: q, c bf16 [nq, d], [n, d]) or fp32
+// (OP_F32: fp32, 3xTF32 products) stores, or the binary fold (OP_BIN: bf16
+// queries, c the packed sign words [n, ceil(d/32)]; euclid = 0):
 // fold_mma_kernel over (query tiles x slabs), then, with more than one
 // slab, fold_merge_kernel; lists of 32, 64 or 128 entries in registers,
 // the least that holds k. part is [slabs, nq, k] int64 scratch (unused
 // with one slab). Returns a cudaError_t.
 int lr_fold_mma(const void* q, const void* c, const float* csq, int nq, int n,
                 int d, int k, int euclid, int block_n, int slab_rows, int vec,
-                int binary, long long* part, float* out_s, int* out_i,
+                int op, long long* part, float* out_s, int* out_i,
                 void* stream) {
-    const size_t smem = lr_fold_mma_smem(d, k, binary);
+    const size_t smem = lr_fold_mma_smem(d, k, op);
     cudaStream_t st = (cudaStream_t)stream;
 #define FM_ARGS q, c, csq, nq, n, d, k, euclid, block_n, slab_rows, vec, part, \
                 out_s, out_i, smem, st
@@ -812,3 +985,4 @@ int lr_fold_mma(const void* q, const void* c, const float* csq, int nq, int n,
 }  // extern "C"
 
 #undef FM_DISPATCH
+#undef FM_DISPATCH_OP

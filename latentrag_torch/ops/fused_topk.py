@@ -40,11 +40,13 @@ The port of the JAX package's ``ops/pallas_topk.py``:
 On a CUDA tensor the raw functions launch the kernels of
 ``csrc/fused_topk.cu`` or raise; on a CPU tensor they run their plain
 versions, which repeat the JAX algorithm step by step, fold included.
-bf16 and packed binary stores run tensor-core kernels that write the
-scores and ids themselves: the folds in ``csrc/fold_mma.cuh``, the exact
-searches in ``csrc/exact_mma.cuh`` (batched list upkeep in both); fp32
-stores keep the FMA flavour (``partial_kernel`` per query tile and corpus
-slab, then ``merge_kernel``). The kernel sources say what bounds them on
+Every store runs tensor-core kernels that write the scores and ids
+themselves: the folds in ``csrc/fold_mma.cuh``, the exact searches in
+``csrc/exact_mma.cuh`` (batched list upkeep in both), each instantiated
+for bf16, packed binary and fp32 operands. fp32 stores multiply in
+3xTF32 (each operand split into rounded tf32 hi and lo parts, three
+products a pair), within ~3 x 2^-22 of each exact product, the size of
+fp32 sum-order differences. The kernel sources say what bounds them on
 the H100 and what their designs do about that.
 
 ``launches`` counts kernel launches per kernel (``fold``, ``exact``,
@@ -75,13 +77,14 @@ _IDX_MASK = (1 << _IDX_BITS) - 1
 _LANES = 128
 FOLD_MAX_K = _LANES
 EXACT_MAX_K = 2048  # the exact kernels' lists; the routes block past it
-_SMEM_LIMIT = 227 * 1024  # bytes of shared memory one H100 block may use
-_TQ_CHOICES = (32, 16, 8)
-_EXACT_SLAB_UNIT = 512  # exact slabs need no fold alignment
-_DIM_STAGE = 64  # feature dims per shared-memory stage (DCH in the source)
 FOLD_OVERSAMPLE = 4  # candidates per wanted row on the approximate route
 
-_FM_TQ = 64  # queries per block of the bf16 fold kernel (FM_TQ)
+# operand kinds of the tensor-core kernels (OP_* in csrc/fused_topk.cu) and
+# the suffix each gives a kernel's name in ``last_kernel``
+_OP_BF16, _OP_BIN, _OP_F32 = 0, 1, 2
+_OP_TAG = {_OP_BF16: "", _OP_BIN: "<bin>", _OP_F32: "<f32>"}
+
+_FM_TQ = 64  # queries per block of the fold kernel (FM_TQ)
 # the exact tensor-core kernel splits the corpus into slabs only while each
 # keeps at least this many 128-row sub-tiles: a smaller slab does not pay
 # for the merge launch after it
@@ -253,12 +256,6 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library("fused_topk")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lr_topk_partial_smem.restype = ctypes.c_size_t
-    lib.lr_topk_partial_smem.argtypes = [i, i, i]
-    lib.lr_topk_partial.restype = i
-    lib.lr_topk_partial.argtypes = [p, p, p] + [i] * 10 + [p, p, p]
-    lib.lr_topk_merge.restype = i
-    lib.lr_topk_merge.argtypes = [p, p] + [i] * 5 + [p, p, p]
     lib.lr_fold_mma_smem.restype = ctypes.c_size_t
     lib.lr_fold_mma_smem.argtypes = [i, i, i]
     lib.lr_fold_mma_occupancy.restype = i
@@ -283,16 +280,6 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _pick_tq(lib, d: int, k: int) -> int:
-    """The widest query tile whose block fits in shared memory."""
-    for tq in _TQ_CHOICES:
-        if lib.lr_topk_partial_smem(tq, d, k) <= _SMEM_LIMIT:
-            return tq
-    raise ValueError(
-        f"d={d}, k={k} needs more shared memory than one block has"
-    )
-
-
 def _check(lib, code: int, what: str) -> None:
     if code != 0:
         msg = lib.lr_error_string(code).decode() if code > 0 else "bad tile"
@@ -305,75 +292,35 @@ def _require_contiguous(queries, corpus) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(queries, corpus, csq, *, d, k_eff, block_n, fold, euclid=False,
-            vec=False):
-    """Run the partial kernel over query tiles x corpus slabs, then the
-    merge kernel across slabs; returns the [Q, k] (keys, rows) as int32.
-    Queries and corpus are fp32 (the bf16 flavours have their own
-    kernels)."""
-    _require_contiguous(queries, corpus)
-    lib = _library()
-    nq = queries.shape[0]
-    n = corpus.shape[0]
-    dev = queries.device
-    tq = _pick_tq(lib, d, k_eff)
-    unit = block_n if fold else _EXACT_SLAB_UNIT
-    n_units = -(-n // unit)
-    q_tiles = -(-nq // tq)
-    # enough blocks for two per SM; each slab a whole number of fold tiles
-    want = max(1, math.ceil(2 * _sm_count(dev.index) / q_tiles))
-    slab_rows = -(-n_units // min(n_units, want)) * unit
-    n_slabs = -(-n // slab_rows)
-
-    out_k = torch.empty((nq, k_eff), dtype=torch.int32, device=dev)
-    out_i = torch.empty((nq, k_eff), dtype=torch.int32, device=dev)
-    if n_slabs == 1:
-        part_k, part_i = out_k, out_i
-    else:
-        part_k = torch.empty((n_slabs, nq, k_eff), dtype=torch.int32, device=dev)
-        part_i = torch.empty_like(part_k)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        code = lib.lr_topk_partial(
-            queries.data_ptr(), corpus.data_ptr(),
-            csq.data_ptr() if csq is not None else None,
-            nq, n, d, k_eff, int(euclid), int(fold), block_n, slab_rows, tq,
-            int(vec), part_k.data_ptr(), part_i.data_ptr(), stream,
-        )
-        _check(lib, code, "fused top-k partial kernel")
-        if n_slabs > 1:
-            code = lib.lr_topk_merge(
-                part_k.data_ptr(), part_i.data_ptr(), n_slabs, nq, k_eff,
-                int(fold), block_n, out_k.data_ptr(), out_i.data_ptr(), stream,
-            )
-            _check(lib, code, "fused top-k merge kernel")
-    global last_kernel
-    last_kernel = (f"partial_kernel<{tq},{str(fold).lower()}>"
-                   + ("+merge_kernel" if n_slabs > 1 else ""))
-    return out_k, out_i
+def _vec(corpus, d: int, op: int) -> bool:
+    """Whether the corpus stages may load by 16-byte ``cp.async``: whole
+    chunks (8 bf16 or 4 fp32 values) a row and an aligned base. The binary
+    stages move 4-byte words."""
+    per_chunk = {_OP_BF16: 8, _OP_F32: 4}.get(op)
+    return (per_chunk is not None and d % per_chunk == 0
+            and corpus.data_ptr() % 16 == 0)
 
 
 @functools.cache
-def _fold_mma_slots(index: int, d: int, k: int, binary: bool) -> int:
-    """Resident blocks of the bf16 or binary fold kernel the card holds at
-    (d, k)."""
+def _fold_mma_slots(index: int, d: int, k: int, op: int) -> int:
+    """Resident blocks of the fold kernel for operand kind ``op`` the card
+    holds at (d, k)."""
     lib = _library()
     with torch.cuda.device(index):
-        per_sm = lib.lr_fold_mma_occupancy(d, k, int(binary))
+        per_sm = lib.lr_fold_mma_occupancy(d, k, op)
     if per_sm < 0:
         _check(lib, -per_sm, "fold kernel occupancy")
     if per_sm == 0:
         raise ValueError(
             f"d={d}, k={k} needs more shared memory than one block has "
-            f"({lib.lr_fold_mma_smem(d, k, int(binary))} bytes)"
+            f"({lib.lr_fold_mma_smem(d, k, op)} bytes)"
         )
     return per_sm * _sm_count(index)
 
 
-def _fold_mma(queries, corpus, csq, *, d, k_eff, block_n, euclid,
-              binary=False):
-    """The bf16 fold, or with ``binary`` the fold over packed sign words,
-    on the tensor cores (``csrc/fold_mma.cuh``): the corpus in slabs of
+def _fold_mma(queries, corpus, csq, *, d, k_eff, block_n, euclid, op):
+    """The fold on the tensor cores (``csrc/fold_mma.cuh``) over bf16 or
+    fp32 stores, or packed sign words (``op``): the corpus in slabs of
     whole tiles, as many as fill the card's resident block slots for the
     query tiles at hand; the kernels write the fp32 scores and int32 ids."""
     _require_contiguous(queries, corpus)
@@ -381,7 +328,7 @@ def _fold_mma(queries, corpus, csq, *, d, k_eff, block_n, euclid,
     n = corpus.shape[0]
     dev = queries.device
     lib = _library()
-    slots = _fold_mma_slots(dev.index, d, k_eff, binary)
+    slots = _fold_mma_slots(dev.index, d, k_eff, op)
     n_tiles = -(-n // block_n)
     want = min(n_tiles, max(1, slots // -(-nq // _FM_TQ)))
     slab_rows = -(-n_tiles // want) * block_n
@@ -390,45 +337,44 @@ def _fold_mma(queries, corpus, csq, *, d, k_eff, block_n, euclid,
     ids = torch.empty((nq, k_eff), dtype=torch.int32, device=dev)
     part = (torch.empty((n_slabs, nq, k_eff), dtype=torch.int64, device=dev)
             if n_slabs > 1 else None)
-    # bf16 cp.async stages need 16-byte rows and an aligned base (the
-    # binary stages move 4-byte words)
-    vec = not binary and d % 8 == 0 and corpus.data_ptr() % 16 == 0
     with torch.cuda.device(dev):
         code = lib.lr_fold_mma(
             queries.data_ptr(), corpus.data_ptr(),
             csq.data_ptr() if csq is not None else None,
-            nq, n, d, k_eff, int(euclid), block_n, slab_rows, int(vec),
-            int(binary), part.data_ptr() if part is not None else None,
+            nq, n, d, k_eff, int(euclid), block_n, slab_rows,
+            int(_vec(corpus, d, op)), op,
+            part.data_ptr() if part is not None else None,
             scores.data_ptr(), ids.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _check(lib, code, "binary fold kernel" if binary else "bf16 fold kernel")
+    _check(lib, code, f"fold_mma_kernel{_OP_TAG[op]}")
     global last_kernel
-    last_kernel = ("fold_mma_kernel<bin>" if binary else "fold_mma_kernel") + (
+    last_kernel = f"fold_mma_kernel{_OP_TAG[op]}" + (
         "+fold_merge_kernel" if n_slabs > 1 else "")
     return scores, ids
 
 
 @functools.cache
-def _exact_mma_slots(index: int, d: int, k: int, binary: bool) -> int:
-    """Resident blocks of the bf16 or binary exact kernel the card holds
-    at (d, k)."""
+def _exact_mma_slots(index: int, d: int, k: int, op: int) -> int:
+    """Resident blocks of the exact kernel for operand kind ``op`` the card
+    holds at (d, k)."""
     lib = _library()
     with torch.cuda.device(index):
-        per_sm = lib.lr_exact_mma_occupancy(d, k, int(binary))
+        per_sm = lib.lr_exact_mma_occupancy(d, k, op)
     if per_sm < 0:
         _check(lib, -per_sm, "exact kernel occupancy")
     if per_sm == 0:
         raise ValueError(
             f"d={d}, k={k} needs more shared memory than one block has "
-            f"({lib.lr_exact_mma_smem(d, k, int(binary))} bytes)"
+            f"({lib.lr_exact_mma_smem(d, k, op)} bytes)"
         )
     return per_sm * _sm_count(index)
 
 
-def _exact_mma(queries, corpus, csq, *, d, k_eff, euclid, binary=False):
-    """The exact bf16 search, or with ``binary`` the exact sign-dot
-    search, on the tensor cores (``csrc/exact_mma.cuh``), k <= 2048: the
+def _exact_mma(queries, corpus, csq, *, d, k_eff, euclid, op):
+    """The exact search over bf16 or fp32 stores, or the exact sign-dot
+    search over packed sign words (``op``), on the tensor cores
+    (``csrc/exact_mma.cuh``), k <= 2048: the
     corpus in slabs of whole 128-row sub-tiles, as many as fill the card's
     resident block slots for the query tiles at hand while each keeps
     ``_EM_MIN_SLAB_SUBTILES``; the kernels write the fp32 scores and int32
@@ -438,7 +384,7 @@ def _exact_mma(queries, corpus, csq, *, d, k_eff, euclid, binary=False):
     n = corpus.shape[0]
     dev = queries.device
     lib = _library()
-    slots = _exact_mma_slots(dev.index, d, k_eff, binary)
+    slots = _exact_mma_slots(dev.index, d, k_eff, op)
     q_tiles = -(-nq // lib.lr_exact_mma_queries(k_eff))
     n_sub = -(-n // _LANES)
     want = max(1, min(n_sub // _EM_MIN_SLAB_SUBTILES, slots // q_tiles))
@@ -448,20 +394,19 @@ def _exact_mma(queries, corpus, csq, *, d, k_eff, euclid, binary=False):
     ids = torch.empty((nq, k_eff), dtype=torch.int32, device=dev)
     part = (torch.empty((n_slabs, nq, k_eff), dtype=torch.int64, device=dev)
             if n_slabs > 1 else None)
-    vec = not binary and d % 8 == 0 and corpus.data_ptr() % 16 == 0
     with torch.cuda.device(dev):
         code = lib.lr_exact_mma(
             queries.data_ptr(), corpus.data_ptr(),
             csq.data_ptr() if csq is not None else None,
-            nq, n, d, k_eff, int(euclid), slab_rows, int(vec), int(binary),
+            nq, n, d, k_eff, int(euclid), slab_rows,
+            int(_vec(corpus, d, op)), op,
             part.data_ptr() if part is not None else None,
             scores.data_ptr(), ids.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _check(lib, code,
-           "exact binary kernel" if binary else "bf16 exact kernel")
+    _check(lib, code, f"exact_mma_kernel{_OP_TAG[op]}")
     global last_kernel
-    last_kernel = ("exact_mma_kernel<bin>" if binary else "exact_mma_kernel") + (
+    last_kernel = f"exact_mma_kernel{_OP_TAG[op]}" + (
         "+exact_merge_kernel" if n_slabs > 1 else "")
     return scores, ids
 
@@ -487,22 +432,15 @@ def _fused_topk_raw_cuda(queries, corpus, corpus_sq, k_eff, euclid, mode,
             "approx_fused_topk takes the blocked route past it")
     d = queries.shape[1]
     csq = _corpus_sq(corpus, corpus_sq).contiguous() if euclid else None
-    if corpus.dtype == torch.bfloat16:
-        if mode == "fold":
-            out = _fold_mma(queries, corpus, csq, d=d, k_eff=k_eff,
-                            block_n=block_n, euclid=euclid)
-        else:
-            out = _exact_mma(queries, corpus, csq, d=d, k_eff=k_eff,
-                             euclid=euclid)
-        launches[mode] += 1
-        return out
-    # 16-byte corpus loads need whole 64-dim stages and an aligned base
-    vec = d % _DIM_STAGE == 0 and corpus.data_ptr() % 16 == 0
-    out_k, out_i = _launch(queries, corpus, csq, d=d, k_eff=k_eff,
-                           block_n=block_n, fold=mode == "fold",
-                           euclid=euclid, vec=vec)
+    op = _OP_BF16 if corpus.dtype == torch.bfloat16 else _OP_F32
+    if mode == "fold":
+        out = _fold_mma(queries, corpus, csq, d=d, k_eff=k_eff,
+                        block_n=block_n, euclid=euclid, op=op)
+    else:
+        out = _exact_mma(queries, corpus, csq, d=d, k_eff=k_eff,
+                         euclid=euclid, op=op)
     launches[mode] += 1
-    return _unmonotone_f32(out_k), out_i
+    return out
 
 
 def fused_topk_raw(
@@ -701,7 +639,7 @@ def binary_fused_topk_raw(
         raise ValueError(f"unsupported device {queries.device}")
     q = queries.to(torch.bfloat16).contiguous()
     out = _fold_mma(q, packed, None, d=d, k_eff=k_eff, block_n=block_n,
-                    euclid=False, binary=True)
+                    euclid=False, op=_OP_BIN)
     launches["binary_fold"] += 1
     return out
 
@@ -728,7 +666,7 @@ def binary_exact_topk_raw(
     k_eff = _validate_binary(queries, packed, d, k, max_k=EXACT_MAX_K)
     q = queries.to(torch.bfloat16).contiguous()
     out = _exact_mma(q, packed, None, d=d, k_eff=k_eff, euclid=False,
-                     binary=True)
+                     op=_OP_BIN)
     launches["binary_exact"] += 1
     return out
 

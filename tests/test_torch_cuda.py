@@ -63,7 +63,7 @@ def test_bf16_fold_kernel_matches_plain(cuda, metric, d, block_n, k):
         c = torch.nn.functional.normalize(c.float(), dim=1).bfloat16()
     s_k, i_k = ft.fused_topk_raw(q, c, k=k, metric=metric, mode="fold",
                                  block_n=block_n)
-    assert ft.last_kernel.startswith("fold_mma_kernel")
+    assert ft.last_kernel.split("+")[0] == "fold_mma_kernel"
     s_p, i_p = ft.fused_topk_raw_reference(q, c, k=k, metric=metric,
                                            mode="fold", block_n=block_n)
     same = i_k == i_p
@@ -93,23 +93,145 @@ def test_bf16_fold_kernel_paths(cuda, case):
 
 
 def test_fold_routes_by_store_dtype(cuda):
-    """bf16 stores take the tensor-core kernels, fp32 the FMA flavour; each
-    counts as a launch of its mode."""
+    """bf16 stores take the bf16 instances of the tensor-core kernels, fp32
+    stores their 3xTF32 instances; each counts as a launch of its mode."""
     q, c = _data(cuda, torch.float32, n=3000)
     ft.reset_launches()
     ft.fused_topk_raw(q, c, k=10, mode="fold")
-    assert ft.last_kernel.startswith("partial_kernel<") and \
-        ",true>" in ft.last_kernel
+    assert ft.last_kernel.split("+")[0] == "fold_mma_kernel<f32>"
     ft.fused_topk_raw(q.bfloat16(), c.bfloat16(), k=10, mode="fold")
-    assert ft.last_kernel.startswith("fold_mma_kernel")
+    assert ft.last_kernel.split("+")[0] == "fold_mma_kernel"
     ft.fused_topk_raw(q.bfloat16(), c.bfloat16(), k=10, mode="exact")
-    assert ft.last_kernel.startswith("exact_mma_kernel")
+    assert ft.last_kernel.split("+")[0] == "exact_mma_kernel"
     ft.fused_topk_raw(q, c, k=10, mode="exact")
-    assert ft.last_kernel.startswith("partial_kernel<") and \
-        ",false>" in ft.last_kernel
+    assert ft.last_kernel.split("+")[0] == "exact_mma_kernel<f32>"
     assert ft.launches == {"fold": 2, "exact": 2, "binary_fold": 0,
                            "binary_exact": 0, "blocked": 0,
                            "binary_blocked": 0}
+
+
+@pytest.mark.parametrize("mode", ["exact", "fold"])
+@pytest.mark.parametrize("d", [64, 40, 37])
+@pytest.mark.parametrize("side", ["queries", "corpus"])
+def test_f32_fragment_layout_exact_on_integers(cuda, side, d, mode):
+    """The fp32 kernels' 3xTF32 fragments against a scalar loop. Small
+    integers on one side and values of 15 significant bits (a + b / 4096)
+    on the other make every product and every sum exact in fp32, and the
+    fine side needs its tf32 lo part: the kernel's scores must equal a
+    float64 loop over the dims bit for bit, so a fragment read from the
+    wrong row or dim, or a dropped lo part, shows. d=40 leaves zero dims in
+    the second 32-dim stage; d=37 loads the stages element by element."""
+    rng = np.random.default_rng(d)
+    nq, n = 37, 300
+    ints = lambda r, w: rng.integers(-3, 4, (r, w)).astype(np.float64)  # noqa: E731
+    fine = lambda r, w: (rng.integers(-4, 5, (r, w))  # noqa: E731
+                         + rng.integers(-4095, 4096, (r, w)) / 4096.0)
+    q, c = ((fine(nq, d), ints(n, d)) if side == "queries"
+            else (ints(nq, d), fine(n, d)))
+    ref = np.zeros((nq, n))
+    for j in range(d):  # the scalar loop, dim by dim in float64
+        ref += q[:, j, None] * c[None, :, j]
+    qt = torch.from_numpy(q).float().to(cuda)
+    ct = torch.from_numpy(c).float().to(cuda)
+    assert np.array_equal(qt.double().cpu().numpy(), q)
+    k = n if mode == "exact" else 128
+    s_k, i_k = ft.fused_topk_raw(qt, ct, k=k, metric="dot", mode=mode,
+                                 block_n=128)
+    assert ft.last_kernel.split("+")[0] == f"{mode}_mma_kernel<f32>"
+    s_p, i_p = ft.fused_topk_raw_reference(qt, ct, k=k, metric="dot",
+                                           mode=mode, block_n=128)
+    assert torch.equal(i_k, i_p)
+    if mode == "exact":  # every row's score, in place
+        got = np.full((nq, n), np.nan)
+        np.put_along_axis(got, i_k.long().cpu().numpy(),
+                          s_k.double().cpu().numpy(), 1)
+        assert np.array_equal(got, ref)
+    else:  # the same exact scores give the same 19-bit keys
+        assert torch.equal(s_k, s_p)
+
+
+@pytest.mark.parametrize("k", [10, 40, 128])
+@pytest.mark.parametrize("block_n", [128, 4096])
+@pytest.mark.parametrize("d", [48, 64, 384])
+@pytest.mark.parametrize("metric", ["cosine", "euclidean"])
+def test_f32_fold_kernel_matches_plain(cuda, metric, d, block_n, k):
+    """The fp32 fold in 3xTF32 (fold_mma_kernel<E, OP_F32>). N=5003 is not
+    a multiple of 128; 100 queries leave a ragged query tile; d=48 half
+    fills its second 32-dim stage, d=384 takes twelve, and at k=128 the
+    2-stage ring."""
+    q, c = _data(cuda, torch.float32, nq=100, n=5003, d=d, seed=d + k)
+    if metric == "cosine":
+        q = torch.nn.functional.normalize(q, dim=1)
+        c = torch.nn.functional.normalize(c, dim=1)
+    s_k, i_k = ft.fused_topk_raw(q, c, k=k, metric=metric, mode="fold",
+                                 block_n=block_n)
+    assert ft.last_kernel.startswith("fold_mma_kernel<f32>")
+    s_p, i_p = ft.fused_topk_raw_reference(q, c, k=k, metric=metric,
+                                           mode="fold", block_n=block_n)
+    same = i_k == i_p
+    assert same.float().mean().item() >= 0.99
+    step = 2.0 ** -10 * s_p.abs() + 1e-6  # one 19-bit key step
+    assert bool(((s_k - s_p).abs() <= step)[same].all())
+
+
+@pytest.mark.parametrize("k", [1, 10, 128, 160, 300, 2048])
+@pytest.mark.parametrize("metric", ["cosine", "euclidean"])
+def test_f32_exact_kernel_matches_plain(cuda, metric, k):
+    """The fp32 exact kernel in 3xTF32 (exact_mma_kernel<KP, OP_F32>)
+    against its plain version: 37 queries over N=5003 run several slabs
+    and the merge (k=2048: four queries a block, lists of 2048)."""
+    q, c = _data(cuda, torch.float32, nq=37, n=5003, seed=k)
+    if metric == "cosine":
+        q = torch.nn.functional.normalize(q, dim=1)
+        c = torch.nn.functional.normalize(c, dim=1)
+    s_k, i_k = ft.fused_topk_raw(q, c, k=k, metric=metric, mode="exact")
+    assert ft.last_kernel.startswith("exact_mma_kernel<f32>")
+    if k == 2048:
+        assert ft.last_kernel.endswith("+exact_merge_kernel")
+    s_p, i_p = ft.fused_topk_raw_reference(q, c, k=k, metric=metric,
+                                           mode="exact")
+    same = i_k == i_p
+    assert same.float().mean().item() >= 0.999
+    tol = 1e-4 + 1e-5 * s_p.abs()
+    assert bool(((s_k - s_p).abs() <= tol)[same].all())
+
+
+@pytest.mark.parametrize("mode,k", [("fold", 128), ("exact", 300)])
+def test_f32_kernels_d384_unaligned(cuda, mode, k):
+    """fp32 at the encoder width from a corpus base that is not 16-byte
+    aligned: the stages load element by element."""
+    q, c = _data(cuda, torch.float32, nq=37, n=5003, d=384)
+    buf = torch.empty(c.numel() + 1, dtype=c.dtype, device=cuda)
+    c = buf[1:].view(c.shape).copy_(c)
+    assert c.data_ptr() % 16 != 0 and c.is_contiguous()
+    s_k, i_k = ft.fused_topk_raw(q, c, k=k, metric="euclidean", mode=mode)
+    assert ft.last_kernel.startswith(f"{mode}_mma_kernel<f32>")
+    s_p, i_p = ft.fused_topk_raw_reference(q, c, k=k, metric="euclidean",
+                                           mode=mode)
+    same = i_k == i_p
+    assert same.float().mean().item() >= (0.999 if mode == "exact" else 0.99)
+    if mode == "exact":
+        tol = 1e-4 + 1e-5 * s_p.abs()
+        assert bool(((s_k - s_p).abs() <= tol)[same].all())
+
+
+def test_f32_store_launches(cuda):
+    """An fp32 store through the retriever: at k=10 the fold serves the
+    self-check and the search; at k=150 the fp32 exact kernel the search."""
+    from latentrag_torch.retrieval import DenseRetriever
+
+    emb = torch.randn((3000, 64), generator=torch.Generator().manual_seed(3))
+    r = DenseRetriever(store_dtype="float32", device="cuda")
+    ft.reset_launches()
+    r.build(emb.numpy(), [str(i) for i in range(3000)])
+    s, i = r.search(emb[:20].numpy(), 10)
+    assert ft.launches["fold"] == 2 and ft.launches["exact"] == 0
+    assert ft.last_kernel.startswith("fold_mma_kernel<f32>")
+    assert (i[:, 0] == np.arange(20)).all() and np.isfinite(s).all()
+    s, i = r.search(emb[:20].numpy(), 150)
+    assert ft.launches["exact"] == 1
+    assert ft.last_kernel.startswith("exact_mma_kernel<f32>")
+    assert (i[:, 0] == np.arange(20)).all() and np.isfinite(s).all()
 
 
 def test_launch_counts_and_validation(cuda):
@@ -306,8 +428,7 @@ def test_bf16_exact_kernel_matches_plain(cuda, metric, k):
         q = torch.nn.functional.normalize(q.float(), dim=1).bfloat16()
         c = torch.nn.functional.normalize(c.float(), dim=1).bfloat16()
     s_k, i_k = ft.fused_topk_raw(q, c, k=k, metric=metric, mode="exact")
-    assert ft.last_kernel.startswith("exact_mma_kernel")
-    assert "<bin>" not in ft.last_kernel
+    assert ft.last_kernel.split("+")[0] == "exact_mma_kernel"
     s_p, i_p = ft.fused_topk_raw_reference(q, c, k=k, metric=metric,
                                            mode="exact")
     same = i_k == i_p
