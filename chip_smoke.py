@@ -6,7 +6,8 @@
 Run from the root of a checkout. It builds the port's CUDA kernels from
 ``latentrag_torch/csrc``, then:
 
-1. prints the card's name and power limit (``nvidia-smi``) and the build time;
+1. prints the card's name and power limit (``nvidia-smi``) and the build
+   times of the kernels (nvcc) and of the C++ tokenizer's library (g++);
 2. holds each kernel against its plain PyTorch version on the card: exact
    and fold modes x cosine, euclidean, whitened mahalanobis x bf16 and fp32
    stores, at the reference config (Q=2000, N=315, d=64, k=10), at
@@ -17,6 +18,10 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    check also holds that the C kernel that ran is the one the store's
    dtype routes to (bf16: fold_mma_kernel and exact_mma_kernel, fp32:
    their 3xTF32 instances fold_mma_kernel<f32> and exact_mma_kernel<f32>);
+   and, past the exact kernel's lists (k > 2048) the radix select
+   (``exact_select_kernel``, ``<f32>`` for fp32 stores) at Q=37, N=5003,
+   d=384, k in {2049, 3000, 5003} over the three metrics, and at Q=1024,
+   N=1M, d=64, k=4096, cosine;
 2b. holds the binary fold kernel (tensor cores, ``fold_mma_kernel<bin>``)
    against its plain version: the reference and 1M shapes at d=64 and the
    ragged shape at d=384 and d=48 (pad bits), and the binary main path's
@@ -29,7 +34,9 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    MiniLM-L6 width in bf16 with a seeded 384->512->64 VAE: synthetic data,
    2000 queries, a bf16 cosine store, top_k=10, kernel=auto; checks that the
    fold kernel served the search and the self-check and the exact kernel
-   did not launch, runs it once more in the same process (its search time
+   did not launch, and that the C++ WordPiece encoded every row (the
+   corpus is ASCII), times the tokenizer's C++ and Python paths on the
+   corpus (ids and masks must be identical), runs it once more in the same process (its search time
    warm), then runs the same pipeline with kernel=xla_exact (matmul +
    torch.topk, the oracle) and compares (recording, where their docs
    differ, the score gaps at those slots); then both again at top_k=150,
@@ -47,11 +54,15 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    searches 1024 queries at k=10, and holds the same kernel-vs-plain
    agreement; Recall@10 against exact fp32 search is reported; then at
    top_k=300, whose 2400 candidates take the blocked route;
+3d. builds a ``DenseRetriever(backend="pallas_exact")`` over 1M seeded unit
+   rows (d=64), bf16 and then fp32, and searches 1024 queries at k=3000:
+   the radix select must serve it and agree with ``xla_exact``;
 4. times each kernel, its plain version and torch.matmul + torch.topk at
    the kernel call's k (a yardstick the port never calls) with CUDA
    events, beside the bound, at the reference, the main path's own
    (Q=2000, N=1997, bf16 fold only) and the 1M shapes, over bf16 and fp32
-   stores; the exact kernel at k=10 and k=160; each record names the C
+   stores; the exact kernel at k=10 and k=160, and at 1M the radix select
+   at k=3000 beside the blocked route at that k; each record names the C
    kernels that ran and has a profiler device split and the kernel's
    resident blocks an SM;
 4b. the same for the binary fold kernel at the reference and 1M shapes
@@ -150,22 +161,27 @@ def check_kernels(torch, failures: list) -> dict:
     """Phase 2: every kernel against its plain version on the card."""
     from latentrag_torch.ops import fused_topk as ft
 
-    worst = {"fold": 0.0, "exact": 0.0, "fold_fp32": 0.0, "exact_fp32": 0.0}
-    # (label, Q, N, d, ks, fold tile width); "main_plan" is the fold as the
-    # main path's approximate route runs it (ft.fold_plan at N=2000, k=10),
-    # "main_exact" the exact kernel as the main path at top_k=150 runs it
-    # (2000 queries over its 1997 unique contexts)
+    worst = {"fold": 0.0, "exact": 0.0, "fold_fp32": 0.0, "exact_fp32": 0.0,
+             "exact_select": 0.0, "exact_select_fp32": 0.0}
+    # (label, Q, N, d, ks, fold tile width, metrics); "main_plan" is the
+    # fold as the main path's approximate route runs it (ft.fold_plan at
+    # N=2000, k=10), "main_exact" the exact kernel as the main path at
+    # top_k=150 runs it (2000 queries over its 1997 unique contexts);
+    # "exact_k_large" and "1m_k4096" the radix select past k = 2048
+    metrics = ("cosine", "euclidean", "mahalanobis")
     shapes = [
-        ("reference", 2000, 315, 64, [10], 4096),
-        ("1m", 1024, 1_000_000, 64, [10], 4096),
-        ("ragged", 37, 5003, 384, [1, 64, 128], 4096),
-        ("exact_k300", 37, 5003, 384, [300], 4096),
-        ("main_plan", 2000, 2000, 64, [40], 128),
-        ("main_exact", 2000, 1997, 64, [150], 4096),
+        ("reference", 2000, 315, 64, [10], 4096, metrics),
+        ("1m", 1024, 1_000_000, 64, [10], 4096, metrics),
+        ("ragged", 37, 5003, 384, [1, 64, 128], 4096, metrics),
+        ("exact_k300", 37, 5003, 384, [300], 4096, metrics),
+        ("main_plan", 2000, 2000, 64, [40], 128, metrics),
+        ("main_exact", 2000, 1997, 64, [150], 4096, metrics),
+        ("exact_k_large", 37, 5003, 384, [2049, 3000, 5003], 4096, metrics),
+        ("1m_k4096", 1024, 1_000_000, 64, [4096], 4096, ("cosine",)),
     ]
     seed = 0
-    for label, nq, n, d, ks, block_n in shapes:
-        for metric in ("cosine", "euclidean", "mahalanobis"):
+    for label, nq, n, d, ks, block_n, shape_metrics in shapes:
+        for metric in shape_metrics:
             for dname in ("bfloat16", "float32"):
                 dtype = getattr(torch, dname)
                 seed += 1
@@ -196,11 +212,26 @@ def check_kernels(torch, failures: list) -> dict:
                                "block_n": block_n, "c_kernel": ran,
                                "id_match": id_match, "max_abs_err": max_err}
                         # each store runs its instance of the tensor-core
-                        # kernels: bf16, or fp32 in 3xTF32
-                        want = f"{mode}_mma_kernel" + (
+                        # kernels: bf16, or fp32 in 3xTF32; exact mode past
+                        # the lists' 2048 the radix select
+                        select = mode == "exact" and min(k, n) > ft.EXACT_MAX_K
+                        want = ("exact_select_kernel" if select
+                                else f"{mode}_mma_kernel") + (
                             "<f32>" if dname == "float32" else "")
                         ok = ran.split("+")[0] == want
-                        if mode == "exact":
+                        if mode == "exact" and label == "1m_k4096":
+                            # ranks 1-4096 of 1M scores lie ~1e-5 apart,
+                            # so two fp32 sum orders swap neighbours that
+                            # differ in the last bits: the slot-by-slot id
+                            # match is reported; held are the id sets and
+                            # every slot's score (the j-th best of each)
+                            tol = EXACT_SCORE_ATOL + EXACT_SCORE_RTOL * s_p.abs()
+                            rec["set_match"] = set_match(torch, i_k, i_p)
+                            slot_err = (s_k - s_p).abs()
+                            rec["slot_max_abs_err"] = slot_err.max().item()
+                            ok = ok and bool((slot_err <= tol).all()) and (
+                                rec["set_match"] >= EXACT_ID_MATCH)
+                        elif mode == "exact":
                             tol = EXACT_SCORE_ATOL + EXACT_SCORE_RTOL * s_p.abs()
                             within = bool(((s_k - s_p).abs() <= tol)[same].all())
                             ok = ok and id_match >= EXACT_ID_MATCH and within
@@ -211,7 +242,8 @@ def check_kernels(torch, failures: list) -> dict:
                             rec["recall_vs_exact"] = recall
                             ok = ok and id_match >= FOLD_ID_MATCH and (
                                 k != 10 or recall >= FOLD_RECALL)
-                        key = mode + ("_fp32" if dname == "float32" else "")
+                        key = ("exact_select" if select else mode) + (
+                            "_fp32" if dname == "float32" else "")
                         worst[key] = max(worst[key], max_err)
                         if (label, metric) == ("main_exact", "cosine"):
                             worst[f"main_exact_kernel_{dname}"] = ran
@@ -222,6 +254,60 @@ def check_kernels(torch, failures: list) -> dict:
                 del q, c
                 torch.cuda.empty_cache()
     return worst
+
+
+def set_match(torch, got, want) -> float:
+    """Share of the ids of ``want`` [Q, k] found in the same row of
+    ``got``."""
+    n = int(max(got.max().item(), want.max().item())) + 1
+    off = torch.arange(got.shape[0], device=got.device)[:, None] * n
+    return torch.isin(want.long() + off, got.long() + off).float().mean().item()
+
+
+def check_exact_select_store(torch, failures: list, store: str) -> int:
+    """Phase 3d: ``DenseRetriever(backend="pallas_exact")`` over 1M seeded
+    unit rows (d=64) in a ``store`` store searched at Q=1024, k=3000, past
+    the exact kernel's lists: the radix select must serve the search, and
+    its ids agree with the ``xla_exact`` oracle's on the same store.
+    Returns the search's launches of the exact entry."""
+    from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.retrieval import DenseRetriever
+
+    n, nq, d, k = 1_000_000, 1024, 64, 3000
+    g = torch.Generator(device="cuda").manual_seed(41)
+    x = torch.nn.functional.normalize(
+        torch.randn((n, d), generator=g, device="cuda"), dim=1)
+    q = torch.nn.functional.normalize(
+        torch.randn((nq, d), generator=g, device="cuda"), dim=1)
+    r = DenseRetriever(backend="pallas_exact", store_dtype=store,
+                       device="cuda")
+    r.build(x, [""] * n)
+    torch.cuda.synchronize()
+    ft.reset_launches()
+    t0 = time.perf_counter()
+    s_k, i_k = (torch.from_numpy(a).cuda() for a in r.search(q, k))
+    search_s = time.perf_counter() - t0
+    launches, ran = dict(ft.launches), ft.last_kernel
+    r.backend = "xla_exact"
+    s_o, i_o = (torch.from_numpy(a).cuda() for a in r.search(q, k))
+    same = (i_k == i_o).float().mean().item()
+    found = set_match(torch, i_k, i_o)
+    tol = EXACT_SCORE_ATOL + EXACT_SCORE_RTOL * s_o.abs()
+    slot_err = (s_k - s_o).abs()
+    want = "exact_select_kernel" + ("<f32>" if store == "float32" else "")
+    ok = (launches["exact"] >= 1 and ran == want and found >= EXACT_ID_MATCH
+          and bool((slot_err <= tol).all()) and bool(torch.isfinite(s_k).all()))
+    record("exact_select_store", store=store, N=n, Q=nq, d=d, k=k,
+           search_s=search_s, launches=launches, c_kernel=ran,
+           slot_id_match=same, set_match=found,
+           slot_max_abs_err=slot_err.max().item(), ok=ok)
+    if not ok:
+        failures.append(f"pallas_exact at k={k} over a 1M {store} store: "
+                        f"launches {launches}, kernel {ran}, set match "
+                        f"{found}, slot score error {slot_err.max().item()}")
+    del x, q, r, s_k, i_k, s_o, i_o
+    torch.cuda.empty_cache()
+    return launches["exact"]
 
 
 def write_vae(torch, path: str) -> None:
@@ -276,19 +362,22 @@ def check_main_path(torch, failures: list, exact_kernel: str,
     top_k=150 search's shape for this store."""
     import numpy as np
 
+    from latentrag_torch.data import tokenizer
     from latentrag_torch.ops import fused_topk as ft
 
     tag = "" if store == "bfloat16" else "_fp32"
     with tempfile.TemporaryDirectory(prefix="lr_smoke_") as wd:
         write_vae(torch, f"{wd}/vae.pth")
         ft.reset_launches()
+        tokenizer.reset_rows_served()
         res = run_main(torch, wd, "auto", store)
         main_launches = dict(ft.launches)
+        rows = dict(tokenizer.rows_served)
         ran10 = ft.last_kernel
         again = run_main(torch, wd, "auto", store)  # the same run, warm
         oracle = run_main(torch, wd, "xla_exact", store)
         if store == "bfloat16":
-            encode_breakdown(torch, wd)
+            encode_breakdown(torch, wd, failures)
         # top_k=150: past the fold's 128, the exact kernel's search
         ft.reset_launches()
         res150 = run_main(torch, wd, "auto", store, top_k=150)
@@ -317,9 +406,14 @@ def check_main_path(torch, failures: list, exact_kernel: str,
         dim_out=res["dim_out"],
         metrics={m: v["mean"] for m, v in res["retrieval_metrics"].items()},
         timings_s=res["timings"], wall_s=res["wall_s"],
-        launches=main_launches, c_kernel=ran10,
+        launches=main_launches, c_kernel=ran10, tokenizer_rows=rows,
         second_run_search_s=again["timings"]["search_s"],
     )
+    # the ASCII synthetic corpus and queries: every row through the C++
+    # WordPiece
+    if rows["native"] == 0 or rows["python"] != 0:
+        failures.append(f"the {store} main path's rows were not all served "
+                        f"by the C++ tokenizer: {rows}")
     record(
         "main_path" + tag + "_oracle", kernel="xla_exact",
         metrics={m: v["mean"] for m, v in oracle["retrieval_metrics"].items()},
@@ -359,14 +453,17 @@ def check_main_path(torch, failures: list, exact_kernel: str,
     return main_launches, oracle, launches150
 
 
-def encode_breakdown(torch, workdir: str) -> None:
+def encode_breakdown(torch, workdir: str, failures: list) -> None:
     """Split the main path's corpus encode into host tokenization and the
     encoder on the card: the same texts, tokenizer, widths, chunks and
-    shape buckets as the run, the two halves timed apart."""
+    shape buckets as the run, the two halves timed apart. The texts are
+    tokenized by the C++ path the run takes and, for comparison, by the
+    Python path; their ids and masks must be identical."""
     import numpy as np
 
     from latentrag_torch.data import (
-        get_examples, load_evaluation_data, resolve_tokenizer,
+        WordPieceTokenizer, get_examples, load_evaluation_data,
+        resolve_tokenizer,
     )
     from latentrag_torch.models.encoder import SentenceEncoder
     from latentrag_torch.models.encoder.minilm import (
@@ -380,18 +477,32 @@ def encode_breakdown(torch, workdir: str) -> None:
     ecfg = cfg.encoder
     _, corpus, _ = load_evaluation_data(get_examples(cfg))
     tok = resolve_tokenizer(f"{workdir}/data", ecfg.vocab_size, corpus)
+    py_tok = WordPieceTokenizer(tok.vocab, lowercase=tok.lowercase,
+                                max_word_chars=tok.max_word_chars,
+                                native=False)
     enc = SentenceEncoder(tok, ecfg, device="cuda")
-    t0 = time.perf_counter()
-    batches = []
-    for i in range(0, len(corpus), ecfg.batch_size):
-        ids, mask = tok.encode_batch(corpus[i : i + ecfg.batch_size],
-                                     max_length=ecfg.max_length)
-        nb = _bucket_batch(ids.shape[0])
-        nl = _bucket_length(ids.shape[1], ecfg.max_length)
-        pad = ((0, nb - ids.shape[0]), (0, nl - ids.shape[1]))
-        batches.append((np.pad(ids, pad, constant_values=tok.pad_id),
+
+    def tokenize(t):
+        t0 = time.perf_counter()
+        out = []
+        for i in range(0, len(corpus), ecfg.batch_size):
+            ids, mask = t.encode_batch(corpus[i : i + ecfg.batch_size],
+                                       max_length=ecfg.max_length)
+            nb = _bucket_batch(ids.shape[0])
+            nl = _bucket_length(ids.shape[1], ecfg.max_length)
+            pad = ((0, nb - ids.shape[0]), (0, nl - ids.shape[1]))
+            out.append((np.pad(ids, pad, constant_values=t.pad_id),
                         np.pad(mask, pad)))
-    tok_s = time.perf_counter() - t0
+        return time.perf_counter() - t0, out
+
+    tok_s, batches = tokenize(tok)
+    py_s, py_batches = tokenize(py_tok)
+    same = len(batches) == len(py_batches) and all(
+        np.array_equal(a, b) for x, y in zip(batches, py_batches)
+        for a, b in zip(x, y))
+    if not same:
+        failures.append("the C++ and Python tokenizers disagree on the "
+                        "main path's corpus")
     dev = [(torch.from_numpy(i).long().cuda(), torch.from_numpy(m).cuda())
            for i, m in batches]
     with torch.no_grad():
@@ -403,7 +514,8 @@ def encode_breakdown(torch, workdir: str) -> None:
         torch.cuda.synchronize()
     model_s = time.perf_counter() - t0
     record("encode_breakdown", texts=len(corpus), batches=len(batches),
-           tokenize_s=tok_s, model_s=model_s)
+           tokenize_s=tok_s, tokenize_python_s=py_s, ids_identical=same,
+           model_s=model_s)
 
 
 def time_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
@@ -456,20 +568,24 @@ def bound(nq, n, d, k, dname) -> tuple[float, str]:
 
 
 def blocks_per_sm(ft, kernel: str, dev: int, d: int, k: int, op: int) -> int:
-    """Resident blocks an SM of the fold or exact tensor-core kernel for
-    operand kind ``op`` at (d, k)."""
-    slots = ft._fold_mma_slots if kernel == "fold" else ft._exact_mma_slots
-    return slots(dev, d, k, op) // ft._sm_count(dev)
+    """Resident blocks an SM of the fold or exact tensor-core kernel (past
+    k = 2048 the radix select) for operand kind ``op`` at (d, k)."""
+    name = {"fold": "fold_mma", "exact": "exact_mma"}[kernel]
+    if kernel == "exact" and k > ft.EXACT_MAX_K:
+        name = "exact_select"
+    return ft._slots(dev, name, d, k, op) // ft._sm_count(dev)
 
 
 # phase 4's calls: (store, shape, Q, N, d, cases); the fold at the plan,
-# the exact kernel at k=10 and k=160
+# the exact kernel at k=10 and k=160, the radix select at k=3000
 TIMED = (
     ("bfloat16", "reference", 2000, 315, 64, ("fold", "exact", "exact_k160")),
     ("bfloat16", "main_plan", 2000, 1997, 64, ("fold",)),
-    ("bfloat16", "1m", 1024, 1_000_000, 64, ("fold", "exact", "exact_k160")),
+    ("bfloat16", "1m", 1024, 1_000_000, 64,
+     ("fold", "exact", "exact_k160", "exact_k3000")),
     ("float32", "reference", 2000, 315, 64, ("fold", "exact", "exact_k160")),
-    ("float32", "1m", 1024, 1_000_000, 64, ("fold", "exact", "exact_k160")),
+    ("float32", "1m", 1024, 1_000_000, 64,
+     ("fold", "exact", "exact_k160", "exact_k3000")),
 )
 
 
@@ -483,8 +599,9 @@ def time_kernels(torch) -> dict:
     fold's 128). The library call (``torch.matmul`` in the store's dtype,
     fp32 sums, then ``torch.topk``) is timed beside each kernel call at
     that call's k; each call also gets a profiler device split and the
-    kernel's resident blocks an SM. Keys: (shape, case) for bf16,
-    (shape, case + "_fp32") for fp32."""
+    kernel's resident blocks an SM. At k=3000 (the radix select) the
+    blocked route of the approximate search is timed beside it. Keys:
+    (shape, case) for bf16, (shape, case + "_fp32") for fp32."""
     from latentrag_torch.ops import fused_topk as ft
 
     out = {}
@@ -495,21 +612,28 @@ def time_kernels(torch) -> dict:
         for case in cases:
             mode = "fold" if case == "fold" else "exact"
             kk, bn = {"fold": (cand, block_n), "exact": (10, 4096),
-                      "exact_k160": (160, 4096)}[case]
+                      "exact_k160": (160, 4096),
+                      "exact_k3000": (3000, 4096)}[case]
+            big = kk > ft.EXACT_MAX_K
             lib_ms = time_ms(torch, lambda: torch.topk(
-                torch.matmul(q, c.T).float(), kk, dim=1))
+                torch.matmul(q, c.T).float(), kk, dim=1),
+                reps=10 if big else 25)
             kern = time_ms(torch, lambda: ft.fused_topk_raw(
-                q, c, k=kk, metric="cosine", mode=mode, block_n=bn))
+                q, c, k=kk, metric="cosine", mode=mode, block_n=bn),
+                reps=10 if big else 25)
             ran = ft.last_kernel
             plain = time_ms(torch, lambda: ft.fused_topk_raw_reference(
                 q, c, k=kk, metric="cosine", mode=mode, block_n=bn),
-                reps=20, warmup=1)
+                reps=3 if big else 20, warmup=1)
             b_ms, b_by = bound(nq, n, d, kk, store)
             rec = {"shape": label, "mode": mode, "Q": nq, "N": n, "d": d,
                    "k": kk, "block_n": bn, "store": store,
                    "c_kernel": ran, "ms": kern, "plain_ms": plain,
                    "library_ms": lib_ms, "library_k": kk, "bound_ms": b_ms,
                    "bound_by": b_by}
+            if big:  # the approximate route's answer at this k
+                rec["blocked_ms"] = time_ms(torch, lambda: ft.approx_fused_topk(
+                    q, c, k=kk, metric="cosine"), reps=5, warmup=1)
             # device ms of each kernel the call launches
             rec["device_ms"] = device_split(torch, lambda: ft.fused_topk_raw(
                 q, c, k=kk, metric="cosine", mode=mode, block_n=bn))
@@ -943,14 +1067,19 @@ def main() -> int:
     t_start = time.perf_counter()
 
     from latentrag_torch.ops import cuda_build
+    from latentrag_torch.utils import native
 
     card = card_line()
     print(card, flush=True)
     t0 = time.perf_counter()
     cuda_build.load_library("fused_topk")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.load_library()  # the C++ tokenizer's library, g++
     record("build", card=card, torch=torch.__version__,
-           cuda=torch.version.cuda, build_s=time.perf_counter() - t0,
-           nvcc_s=cuda_build.build_seconds.get("fused_topk"))
+           cuda=torch.version.cuda, build_s=build_s,
+           nvcc_s=cuda_build.build_seconds.get("fused_topk"),
+           host_library_s=time.perf_counter() - t0)
 
     failures: list = []
     worst = check_kernels(torch, failures)
@@ -980,6 +1109,11 @@ def main() -> int:
     check_binary_capacity(torch, failures)
     if failures:
         fail("; ".join(failures))
+    for store, tag in (("bfloat16", ""), ("float32", "_fp32")):
+        launches["exact_select" + tag] = check_exact_select_store(
+            torch, failures, store)
+    if failures:
+        fail("; ".join(failures))
     times = time_kernels(torch)
     times.update(time_binary(torch))
 
@@ -1001,6 +1135,20 @@ def main() -> int:
                 "shape": f"Q=2000 N=315 d=64 k={t['k']} "
                          f"block_n={t['block_n']} {store} cosine",
             })
+    for tag, store in (("", "bf16"), ("_fp32", "fp32")):
+        t = times[("1m", "exact_k3000" + tag)]
+        kernels.append({
+            "name": f"fused_topk_exact_select{tag}",
+            "route": "cuda",
+            "source": "latentrag_torch/csrc/exact_select.cuh",
+            "replaces": "latentrag_tpu/ops/pallas_topk.py:182",
+            "launches": launches["exact_select" + tag],
+            "max_abs_err": worst["exact_select" + tag],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "shape": f"Q=1024 N=1000000 d=64 k={t['k']} {store} cosine",
+        })
     t = times[("reference", "plan")]
     kernels.append({
         "name": "binary_fused_topk_fold",

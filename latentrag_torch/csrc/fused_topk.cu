@@ -18,6 +18,12 @@
 //                            grid ran the corpus tiles in order and carried
 //                            the running top-k in VMEM; here slabs run in
 //                            parallel and the merge kernels join their lists.
+//   exact_select_kernel<OP, C> (exact_select.cuh) replaces _exact_kernel past
+//                            the exact_mma_kernel lists' k = 2048 (the TPU
+//                            kernel takes any k <= N) for bf16 and fp32
+//                            stores: a radix select of each query's k-th key
+//                            over histogram passes, a collect pass and a
+//                            per-query sort.
 //
 // What is computed (the TPU kernels' contract, not their block structure):
 //   score(q, c) = q.c                          (cosine / dot: inputs pre-normalized)
@@ -100,3 +106,4 @@ const char* lr_error_string(int code) {
 
 #include "fold_mma.cuh"
 #include "exact_mma.cuh"
+#include "exact_select.cuh"

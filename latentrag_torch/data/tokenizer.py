@@ -20,13 +20,20 @@ dependency-free and offline-capable:
 
 The port's copy of the JAX package's ``data/tokenizer.py``: the same
 vocabulary training, encoding and offsets, so ids and masks are identical.
-The JAX package's C++ ASCII fast path is a later slice; the port encodes
-with the Python path and says so once in the log.
+As there, ASCII text takes the C++ WordPiece of ``native/`` (through
+``data/native_tokenizer.py``), which gives the Python path's ids, masks
+and offsets exactly, and rows with non-ASCII bytes take the Python path.
+Unlike there, a failed build or load of the C++ library raises instead of
+falling back: the Python path serves ASCII text only when the tokenizer is
+made with ``native=False``, or when its vocab's ids are not dense (the C++
+vocab needs ids 0..n-1). ``rows_served`` counts the rows each path
+encoded.
 """
 
 from __future__ import annotations
 
 import collections
+import ctypes
 import json
 import logging
 import os
@@ -35,6 +42,14 @@ from dataclasses import dataclass
 from typing import Iterable, Sequence
 
 log = logging.getLogger("latentrag_torch.data")
+
+# rows encoded by the C++ path and by the Python path, in this process
+rows_served = {"native": 0, "python": 0}
+
+
+def reset_rows_served() -> None:
+    for key in rows_served:
+        rows_served[key] = 0
 
 PAD, UNK, CLS, SEP, MASK = "[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"
 SPECIAL_TOKENS = (PAD, UNK, CLS, SEP, MASK)
@@ -60,14 +75,15 @@ class Encoding:
 
 
 class WordPieceTokenizer:
-    _logged_python_path = False  # one log line per process, not per call
-
     def __init__(
         self,
         vocab: dict[str, int],
         lowercase: bool = True,
         max_word_chars: int = 100,
+        native: bool = True,
     ):
+        self.native = native  # False: the Python path for every row
+        self._wp_handle = None  # the C++ vocab; False: not dense
         self.vocab = vocab
         self.inv_vocab = {i: t for t, i in vocab.items()}
         self.lowercase = lowercase
@@ -186,6 +202,22 @@ class WordPieceTokenizer:
         add_special_tokens: bool = True,
         max_length: int | None = None,
     ) -> Encoding:
+        if text.isascii():
+            h = self._native_handle()
+            if h is not None:
+                from .native_tokenizer import encode_offsets
+
+                out = encode_offsets(h, text, add_special_tokens, max_length)
+                if out is not None:
+                    rows_served["native"] += 1
+                    nids, starts, ends = out
+                    id_list = nids.tolist()
+                    return Encoding(
+                        ids=id_list,
+                        tokens=[self.inv_vocab.get(i, UNK) for i in id_list],
+                        offsets=list(zip(starts.tolist(), ends.tolist())),
+                    )
+        rows_served["python"] += 1
         ids: list[int] = []
         tokens: list[str] = []
         offsets: list[tuple[int, int]] = []
@@ -234,18 +266,49 @@ class WordPieceTokenizer:
     ) -> tuple["np.ndarray", "np.ndarray"]:
         """Padded [B, L] (ids, attention_mask) int32 arrays for the encoder.
 
-        The JAX package runs ASCII rows through its C++ WordPiece here;
-        the port keeps to the Python path, which gives the same ids.
+        ASCII rows go through the C++ WordPiece in one threaded call; rows
+        with non-ASCII bytes, or every row without the C++ vocab, through
+        ``encode``. Both give the same ids, trimmed to the longest row.
         """
         import numpy as np
 
-        if not WordPieceTokenizer._logged_python_path:
-            WordPieceTokenizer._logged_python_path = True
-            log.info(
-                "tokenizing with the Python WordPiece path (the C++ fast "
-                "path is not ported yet)"
-            )
         texts = list(texts)
+        h = self._native_handle()
+        if h is None or not texts:
+            return self._encode_batch_py(texts, max_length)
+        from .native_tokenizer import get_lib
+
+        n = len(texts)
+        data = [t.encode("utf-8") for t in texts]
+        offs = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum([len(d) for d in data], out=offs[1:])
+        # [CLS] and [SEP] always come out, so a row is at least 2 tokens
+        # wide even at max_length < 2 (as on the Python path): the stride
+        # must hold them or rows would overrun each other
+        stride = max(max_length, 2)
+        ids = np.full((n, stride), self.pad_id, dtype=np.int32)
+        mask = np.zeros((n, stride), dtype=np.int32)
+        ok = np.zeros(n, dtype=np.uint8)
+        ip = ctypes.POINTER(ctypes.c_int)
+        get_lib().wp_encode_batch(
+            h, b"".join(data),
+            offs.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)), n,
+            stride, ids.ctypes.data_as(ip), mask.ctypes.data_as(ip),
+            ok.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            os.cpu_count() or 1,
+        )
+        rows_served["native"] += int(ok.sum())
+        for i in np.nonzero(ok == 0)[0]:  # non-ASCII rows: the Python path
+            e = self.encode(texts[i], max_length=max_length)
+            ids[i, : len(e.ids)] = e.ids
+            mask[i, : len(e.ids)] = 1
+        ln = max(int(mask.sum(axis=1).max()), 1)
+        return (np.ascontiguousarray(ids[:, :ln]),
+                np.ascontiguousarray(mask[:, :ln]))
+
+    def _encode_batch_py(self, texts, max_length):
+        import numpy as np
+
         encs = [self.encode(t, max_length=max_length) for t in texts]
         ln = max((len(e.ids) for e in encs), default=1)
         ids = np.full((len(texts), ln), self.pad_id, dtype=np.int32)
@@ -254,6 +317,33 @@ class WordPieceTokenizer:
             ids[i, : len(e.ids)] = e.ids
             mask[i, : len(e.ids)] = 1
         return ids, mask
+
+    def _native_handle(self):
+        """The C++ vocab handle, made at first use; None for the Python
+        path (``native=False``, or a vocab whose ids are not dense). A
+        failed build or load of the library raises."""
+        if not self.native:
+            return None
+        if self._wp_handle is None:
+            from .native_tokenizer import create_handle
+
+            try:
+                self._wp_handle = create_handle(self)
+            except ValueError as e:  # ids not dense: a property of the data
+                log.info("C++ WordPiece not used (%s); the Python path "
+                         "encodes every row", e)
+                self._wp_handle = False
+        return self._wp_handle or None
+
+    def __del__(self):  # release the C++ vocab (guarded: interpreter exit)
+        h = getattr(self, "_wp_handle", None)
+        if h:
+            try:
+                from .native_tokenizer import free_handle
+
+                free_handle(h)
+            except Exception:
+                pass
 
 
 def _is_cjk(cp: int) -> bool:

@@ -7,8 +7,9 @@ The port of the JAX package's ``ops/pallas_topk.py``:
   ``mode="fold"`` replaces ``_fold_kernel`` (pallas_topk.py:162-179) and
   returns 19-bit-quantized scores; ``mode="exact"`` replaces
   ``_exact_kernel`` (pallas_topk.py:182-221) and returns exact scores,
-  ties to the lower corpus row. On the card it takes k <= ``EXACT_MAX_K``
-  (the exact kernels' lists) and raises past it.
+  ties to the lower corpus row, at any k <= N as the TPU kernel does: on
+  the card through the exact kernel's lists up to ``EXACT_MAX_K`` and a
+  radix select past it (``csrc/exact_select.cuh``).
 * ``fused_topk`` is ``pallas_topk`` (pallas_topk.py:515-559): the raw
   search, then an fp32 rescore of the k winners and a stable sort.
 * ``approx_fused_topk`` is the approximate route on the card (the part
@@ -25,17 +26,17 @@ The port of the JAX package's ``ops/pallas_topk.py``:
   candidates it takes ``binary_exact_topk_raw``, the exact sign-dot search
   (``ops/binary.py``'s ``binary_topk`` in a kernel), as the float route
   takes the exact kernel.
-* Past ``EXACT_MAX_K`` (2048) the two approximate routes, and only they,
-  take a blocked search on any device: the corpus scored in blocks by
-  ``torch.matmul`` and each block's top k merged with the running list
+* Past ``EXACT_MAX_K`` (2048) the two approximate routes take a blocked
+  search on any device: the corpus scored in blocks by ``torch.matmul``
+  and each block's top k merged with the running list
   (``ops.topk.exact_topk``; the binary store's ``ops.binary.binary_topk``),
   so the [Q, N] score matrix never exists beyond one block. That is the
   port of the JAX package's own route there, XLA's ``approx_max_k`` over a
   ``dot_general`` outside any Pallas kernel (the JAX package's
-  ``ops/topk.py:209-277`` and ``ops/binary.py:151-177``). The route is
-  chosen by k, never by a failure; the kernels' own entries
-  (``fused_topk_raw(mode="exact")``, ``binary_exact_topk_raw``) raise past
-  it on the card.
+  ``ops/topk.py:209-277`` and ``ops/binary.py:151-177``). Routes are
+  chosen by k, never by a failure. ``binary_exact_topk_raw``, whose JAX
+  counterpart ``binary_topk`` is XLA and not Pallas, raises past it on the
+  card.
 
 On a CUDA tensor the raw functions launch the kernels of
 ``csrc/fused_topk.cu`` or raise; on a CPU tensor they run their plain
@@ -43,18 +44,19 @@ versions, which repeat the JAX algorithm step by step, fold included.
 Every store runs tensor-core kernels that write the scores and ids
 themselves: the folds in ``csrc/fold_mma.cuh``, the exact searches in
 ``csrc/exact_mma.cuh`` (batched list upkeep in both), each instantiated
-for bf16, packed binary and fp32 operands. fp32 stores multiply in
+for bf16, packed binary and fp32 operands, and the float stores' exact
+search past 2048 in ``csrc/exact_select.cuh``. fp32 stores multiply in
 3xTF32 (each operand split into rounded tf32 hi and lo parts, three
 products a pair), within ~3 x 2^-22 of each exact product, the size of
 fp32 sum-order differences. The kernel sources say what bounds them on
 the H100 and what their designs do about that.
 
 ``launches`` counts kernel launches per kernel (``fold``, ``exact``,
-``binary_fold``, ``binary_exact``; a call that launches a partial and a
-merge kernel counts once) and the blocked route's calls on the card
-(``blocked``, ``binary_blocked``); plain-version calls and the blocked
-route on the CPU do not count. ``last_kernel`` names the C kernels the
-latest launch ran.
+``binary_fold``, ``binary_exact``; a call that launches several kernels,
+a partial and a merge or the select's passes and sort, counts once) and
+the blocked route's calls on the card (``blocked``, ``binary_blocked``);
+plain-version calls and the blocked route on the CPU do not count.
+``last_kernel`` names the C kernels the latest launch ran.
 
 Euclidean scores are 2 q.c - |q|^2 - |c|^2. Every kernel and the plain
 version sum |q|^2 in one order (``row_sq``: column by column from 0, each
@@ -85,6 +87,7 @@ _OP_BF16, _OP_BIN, _OP_F32 = 0, 1, 2
 _OP_TAG = {_OP_BF16: "", _OP_BIN: "<bin>", _OP_F32: "<f32>"}
 
 _FM_TQ = 64  # queries per block of the fold kernel (FM_TQ)
+_ES_TQ = 16  # queries per block of the radix select's passes (EM_QROWS)
 # the exact tensor-core kernel splits the corpus into slabs only while each
 # keeps at least this many 128-row sub-tiles: a smaller slab does not pay
 # for the merge launch after it
@@ -270,6 +273,14 @@ def _library() -> ctypes.CDLL:
     lib.lr_exact_mma_occupancy.argtypes = [i, i, i]
     lib.lr_exact_mma.restype = i
     lib.lr_exact_mma.argtypes = [p, p, p] + [i] * 8 + [p, p, p, p]
+    lib.lr_exact_select_smem.restype = ctypes.c_size_t
+    lib.lr_exact_select_smem.argtypes = [i, i]
+    lib.lr_exact_select_scratch.restype = ctypes.c_size_t
+    lib.lr_exact_select_scratch.argtypes = [i, i]
+    lib.lr_exact_select_occupancy.restype = i
+    lib.lr_exact_select_occupancy.argtypes = [i, i]
+    lib.lr_exact_select.restype = i
+    lib.lr_exact_select.argtypes = [p, p, p] + [i] * 8 + [p, p, p, p]
     lib.lr_error_string.restype = ctypes.c_char_p
     lib.lr_error_string.argtypes = [i]
     return lib
@@ -302,18 +313,20 @@ def _vec(corpus, d: int, op: int) -> bool:
 
 
 @functools.cache
-def _fold_mma_slots(index: int, d: int, k: int, op: int) -> int:
-    """Resident blocks of the fold kernel for operand kind ``op`` the card
-    holds at (d, k)."""
+def _slots(index: int, kernel: str, d: int, k: int, op: int) -> int:
+    """Resident blocks of ``kernel`` (``fold_mma``, ``exact_mma`` or
+    ``exact_select``, whose shared memory does not depend on k) for operand
+    kind ``op`` the card holds at (d, k)."""
     lib = _library()
+    args = (d, op) if kernel == "exact_select" else (d, k, op)
     with torch.cuda.device(index):
-        per_sm = lib.lr_fold_mma_occupancy(d, k, op)
+        per_sm = getattr(lib, f"lr_{kernel}_occupancy")(*args)
     if per_sm < 0:
-        _check(lib, -per_sm, "fold kernel occupancy")
+        _check(lib, -per_sm, f"{kernel} occupancy")
     if per_sm == 0:
         raise ValueError(
             f"d={d}, k={k} needs more shared memory than one block has "
-            f"({lib.lr_fold_mma_smem(d, k, op)} bytes)"
+            f"({getattr(lib, f'lr_{kernel}_smem')(*args)} bytes)"
         )
     return per_sm * _sm_count(index)
 
@@ -328,7 +341,7 @@ def _fold_mma(queries, corpus, csq, *, d, k_eff, block_n, euclid, op):
     n = corpus.shape[0]
     dev = queries.device
     lib = _library()
-    slots = _fold_mma_slots(dev.index, d, k_eff, op)
+    slots = _slots(dev.index, "fold_mma", d, k_eff, op)
     n_tiles = -(-n // block_n)
     want = min(n_tiles, max(1, slots // -(-nq // _FM_TQ)))
     slab_rows = -(-n_tiles // want) * block_n
@@ -354,41 +367,29 @@ def _fold_mma(queries, corpus, csq, *, d, k_eff, block_n, euclid, op):
     return scores, ids
 
 
-@functools.cache
-def _exact_mma_slots(index: int, d: int, k: int, op: int) -> int:
-    """Resident blocks of the exact kernel for operand kind ``op`` the card
-    holds at (d, k)."""
-    lib = _library()
-    with torch.cuda.device(index):
-        per_sm = lib.lr_exact_mma_occupancy(d, k, op)
-    if per_sm < 0:
-        _check(lib, -per_sm, "exact kernel occupancy")
-    if per_sm == 0:
-        raise ValueError(
-            f"d={d}, k={k} needs more shared memory than one block has "
-            f"({lib.lr_exact_mma_smem(d, k, op)} bytes)"
-        )
-    return per_sm * _sm_count(index)
+def _exact_slab_rows(n: int, q_tiles: int, slots: int) -> int:
+    """Rows of a corpus slab of the exact searches: whole 128-row
+    sub-tiles, as many slabs as fill the card's resident block slots for
+    the query tiles at hand while each keeps ``_EM_MIN_SLAB_SUBTILES``."""
+    n_sub = -(-n // _LANES)
+    want = max(1, min(n_sub // _EM_MIN_SLAB_SUBTILES, slots // q_tiles))
+    return -(-n_sub // want) * _LANES
 
 
 def _exact_mma(queries, corpus, csq, *, d, k_eff, euclid, op):
     """The exact search over bf16 or fp32 stores, or the exact sign-dot
     search over packed sign words (``op``), on the tensor cores
-    (``csrc/exact_mma.cuh``), k <= 2048: the
-    corpus in slabs of whole 128-row sub-tiles, as many as fill the card's
-    resident block slots for the query tiles at hand while each keeps
-    ``_EM_MIN_SLAB_SUBTILES``; the kernels write the fp32 scores and int32
+    (``csrc/exact_mma.cuh``), k <= 2048, the corpus in slabs
+    (``_exact_slab_rows``); the kernels write the fp32 scores and int32
     ids."""
     _require_contiguous(queries, corpus)
     nq = queries.shape[0]
     n = corpus.shape[0]
     dev = queries.device
     lib = _library()
-    slots = _exact_mma_slots(dev.index, d, k_eff, op)
-    q_tiles = -(-nq // lib.lr_exact_mma_queries(k_eff))
-    n_sub = -(-n // _LANES)
-    want = max(1, min(n_sub // _EM_MIN_SLAB_SUBTILES, slots // q_tiles))
-    slab_rows = -(-n_sub // want) * _LANES
+    slab_rows = _exact_slab_rows(
+        n, -(-nq // lib.lr_exact_mma_queries(k_eff)),
+        _slots(dev.index, "exact_mma", d, k_eff, op))
     n_slabs = -(-n // slab_rows)
     scores = torch.empty((nq, k_eff), dtype=torch.float32, device=dev)
     ids = torch.empty((nq, k_eff), dtype=torch.int32, device=dev)
@@ -424,12 +425,40 @@ def _blocked_topk(queries, corpus, k_eff, metric):
     return s, i.to(torch.int32)
 
 
+def _exact_select(queries, corpus, csq, *, d, k_eff, euclid, op):
+    """The exact search at k past ``EXACT_MAX_K`` over bf16 or fp32 stores
+    (``csrc/exact_select.cuh``): a radix select of each query's k-th key
+    over histogram passes on the tensor cores, a collect pass and a
+    per-query sort, the corpus in slabs (``_exact_slab_rows``); the
+    kernels write the fp32 scores and int32 ids."""
+    _require_contiguous(queries, corpus)
+    nq = queries.shape[0]
+    n = corpus.shape[0]
+    dev = queries.device
+    lib = _library()
+    slab_rows = _exact_slab_rows(
+        n, -(-nq // _ES_TQ), _slots(dev.index, "exact_select", d, k_eff, op))
+    scratch = torch.empty(lib.lr_exact_select_scratch(nq, k_eff),
+                          dtype=torch.uint8, device=dev)
+    scores = torch.empty((nq, k_eff), dtype=torch.float32, device=dev)
+    ids = torch.empty((nq, k_eff), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.lr_exact_select(
+            queries.data_ptr(), corpus.data_ptr(),
+            csq.data_ptr() if csq is not None else None,
+            nq, n, d, k_eff, int(euclid), slab_rows,
+            int(_vec(corpus, d, op)), op, scratch.data_ptr(),
+            scores.data_ptr(), ids.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _check(lib, code, f"exact_select_kernel{_OP_TAG[op]}")
+    global last_kernel
+    last_kernel = f"exact_select_kernel{_OP_TAG[op]}"
+    return scores, ids
+
+
 def _fused_topk_raw_cuda(queries, corpus, corpus_sq, k_eff, euclid, mode,
                          block_n):
-    if mode == "exact" and k_eff > EXACT_MAX_K:
-        raise ValueError(
-            f"the exact kernels take k <= {EXACT_MAX_K} (got {k_eff}); "
-            "approx_fused_topk takes the blocked route past it")
     d = queries.shape[1]
     csq = _corpus_sq(corpus, corpus_sq).contiguous() if euclid else None
     op = _OP_BF16 if corpus.dtype == torch.bfloat16 else _OP_F32
@@ -437,8 +466,9 @@ def _fused_topk_raw_cuda(queries, corpus, corpus_sq, k_eff, euclid, mode,
         out = _fold_mma(queries, corpus, csq, d=d, k_eff=k_eff,
                         block_n=block_n, euclid=euclid, op=op)
     else:
-        out = _exact_mma(queries, corpus, csq, d=d, k_eff=k_eff,
-                         euclid=euclid, op=op)
+        search = _exact_mma if k_eff <= EXACT_MAX_K else _exact_select
+        out = search(queries, corpus, csq, d=d, k_eff=k_eff, euclid=euclid,
+                     op=op)
     launches[mode] += 1
     return out
 
@@ -459,9 +489,9 @@ def fused_topk_raw(
     raw, with optional ``corpus_sq`` row norms²; mahalanobis: whitened,
     scored as euclidean in the whitened space). ``mode='fold'`` scores are
     19-bit-quantized (``fused_topk`` rescores them); ``mode='exact'``
-    scores are exact. k is clipped to N; fold takes k <= 128; on a CUDA
-    tensor exact mode takes k <= ``EXACT_MAX_K`` and raises past it (the
-    plain version on a CPU tensor answers at any k)."""
+    scores are exact. k is clipped to N; fold takes k <= 128, exact mode
+    any k (on a CUDA tensor the exact kernel's lists up to
+    ``EXACT_MAX_K``, the radix select past it)."""
     k_eff = _validate(queries, corpus, corpus_sq, k, mode, block_n)
     if queries.device.type == "cpu":
         return fused_topk_raw_reference(

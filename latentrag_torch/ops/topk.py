@@ -105,7 +105,8 @@ def maxsim_aggregate(
     """Doc-level MaxSim over retrieved chunk candidates: each doc scores
     the max over its chunks; later duplicates of a doc are forced to
     NEG_INF so a doc appears once; returns top-k (doc_scores, doc_ids)
-    [Q, k]. Ties keep the earlier candidate, as ``lax.top_k`` does."""
+    [Q, k]. The order is ``lax.top_k``'s: descending over the floats'
+    total order (+0.0 above -0.0), ties to the earlier candidate."""
     same = chunk_doc_ids[:, :, None] == chunk_doc_ids[:, None, :]
     s = chunk_scores.float()
     agg = torch.where(same, s[:, None, :], NEG_INF).amax(dim=-1)
@@ -116,6 +117,7 @@ def maxsim_aggregate(
     is_dup = torch.any(same & earlier, dim=-1)
     agg = torch.where(is_dup, NEG_INF, agg)
     kk = min(k, c)
-    top_s, sel = torch.sort(agg, dim=1, descending=True, stable=True)
-    top_s, sel = top_s[:, :kk], sel[:, :kk]
-    return top_s, torch.gather(chunk_doc_ids, 1, sel)
+    bits = agg.contiguous().view(torch.int32)
+    key = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)  # order-preserving
+    sel = torch.sort(key, dim=1, descending=True, stable=True)[1][:, :kk]
+    return torch.gather(agg, 1, sel), torch.gather(chunk_doc_ids, 1, sel)

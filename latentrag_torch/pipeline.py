@@ -9,7 +9,8 @@ on a device chosen by the caller (default CUDA; the CPU only when asked):
 * ``candidate_k = top_k`` clipped to the corpus (the JAX package's x3
   widening for chunks and x4 for the reranker come with those slices);
 * empty candidate slots (id -1) map to a sentinel doc whose score is
-  forced to NEG_INF before MaxSim, and sentinel docs are dropped after.
+  forced to NEG_INF before MaxSim, and sentinel docs are dropped after;
+* MaxSim runs on the device, as the JAX package runs it there.
 
 Chunking, reranking and generation are later slices (ROADMAP queue 1
 items 19 and 24); asking for them raises ``NotImplementedError``.
@@ -86,6 +87,24 @@ def default_encoder(cfg: Config, corpus: Sequence[str],
         log.info("loaded encoder weights: %s", weights)
     return SentenceEncoder(tokenizer, cfg.encoder, state_dict=state_dict,
                            device=device)
+
+
+def aggregate_docs(scores, idx, doc_ids, k: int, device):
+    """The search's chunk candidates (host ``scores`` and ``idx`` [Q, C])
+    folded to docs by MaxSim on ``device``, as the JAX package runs it on
+    its device: empty slots (id -1) map to the sentinel doc -1 with score
+    NEG_INF, and sentinel and duplicate-doc slots are dropped after.
+    Returns (doc scores [Q, k] numpy, retrieved doc ids per query)."""
+    chunk_doc = np.where(
+        idx >= 0, np.asarray(doc_ids, dtype=np.int64)[np.maximum(idx, 0)], -1)
+    scores = np.where(idx >= 0, scores, -3.4e38).astype(np.float32)
+    doc_scores, doc_top = maxsim_aggregate(
+        torch.from_numpy(scores).to(device),
+        torch.from_numpy(chunk_doc).to(device), k=k)
+    doc_scores = doc_scores.cpu().numpy()
+    doc_top = doc_top.cpu().numpy()
+    keep = (doc_scores > -1e37) & (doc_top >= 0)
+    return doc_scores, [row[m].tolist() for row, m in zip(doc_top, keep)]
 
 
 class PipelineRunner:
@@ -165,21 +184,8 @@ class PipelineRunner:
         timings["search_s"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        chunk_doc = np.asarray(
-            [doc_ids[j] if j >= 0 else -1 for j in idx.ravel()],
-            dtype=np.int64,
-        ).reshape(idx.shape)
-        scores = np.where(idx >= 0, scores, -3.4e38).astype(np.float32)
-        doc_scores, doc_top = maxsim_aggregate(
-            torch.from_numpy(scores), torch.from_numpy(chunk_doc),
-            k=min(top_k, candidate_k),
-        )
-        doc_scores = doc_scores.numpy()
-        doc_top = doc_top.numpy()
-        retrieved_doc_ids = [
-            [int(d) for d, s in zip(row, srow) if s > -1e37 and d >= 0]
-            for row, srow in zip(doc_top, doc_scores)
-        ]
+        doc_scores, retrieved_doc_ids = aggregate_docs(
+            scores, idx, doc_ids, min(top_k, candidate_k), self.device)
         timings["aggregate_s"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()

@@ -249,11 +249,100 @@ def test_launch_counts_and_validation(cuda):
     assert ft.launches["blocked"] == 1 and ft.launches["exact"] == 1
     s_p, i_p = ft.fused_topk_raw_reference(q, big, k=2050, mode="exact")
     assert (i == i_p).float().mean().item() >= 0.99
-    # the exact kernels' own entry takes no k past their lists
-    with pytest.raises(ValueError, match="k <= 2048"):
-        ft.fused_topk_raw(q, big, k=2050, mode="exact")
+    # the exact entry answers past the lists through the radix select
+    s, i = ft.fused_topk_raw(q, big, k=2050, mode="exact")
+    assert ft.launches["exact"] == 2
+    assert ft.last_kernel == "exact_select_kernel<f32>"
+    assert (i == i_p).float().mean().item() >= 0.999
     with pytest.raises(ValueError, match="contiguous"):
         ft.fused_topk_raw(q, c.T.contiguous().T, k=5)
+
+
+@pytest.mark.parametrize("k", [2049, 3000, 5003])
+@pytest.mark.parametrize("store", ["float32", "bfloat16"])
+@pytest.mark.parametrize("metric", ["cosine", "euclidean"])
+def test_exact_select_matches_plain(cuda, metric, store, k):
+    """Past the exact kernel's 2048 the radix select
+    (csrc/exact_select.cuh): N=5003 is not a multiple of 128, 37 queries
+    leave a ragged query tile, d=50 takes the element-wise loads; k=N
+    selects every row."""
+    q, c = _data(cuda, getattr(torch, store), n=5003, d=50)
+    ft.reset_launches()
+    s_k, i_k = ft.fused_topk_raw(q, c, k=k, metric=metric, mode="exact")
+    assert ft.launches["exact"] == 1
+    assert ft.last_kernel == "exact_select_kernel" + (
+        "<f32>" if store == "float32" else "")
+    s_p, i_p = ft.fused_topk_raw_reference(q, c, k=k, metric=metric,
+                                           mode="exact")
+    assert i_k.shape == (37, k) and s_k.shape == (37, k)
+    same = i_k == i_p
+    assert same.float().mean().item() >= 0.999
+    tol = 1e-4 + 1e-5 * s_p.abs()
+    assert bool(((s_k - s_p).abs() <= tol)[same].all())
+    assert bool((s_k[:, :-1] >= s_k[:, 1:]).all())
+
+
+def test_exact_select_sorts_in_device_memory(cuda):
+    """k=17000 needs a sort of 32768 entries a query, past the 16384 a
+    block holds in shared memory: the sort runs in place in device
+    memory."""
+    q, c = _data(cuda, torch.bfloat16, nq=5, n=20000)
+    s_k, i_k = ft.fused_topk_raw(q, c, k=17000, mode="exact")
+    s_p, i_p = ft.fused_topk_raw_reference(q, c, k=17000, mode="exact")
+    same = i_k == i_p
+    assert same.float().mean().item() >= 0.999
+    assert bool(((s_k - s_p).abs() <= 1e-4 + 1e-5 * s_p.abs())[same].all())
+    assert bool((s_k[:, :-1] >= s_k[:, 1:]).all())
+
+
+def test_exact_select_ties(cuda):
+    """Rows from 40 distinct vectors tie at every score: the row passes
+    must hand the k-th score's ties to the lowest rows."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    base = torch.randn((40, 64), generator=g, device=cuda)
+    pick = torch.randint(0, 40, (6000,), generator=g, device=cuda)
+    c = base[pick].bfloat16().contiguous()
+    q = torch.randn((20, 64), generator=g, device=cuda).bfloat16()
+    s_k, i_k = ft.fused_topk_raw(q, c, k=3000, mode="exact")
+    s_p, i_p = ft.fused_topk_raw_reference(q, c, k=3000, mode="exact")
+    assert torch.equal(i_k, i_p)
+    assert ft.last_kernel == "exact_select_kernel"
+
+
+@pytest.mark.parametrize("store", ["float32", "bfloat16"])
+def test_pallas_exact_store_past_2048(cuda, store):
+    """The pallas_exact backend answers at k past 2048 as the JAX
+    package's does, through the radix select."""
+    from latentrag_torch.retrieval import DenseRetriever
+
+    emb = torch.randn((3000, 64), generator=torch.Generator().manual_seed(2))
+    r = DenseRetriever(backend="pallas_exact", store_dtype=store,
+                       device="cuda")
+    r.build(emb.numpy(), [str(i) for i in range(3000)])
+    ft.reset_launches()
+    s, i = r.search(emb[:20].numpy(), 2500)
+    assert ft.launches["exact"] == 1
+    assert ft.last_kernel.startswith("exact_select_kernel")
+    assert i.shape == (20, 2500) and (i[:, 0] == np.arange(20)).all()
+    assert np.isfinite(s).all() and (np.diff(s, axis=1) <= 0).all()
+
+
+@pytest.mark.parametrize("k", [10, 150])
+def test_aggregate_docs_on_card_matches_cpu(cuda, k):
+    """MaxSim on the card gives the CPU placement's doc ids and scores,
+    with tied chunk scores, repeated docs and empty slots."""
+    from latentrag_torch.pipeline import aggregate_docs
+
+    rng = np.random.default_rng(0)
+    nq, c = 300, max(k, 30)
+    scores = -np.sort(-np.round(rng.standard_normal((nq, c)), 1), axis=1)
+    idx = rng.integers(0, 2000, (nq, c)).astype(np.int64)
+    idx[:5, -3:] = -1
+    doc_ids = list(rng.integers(0, 400, 2000))
+    ds_g, ids_g = aggregate_docs(scores, idx, doc_ids, k, cuda)
+    ds_c, ids_c = aggregate_docs(scores, idx, doc_ids, k, "cpu")
+    assert ids_g == ids_c
+    np.testing.assert_array_equal(ds_g, ds_c)
 
 
 def test_approx_route_recall(cuda):
