@@ -18,10 +18,17 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    check also holds that the C kernel that ran is the one the store's
    dtype routes to (bf16: fold_mma_kernel and exact_mma_kernel, fp32:
    their 3xTF32 instances fold_mma_kernel<f32> and exact_mma_kernel<f32>);
-   and, past the exact kernel's lists (k > 2048) the radix select
+   and, past the exact kernel's lists (k > 2048) the exact select
    (``exact_select_kernel``, ``<f32>`` for fp32 stores) at Q=37, N=5003,
    d=384, k in {2049, 3000, 5003} over the three metrics, and at Q=1024,
-   N=1M, d=64, k=4096, cosine;
+   N=1M, d=64, k=4096, cosine; at each, the route the plan picks
+   (``ft.last_select``: a sampled threshold and one buffer pass, or every
+   row into the buffer where N <= C) equal bit for bit to the radix route
+   (``route="radix"``), with the queries that fell back
+   (``ft.select_fallbacks()``) recorded; then, at Q=64, N=1M, k=3000,
+   corpora on which the sampled threshold fails (its rows the best of
+   half the queries; rows that tie by the thousand), whose queries fall
+   back to the radix passes and are held to the plain version;
 2b. holds the binary fold kernel (tensor cores, ``fold_mma_kernel<bin>``)
    against its plain version: the reference and 1M shapes at d=64 and the
    ragged shape at d=384 and d=48 (pad bits), and the binary main path's
@@ -56,13 +63,15 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    top_k=300, whose 2400 candidates take the blocked route;
 3d. builds a ``DenseRetriever(backend="pallas_exact")`` over 1M seeded unit
    rows (d=64), bf16 and then fp32, and searches 1024 queries at k=3000:
-   the radix select must serve it and agree with ``xla_exact``;
+   the exact select (its sampled route) must serve it and agree with
+   ``xla_exact``;
 4. times each kernel, its plain version and torch.matmul + torch.topk at
    the kernel call's k (a yardstick the port never calls) with CUDA
    events, beside the bound, at the reference, the main path's own
    (Q=2000, N=1997, bf16 fold only) and the 1M shapes, over bf16 and fp32
-   stores; the exact kernel at k=10 and k=160, and at 1M the radix select
-   at k=3000 beside the blocked route at that k; each record names the C
+   stores; the exact kernel at k=10 and k=160, and at 1M the exact select
+   at k=3000 beside the blocked route and the radix route (the earlier
+   design) at that k, each with its device split; each record names the C
    kernels that ran and has a profiler device split and the kernel's
    resident blocks an SM;
 4b. the same for the binary fold kernel at the reference and 1M shapes
@@ -242,6 +251,14 @@ def check_kernels(torch, failures: list) -> dict:
                             rec["recall_vs_exact"] = recall
                             ok = ok and id_match >= FOLD_ID_MATCH and (
                                 k != 10 or recall >= FOLD_RECALL)
+                        if select:  # the plan's route against the radix route
+                            rec["route"] = ft.last_select["route"]
+                            rec["fallbacks"] = ft.select_fallbacks()
+                            s_r, i_r = select_route(ft, q, c, k, metric, "radix")
+                            rec["same_as_radix"] = torch.equal(i_k, i_r) and (
+                                torch.equal(s_k.view(torch.int32),
+                                            s_r.view(torch.int32)))
+                            ok = ok and rec["same_as_radix"]
                         key = ("exact_select" if select else mode) + (
                             "_fp32" if dname == "float32" else "")
                         worst[key] = max(worst[key], max_err)
@@ -254,6 +271,69 @@ def check_kernels(torch, failures: list) -> dict:
                 del q, c
                 torch.cuda.empty_cache()
     return worst
+
+
+def select_route(ft, q, c, k, metric, route):
+    """``fused_topk_raw(mode="exact")`` past 2048 on the exact select's
+    private ``route`` (``"radix"``: the radix select for every query)."""
+    return ft._fused_topk_raw_cuda(q, c, None, k,
+                                   ft._metric_kind(metric) == "euclidean",
+                                   "exact", 4096, route=route)
+
+
+def check_select_fallbacks(torch, failures: list) -> None:
+    """Phase 2, the exact select's fallback: at Q=64, N=1M, d=64, k=3000,
+    corpora on which the sampled threshold fails. "overshoot": the sampled
+    rows (every s-th, s from the plan) are the best rows of the even
+    queries, whose thresholds pass fewer than k keys, and score like any
+    row for the odd ones; "ties": every row one of 40 vectors, so more
+    than C keys share the threshold's score. The plain version holds the
+    answer (the 1M limits of phase 2), the radix route holds it bit for
+    bit, and the device's fallback count must be the queries built to
+    fall back."""
+    from latentrag_torch.ops import fused_topk as ft
+
+    nq, n, d, k = 64, 1_000_000, 64, 3000
+    for case in ("overshoot", "ties"):
+        for dname in ("bfloat16", "float32"):
+            g = torch.Generator(device="cuda").manual_seed(61)
+            q = torch.randn((nq, d), generator=g, device="cuda")
+            if case == "ties":
+                base = torch.randn((40, d), generator=g, device="cuda")
+                pick = torch.randint(0, 40, (n,), generator=g, device="cuda")
+                c, fall = base[pick], nq
+            else:
+                c = torch.randn((n, d), generator=g, device="cuda")
+                c[:, 0] = 0.0
+                c[::ft._select_plan(nq, n, k)[1], 0] = 20.0
+                q[:, 0] = 0.0
+                q[::2, 0] = 1.0
+                fall = nq // 2
+            dtype = getattr(torch, dname)
+            q, c = q.to(dtype).contiguous(), c.to(dtype).contiguous()
+            s_k, i_k = ft.fused_topk_raw(q, c, k=k, mode="exact")
+            torch.cuda.synchronize()
+            rec = {"case": case, "store": dname, "Q": nq, "N": n, "d": d,
+                   "k": k, "c_kernel": ft.last_kernel, **ft.last_select,
+                   "fallbacks": ft.select_fallbacks(), "want_fallbacks": fall}
+            s_p, i_p = ft.fused_topk_raw_reference(q, c, k=k, mode="exact")
+            tol = EXACT_SCORE_ATOL + EXACT_SCORE_RTOL * s_p.abs()
+            slot_err = (s_k - s_p).abs()
+            rec["slot_id_match"] = (i_k == i_p).float().mean().item()
+            rec["set_match"] = set_match(torch, i_k, i_p)
+            rec["slot_max_abs_err"] = slot_err.max().item()
+            s_r, i_r = select_route(ft, q, c, k, "cosine", "radix")
+            rec["same_as_radix"] = torch.equal(i_k, i_r) and torch.equal(
+                s_k.view(torch.int32), s_r.view(torch.int32))
+            rec["ok"] = (rec["route"] == "sampled" and rec["fallbacks"] == fall
+                         and rec["same_as_radix"]
+                         and rec["set_match"] >= EXACT_ID_MATCH
+                         and bool((slot_err <= tol).all()))
+            record("select_fallback_check", **rec)
+            if not rec["ok"]:
+                failures.append(f"exact select fallback check {rec}")
+            del q, c, s_k, i_k, s_p, i_p, s_r, i_r
+            torch.cuda.empty_cache()
 
 
 def set_match(torch, got, want) -> float:
@@ -288,18 +368,21 @@ def check_exact_select_store(torch, failures: list, store: str) -> int:
     s_k, i_k = (torch.from_numpy(a).cuda() for a in r.search(q, k))
     search_s = time.perf_counter() - t0
     launches, ran = dict(ft.launches), ft.last_kernel
+    plan, fallbacks = dict(ft.last_select), ft.select_fallbacks()
     r.backend = "xla_exact"
     s_o, i_o = (torch.from_numpy(a).cuda() for a in r.search(q, k))
     same = (i_k == i_o).float().mean().item()
     found = set_match(torch, i_k, i_o)
     tol = EXACT_SCORE_ATOL + EXACT_SCORE_RTOL * s_o.abs()
     slot_err = (s_k - s_o).abs()
-    want = "exact_select_kernel" + ("<f32>" if store == "float32" else "")
+    tag = "<f32>" if store == "float32" else ""
+    # the sampled route: the exact kernel takes the sample's scores first
+    want = f"exact_select_kernel{tag}+exact_mma_kernel{tag}"
     ok = (launches["exact"] >= 1 and ran == want and found >= EXACT_ID_MATCH
           and bool((slot_err <= tol).all()) and bool(torch.isfinite(s_k).all()))
     record("exact_select_store", store=store, N=n, Q=nq, d=d, k=k,
-           search_s=search_s, launches=launches, c_kernel=ran,
-           slot_id_match=same, set_match=found,
+           search_s=search_s, launches=launches, c_kernel=ran, plan=plan,
+           fallbacks=fallbacks, slot_id_match=same, set_match=found,
            slot_max_abs_err=slot_err.max().item(), ok=ok)
     if not ok:
         failures.append(f"pallas_exact at k={k} over a 1M {store} store: "
@@ -632,8 +715,14 @@ def time_kernels(torch) -> dict:
                    "library_ms": lib_ms, "library_k": kk, "bound_ms": b_ms,
                    "bound_by": b_by}
             if big:  # the approximate route's answer at this k
+                rec["plan"] = dict(ft.last_select)
+                rec["fallbacks"] = ft.select_fallbacks()
                 rec["blocked_ms"] = time_ms(torch, lambda: ft.approx_fused_topk(
                     q, c, k=kk, metric="cosine"), reps=5, warmup=1)
+                # the radix route, the earlier design, in the same run
+                radix = lambda: select_route(ft, q, c, kk, "cosine", "radix")  # noqa: E731
+                rec["radix_ms"] = time_ms(torch, radix, reps=10)
+                rec["radix_device_ms"] = device_split(torch, radix)
             # device ms of each kernel the call launches
             rec["device_ms"] = device_split(torch, lambda: ft.fused_topk_raw(
                 q, c, k=kk, metric="cosine", mode=mode, block_n=bn))
@@ -1083,6 +1172,7 @@ def main() -> int:
 
     failures: list = []
     worst = check_kernels(torch, failures)
+    check_select_fallbacks(torch, failures)
     worst.update(check_binary_kernel(torch, failures))
     if failures:
         fail("; ".join(failures[:5]))

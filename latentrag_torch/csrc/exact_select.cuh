@@ -4,61 +4,107 @@
 // (<OP_F32, *>, 3xTF32 products through fold_mma.cuh's fm_split4 /
 // fm_mma3). Included by fused_topk.cu after exact_mma.cuh.
 //
+//   exact_select_init               prefix, need, count of every query; the
+//                                   threshold from a sample's scores
+//   exact_select_kernel<OP, true>   a buffer pass: every key at or above the
+//                                   query's threshold into its buffer, counted
+//                                   past the buffer's end
+//   exact_select_check              one thread per query: a query whose count
+//                                   is not in [k, C] falls back
 //   exact_select_kernel<OP, false>  a histogram pass: one block = one m16
 //                                   tile of queries x one corpus slab
 //   exact_select_scan               one thread per query: picks the
 //                                   pass's digit, narrows the prefix
-//   exact_select_kernel<OP, true>   the collect pass: every key at or above
-//                                   the query's threshold into its list
-//   exact_select_sort               one block per query: sorts the k keys
-//                                   and writes scores and ids
+//   exact_select_sort               one block per query: sorts its buffer
+//                                   and writes the best k scores and ids
 //
 // Contract: exact_mma_kernel's (exact_mma.cuh): the top k_eff = min(k, N)
 // of (score desc, row asc), ranked by the unique 64-bit key
 // monotone_i32(score) << 32 | (INT_MAX - row); scores are the kernel's own
 // fp32 sums, |q|^2 summed as fm_row_sq sums it; fp32 scores [Q, k] and
 // int32 ids [Q, k] come out sorted best first, written by the sort kernel.
-// No torch call follows.
+// No torch call follows. Every route below gives the same bits: the key is
+// unique, and every pass scores with one template body.
 //
 // Why another design. exact_mma_kernel keeps each query's list and buffer
 // in shared memory, QB x (KP + BUF) x 8 bytes, which caps k at 2048. Past
 // it the lists would have to live in device memory and be merged there.
-// Instead this kernel selects by radix: it finds each query's k-th key
-// exactly, one 8-bit digit a pass, and then writes the keys at or above it.
+// Instead this kernel places a threshold and writes the keys at or above
+// it into a per-query buffer in device memory, then sorts the buffer.
 //
-// Select. Each query keeps a prefix (the digits found so far) and need (how
-// many keys it still has to take among those that match the prefix). A
-// histogram pass scores the whole corpus on the tensor cores, with the
-// code, fragment order and ring of exact_mma_kernel, so every pass sees
-// bit-identical scores; each key that matches the prefix above the pass's
-// digit adds one to its digit's bin in the block's shared histograms
-// (16 queries x 256 bins, rows 257 ints apart so that one bin of different
-// queries falls in different banks), and the block adds its histograms to
-// device memory. The scan then walks the query's bins from the top: the
-// bin where the running count reaches need is the next digit, and need
-// drops by the keys of the bins above it. When that bin holds exactly need
-// keys the query is done: its threshold is the prefix, and the keys at or
-// above it are its top k. Four passes take the score's 32 bits; ties of
-// the k-th score go on to the row's bits (INT_MAX - row), in as many
-// passes as the corpus's row count needs (3 at N = 1M, 2 at N = 5003), and
-// since keys are unique the last pass always ends with one key in the bin.
-// A pass whose block holds no query still selecting returns at once, so
-// without ties the row passes cost a launch each. The scan and the passes
-// keep their state in device memory, so the host never waits for a count.
+// Routes (the wrapper's _select_plan picks one from the shapes alone, so
+// the same shapes always take the same route; C = 2 es_width(k) is the
+// buffer's capacity, a power of two, 8192 at k = 3000):
+// - sampled (N > C): the threshold is the rank-m score of a strided sample
+//   of the corpus (every s-th row, a contiguous copy made by the wrapper)
+//   from exact_mma_kernel, a list of m <= 256 entries: its key with no
+//   row bits, u(t) << 32, so every row that ties the score t is taken.
+//   One buffer pass then scores the whole corpus once, keeps the keys at or
+//   above it (up to C a query) and counts them all.
+// - all (N <= C): the threshold is the least key; the buffer pass keeps
+//   every row, and no query can fall back.
+// - radix (C > ES_SORT_SMEM = 16384, i.e. k > 8192; or Q x C x 8 bytes of
+//   buffers past 1 GiB; or route 1 of the C entry, for the checks): the
+//   radix select below for every query, into buffers of es_width(k).
+// Sizing of the sampled route. The target count is T = (9k + 7C) / 16,
+// between k and C and a little nearer k (the count's upper tail is the
+// heavier); s = ceil(T / 256) and m = ceil(T / s) <= 256, so m s ~ T and
+// the sample holds ceil(N / s) > m rows. On rows in random order the
+// number of corpus keys at or above the sample's m-th is about T, with a
+// relative spread of about 1/sqrt(m) (the m-th order statistic of the
+// sample: a Beta(m, N/s - m + 1) share of N). At N = 1M, k = 3000: C =
+// 8192, T = 5271, s = 21, m = 251, 47620 sampled rows; a query falls back
+// when the count leaves [k, C], which rows in random order do with a
+// chance of about 2e-14 (the Beta's two tails); the worst k, a power of
+// two (4096: T = 5888, s = 23, m = 256), about 3e-8 a query. Storage-ordered corpora
+// (every s-th row a cluster's best), and ties at the threshold (rows
+// equal in bf16: more than C keys on one score) do fall back, and stay
+// exact.
+// Check and fallback. exact_select_check marks a query ok when k <= count
+// <= C: its buffer holds every key at or above the threshold, and so its
+// top k (the k-th key is at or above the threshold). Any other query is
+// reset (prefix 0, need k, count 0) and flagged; its buffer is not read.
+// The radix passes, scans and a collect pass then run as on the radix
+// route, for the flagged queries only (the collect appends only theirs,
+// exactly k keys from the buffer's start); a block whose 16 queries are
+// all done returns at once, so without a fallback they cost a launch
+// each. The first 4 bytes of the scratch count the queries that fell back.
+// The host never waits for a count.
 //
-// Collect and sort. The collect pass appends each key at or above its
-// query's threshold to the query's list (a device-memory atomic on its
-// count: exactly k keys land), and exact_select_sort sorts each list
-// descending with a bitonic network, in shared memory up to 16384 entries
-// and in place in device memory past that, then writes scores and ids.
+// Select (the radix route, and the fallback). Each query keeps a prefix
+// (the digits found so far) and need (how many keys it still has to take
+// among those that match the prefix). A histogram pass scores the whole
+// corpus on the tensor cores, with the code, fragment order and ring of
+// exact_mma_kernel, so every pass sees bit-identical scores; each key that
+// matches the prefix above the pass's digit adds one to its digit's bin in
+// the block's shared histograms (16 queries x 256 bins, rows 257 ints
+// apart so that one bin of different queries falls in different banks),
+// and the block adds its histograms to device memory. The scan then walks
+// the query's bins from the top: the bin where the running count reaches
+// need is the next digit, and need drops by the keys of the bins above it.
+// When that bin holds exactly need keys the query is done: its threshold
+// is the prefix, and the keys at or above it are its top k. Four passes
+// take the score's 32 bits; ties of the k-th score go on to the row's bits
+// (INT_MAX - row), in as many passes as the corpus's row count needs (3 at
+// N = 1M, 2 at N = 5003), and since keys are unique the last pass always
+// ends with one key in the bin. The collect pass appends each key at or
+// above the query's threshold to its buffer (a device-memory atomic on its
+// count: exactly k keys land).
+//
+// Sort. exact_select_sort sorts each query's count of keys (min(count, C)
+// on the buffer routes, k after a fallback or on the radix route), padded
+// with empty keys to a power of two, descending with a bitonic network, in
+// shared memory up to 16384 entries and in place in device memory past
+// that (the radix route at k > 8192), then writes the best k. A full sort
+// of up to C keys, not a select inside the buffer.
 //
 // Bound. As exact_mma_kernel's: 2 Q N d products at the bf16 tensor-core
 // peak (0.13 ms at 1024 x 1M, d = 64; fp32 3xTF32: 0.8 ms), for the work
-// one search needs. This design does that work in every pass, four to
-// seven times, plus a shared-memory atomic for each score that matches the
-// prefix (every score in the first pass, where a few bins take nearly all
-// of them). It is the simple, right kernel; cutting the passes (a first
-// pass that keeps a sample, wider digits) is later work.
+// one search needs. The sampled route does that work about 1 + 1/s times
+// (the buffer pass and the sample); the radix route four to seven times,
+// plus a shared-memory atomic for each score that matches the prefix
+// (every score in the first pass, where a few bins take nearly all of
+// them). The buffer pass reads the corpus once per m16 tile of 16 queries.
 
 #define ES_BINS 256
 #define ES_HSTRIDE 257   // ints between two queries' shared histograms
@@ -71,18 +117,27 @@ __host__ __device__ inline size_t es_smem_bytes(int d, int op) {
            EM_QROWS * 8 + (size_t)EM_QROWS * ES_HSTRIDE * 4 + 2 * EM_QROWS * 4;
 }
 
-// Entries of a query's list: the least power of two >= k (the sort's
-// width).
+// The least power of two >= k: the radix route's buffer entries, and the
+// sort's width for k keys.
 __host__ __device__ inline int es_width(int k) {
     int w = 1;
     while (w < k) w <<= 1;
     return w;
 }
 
+// The high word of a score's unsigned key: monotone_i32(score) ^
+// 0x80000000, whose unsigned order is the scores' order.
+__device__ __forceinline__ unsigned es_u32(float s) {
+    const unsigned b = __float_as_uint(s);
+    return (int)b >= 0 ? (b ^ 0x80000000u) : ~b;
+}
+
 // grid: (ceil(nq / 16), slabs of slab_rows rows, a multiple of 128).
 // COLLECT = false: histogram of digit (key >> shift) & 255 over the keys
 // with (key ^ pre) & himask == 0, for queries with need > 0.
-// COLLECT = true: every key >= pre into keys[q, cnt[q]++].
+// COLLECT = true: every key >= pre into keys[q, cnt[q]++] (stored while
+// cnt[q] < width, counted past it), for every query, or with `only` for
+// the queries whose only[q] is set.
 // Keys here are unsigned: (monotone_i32(score) ^ 0x80000000) << 32 |
 // (INT_MAX - row), whose unsigned order is the signed key's order.
 template <int OP, bool COLLECT>
@@ -95,7 +150,7 @@ exact_select_kernel(const void* __restrict__ qp,
                     const unsigned long long* __restrict__ pre_g,
                     const int* __restrict__ need_g, int* __restrict__ hist_g,
                     int* __restrict__ cnt_g, i64* __restrict__ keys,
-                    int width) {
+                    int width, const int* __restrict__ only) {
     constexpr int CH = fm_dch(OP);
     extern __shared__ __align__(16) unsigned char smem[];
     const int n_dch = (d + CH - 1) / CH;
@@ -118,17 +173,19 @@ exact_select_kernel(const void* __restrict__ qp,
 
     if (tid < EM_QROWS) {
         const int q = q0 + tid;
-        act[tid] = q < nq && (COLLECT || need_g[q] > 0);
+        act[tid] = q < nq && (COLLECT ? only == nullptr || only[q] != 0
+                                      : need_g[q] > 0);
         pre[tid] = q < nq ? pre_g[q] : 0ull;
     }
-    if (!COLLECT)
-        for (int e = tid; e < EM_QROWS * ES_HSTRIDE; e += FM_THREADS)
-            hist[e] = 0;
     __syncthreads();
     bool any = false;
 #pragma unroll
     for (int r = 0; r < EM_QROWS; ++r) any |= act[r] != 0;
     if (!any) return;  // uniform: every query of the tile is done
+    // zeroed before the first append, past the query tile's barrier below
+    if (!COLLECT)
+        for (int e = tid; e < EM_QROWS * ES_HSTRIDE; e += FM_THREADS)
+            hist[e] = 0;
 
 #pragma unroll
     for (int s = 0; s < FM_NST - 1; ++s) {
@@ -210,10 +267,9 @@ exact_select_kernel(const void* __restrict__ qp,
                 if (euclid) s = 2.0f * s - qsq[g + 8 * h] - cq[8 * j + (e & 1)];
                 if (!(h ? act1 : act0) || col >= n) continue;
                 const int r = g + 8 * h;
-                const unsigned b = __float_as_uint(s);
-                const unsigned u = (int)b >= 0 ? (b ^ 0x80000000u) : ~b;
                 const unsigned long long key =
-                    ((unsigned long long)u << 32) | (unsigned)(INT_MAX - col);
+                    ((unsigned long long)es_u32(s) << 32) |
+                    (unsigned)(INT_MAX - col);
                 const unsigned long long p = h ? pre1 : pre0;
                 if constexpr (COLLECT) {
                     if (key >= p) {
@@ -240,16 +296,41 @@ exact_select_kernel(const void* __restrict__ qp,
     }
 }
 
-// prefix 0, need k, count 0 and empty histograms for every query.
-__global__ void exact_select_init(int nq, int k, unsigned long long* pre,
-                                  int* need, int* cnt, int* hist) {
+// Need k, count 0 and empty histograms for every query, no fallback yet;
+// the prefix is 0, or with `thr` (the sample's scores [nq, rank]) the key
+// of the query's rank-th sampled score with no row bits.
+__global__ void exact_select_init(int nq, int k, const float* thr, int rank,
+                                  unsigned long long* pre, int* need,
+                                  int* cnt, int* hist, int* nfell) {
     const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (e >= (size_t)nq * ES_BINS) return;
     hist[e] = 0;
     if (e < (size_t)nq) {
-        pre[e] = 0ull;
+        pre[e] = thr ? (unsigned long long)es_u32(thr[e * rank + rank - 1])
+                           << 32
+                     : 0ull;
         need[e] = k;
         cnt[e] = 0;
+    }
+    if (e == 0) *nfell = 0;
+}
+
+// After the buffer pass: a query with k <= count <= cap is done (need 0;
+// its buffer holds its top k); any other falls back: prefix 0, need k,
+// count 0, flagged in fell and counted in nfell.
+__global__ void exact_select_check(int nq, int k, int cap,
+                                   unsigned long long* pre, int* need,
+                                   int* cnt, int* fell, int* nfell) {
+    const int q = blockIdx.x * blockDim.x + threadIdx.x;
+    if (q >= nq) return;
+    const int c = cnt[q];
+    const bool ok = c >= k && c <= cap;
+    fell[q] = !ok;
+    need[q] = ok ? 0 : k;
+    if (!ok) {
+        pre[q] = 0ull;
+        cnt[q] = 0;
+        atomicAdd(nfell, 1);
     }
 }
 
@@ -279,24 +360,27 @@ __global__ void exact_select_scan(int nq, int shift, unsigned long long fill,
     for (int b = 0; b < ES_BINS; ++b) h[b] = 0;
 }
 
-// One block per query: its k keys (width entries, the rest empty) sorted
+// One block per query: its min(cnt, width) keys of a buffer of width
+// entries, padded with empty keys to w = es_width of their count, sorted
 // descending by a bitonic network, in shared memory when width <=
-// ES_SORT_SMEM, else in place in `keys`; then the scores and ids.
+// ES_SORT_SMEM, else in place in `keys`; then the best k scores and ids.
 __global__ void __launch_bounds__(FM_THREADS)
-exact_select_sort(i64* __restrict__ keys, int width, int k,
+exact_select_sort(i64* __restrict__ keys, int width,
+                  const int* __restrict__ cnt, int k,
                   float* __restrict__ out_s, int* __restrict__ out_i) {
     extern __shared__ __align__(16) unsigned char smem[];
     const int q = blockIdx.x, tid = threadIdx.x;
     i64* row = keys + (size_t)q * width;
     i64* X = width <= ES_SORT_SMEM ? (i64*)smem : row;
-    for (int i = tid; i < width; i += FM_THREADS)
-        X[i] = i < k ? row[i] : EMPTY64;
+    const int nv = min(cnt[q], width), w = es_width(nv);
+    for (int i = tid; i < w; i += FM_THREADS)
+        X[i] = i < nv ? row[i] : EMPTY64;
     __syncthreads();
 #pragma unroll 1
-    for (int s = 2; s <= width; s <<= 1) {
+    for (int s = 2; s <= w; s <<= 1) {
 #pragma unroll 1
         for (int j = s >> 1; j > 0; j >>= 1) {
-            for (int p = tid; p < width / 2; p += FM_THREADS) {
+            for (int p = tid; p < w / 2; p += FM_THREADS) {
                 const int i = em_pair(p, j);
                 const i64 a = X[i], b = X[i + j];
                 if ((a < b) == ((i & s) == 0)) {
@@ -347,25 +431,33 @@ static int es_occupancy(size_t smem) {
     return e ? -e : blocks;
 }
 
-// Bytes of the scratch lr_exact_select carves: prefixes, lists, histograms,
-// needs and counts.
-static size_t es_scratch_bytes(int nq, int k) {
-    return (size_t)nq * 8 + (size_t)nq * es_width(k) * 8 +
-           (size_t)nq * ES_BINS * 4 + (size_t)nq * 8;
+// Entries of a query's buffer: the capacity cap on the buffer routes, else
+// es_width(k).
+static int es_buffer(int k, int cap) { return cap ? cap : es_width(k); }
+
+// Bytes of the scratch lr_exact_select carves: the fallback count (8
+// bytes), prefixes, buffers, histograms, needs, counts and fallback flags.
+static size_t es_scratch_bytes(int nq, int k, int cap) {
+    return 8 + (size_t)nq * 8 + (size_t)nq * es_buffer(k, cap) * 8 +
+           (size_t)nq * ES_BINS * 4 + (size_t)nq * 12;
 }
 
 template <int OP>
 static int es_launch(const void* q, const void* c, const float* csq, int nq,
                      int n, int d, int k, int euclid, int slab_rows, int vec,
-                     void* scratch, float* out_s, int* out_i, cudaStream_t st) {
+                     int cap, const float* thr, int rank, void* scratch,
+                     float* out_s, int* out_i, cudaStream_t st) {
     int e = es_prepare<OP>();
     if (e) return e;
-    const int width = es_width(k);
-    unsigned long long* pre = (unsigned long long*)scratch;
+    const int width = es_buffer(k, cap);
+    int* nfell = (int*)scratch;
+    unsigned long long* pre =
+        (unsigned long long*)((unsigned char*)scratch + 8);
     i64* keys = (i64*)(pre + nq);
     int* hist = (int*)(keys + (size_t)nq * width);
     int* need = hist + (size_t)nq * ES_BINS;
     int* cnt = need + nq;
+    int* fell = cnt + nq;
     const size_t smem = es_smem_bytes(d, OP);
     const dim3 grid((nq + EM_QROWS - 1) / EM_QROWS,
                     (n + slab_rows - 1) / slab_rows);
@@ -373,8 +465,18 @@ static int es_launch(const void* q, const void* c, const float* csq, int nq,
 
     exact_select_init<<<(unsigned)(((size_t)nq * ES_BINS + FM_THREADS - 1) /
                                    FM_THREADS),
-                        FM_THREADS, 0, st>>>(nq, k, pre, need, cnt, hist);
+                        FM_THREADS, 0, st>>>(nq, k, thr, rank, pre, need,
+                                             cnt, hist, nfell);
     if ((e = (int)cudaGetLastError())) return e;
+    if (cap) {  // the buffer pass and its check
+        exact_select_kernel<OP, true><<<grid, FM_THREADS, smem, st>>>(
+            q, c, csq, nq, n, d, euclid, slab_rows, vec, 0, 0ull, pre, need,
+            hist, cnt, keys, width, nullptr);
+        if ((e = (int)cudaGetLastError())) return e;
+        exact_select_check<<<nqb, FM_THREADS, 0, st>>>(nq, k, cap, pre, need,
+                                                       cnt, fell, nfell);
+        if ((e = (int)cudaGetLastError())) return e;
+    }
     // row digits: the bits of n - 1, in whole bytes
     int row_bits = 8;
     while (row_bits < 32 && ((unsigned)(n - 1) >> row_bits)) row_bits += 8;
@@ -385,19 +487,20 @@ static int es_launch(const void* q, const void* c, const float* csq, int nq,
         const unsigned long long himask = shift == 56 ? 0ull : ~0ull << (shift + 8);
         exact_select_kernel<OP, false><<<grid, FM_THREADS, smem, st>>>(
             q, c, csq, nq, n, d, euclid, slab_rows, vec, shift, himask, pre,
-            need, hist, cnt, keys, width);
+            need, hist, cnt, keys, width, nullptr);
         if ((e = (int)cudaGetLastError())) return e;
         exact_select_scan<<<nqb, FM_THREADS, 0, st>>>(
             nq, shift, shift == 32 ? fill : 0ull, pre, need, hist);
         if ((e = (int)cudaGetLastError())) return e;
     }
+    // the collect: every query on the radix route, the fallen ones else
     exact_select_kernel<OP, true><<<grid, FM_THREADS, smem, st>>>(
         q, c, csq, nq, n, d, euclid, slab_rows, vec, 0, 0ull, pre, need, hist,
-        cnt, keys, width);
+        cnt, keys, width, cap ? fell : nullptr);
     if ((e = (int)cudaGetLastError())) return e;
     exact_select_sort<<<nq, FM_THREADS,
                         width <= ES_SORT_SMEM ? (size_t)width * 8 : 0, st>>>(
-        keys, width, k, out_s, out_i);
+        keys, width, cnt, k, out_s, out_i);
     return (int)cudaGetLastError();
 }
 
@@ -405,8 +508,8 @@ extern "C" {
 
 size_t lr_exact_select_smem(int d, int op) { return es_smem_bytes(d, op); }
 
-size_t lr_exact_select_scratch(int nq, int k) {
-    return es_scratch_bytes(nq, k);
+size_t lr_exact_select_scratch(int nq, int k, int cap) {
+    return es_scratch_bytes(nq, k, cap);
 }
 
 // Resident exact_select_kernel blocks per SM at (d, op) on the current
@@ -420,23 +523,34 @@ int lr_exact_select_occupancy(int d, int op) {
 }
 
 // The exact search at any k <= n over bf16 (op = OP_BF16: q, c bf16 [nq,
-// d], [n, d]) or fp32 (OP_F32, 3xTF32 products) stores: init, the
-// histogram passes and their scans, the collect pass and the sort, all on
-// `stream`. csq is the rows' norms^2 (euclid only); scratch holds
-// lr_exact_select_scratch(nq, k) bytes, 8-byte aligned. Returns a
-// cudaError_t, -1 for a k outside [1, n] or a binary op.
+// d], [n, d]) or fp32 (OP_F32, 3xTF32 products) stores, all on `stream`.
+// cap = 0: the radix route (init, the histogram passes and their scans,
+// the collect pass, the sort). cap > 0, a power of two in [es_width(k),
+// ES_SORT_SMEM]: buffers of cap keys filled by one buffer pass at the
+// threshold, their check, the radix passes and collect for the queries
+// that fell back, the sort; the threshold is the rank-th of each query's
+// sampled scores thr [nq, rank] (fp32, best first), or with thr null the
+// least key. csq is the rows' norms^2 (euclid only); scratch holds
+// lr_exact_select_scratch(nq, k, cap) bytes, 8-byte aligned, whose first
+// int counts the queries that fell back. Returns a cudaError_t, -1 for a
+// k outside [1, n], a bad cap or rank, or a binary op.
 int lr_exact_select(const void* q, const void* c, const float* csq, int nq,
                     int n, int d, int k, int euclid, int slab_rows, int vec,
-                    int op, void* scratch, float* out_s, int* out_i,
-                    void* stream) {
+                    int op, int cap, const float* thr, int rank,
+                    void* scratch, float* out_s, int* out_i, void* stream) {
     if (k < 1 || k > n) return -1;
+    if (cap && (cap < es_width(k) || cap > ES_SORT_SMEM || (cap & (cap - 1))))
+        return -1;
+    if (thr && (!cap || rank < 1)) return -1;
     cudaStream_t st = (cudaStream_t)stream;
     if (op == OP_F32)
         return es_launch<OP_F32>(q, c, csq, nq, n, d, k, euclid, slab_rows,
-                                 vec, scratch, out_s, out_i, st);
+                                 vec, cap, thr, rank, scratch, out_s, out_i,
+                                 st);
     if (op == OP_BF16)
         return es_launch<OP_BF16>(q, c, csq, nq, n, d, k, euclid, slab_rows,
-                                  vec, scratch, out_s, out_i, st);
+                                  vec, cap, thr, rank, scratch, out_s, out_i,
+                                  st);
     return -1;
 }
 

@@ -21,8 +21,11 @@
 //   exact_select_kernel<OP, C> (exact_select.cuh) replaces _exact_kernel past
 //                            the exact_mma_kernel lists' k = 2048 (the TPU
 //                            kernel takes any k <= N) for bf16 and fp32
-//                            stores: a radix select of each query's k-th key
-//                            over histogram passes, a collect pass and a
+//                            stores: a threshold from a strided sample's
+//                            scores (exact_mma_kernel), one pass that keeps
+//                            the keys at or above it in per-query buffers,
+//                            a radix select of the k-th key over histogram
+//                            passes for the queries it does not serve, and a
 //                            per-query sort.
 //
 // What is computed (the TPU kernels' contract, not their block structure):

@@ -8,8 +8,10 @@ The port of the JAX package's ``ops/pallas_topk.py``:
   returns 19-bit-quantized scores; ``mode="exact"`` replaces
   ``_exact_kernel`` (pallas_topk.py:182-221) and returns exact scores,
   ties to the lower corpus row, at any k <= N as the TPU kernel does: on
-  the card through the exact kernel's lists up to ``EXACT_MAX_K`` and a
-  radix select past it (``csrc/exact_select.cuh``).
+  the card through the exact kernel's lists up to ``EXACT_MAX_K``, and
+  past it ``csrc/exact_select.cuh``: a threshold from a strided sample of
+  the corpus, one pass that keeps the keys at or above it, and a radix
+  select for the queries it does not serve (``_exact_select``).
 * ``fused_topk`` is ``pallas_topk`` (pallas_topk.py:515-559): the raw
   search, then an fp32 rescore of the k winners and a stable sort.
 * ``approx_fused_topk`` is the approximate route on the card (the part
@@ -93,9 +95,20 @@ _ES_TQ = 16  # queries per block of the radix select's passes (EM_QROWS)
 # for the merge launch after it
 _EM_MIN_SLAB_SUBTILES = 8
 
+# the exact select's buffer routes (csrc/exact_select.cuh): the keys a
+# sort block holds in shared memory (ES_SORT_SMEM), the sampled
+# threshold's rank at most (a 256-entry list of exact_mma_kernel), and the
+# buffers' device memory at most
+_ES_SORT_SMEM = 16384
+_ES_SAMPLE_RANK = 256
+_ES_BUFFER_BYTES = 1 << 30
+
 launches = {"fold": 0, "exact": 0, "binary_fold": 0, "binary_exact": 0,
             "blocked": 0, "binary_blocked": 0}
 last_kernel: str | None = None
+# the latest exact select's plan: route, sample stride and rank, capacity
+last_select: dict | None = None
+_select_fell: torch.Tensor | None = None  # its device count of fallbacks
 
 
 def reset_launches() -> None:
@@ -276,11 +289,11 @@ def _library() -> ctypes.CDLL:
     lib.lr_exact_select_smem.restype = ctypes.c_size_t
     lib.lr_exact_select_smem.argtypes = [i, i]
     lib.lr_exact_select_scratch.restype = ctypes.c_size_t
-    lib.lr_exact_select_scratch.argtypes = [i, i]
+    lib.lr_exact_select_scratch.argtypes = [i, i, i]
     lib.lr_exact_select_occupancy.restype = i
     lib.lr_exact_select_occupancy.argtypes = [i, i]
     lib.lr_exact_select.restype = i
-    lib.lr_exact_select.argtypes = [p, p, p] + [i] * 8 + [p, p, p, p]
+    lib.lr_exact_select.argtypes = [p, p, p] + [i] * 9 + [p, i] + [p] * 4
     lib.lr_error_string.restype = ctypes.c_char_p
     lib.lr_error_string.argtypes = [i]
     return lib
@@ -425,20 +438,68 @@ def _blocked_topk(queries, corpus, k_eff, metric):
     return s, i.to(torch.int32)
 
 
-def _exact_select(queries, corpus, csq, *, d, k_eff, euclid, op):
+def _select_plan(nq: int, n: int, k: int) -> tuple[str, int, int, int]:
+    """(route, sample stride s, sample rank m, capacity C) of the exact
+    search past ``EXACT_MAX_K`` at Q=nq, N=n, k, from the shapes alone
+    (``csrc/exact_select.cuh`` states the arithmetic). C = 2 es_width(k)
+    keys a query. ``"radix"`` (s = m = C = 0) where C passes the 16384
+    keys a sort block holds (k > 8192) or Q C 8 bytes pass 1 GiB;
+    ``"all"`` (s = m = 0) where N <= C: the buffer takes every row;
+    else ``"sampled"``: the threshold is the m-th best score of every s-th
+    row, with T = (9k + 7C) / 16 the count aimed at, s = ceil(T / 256),
+    m = ceil(T / s)."""
+    cap = 2 * (1 << (k - 1).bit_length())
+    if cap > _ES_SORT_SMEM or nq * cap * 8 > _ES_BUFFER_BYTES:
+        return "radix", 0, 0, 0
+    if n <= cap:
+        return "all", 0, 0, cap
+    target = (9 * k + 7 * cap) // 16
+    stride = -(-target // _ES_SAMPLE_RANK)
+    return "sampled", stride, -(-target // stride), cap
+
+
+def select_fallbacks() -> int | None:
+    """Queries of the latest exact search past ``EXACT_MAX_K`` on the card
+    that fell back from its buffer to the radix passes (None on the radix
+    route). Reads a device counter, so it waits for that search."""
+    if _select_fell is None:
+        return None
+    return int(_select_fell.item())
+
+
+def _exact_select(queries, corpus, csq, *, d, k_eff, euclid, op,
+                  route="auto"):
     """The exact search at k past ``EXACT_MAX_K`` over bf16 or fp32 stores
-    (``csrc/exact_select.cuh``): a radix select of each query's k-th key
-    over histogram passes on the tensor cores, a collect pass and a
-    per-query sort, the corpus in slabs (``_exact_slab_rows``); the
-    kernels write the fp32 scores and int32 ids."""
+    (``csrc/exact_select.cuh``), the corpus in slabs (``_exact_slab_rows``);
+    the kernels write the fp32 scores and int32 ids. ``_select_plan``
+    picks the route from the shapes: on ``"sampled"`` the exact kernel
+    (``_exact_mma``) takes the m best scores of a contiguous copy of every
+    s-th row, and the m-th places each query's threshold; one pass on the
+    tensor cores keeps the keys at or above it in a buffer of C keys and
+    counts them; a query whose count is not in [k, C] (a sample that
+    misplaced its threshold: storage-ordered rows, ties at it) falls back
+    to the radix select of its k-th key (histogram passes, a collect) on
+    the card, without the host waiting; a per-query sort writes the best
+    k. ``"all"`` keeps every row (N <= C); ``"radix"`` runs the radix
+    select for every query (k > 8192, or buffers past 1 GiB). The private
+    ``route="radix"`` forces it, so that checks can hold the routes to
+    each other bit for bit."""
     _require_contiguous(queries, corpus)
     nq = queries.shape[0]
     n = corpus.shape[0]
     dev = queries.device
     lib = _library()
+    name, stride, rank, cap = (_select_plan(nq, n, k_eff) if route == "auto"
+                               else ("radix", 0, 0, 0))
+    thr = None
+    if name == "sampled":  # the sample's m best scores, best first
+        thr = _exact_mma(
+            queries, corpus[::stride].contiguous(),
+            csq[::stride].contiguous() if csq is not None else None,
+            d=d, k_eff=rank, euclid=euclid, op=op)[0]
     slab_rows = _exact_slab_rows(
         n, -(-nq // _ES_TQ), _slots(dev.index, "exact_select", d, k_eff, op))
-    scratch = torch.empty(lib.lr_exact_select_scratch(nq, k_eff),
+    scratch = torch.empty(lib.lr_exact_select_scratch(nq, k_eff, cap),
                           dtype=torch.uint8, device=dev)
     scores = torch.empty((nq, k_eff), dtype=torch.float32, device=dev)
     ids = torch.empty((nq, k_eff), dtype=torch.int32, device=dev)
@@ -447,28 +508,37 @@ def _exact_select(queries, corpus, csq, *, d, k_eff, euclid, op):
             queries.data_ptr(), corpus.data_ptr(),
             csq.data_ptr() if csq is not None else None,
             nq, n, d, k_eff, int(euclid), slab_rows,
-            int(_vec(corpus, d, op)), op, scratch.data_ptr(),
-            scores.data_ptr(), ids.data_ptr(),
+            int(_vec(corpus, d, op)), op, cap,
+            thr.data_ptr() if thr is not None else None, rank,
+            scratch.data_ptr(), scores.data_ptr(), ids.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _check(lib, code, f"exact_select_kernel{_OP_TAG[op]}")
-    global last_kernel
-    last_kernel = f"exact_select_kernel{_OP_TAG[op]}"
+    global last_kernel, last_select, _select_fell
+    last_kernel = f"exact_select_kernel{_OP_TAG[op]}" + (
+        f"+exact_mma_kernel{_OP_TAG[op]}" if thr is not None else "")
+    last_select = {"route": name, "stride": stride, "rank": rank,
+                   "capacity": cap}
+    _select_fell = scratch[:4].view(torch.int32) if cap else None
     return scores, ids
 
 
 def _fused_topk_raw_cuda(queries, corpus, corpus_sq, k_eff, euclid, mode,
-                         block_n):
+                         block_n, route="auto"):
+    """The kernels' side of ``fused_topk_raw``; ``route`` is
+    ``_exact_select``'s private switch, for the checks."""
     d = queries.shape[1]
     csq = _corpus_sq(corpus, corpus_sq).contiguous() if euclid else None
     op = _OP_BF16 if corpus.dtype == torch.bfloat16 else _OP_F32
     if mode == "fold":
         out = _fold_mma(queries, corpus, csq, d=d, k_eff=k_eff,
                         block_n=block_n, euclid=euclid, op=op)
+    elif k_eff <= EXACT_MAX_K:
+        out = _exact_mma(queries, corpus, csq, d=d, k_eff=k_eff,
+                         euclid=euclid, op=op)
     else:
-        search = _exact_mma if k_eff <= EXACT_MAX_K else _exact_select
-        out = search(queries, corpus, csq, d=d, k_eff=k_eff, euclid=euclid,
-                     op=op)
+        out = _exact_select(queries, corpus, csq, d=d, k_eff=k_eff,
+                            euclid=euclid, op=op, route=route)
     launches[mode] += 1
     return out
 

@@ -258,6 +258,31 @@ def test_launch_counts_and_validation(cuda):
         ft.fused_topk_raw(q, c.T.contiguous().T, k=5)
 
 
+def _select(q, c, k, metric="cosine", route="auto"):
+    """The exact entry past 2048 on the exact select's private ``route``."""
+    return ft._fused_topk_raw_cuda(q, c, None, k, metric == "euclidean",
+                                   "exact", 4096, route=route)
+
+
+def _assert_slots_match_plain(s_k, i_k, s_p, i_p):
+    """The limits of a large corpus, where two fp32 sum orders swap
+    neighbours that differ in the last bits: the plain ids found in the
+    kernel's row on >= 99.9 %, and every slot's score (the j-th best of
+    each) within 1e-4 + 1e-5 |s|."""
+    n = int(max(i_k.max().item(), i_p.max().item())) + 1
+    off = torch.arange(i_k.shape[0], device=i_k.device)[:, None] * n
+    found = torch.isin(i_p.long() + off, i_k.long() + off)
+    assert found.float().mean().item() >= 0.999
+    assert bool(((s_k - s_p).abs() <= 1e-4 + 1e-5 * s_p.abs()).all())
+
+
+def _assert_same_as_radix(q, c, k, metric, s_k, i_k):
+    """The auto route's answer equals the radix route's bit for bit."""
+    s_r, i_r = _select(q, c, k, metric, route="radix")
+    assert torch.equal(i_k, i_r)
+    assert torch.equal(s_k.view(torch.int32), s_r.view(torch.int32))
+
+
 @pytest.mark.parametrize("k", [2049, 3000, 5003])
 @pytest.mark.parametrize("store", ["float32", "bfloat16"])
 @pytest.mark.parametrize("metric", ["cosine", "euclidean"])
@@ -280,6 +305,9 @@ def test_exact_select_matches_plain(cuda, metric, store, k):
     tol = 1e-4 + 1e-5 * s_p.abs()
     assert bool(((s_k - s_p).abs() <= tol)[same].all())
     assert bool((s_k[:, :-1] >= s_k[:, 1:]).all())
+    # N <= C: the buffer keeps every row
+    assert ft.last_select["route"] == "all" and ft.select_fallbacks() == 0
+    _assert_same_as_radix(q, c, k, metric, s_k, i_k)
 
 
 def test_exact_select_sorts_in_device_memory(cuda):
@@ -293,6 +321,9 @@ def test_exact_select_sorts_in_device_memory(cuda):
     assert same.float().mean().item() >= 0.999
     assert bool(((s_k - s_p).abs() <= 1e-4 + 1e-5 * s_p.abs())[same].all())
     assert bool((s_k[:, :-1] >= s_k[:, 1:]).all())
+    # past k = 8192 the plan takes the radix route itself
+    assert ft.last_select["route"] == "radix" and ft.select_fallbacks() is None
+    _assert_same_as_radix(q, c, 17000, "cosine", s_k, i_k)
 
 
 def test_exact_select_ties(cuda):
@@ -307,6 +338,7 @@ def test_exact_select_ties(cuda):
     s_p, i_p = ft.fused_topk_raw_reference(q, c, k=3000, mode="exact")
     assert torch.equal(i_k, i_p)
     assert ft.last_kernel == "exact_select_kernel"
+    _assert_same_as_radix(q, c, 3000, "cosine", s_k, i_k)
 
 
 @pytest.mark.parametrize("store", ["float32", "bfloat16"])
@@ -325,6 +357,70 @@ def test_pallas_exact_store_past_2048(cuda, store):
     assert ft.last_kernel.startswith("exact_select_kernel")
     assert i.shape == (20, 2500) and (i[:, 0] == np.arange(20)).all()
     assert np.isfinite(s).all() and (np.diff(s, axis=1) <= 0).all()
+    assert ft.last_select["route"] == "all" and ft.select_fallbacks() == 0
+    # the store's prepared rows through both routes
+    q = r._corpus[:20].contiguous()
+    s_k, i_k = _select(q, r._corpus, 2500)
+    _assert_same_as_radix(q, r._corpus, 2500, "cosine", s_k, i_k)
+
+
+@pytest.mark.parametrize("k", [2049, 3000, 4096])
+@pytest.mark.parametrize("store", ["float32", "bfloat16"])
+@pytest.mark.parametrize("metric", ["cosine", "euclidean"])
+def test_exact_select_sampled_route(cuda, metric, store, k):
+    """N > C: the sampled threshold and one buffer pass serve rows in
+    random order with no fallback, and answer as the radix route does,
+    bit for bit; 40 queries leave a ragged query tile."""
+    q, c = _data(cuda, getattr(torch, store), nq=40, n=60000)
+    s_k, i_k = ft.fused_topk_raw(q, c, k=k, metric=metric, mode="exact")
+    assert ft.last_select["route"] == "sampled"
+    assert ft.last_kernel.startswith("exact_select_kernel")
+    assert ft.last_kernel.endswith("+exact_mma_kernel" + (
+        "<f32>" if store == "float32" else ""))
+    assert ft.select_fallbacks() == 0
+    s_p, i_p = ft.fused_topk_raw_reference(q, c, k=k, metric=metric,
+                                           mode="exact")
+    _assert_slots_match_plain(s_k, i_k, s_p, i_p)
+    _assert_same_as_radix(q, c, k, metric, s_k, i_k)
+
+
+def _fallback_case(cuda, case, dtype, nq=32, n=60000, d=64, k=3000):
+    """Queries and a corpus on which the sampled threshold fails: in
+    "mixed" the sampled rows (every s-th) are the best rows of the even
+    queries (their threshold overshoots: count < k) and score like any
+    row for the odd ones; in "ties" every row is one of 2 vectors (more
+    than C keys on the threshold's score). Returns (q, c, queries that
+    must fall back)."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn((nq, d), generator=g, device=cuda)
+    if case == "ties":
+        base = torch.randn((2, d), generator=g, device=cuda)
+        pick = torch.randint(0, 2, (n,), generator=g, device=cuda)
+        return q.to(dtype), base[pick].to(dtype).contiguous(), nq
+    stride = ft._select_plan(nq, n, k)[1]
+    c = torch.randn((n, d), generator=g, device=cuda)
+    c[:, 0] = 0.0
+    c[::stride, 0] = 20.0
+    q[:, 0] = 0.0
+    q[::2, 0] = 1.0
+    return q.to(dtype), c.to(dtype), nq // 2
+
+
+@pytest.mark.parametrize("store", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["mixed", "ties"])
+def test_exact_select_fallback(cuda, case, store):
+    """Queries whose threshold fails fall back to the radix passes in the
+    same call (the device counts them); the answer is the plain version's
+    and, bit for bit, the radix route's."""
+    q, c, fall = _fallback_case(cuda, case, getattr(torch, store))
+    s_k, i_k = ft.fused_topk_raw(q, c, k=3000, mode="exact")
+    assert ft.last_select["route"] == "sampled"
+    assert ft.select_fallbacks() == fall
+    s_p, i_p = ft.fused_topk_raw_reference(q, c, k=3000, mode="exact")
+    if case == "ties":
+        assert torch.equal(i_k, i_p)
+    _assert_slots_match_plain(s_k, i_k, s_p, i_p)
+    _assert_same_as_radix(q, c, 3000, "cosine", s_k, i_k)
 
 
 @pytest.mark.parametrize("k", [10, 150])
