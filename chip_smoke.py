@@ -7,7 +7,8 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
 ``latentrag_torch/csrc``, then:
 
 1. prints the card's name and power limit (``nvidia-smi``) and the build
-   times of the kernels (nvcc) and of the C++ tokenizer's library (g++);
+   times of the kernels (nvcc: two libraries, without and with the row
+   mask, built at once) and of the C++ tokenizer's library (g++);
 2. holds each kernel against its plain PyTorch version on the card: exact
    and fold modes x cosine, euclidean, whitened mahalanobis x bf16 and fp32
    stores, at the reference config (Q=2000, N=315, d=64, k=10), at
@@ -37,6 +38,13 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    (``exact_mma_kernel<bin>``, past 128 candidates) against ``binary_topk``
    at k from 129 to 2048, at the main path's shape at its k=160; each
    check holds which C kernel ran;
+2c. holds the row-mask instances (a filtered search: ``fold_mma_kernel<E,
+   OP, true>``, ``exact_mma_kernel<KP, OP, true>``) against their masked
+   plain versions at Q=2000, N=315, d=64 and Q=37, N=5003, d=384, with 1,
+   10, 50 and 100 % of the rows allowed, fewer than k and none: the fold
+   at the plan, the exact kernel at k=10 and 160, bf16 and fp32 stores,
+   the binary fold at 128 candidates and the exact binary kernel at
+   k=160; empty slots must be (NEG_INF, -1) and every id allowed;
 3. drives the main path through ``latentrag_torch.main.main`` at the full
    MiniLM-L6 width in bf16 with a seeded 384->512->64 VAE: synthetic data,
    2000 queries, a bf16 cosine store, top_k=10, kernel=auto; checks that the
@@ -46,7 +54,14 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    corpus (ids and masks must be identical), runs it once more in the same process (its search time
    warm), then runs the same pipeline with kernel=xla_exact (matmul +
    torch.topk, the oracle) and compares (recording, where their docs
-   differ, the score gaps at those slots); then both again at top_k=150,
+   differ, the score gaps at those slots); every run persists its store at
+   its own ``retrieval.index_path``, and the repeated run must warm-boot
+   from the first one's (3a: it logs the load and the skipped rebuild and
+   returns the same doc ids and metrics); on that store, loaded through
+   ``load_retriever``, filtered searches at top_k=10 and 150 must run the
+   masked fold and exact kernels and agree with ``xla_exact``'s filtered
+   search, and each masked kernel is held to its masked plain version on
+   that path's own inputs and mask (3e); then both again at top_k=150,
    whose search the bf16 exact kernel serves (the instance phase 2 checked
    at that shape); then all of it again over an fp32 store
    (``retrieval.store_dtype=float32``), whose fold and exact kernels are
@@ -56,11 +71,22 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    same latents, the cascade with the kernel as stage 1 and with its plain
    version at the same plan must retrieve the same docs; then again at
    ``retrieval.top_k=20``, whose 160 candidates the exact binary kernel
-   serves;
+   serves; at each top_k a filtered search whose stage 1 runs the masked
+   kernel, held to the masked plain stage 1 (3e);
 3c. builds a binary ``DenseRetriever`` over 1M seeded unit vectors (d=64),
    searches 1024 queries at k=10, and holds the same kernel-vs-plain
    agreement; Recall@10 against exact fp32 search is reported; then at
-   top_k=300, whose 2400 candidates take the blocked route;
+   top_k=300, whose 2400 candidates take the blocked route; then with a
+   ``{"where": ...}`` filter on its metadata (a tenth of the rows; 3e);
+   then 3f and 3g on that store;
+3f. saves a 1M-row store (binary above, and a bf16 one over 1M seeded unit
+   rows) to a temporary directory, timed, with its bytes on disk, loads it
+   into a fresh retriever (the warm boot, timed against the cold build),
+   and holds the loaded search to the built one's bit for bit;
+3g. on the loaded 1M store, which persists each mutation: ``add`` 1000
+   rows (each must retrieve itself top-1), ``remove`` the queries' top-1
+   docs and half the added rows (none may come back; every survivor keeps
+   its score bit for bit), reload and hold the row count;
 3d. builds a ``DenseRetriever(backend="pallas_exact")`` over 1M seeded unit
    rows (d=64), bf16 and then fp32, and searches 1024 queries at k=3000:
    the exact select (its sampled route) must serve it and agree with
@@ -78,7 +104,13 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    (the yardstick reads the corpus pre-unpacked to +-1 bf16, 16x the
    bytes) with a profiler device split, the exact binary kernel at k=160
    there (split too), the blocked route at 2400 candidates over 1M, and
-   the fold kernel alone over 100M packed rows;
+   the fold kernel alone over 100M packed rows, beside the library
+   yardstick run in 1M-row blocks;
+4c. the masked kernels with 10 % of the rows allowed at the reference and
+   1M shapes (bf16 and fp32 fold and exact, binary fold and exact), each
+   beside the same call unmasked, its masked plain version and the masked
+   library call (``torch.topk(torch.where(mask, torch.matmul(q, c.T)
+   .float(), -inf), k)``), with the bound (the mask adds N/8 bytes);
 5. prints a ``kernels`` JSON line and, last, the device line.
 
 Every check that fails exits non-zero. Without CUDA, or without the
@@ -88,6 +120,7 @@ package beside it, it exits 1 and prints no result.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -402,6 +435,9 @@ def write_vae(torch, path: str) -> None:
 
 def main_overrides(workdir: str, kernel: str, store: str,
                    top_k: int = 10) -> list:
+    """The main path's config: each kernel and top_k persists its store at
+    its own ``retrieval.index_path``, so a run warm-boots only from a run
+    of its own kind."""
     return [
         "data.dataset=synthetic", "data.max_samples=2000",
         "encoder.dtype=bfloat16",
@@ -411,15 +447,42 @@ def main_overrides(workdir: str, kernel: str, store: str,
         f"paths.data_dir={workdir}/data",
         f"paths.checkpoints_dir={workdir}/ckpt",
         f"paths.logs_dir={workdir}/logs",
-        f"retrieval.index_path={workdir}/index",
+        f"retrieval.index_path={workdir}/index_{kernel}_{top_k}",
         "logging.log_to_file=false", "logging.level=WARNING",
     ]
 
 
+class _Lines(logging.Handler):
+    """The messages of one logger during a run."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines: list = []
+
+    def emit(self, rec):
+        self.lines.append(rec.getMessage())
+
+
 def run_main(torch, workdir: str, kernel: str,
              store: str = "bfloat16", top_k: int = 10) -> dict:
+    """One ``main`` run; ``res["retrieval_log"]`` holds the retriever's
+    INFO lines (load, save, skip)."""
     from latentrag_torch import main as cli
 
+    lg = logging.getLogger("latentrag_torch.retrieval")
+    lines, level = _Lines(), lg.level
+    lg.addHandler(lines)
+    lg.setLevel(logging.INFO)
+    try:
+        res = _run_main(torch, cli, workdir, kernel, store, top_k)
+    finally:
+        lg.removeHandler(lines)
+        lg.setLevel(level)
+    res["retrieval_log"] = lines.lines
+    return res
+
+
+def _run_main(torch, cli, workdir, kernel, store, top_k) -> dict:
     results: list = []
     argv = ["--ae_type", "vae", "--device", "cuda", "--tag",
             f"smoke_{kernel}_{store}_{top_k}", "--set",
@@ -457,7 +520,10 @@ def check_main_path(torch, failures: list, exact_kernel: str,
         main_launches = dict(ft.launches)
         rows = dict(tokenizer.rows_served)
         ran10 = ft.last_kernel
-        again = run_main(torch, wd, "auto", store)  # the same run, warm
+        # the same run again on its store: a warm boot (phase 3a)
+        again = run_main(torch, wd, "auto", store)
+        filtered = check_filtered_search(
+            torch, failures, main_overrides(wd, "auto", store), store)
         oracle = run_main(torch, wd, "xla_exact", store)
         if store == "bfloat16":
             encode_breakdown(torch, wd, failures)
@@ -492,6 +558,26 @@ def check_main_path(torch, failures: list, exact_kernel: str,
         launches=main_launches, c_kernel=ran10, tokenizer_rows=rows,
         second_run_search_s=again["timings"]["search_s"],
     )
+    # phase 3a: the second run loaded the store and skipped the build and
+    # its self-check; its docs and metrics are the first run's
+    warm = {
+        "loaded": any(x.startswith("index loaded from")
+                      for x in again["retrieval_log"]),
+        "skipped": "index compatible; skipping rebuild"
+                   in again["retrieval_log"],
+        "persisted_first": any(x.startswith("index persisted to")
+                               for x in res["retrieval_log"]),
+        "same_doc_ids": again["retrieved_doc_ids"] == res["retrieved_doc_ids"],
+        "same_metrics": again["retrieval_metrics"] == res["retrieval_metrics"],
+    }
+    record("warm_boot" + tag, store=store,
+           cold_build_index_s=res["timings"]["build_index_s"],
+           warm_build_index_s=again["timings"]["build_index_s"],
+           cold_wall_s=res["wall_s"], warm_wall_s=again["wall_s"],
+           retrieval_log=again["retrieval_log"], **warm)
+    if not all(warm.values()):
+        failures.append(f"the {store} main path's second run did not warm "
+                        f"boot as the first left it: {warm}")
     # the ASCII synthetic corpus and queries: every row through the C++
     # WordPiece
     if rows["native"] == 0 or rows["python"] != 0:
@@ -533,7 +619,7 @@ def check_main_path(torch, failures: list, exact_kernel: str,
         if max(dl.values()) > MAIN_METRIC_TOL:
             failures.append(f"{store} top_k={k} metric deltas {dl} > "
                             f"{MAIN_METRIC_TOL}")
-    return main_launches, oracle, launches150
+    return main_launches, oracle, launches150, filtered
 
 
 def encode_breakdown(torch, workdir: str, failures: list) -> None:
@@ -641,22 +727,28 @@ def device_split(torch, fn, reps: int = 5) -> dict | None:
     return out or None
 
 
-def bound(nq, n, d, k, dname) -> tuple[float, str]:
+def bound(nq, n, d, k, dname, extra_bytes=0) -> tuple[float, str]:
+    """The least time of a call: its bytes (queries, corpus, [Q, k] output
+    and ``extra_bytes``, e.g. a row mask's n/8) over the memory rate, or its
+    2 Q N d operations over the store's peak, whichever is larger."""
     size = 2 if dname == "bfloat16" else 4
-    by_bytes = (nq * d * size + n * d * size + nq * k * 8) / HBM_BYTES_PER_S
+    by_bytes = (nq * d * size + n * d * size + nq * k * 8 + extra_bytes) \
+        / HBM_BYTES_PER_S
     by_ops = 2.0 * nq * n * d / PEAK_OPS[dname]
     if by_bytes >= by_ops:
         return by_bytes * 1e3, "bytes"
     return by_ops * 1e3, "operations"
 
 
-def blocks_per_sm(ft, kernel: str, dev: int, d: int, k: int, op: int) -> int:
+def blocks_per_sm(ft, kernel: str, dev: int, d: int, k: int, op: int,
+                  masked: bool = False) -> int:
     """Resident blocks an SM of the fold or exact tensor-core kernel (past
-    k = 2048 the radix select) for operand kind ``op`` at (d, k)."""
+    k = 2048 the radix select) for operand kind ``op`` at (d, k), the
+    row-mask instance if ``masked``."""
     name = {"fold": "fold_mma", "exact": "exact_mma"}[kernel]
     if kernel == "exact" and k > ft.EXACT_MAX_K:
         name = "exact_select"
-    return ft._slots(dev, name, d, k, op) // ft._sm_count(dev)
+    return ft._slots(dev, name, d, k, op, masked) // ft._sm_count(dev)
 
 
 # phase 4's calls: (store, shape, Q, N, d, cases); the fold at the plan,
@@ -821,11 +913,12 @@ def check_binary_kernel(torch, failures: list) -> dict:
     return worst
 
 
-def plain_cascade(torch, r, queries, k):
+def plain_cascade(torch, r, queries, k, mask=None):
     """The binary store's search with the plain version of the kernel as
     stage 1, at the plan the store uses on the card (above 128 candidates
-    the exact search's plain version), and the same stage 2. Returns host
-    numpy (scores, ids)."""
+    the exact search's plain version), and the same stage 2; ``mask`` (the
+    packed words of a filter) restricts stage 1 as the store's does.
+    Returns host numpy (scores, ids)."""
     from latentrag_torch.ops import binary as tb
     from latentrag_torch.ops import fused_topk as ft
     from latentrag_torch.ops.distances import prepare_for_metric
@@ -835,12 +928,13 @@ def plain_cascade(torch, r, queries, k):
                            r.metric, r._whitener)
     ok = min(r.binary_oversample * k, r._corpus_n)
     if ok > ft.FOLD_MAX_K:
-        idx = tb.binary_topk(q, r._corpus, r._dim, ok)[1]
+        s1, idx = tb.binary_topk(q, r._corpus, r._dim, ok, mask=mask)
+        idx = torch.where(s1 > -1e37, idx, -1)
     else:
         block_n, cand = ft.fold_plan(r._corpus_n, ok,
                                      r._effective_recall_target(k))
-        _, idx = ft.binary_fused_topk_raw_reference(q, r._corpus, d=r._dim,
-                                                    k=cand, block_n=block_n)
+        _, idx = ft.binary_fused_topk_raw_reference(
+            q, r._corpus, d=r._dim, k=cand, block_n=block_n, mask=mask)
         _, idx = ft.rescore_binary_candidates(q, r._corpus, idx, r._dim)
     return exact_rescore_topk(
         q.cpu().numpy(), lambda i: r._rescore_host[i],
@@ -918,9 +1012,10 @@ def check_binary_main_path(torch, failures: list, oracle: dict,
         res = run_main(torch, wd, "auto", store="binary", top_k=top_k)
         main_launches = dict(ft.launches)
         ran = ft.last_kernel  # the search's stage 1 launched last
-        # the same latents, through the port's own compressor
-        cfg = apply_overrides(Config(), main_overrides(wd, "auto", "binary",
-                                                       top_k))
+        # the same latents, through the port's own compressor, into a
+        # retriever that persists nothing
+        cfg = apply_overrides(Config(), main_overrides(
+            wd, "auto", "binary", top_k) + ["retrieval.index_path="])
         queries, corpus, relevant = load_evaluation_data(get_examples(cfg))
         comp = PipelineRunner(cfg, ae_type="vae",
                               device="cuda")._ensure_compressor(corpus)
@@ -931,6 +1026,14 @@ def check_binary_main_path(torch, failures: list, oracle: dict,
         _, i_kern = r.search(q_emb, top_k)
         _, i_plain = plain_cascade(torch, r, q_emb, top_k)
         split = search_split(torch, r, q_emb, top_k)
+        # phase 3e: a filtered search, stage 1 on the masked kernel
+        spec = {"exclude_doc_ids": list(range(0, r._corpus_n, 3))}
+        ft.reset_launches()
+        _, i_filt = r.search(q_emb, top_k, filter=spec)
+        filtered = dict(ft.launches)
+        ran_filt = ft.last_kernel
+        _, i_filt_plain = plain_cascade(torch, r, q_emb, top_k,
+                                        mask=r._filter_device_mask(spec))
     ds = np.asarray(res["doc_scores"])
     if ds.shape != (res["n_queries"], top_k) or not np.isfinite(ds).all():
         failures.append(f"binary doc_scores shape {ds.shape} or non-finite")
@@ -954,6 +1057,21 @@ def check_binary_main_path(torch, failures: list, oracle: dict,
             rows(i_kern), res["retrieved_doc_ids"]),
         rerun_search_split=split,
     )
+    agree_filt = slot_agreement(rows(i_filt), rows(i_filt_plain))
+    only_allowed = all(int(i) % 3 for i in i_filt.ravel() if i >= 0)
+    record("binary_filtered_search", top_k=top_k, filter="exclude_doc_ids",
+           allowed=r._corpus_n - len(spec["exclude_doc_ids"]),
+           launches=filtered, c_kernel=ran_filt,
+           kernel_vs_plain_stage1_doc_agreement=agree_filt,
+           only_allowed=only_allowed)
+    want_filt = "binary_exact" if r.binary_oversample * top_k > \
+        ft.FOLD_MAX_K else "binary_fold"
+    if (filtered["masked"] != 1 or filtered[want_filt] != 1
+            or agree_filt < BIN_DOC_AGREE or not only_allowed):
+        failures.append(f"binary filtered search at top_k={top_k}: "
+                        f"{filtered}, agreement {agree_filt}, only allowed "
+                        f"{only_allowed}")
+    main_launches["filtered"] = filtered
     # the self-check runs the fold; the search runs the fold up to 128
     # candidates and the exact binary kernel past them
     exact = r.binary_oversample * top_k > ft.FOLD_MAX_K
@@ -988,9 +1106,11 @@ def check_binary_capacity(torch, failures: list) -> None:
     q = torch.nn.functional.normalize(
         torch.randn((nq, d), generator=g, device="cuda"), dim=1)
     r = DenseRetriever(store_dtype="binary", device="cuda")
+    # a metadata field for the where filter of phase 3e
+    metadata = [{"shard": i % 10} for i in range(n)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    r.build(x, [""] * n)
+    r.build(x, [""] * n, metadata=metadata)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     _, i_kern = r.search(q, k)  # also the warm-up
@@ -1023,20 +1143,60 @@ def check_binary_capacity(torch, failures: list) -> None:
     if agree300 < BIN_DOC_AGREE:
         failures.append(f"1M binary top_k=300 stage-1 agreement {agree300} "
                         f"< {BIN_DOC_AGREE}")
-    del x, q, r
+    # phase 3e at 1M: a where filter (a tenth of the rows), stage 1 on the
+    # masked binary fold
+    spec = {"where": {"shard": 3}}
+    ft.reset_launches()
+    _, i_w = r.search(q, k, filter=spec)
+    launches_w = dict(ft.launches)
+    _, i_w_plain = plain_cascade(torch, r, q, k,
+                                 mask=r._filter_device_mask(spec))
+    agree_w = slot_agreement(i_w.tolist(), i_w_plain.tolist())
+    only = all(int(i) % 10 == 3 for i in i_w.ravel() if i >= 0)
+    record("binary_capacity_filtered", N=n, Q=nq, k=k, filter=spec,
+           launches=launches_w, c_kernel=ft.last_kernel, only_allowed=only,
+           kernel_vs_plain_stage1_agreement=agree_w)
+    if launches_w["masked"] != 1 or not only or agree_w < BIN_DOC_AGREE:
+        failures.append(f"the 1M binary where-filter: {launches_w}, only "
+                        f"allowed {only}, agreement {agree_w}")
+    del x
+    check_store_round_trip(torch, failures, r, q, build_s, "binary", spec)
+    del q, r
     torch.cuda.empty_cache()
 
 
-def binary_bound(nq, n, d, k) -> tuple[float, str]:
+def binary_bound(nq, n, d, k, extra_bytes=0) -> tuple[float, str]:
     """The TPU kernel's own cost model (pallas_topk.py:484-491): bf16
-    queries, packed words and the [Q, k] output read or written once, and
-    2*Q*N*d operations at the bf16 tensor-core peak."""
+    queries, packed words and the [Q, k] output read or written once (and
+    ``extra_bytes``), and 2*Q*N*d operations at the bf16 tensor-core
+    peak."""
     words = -(-d // 32)
-    by_bytes = (nq * d * 2 + n * words * 4 + nq * k * 8) / HBM_BYTES_PER_S
+    by_bytes = (nq * d * 2 + n * words * 4 + nq * k * 8 + extra_bytes) \
+        / HBM_BYTES_PER_S
     by_ops = 2.0 * nq * n * d / PEAK_OPS["bfloat16"]
     if by_bytes >= by_ops:
         return by_bytes * 1e3, "bytes"
     return by_ops * 1e3, "operations"
+
+
+def blocked_library_topk(torch, q, pk, d, k, block=1 << 20):
+    """The library yardstick over a packed store too large for one score
+    matrix: ``binary_topk``'s blocking with the library's calls, each block
+    of rows unpacked to +-1 bf16 and scored by ``torch.matmul``, its top k
+    by ``torch.topk``, merged with the running list."""
+    from latentrag_torch.ops import binary as tb
+
+    qb = q.bfloat16()
+    run_s = run_i = None
+    for base in range(0, pk.shape[0], block):
+        pm1 = tb.binary_unpack(pk[base : base + block], d).bfloat16()
+        s, i = torch.topk(torch.matmul(qb, pm1.T).float(), k, dim=1)
+        i = i + base
+        if run_s is not None:
+            s, sel = torch.topk(torch.cat([run_s, s], 1), k, dim=1)
+            i = torch.gather(torch.cat([run_i, i], 1), 1, sel)
+        run_s, run_i = s, i
+    return run_s, run_i
 
 
 def time_binary(torch) -> dict:
@@ -1128,16 +1288,485 @@ def time_binary(torch) -> dict:
     kern = time_ms(torch, lambda: ft.binary_fused_topk_raw(
         q, pk, d=d, k=cand, block_n=block_n), reps=5, warmup=1)
     b_ms, b_by = binary_bound(nq, n, d, cand)
+    ran = ft.last_kernel
+    lib = time_ms(torch, lambda: blocked_library_topk(torch, q, pk, d, cand),
+                  reps=2, warmup=1)
     rec = {"shape": "100m", "case": "plan", "Q": nq, "N": n, "d": d,
-           "k": cand, "block_n": block_n, "c_kernel": ft.last_kernel,
-           "ms": kern, "plain_ms": None, "library_ms": None,
-           "library_not_timed": "its fp32 score matrix would be 410 GB",
+           "k": cand, "block_n": block_n, "c_kernel": ran,
+           "ms": kern, "plain_ms": None, "library_ms": lib,
+           "library": "blocked: 1M-row blocks unpacked to +-1 bf16, "
+                      "torch.matmul + torch.topk, merged",
            "packed_bytes": pk.numel() * 4,
            "bound_ms": b_ms, "bound_by": b_by}
     record("binary_kernel_time", **rec)
     out[("100m", "plan")] = rec
     del pk, q
     torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------- the row mask
+
+# allowed shares of the masked checks, and the card tests' shapes for them:
+# (label, Q, N, d), the reference config and a ragged one at d=384
+MASK_ALLOWED = (0.01, 0.1, 0.5, 1.0, "fewer_than_k", "none")
+MASK_SHAPES = (("reference", 2000, 315, 64), ("d384", 37, 5003, 384))
+
+
+def row_mask(torch, n, allowed, k, seed):
+    """A seeded bool row mask on the card and its packed int32 words: a
+    share of the rows allowed, k // 2 rows (fewer than k), or none."""
+    from latentrag_torch.ops.topk import pack_row_mask
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if allowed in ("none", "fewer_than_k"):
+        m = torch.zeros(n, dtype=torch.bool, device="cuda")
+        if allowed == "fewer_than_k":
+            m[torch.randperm(n, generator=g, device="cuda")[: max(1, k // 2)]] = True
+    else:
+        m = torch.rand(n, generator=g, device="cuda") < allowed
+    return m, pack_row_mask(m)
+
+
+def masked_match(torch, m, s_k, i_k, s_p, i_p):
+    """A masked kernel call against its plain version: (the same empty
+    slots, as (NEG_INF, -1), and allowed rows only; the share of equal ids
+    among the live slots; the largest score error at equal ids)."""
+    from latentrag_torch.ops.topk import NEG_INF
+
+    live = i_k >= 0
+    ok = (torch.equal(i_k < 0, i_p < 0)
+          and bool((s_k[~live] == NEG_INF).all())
+          and bool(m[i_k[live].long()].all()))
+    same = (i_k == i_p) & live
+    err = (s_k - s_p).abs()[same]
+    n_live = live.sum().item()
+    return (ok, same.sum().item() / n_live if n_live else 1.0,
+            err.max().item() if err.numel() else 0.0)
+
+
+def check_masked_kernels(torch, failures: list) -> dict:
+    """Phase 2c: the row mask in the fold and exact kernels
+    (``fold_mma_kernel<E, OP, true>``, ``exact_mma_kernel<KP, OP, true>``)
+    against their masked plain versions, at the reference shape and at
+    Q=37, N=5003, d=384, with 1, 10, 50 and 100 % of the rows allowed, a
+    mask that allows fewer than k rows and one that allows none: the fold
+    at the approximate route's plan (40 candidates), the exact kernel at
+    k=10 and 160 (the approximate route past the fold's 128), over bf16 and
+    fp32 stores, cosine and euclidean; the binary fold at 128 candidates
+    and the exact binary kernel at k=160. Empty slots must be (NEG_INF, -1)
+    in both; returns the largest score error at equal ids per instance."""
+    from latentrag_torch.ops import binary as tb
+    from latentrag_torch.ops import fused_topk as ft
+
+    worst = {}
+    seed = 400
+    for label, nq, n, d in MASK_SHAPES:
+        for dname in ("bfloat16", "float32"):
+            for metric in ("cosine", "euclidean"):
+                seed += 1
+                q, c = make_case(torch, metric, getattr(torch, dname), nq, n,
+                                 d, seed)
+                for mode, k in (("fold", 40), ("exact", 10), ("exact", 160)):
+                    block_n = ft.fold_plan(n, 10, 0.99)[0] if mode == "fold" \
+                        else 4096
+                    for allowed in MASK_ALLOWED:
+                        m, words = row_mask(torch, n, allowed, k, seed)
+                        s_k, i_k = ft.fused_topk_raw(
+                            q, c, k=k, metric=metric, mode=mode,
+                            block_n=block_n, mask=words)
+                        torch.cuda.synchronize()
+                        ran = ft.last_kernel
+                        s_p, i_p = ft.fused_topk_raw_reference(
+                            q, c, k=k, metric=metric, mode=mode,
+                            block_n=block_n, mask=words)
+                        if mode == "fold":  # compare exact rescored scores
+                            s_k, i_k = ft.rescore_candidates(q, c, i_k, metric)
+                            s_p, i_p = ft.rescore_candidates(q, c, i_p, metric)
+                        ok, id_match, max_err = masked_match(
+                            torch, m, s_k, i_k, s_p, i_p)
+                        want = f"{mode}_mma_kernel" + (
+                            "<f32>" if dname == "float32" else "") + "<mask>"
+                        ok = ok and ran.split("+")[0] == want and id_match >= (
+                            FOLD_ID_MATCH if mode == "fold" else EXACT_ID_MATCH)
+                        if mode == "exact":
+                            same = (i_k == i_p) & (i_k >= 0)
+                            tol = EXACT_SCORE_ATOL + EXACT_SCORE_RTOL * s_p.abs()
+                            ok = ok and bool(((s_k - s_p).abs() <= tol)[same].all())
+                        key = mode + ("_fp32" if dname == "float32" else "") \
+                            + "_masked"
+                        worst[key] = max(worst.get(key, 0.0), max_err)
+                        rec = {"shape": label, "metric": metric, "store": dname,
+                               "mode": mode, "k": k, "block_n": block_n,
+                               "allowed": allowed, "c_kernel": ran,
+                               "id_match": id_match, "max_abs_err": max_err,
+                               "empty_slots": int((i_k < 0).sum()), "ok": ok}
+                        record("masked_kernel_check", **rec)
+                        if not ok:
+                            failures.append(f"masked kernel check {rec}")
+                del q, c
+        q, pk = binary_case(torch, nq, n, d, seed + 50)
+        for kernel, k in (("fold", 128), ("exact", 160)):
+            for allowed in MASK_ALLOWED:
+                m, words = row_mask(torch, n, allowed, k, seed)
+                if kernel == "fold":
+                    block_n = ft.fold_plan(n, 16, 0.99)[0]
+                    _, i_k = ft.binary_fused_topk_raw(
+                        q, pk, d=d, k=k, block_n=block_n, mask=words)
+                    ran = ft.last_kernel
+                    _, i_p = ft.binary_fused_topk_raw_reference(
+                        q, pk, d=d, k=k, block_n=block_n, mask=words)
+                    s_k, i_k = ft.rescore_binary_candidates(q, pk, i_k, d)
+                    s_p, i_p = ft.rescore_binary_candidates(q, pk, i_p, d)
+                else:
+                    s_k, i_k = ft.binary_exact_topk_raw(q, pk, d=d, k=k,
+                                                        mask=words)
+                    ran = ft.last_kernel
+                    s_p, i_p = tb.binary_topk(q, pk, d, k, mask=m)
+                    i_p = torch.where(s_p > -1e37, i_p, -1)
+                torch.cuda.synchronize()
+                ok, id_match, max_err = masked_match(torch, m, s_k, i_k,
+                                                     s_p, i_p)
+                ok = ok and ran.split("+")[0] == (
+                    f"{kernel}_mma_kernel<bin><mask>") and id_match >= (
+                    BIN_ID_MATCH if kernel == "fold" else EXACT_ID_MATCH)
+                key = f"binary_{kernel}_masked"
+                worst[key] = max(worst.get(key, 0.0), max_err)
+                rec = {"shape": label, "kernel": f"binary_{kernel}", "k": k,
+                       "allowed": allowed, "c_kernel": ran,
+                       "id_match": id_match, "max_abs_err": max_err,
+                       "empty_slots": int((i_k < 0).sum()), "ok": ok}
+                record("masked_binary_check", **rec)
+                if not ok:
+                    failures.append(f"masked binary check {rec}")
+        del q, pk
+    torch.cuda.empty_cache()
+    return worst
+
+
+def check_filtered_search(torch, failures: list, overrides: list,
+                          store: str) -> dict:
+    """Phase 3e: a filtered search through the user's entry points on the
+    store the main path persisted: ``load_retriever`` warm-boots it, then
+    ``search(..., filter=)`` at top_k=10 (the masked fold) and top_k=150
+    (the masked exact kernel), held to the ``xla_exact`` oracle's filtered
+    search over the same store. The queries are stored rows (with a little
+    noise) whose own rows the filter excludes. Then each masked kernel is
+    held to its masked plain version on this path's own inputs
+    (``check_filtered_kernels``). Returns the launch counts of the filtered
+    kernel=auto searches."""
+    import numpy as np
+
+    from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.retrieval import load_retriever
+    from latentrag_torch.utils import Config, apply_overrides
+
+    cfg = apply_overrides(Config(), overrides)
+    r = load_retriever(cfg.retrieval, device="cuda")
+    o = load_retriever(apply_overrides(
+        Config(), overrides + ["retrieval.kernel=xla_exact"]).retrieval,
+        device="cuda")
+    if r is None or o is None:
+        failures.append(f"the {store} main path's store did not load")
+        return dict(ft.launches)
+    n = r._corpus_n
+    g = torch.Generator(device="cuda").manual_seed(17)
+    q = r._corpus[: min(n, 1024) : 2].float()
+    q = q + 0.01 * torch.randn(q.shape, generator=g, device="cuda")
+    specs = {10: {"exclude_doc_ids": list(range(0, n, 2))},
+             150: {"doc_ids": list(range(1, n, 5))}}
+    ft.reset_launches()
+    got = {k: r.search(q, k, filter=spec) for k, spec in specs.items()}
+    launches = dict(ft.launches)
+    kernels = ft.last_kernel
+    for k, spec in specs.items():
+        _, i_r = got[k]
+        _, i_o = o.search(q, k, filter=spec)
+        allowed = set(spec.get("doc_ids") or
+                      set(range(n)) - set(spec["exclude_doc_ids"]))
+        agree = slot_agreement(i_r.tolist(), i_o.tolist())
+        only_allowed = all(int(i) in allowed for i in i_r.ravel() if i >= 0)
+        record("filtered_search" + ("" if store == "bfloat16" else "_fp32"),
+               store=store, top_k=k, n=n, queries=int(q.shape[0]),
+               filter=next(iter(spec)), allowed=len(allowed),
+               doc_id_agreement_vs_xla_exact=agree, only_allowed=only_allowed,
+               launches=launches, c_kernel=kernels)
+        if agree < MAIN_DOC_AGREE or not only_allowed:
+            failures.append(f"{store} filtered search at top_k={k}: "
+                            f"agreement {agree}, only allowed {only_allowed}")
+    if launches["masked"] != 2 or launches["fold"] != 1 or (
+            launches["exact"] != 1):
+        failures.append(f"the {store} filtered searches did not run the "
+                        f"masked fold and exact kernels: {launches}")
+    check_filtered_kernels(torch, failures, r, q, specs, store)
+    return launches
+
+
+def check_filtered_kernels(torch, failures: list, r, q, specs: dict,
+                           store: str) -> None:
+    """Phase 3e's masked kernels against their masked plain versions on the
+    filtered searches' own inputs: ``r``'s prepared queries and store, and
+    the mask words it cached for each of ``specs`` (top_k -> filter); the
+    fold at the plan's candidate count with phase 2c's limits, the exact
+    kernel past the fold's k with the large-corpus limits of phase 2
+    (ids by set, every slot's score): the main path's latents lie close
+    (neighbouring scores ~1e-5 apart, some tied), so two correct sum
+    orders swap neighbours, and the unmasked kernel, recorded beside it on
+    the same inputs, matches its plain version slot by slot no better."""
+    from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.ops.distances import prepare_for_metric
+    from latentrag_torch.ops.topk import as_bool_mask
+
+    n = r._corpus_n
+    qp = prepare_for_metric(q, r.metric, r._whitener).to(
+        r._corpus.dtype).contiguous()
+    tag = "<f32>" if store == "float32" else ""
+    for k, spec in specs.items():
+        words = r._filter_device_mask(spec)
+        m = as_bool_mask(words, n)
+        if k <= ft.FOLD_MAX_K:
+            mode = "fold"
+            block_n, kk = ft.fold_plan(n, k, r._effective_recall_target(k))
+        else:
+            mode, block_n, kk = "exact", 4096, k
+        s_k, i_k = ft.fused_topk_raw(qp, r._corpus, k=kk, metric=r.metric,
+                                     mode=mode, block_n=block_n, mask=words)
+        torch.cuda.synchronize()
+        ran = ft.last_kernel
+        s_p, i_p = ft.fused_topk_raw_reference(
+            qp, r._corpus, k=kk, metric=r.metric, mode=mode, block_n=block_n,
+            mask=words)
+        if mode == "fold":  # compare exact rescored scores
+            s_k, i_k = ft.rescore_candidates(qp, r._corpus, i_k, r.metric)
+            s_p, i_p = ft.rescore_candidates(qp, r._corpus, i_p, r.metric)
+        ok, id_match, max_err = masked_match(torch, m, s_k, i_k, s_p, i_p)
+        rec = {"store": store, "top_k": k, "mode": mode, "k": kk,
+               "block_n": block_n, "Q": int(qp.shape[0]), "N": n,
+               "d": int(qp.shape[1]), "allowed": int(m.sum()),
+               "c_kernel": ran, "id_match": id_match, "max_abs_err": max_err,
+               "empty_slots": int((i_k < 0).sum())}
+        ok = ok and ran.split("+")[0] == f"{mode}_mma_kernel{tag}<mask>"
+        if mode == "fold":
+            ok = ok and id_match >= FOLD_ID_MATCH
+        else:
+            slot_err = (s_k - s_p).abs()
+            tol = EXACT_SCORE_ATOL + EXACT_SCORE_RTOL * s_p.abs()
+            rec["set_match"] = set_match(torch, i_k, i_p)
+            rec["slot_max_abs_err"] = slot_err.max().item()
+            ok = (ok and rec["set_match"] >= EXACT_ID_MATCH
+                  and bool((slot_err <= tol).all()))
+            u_k = ft.fused_topk_raw(qp, r._corpus, k=kk, metric=r.metric,
+                                    mode=mode)[1]
+            u_p = ft.fused_topk_raw_reference(qp, r._corpus, k=kk,
+                                              metric=r.metric, mode=mode)[1]
+            rec["unmasked_id_match"] = (u_k == u_p).float().mean().item()
+        rec["ok"] = ok
+        record("filtered_kernel_check", **rec)
+        if not ok:
+            failures.append(f"filtered-path masked kernel check {rec}")
+
+
+def store_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def check_store_round_trip(torch, failures: list, r, q, build_s: float,
+                           label: str, spec: dict | None = None) -> None:
+    """Phases 3f and 3g on a built 1M store ``r``: save it (timed, bytes
+    on disk), load it into a fresh retriever (the warm boot, timed against
+    the cold build) whose search (``spec``'s filter too) must equal the
+    built one's bit for bit; then, on the loaded retriever, which persists
+    every mutation, ``add`` 1000 rows (each must retrieve itself top-1) and
+    ``remove`` the probes' top-1 hits and 500 of the added rows (none may
+    come back, and every survivor keeps its score bit for bit); a reload
+    holds the mutated row count. The store lives in a temporary directory,
+    deleted after."""
+    import numpy as np
+
+    from latentrag_torch.retrieval import DenseRetriever
+
+    k = 10
+    with tempfile.TemporaryDirectory(prefix="lr_smoke_store_") as path:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r._save(path)
+        save_s = time.perf_counter() - t0
+        disk = store_bytes(path)
+        t0 = time.perf_counter()
+        r2 = DenseRetriever(metric=r.metric, backend=r.backend,
+                            store_dtype=r.store_dtype, index_path=path,
+                            device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        same = {}
+        for name, f in (("plain", None), ("filtered", spec)):
+            if name == "filtered" and spec is None:
+                continue
+            s1, i1 = r.search(q, k, filter=f)
+            s2, i2 = r2.search(q, k, filter=f)
+            same[name] = bool(np.array_equal(i1, i2) and np.array_equal(
+                s1.view(np.int32), s2.view(np.int32)))
+        record("store_round_trip", store=label, N=r._corpus_n, Q=int(q.shape[0]),
+               k=k, cold_build_s=build_s, save_s=save_s,
+               warm_boot_load_s=load_s, bytes_on_disk=disk,
+               loaded=r2.is_built, search_bit_identical=same)
+        if not r2.is_built or not all(same.values()):
+            failures.append(f"the 1M {label} store did not round-trip: "
+                            f"loaded {r2.is_built}, identical {same}")
+            return
+        del r
+        # mutation on the card, persisted at every step
+        n0 = r2._corpus_n
+        g = torch.Generator(device="cuda").manual_seed(23)
+        new = torch.nn.functional.normalize(
+            torch.randn((1000, q.shape[1]), generator=g, device="cuda"), dim=1)
+        new_ids = list(range(10**8, 10**8 + 1000))
+        s_before, i_before = r2.search(q, k)
+        ids_before = np.asarray(r2.doc_ids)[np.maximum(i_before, 0)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r2.add(new, [f"added {i}" for i in range(1000)], doc_ids=new_ids)
+        add_s = time.perf_counter() - t0
+        _, i_self = r2.search(new, 1)
+        self_top1 = float(np.mean(np.asarray(r2.doc_ids)[i_self[:, 0]]
+                                  == np.asarray(new_ids)))
+        drop = set(ids_before[:, 0].tolist()) | set(new_ids[::2])
+        t0 = time.perf_counter()
+        removed = r2.remove(list(drop))
+        remove_s = time.perf_counter() - t0
+        s_after, i_after = r2.search(q, k)
+        ids_after = np.asarray(r2.doc_ids)[np.maximum(i_after, 0)]
+        came_back = int(sum(int(i) in drop for i in ids_after.ravel()))
+        _, i_gone = r2.search(new[::2], 1)
+        came_back += int(sum(r2.doc_ids[int(i)] in drop
+                             for i in i_gone[:, 0]))
+        changed = compared = 0
+        for qi in range(ids_after.shape[0]):
+            before = dict(zip(ids_before[qi].tolist(), s_before[qi].tolist()))
+            for doc, sc in zip(ids_after[qi].tolist(), s_after[qi].tolist()):
+                if doc in before:
+                    compared += 1
+                    changed += int(before[doc] != sc)
+        r3 = DenseRetriever(metric=r2.metric, backend=r2.backend,
+                            store_dtype=r2.store_dtype, index_path=path,
+                            device="cuda")
+        record("mutation", store=label, N=n0, added=1000, removed=removed,
+               add_s=add_s, remove_s=remove_s, added_self_top1=self_top1,
+               removed_came_back=came_back, survivors_compared=compared,
+               survivor_scores_changed=changed,
+               reloaded_n=r3._corpus_n,
+               live_mutations=(r3.fingerprint or {}).get("live_mutations"))
+        if (self_top1 < 1.0 or came_back or changed or compared == 0
+                or r3._corpus_n != n0 + 1000 - removed
+                or r3.fingerprint.get("live_mutations") != 2):
+            failures.append(f"the 1M {label} store's add/remove: top-1 "
+                            f"{self_top1}, came back {came_back}, changed "
+                            f"{changed}/{compared}, reloaded {r3._corpus_n}")
+        del r2, r3
+    torch.cuda.empty_cache()
+
+
+def check_bf16_store_at_scale(torch, failures: list) -> None:
+    """Phase 3f for a bf16 store: a DenseRetriever over 1M seeded unit
+    rows (d=64), built cold, then ``check_store_round_trip``."""
+    from latentrag_torch.retrieval import DenseRetriever
+
+    g = torch.Generator(device="cuda").manual_seed(41)
+    x = torch.nn.functional.normalize(
+        torch.randn((1_000_000, 64), generator=g, device="cuda"), dim=1)
+    q = torch.nn.functional.normalize(
+        torch.randn((1024, 64), generator=g, device="cuda"), dim=1)
+    r = DenseRetriever(store_dtype="bfloat16", device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r.build(x, [""] * x.shape[0])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del x
+    check_store_round_trip(torch, failures, r, q, build_s, "bfloat16")
+
+
+def time_masked(torch) -> dict:
+    """Phase 4c: the masked kernels with 10 % of the rows allowed, cosine,
+    at the reference shape and at 1024 x 1M: the fold at the plan and the
+    exact kernel at k=10 over bf16 and fp32 stores, the binary fold at the
+    binary store's plan (80 candidates) and the exact binary kernel at
+    k=160; each beside the same call unmasked in the same run, its masked
+    plain version and the masked library call (``torch.topk`` of
+    ``torch.where(mask, torch.matmul(q, c.T).float(), -inf)``; binary: the
+    corpus pre-unpacked to +-1 bf16), with the bound (the mask's n/8 bytes
+    added). Keys: (shape, kernel)."""
+    from latentrag_torch.ops import binary as tb
+    from latentrag_torch.ops import fused_topk as ft
+
+    out = {}
+    d = 64
+    ninf = float("-inf")
+    for label, nq, n in (("reference", 2000, 315), ("1m", 1024, 1_000_000)):
+        m, words = row_mask(torch, n, 0.1, 10, 7)
+        big = n > 10_000
+        for dname in ("bfloat16", "float32"):
+            q, c = make_case(torch, "cosine", getattr(torch, dname), nq, n,
+                             d, 97)
+            block_n, cand = ft.fold_plan(n, 10, 0.99)
+            for mode, kk, bn in (("fold", cand, block_n), ("exact", 10, 4096)):
+                call = lambda w: ft.fused_topk_raw(  # noqa: E731
+                    q, c, k=kk, metric="cosine", mode=mode, block_n=bn,
+                    mask=w)
+                kern = time_ms(torch, lambda: call(words))
+                ran = ft.last_kernel
+                unmasked = time_ms(torch, lambda: call(None))
+                plain = time_ms(torch, lambda: ft.fused_topk_raw_reference(
+                    q, c, k=kk, metric="cosine", mode=mode, block_n=bn,
+                    mask=words), reps=3 if big else 10, warmup=1)
+                lib = time_ms(torch, lambda: torch.topk(torch.where(
+                    m, torch.matmul(q, c.T).float(), ninf), kk, dim=1),
+                    reps=10 if big else 25)
+                b_ms, b_by = bound(nq, n, d, kk, dname, extra_bytes=n / 8)
+                tag = mode + ("_fp32" if dname == "float32" else "")
+                rec = {"shape": label, "kernel": tag, "Q": nq, "N": n, "d": d,
+                       "k": kk, "block_n": bn, "allowed": 0.1,
+                       "c_kernel": ran, "ms": kern, "unmasked_ms": unmasked,
+                       "plain_ms": plain, "library_ms": lib,
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "device_ms": device_split(torch, lambda: call(words))}
+                record("masked_kernel_time", **rec)
+                out[(label, tag)] = rec
+            del q, c
+            torch.cuda.empty_cache()
+        q, pk = binary_case(torch, nq, n, d, 78)
+        qb = q.bfloat16()
+        pm1 = tb.binary_unpack(pk, d).bfloat16()
+        block_n, cand = ft.fold_plan(n, min(80, n), 0.99)
+        for kernel, kk in (("binary_fold", cand), ("binary_exact", 160)):
+            if kernel == "binary_fold":
+                call = lambda w: ft.binary_fused_topk_raw(  # noqa: E731
+                    q, pk, d=d, k=kk, block_n=block_n, mask=w)
+                plain_fn = lambda: ft.binary_fused_topk_raw_reference(  # noqa: E731
+                    q, pk, d=d, k=kk, block_n=block_n, mask=words)
+            else:
+                call = lambda w: ft.binary_exact_topk_raw(  # noqa: E731
+                    q, pk, d=d, k=kk, mask=w)
+                plain_fn = lambda: tb.binary_topk(q, pk, d, kk, mask=m)  # noqa: E731
+            kern = time_ms(torch, lambda: call(words))
+            ran = ft.last_kernel
+            unmasked = time_ms(torch, lambda: call(None))
+            plain = time_ms(torch, plain_fn, reps=3 if big else 10, warmup=1)
+            lib = time_ms(torch, lambda: torch.topk(torch.where(
+                m, torch.matmul(qb, pm1.T).float(), ninf), kk, dim=1),
+                reps=10 if big else 25)
+            b_ms, b_by = binary_bound(nq, n, d, min(kk, n), extra_bytes=n / 8)
+            rec = {"shape": label, "kernel": kernel, "Q": nq, "N": n, "d": d,
+                   "k": kk, "allowed": 0.1, "c_kernel": ran, "ms": kern,
+                   "unmasked_ms": unmasked, "plain_ms": plain,
+                   "library_ms": lib, "library_reads_bytes_x": 16,
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "device_ms": device_split(torch, lambda: call(words))}
+            record("masked_kernel_time", **rec)
+            out[(label, kernel)] = rec
+        del q, pk, qb, pm1, m, words
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1156,47 +1785,62 @@ def main() -> int:
     t_start = time.perf_counter()
 
     from latentrag_torch.ops import cuda_build
+    from latentrag_torch.ops import fused_topk as ft
     from latentrag_torch.utils import native
 
     card = card_line()
     print(card, flush=True)
     t0 = time.perf_counter()
-    cuda_build.load_library("fused_topk")
+    # the kernels' two libraries (without and with the row mask), by two
+    # nvcc processes at once
+    cuda_build.load_libraries(ft.LIBRARIES)
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     native.load_library()  # the C++ tokenizer's library, g++
     record("build", card=card, torch=torch.__version__,
            cuda=torch.version.cuda, build_s=build_s,
-           nvcc_s=cuda_build.build_seconds.get("fused_topk"),
+           nvcc_s=dict(cuda_build.build_seconds),
            host_library_s=time.perf_counter() - t0)
 
     failures: list = []
     worst = check_kernels(torch, failures)
     check_select_fallbacks(torch, failures)
     worst.update(check_binary_kernel(torch, failures))
+    worst.update(check_masked_kernels(torch, failures))
     if failures:
         fail("; ".join(failures[:5]))
-    launches, oracle, launches150 = check_main_path(
+    launches, oracle, launches150, filtered = check_main_path(
         torch, failures, worst.pop("main_exact_kernel_bfloat16"))
     if failures:
         fail("; ".join(failures))
     launches["exact"] = launches150["exact"]  # the bf16 main at top_k=150
+    # the masked instances' path: the filtered searches on the main path's
+    # store, each kernel launched once there and only with a mask
+    launches["fold_masked"] = filtered["fold"]
+    launches["exact_masked"] = filtered["exact"]
     # the same runs over an fp32 store: its kernels' main path
-    launches32, _, launches32_150 = check_main_path(
+    launches32, _, launches32_150, filtered32 = check_main_path(
         torch, failures, worst.pop("main_exact_kernel_float32"), "float32")
     if failures:
         fail("; ".join(failures))
     launches["fold_fp32"] = launches32["fold"]
     launches["exact_fp32"] = launches32_150["exact"]
-    launches["binary_fold"] = check_binary_main_path(
-        torch, failures, oracle)["binary_fold"]
+    launches["fold_fp32_masked"] = filtered32["fold"]
+    launches["exact_fp32_masked"] = filtered32["exact"]
+    bin10 = check_binary_main_path(torch, failures, oracle)
+    launches["binary_fold"] = bin10["binary_fold"]
+    launches["binary_fold_masked"] = bin10["filtered"]["binary_fold"]
     if failures:
         fail("; ".join(failures))
-    launches["binary_exact"] = check_binary_main_path(
-        torch, failures, oracle, top_k=20)["binary_exact"]
+    bin20 = check_binary_main_path(torch, failures, oracle, top_k=20)
+    launches["binary_exact"] = bin20["binary_exact"]
+    launches["binary_exact_masked"] = bin20["filtered"]["binary_exact"]
     if failures:
         fail("; ".join(failures))
     check_binary_capacity(torch, failures)
+    if failures:
+        fail("; ".join(failures))
+    check_bf16_store_at_scale(torch, failures)
     if failures:
         fail("; ".join(failures))
     for store, tag in (("bfloat16", ""), ("float32", "_fp32")):
@@ -1206,6 +1850,7 @@ def main() -> int:
         fail("; ".join(failures))
     times = time_kernels(torch)
     times.update(time_binary(torch))
+    masked_times = time_masked(torch)
 
     kernels = []
     for mode, fn_line, source in (("fold", 162, "fold_mma.cuh"),
@@ -1269,6 +1914,35 @@ def main() -> int:
         "shape": f"Q=2000 N=315 d=64 k={t['k']} packed sign words, "
                  "bf16 queries",
     })
+    # the masked instances (a filtered search), timed at the reference
+    # shape with 10 % of the rows allowed
+    for name, key, fn_line, source, shape in (
+        ("fused_topk_fold_masked", "fold", 162, "fold_mma.cuh", "bf16"),
+        ("fused_topk_fold_fp32_masked", "fold_fp32", 162, "fold_mma.cuh",
+         "fp32"),
+        ("fused_topk_exact_masked", "exact", 182, "exact_mma.cuh", "bf16"),
+        ("fused_topk_exact_fp32_masked", "exact_fp32", 182, "exact_mma.cuh",
+         "fp32"),
+        ("binary_fused_topk_fold_masked", "binary_fold", 354,
+         "fold_mma.cuh", "packed sign words, bf16 queries"),
+        ("binary_exact_topk_masked", "binary_exact", None, "exact_mma.cuh",
+         "packed sign words, bf16 queries"),
+    ):
+        t = masked_times[("reference", key)]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"latentrag_torch/csrc/{source}",
+            "replaces": (f"latentrag_tpu/ops/pallas_topk.py:{fn_line}"
+                         if fn_line else "latentrag_tpu/ops/binary.py:129"),
+            "launches": launches[key + "_masked"],
+            "max_abs_err": worst[key + "_masked"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "shape": f"Q=2000 N=315 d=64 k={t['k']} {shape} cosine, row "
+                     "mask allowing 10 %",
+        })
     if "jax" in sys.modules:
         fail("jax was imported")
     record("done", seconds=time.perf_counter() - t_start)

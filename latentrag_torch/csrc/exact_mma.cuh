@@ -86,6 +86,14 @@
 // (one fp32 compare a score), the per-stage block barrier and
 // the flushes, whose number grows as k ln(slab rows / k) passers a query.
 
+// The row mask (exact_mma_kernel<KP, OP, true>: a filtered search; the
+// fold's header gives the layout). A warp's 16 columns of a sub-tile lie in
+// one mask word, which a thread loads once a sub-tile; a masked-out score
+// is rejected with the columns past n, before the threshold's compare, so
+// it never enters a buffer, and a query whose allowed rows are fewer than
+// k keeps EMPTY64 entries, written out as (LR_NEG_INF, -1). The unmasked
+// instance has neither the load nor the test.
+
 #define EM_QROWS 16  // rows of the m16 query tile
 #define EM_NEG_INF __int_as_float(0xff800000)
 
@@ -115,6 +123,14 @@ __device__ __forceinline__ float em_score(i64 key) {
 
 __device__ __forceinline__ int em_row(i64 key) {
     return INT_MAX - (int)(unsigned)key;
+}
+
+// A list entry as the output's score and row: an empty slot (a filtered
+// search that allowed fewer than k rows) is (LR_NEG_INF, -1).
+__device__ __forceinline__ void em_out(i64 key, float* s, int* row) {
+    const bool empty = key == EMPTY64;
+    *s = empty ? LR_NEG_INF : em_score(key);
+    *row = empty ? -1 : em_row(key);
 }
 
 // Index of the lower element of compare pair t of a bitonic step of
@@ -196,13 +212,15 @@ __device__ void em_flush(i64* L, i64* B, int* cnt, i64* thr, float* thr_f,
 // final_out (one slab): write out_s / out_i; else part[slab, q, :] keys.
 // qp and cp as fold_mma_kernel's: bf16 (OP_BF16), fp32 (OP_F32), or bf16
 // queries and packed sign words [n, ceil(d/32)] (OP_BIN; euclid and vec 0).
-template <int KP, int OP>
+// MASK: mask is the allowed rows' bits [ceil(n/32)] (unread otherwise).
+template <int KP, int OP, bool MASK>
 __global__ void __launch_bounds__(FM_THREADS, 2)
 exact_mma_kernel(const void* __restrict__ qp,
                  const void* __restrict__ cp, const float* __restrict__ csq,
-                 int nq, int n, int d, int k, int euclid, int slab_rows,
-                 int vec, int final_out, i64* __restrict__ part,
-                 float* __restrict__ out_s, int* __restrict__ out_i) {
+                 const unsigned* __restrict__ mask, int nq, int n, int d,
+                 int k, int euclid, int slab_rows, int vec, int final_out,
+                 i64* __restrict__ part, float* __restrict__ out_s,
+                 int* __restrict__ out_i) {
     constexpr int QB = em_qb(KP), BUF = em_buf(KP);
     constexpr bool BIN = OP == OP_BIN;
     constexpr int SLOT = BIN ? FM_WSLOT_BYTES : FM_SLOT_BYTES;
@@ -311,6 +329,12 @@ exact_mma_kernel(const void* __restrict__ qp,
         const float* cq = reinterpret_cast<const float*>(
             ring + (st % FM_NST) * SLOT + FM_STAGE_BYTES) + wc + 2 * t4;
         const float tf[2] = {thr_f[g], thr_f[g + 8]};
+        unsigned mw = 0;  // MASK: bit c is the mask's bit of column c0 + c
+        if constexpr (MASK) {
+            const int w = (t0 + wc) >> 5;
+            mw = (w < (n + 31) >> 5 ? __ldg(mask + w) : 0u) >>
+                 ((wc & 31) + 2 * t4);
+        }
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
 #pragma unroll
@@ -319,7 +343,9 @@ exact_mma_kernel(const void* __restrict__ qp,
                 float s = acc[j][e];
                 if (!BIN && euclid)
                     s = 2.0f * s - qsq[g + 8 * h] - cq[8 * j + (e & 1)];
-                if (!(h ? real1 : real0) || col >= n || !(s >= tf[h]))
+                if (!(h ? real1 : real0) || col >= n ||
+                    (MASK && !((mw >> (8 * j + (e & 1))) & 1u)) ||
+                    !(s >= tf[h]))
                     continue;
                 const int r = g + 8 * h;
                 const int b = __float_as_int(s);
@@ -347,8 +373,7 @@ exact_mma_kernel(const void* __restrict__ qp,
         const i64 key = L[r * KP + i];
         const size_t o = (size_t)q * k + i;
         if (final_out) {
-            out_s[o] = em_score(key);
-            out_i[o] = em_row(key);
+            em_out(key, out_s + o, out_i + o);
         } else {
             part[(size_t)blockIdx.y * nq * k + o] = key;
         }
@@ -392,14 +417,13 @@ exact_merge_kernel(const i64* __restrict__ part, int S, int nq, int k,
     }
     for (int i = tid; i < k; i += FM_THREADS) {
         const size_t o = (size_t)q * k + i;
-        out_s[o] = em_score(A[i]);
-        out_i[o] = em_row(A[i]);
+        em_out(A[i], out_s + o, out_i + o);
     }
 }
 
 // Each kernel instance's dynamic shared memory is raised to the card's
 // opt-in limit once per device, not on every call.
-template <int KP, int OP>
+template <int KP, int OP, bool MASK>
 static int em_prepare() {
     static unsigned ready = 0;  // bit per device
     int dev = 0;
@@ -410,35 +434,35 @@ static int em_prepare() {
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
     if (e != cudaSuccess) return (int)e;
-    e = cudaFuncSetAttribute(exact_mma_kernel<KP, OP>,
+    e = cudaFuncSetAttribute(exact_mma_kernel<KP, OP, MASK>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (e != cudaSuccess) return (int)e;
     if (dev < 32) ready |= 1u << dev;
     return 0;
 }
 
-template <int KP, int OP>
+template <int KP, int OP, bool MASK>
 static int em_occupancy(size_t smem) {
-    int e = em_prepare<KP, OP>();
+    int e = em_prepare<KP, OP, MASK>();
     if (e) return -e;
     int blocks = 0;
     e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, exact_mma_kernel<KP, OP>, FM_THREADS, smem);
+        &blocks, exact_mma_kernel<KP, OP, MASK>, FM_THREADS, smem);
     return e ? -e : blocks;
 }
 
-template <int KP, int OP>
+template <int KP, int OP, bool MASK>
 static int em_launch(const void* q, const void* c, const float* csq,
-                     int nq, int n, int d, int k, int euclid,
-                     int slab_rows, int vec, long long* part, float* out_s,
-                     int* out_i, size_t smem, cudaStream_t st) {
-    int e = em_prepare<KP, OP>();
+                     const unsigned* mask, int nq, int n, int d, int k,
+                     int euclid, int slab_rows, int vec, long long* part,
+                     float* out_s, int* out_i, size_t smem, cudaStream_t st) {
+    int e = em_prepare<KP, OP, MASK>();
     if (e) return e;
     const int n_slabs = (n + slab_rows - 1) / slab_rows;
     dim3 grid((nq + em_qb(KP) - 1) / em_qb(KP), n_slabs);
-    exact_mma_kernel<KP, OP><<<grid, FM_THREADS, smem, st>>>(
-        q, c, csq, nq, n, d, k, euclid, slab_rows, vec, n_slabs == 1, part,
-        out_s, out_i);
+    exact_mma_kernel<KP, OP, MASK><<<grid, FM_THREADS, smem, st>>>(
+        q, c, csq, mask, nq, n, d, k, euclid, slab_rows, vec, n_slabs == 1,
+        part, out_s, out_i);
     e = (int)cudaGetLastError();
     if (e || n_slabs == 1) return e;
     exact_merge_kernel<KP><<<nq, FM_THREADS, 0, st>>>(part, n_slabs, nq, k,
@@ -452,18 +476,18 @@ static int em_kp(int k) {
     return kp;
 }
 
-// F<KP, OP>(args) for the list of KP = em_kp(k) entries (k <= 2048) and
-// the operand kind op.
+// F<KP, OP, LR_MASK>(args) for the list of KP = em_kp(k) entries (k <=
+// 2048) and the operand kind op; the library's flavour sets the mask flag.
 #define EM_DISPATCH_OP(F, O, ...)                                             \
-    (kp == 128    ? F<128, O>(__VA_ARGS__)                                    \
-     : kp == 256  ? F<256, O>(__VA_ARGS__)                                    \
-     : kp == 512  ? F<512, O>(__VA_ARGS__)                                    \
-     : kp == 1024 ? F<1024, O>(__VA_ARGS__)                                   \
-                  : F<2048, O>(__VA_ARGS__))
-#define EM_DISPATCH(F, ARGS)                                                  \
-    (op == OP_BIN   ? EM_DISPATCH_OP(F, OP_BIN, ARGS)                         \
-     : op == OP_F32 ? EM_DISPATCH_OP(F, OP_F32, ARGS)                         \
-                    : EM_DISPATCH_OP(F, OP_BF16, ARGS))
+    (kp == 128    ? F<128, O, LR_MASK>(__VA_ARGS__)                           \
+     : kp == 256  ? F<256, O, LR_MASK>(__VA_ARGS__)                           \
+     : kp == 512  ? F<512, O, LR_MASK>(__VA_ARGS__)                           \
+     : kp == 1024 ? F<1024, O, LR_MASK>(__VA_ARGS__)                          \
+                  : F<2048, O, LR_MASK>(__VA_ARGS__))
+#define EM_DISPATCH(F, ...)                                                   \
+    (op == OP_BIN   ? EM_DISPATCH_OP(F, OP_BIN, __VA_ARGS__)                  \
+     : op == OP_F32 ? EM_DISPATCH_OP(F, OP_F32, __VA_ARGS__)                  \
+                    : EM_DISPATCH_OP(F, OP_BF16, __VA_ARGS__))
 
 extern "C" {
 
@@ -474,9 +498,9 @@ size_t lr_exact_mma_smem(int d, int k, int op) {
     return em_smem_bytes(d, em_kp(k), op);
 }
 
-// Resident exact_mma_kernel blocks per SM at (d, k, op) on the current
-// device (0: does not fit); a negative cudaError_t on failure; -1 past
-// k = 2048.
+// Resident exact_mma_kernel blocks per SM at (d, k, op), of the library's
+// flavour (LR_MASK), on the current device (0: does not fit); a negative
+// cudaError_t on failure; -1 past k = 2048.
 int lr_exact_mma_occupancy(int d, int k, int op) {
     if (k < 1 || k > 2048) return -1;
     const int kp = em_kp(k);
@@ -489,17 +513,20 @@ int lr_exact_mma_occupancy(int d, int k, int op) {
 // (OP_BIN: bf16 queries, c the packed sign words [n, ceil(d/32)]; euclid =
 // 0): exact_mma_kernel over (query tiles x slabs), then, with more than
 // one slab, exact_merge_kernel. csq is the rows' norms^2 (euclid only).
-// part is [slabs, nq, k] int64 scratch (unused with one slab). Returns a
+// mask (the masked library; null in the other) is the allowed rows' bits,
+// as lr_fold_mma's;
+// slots past the allowed rows come out as (LR_NEG_INF, -1). part is
+// [slabs, nq, k] int64 scratch (unused with one slab). Returns a
 // cudaError_t, -1 past k = 2048.
 int lr_exact_mma(const void* q, const void* c, const float* csq,
                  int nq, int n, int d, int k, int euclid,
-                 int slab_rows, int vec, int op, long long* part,
-                 float* out_s, int* out_i, void* stream) {
+                 int slab_rows, int vec, int op, const unsigned* mask,
+                 long long* part, float* out_s, int* out_i, void* stream) {
     if (k < 1 || k > 2048) return -1;
     const int kp = em_kp(k);
     const size_t smem = em_smem_bytes(d, kp, op);
     cudaStream_t st = (cudaStream_t)stream;
-#define EM_ARGS q, c, csq, nq, n, d, k, euclid, slab_rows, vec, part, \
+#define EM_ARGS q, c, csq, mask, nq, n, d, k, euclid, slab_rows, vec, part, \
                 out_s, out_i, smem, st
     return EM_DISPATCH(em_launch, EM_ARGS);
 #undef EM_ARGS

@@ -105,6 +105,19 @@
 // bf16 takes one m16n8k16 of the same tensor-core time: 3 x 2 Q N d
 // operations at the 495 TFLOP/s TF32 rate (165 TFLOP/s of fp32-accurate
 // products), plus the splits on the CUDA cores.
+//
+// The row mask (fold_mma_kernel<E, OP, true>: a filtered search). mask is
+// the packed bits of the allowed rows, int32 words [ceil(n/32)], bit r & 31
+// of word r >> 5 for row r. A warp's 64 columns of a sub-tile are two whole
+// words, so a thread loads them once a sub-tile (two 4-byte reads, in the
+// L1 for all 8 warps) and keeps its 16 columns' bits in one register, and
+// a masked-out column packs to MIN_I32 in the fold, as a column past the
+// corpus's end does: it never wins a lane, and
+// a lane with no allowed row offers nothing to the lists. Lists that end
+// with fewer than k allowed rows keep EMPTY64 entries, which come out as
+// (LR_NEG_INF, -1) (fold_merge_kernel<E, true> too). The mask adds n / 8
+// bytes to the corpus's and nothing to the products; the unmasked instance
+// (MASK = false) has neither the load, the test nor the empty-slot branch.
 
 #define FM_WARPS 8
 #define FM_THREADS (FM_WARPS * 32)
@@ -594,12 +607,14 @@ __device__ __forceinline__ void fm_offer(i64* Lq, int k, const i64 (&cand)[4],
 // Fold one 128-row sub-tile's scores into the lane maxima. local0 is the
 // tile column of the thread's first slot; columns from `valid` on are
 // rows >= n (EDGE only); cq holds the rows' norms^2 from the thread's
-// first slot on (EUCLID only).
-template <bool EUCLID, bool EDGE>
+// first slot on (EUCLID only); mb holds the row mask's bits of the
+// thread's 16 columns (MASK only): column 8 j + h (h < 2) of the thread's
+// first slot at bit 8 j + h for j < 4, 8 (j - 4) + 2 + h for j >= 4.
+template <bool EUCLID, bool EDGE, bool MASK>
 __device__ __forceinline__ void fm_fold(int (&folded)[8][4],
                                         const float (&acc)[8][4], int local0,
                                         int valid, float qs0, float qs1,
-                                        const float* cq) {
+                                        const float* cq, unsigned mb) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -618,6 +633,8 @@ __device__ __forceinline__ void fm_fold(int (&folded)[8][4],
             int p0 = (b0 & ~IDX_MASK) ^ (((b0 >> 31) & (0x7FFFFFFF & ~IDX_MASK)) ^ lc);
             int p1 = (b1 & ~IDX_MASK) ^ (((b1 >> 31) & (0x7FFFFFFF & ~IDX_MASK)) ^ lc);
             if (EDGE && col >= valid) p0 = p1 = MIN_I32;
+            if (MASK && !((mb >> ((j < 4 ? 8 * j : 8 * j - 30) + h)) & 1u))
+                p0 = p1 = MIN_I32;
             folded[j][h] = max(folded[j][h], p0);
             folded[j][2 + h] = max(folded[j][2 + h], p1);
         }
@@ -631,9 +648,17 @@ __device__ __forceinline__ i64 fm_key(int p, unsigned low_base) {
     return (i64)(((unsigned long long)(unsigned)(p & ~IDX_MASK) << 32) | low);
 }
 
-// fp32 score and corpus row of a key64 (R = (n_tiles - 1) * block_n).
+// fp32 score and corpus row of a key64 (R = (n_tiles - 1) * block_n). With
+// a row mask (MASK) a slot can stay empty (the filter allowed fewer than k
+// rows): it is (LR_NEG_INF, -1); without one every slot holds a row.
+template <bool MASK>
 __device__ __forceinline__ void fm_decode(i64 key, unsigned R, int block_n,
                                           float* s, int* row) {
+    if (MASK && key == EMPTY64) {
+        *s = LR_NEG_INF;
+        *row = -1;
+        return;
+    }
     const int q = (int)(key >> 32);
     *s = __int_as_float(q >= 0 ? q : (q ^ 0x7FFFFFFF));
     const unsigned low = (unsigned)key;
@@ -645,14 +670,16 @@ __device__ __forceinline__ void fm_decode(i64 key, unsigned R, int block_n,
 // Lists are held E = KP / 32 a lane in registers (KP >= k). final_out (one
 // slab): write out_s / out_i; else part[slab, q, :] keys. qp and cp are
 // bf16 [nq, d] and [n, d] (OP_BF16), fp32 (OP_F32), or bf16 queries and the
-// packed sign words [n, ceil(d/32)] (OP_BIN; euclid and vec are 0).
-template <int E, int OP>
+// packed sign words [n, ceil(d/32)] (OP_BIN; euclid and vec are 0). MASK:
+// mask is the allowed rows' bits [ceil(n/32)] (unread otherwise).
+template <int E, int OP, bool MASK>
 __global__ void __launch_bounds__(FM_THREADS, 2)
 fold_mma_kernel(const void* __restrict__ qp, const void* __restrict__ cp,
-                const float* __restrict__ csq, int nq, int n, int d, int k,
-                int euclid, int block_n, int slab_rows, int vec, int final_out,
-                i64* __restrict__ part, float* __restrict__ out_s,
-                int* __restrict__ out_i) {
+                const float* __restrict__ csq,
+                const unsigned* __restrict__ mask, int nq, int n, int d,
+                int k, int euclid, int block_n, int slab_rows, int vec,
+                int final_out, i64* __restrict__ part,
+                float* __restrict__ out_s, int* __restrict__ out_i) {
     extern __shared__ __align__(16) unsigned char smem[];
     constexpr bool BIN = OP == OP_BIN;
     constexpr int SLOT = BIN ? FM_WSLOT_BYTES : FM_SLOT_BYTES;
@@ -716,7 +743,10 @@ fold_mma_kernel(const void* __restrict__ qp, const void* __restrict__ cp,
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) folded[j][e] = MIN_I32;
+        for (int e = 0; e < 4; ++e) {
+            folded[j][e] = MIN_I32;
+            if (MASK) acc[j][e] = 0.f;
+        }
     int* T = Tb + pair * 8 * FM_TSTRIDE;
     i64* cbuf = Cb + warp * 128;
 
@@ -740,7 +770,7 @@ fold_mma_kernel(const void* __restrict__ qp, const void* __restrict__ cp,
         if (!active) continue;
         const int sub = st / n_dch, dci = st - sub * n_dch;
         const int t0 = row0 + sub * TN;
-        if (dci == 0) {
+        if (!MASK && dci == 0) {
 #pragma unroll
             for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -781,16 +811,39 @@ fold_mma_kernel(const void* __restrict__ qp, const void* __restrict__ cp,
         const int local0 = lb + c64 + 2 * t4, valid = n - t0 - c64 - 2 * t4;
         const float* cq =
             reinterpret_cast<const float*>(S + FM_STAGE_BYTES) + c64 + 2 * t4;
+        unsigned mb = 0;
+        if constexpr (MASK) {  // the warp's 64 rows: two whole mask words,
+            // of which the thread's 16 columns go into one register
+            const int w = (t0 + c64) >> 5, n_words = (n + 31) >> 5;
+            const unsigned lo = w < n_words ? __ldg(mask + w) : 0u;
+            const unsigned hi = w + 1 < n_words ? __ldg(mask + w + 1) : 0u;
+            mb = ((lo >> (2 * t4)) & 0x03030303u) |
+                 (((hi >> (2 * t4)) & 0x03030303u) << 2);
+        }
         if (euclid) {
             const float qs0 = qsq[wq0 + g], qs1 = qsq[wq0 + g + 8];
             if (t0 + TN > n)
-                fm_fold<true, true>(folded, acc, local0, valid, qs0, qs1, cq);
+                fm_fold<true, true, MASK>(folded, acc, local0, valid, qs0,
+                                          qs1, cq, mb);
             else
-                fm_fold<true, false>(folded, acc, local0, valid, qs0, qs1, cq);
+                fm_fold<true, false, MASK>(folded, acc, local0, valid, qs0,
+                                           qs1, cq, mb);
         } else if (t0 + TN > n) {
-            fm_fold<false, true>(folded, acc, local0, valid, 0.f, 0.f, cq);
+            fm_fold<false, true, MASK>(folded, acc, local0, valid, 0.f, 0.f,
+                                       cq, mb);
         } else {
-            fm_fold<false, false>(folded, acc, local0, valid, 0.f, 0.f, cq);
+            fm_fold<false, false, MASK>(folded, acc, local0, valid, 0.f, 0.f,
+                                        cq, mb);
+        }
+        // MASK: the sums start again here, not at the next sub-tile's first
+        // stage, so that they are dead across the flush below; live there
+        // (32 registers) they made ptxas spill 20-64 bytes in 7 of the 9
+        // masked instances. The unmasked instances keep the parent's order
+        if constexpr (MASK) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
         }
         const bool flush = lb + TN == block_n || t0 + TN >= row1;
         if (!flush) continue;  // uniform across the warp
@@ -836,7 +889,7 @@ fold_mma_kernel(const void* __restrict__ qp, const void* __restrict__ cp,
         for (int i = lane; i < k; i += 32) {
             const size_t o = (size_t)q * k + i;
             if (final_out) {
-                fm_decode(Lq[i], R, block_n, out_s + o, out_i + o);
+                fm_decode<MASK>(Lq[i], R, block_n, out_s + o, out_i + o);
             } else {
                 part[(size_t)blockIdx.y * nq * k + o] = Lq[i];
             }
@@ -845,8 +898,9 @@ fold_mma_kernel(const void* __restrict__ qp, const void* __restrict__ cp,
 }
 
 // One warp per query: start from slab 0's sorted list; merge in each other
-// slab's list (read reversed, so ascending) with one bitonic merge.
-template <int E>
+// slab's list (read reversed, so ascending) with one bitonic merge. MASK:
+// the slabs come from the row-mask instance, so slots may be empty.
+template <int E, bool MASK>
 __global__ void __launch_bounds__(FM_THREADS)
 fold_merge_kernel(const i64* __restrict__ part, int S, int nq, int k,
                   int block_n, unsigned R, float* __restrict__ out_s,
@@ -875,14 +929,14 @@ fold_merge_kernel(const i64* __restrict__ part, int S, int nq, int k,
         const int i = E * lane + e;
         if (i < k) {
             const size_t o = (size_t)q * k + i;
-            fm_decode(v[e], R, block_n, out_s + o, out_i + o);
+            fm_decode<MASK>(v[e], R, block_n, out_s + o, out_i + o);
         }
     }
 }
 
 // Each kernel instance's dynamic shared memory is raised to the card's
 // opt-in limit once per device, not on every call.
-template <int E, int OP>
+template <int E, int OP, bool MASK>
 static int fm_prepare() {
     static unsigned ready = 0;  // bit per device
     int dev = 0;
@@ -893,40 +947,42 @@ static int fm_prepare() {
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
     if (e != cudaSuccess) return (int)e;
-    e = cudaFuncSetAttribute(fold_mma_kernel<E, OP>,
+    e = cudaFuncSetAttribute(fold_mma_kernel<E, OP, MASK>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (e != cudaSuccess) return (int)e;
     if (dev < 32) ready |= 1u << dev;
     return 0;
 }
 
-template <int E, int OP>
+template <int E, int OP, bool MASK>
 static int fm_occupancy(size_t smem) {
-    int e = fm_prepare<E, OP>();
+    int e = fm_prepare<E, OP, MASK>();
     if (e) return -e;
     int blocks = 0;
     e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, fold_mma_kernel<E, OP>, FM_THREADS, smem);
+        &blocks, fold_mma_kernel<E, OP, MASK>, FM_THREADS, smem);
     return e ? -e : blocks;
 }
 
-template <int E, int OP>
-static int fm_launch(const void* q, const void* c, const float* csq, int nq,
-                     int n, int d, int k, int euclid, int block_n,
-                     int slab_rows, int vec, long long* part, float* out_s,
-                     int* out_i, size_t smem, cudaStream_t st) {
-    int e = fm_prepare<E, OP>();
+template <int E, int OP, bool MASK>
+static int fm_launch(const void* q, const void* c, const float* csq,
+                     const unsigned* mask, int nq, int n, int d, int k,
+                     int euclid, int block_n, int slab_rows, int vec,
+                     long long* part, float* out_s, int* out_i, size_t smem,
+                     cudaStream_t st) {
+    int e = fm_prepare<E, OP, MASK>();
     if (e) return e;
     const int n_slabs = (n + slab_rows - 1) / slab_rows;
     const unsigned R =
         (unsigned)((n + block_n - 1) / block_n - 1) * (unsigned)block_n;
     dim3 grid((nq + FM_TQ - 1) / FM_TQ, n_slabs);
-    fold_mma_kernel<E, OP><<<grid, FM_THREADS, smem, st>>>(
-        q, c, csq, nq, n, d, k, euclid, block_n, slab_rows, vec, n_slabs == 1,
-        part, out_s, out_i);
+    fold_mma_kernel<E, OP, MASK><<<grid, FM_THREADS, smem, st>>>(
+        q, c, csq, mask, nq, n, d, k, euclid, block_n, slab_rows, vec,
+        n_slabs == 1, part, out_s, out_i);
     e = (int)cudaGetLastError();
     if (e || n_slabs == 1) return e;
-    fold_merge_kernel<E><<<(nq + FM_WARPS - 1) / FM_WARPS, FM_THREADS, 0, st>>>(
+    fold_merge_kernel<E, MASK><<<(nq + FM_WARPS - 1) / FM_WARPS, FM_THREADS, 0,
+                                 st>>>(
         part, n_slabs, nq, k, block_n, R, out_s, out_i);
     return (int)cudaGetLastError();
 }
@@ -934,15 +990,16 @@ static int fm_launch(const void* q, const void* c, const float* csq, int nq,
 // List entries a lane for k: the least list of 32, 64 or 128 that holds it.
 static int fm_e(int k) { return k <= 32 ? 1 : k <= 64 ? 2 : 4; }
 
-// F<E, OP>(args) for E = fm_e(k) and the operand kind op.
+// F<E, OP, LR_MASK>(args) for E = fm_e(k) and the operand kind op; the
+// library's flavour (LR_MASK, fused_topk.cu) sets the row mask's flag.
 #define FM_DISPATCH_OP(F, O, ...)                                             \
-    (k <= 32   ? F<1, O>(__VA_ARGS__)                                         \
-     : k <= 64 ? F<2, O>(__VA_ARGS__)                                         \
-               : F<4, O>(__VA_ARGS__))
-#define FM_DISPATCH(F, ARGS)                                                  \
-    (op == OP_BIN   ? FM_DISPATCH_OP(F, OP_BIN, ARGS)                         \
-     : op == OP_F32 ? FM_DISPATCH_OP(F, OP_F32, ARGS)                         \
-                    : FM_DISPATCH_OP(F, OP_BF16, ARGS))
+    (k <= 32   ? F<1, O, LR_MASK>(__VA_ARGS__)                                \
+     : k <= 64 ? F<2, O, LR_MASK>(__VA_ARGS__)                                \
+               : F<4, O, LR_MASK>(__VA_ARGS__))
+#define FM_DISPATCH(F, ...)                                                   \
+    (op == OP_BIN   ? FM_DISPATCH_OP(F, OP_BIN, __VA_ARGS__)                  \
+     : op == OP_F32 ? FM_DISPATCH_OP(F, OP_F32, __VA_ARGS__)                  \
+                    : FM_DISPATCH_OP(F, OP_BF16, __VA_ARGS__))
 
 extern "C" {
 
@@ -956,8 +1013,9 @@ size_t lr_fold_mma_smem(int d, int k, int op) {
            (size_t)FM_WARPS * 128 * 8 + (size_t)FM_TQ * k * 8;
 }
 
-// Resident fold_mma_kernel blocks per SM at (d, k, op) on the current
-// device (0: does not fit); a negative cudaError_t on failure.
+// Resident fold_mma_kernel blocks per SM at (d, k, op), of the library's
+// flavour (LR_MASK), on the current device (0: does not fit); a negative
+// cudaError_t on failure.
 int lr_fold_mma_occupancy(int d, int k, int op) {
     const size_t smem = lr_fold_mma_smem(d, k, op);
     return FM_DISPATCH(fm_occupancy, smem);
@@ -968,16 +1026,20 @@ int lr_fold_mma_occupancy(int d, int k, int op) {
 // queries, c the packed sign words [n, ceil(d/32)]; euclid = 0):
 // fold_mma_kernel over (query tiles x slabs), then, with more than one
 // slab, fold_merge_kernel; lists of 32, 64 or 128 entries in registers,
-// the least that holds k. part is [slabs, nq, k] int64 scratch (unused
-// with one slab). Returns a cudaError_t.
+// the least that holds k. mask (the masked library; null in the other) is
+// the allowed rows' bits, int32 words [ceil(n/32)], bit r & 31 of word
+// r >> 5 for row r; slots past the allowed rows come out as (LR_NEG_INF,
+// -1). part is
+// [slabs, nq, k] int64 scratch (unused with one slab). Returns a
+// cudaError_t.
 int lr_fold_mma(const void* q, const void* c, const float* csq, int nq, int n,
                 int d, int k, int euclid, int block_n, int slab_rows, int vec,
-                int op, long long* part, float* out_s, int* out_i,
-                void* stream) {
+                int op, const unsigned* mask, long long* part, float* out_s,
+                int* out_i, void* stream) {
     const size_t smem = lr_fold_mma_smem(d, k, op);
     cudaStream_t st = (cudaStream_t)stream;
-#define FM_ARGS q, c, csq, nq, n, d, k, euclid, block_n, slab_rows, vec, part, \
-                out_s, out_i, smem, st
+#define FM_ARGS q, c, csq, mask, nq, n, d, k, euclid, block_n, slab_rows, vec, \
+                part, out_s, out_i, smem, st
     return FM_DISPATCH(fm_launch, FM_ARGS);
 #undef FM_ARGS
 }

@@ -1,14 +1,16 @@
 // Fused distance + top-k for Hopper (sm_90a): the CUDA port of the JAX
 // package's Pallas kernels in ops/pallas_topk.py. Every kernel runs on the
 // tensor cores (mma.sync), one template for each TPU kernel, instantiated
-// for three operand kinds (OP: bf16, packed binary, fp32):
+// for three operand kinds (OP: bf16, packed binary, fp32), and, for the fold
+// and the exact search, with and without the row mask of a filtered search
+// (MASK):
 //
-//   fold_mma_kernel<E, OP>   (fold_mma.cuh) replaces _fold_kernel
+//   fold_mma_kernel<E, OP, MASK> (fold_mma.cuh) replaces _fold_kernel
 //                            (pallas_topk.py:162-179, _fold_body :114-159)
 //                            for bf16 (OP_BF16) and fp32 (OP_F32) stores, and
 //                            _binary_fold_kernel (:354-401) as OP_BIN;
-//                            fold_merge_kernel<E> merges its slabs
-//   exact_mma_kernel<KP, OP> (exact_mma.cuh) replaces _exact_kernel
+//                            fold_merge_kernel<E, MASK> merges its slabs
+//   exact_mma_kernel<KP, OP, MASK> (exact_mma.cuh) replaces _exact_kernel
 //                            (pallas_topk.py:182-221) for bf16 and fp32
 //                            stores, and as OP_BIN the exact sign-dot search
 //                            binary_topk (the JAX package's ops/binary.py:129)
@@ -40,6 +42,10 @@
 //   bf16 a stage at a time in shared memory. Scores become order-preserving
 //   int32 keys (_monotone_i32). Rows >= n never win.
 //   exact: the top-k of (key desc, row asc) over all rows: ties go to the lower row.
+//   row mask (a filtered search; the fold and exact kernels): only rows
+//          whose bit is set in mask (int32 words [ceil(n/32)], bit r & 31
+//          of word r >> 5) are candidates; a slot that no allowed row
+//          fills comes out as (LR_NEG_INF, -1), never as a real row.
 //   fold:  per aligned tile of block_n rows (block_n = 4096 by default), each of
 //          the 128 lanes (lane = column mod 128) keeps the max packed value
 //          (key with its low 13 bits replaced by the tile column); the result is
@@ -91,7 +97,19 @@
 
 #define TN 128         // corpus rows per sub-tile = the fold's 128 lanes
 #define DCH 64         // bf16 feature dims per shared-memory stage (32 fp32)
+// The build compiles this file twice, into two libraries, by two nvcc
+// processes at once: LR_MASKED=0 (the default) instantiates the kernels
+// without the row mask and the exact select, LR_MASKED=1 the row-mask
+// instances of the fold and exact kernels (a filtered search). The C
+// functions are the same in both; asked for the other flavour, they
+// return cudaErrorInvalidValue.
+#ifndef LR_MASKED
+#define LR_MASKED 0
+#endif
+constexpr bool LR_MASK = LR_MASKED != 0;
+
 #define MIN_I32 (-2147483647)  // the TPU kernels' _MIN_I32 = -(2**31) + 1
+#define LR_NEG_INF (-3.4e38f)  // an empty slot's score (ops.topk.NEG_INF)
 #define IDX_MASK 0x1FFF        // 13-bit tile column (block_n <= 8192)
 
 // Operand kinds of the tensor-core kernels (the C API's `op`): bf16 queries
@@ -109,4 +127,6 @@ const char* lr_error_string(int code) {
 
 #include "fold_mma.cuh"
 #include "exact_mma.cuh"
+#if !LR_MASKED
 #include "exact_select.cuh"
+#endif

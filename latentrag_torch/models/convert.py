@@ -9,8 +9,9 @@ The JAX package keeps Flax parameter trees: ``Dense`` layers as
 ``state_dict``; they import nothing of JAX.
 
 ``load_autoencoder_pth`` reads a reference-keyed ``.pth``, which needs no
-conversion. Reading the JAX package's msgpack and Orbax files is a later
-slice (ROADMAP queue 1, slice B).
+conversion. The JAX package's encoder msgpack reads into such a tree with
+``models.encoder.msgpack_io.load_msgpack`` (a bf16 leaf arrives as a
+``torch.bfloat16`` tensor); its Orbax AE checkpoints have no reader yet.
 """
 
 from __future__ import annotations
@@ -24,12 +25,14 @@ from ..utils.config import canonical_ae_type
 
 
 def _t(a: Any) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(torch.float32).clone()
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
 def _linear(node: Mapping, prefix: str) -> dict:
     return {
-        f"{prefix}.weight": _t(np.asarray(node["kernel"]).T),
+        f"{prefix}.weight": _t(node["kernel"]).T.contiguous(),
         f"{prefix}.bias": _t(node["bias"]),
     }
 

@@ -15,6 +15,7 @@ from .topk import (
     approx_topk,
     exact_topk,
     maxsim_aggregate,
+    pack_row_mask,
     unpack_row_mask,
 )
 
@@ -30,5 +31,6 @@ __all__ = [
     "approx_topk",
     "exact_topk",
     "maxsim_aggregate",
+    "pack_row_mask",
     "unpack_row_mask",
 ]

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from .topk import NEG_INF, as_bool_mask
+
 BITS = 32
 
 
@@ -61,16 +63,20 @@ def binary_unpack_t(packed_t: torch.Tensor, d: int) -> torch.Tensor:
     return (2 * bits - 1).to(torch.int8).reshape(w * BITS, n)[:d]
 
 
-def _sign_dot_topk(queries, n, k, block_size, unpack_block):
+def _sign_dot_topk(queries, n, k, block_size, unpack_block, mask=None):
     """Exact top-k of sign-dot scores, corpus streamed in blocks:
     (scores [Q, k] f32, ids [Q, k] i64). Ties go to the lower row, as
-    ``lax.top_k`` breaks them."""
+    ``lax.top_k`` breaks them. Rows outside ``mask`` (bool [n]) score
+    NEG_INF."""
     q = queries.to(torch.bfloat16).float()
     k = min(k, n)
     run_s = run_i = None
     for base in range(0, n, block_size):
         c = unpack_block(base, min(base + block_size, n)).float()  # [B, d]
         s = q @ c.T
+        if mask is not None:
+            s = torch.where(mask[None, base : base + c.shape[0]], s,
+                            NEG_INF)
         blk_s, sel = torch.sort(s, dim=1, descending=True, stable=True)
         blk_s, blk_i = blk_s[:, :k], sel[:, :k] + base
         if run_s is not None:  # earlier blocks' rows first: ties stay low
@@ -85,13 +91,17 @@ def _sign_dot_topk(queries, n, k, block_size, unpack_block):
 
 def binary_topk(
     queries: torch.Tensor, packed: torch.Tensor, d: int, k: int,
-    block_size: int = 65536,
+    block_size: int = 65536, mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact asymmetric top-k over a packed store [N, W]: (scores [Q, k]
-    f32, ids [Q, k] i64), score = dot(bf16(q), sign(c)). k clips to N."""
+    f32, ids [Q, k] i64), score = dot(bf16(q), sign(c)). k clips to N.
+    ``mask`` (bool [N], or its packed int32 words) restricts eligibility:
+    excluded rows score NEG_INF and their ids are arbitrary, so callers
+    sentinel NEG_INF slots before a rescore, as the JAX function's do."""
     return _sign_dot_topk(
         queries, packed.shape[0], k, block_size,
         lambda lo, hi: binary_unpack(packed[lo:hi], d),
+        as_bool_mask(mask, packed.shape[0]),
     )
 
 

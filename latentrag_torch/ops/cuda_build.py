@@ -1,13 +1,16 @@
 """Build and load the port's CUDA sources at first use.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, loaded with ``ctypes``. The
-library lands in ``latentrag_torch/_build/`` (listed in ``.gitignore``)
-under a name keyed by a hash of the flags and of the source with every
-file it includes from ``csrc/``, so an edited source or header rebuilds
-and an unchanged one loads at once. Nothing is built when a module is
-imported: only the first kernel launch on a CUDA tensor calls
-``load_library``.
+shared library with a plain C interface, loaded with ``ctypes``; a source
+may be compiled into several libraries, one for each set of ``-D``
+defines (``fused_topk.cu``: with and without the row-mask instances).
+``load_libraries`` starts every missing build at once, one ``nvcc`` a
+library, so their wall time is the longest one's. A library lands in
+``latentrag_torch/_build/`` (listed in ``.gitignore``) under a name keyed
+by a hash of the flags, the defines and the source with every file it
+includes from ``csrc/``, so an edited source or header rebuilds and an
+unchanged one loads at once. Nothing is built when a module is imported:
+only the first kernel launch on a CUDA tensor loads the libraries.
 """
 
 from __future__ import annotations
@@ -66,10 +69,18 @@ def sources(name: str) -> list[str]:
     return sorted(seen)
 
 
-def library_path(name: str) -> str:
-    """The library's path, keyed by a hash of the flags and of every
-    source it is built from, so an edited header rebuilds too."""
-    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+def _flags(defines) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def _key(name: str, defines) -> str:
+    return name + "".join(f"[{d}]" for d in defines)
+
+
+def library_path(name: str, defines: tuple = ()) -> str:
+    """The library's path, keyed by a hash of the flags, the defines and
+    every source it is built from, so an edited header rebuilds too."""
+    digest = hashlib.sha1(" ".join(_flags(defines)).encode())
     for rel in sources(name):
         digest.update(rel.encode())
         with open(os.path.join(CSRC, rel), "rb") as f:
@@ -77,32 +88,48 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its hashed library exists; returns
-    the library path. The output is written under a temporary name and
-    renamed, so a build cut short never leaves a library that loads."""
-    out = library_path(name)
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds[name] = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
-            f"{proc.stderr[-4000:]}"
-        )
-    os.replace(tmp, out)
-    return out
+def build_all(specs) -> list[str]:
+    """Compile each ``(name, defines)`` of ``specs`` whose hashed library
+    does not exist yet, every ``nvcc`` started at once; returns the
+    libraries' paths. Each output is written under a temporary name and
+    renamed, so a build cut short never leaves a library that loads; a
+    failed build raises once every started one has ended."""
+    started = []
+    for name, defines in specs:
+        out = library_path(name, defines)
+        if os.path.exists(out):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *_flags(defines), "-o", tmp,
+               os.path.join(CSRC, f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        started.append((_key(name, defines), out, tmp, proc,
+                        time.perf_counter()))
+    errors = []
+    for key, out, tmp, proc, t0 in started:
+        _, err = proc.communicate()
+        build_seconds[key] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {key} (exit {proc.returncode}):"
+                          f"\n{err[-4000:]}")
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return [library_path(name, defines) for name, defines in specs]
 
 
-def load_library(name: str) -> ctypes.CDLL:
+def load_libraries(specs) -> list[ctypes.CDLL]:
+    """The libraries of ``specs`` (``(name, defines)`` pairs), built
+    together where missing, loaded once per process."""
     with _lock:
-        lib = _loaded.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(build(name))
-            _loaded[name] = lib
-        return lib
+        missing = [s for s in specs if _key(*s) not in _loaded]
+        for spec, path in zip(missing, build_all(missing)):
+            _loaded[_key(*spec)] = ctypes.CDLL(path)
+        return [_loaded[_key(*s)] for s in specs]
+
+
+def load_library(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    return load_libraries([(name, tuple(defines))])[0]

@@ -40,9 +40,26 @@ The port of the JAX package's ``ops/pallas_topk.py``:
   counterpart ``binary_topk`` is XLA and not Pallas, raises past it on the
   card.
 
+Filtered search. Every function above except the exact select past
+``EXACT_MAX_K`` takes ``mask``: the allowed rows' packed bits, int32 words
+[ceil(N/32)] (bit ``r & 31`` of word ``r >> 5`` is row r:
+``ops.topk.pack_row_mask``, or the dense retriever's cached filter). The
+fold and exact kernels read it in their epilogue (``fold_mma_kernel<E, OP,
+true>``, ``exact_mma_kernel<KP, OP, true>``) and drop a masked-out row
+before it can enter a list; the plain versions unpack it
+(``ops.topk.unpack_row_mask``) and treat a masked-out row as the kernels
+treat a row past N. A slot that no allowed row fills comes back as
+(``NEG_INF``, -1) from the kernels and the plain versions alike, and the
+rescores keep it so, never gathering row -1 as the last row. The exact
+select past 2048 takes no mask (the JAX package's Pallas backends refuse
+filters); the approximate routes there take the blocked search, which
+masks.
+
 On a CUDA tensor the raw functions launch the kernels of
-``csrc/fused_topk.cu`` or raise; on a CPU tensor they run their plain
-versions, which repeat the JAX algorithm step by step, fold included.
+``csrc/fused_topk.cu`` (built into two libraries, ``LIBRARIES``: without
+the row mask, and the row-mask instances) or raise; on a CPU tensor they
+run their plain versions, which repeat the JAX algorithm step by step,
+fold included.
 Every store runs tensor-core kernels that write the scores and ids
 themselves: the folds in ``csrc/fold_mma.cuh``, the exact searches in
 ``csrc/exact_mma.cuh`` (batched list upkeep in both), each instantiated
@@ -57,7 +74,9 @@ the H100 and what their designs do about that.
 ``binary_fold``, ``binary_exact``; a call that launches several kernels,
 a partial and a merge or the select's passes and sort, counts once) and
 the blocked route's calls on the card (``blocked``, ``binary_blocked``);
-plain-version calls and the blocked route on the CPU do not count.
+``masked`` counts, beside them, the launches of those four that read a
+row mask; plain-version calls and the blocked route on the CPU do not
+count.
 ``last_kernel`` names the C kernels the latest launch ran.
 
 Euclidean scores are 2 q.c - |q|^2 - |c|^2. Every kernel and the plain
@@ -74,6 +93,8 @@ import functools
 import math
 
 import torch
+
+from .topk import NEG_INF, as_bool_mask
 
 _MIN_I32 = -(2**31) + 1
 _IDX_BITS = 13  # tile-local column bits => block_n <= 8192
@@ -104,7 +125,7 @@ _ES_SAMPLE_RANK = 256
 _ES_BUFFER_BYTES = 1 << 30
 
 launches = {"fold": 0, "exact": 0, "binary_fold": 0, "binary_exact": 0,
-            "blocked": 0, "binary_blocked": 0}
+            "blocked": 0, "binary_blocked": 0, "masked": 0}
 last_kernel: str | None = None
 # the latest exact select's plan: route, sample stride and rank, capacity
 last_select: dict | None = None
@@ -133,6 +154,27 @@ def _monotone_i32(s: torch.Tensor) -> torch.Tensor:
 def _unmonotone_f32(m: torch.Tensor) -> torch.Tensor:
     bits = torch.where(m >= 0, m, m ^ 0x7FFFFFFF).to(torch.int32)
     return bits.contiguous().view(torch.float32)
+
+
+def _validate_mask(mask, n: int, device) -> None:
+    """A row mask is int32 words [ceil(n/32)] on the corpus's device."""
+    if mask is None:
+        return
+    if (mask.dtype != torch.int32 or mask.ndim != 1
+            or mask.numel() != -(-n // 32) or not mask.is_contiguous()):
+        raise ValueError(
+            f"mask must be contiguous int32 words [{-(-n // 32)}] (the "
+            f"packed bits of the N={n} rows), got {mask.dtype} "
+            f"{tuple(mask.shape)}")
+    if mask.device != device:
+        raise ValueError("mask must be on the corpus's device")
+
+
+def _sentinel(scores: torch.Tensor, ids: torch.Tensor):
+    """Slots without a candidate (score at NEG_INF: a filter allowed fewer
+    rows than k) carry id -1, as the kernels write them."""
+    return scores, torch.where(scores > NEG_INF * 0.5, ids,
+                               torch.full_like(ids, -1))
 
 
 def _validate(queries, corpus, corpus_sq, k, mode, block_n):
@@ -196,18 +238,24 @@ def _corpus_sq(corpus, corpus_sq):
     return corpus_sq.float()
 
 
-def _plain_topk(score_tile, nq, n, k_eff, mode, block_n, dev):
+def _plain_topk(score_tile, nq, n, k_eff, mode, block_n, dev, mask=None):
     """The JAX kernels' tile loop in PyTorch: ``score_tile(base, end)``
     gives the [Q, block_n] fp32 scores of rows [base, base + block_n)
     (rows from ``end`` on are padding and never win). A stable descending
     sort stands for the TPU's max-extraction passes (both keep the first
-    occurrence of a tie)."""
+    occurrence of a tie). ``mask`` (bool [n]) drops a row as a padding row
+    is dropped; a slot left without a candidate is (NEG_INF, -1)."""
     run_v = torch.full((nq, k_eff), _MIN_I32, dtype=torch.int32, device=dev)
     run_i = torch.zeros((nq, k_eff), dtype=torch.int32, device=dev)
     local = torch.arange(block_n, dtype=torch.int32, device=dev)
+    if mask is not None:  # padded to whole tiles with dropped rows
+        mask = torch.nn.functional.pad(
+            mask, (0, -(-n // block_n) * block_n - n))
     for base in range(0, n, block_n):
         s = score_tile(base, min(base + block_n, n))
         valid = (local + base) < n
+        if mask is not None:
+            valid = valid & mask[base : base + block_n]
         mono = _monotone_i32(s)
         if mode == "fold":
             packed = (mono & ~_IDX_MASK) | local[None, :]
@@ -227,7 +275,9 @@ def _plain_topk(score_tile, nq, n, k_eff, mode, block_n, dev):
         order = order[:, :k_eff]
         run_v = torch.gather(comb_v, 1, order)
         run_i = torch.gather(comb_i, 1, order)
-    return _unmonotone_f32(run_v), run_i
+    empty = run_v == _MIN_I32
+    return (torch.where(empty, NEG_INF, _unmonotone_f32(run_v)),
+            torch.where(empty, -1, run_i))
 
 
 def fused_topk_raw_reference(
@@ -239,10 +289,12 @@ def fused_topk_raw_reference(
     metric: str = "cosine",
     mode: str = "fold",
     block_n: int = 4096,
+    mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of the kernels: the JAX algorithm tile by
     tile, on any device."""
     k_eff = _validate(queries, corpus, corpus_sq, k, mode, block_n)
+    _validate_mask(mask, corpus.shape[0], corpus.device)
     euclid = _metric_kind(metric) == "euclidean"
     nq, d = queries.shape
     n = corpus.shape[0]
@@ -262,22 +314,41 @@ def fused_topk_raw_reference(
             s = 2.0 * s - q_sq - cs[None, :]
         return s
 
-    return _plain_topk(score_tile, nq, n, k_eff, mode, block_n, dev)
+    return _plain_topk(score_tile, nq, n, k_eff, mode, block_n, dev,
+                       as_bool_mask(mask, n))
+
+
+# the kernels' two libraries, one source: without the row mask (and with the
+# exact select), and the row-mask instances of the fold and exact kernels
+LIBRARIES = (("fused_topk", ()), ("fused_topk", ("LR_MASKED=1",)))
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared."""
-    from .cuda_build import load_library
+def _libraries() -> tuple:
+    """Both kernel libraries, built at once at the first launch, with
+    their C signatures declared."""
+    from .cuda_build import load_libraries
 
-    lib = load_library("fused_topk")
+    libs = load_libraries(LIBRARIES)
+    for lib, (_, defines) in zip(libs, LIBRARIES):
+        _declare(lib, select=not defines)
+    return tuple(libs)
+
+
+def _library(masked: bool = False) -> ctypes.CDLL:
+    """The library of the row-mask instances if ``masked``, else the
+    other."""
+    return _libraries()[int(masked)]
+
+
+def _declare(lib, select: bool) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.lr_fold_mma_smem.restype = ctypes.c_size_t
     lib.lr_fold_mma_smem.argtypes = [i, i, i]
     lib.lr_fold_mma_occupancy.restype = i
     lib.lr_fold_mma_occupancy.argtypes = [i, i, i]
     lib.lr_fold_mma.restype = i
-    lib.lr_fold_mma.argtypes = [p, p, p] + [i] * 9 + [p, p, p, p]
+    lib.lr_fold_mma.argtypes = [p, p, p] + [i] * 9 + [p] * 5
     lib.lr_exact_mma_queries.restype = i
     lib.lr_exact_mma_queries.argtypes = [i]
     lib.lr_exact_mma_smem.restype = ctypes.c_size_t
@@ -285,7 +356,11 @@ def _library() -> ctypes.CDLL:
     lib.lr_exact_mma_occupancy.restype = i
     lib.lr_exact_mma_occupancy.argtypes = [i, i, i]
     lib.lr_exact_mma.restype = i
-    lib.lr_exact_mma.argtypes = [p, p, p] + [i] * 8 + [p, p, p, p]
+    lib.lr_exact_mma.argtypes = [p, p, p] + [i] * 8 + [p] * 5
+    lib.lr_error_string.restype = ctypes.c_char_p
+    lib.lr_error_string.argtypes = [i]
+    if not select:  # the masked library has no exact select
+        return
     lib.lr_exact_select_smem.restype = ctypes.c_size_t
     lib.lr_exact_select_smem.argtypes = [i, i]
     lib.lr_exact_select_scratch.restype = ctypes.c_size_t
@@ -294,9 +369,6 @@ def _library() -> ctypes.CDLL:
     lib.lr_exact_select_occupancy.argtypes = [i, i]
     lib.lr_exact_select.restype = i
     lib.lr_exact_select.argtypes = [p, p, p] + [i] * 9 + [p, i] + [p] * 4
-    lib.lr_error_string.restype = ctypes.c_char_p
-    lib.lr_error_string.argtypes = [i]
-    return lib
 
 
 @functools.cache
@@ -326,11 +398,13 @@ def _vec(corpus, d: int, op: int) -> bool:
 
 
 @functools.cache
-def _slots(index: int, kernel: str, d: int, k: int, op: int) -> int:
+def _slots(index: int, kernel: str, d: int, k: int, op: int,
+           masked: bool = False) -> int:
     """Resident blocks of ``kernel`` (``fold_mma``, ``exact_mma`` or
     ``exact_select``, whose shared memory does not depend on k) for operand
-    kind ``op`` the card holds at (d, k)."""
-    lib = _library()
+    kind ``op`` the card holds at (d, k), the row-mask instance if
+    ``masked``."""
+    lib = _library(masked)
     args = (d, op) if kernel == "exact_select" else (d, k, op)
     with torch.cuda.device(index):
         per_sm = getattr(lib, f"lr_{kernel}_occupancy")(*args)
@@ -339,22 +413,33 @@ def _slots(index: int, kernel: str, d: int, k: int, op: int) -> int:
     if per_sm == 0:
         raise ValueError(
             f"d={d}, k={k} needs more shared memory than one block has "
-            f"({getattr(lib, f'lr_{kernel}_smem')(*args)} bytes)"
+            f"({getattr(lib, f'lr_{kernel}_smem')(*args[:3])} bytes)"
         )
     return per_sm * _sm_count(index)
 
 
-def _fold_mma(queries, corpus, csq, *, d, k_eff, block_n, euclid, op):
+def _launched(name: str, mask) -> str:
+    """Count a launch that read the row mask; the C kernel's name as
+    ``last_kernel`` gives it (``<mask>`` marks the row-mask instance)."""
+    if mask is None:
+        return name
+    launches["masked"] += 1
+    return name + "<mask>"
+
+
+def _fold_mma(queries, corpus, csq, *, d, k_eff, block_n, euclid, op,
+              mask=None):
     """The fold on the tensor cores (``csrc/fold_mma.cuh``) over bf16 or
-    fp32 stores, or packed sign words (``op``): the corpus in slabs of
-    whole tiles, as many as fill the card's resident block slots for the
-    query tiles at hand; the kernels write the fp32 scores and int32 ids."""
+    fp32 stores, or packed sign words (``op``), with the row mask when
+    ``mask`` is given: the corpus in slabs of whole tiles, as many as fill
+    the card's resident block slots for the query tiles at hand; the
+    kernels write the fp32 scores and int32 ids."""
     _require_contiguous(queries, corpus)
     nq = queries.shape[0]
     n = corpus.shape[0]
     dev = queries.device
-    lib = _library()
-    slots = _slots(dev.index, "fold_mma", d, k_eff, op)
+    lib = _library(mask is not None)
+    slots = _slots(dev.index, "fold_mma", d, k_eff, op, mask is not None)
     n_tiles = -(-n // block_n)
     want = min(n_tiles, max(1, slots // -(-nq // _FM_TQ)))
     slab_rows = -(-n_tiles // want) * block_n
@@ -369,13 +454,14 @@ def _fold_mma(queries, corpus, csq, *, d, k_eff, block_n, euclid, op):
             csq.data_ptr() if csq is not None else None,
             nq, n, d, k_eff, int(euclid), block_n, slab_rows,
             int(_vec(corpus, d, op)), op,
+            mask.data_ptr() if mask is not None else None,
             part.data_ptr() if part is not None else None,
             scores.data_ptr(), ids.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _check(lib, code, f"fold_mma_kernel{_OP_TAG[op]}")
     global last_kernel
-    last_kernel = f"fold_mma_kernel{_OP_TAG[op]}" + (
+    last_kernel = _launched(f"fold_mma_kernel{_OP_TAG[op]}", mask) + (
         "+fold_merge_kernel" if n_slabs > 1 else "")
     return scores, ids
 
@@ -389,20 +475,20 @@ def _exact_slab_rows(n: int, q_tiles: int, slots: int) -> int:
     return -(-n_sub // want) * _LANES
 
 
-def _exact_mma(queries, corpus, csq, *, d, k_eff, euclid, op):
+def _exact_mma(queries, corpus, csq, *, d, k_eff, euclid, op, mask=None):
     """The exact search over bf16 or fp32 stores, or the exact sign-dot
     search over packed sign words (``op``), on the tensor cores
-    (``csrc/exact_mma.cuh``), k <= 2048, the corpus in slabs
-    (``_exact_slab_rows``); the kernels write the fp32 scores and int32
-    ids."""
+    (``csrc/exact_mma.cuh``), with the row mask when ``mask`` is given,
+    k <= 2048, the corpus in slabs (``_exact_slab_rows``); the kernels
+    write the fp32 scores and int32 ids."""
     _require_contiguous(queries, corpus)
     nq = queries.shape[0]
     n = corpus.shape[0]
     dev = queries.device
-    lib = _library()
+    lib = _library(mask is not None)
     slab_rows = _exact_slab_rows(
         n, -(-nq // lib.lr_exact_mma_queries(k_eff)),
-        _slots(dev.index, "exact_mma", d, k_eff, op))
+        _slots(dev.index, "exact_mma", d, k_eff, op, mask is not None))
     n_slabs = -(-n // slab_rows)
     scores = torch.empty((nq, k_eff), dtype=torch.float32, device=dev)
     ids = torch.empty((nq, k_eff), dtype=torch.int32, device=dev)
@@ -414,28 +500,30 @@ def _exact_mma(queries, corpus, csq, *, d, k_eff, euclid, op):
             csq.data_ptr() if csq is not None else None,
             nq, n, d, k_eff, int(euclid), slab_rows,
             int(_vec(corpus, d, op)), op,
+            mask.data_ptr() if mask is not None else None,
             part.data_ptr() if part is not None else None,
             scores.data_ptr(), ids.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _check(lib, code, f"exact_mma_kernel{_OP_TAG[op]}")
     global last_kernel
-    last_kernel = f"exact_mma_kernel{_OP_TAG[op]}" + (
+    last_kernel = _launched(f"exact_mma_kernel{_OP_TAG[op]}", mask) + (
         "+exact_merge_kernel" if n_slabs > 1 else "")
     return scores, ids
 
 
-def _blocked_topk(queries, corpus, k_eff, metric):
+def _blocked_topk(queries, corpus, k_eff, metric, mask=None):
     """``approx_fused_topk``'s route past ``EXACT_MAX_K``: ``exact_topk``
     (one ``torch.matmul`` and ``torch.topk`` a block, merged with the
-    running list), fp32 scores of the stored values. Counts ``blocked`` on
-    the card."""
+    running list, masked rows at NEG_INF), fp32 scores of the stored
+    values. Counts ``blocked`` on the card."""
     from .topk import exact_topk
 
-    s, i = exact_topk(queries, corpus, k=k_eff, metric=metric)
+    s, i = exact_topk(queries, corpus, k=k_eff, metric=metric,
+                      mask=as_bool_mask(mask, corpus.shape[0]))
     if queries.device.type == "cuda":
         launches["blocked"] += 1
-    return s, i.to(torch.int32)
+    return _sentinel(s, i.to(torch.int32))
 
 
 def _select_plan(nq: int, n: int, k: int) -> tuple[str, int, int, int]:
@@ -524,7 +612,7 @@ def _exact_select(queries, corpus, csq, *, d, k_eff, euclid, op,
 
 
 def _fused_topk_raw_cuda(queries, corpus, corpus_sq, k_eff, euclid, mode,
-                         block_n, route="auto"):
+                         block_n, route="auto", mask=None):
     """The kernels' side of ``fused_topk_raw``; ``route`` is
     ``_exact_select``'s private switch, for the checks."""
     d = queries.shape[1]
@@ -532,10 +620,15 @@ def _fused_topk_raw_cuda(queries, corpus, corpus_sq, k_eff, euclid, mode,
     op = _OP_BF16 if corpus.dtype == torch.bfloat16 else _OP_F32
     if mode == "fold":
         out = _fold_mma(queries, corpus, csq, d=d, k_eff=k_eff,
-                        block_n=block_n, euclid=euclid, op=op)
+                        block_n=block_n, euclid=euclid, op=op, mask=mask)
     elif k_eff <= EXACT_MAX_K:
         out = _exact_mma(queries, corpus, csq, d=d, k_eff=k_eff,
-                         euclid=euclid, op=op)
+                         euclid=euclid, op=op, mask=mask)
+    elif mask is not None:
+        raise ValueError(
+            f"the exact select past k = {EXACT_MAX_K} takes no row mask (a "
+            "filtered search past it takes approx_fused_topk's blocked "
+            "route)")
     else:
         out = _exact_select(queries, corpus, csq, d=d, k_eff=k_eff,
                             euclid=euclid, op=op, route=route)
@@ -552,6 +645,7 @@ def fused_topk_raw(
     metric: str = "cosine",
     mode: str = "fold",
     block_n: int = 4096,
+    mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused top-k search. Returns (scores [Q, k] f32, ids [Q, k] i32).
 
@@ -561,18 +655,21 @@ def fused_topk_raw(
     19-bit-quantized (``fused_topk`` rescores them); ``mode='exact'``
     scores are exact. k is clipped to N; fold takes k <= 128, exact mode
     any k (on a CUDA tensor the exact kernel's lists up to
-    ``EXACT_MAX_K``, the radix select past it)."""
+    ``EXACT_MAX_K``, the radix select past it). ``mask`` (the allowed
+    rows' int32 words, see the module's docstring) restricts the search;
+    on a CUDA tensor exact mode takes it up to ``EXACT_MAX_K``."""
     k_eff = _validate(queries, corpus, corpus_sq, k, mode, block_n)
+    _validate_mask(mask, corpus.shape[0], corpus.device)
     if queries.device.type == "cpu":
         return fused_topk_raw_reference(
             queries, corpus, corpus_sq, k=k, metric=metric, mode=mode,
-            block_n=block_n,
+            block_n=block_n, mask=mask,
         )
     if queries.device.type != "cuda":
         raise ValueError(f"unsupported device {queries.device}")
     euclid = _metric_kind(metric) == "euclidean"
     return _fused_topk_raw_cuda(
-        queries, corpus, corpus_sq, k_eff, euclid, mode, block_n
+        queries, corpus, corpus_sq, k_eff, euclid, mode, block_n, mask=mask
     )
 
 
@@ -585,6 +682,7 @@ def fused_topk(
     metric: str = "cosine",
     mode: str = "fold",
     block_n: int = 4096,
+    mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``fused_topk_raw`` + an fp32 rescore of the winning rows.
 
@@ -595,7 +693,7 @@ def fused_topk(
     values, left to PyTorch as the JAX package left it to XLA."""
     _, idx = fused_topk_raw(
         queries, corpus, corpus_sq, k=k, metric=metric, mode=mode,
-        block_n=block_n,
+        block_n=block_n, mask=mask,
     )
     return rescore_candidates(queries, corpus, idx, metric)
 
@@ -605,8 +703,10 @@ def rescore_candidates(
     metric: str,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """fp32 scores of the candidate rows ``idx`` [Q, k], sorted best first
-    (stable, so equal scores keep the search's order)."""
-    cand = corpus[idx.long()].float()  # [Q, k, D]
+    (stable, so equal scores keep the search's order); an empty slot (id
+    -1) stays (NEG_INF, -1), after every real row."""
+    live = idx >= 0
+    cand = corpus[idx.clamp_min(0).long()].float()  # [Q, k, D]
     qf = queries.float()
     dots = torch.sum(qf[:, None, :] * cand, dim=2)
     if _metric_kind(metric) == "euclidean":
@@ -617,6 +717,7 @@ def rescore_candidates(
         )
     else:
         scores = dots
+    scores = torch.where(live, scores, NEG_INF)
     order = torch.sort(scores, dim=1, descending=True, stable=True)[1]
     return torch.gather(scores, 1, order), torch.gather(idx, 1, order)
 
@@ -646,19 +747,23 @@ def approx_fused_topk(
     k: int,
     metric: str = "cosine",
     recall_target: float = 0.99,
+    mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The approximate route: fold candidates per ``fold_plan``, rescored
     exactly; k above the fold's 128 takes the exact kernel, and above
     ``EXACT_MAX_K`` the blocked route. Returned scores are exact fp32
-    scores of the selected rows."""
+    scores of the selected rows; ``mask`` restricts every route, and slots
+    no allowed row fills are (NEG_INF, -1)."""
     k_eff = min(k, corpus.shape[0])
     if k_eff > EXACT_MAX_K:
-        return _blocked_topk(queries, corpus, k_eff, metric)
+        _validate_mask(mask, corpus.shape[0], corpus.device)
+        return _blocked_topk(queries, corpus, k_eff, metric, mask)
     if k_eff > FOLD_MAX_K:
-        return fused_topk(queries, corpus, k=k, metric=metric, mode="exact")
+        return fused_topk(queries, corpus, k=k, metric=metric, mode="exact",
+                          mask=mask)
     block_n, cand = fold_plan(corpus.shape[0], k_eff, recall_target)
     _, idx = fused_topk_raw(queries, corpus, k=cand, metric=metric,
-                            mode="fold", block_n=block_n)
+                            mode="fold", block_n=block_n, mask=mask)
     scores, idx = rescore_candidates(queries, corpus, idx, metric)
     return scores[:, :k_eff], idx[:, :k_eff]
 
@@ -697,7 +802,7 @@ def _validate_binary(queries, packed, d, k, block_n=_LANES,
 
 def binary_fused_topk_raw_reference(
     queries: torch.Tensor, packed: torch.Tensor, *, d: int, k: int,
-    block_n: int = 4096,
+    block_n: int = 4096, mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of the binary kernel, on any device:
     ``pallas_binary_topk``'s fold tile by tile, each tile unpacked to +-1
@@ -705,6 +810,7 @@ def binary_fused_topk_raw_reference(
     from .binary import binary_unpack
 
     k_eff = _validate_binary(queries, packed, d, k, block_n)
+    _validate_mask(mask, packed.shape[0], packed.device)
     dev = queries.device
     q = queries.to(torch.bfloat16).float()
 
@@ -714,12 +820,12 @@ def binary_fused_topk_raw_reference(
         return q @ tile.T
 
     return _plain_topk(score_tile, queries.shape[0], packed.shape[0], k_eff,
-                       "fold", block_n, dev)
+                       "fold", block_n, dev, as_bool_mask(mask, packed.shape[0]))
 
 
 def binary_fused_topk_raw(
     queries: torch.Tensor, packed: torch.Tensor, *, d: int, k: int,
-    block_n: int = 4096,
+    block_n: int = 4096, mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused packed-binary fold top-k. ``packed`` is the row-major store
     ``ops.binary.binary_quantize`` makes ([N, ceil(d/32)] int32 words).
@@ -730,22 +836,25 @@ def binary_fused_topk_raw(
     ``csrc/fold_mma.cuh`` (each stage of sign words unpacks to +-1 bf16 in
     shared memory for the tensor cores, so neither the [Q, N] scores nor
     an unpacked corpus ever exists in device memory) or raises; on a CPU
-    tensor it runs ``binary_fused_topk_raw_reference``."""
+    tensor it runs ``binary_fused_topk_raw_reference``. ``mask`` restricts
+    the search to the allowed rows (see the module's docstring)."""
     k_eff = _validate_binary(queries, packed, d, k, block_n)
+    _validate_mask(mask, packed.shape[0], packed.device)
     if queries.device.type == "cpu":
         return binary_fused_topk_raw_reference(queries, packed, d=d, k=k,
-                                               block_n=block_n)
+                                               block_n=block_n, mask=mask)
     if queries.device.type != "cuda":
         raise ValueError(f"unsupported device {queries.device}")
     q = queries.to(torch.bfloat16).contiguous()
     out = _fold_mma(q, packed, None, d=d, k_eff=k_eff, block_n=block_n,
-                    euclid=False, op=_OP_BIN)
+                    euclid=False, op=_OP_BIN, mask=mask)
     launches["binary_fold"] += 1
     return out
 
 
 def binary_exact_topk_raw(
     queries: torch.Tensor, packed: torch.Tensor, *, d: int, k: int,
+    mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact packed-binary top-k: (sign-dot scores [Q, k] f32, ids [Q, k]
     i32) against the bf16-rounded queries, best first, ties to the lower
@@ -754,19 +863,23 @@ def binary_exact_topk_raw(
     On a CUDA tensor this launches the exact binary kernel of
     ``csrc/exact_mma.cuh`` (``exact_mma_kernel<KP, true>``, the slab merge
     after it, k <= ``EXACT_MAX_K``) or raises; on a CPU tensor it runs its
-    plain version, ``ops.binary.binary_topk``, at any k."""
+    plain version, ``ops.binary.binary_topk``, at any k. ``mask``
+    restricts the search to the allowed rows; slots no allowed row fills
+    are (NEG_INF, -1)."""
     from .binary import binary_topk
 
+    _validate_mask(mask, packed.shape[0], packed.device)
     if queries.device.type == "cpu":
         k_eff = _validate_binary(queries, packed, d, k, max_k=None)
-        s, i = binary_topk(queries, packed, d, k_eff)
-        return s, i.to(torch.int32)
+        s, i = binary_topk(queries, packed, d, k_eff,
+                           mask=as_bool_mask(mask, packed.shape[0]))
+        return _sentinel(s, i.to(torch.int32))
     if queries.device.type != "cuda":
         raise ValueError(f"unsupported device {queries.device}")
     k_eff = _validate_binary(queries, packed, d, k, max_k=EXACT_MAX_K)
     q = queries.to(torch.bfloat16).contiguous()
     out = _exact_mma(q, packed, None, d=d, k_eff=k_eff, euclid=False,
-                     op=_OP_BIN)
+                     op=_OP_BIN, mask=mask)
     launches["binary_exact"] += 1
     return out
 
@@ -776,25 +889,27 @@ def rescore_binary_candidates(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact sign-dot scores of the candidate rows ``idx`` [Q, k] against
     the bf16-rounded queries (the estimator the search used), sorted best
-    first (stable)."""
+    first (stable); an empty slot (id -1) stays (NEG_INF, -1)."""
     from .binary import binary_unpack
 
     nq, kk = idx.shape
-    rows = binary_unpack(packed[idx.reshape(-1).long()], d).float()
+    rows = binary_unpack(packed[idx.reshape(-1).clamp_min(0).long()],
+                         d).float()
     qf = queries.to(torch.bfloat16).float()
     scores = torch.sum(qf[:, None, :] * rows.reshape(nq, kk, d), dim=2)
+    scores = torch.where(idx >= 0, scores, NEG_INF)
     order = torch.sort(scores, dim=1, descending=True, stable=True)[1]
     return torch.gather(scores, 1, order), torch.gather(idx, 1, order)
 
 
 def binary_fused_topk(
     queries: torch.Tensor, packed: torch.Tensor, *, d: int, k: int,
-    block_n: int = 4096,
+    block_n: int = 4096, mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``binary_fused_topk_raw`` + the exact sign-dot rescore of the k
     winners and a stable sort (``pallas_binary_topk``'s wrapper)."""
     _, idx = binary_fused_topk_raw(queries, packed, d=d, k=k,
-                                   block_n=block_n)
+                                   block_n=block_n, mask=mask)
     return rescore_binary_candidates(queries, packed, idx, d)
 
 
@@ -811,7 +926,7 @@ def pallas_binary_topk(
 
 def approx_binary_fused_topk(
     queries: torch.Tensor, packed: torch.Tensor, *, d: int, k: int,
-    recall_target: float = 0.99,
+    recall_target: float = 0.99, mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The binary store's stage 1 on the card (the part XLA's
     ``approx_max_k`` played on the TPU): the binary fold at the tile width
@@ -820,20 +935,24 @@ def approx_binary_fused_topk(
     (the store asks for binary_oversample x k) takes the exact binary
     search, whose scores are already exact, and above ``EXACT_MAX_K`` the
     blocked route: ``binary_topk`` itself, counted as ``binary_blocked`` on
-    the card."""
+    the card. ``mask`` restricts every route; slots no allowed row fills
+    are (NEG_INF, -1)."""
     from .binary import binary_topk
 
     n = packed.shape[0]
     k_eff = min(k, n)
     if k_eff > EXACT_MAX_K:
-        s, i = binary_topk(queries, packed, d, k_eff)
+        _validate_mask(mask, n, packed.device)
+        s, i = binary_topk(queries, packed, d, k_eff,
+                           mask=as_bool_mask(mask, n))
         if queries.device.type == "cuda":
             launches["binary_blocked"] += 1
-        return s, i.to(torch.int32)
+        return _sentinel(s, i.to(torch.int32))
     if k_eff > FOLD_MAX_K:
-        return binary_exact_topk_raw(queries, packed, d=d, k=k_eff)
+        return binary_exact_topk_raw(queries, packed, d=d, k=k_eff,
+                                     mask=mask)
     block_n, cand = fold_plan(n, k_eff, recall_target)
     _, idx = binary_fused_topk_raw(queries, packed, d=d, k=cand,
-                                   block_n=block_n)
+                                   block_n=block_n, mask=mask)
     scores, idx = rescore_binary_candidates(queries, packed, idx, d)
     return scores[:, :k_eff], idx[:, :k_eff]

@@ -12,7 +12,9 @@ The port of the JAX package's ``ops/topk.py``:
   (candidate set quasi-exact, returned scores exact); on the CPU it routes
   to ``exact_topk``.
 * ``maxsim_aggregate``: doc-level MaxSim over the candidate chunks.
-* ``unpack_row_mask``: little-endian packed bits to a bool row mask.
+* ``unpack_row_mask`` / ``pack_row_mask``: a row mask's little-endian
+  packed bits (bytes, or the int32 words the kernels read) and its bool
+  form. ``exact_topk`` and ``approx_topk`` take either form.
 """
 
 from __future__ import annotations
@@ -25,10 +27,31 @@ NEG_INF = float(-3.4e38)
 
 
 def unpack_row_mask(packed: torch.Tensor, n: int) -> torch.Tensor:
-    """uint8 [ceil(n/8)] little-endian bits -> bool [n] row mask."""
+    """uint8 [ceil(n/8)] little-endian bits, or the same bits as int32
+    words [ceil(n/32)] (bit ``r & 31`` of word ``r >> 5`` is row r) -> bool
+    [n] row mask."""
+    if packed.dtype == torch.int32:
+        packed = packed.contiguous().view(torch.uint8)
     shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
     bits = (packed[:, None] >> shifts[None, :]) & 1
     return bits.reshape(-1)[:n].to(torch.bool)
+
+
+def pack_row_mask(mask: torch.Tensor) -> torch.Tensor:
+    """bool [n] -> int32 words [ceil(n/32)], bit ``r & 31`` of word
+    ``r >> 5`` set iff row r is allowed (pad bits 0)."""
+    n = mask.shape[0]
+    bits = torch.nn.functional.pad(mask.to(torch.int64), (0, (-n) % 32))
+    shifts = torch.arange(32, dtype=torch.int64, device=mask.device)
+    words = torch.sum(bits.reshape(-1, 32) << shifts, dim=1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def as_bool_mask(mask: torch.Tensor | None, n: int) -> torch.Tensor | None:
+    """A row mask in either form as bool [n] (None stays None)."""
+    if mask is None or mask.dtype == torch.bool:
+        return mask
+    return unpack_row_mask(mask, n)
 
 
 def _apply_mask(scores: torch.Tensor, mask_block) -> torch.Tensor:
@@ -48,8 +71,10 @@ def exact_topk(
     """Top-k over the full corpus: (scores [Q, k] f32, indices [Q, k] i64).
 
     Inputs must be prepared for ``metric``. k is clipped to N. ``mask``
-    (bool [N]) restricts eligibility; excluded rows score NEG_INF."""
+    (bool [N], or its packed int32 words) restricts eligibility; excluded
+    rows score NEG_INF."""
     n_total = corpus.shape[0]
+    mask = as_bool_mask(mask, n_total)
     k = min(k, n_total) if n_total else k
     if n_total <= block_size:
         scores = _apply_mask(pairwise_scores(queries, corpus, metric), mask)
@@ -83,16 +108,16 @@ def approx_topk(
     fold kernel at a tile width and candidate count chosen from
     ``recall_target``, rescored exactly (the exact kernel above k=128);
     ``block_size`` is the JAX signature's and unused there. On the CPU:
-    ``exact_topk``. Filtered search (``mask``) on CUDA is a later slice."""
+    ``exact_topk``. ``mask`` (bool [N] or its packed int32 words) restricts
+    eligibility; on CUDA the kernels read the packed words, and slots no
+    allowed row fills are (NEG_INF, -1)."""
     if queries.device.type == "cuda":
-        if mask is not None:
-            raise NotImplementedError(
-                "filtered search in the fused kernel is ROADMAP queue 1 item 12"
-            )
         from .fused_topk import approx_fused_topk
 
+        if mask is not None and mask.dtype == torch.bool:
+            mask = pack_row_mask(mask)
         return approx_fused_topk(queries, corpus, k=k, metric=metric,
-                                 recall_target=recall_target)
+                                 recall_target=recall_target, mask=mask)
     return exact_topk(queries, corpus, k=k, metric=metric,
                       block_size=min(block_size, 8192), mask=mask)
 

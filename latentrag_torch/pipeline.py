@@ -29,7 +29,9 @@ import torch
 from .data.tokenizer import resolve_tokenizer
 from .evaluation import evaluate_retrieval
 from .models import build_autoencoder, load_autoencoder_pth
+from .models.convert import minilm_state_dict_from_jax
 from .models.encoder import SentenceEncoder
+from .models.encoder.msgpack_io import load_msgpack
 from .ops import maxsim_aggregate
 from .retrieval import EmbeddingCompressor, build_retriever
 from .utils import Config, canonical_ae_type, force_completion, resolve_device
@@ -48,9 +50,10 @@ def load_autoencoder(cfg: Config, ae_type: str, device="cuda"):
     ckpt = acfg.checkpoint or ae_type
     if not ckpt.endswith(".pth"):
         raise NotImplementedError(
-            f"models.{ae_type}.checkpoint={ckpt!r}: reading the JAX "
-            "package's Orbax checkpoints is ROADMAP queue 1 item 11; point "
-            "it at a reference-keyed .pth"
+            f"models.{ae_type}.checkpoint={ckpt!r}: the JAX package's Orbax "
+            "checkpoints (OCDBT, read through tensorstore) have no reader "
+            "here (an open design question in ROADMAP); point it at a "
+            "reference-keyed .pth"
         )
     path = ckpt if os.path.isabs(ckpt) else os.path.join(
         cfg.paths.checkpoints_dir, ckpt
@@ -66,8 +69,11 @@ def default_encoder(cfg: Config, corpus: Sequence[str],
                     device="cuda") -> SentenceEncoder:
     """The sentence encoder: the tokenizer resolved as the JAX package
     resolves it (vocab.txt > tokenizer.json > trained on the corpus), and
-    weights from ``encoder.weights_path`` (a ``MiniLMEncoder`` state dict
-    in a .pt/.pth file) or, when no file is there, a seeded init."""
+    weights from ``encoder.weights_path`` or, unset,
+    ``<checkpoints_dir>/encoder.msgpack``: a ``MiniLMEncoder`` state dict
+    in a .pt/.pth file, or the JAX package's Flax params in msgpack
+    (``models.encoder.msgpack_io``); when no file is there, a seeded
+    init."""
     tokenizer = resolve_tokenizer(
         cfg.paths.data_dir, cfg.encoder.vocab_size, corpus
     )
@@ -76,14 +82,11 @@ def default_encoder(cfg: Config, corpus: Sequence[str],
     )
     state_dict = None
     if os.path.exists(weights):
-        if not weights.endswith((".pt", ".pth")):
-            raise NotImplementedError(
-                f"encoder weights {weights}: reading the JAX package's "
-                "msgpack is ROADMAP queue 1 item 11; convert the params with "
-                "models.convert.minilm_state_dict_from_jax, torch.save the "
-                "result and set encoder.weights_path=<file>.pt"
-            )
-        state_dict = torch.load(weights, map_location="cpu", weights_only=True)
+        if weights.endswith((".pt", ".pth")):
+            state_dict = torch.load(weights, map_location="cpu",
+                                    weights_only=True)
+        else:
+            state_dict = minilm_state_dict_from_jax(load_msgpack(weights))
         log.info("loaded encoder weights: %s", weights)
     return SentenceEncoder(tokenizer, cfg.encoder, state_dict=state_dict,
                            device=device)
@@ -168,12 +171,28 @@ class PipelineRunner:
         timings["encode_queries_s"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
+        # the run's provenance, as the JAX package records it: a store at
+        # retrieval.index_path from a run with the same provenance and
+        # corpus is loaded, and the build and its self-check are skipped
+        chunking = cfg.chunking
         retriever = build_retriever(
             corpus_emb,
             texts,
             doc_ids,
             cfg.retrieval,
             device=self.device,
+            embedding_model=cfg.encoder.name,
+            ae_type=self.ae_type if self.ae_type != "none" else None,
+            latent_dim=compressor.output_dim,
+            chunking={
+                "enabled": chunking.enabled,
+                "mode": chunking.mode,
+                "max_tokens": chunking.max_tokens if chunking.enabled
+                else None,
+                "stride": chunking.stride if chunking.enabled else None,
+                "min_tokens": chunking.min_tokens if chunking.enabled
+                else None,
+            },
         )
         timings["build_index_s"] = time.perf_counter() - t0
 

@@ -1,6 +1,6 @@
 from .dense import BACKENDS, DenseRetriever
 from .embedder import EmbeddingCompressor
-from .factory import DEVICE_BACKENDS, build_retriever
+from .factory import DEVICE_BACKENDS, build_retriever, load_retriever
 
 __all__ = [
     "BACKENDS",
@@ -8,4 +8,5 @@ __all__ = [
     "EmbeddingCompressor",
     "DEVICE_BACKENDS",
     "build_retriever",
+    "load_retriever",
 ]

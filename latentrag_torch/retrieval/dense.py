@@ -23,6 +23,26 @@
   the recall target of k; on the CPU the plain exact search), stage 2
   rescores them exactly on the host against the SQ8 codes, and the
   results come back as host numpy;
+* ``search(..., filter=)`` restricts the search to the rows a filter spec
+  allows (``retrieval.filtering``): the spec compiles once to the packed
+  row mask the kernels read (cached per spec, dropped on any mutation);
+  ``xla`` masks inside the fold and exact kernels on the card,
+  ``xla_exact`` inside the oracle, the binary cascade in stage 1;
+  ``pallas`` / ``pallas_exact`` refuse a filter, as in the JAX package;
+* ``add`` / ``remove`` mutate a built index live: new rows are prepared
+  with the build-time whitener and SQ8 scale, removal gathers the
+  survivors on the device in one ``index_select`` and leaves their scores
+  unchanged bit for bit;
+* persistence (``index_path``): the JAX package's store, file for file
+  (``corpus.npy`` of prepared fp32 rows, ``binary_packed.npy`` /
+  ``sq8_scale.npy`` for the binary store, ``whitener.npy``, the lazy text
+  store, ``metadata.jsonl``, and ``meta.json`` last with the fingerprint
+  and sampled digests of every sidecar), so a store written by either
+  package loads in the other. A retriever built with an ``index_path``
+  that holds a valid store loads it; ``build()`` with the same
+  fingerprint and corpus digest then skips the rebuild and the
+  self-check. A store that fails validation starts clean; an error of the
+  device while the validated store is uploaded propagates;
 * a post-build self-search: the first corpus row must retrieve itself
   top-1, searched through the store's configured backend (float stores)
   or through the cascade (binary store, probe = the dequantized SQ8 row),
@@ -32,14 +52,22 @@ The JAX package's ``_self_check`` turned any exception into a silent
 rebuild. Here a kernel that fails to build or launch raises; only a wrong
 top-1 counts as a failed check.
 
-Persistence, filters, add/remove, the device IVF and the int8 / int4
-stores are later slices (ROADMAP queue 1 items 11-17); config values that
-need them raise ``NotImplementedError``.
+The device IVF, the int8 / int4 stores and the sharded store are later
+slices (ROADMAP queue 1 items 15, 17 and 23); config values that need
+them raise ``NotImplementedError``. A store written by the JAX package
+loads at the store dtype asked for (its int8 and int4 stores keep
+dequantized fp32 rows in ``corpus.npy``); its IVF sidecars are ignored on
+load and removed by the next save, and a sharded store, which has no
+``corpus.npy``, fails validation and starts clean.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import logging
+import os
+import shutil
 import time
 from dataclasses import dataclass, field
 from typing import Any, Sequence
@@ -47,25 +75,159 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from ..ops.binary import binary_quantize, binary_topk
 from ..ops.distances import (
     estimate_covariance,
     prepare_for_metric,
     whitening_factor,
 )
-from ..ops.binary import binary_quantize, binary_topk
 from ..ops.fused_topk import approx_binary_fused_topk, fused_topk
 from ..ops.quantization import sq8_quantize
 from ..ops.topk import NEG_INF, approx_topk, exact_topk
 from ..utils.device import resolve_device
 from ..utils.timing import StatsTracker, force_completion
+from .filtering import (
+    FilterCache,
+    canonical_filter_key,
+    compile_filter_mask,
+    extend_aligned_metadata,
+    pack_mask,
+)
 from .rescore import exact_rescore_topk
+from .textstore import (
+    atomic_save,
+    load_metadata_sidecar,
+    load_texts,
+    save_metadata_sidecar,
+    save_texts,
+)
 
 log = logging.getLogger("latentrag_torch.retrieval")
 
+FINGERPRINT_VERSION = 1
 BACKENDS = ("auto", "xla", "xla_exact", "pallas", "pallas_exact")
 STORE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "binary": torch.int32}  # binary: packed sign words
 EXACT_BACKENDS = ("xla_exact", "pallas_exact")
+
+
+def _stored_digest(arr) -> str:
+    """Sampled content digest of a persisted array: shape, dtype and <= 64
+    evenly spaced rows (arrays of <= 4096 values in full). It binds each
+    sidecar to its save generation, and verifies off a mmap in O(64 rows).
+    The same hex string as the JAX package's for the same array."""
+    a = arr if isinstance(arr, np.ndarray) else np.asarray(arr)
+    h = hashlib.sha1()
+    h.update(f"{tuple(a.shape)}:{a.dtype.str}:".encode())
+    if a.ndim == 0 or a.size <= 4096:
+        h.update(np.ascontiguousarray(a).tobytes())
+        return h.hexdigest()
+    n = int(a.shape[0])
+    idxs = np.linspace(0, n - 1, num=min(n, 64), dtype=int)
+    for row in a[idxs]:
+        h.update(np.ascontiguousarray(row).tobytes())
+    return h.hexdigest()
+
+
+def verify_stored_digests(path: str, meta: dict) -> None:
+    """Check every sidecar recorded in meta['stored_digests'] against the
+    bytes on disk (sampled rows off the mmap). Raises ValueError on a
+    missing file or a mixed-generation pairing; metas without digests
+    (legacy stores) pass."""
+    for fname, want in (meta.get("stored_digests") or {}).items():
+        p = os.path.join(path, fname)
+        if not os.path.exists(p):
+            raise ValueError(
+                f"{fname} recorded in meta.json but missing on disk; "
+                "mixed-generation store"
+            )
+        if _stored_digest(np.load(p, mmap_mode="r")) != want:
+            raise ValueError(
+                f"{fname} contradicts meta.json's stored digest; "
+                "mixed-generation store"
+            )
+
+
+def _corpus_digest(emb, texts) -> str:
+    """Cheap stable identity of (embeddings, texts): the shape, 64 sampled
+    rows in fp32 and their texts' prefixes. A device tensor gathers only
+    the sampled rows; the byte stream is the host array's, so the digest
+    is the JAX package's for the same data on any device."""
+    if not hasattr(emb, "shape"):  # plain sequences
+        emb = np.asarray(emb, dtype=np.float32)
+    n = int(emb.shape[0])
+    h = hashlib.sha1()
+    h.update(f"{tuple(emb.shape)}:".encode())
+    if n:
+        idxs = np.linspace(0, n - 1, num=min(n, 64), dtype=int)
+        if isinstance(emb, torch.Tensor):  # one gather of the sample rows
+            sample = emb[torch.as_tensor(idxs, device=emb.device)]
+            sample = sample.float().cpu().numpy()
+        else:
+            sample = np.asarray(emb)[idxs]
+        for i, row in zip(idxs, sample):
+            h.update(np.ascontiguousarray(row, dtype=np.float32).tobytes())
+            if i < len(texts):
+                h.update(str(texts[i])[:256].encode("utf-8", "ignore"))
+    return h.hexdigest()[:16]
+
+
+def make_fingerprint(
+    *,
+    d: int,
+    embedding_model: str | None = None,
+    ae_type: str | None = None,
+    latent_dim: int | None = None,
+    chunking: dict | None = None,
+    metric: str = "cosine",
+    normalize: bool = True,
+) -> dict:
+    """The store's provenance record, with the JAX package's keys."""
+    return {
+        "d": d,
+        "embedding_model": embedding_model,
+        "ae_type": ae_type,
+        "latent_dim": latent_dim,
+        "chunking": chunking
+        or {
+            "enabled": False,
+            "mode": "sliding",
+            "max_tokens": None,
+            "stride": None,
+            "min_tokens": None,
+        },
+        "metric": metric,
+        "normalize": normalize,
+        "version": FINGERPRINT_VERSION,
+    }
+
+
+def _drop_stale(path: str, *names: str) -> None:
+    """Remove sidecars this save does not write: a stale one of another
+    store type would pair with the new corpus on a later load."""
+    for nm in names:
+        p = os.path.join(path, nm)
+        if os.path.isdir(p):
+            shutil.rmtree(p)
+        elif os.path.exists(p):
+            os.remove(p)
+
+
+@dataclass
+class _Store:
+    """A validated store, still on the host (``DenseRetriever._read``)."""
+
+    texts: Any
+    doc_ids: list
+    metadata: list | None
+    metric: str
+    fingerprint: dict | None
+    n: int
+    dim: int
+    rows: np.ndarray  # prepared fp32 rows, or the binary store's words
+    whitener: np.ndarray | None
+    rescore: np.ndarray | None = None  # binary: SQ8 codes
+    scale: float | None = None  # binary: their scale
 
 
 @dataclass
@@ -77,10 +239,15 @@ class DenseRetriever:
     block_size: int = 1048576
     recall_target: float | str = "auto"
     store_dtype: str = "bfloat16"
+    index_path: str | None = None
+    fingerprint: dict | None = None
     device: Any = "cuda"
 
-    texts: list = field(default_factory=list)
+    texts: Any = field(default_factory=list)
     doc_ids: list = field(default_factory=list)
+    # optional per-document metadata (row-aligned dicts) backing
+    # filter={"where": {...}}
+    metadata: list | None = None
     stats: StatsTracker = field(default_factory=StatsTracker)
 
     _corpus: Any = None  # prepared [N, D] store on the device
@@ -92,6 +259,10 @@ class DenseRetriever:
     _corpus_scale: Any = None  # float
     _dim: int = 0  # the vectors' dim (a packed row has D/32 words)
     binary_oversample: int = 8  # cascade stage-1 candidates per k
+    _loaded_fingerprint: Any = None
+    # compiled filter masks on the device (the packed int32 words), keyed
+    # by canonical spec; dropped on any build or mutation
+    _filter_cache: Any = None
 
     # k at/above this is treated as re-rank oversampling
     RERANK_K = 64
@@ -105,8 +276,7 @@ class DenseRetriever:
                 "are ROADMAP queue 1 item 15; use float32, bfloat16 or binary"
             )
         if self.store_dtype == "binary":
-            if self.metric not in ("cosine", "dot"):
-                raise ValueError("binary store supports cosine/dot only")
+            self._validate_binary_combo()
             if self.backend in EXACT_BACKENDS:
                 raise ValueError(
                     f"backend={self.backend!r} requests the exact oracle, "
@@ -114,6 +284,26 @@ class DenseRetriever:
                     "store for oracle comparisons"
                 )
         self.device = resolve_device(self.device)
+        if self.index_path and os.path.exists(
+            os.path.join(self.index_path, "meta.json")
+        ):
+            # the store is validated on the host before anything of it
+            # reaches this retriever, so a refused store leaves it clean;
+            # the upload after runs outside the except, so a device error
+            # (CUDA, out of memory) propagates
+            try:
+                store = self._read(self.index_path)
+            except Exception as e:  # corrupted or mixed store -> start clean
+                log.warning("index at %s unreadable (%r); starting clean",
+                            self.index_path, e)
+            else:
+                self._adopt(store)
+                log.info("index loaded from %s (n=%d)", self.index_path,
+                         self._corpus_n)
+
+    def _validate_binary_combo(self):
+        if self.metric not in ("cosine", "dot"):
+            raise ValueError("binary store supports cosine/dot only")
 
     @property
     def is_built(self) -> bool:
@@ -141,9 +331,51 @@ class DenseRetriever:
         embeddings,
         texts: Sequence[str],
         doc_ids: Sequence | None = None,
+        fingerprint: dict | None = None,
         sanity_check: bool = True,
+        metadata: Sequence[dict] | None = None,
     ) -> None:
-        """Prepare the corpus and hold it on the device."""
+        """Prepare the corpus and hold it on the device; persist it when
+        ``index_path`` is set. A loaded index with the same fingerprint,
+        corpus digest and row count is kept as it is (only new
+        ``metadata`` is taken); any other is rebuilt."""
+        if metadata is not None and len(metadata) != len(texts):
+            raise ValueError(
+                f"{len(metadata)} metadata entries for {len(texts)} texts"
+            )
+        if fingerprint is not None:
+            self.fingerprint = fingerprint
+            # the caller's fingerprint decides the metric: a rebuild must
+            # not inherit the metric of the store it loaded
+            fp_metric = fingerprint.get("metric")
+            if fp_metric and fp_metric != self.metric:
+                log.warning(
+                    "loaded index metric %r overridden by requested %r",
+                    self.metric, fp_metric,
+                )
+                self.metric = fp_metric
+        if self.fingerprint is None:
+            self.fingerprint = make_fingerprint(
+                d=int(embeddings.shape[1]), metric=self.metric
+            )
+        # corpus identity: a different corpus of the same size and config
+        # must not be served from a stale store
+        self.fingerprint = dict(self.fingerprint)
+        self.fingerprint["corpus_digest"] = _corpus_digest(embeddings, texts)
+        if (
+            self.is_built
+            and self._corpus_n == len(texts)
+            and self._loaded_fingerprint == self.fingerprint
+        ):
+            if metadata is not None:  # new filters for the same corpus
+                self.metadata = list(metadata)
+                if self._filter_cache is not None:
+                    self._filter_cache.clear()
+                if self.index_path:
+                    self._save_metadata_only(self.index_path)
+            log.info("index compatible; skipping rebuild")
+            return
+
         t0 = time.perf_counter()
         x = torch.as_tensor(embeddings).to(self.device, torch.float32)
         if len(texts) != x.shape[0]:
@@ -152,11 +384,17 @@ class DenseRetriever:
         self.doc_ids = (
             list(doc_ids) if doc_ids is not None else list(range(len(texts)))
         )
+        self.metadata = list(metadata) if metadata is not None else None
+        if self._filter_cache is not None:
+            self._filter_cache.clear()
+        self._whitener = None
         if self.metric == "mahalanobis":
             self._whitener = whitening_factor(estimate_covariance(x))
         prepared = prepare_for_metric(x, self.metric, self._whitener)
         self._dim = int(x.shape[1])
+        self._rescore_host = self._corpus_scale = None
         if self.store_dtype == "binary":
+            self._validate_binary_combo()
             codes, scale = sq8_quantize(prepared)
             self._rescore_host = codes.cpu().numpy()
             self._corpus_scale = float(scale)
@@ -165,13 +403,18 @@ class DenseRetriever:
             self._corpus = prepared.to(
                 STORE_DTYPES[self.store_dtype]).contiguous()
         self._corpus_n = int(x.shape[0])
+        self._loaded_fingerprint = dict(self.fingerprint)
         force_completion(self._corpus)
         self.stats.add_build(time.perf_counter() - t0)
+
+        if self.index_path:
+            self._save(self.index_path)
 
         if sanity_check and self._corpus_n > 0 and not self._self_check():
             log.warning("post-build self-check failed; rebuilding once")
             self._corpus = None
-            self.build(x, texts, doc_ids, sanity_check=False)
+            self.build(x, texts, doc_ids, self.fingerprint,
+                       sanity_check=False, metadata=metadata)
 
     def _self_check(self) -> bool:
         """The first corpus row must come back top-1, searched as a query
@@ -189,62 +432,207 @@ class DenseRetriever:
             return (row * self._corpus_scale).to(self.device)
         return self._corpus[i].float()
 
+    # ------------------------------------------------------------- mutation
+
+    def add(
+        self,
+        embeddings,
+        texts: Sequence[str],
+        doc_ids: Sequence | None = None,
+        metadata: Sequence[dict] | None = None,
+    ) -> None:
+        """Append documents to a built index. New rows are prepared with
+        the build-time transform (the whitener of the build's covariance;
+        the binary store's SQ8 scale) and concatenated on the device, so
+        the scores of the rows already there do not change. Persists when
+        ``index_path`` is set."""
+        if not self.is_built:
+            raise RuntimeError("build() the index before add()")
+        x = torch.as_tensor(embeddings).to(self.device, torch.float32)
+        if x.ndim != 2 or x.shape[1] != self._dim:
+            raise ValueError(
+                f"dim mismatch: index {self._dim}, new rows {tuple(x.shape)}"
+            )
+        start = self._corpus_n
+        new_ids = (
+            list(doc_ids)
+            if doc_ids is not None
+            else list(range(start, start + len(texts)))
+        )
+        if len(texts) != x.shape[0] or len(new_ids) != x.shape[0]:
+            raise ValueError("texts/doc_ids/embeddings row count mismatch")
+        if metadata is not None and len(metadata) != x.shape[0]:
+            raise ValueError("metadata/embeddings row count mismatch")
+        prepared = prepare_for_metric(x, self.metric, self._whitener)
+        if self._rescore_host is not None:  # codes and words both grow
+            self._rescore_host = np.concatenate(
+                [self._rescore_host, self._requantize(prepared).cpu().numpy()]
+            )
+            prepared = binary_quantize(prepared)
+        else:
+            prepared = prepared.to(self._corpus.dtype)
+        self._corpus = torch.cat(
+            [self._corpus[: self._corpus_n], prepared]).contiguous()
+        self._corpus_n += int(x.shape[0])
+        if not isinstance(self.texts, list):  # lazy store: materialise
+            self.texts = list(self.texts)
+        self.texts.extend(texts)
+        self.doc_ids.extend(new_ids)
+        self.metadata = extend_aligned_metadata(
+            self.metadata, start, metadata, len(texts)
+        )
+        self._mark_mutated()
+        if self.index_path:
+            self._save(self.index_path)
+
+    def remove(self, doc_ids: Sequence) -> int:
+        """Remove every row whose doc_id is listed; returns the number of
+        rows dropped (unknown ids are ignored). The survivors are gathered
+        on the device with one ``index_select`` (the binary store's codes
+        follow on the host), and the whitener and SQ8 scale stay, so a
+        survivor's score does not change. Persists when ``index_path`` is
+        set; refuses to empty the index."""
+        if not self.is_built:
+            raise RuntimeError("build() the index before remove()")
+        drop = set(doc_ids)
+        keep = [i for i, d in enumerate(self.doc_ids) if d not in drop]
+        removed = self._corpus_n - len(keep)
+        if removed == 0:
+            return 0
+        if not keep:
+            raise ValueError(
+                "remove() would drop every document; rebuild the index "
+                "instead of emptying it live"
+            )
+        self._corpus = torch.index_select(
+            self._corpus[: self._corpus_n], 0,
+            torch.as_tensor(keep, dtype=torch.long, device=self.device),
+        )
+        if self._rescore_host is not None:
+            self._rescore_host = np.ascontiguousarray(
+                self._rescore_host[np.asarray(keep, dtype=np.int64)]
+            )
+        self._corpus_n = len(keep)
+        if not isinstance(self.texts, list):
+            self.texts = list(self.texts)
+        self.texts = [self.texts[i] for i in keep]
+        self.doc_ids = [self.doc_ids[i] for i in keep]
+        if self.metadata is not None:
+            self.metadata = [self.metadata[i] for i in keep]
+        self._mark_mutated()
+        if self.index_path:
+            self._save(self.index_path)
+        return removed
+
+    def _mark_mutated(self) -> None:
+        """After a live add/remove the build's corpus_digest no longer
+        describes the store: drop it (nothing may take the mutated index
+        for the original corpus) and count the mutation; every compiled
+        filter mask is stale."""
+        if self.fingerprint:
+            fp = dict(self.fingerprint)
+            fp.pop("corpus_digest", None)
+            fp["live_mutations"] = int(fp.get("live_mutations", 0) or 0) + 1
+            self.fingerprint = fp
+            self._loaded_fingerprint = dict(fp)
+        if self._filter_cache is not None:
+            self._filter_cache.clear()
+
+    def _requantize(self, prepared: torch.Tensor) -> torch.Tensor:
+        """SQ8 codes at the existing scale, so old and new codes compare."""
+        return torch.clamp(
+            torch.round(prepared.float() / self._corpus_scale), -127, 127
+        ).to(torch.int8)
+
     # --------------------------------------------------------------- search
 
-    def _search_prepared(self, q: torch.Tensor, k: int):
+    def _search_prepared(self, q: torch.Tensor, k: int, mask=None):
         """Top-k of queries already in the prepared space: (scores [Q, k]
         f32, indices [Q, k]), tensors on the device (host numpy from the
-        binary store)."""
+        binary store). ``mask`` (the packed int32 words of the allowed
+        rows) restricts eligibility; slots no allowed row fills score
+        NEG_INF."""
         if self._rescore_host is not None:
-            return self._search_cascade(q, k)
+            return self._search_cascade(q, k, mask)
         backend = self._resolve_backend()
         q = q.to(self._corpus.dtype).contiguous()
         if backend == "xla":
             return approx_topk(
                 q, self._corpus, k=k, metric=self.metric,
                 block_size=self.block_size,
-                recall_target=self._effective_recall_target(k),
+                recall_target=self._effective_recall_target(k), mask=mask,
             )
         if backend == "xla_exact":
             return exact_topk(q, self._corpus, k=k, metric=self.metric,
-                              block_size=min(self.block_size, 8192))
+                              block_size=min(self.block_size, 8192),
+                              mask=mask)
+        if mask is not None:
+            raise ValueError(
+                "pallas backends do not support filtered search; use "
+                "backend='xla'/'xla_exact'"
+            )
         mode = "fold" if backend == "pallas" else "exact"
         return fused_topk(q, self._corpus, k=k, metric=self.metric, mode=mode)
 
-    def _search_cascade(self, q: torch.Tensor, k: int):
+    def _search_cascade(self, q: torch.Tensor, k: int, mask=None):
         """The binary store: stage 1 takes ``binary_oversample`` x k
         candidates by sign-dot score on the device, stage 2 rescores them
         exactly on the host against the SQ8 codes. The recall target is
-        k's, not the candidates'. Returns host numpy (scores, ids), with
-        (-inf, -1) in slots past N."""
+        k's, not the candidates'. Stage 1 takes the filter's mask and
+        gives -1 in the slots no allowed row fills, which the rescore
+        cannot revive. Returns host numpy (scores, ids), with (-inf, -1)
+        in empty slots."""
         ok = min(self.binary_oversample * k, self._corpus_n)
         q = q.float().contiguous()
-        if self.device.type == "cuda":
+        if self.device.type == "cuda":  # empty slots come back as -1
             _, cand = approx_binary_fused_topk(
                 q, self._corpus, d=self._dim, k=ok,
-                recall_target=self._effective_recall_target(k),
+                recall_target=self._effective_recall_target(k), mask=mask,
             )
         else:
-            _, cand = binary_topk(q, self._corpus, d=self._dim, k=ok)
+            s1, cand = binary_topk(q, self._corpus, d=self._dim, k=ok,
+                                   mask=mask)
+            if mask is not None:  # its NEG_INF slots hold arbitrary rows
+                cand = torch.where(s1 > NEG_INF * 0.5, cand, -1)
         return exact_rescore_topk(
             q.cpu().numpy(), lambda idx: self._rescore_host[idx],
             cand.cpu().numpy(), k, metric="dot", scale=self._corpus_scale,
         )
 
+    def _filter_device_mask(self, spec: dict) -> torch.Tensor:
+        """The row mask of a filter spec on the device, compiled once per
+        canonical spec and cached: ``pack_mask``'s little-endian bytes,
+        padded to whole words and viewed as int32 [ceil(N/32)] (bit
+        ``r & 31`` of word ``r >> 5`` is row r), the form the kernels
+        read."""
+        key = canonical_filter_key(spec)
+        if self._filter_cache is None:
+            self._filter_cache = FilterCache()
+        m = self._filter_cache.get(key)
+        if m is None:
+            host = compile_filter_mask(
+                spec, self.doc_ids, self.metadata, self._corpus_n
+            )
+            packed = pack_mask(host)
+            words = np.pad(packed, (0, (-packed.size) % 4)).view("<i4")
+            m = torch.from_numpy(words.copy()).to(self.device)
+            self._filter_cache.put(key, m)
+        return m
+
     def search(self, queries, k: int, filter: dict | None = None):
         """Batched top-k. queries: [Q, D] in the raw embedding space (numpy
-        or a tensor). Returns (scores [Q, k], indices [Q, k]) as numpy;
-        slots with no candidate come back as (NEG_INF, -1)."""
+        or a tensor). Returns (scores [Q, k], indices [Q, k]) as numpy.
+        ``filter`` (``retrieval.filtering``'s spec) restricts the search
+        to the rows it allows. Slots with no candidate (a filter that
+        allows fewer than k rows) come back as (NEG_INF, -1): skip ids < 0
+        before indexing texts or doc_ids."""
         if not self.is_built:
             raise RuntimeError("index not built")
-        if filter is not None:
-            raise NotImplementedError(
-                "filtered search is ROADMAP queue 1 item 12"
-            )
         t0 = time.perf_counter()
+        mask = self._filter_device_mask(filter) if filter is not None else None
         q = torch.as_tensor(queries).to(self.device, torch.float32)
         q = prepare_for_metric(q, self.metric, self._whitener)
-        s, i = self._search_prepared(q, k)
+        s, i = self._search_prepared(q, k, mask)
         if isinstance(s, torch.Tensor):  # the binary store returns numpy
             s, i = s.float().cpu().numpy(), i.cpu().numpy()
         i = i.astype(np.int64)
@@ -252,12 +640,12 @@ class DenseRetriever:
         self.stats.add_search_batch(time.perf_counter() - t0, q.shape[0])
         return s, i
 
-    def retrieve(self, query_emb, top_k: int = 5):
+    def retrieve(self, query_emb, top_k: int = 5, filter: dict | None = None):
         """Single query -> (texts, scores, doc_ids)."""
         q = np.asarray(query_emb, dtype=np.float32)
         if q.ndim == 1:
             q = q[None, :]
-        scores, idx = self.search(q, top_k)
+        scores, idx = self.search(q, top_k, filter=filter)
         sel = [int(j) for j in idx[0] if j >= 0]
         return (
             [self.texts[j] for j in sel],
@@ -267,3 +655,205 @@ class DenseRetriever:
 
     def get_stats(self, reset: bool = False) -> dict:
         return self.stats.get(reset)
+
+    def compatible_with(self, fingerprint: dict) -> bool:
+        return self.fingerprint == fingerprint
+
+    # ---------------------------------------------------------- persistence
+
+    def _save(self, path: str) -> None:
+        """Write the store, each sidecar atomically, meta.json last with
+        the sampled digest of every array it pairs with."""
+        os.makedirs(path, exist_ok=True)
+        n = self._corpus_n
+        stored_digests: dict[str, str] = {}
+        if self._rescore_host is not None:  # binary store
+            # the words persist verbatim (re-deriving them from the
+            # dequantized rows would flip the signs of values that round
+            # to code 0), as uint32, the JAX package's dtype
+            packed = self._corpus[:n].cpu().numpy().view(np.uint32)
+            scale = np.asarray(self._corpus_scale, dtype=np.float32)
+            corpus_arr = (
+                self._rescore_host[:n].astype(np.float32)
+                * float(self._corpus_scale)
+            )
+            atomic_save(os.path.join(path, "binary_packed.npy"), packed)
+            atomic_save(os.path.join(path, "sq8_scale.npy"), scale)
+            atomic_save(os.path.join(path, "corpus.npy"), corpus_arr)
+            stored_digests.update({
+                "binary_packed.npy": _stored_digest(packed),
+                "sq8_scale.npy": _stored_digest(scale),
+                "corpus.npy": _stored_digest(corpus_arr),
+            })
+            _drop_stale(path, "sharded", "sq4_packed.npy", "sq4_scale.npy")
+        else:
+            corpus_arr = self._corpus[:n].float().cpu().numpy()
+            atomic_save(os.path.join(path, "corpus.npy"), corpus_arr)
+            stored_digests["corpus.npy"] = _stored_digest(corpus_arr)
+            _drop_stale(path, "binary_packed.npy", "sq8_scale.npy", "sharded",
+                        "sq4_packed.npy", "sq4_scale.npy")
+        if self._whitener is not None:
+            wh = self._whitener.float().cpu().numpy()
+            atomic_save(os.path.join(path, "whitener.npy"), wh)
+            stored_digests["whitener.npy"] = _stored_digest(wh)
+        else:
+            _drop_stale(path, "whitener.npy")
+        _drop_stale(path, "ivf_centroids.npy", "ivf_assign.npy")
+        ids_as_npy = save_texts(
+            os.path.join(path, "texts"), self.texts, self.doc_ids
+        )
+        metadata_digest = save_metadata_sidecar(
+            os.path.join(path, "metadata.jsonl"), self.metadata
+        )
+        meta = {
+            "fingerprint": self.fingerprint,
+            "metric": self.metric,
+            "n": n,
+            "stored_digests": stored_digests,
+        }
+        if metadata_digest is not None:
+            meta["metadata_digest"] = metadata_digest
+        if not ids_as_npy:
+            meta["doc_ids"] = list(self.doc_ids)
+        tmp = os.path.join(path, "meta.json.tmp")
+        with open(tmp, "w") as f:
+            json.dump(meta, f)
+        os.replace(tmp, os.path.join(path, "meta.json"))
+        log.info("index persisted to %s (n=%d)", path, n)
+
+    def _save_metadata_only(self, path: str) -> None:
+        """Rewrite only the metadata sidecar and its digest in meta.json
+        (build() found the index itself compatible); meta.json still lands
+        last."""
+        meta_path = os.path.join(path, "meta.json")
+        if not os.path.exists(meta_path):  # the store vanished: full save
+            self._save(path)
+            return
+        with open(meta_path) as f:
+            meta = json.load(f)
+        digest = save_metadata_sidecar(
+            os.path.join(path, "metadata.jsonl"), self.metadata
+        )
+        if digest is None:
+            meta.pop("metadata_digest", None)
+        else:
+            meta["metadata_digest"] = digest
+        tmp = meta_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(meta, f)
+        os.replace(tmp, meta_path)
+
+    def _read(self, path: str) -> _Store:
+        """Validate the store at ``path`` on the host: meta.json, the text
+        store's counts and generation tags, the sampled digests of every
+        recorded sidecar, the metadata digest and the corpus's row count.
+        Raises on any inconsistency; touches neither the device nor this
+        retriever."""
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        lazy_texts, lazy_ids = load_texts(os.path.join(path, "texts"))
+        if lazy_texts is not None:
+            texts = lazy_texts
+            doc_ids = lazy_ids if lazy_ids is not None else meta["doc_ids"]
+        else:  # legacy store: texts inlined in meta.json
+            texts = meta["texts"]
+            doc_ids = meta["doc_ids"]
+        n = int(meta["n"])
+        if len(texts) != n or len(doc_ids) != len(texts):
+            raise ValueError(
+                f"text store holds {len(texts)} texts / {len(doc_ids)} "
+                f"doc_ids but the index records n={n}; mixed-generation "
+                "store"
+            )
+        verify_stored_digests(path, meta)
+        mpath = os.path.join(path, "metadata.jsonl")
+        want_md = meta.get("metadata_digest")
+        metadata = load_metadata_sidecar(mpath, want_md, n)
+        if want_md is None and os.path.exists(mpath):
+            log.warning(
+                "ignoring unrecorded metadata.jsonl at %s (no digest in "
+                "meta.json); rebuild with metadata= to restore filtering",
+                path,
+            )
+        wpath = os.path.join(path, "whitener.npy")
+        whitener = np.load(wpath) if os.path.exists(wpath) else None
+        # corpus.npy holds the prepared rows (a sharded store has none)
+        corpus = np.load(os.path.join(path, "corpus.npy"), mmap_mode="r")
+        if corpus.ndim != 2 or corpus.shape[0] != n:
+            raise ValueError("meta/corpus row mismatch")
+        store = _Store(
+            texts=texts, doc_ids=list(doc_ids), metadata=metadata,
+            metric=meta.get("metric", self.metric),
+            fingerprint=meta.get("fingerprint"), n=n,
+            dim=int(corpus.shape[1]), rows=corpus, whitener=whitener,
+        )
+        if self.store_dtype != "binary":  # read off the mmap, once
+            store.rows = np.array(corpus, dtype=np.float32)
+            return store
+        # the binary store stays on the host until its words go up
+        if store.metric not in ("cosine", "dot"):
+            raise ValueError("binary store supports cosine/dot only")
+        host = np.ascontiguousarray(corpus, dtype=np.float32)
+        spath = os.path.join(path, "sq8_scale.npy")
+        if os.path.exists(spath):
+            scale = float(np.load(spath))
+        else:
+            scale = max(float(np.abs(host).max()) / 127.0, 1e-12)
+            log.warning(
+                "binary index at %s has no sq8_scale.npy — re-deriving "
+                "the scale from the stored corpus; SQ8 rescoring may "
+                "differ from the original build (save again to pin it)",
+                path,
+            )
+        store.scale = scale
+        store.rescore = np.clip(np.round(host / scale), -127, 127).astype(
+            np.int8)
+        ppath = os.path.join(path, "binary_packed.npy")
+        if os.path.exists(ppath):  # bit-stable packed store
+            words = np.load(ppath)
+            if words.shape != (n, -(-store.dim // 32)):
+                raise ValueError("binary_packed.npy shape mismatch")
+        else:  # legacy or cross-tier store: pack on the host
+            log.warning(
+                "binary index at %s predates binary_packed.npy — "
+                "repacking sign bits from the fp store; exact-zero "
+                "values may flip sign vs the original build (rankings "
+                "not bit-stable; save again to pin them)",
+                path,
+            )
+            d = host.shape[1]
+            padded = np.concatenate(
+                [host >= 0, np.zeros((host.shape[0], (-d) % 32), bool)],
+                axis=1,
+            )
+            words = np.packbits(
+                padded.reshape(host.shape[0], -1, 32), axis=-1,
+                bitorder="little",
+            ).view(np.uint32)[:, :, 0]
+        # int32 with the same bits: torch's uint32 has no shifts
+        store.rows = np.ascontiguousarray(words).view(np.int32)
+        return store
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _adopt(self, store: _Store) -> None:
+        """Take a validated store: its arrays go to the device first, then
+        every field is set."""
+        whitener = (None if store.whitener is None
+                    else self._upload(store.whitener.astype(np.float32)))
+        rows = self._upload(store.rows)
+        if self.store_dtype != "binary":
+            rows = rows.to(STORE_DTYPES[self.store_dtype]).contiguous()
+        self._corpus = rows
+        self._whitener = whitener
+        self.texts = store.texts
+        self.doc_ids = store.doc_ids
+        self.metadata = store.metadata
+        self.metric = store.metric
+        self.fingerprint = store.fingerprint
+        self._loaded_fingerprint = store.fingerprint
+        self._corpus_n = store.n
+        self._dim = store.dim
+        self._rescore_host = store.rescore
+        self._corpus_scale = store.scale

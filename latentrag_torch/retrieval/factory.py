@@ -7,7 +7,7 @@ import logging
 from typing import Sequence
 
 from ..utils.config import RetrievalConfig
-from .dense import DenseRetriever
+from .dense import DenseRetriever, make_fingerprint
 
 log = logging.getLogger("latentrag_torch.retrieval")
 
@@ -16,7 +16,8 @@ DEVICE_BACKENDS = ("dense", "bruteforce")
 
 
 def _make_dense(cfg: RetrievalConfig, device) -> DenseRetriever:
-    """Construct (not build) a DenseRetriever from config."""
+    """Construct (not build) a DenseRetriever from config; with
+    ``cfg.index_path`` set it loads the store there, if one is valid."""
     if cfg.backend not in DEVICE_BACKENDS:
         raise NotImplementedError(
             f"retrieval.backend={cfg.backend!r} is not ported yet (ROADMAP "
@@ -38,6 +39,7 @@ def _make_dense(cfg: RetrievalConfig, device) -> DenseRetriever:
         recall_target=cfg.recall_target,
         store_dtype=cfg.store_dtype,
         binary_oversample=cfg.binary_oversample,
+        index_path=cfg.index_path or None,
         device=device,
     )
 
@@ -49,10 +51,63 @@ def build_retriever(
     cfg: RetrievalConfig,
     *,
     device="cuda",
+    embedding_model: str | None = None,
+    ae_type: str | None = None,
+    latent_dim: int | None = None,
+    chunking: dict | None = None,
+    metadata: Sequence[dict] | None = None,
 ) -> DenseRetriever:
-    """Config-driven dense retriever construction + build. The index lives
-    in device memory; ``cfg.index_path`` is not read or written until
-    persistence is ported (ROADMAP queue 1 item 11)."""
+    """Config-driven dense retriever construction + build. The fingerprint
+    carries the full provenance, so a store persisted at
+    ``cfg.index_path`` is reused only by a run with the same encoder, AE,
+    chunking, metric and corpus. ``metadata`` (row-aligned dicts) enables
+    ``search(..., filter={"where": ...})``."""
+    return _dense_retriever(
+        cfg, embeddings, texts, doc_ids, device=device,
+        embedding_model=embedding_model, ae_type=ae_type,
+        latent_dim=latent_dim, chunking=chunking, metadata=metadata,
+    )
+
+
+def load_retriever(cfg: RetrievalConfig, *, device="cuda",
+                   expect: dict | None = None) -> DenseRetriever | None:
+    """Warm boot: a retriever from the store persisted at
+    ``cfg.index_path`` alone, with no embeddings and no encode. Returns
+    None when no valid store is there, or when its provenance contradicts
+    ``expect`` (fingerprint keys such as ``embedding_model`` or
+    ``ae_type`` mapped to the values the caller serves with; a stored None
+    matches anything); callers then take ``build_retriever``."""
+    if not cfg.index_path:
+        return None
     retriever = _make_dense(cfg, device)
-    retriever.build(embeddings, texts, doc_ids)
+    if not retriever.is_built:
+        return None
+    fp = retriever.fingerprint or {}
+    for key, want in (expect or {}).items():
+        have = fp.get(key)
+        if have is not None and have != want:
+            log.warning(
+                "persisted index %s=%r contradicts requested %r; "
+                "falling back to cold build", key, have, want,
+            )
+            return None
+    return retriever
+
+
+def _dense_retriever(
+    cfg, embeddings, texts, doc_ids, *, device, embedding_model, ae_type,
+    latent_dim, chunking, metadata=None,
+):
+    retriever = _make_dense(cfg, device)
+    fp = make_fingerprint(
+        d=int(embeddings.shape[1]),
+        embedding_model=embedding_model,
+        ae_type=ae_type,
+        latent_dim=latent_dim,
+        chunking=chunking,
+        metric=cfg.metric,
+        normalize=cfg.normalize,
+    )
+    retriever.build(embeddings, texts, doc_ids, fingerprint=fp,
+                    metadata=metadata)
     return retriever

@@ -399,13 +399,17 @@ def test_binary_store_refused_combinations():
             DenseRetriever(store_dtype=store, device="cpu")
     r = DenseRetriever(store_dtype="binary", metric="dot", device="cpu")
     r.build(np.eye(4, 8, dtype=np.float32), list("abcd"))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        r.search(np.eye(1, 8, dtype=np.float32), 2, filter={"doc_ids": [0]})
+    # the binary store filters in stage 1 (a filter allowing one row)
+    s, i = r.search(np.eye(1, 8, dtype=np.float32), 2, filter={"doc_ids": [1]})
+    assert i.tolist() == [[1, -1]] and np.isneginf(s[0, 1])
 
 
-def test_factory_passes_binary_oversample(rng):
+def test_factory_passes_binary_oversample(rng, tmp_path):
+    # the factory now persists at retrieval.index_path: keep the store in
+    # the test's own directory
     cfg = apply_overrides(Config(), ["retrieval.store_dtype=binary",
-                                     "retrieval.binary_oversample=3"])
+                                     "retrieval.binary_oversample=3",
+                                     f"retrieval.index_path={tmp_path}/idx"])
     emb = rng.standard_normal((20, 16)).astype(np.float32)
     r = build_retriever(emb, [str(i) for i in range(20)], None,
                         cfg.retrieval, device="cpu")

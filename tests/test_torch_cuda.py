@@ -107,7 +107,7 @@ def test_fold_routes_by_store_dtype(cuda):
     assert ft.last_kernel.split("+")[0] == "exact_mma_kernel<f32>"
     assert ft.launches == {"fold": 2, "exact": 2, "binary_fold": 0,
                            "binary_exact": 0, "blocked": 0,
-                           "binary_blocked": 0}
+                           "binary_blocked": 0, "masked": 0}
 
 
 @pytest.mark.parametrize("mode", ["exact", "fold"])
@@ -242,7 +242,7 @@ def test_launch_counts_and_validation(cuda):
     ft.approx_fused_topk(q, c, k=5)
     assert ft.launches == {"fold": 2, "exact": 1, "binary_fold": 0,
                            "binary_exact": 0, "blocked": 0,
-                           "binary_blocked": 0}
+                           "binary_blocked": 0, "masked": 0}
     # past the exact kernels' 2048 the blocked route, counted apart
     big = _data(cuda, torch.float32, n=2100)[1]
     s, i = ft.approx_fused_topk(q, big, k=2050)
@@ -513,7 +513,7 @@ def test_binary_launch_counts_and_store(cuda):
     ft.approx_binary_fused_topk(q, packed, d=64, k=40)
     assert ft.launches == {"fold": 0, "exact": 0, "binary_fold": 2,
                            "binary_exact": 0, "blocked": 0,
-                           "binary_blocked": 0}
+                           "binary_blocked": 0, "masked": 0}
     # above 128 candidates the route takes the exact binary kernel
     ft.approx_binary_fused_topk(q, packed, d=64, k=129)
     assert ft.launches["binary_exact"] == 1
@@ -597,7 +597,7 @@ def test_binary_store_top_k_20_launches(cuda):
     s, i = r.search(emb[:20].numpy(), 20)
     assert ft.launches == {"fold": 0, "exact": 0, "binary_fold": 1,
                            "binary_exact": 1, "blocked": 0,
-                           "binary_blocked": 0}
+                           "binary_blocked": 0, "masked": 0}
     assert i.shape == (20, 20) and (i[:, 0] == np.arange(20)).all()
     assert np.isfinite(s).all()
 
@@ -646,3 +646,140 @@ def test_exact_kernel_one_slab_and_loads(cuda, case):
                                                metric="euclidean",
                                                mode="exact")
     assert (i_k == i_p).float().mean().item() >= 0.999
+
+
+# ------------------------------------------------------ the row mask
+
+MASKS = [0.01, 0.1, 0.5, 1.0, "fewer_than_k", "none"]
+# (Q, N, d): the reference config, and a ragged shape at MiniLM's d=384
+MASK_SHAPES = {"reference": (2000, 315, 64), "d384": (37, 5003, 384)}
+
+
+def _row_mask(cuda, n, allowed, k, seed=3):
+    """A seeded bool row mask on the card and its packed words: a share of
+    rows allowed, k // 2 rows (fewer than k), or none."""
+    from latentrag_torch.ops.topk import pack_row_mask
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if allowed == "none":
+        m = torch.zeros(n, dtype=torch.bool, device=cuda)
+    elif allowed == "fewer_than_k":
+        m = torch.zeros(n, dtype=torch.bool, device=cuda)
+        m[torch.randperm(n, generator=g, device=cuda)[: max(1, k // 2)]] = True
+    else:
+        m = torch.rand(n, generator=g, device=cuda) < allowed
+    return m, pack_row_mask(m)
+
+
+def _assert_masked_match(m, s_k, i_k, s_p, i_p, id_match):
+    """Kernel and plain version agree on the slots' ids, leave the same
+    slots empty as (NEG_INF, -1), and return allowed rows only."""
+    from latentrag_torch.ops.topk import NEG_INF
+
+    assert torch.equal(i_k < 0, i_p < 0)
+    assert bool((s_k[i_k < 0] == NEG_INF).all())
+    live = i_k >= 0
+    assert bool(m[i_k[live].long()].all())
+    if live.any():
+        assert (i_k == i_p)[live].float().mean().item() >= id_match
+
+
+@pytest.mark.parametrize("allowed", MASKS)
+@pytest.mark.parametrize("shape", sorted(MASK_SHAPES))
+@pytest.mark.parametrize("store", ["bfloat16", "float32"])
+@pytest.mark.parametrize("mode,k", [("fold", 40), ("exact", 10),
+                                    ("exact", 160)])
+def test_masked_kernel_matches_plain(cuda, mode, k, store, shape, allowed):
+    """fold_mma_kernel<E, OP, true> and exact_mma_kernel<KP, OP, true>
+    against their masked plain versions; the fold at the approximate
+    route's plan (128-row tiles at 2000 x 315)."""
+    nq, n, d = MASK_SHAPES[shape]
+    q, c = _data(cuda, getattr(torch, store), nq=nq, n=n, d=d)
+    m, words = _row_mask(cuda, n, allowed, k)
+    block_n = ft.fold_plan(n, 10, 0.99)[0] if mode == "fold" else 4096
+    ft.reset_launches()
+    s_k, i_k = ft.fused_topk_raw(q, c, k=k, metric="euclidean", mode=mode,
+                                 block_n=block_n, mask=words)
+    assert ft.launches["masked"] == 1 and ft.launches[mode] == 1
+    assert ft.last_kernel.split("+")[0].endswith("<mask>")
+    s_p, i_p = ft.fused_topk_raw_reference(q, c, k=k, metric="euclidean",
+                                           mode=mode, block_n=block_n,
+                                           mask=words)
+    _assert_masked_match(m, s_k, i_k, s_p, i_p,
+                         0.99 if mode == "fold" else 0.999)
+
+
+@pytest.mark.parametrize("allowed", MASKS)
+@pytest.mark.parametrize("shape", sorted(MASK_SHAPES))
+@pytest.mark.parametrize("kernel,k", [("fold", 128), ("exact", 160)])
+def test_masked_binary_kernel_matches_plain(cuda, kernel, k, shape,
+                                            allowed):
+    """The masked binary fold (at the plan's tiles) and the masked exact
+    binary kernel against their plain versions."""
+    nq, n, d = MASK_SHAPES[shape]
+    q, packed = _binary_data(cuda, d, nq=nq, n=n)
+    m, words = _row_mask(cuda, n, allowed, k)
+    ft.reset_launches()
+    if kernel == "fold":
+        block_n = ft.fold_plan(n, 32, 0.99)[0]
+        s_k, i_k = ft.binary_fused_topk_raw(q, packed, d=d, k=k,
+                                            block_n=block_n, mask=words)
+        assert ft.last_kernel.split("+")[0] == "fold_mma_kernel<bin><mask>"
+        s_p, i_p = ft.binary_fused_topk_raw_reference(
+            q, packed, d=d, k=k, block_n=block_n, mask=words)
+    else:
+        s_k, i_k = ft.binary_exact_topk_raw(q, packed, d=d, k=k, mask=words)
+        assert ft.last_kernel.split("+")[0] == "exact_mma_kernel<bin><mask>"
+        s_p, i_p = ft.binary_exact_topk_raw(q.cpu(), packed.cpu(), d=d, k=k,
+                                            mask=words.cpu())
+        s_p, i_p = s_p.to(cuda), i_p.to(cuda)
+    assert ft.launches["masked"] == 1
+    _assert_masked_match(m, s_k, i_k, s_p, i_p, 0.99)
+
+
+def test_filtered_retriever_runs_the_masked_kernels(cuda):
+    """A filtered search through ``xla`` on the card launches the masked
+    kernels and returns the xla_exact oracle's filtered docs;
+    ``pallas_exact`` refuses a filter; the exact select past 2048 refuses
+    a mask; CPU tensors never launch."""
+    from latentrag_torch.retrieval import DenseRetriever
+
+    gen = torch.Generator().manual_seed(4)
+    emb = torch.randn((5000, 64), generator=gen).numpy()
+    ids = list(range(5000))
+    md = [{"part": i % 10} for i in ids]
+    spec = {"where": {"part": [1, 2]}}
+    q = emb[:50] + 0.01
+    out = {}
+    for backend in ("xla", "xla_exact"):
+        r = DenseRetriever(backend=backend, store_dtype="float32",
+                           device="cuda")
+        r.build(emb, [str(i) for i in ids], metadata=md)
+        ft.reset_launches()
+        for k in (10, 150):
+            out[(backend, k)] = r.search(q, k, filter=spec)
+        if backend == "xla":
+            assert ft.launches["masked"] == 2
+            assert ft.launches["fold"] == 1 and ft.launches["exact"] == 1
+    for k in (10, 150):
+        s_a, i_a = out[("xla", k)]
+        s_o, i_o = out[("xla_exact", k)]
+        assert (i_a == i_o).mean() >= 0.99
+        assert all(i % 10 in (1, 2) for i in i_a.ravel())
+    p = DenseRetriever(backend="pallas_exact", store_dtype="float32",
+                       device="cuda")
+    p.build(emb, [str(i) for i in ids], metadata=md)
+    with pytest.raises(ValueError, match="filtered search"):
+        p.search(q, 5, filter=spec)
+    m, words = _row_mask(cuda, 5000, 0.5, 10)
+    qc = torch.from_numpy(q).cuda()
+    with pytest.raises(ValueError, match="no row mask"):
+        ft.fused_topk_raw(qc, torch.from_numpy(emb).cuda(), k=3000,
+                          mode="exact", mask=words)
+    ft.reset_launches()
+    ft.fused_topk(torch.from_numpy(q), torch.from_numpy(emb), k=10,
+                  mode="fold", mask=words.cpu())
+    ft.binary_exact_topk_raw(torch.from_numpy(q),
+                             tb.binary_quantize(torch.from_numpy(emb)), d=64,
+                             k=150, mask=words.cpu())
+    assert ft.launches == dict.fromkeys(ft.launches, 0)

@@ -9,6 +9,8 @@ plain version by ``tests/test_torch_cuda.py`` (marked ``cuda``, skipped
 without a card) and by ``chip_smoke.py``.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -229,9 +231,12 @@ def test_cpu_path_counts_no_launches(rng):
     ft.approx_fused_topk(q, torch.zeros((2100, 8)), k=2050)  # blocked route
     ft.binary_exact_topk_raw(q, torch.zeros((2100, 1), dtype=torch.int32),
                              d=8, k=2050)
+    mask = torch.full((2,), -1, dtype=torch.int32)  # every row of 50
+    ft.fused_topk(q, c, k=4, mode="fold", mask=mask)
+    ft.approx_fused_topk(q, c, k=4, mask=mask)
     assert ft.launches == {"fold": 0, "exact": 0, "binary_fold": 0,
                            "binary_exact": 0, "blocked": 0,
-                           "binary_blocked": 0}
+                           "binary_blocked": 0, "masked": 0}
 
 
 @pytest.mark.parametrize("n,k,rt,want", [
@@ -256,3 +261,35 @@ def test_approx_route_meets_recall_target(rng):
                       for a, b in zip(i0, i1)])
     assert recall >= 0.99
     assert bool((s1[:, :-1] >= s1[:, 1:]).all())
+
+
+def test_both_kernel_libraries_build_at_once(tmp_path, monkeypatch):
+    """The kernels' two libraries (without and with the row mask) come from
+    one source under distinct names, and ``build_all`` starts every nvcc
+    before it waits for one. The stand-in compiler marks its start, waits
+    (30 s at most) until both builds have started, and writes the number
+    of starts it saw: 2 in each library only if neither build had to end
+    before the other began."""
+    from latentrag_torch.ops import cuda_build
+
+    names = [cuda_build.library_path(n, d) for n, d in ft.LIBRARIES]
+    assert len(set(names)) == 2
+    assert all(os.path.basename(p).startswith("fused_topk-") for p in names)
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        '#!/bin/sh\n'
+        'while [ "$1" != "-o" ]; do shift; done\n'
+        'out="$2"; dir=$(dirname "$out"); touch "$out.start"; n=0\n'
+        'starts() { ls "$dir" | grep -c "[.]start$"; }\n'
+        'while [ "$(starts)" -lt 2 ] && [ $n -lt 300 ]; do\n'
+        '  sleep 0.1; n=$((n + 1))\n'
+        'done\n'
+        'echo "built $(starts)" > "$out"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path / "build"))
+    paths = cuda_build.build_all(ft.LIBRARIES)
+    assert [open(p).read() for p in paths] == ["built 2\n"] * 2
+    assert set(cuda_build.build_seconds) >= {"fused_topk",
+                                             "fused_topk[LR_MASKED=1]"}
+    assert cuda_build.build_all(ft.LIBRARIES) == paths  # nothing rebuilt
