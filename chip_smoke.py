@@ -29,7 +29,9 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    (``ft.select_fallbacks()``) recorded; then, at Q=64, N=1M, k=3000,
    corpora on which the sampled threshold fails (its rows the best of
    half the queries; rows that tie by the thousand), whose queries fall
-   back to the radix passes and are held to the plain version;
+   back to the radix passes and are held to the plain version; and the
+   batch buckets a served search brings, Q in {8, 64}, at the main path's
+   fold plan (N=1997) and at 1M (k=10 and 40), cosine, both stores;
 2b. holds the binary fold kernel (tensor cores, ``fold_mma_kernel<bin>``)
    against its plain version: the reference and 1M shapes at d=64 and the
    ragged shape at d=384 and d=48 (pad bits), and the binary main path's
@@ -111,6 +113,29 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    beside the same call unmasked, its masked plain version and the masked
    library call (``torch.topk(torch.where(mask, torch.matmul(q, c.T)
    .float(), -inf), k)``), with the bound (the mask adds N/8 bytes);
+3h. (run last, so that its server threads and profiled load do not
+   touch phase 4's device splits) serves the bf16 main path's store (a
+   copy of what its first run persisted, with that run's data_dir, so the
+   tokenizer is the file it wrote) through ``latentrag_torch.serve`` in this process: ``boot``
+   must warm-boot and encode nothing; then ``make_handle`` and
+   ``serve_http`` on 127.0.0.1 take 1024 single-query searches at k=10
+   from 64 concurrent clients (a subprocess), first with every request
+   its own search (``--batch-window-ms 0``), then coalesced (2 ms, at
+   most 64), recording QPS, client p50/p99 latency, the search calls and
+   their sizes, and the fold and exact launches; every response must be
+   its own query's with k hits, the served ids must agree on >= 99 % of
+   slots with the same queries encoded and searched in one direct call
+   and on >= 98 % with ``xla_exact`` on the same store, each search call
+   must launch the fold once and the exact kernel never, and coalesced
+   calls must be fewer than the requests, each of 8, 16, 32 or 64; then
+   8 texts added over HTTP must each come back top-1 on their own text,
+   be gone after their removal, and /stats and /healthz follow the row
+   count; then the same server warm-boots a 1M-row bf16 store of seeded
+   unit rows (lazy texts, the fold at tile 4096) and takes the coalesced
+   load again (recall@10 against ``xla_exact`` reported); last, ``python
+   -m latentrag_torch.serve --device cuda`` answers three JSONL lines (a
+   search, a bad request, stats) with three JSON lines, logging to
+   stderr only;
 5. prints a ``kernels`` JSON line and, last, the device line.
 
 Every check that fails exits non-zero. Without CUDA, or without the
@@ -119,13 +144,17 @@ package beside it, it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import atexit
+import contextlib
 import json
 import logging
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # the card's fastest rates for the work at each store's accuracy: dense bf16
@@ -221,6 +250,16 @@ def check_kernels(torch, failures: list) -> dict:
         ("exact_k_large", 37, 5003, 384, [2049, 3000, 5003], 4096, metrics),
         ("1m_k4096", 1024, 1_000_000, 64, [4096], 4096, ("cosine",)),
     ]
+    # the batches a served search brings (phase 3h): one query at window
+    # 0 (15 of the fold's 16-query tile padding) and the coalesced
+    # buckets; the fold at the main path's plan and at 1M (tile 4096;
+    # k=10, and the 40 candidates its plan asks for), cosine
+    for nq in SERVE_QUERY_COUNTS:
+        shapes += [
+            (f"serve_main_q{nq}", nq, 1997, 64, [40], 128, ("cosine",)),
+            (f"serve_1m_q{nq}", nq, 1_000_000, 64, [10, 40], 4096,
+             ("cosine",)),
+        ]
     seed = 0
     for label, nq, n, d, ks, block_n, shape_metrics in shapes:
         for metric in shape_metrics:
@@ -500,19 +539,23 @@ def _run_main(torch, cli, workdir, kernel, store, top_k) -> dict:
 
 
 def check_main_path(torch, failures: list, exact_kernel: str,
-                    store: str = "bfloat16") -> tuple[dict, dict, dict]:
+                    store: str = "bfloat16",
+                    workdir: str | None = None) -> tuple[dict, dict, dict]:
     """Phase 3: the entry point at full MiniLM-L6 width over a ``store``
     (bf16 or fp32) store; returns the fused kernels' launch counts from the
     kernel=auto runs at top_k=10 and top_k=150, and the top_k=10 oracle's
     result. ``exact_kernel`` names the C kernels phase 2 checked at the
-    top_k=150 search's shape for this store."""
+    top_k=150 search's shape for this store. The runs' data and stores go
+    to ``workdir`` when given (phase 3h serves them), else to a temporary
+    directory."""
     import numpy as np
 
     from latentrag_torch.data import tokenizer
     from latentrag_torch.ops import fused_topk as ft
 
     tag = "" if store == "bfloat16" else "_fp32"
-    with tempfile.TemporaryDirectory(prefix="lr_smoke_") as wd:
+    with tempfile.TemporaryDirectory(prefix="lr_smoke_") as tmp:
+        wd = workdir or tmp
         write_vae(torch, f"{wd}/vae.pth")
         ft.reset_launches()
         tokenizer.reset_rows_served()
@@ -1687,6 +1730,468 @@ def check_bf16_store_at_scale(torch, failures: list) -> None:
     check_store_round_trip(torch, failures, r, q, build_s, "bfloat16")
 
 
+# ------------------------------------------------------------ phase 3h
+
+SERVE_REQUESTS = 1024
+SERVE_CLIENTS = 64
+SERVE_WARMUP_W0 = 16  # window 0's warm-up burst (see timed_load)
+SERVE_K = 10
+SERVE_DIRECT_AGREE = 0.99  # served ids vs one direct call, slot by slot
+SERVE_SIZES = (8, 16, 32, 64)  # the coalesced batches' encoder buckets
+SERVE_QUERY_COUNTS = (1,) + SERVE_SIZES  # window 0's, and the coalesced
+SERVE_1M_ROWS = 1_000_000
+
+# the load's clients, a process of their own so that their interpreter
+# time does not compete with the server's threads: argv port, requests,
+# clients, k; stdin the queries (JSON); stdout one JSON object with the
+# wall time, each request's latency (ms, send to last byte) and what each
+# response held
+SERVE_CLIENT = r"""
+import http.client, json, sys, threading, time
+port, n, clients, k = (int(a) for a in sys.argv[1:5])
+queries = json.load(sys.stdin)
+lat, resp, nxt, lock = [None] * n, [None] * n, [0], threading.Lock()
+start = threading.Barrier(clients + 1)
+
+def work():
+    start.wait()
+    while True:
+        with lock:
+            i = nxt[0]
+            nxt[0] += 1
+        if i >= n:
+            return
+        body = json.dumps({"query": queries[i % len(queries)], "k": k})
+        t0 = time.perf_counter()
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            conn.request("POST", "/search", body,
+                         {"Content-Type": "application/json"})
+            r = conn.getresponse()
+            out = json.loads(r.read())
+        finally:
+            conn.close()
+        lat[i] = (time.perf_counter() - t0) * 1e3
+        if r.status == 200:
+            res = out["results"][0]
+            resp[i] = {"query": res["query"],
+                       "ids": [h["doc_id"] for h in res["hits"]]}
+        else:
+            resp[i] = {"status": r.status, "error": out.get("error")}
+
+threads = [threading.Thread(target=work) for _ in range(clients)]
+for t in threads:
+    t.start()
+start.wait()
+t0 = time.perf_counter()
+for t in threads:
+    t.join()
+wall = time.perf_counter() - t0
+json.dump({"wall_s": wall, "latency_ms": lat, "responses": resp},
+          sys.stdout)
+"""
+
+
+def serve_load(queries, port: int, k: int = SERVE_K,
+               clients: int = SERVE_CLIENTS) -> dict:
+    """``len(queries)`` single-query searches from ``clients`` concurrent
+    clients in a subprocess; its JSON result."""
+    out = subprocess.run(
+        [sys.executable, "-c", SERVE_CLIENT, str(port), str(len(queries)),
+         str(clients), str(k)],
+        input=json.dumps(list(queries)), capture_output=True, text=True,
+        timeout=600)
+    if out.returncode != 0:
+        fail(f"the serve load's clients failed: {out.stderr[-2000:]}")
+    return json.loads(out.stdout)
+
+
+class ServeSpy:
+    """Counts and times a booted server's ``retriever.search`` (the batch
+    sizes it gets) and ``compressor.encode_text`` (synchronised, so its
+    time is the encode's), as ``tests/test_serving.py`` spies on search.
+    ``search`` and ``encode`` stay the originals, for direct calls."""
+
+    def __init__(self, torch, retriever, compressor):
+        self.search, self.encode = retriever.search, compressor.encode_text
+        self.reset()
+
+        def search(q_emb, k, **kw):
+            t0 = time.perf_counter()
+            out = self.search(q_emb, k, **kw)
+            self.search_s += time.perf_counter() - t0
+            self.sizes.append(int(q_emb.shape[0]))
+            return out
+
+        def encode(texts):
+            t0 = time.perf_counter()
+            emb = self.encode(texts)
+            torch.cuda.synchronize()
+            self.encode_s += time.perf_counter() - t0
+            return emb
+
+        retriever.search = search
+        compressor.encode_text = encode
+
+    def reset(self) -> None:
+        self.sizes: list = []
+        self.search_s = self.encode_s = 0.0
+
+
+def serve_args(window_ms: float):
+    return SimpleNamespace(ae_type="vae", generate=False, cold_boot=False,
+                           device="cuda", batch_window_ms=window_ms,
+                           max_batch=64, http=0)
+
+
+def boot_server(torch, cfg, failures: list, label: str):
+    """``serve.boot`` in this process; it must warm-boot and encode
+    nothing. Returns (runner, compressor, retriever, spy, boot record)."""
+    from latentrag_torch import serve
+    from latentrag_torch.retrieval import EmbeddingCompressor
+
+    encoded = []
+    orig = EmbeddingCompressor.encode_text
+
+    def encode_spy(self, texts):
+        encoded.append(len(texts))
+        return orig(self, texts)
+
+    EmbeddingCompressor.encode_text = encode_spy
+    loggers = SimpleNamespace(main=logging.getLogger("latentrag_torch.main"))
+    t0 = time.perf_counter()
+    try:
+        runner, compressor, retriever, mode = serve.boot(
+            cfg, serve_args(0), loggers)
+    finally:
+        EmbeddingCompressor.encode_text = orig
+    torch.cuda.synchronize()
+    rec = {"boot": mode, "boot_s": time.perf_counter() - t0,
+           "encode_calls_at_boot": encoded, "n_docs": len(retriever.texts),
+           "texts": type(retriever.texts).__name__}
+    if mode != "warm" or encoded:
+        failures.append(f"the {label} server did not warm-boot without an "
+                        f"encode: {rec}")
+    spy = ServeSpy(torch, retriever, compressor)
+    return (runner, compressor, retriever, mode, loggers), spy, rec
+
+
+@contextlib.contextmanager
+def running_server(cfg, server_env, window_ms: float):
+    """``make_handle`` at ``window_ms`` behind a started HTTP server
+    (``serve.running_http``), stopped with its batcher on exit; yields
+    (port, window_ms)."""
+    from latentrag_torch import serve
+
+    runner, compressor, retriever, mode, loggers = server_env
+    handle = serve.make_handle(cfg, serve_args(window_ms), runner,
+                               compressor, retriever, mode)
+    with serve.running_http(handle, retriever, mode, "127.0.0.1", 0,
+                            loggers) as server:
+        yield SimpleNamespace(port=server.server_address[1],
+                              window_ms=window_ms)
+
+
+def timed_load(torch, srv, spy, queries) -> dict:
+    """A warm-up burst under the profiler (the device's busy share of its
+    wall time: the timed load runs without the profiler), then the timed
+    load with the counts at 0: QPS, client latency percentiles, the search
+    calls' sizes, the fold and exact launches, and the host time in encode
+    and search."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from latentrag_torch.ops import fused_topk as ft
+
+    # the warm-up: one request a client when the window is on, so that
+    # the coalesced load's largest batch (64) is warm before the timed
+    # load (a first batch of 64 costs ~0.4 s); at window 0, where every
+    # search is one query, fewer, as the profiler costs 70-95 ms a
+    # request there
+    warmup = SERVE_CLIENTS if srv.window_ms > 0 else SERVE_WARMUP_W0
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall = serve_load(queries[:warmup], srv.port)["wall_s"]
+    busy_us = sum(getattr(ev, "device_time_total", 0) or 0
+                  for ev in prof.key_averages())
+    profiled_s = time.perf_counter() - t0
+    spy.reset()
+    ft.reset_launches()
+    res = serve_load(queries, srv.port)
+    launches = dict(ft.launches)
+    calls, encode_s, search_s = list(spy.sizes), spy.encode_s, spy.search_s
+    lat = np.asarray([x for x in res["latency_ms"] if x is not None])
+    sizes = {}
+    for n in calls:
+        sizes[n] = sizes.get(n, 0) + 1
+    return {
+        "window_ms": srv.window_ms, "requests": len(queries),
+        "clients": SERVE_CLIENTS, "k": SERVE_K,
+        "qps": len(queries) / res["wall_s"], "wall_s": res["wall_s"],
+        "p50_ms": float(np.percentile(lat, 50)),
+        "p99_ms": float(np.percentile(lat, 99)),
+        "mean_ms": float(lat.mean()), "max_ms": float(lat.max()),
+        "search_calls": len(calls), "search_sizes": sizes,
+        "encode_s": encode_s, "search_s": search_s,
+        "launches": {key: launches[key] for key in ("fold", "exact")},
+        "c_kernel": ft.last_kernel,
+        "device_busy_share": busy_us / 1e6 / wall,
+        "profiled_requests": warmup, "profiled_wall_s": wall,
+        "profiled_s": profiled_s,
+        "responses": res["responses"],
+    }
+
+
+def check_load(load: dict, queries, failures: list, label: str) -> None:
+    """Phase 3h (iii) on one load: each response is its own query's, with
+    k hits; one fold launch a search call, no exact launch; with the
+    window on, fewer calls than requests, each of an encoder bucket."""
+    resp = load["responses"]
+    bad = [i for i, r in enumerate(resp)
+           if r is None or r.get("query") != queries[i]
+           or len(r.get("ids", ())) != SERVE_K]
+    load["bad_responses"] = len(bad)
+    if bad:
+        failures.append(f"{label}: {len(bad)} responses without their own "
+                        f"query or k hits, first {resp[bad[0]]}")
+    if (load["launches"]["fold"] != load["search_calls"]
+            or load["launches"]["exact"] != 0
+            or not (load["c_kernel"] or "").startswith("fold_mma_kernel")):
+        failures.append(f"{label}: launches {load['launches']} for "
+                        f"{load['search_calls']} search calls, last "
+                        f"kernel {load['c_kernel']}")
+    if load["window_ms"] > 0 and (
+            load["search_calls"] >= load["requests"]
+            or set(load["search_sizes"]) - set(SERVE_SIZES)):
+        failures.append(f"{label}: coalesced calls {load['search_calls']} "
+                        f"of sizes {load['search_sizes']}")
+
+
+def reference_ids(retriever, spy, queries, index: str):
+    """The doc ids of the queries encoded and searched in one direct call
+    on the served retriever (the originals, not the spies), and searched
+    by ``xla_exact`` over the same store loaded from ``index``."""
+    from latentrag_torch.retrieval import DenseRetriever
+
+    emb = spy.encode(queries)
+    exact = DenseRetriever(backend="xla_exact", store_dtype="bfloat16",
+                           index_path=index, device="cuda")
+    out = []
+    for r, search in ((retriever, spy.search), (exact, exact.search)):
+        _, idx = search(emb, SERVE_K)
+        out.append([[r.doc_ids[j] for j in row if j >= 0] for row in idx])
+    return out
+
+
+def http_json(port: int, method: str, path: str, body=None) -> dict:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request(method, path, None if body is None else json.dumps(body),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return {"status": r.status, **json.loads(r.read())}
+    finally:
+        conn.close()
+
+
+def check_http_mutation(port: int, n_docs: int, failures: list) -> dict:
+    """Phase 3h (iv): 8 texts added over HTTP each come back top-1 on
+    their own text, are gone after the remove, and /stats and /healthz
+    follow the row count."""
+    texts = [f"zzqx served probe {i} on quasar {7919 * (i + 3)} nebula"
+             for i in range(8)]
+    ids = list(range(10**9, 10**9 + 8))
+    added = http_json(port, "POST", "/add", {"texts": texts, "doc_ids": ids})
+    found = http_json(port, "POST", "/search",
+                      {"queries": texts, "k": SERVE_K})
+    stats_added = http_json(port, "GET", "/stats")
+    health_added = http_json(port, "GET", "/healthz")
+    removed = http_json(port, "POST", "/remove", {"doc_ids": ids})
+    gone = http_json(port, "POST", "/search",
+                     {"queries": texts, "k": SERVE_K})
+    stats = http_json(port, "GET", "/stats")
+    health = http_json(port, "GET", "/healthz")
+    top1 = [r["hits"][0]["doc_id"] for r in found.get("results", [])]
+    came_back = sum(h["doc_id"] in ids for r in gone.get("results", [])
+                    for h in r["hits"])
+    rec = {"added": added.get("added"), "n_total_added": added.get("n_total"),
+           "top1_is_added": top1 == ids, "removed": removed.get("removed"),
+           "n_total_removed": removed.get("n_total"), "came_back": came_back,
+           "stats_n_docs": [stats_added.get("n_docs"), stats.get("n_docs")],
+           "healthz_n_docs": [health_added.get("n_docs"),
+                              health.get("n_docs")]}
+    want = [n_docs + 8, n_docs]
+    if not (rec["added"] == 8 and rec["n_total_added"] == n_docs + 8
+            and rec["top1_is_added"] and rec["removed"] == 8
+            and rec["n_total_removed"] == n_docs and came_back == 0
+            and rec["stats_n_docs"] == want
+            and rec["healthz_n_docs"] == want):
+        failures.append(f"add/remove over HTTP: {rec}")
+    return rec
+
+
+def check_serving(torch, failures: list, workdir: str) -> dict:
+    """Phase 3h on the main path's store (a copy of what phase 3's first
+    bf16 run persisted, with its data_dir's tokenizer): a warm boot at
+    full width, 1024 concurrent single-query searches at window 0 and 2
+    ms, each held to one direct call and to ``xla_exact``, then add and
+    remove over HTTP; then a 1M-row store and the CLI. Returns the fold
+    launches of each timed load."""
+    from latentrag_torch.utils import apply_overrides, load_config
+
+    t_phase = time.perf_counter()
+    queries = eval_queries(SERVE_REQUESTS)
+    index = f"{workdir}/serve_index"
+    shutil.copytree(f"{workdir}/index_auto_10", index)
+    cfg = apply_overrides(load_config(None), main_overrides(
+        workdir, "auto", "bfloat16") + [f"retrieval.index_path={index}"])
+    server_env, spy, boot_rec = boot_server(torch, cfg, failures, "main")
+    retriever = server_env[2]
+    loads = {}
+    for window in (0.0, 2.0):
+        with running_server(cfg, server_env, window) as srv:
+            loads[window] = load = timed_load(torch, srv, spy, queries)
+            check_load(load, queries, failures, f"serve window {window}")
+            if window > 0:
+                mutation = check_http_mutation(srv.port, boot_rec["n_docs"],
+                                               failures)
+    # a request's two device steps alone, the server idle: one query and
+    # a full batch
+    alone = {}
+    for n in (1, 64):
+        qs = queries[:n]
+        emb = spy.encode(qs)
+        alone[f"encode_{n}_ms"] = time_ms(torch, lambda: spy.encode(qs),
+                                          reps=10)
+        alone[f"search_{n}_ms"] = time_ms(
+            torch, lambda: spy.search(emb, SERVE_K), reps=10)
+    direct, oracle = reference_ids(retriever, spy, queries, index)
+    for load in loads.values():
+        served = [r["ids"] for r in load.pop("responses")]
+        load["direct_agreement"] = slot_agreement(served, direct)
+        load["exact_agreement"] = slot_agreement(served, oracle)
+        if (load["direct_agreement"] < SERVE_DIRECT_AGREE
+                or load["exact_agreement"] < MAIN_DOC_AGREE):
+            failures.append(
+                f"served ids at window {load['window_ms']}: "
+                f"{load['direct_agreement']} of slots as the direct call "
+                f"(>= {SERVE_DIRECT_AGREE}), {load['exact_agreement']} as "
+                f"xla_exact (>= {MAIN_DOC_AGREE})")
+    record("serve", card=card_line(), store="bfloat16", **boot_rec,
+           loads=list(loads.values()), mutation=mutation,
+           speedup_qps=loads[2.0]["qps"] / loads[0.0]["qps"], alone=alone,
+           phase_s=time.perf_counter() - t_phase)
+    del server_env, spy, retriever
+    launches = {"serve_w0": loads[0.0]["launches"]["fold"],
+                "serve_w2": loads[2.0]["launches"]["fold"]}
+    launches["serve_1m"] = check_serving_1m(torch, failures, workdir,
+                                            queries)
+    check_serve_cli(failures, workdir, queries[0])
+    torch.cuda.empty_cache()
+    return launches
+
+
+def eval_queries(n: int) -> list:
+    """The first ``n`` queries of the main path's synthetic eval set."""
+    from latentrag_torch.data import load_evaluation_data, synthetic_examples
+
+    queries, _, _ = load_evaluation_data(synthetic_examples(2000))
+    return list(queries[:n])
+
+
+def check_serving_1m(torch, failures: list, workdir: str, queries) -> int:
+    """Phase 3h (v): a 1M-row bf16 store of seeded unit rows (d=64) saved
+    at its own index_path, warm-booted by the same server (texts stay
+    lazy; the fold at tile 4096), loaded with the window on; served ids
+    held to one direct call, recall@10 against ``xla_exact`` reported."""
+    from latentrag_torch.retrieval import DenseRetriever
+    from latentrag_torch.retrieval.dense import make_fingerprint
+    from latentrag_torch.utils import apply_overrides, load_config
+
+    t_phase = time.perf_counter()
+    index = f"{workdir}/serve_index_1m"
+    cfg = apply_overrides(load_config(None), main_overrides(
+        workdir, "auto", "bfloat16") + [f"retrieval.index_path={index}"])
+    g = torch.Generator(device="cuda").manual_seed(53)
+    x = torch.nn.functional.normalize(
+        torch.randn((SERVE_1M_ROWS, 64), generator=g, device="cuda"), dim=1)
+    r = DenseRetriever(store_dtype="bfloat16", index_path=index,
+                       device="cuda")
+    t0 = time.perf_counter()
+    r.build(x, [""] * x.shape[0], fingerprint=make_fingerprint(
+        d=64, embedding_model=cfg.encoder.name, ae_type="vae",
+        latent_dim=64))
+    torch.cuda.synchronize()
+    build_save_s = time.perf_counter() - t0
+    del r, x
+    torch.cuda.empty_cache()
+    server_env, spy, boot_rec = boot_server(torch, cfg, failures, "1M")
+    retriever = server_env[2]
+    with running_server(cfg, server_env, 2.0) as srv:
+        load = timed_load(torch, srv, spy, queries)
+    check_load(load, queries, failures, "serve 1M")
+    direct, oracle = reference_ids(retriever, spy, queries, index)
+    served = [r["ids"] for r in load.pop("responses")]
+    load["direct_agreement"] = slot_agreement(served, direct)
+    load["recall_at_10_vs_exact"] = sum(
+        len(set(s) & set(o)) for s, o in zip(served, oracle)) / sum(
+        len(o) for o in oracle)
+    boot_rec["texts_after_load"] = type(retriever.texts).__name__
+    record("serve_1m", card=card_line(), store="bfloat16",
+           build_and_save_s=build_save_s, **boot_rec, load=load,
+           phase_s=time.perf_counter() - t_phase)
+    if load["direct_agreement"] < SERVE_DIRECT_AGREE or (
+            boot_rec["texts_after_load"] != "LazyTexts"):
+        failures.append(f"the 1M server: {load['direct_agreement']} of "
+                        f"slots as the direct call, texts "
+                        f"{boot_rec['texts_after_load']}")
+    del server_env, spy, retriever
+    torch.cuda.empty_cache()
+    return load["launches"]["fold"]
+
+
+def check_serve_cli(failures: list, workdir: str, query: str) -> None:
+    """Phase 3h (vi): ``python -m latentrag_torch.serve --device cuda``
+    as users start it, over JSONL on a copy of the main path's store: a
+    search, a bad request and a stats request give three JSON lines on
+    stdout, one of them an error, rc 0, and the logs on stderr."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    index = f"{workdir}/serve_index_cli"
+    shutil.copytree(f"{workdir}/index_auto_10", index)
+    overrides = main_overrides(workdir, "auto", "bfloat16") + [
+        f"retrieval.index_path={index}", "logging.level=INFO"]
+    lines = [json.dumps({"query": query, "k": SERVE_K}),
+             json.dumps({"queries": "a bare string"}),
+             json.dumps({"stats": True})]
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "latentrag_torch.serve", "--device", "cuda",
+         "--ae_type", "vae", "--set", *overrides],
+        input="".join(x + "\n" for x in lines), capture_output=True,
+        text=True, timeout=600, cwd=root)
+    wall = time.perf_counter() - t0
+    try:
+        resp = [json.loads(x) for x in out.stdout.splitlines() if x.strip()]
+    except ValueError:
+        resp = None
+    rec = {"rc": out.returncode, "wall_s": wall, "stdout_lines":
+           len(out.stdout.splitlines()), "json_lines": resp is not None,
+           "stderr_tail": out.stderr[-600:]}
+    ok = out.returncode == 0 and resp is not None and len(resp) == 3
+    if ok:
+        hits = resp[0].get("results", [{}])[0].get("hits", [])
+        rec.update(hits=len(hits), error=resp[1].get("error"),
+                   boot=resp[2].get("boot"), n_docs=resp[2].get("n_docs"))
+        ok = (len(hits) == SERVE_K and "error" in resp[1]
+              and "error" not in resp[0] and resp[2].get("boot") == "warm"
+              and "warm boot in" in out.stderr)
+    record("serve_cli", **rec)
+    if not ok:
+        failures.append(f"the serve CLI: {rec}")
+
+
 def time_masked(torch) -> dict:
     """Phase 4c: the masked kernels with 10 % of the rows allowed, cosine,
     at the reference shape and at 1024 x 1M: the fold at the plan and the
@@ -1809,8 +2314,12 @@ def main() -> int:
     worst.update(check_masked_kernels(torch, failures))
     if failures:
         fail("; ".join(failures[:5]))
+    # the bf16 main path's data and stores outlive it: phase 3h serves them
+    main_wd = tempfile.mkdtemp(prefix="lr_smoke_")
+    atexit.register(shutil.rmtree, main_wd, True)
     launches, oracle, launches150, filtered = check_main_path(
-        torch, failures, worst.pop("main_exact_kernel_bfloat16"))
+        torch, failures, worst.pop("main_exact_kernel_bfloat16"),
+        workdir=main_wd)
     if failures:
         fail("; ".join(failures))
     launches["exact"] = launches150["exact"]  # the bf16 main at top_k=150
@@ -1851,6 +2360,11 @@ def main() -> int:
     times = time_kernels(torch)
     times.update(time_binary(torch))
     masked_times = time_masked(torch)
+    # phase 3h runs last: its server threads and its profiled load must not
+    # touch phase 4's device splits
+    serve_launches = check_serving(torch, failures, main_wd)
+    if failures:
+        fail("; ".join(failures))
 
     kernels = []
     for mode, fn_line, source in (("fold", 162, "fold_mma.cuh"),
@@ -1870,6 +2384,9 @@ def main() -> int:
                 "shape": f"Q=2000 N=315 d=64 k={t['k']} "
                          f"block_n={t['block_n']} {store} cosine",
             })
+    # the served searches' launches (phase 3h), each load with its counts
+    # at 0: the bf16 fold serves them all
+    kernels[0]["serve_launches"] = serve_launches
     for tag, store in (("", "bf16"), ("_fp32", "fp32")):
         t = times[("1m", "exact_k3000" + tag)]
         kernels.append({

@@ -309,6 +309,12 @@ class DenseRetriever:
     def is_built(self) -> bool:
         return self._corpus is not None
 
+    @property
+    def dim(self) -> int:
+        """The vectors' width (a binary store's too, not its packed word
+        count); 0 before a build or a load."""
+        return self._dim
+
     def _resolve_backend(self) -> str:
         if self.backend != "auto":
             return self.backend

@@ -6,6 +6,8 @@ from __future__ import annotations
 import logging
 from typing import Sequence
 
+import torch
+
 from ..utils.config import RetrievalConfig
 from .dense import DenseRetriever, make_fingerprint
 
@@ -24,9 +26,16 @@ def _make_dense(cfg: RetrievalConfig, device) -> DenseRetriever:
             "queue 1: bm25 in item 24, hnsw/ivfpq in item 18)"
         )
     if cfg.shard_corpus:
-        raise NotImplementedError(
-            "retrieval.shard_corpus is ROADMAP queue 1 item 23 (multi-GPU)"
-        )
+        # one device holds the whole corpus, as the JAX package serves the
+        # flag on a single device (no mesh, or a 1-device mesh dropped)
+        if torch.device(device).type == "cuda" and (
+                torch.cuda.device_count() > 1):
+            raise NotImplementedError(
+                "retrieval.shard_corpus over more than one card is ROADMAP "
+                "queue 1 item 23 (multi-GPU)"
+            )
+        log.info("retrieval.shard_corpus: one device; the corpus is served "
+                 "unsharded")
     if cfg.ivf_nlist:
         raise NotImplementedError(
             "retrieval.ivf_nlist (device IVF) is ROADMAP queue 1 item 17"

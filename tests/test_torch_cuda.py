@@ -783,3 +783,81 @@ def test_filtered_retriever_runs_the_masked_kernels(cuda):
                              tb.binary_quantize(torch.from_numpy(emb)), d=64,
                              k=150, mask=words.cpu())
     assert ft.launches == dict.fromkeys(ft.launches, 0)
+
+
+def test_http_serve_on_card(cuda, tmp_path):
+    """The port's server on ``--device cuda`` over HTTP with a micro-batch
+    window: one fold launch per coalesced search, no exact launch, and
+    served ids equal to one direct call's on the same retriever."""
+    import json
+    import logging
+    import threading
+    import urllib.request
+    from types import SimpleNamespace
+
+    from latentrag_torch import serve
+    from latentrag_torch.models import VariationalAutoencoder
+    from latentrag_torch.utils import apply_overrides, load_config
+
+    base = str(tmp_path)
+    torch.manual_seed(5)
+    torch.save(VariationalAutoencoder(32, 8, 16).state_dict(),
+               f"{base}/vae.pth")
+    cfg = apply_overrides(load_config(None), [
+        "data.dataset=synthetic", "data.max_samples=60",
+        "encoder.vocab_size=800", "encoder.hidden_dim=32",
+        "encoder.num_layers=1", "encoder.num_heads=4", "encoder.mlp_dim=64",
+        # fp32 encodes: a batch's length bucket must not move a query
+        "encoder.dtype=float32",
+        "models.vae.input_dim=32", "models.vae.latent_dim=8",
+        "models.vae.hidden_dim=16", f"models.vae.checkpoint={base}/vae.pth",
+        f"paths.data_dir={base}/data", f"paths.checkpoints_dir={base}/ckpt",
+        f"retrieval.index_path={base}/index", "logging.log_to_file=false",
+    ])
+    loggers = SimpleNamespace(main=logging.getLogger("latentrag_torch.main"))
+    args = SimpleNamespace(ae_type="vae", generate=False, cold_boot=False,
+                           device="cuda", batch_window_ms=30.0,
+                           max_batch=64, http=0)
+    runner, compressor, retriever, mode = serve.boot(cfg, args, loggers)
+    sizes = []
+    orig = retriever.search
+
+    def spy(q_emb, k, **kw):
+        sizes.append(int(q_emb.shape[0]))
+        return orig(q_emb, k, **kw)
+
+    retriever.search = spy
+    handle = serve.make_handle(cfg, args, runner, compressor, retriever,
+                               mode)
+    queries = [f"experiment {i} findings" for i in range(12)]
+    out = [None] * len(queries)
+
+    def post(i):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/search",
+            data=json.dumps({"query": queries[i], "k": 5}).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            out[i] = json.loads(r.read())
+
+    with serve.running_http(handle, retriever, mode, "127.0.0.1", 0,
+                            loggers) as server:
+        port = server.server_address[1]
+        post(0)
+        sizes.clear()
+        ft.reset_launches()
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(len(queries))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+        assert ft.launches["fold"] == len(sizes) and ft.launches["exact"] == 0
+        assert len(sizes) < len(queries)
+        assert all(s in (8, 16, 32, 64) for s in sizes), sizes
+        _, idx = orig(compressor.encode_text(queries), 5)
+        for i, o in enumerate(out):
+            assert o["results"][0]["query"] == queries[i]
+            got = [h["doc_id"] for h in o["results"][0]["hits"]]
+            assert got == [retriever.doc_ids[j] for j in idx[i]]

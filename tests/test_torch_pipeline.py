@@ -19,6 +19,7 @@ from latentrag_tpu.retrieval.dense import DenseRetriever as JaxDense
 from latentrag_tpu.utils import apply_overrides as jax_overrides
 from latentrag_tpu.utils import Config as JaxConfig
 from latentrag_torch import main as torch_main
+from latentrag_torch import serve as torch_serve
 from latentrag_torch.models import VariationalAutoencoder
 from latentrag_torch.models.convert import minilm_state_dict_from_jax
 from latentrag_torch.pipeline import PipelineRunner
@@ -146,6 +147,12 @@ def test_entry_points_refuse_missing_cuda(monkeypatch, tmp_path):
                          "data.max_samples=10",
                          f"paths.data_dir={tmp_path}/d",
                          "logging.log_to_file=false"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        torch_serve.main(["--set", "data.dataset=synthetic",
+                          "data.max_samples=10",
+                          f"paths.data_dir={tmp_path}/d",
+                          f"retrieval.index_path={tmp_path}/i",
+                          "logging.log_to_file=false"])
     assert resolve_device("cpu").type == "cpu"
 
 
