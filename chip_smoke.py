@@ -47,6 +47,15 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    at the plan, the exact kernel at k=10 and 160, bf16 and fp32 stores,
    the binary fold at 128 candidates and the exact binary kernel at
    k=160; empty slots must be (NEG_INF, -1) and every id allowed;
+2d. holds the int8 and int4 kernels (``fold_mma_kernel<E, OP_I8 / OP_I4>``,
+   ``exact_mma_kernel<KP, ...>``, on ``mma.sync`` s8) and their row-mask
+   instances against their plain versions at the main path's shape
+   (Q=2000, N=1997, d=64): the fold at the store's plan for top_k=10 under
+   the msmarco config's recall_target 0.95, the exact kernel at k=10 and
+   160, unmasked and with 10 % of the rows allowed; scores are exact
+   integer dots times one factor, so the exact kernels must equal their
+   plain versions bit for bit and the fold its plain fold (ids >= 99 %,
+   scores bit for bit at equal ids);
 3. drives the main path through ``latentrag_torch.main.main`` at the full
    MiniLM-L6 width in bf16 with a seeded 384->512->64 VAE: synthetic data,
    2000 queries, a bf16 cosine store, top_k=10, kernel=auto; checks that the
@@ -89,6 +98,23 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    rows (each must retrieve itself top-1), ``remove`` the queries' top-1
    docs and half the added rows (none may come back; every survivor keeps
    its score bit for bit), reload and hold the row count;
+3i. drives ``latentrag_torch.main --config configs/msmarco_v5e8.yaml
+   --ae_type dae`` (the repo's MS-MARCO-scale config: the int8 store,
+   recall_target 0.95, block_size 1048576, shard_corpus on one card) with
+   a seeded 384->512->64 DAE .pth and 2000 synthetic examples: the int8
+   fold must serve its search and self-check, the same run with the
+   kernels' plain versions must give the same doc ids (by set at ties) and
+   metrics, and ``python -m latentrag_torch.serve`` on that config boots
+   warm and answers a JSONL search;
+3j. builds an int8 and then an int4 ``DenseRetriever`` over 8.8M seeded
+   unit rows, d=64 (the config's corpus scale: 563 MB of int8 codes, or
+   282 MB of nibbles on the card and 563 MB of SQ8 codes on the host), and
+   searches 1024 queries at k=10 (the fold), at 160 candidates (the exact
+   kernel) and both with a doc_ids filter (the masked instances): each
+   search equal bit for bit to the same search with the kernels' plain
+   versions, and >= 99 % by set to the exact plain search in 1M-row
+   blocks; Recall@10 against exact fp32 search reported; then saved,
+   loaded and searched again bit for bit;
 3d. builds a ``DenseRetriever(backend="pallas_exact")`` over 1M seeded unit
    rows (d=64), bf16 and then fp32, and searches 1024 queries at k=3000:
    the exact select (its sampled route) must serve it and agree with
@@ -113,6 +139,13 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    beside the same call unmasked, its masked plain version and the masked
    library call (``torch.topk(torch.where(mask, torch.matmul(q, c.T)
    .float(), -inf), k)``), with the bound (the mask adds N/8 bytes);
+4d. times the int8 and int4 kernels (fold at the plan, exact at k=10 and
+   160, the masked fold and exact at 10 % allowed) at Q=2000, N=315 and
+   at Q=1024, N=8.8M, beside their plain versions, the library yardstick
+   ``torch._int_mm`` + ``torch.topk`` in 1M-row blocks (int4: over its
+   codes unpacked to int8), the bound (bytes over 3.35 TB/s, or 2 Q N d
+   over 1,979 TOPS of int8), a profiler device split and the resident
+   blocks an SM;
 3h. (run last, so that its server threads and profiled load do not
    touch phase 4's device splits) serves the bf16 main path's store (a
    copy of what its first run persisted, with that run's data_dir, so the
@@ -1730,6 +1763,527 @@ def check_bf16_store_at_scale(torch, failures: list) -> None:
     check_store_round_trip(torch, failures, r, q, build_s, "bfloat16")
 
 
+# ------------------------------------------------- the int8 and int4 stores
+
+MSMARCO_CONFIG = "configs/msmarco_v5e8.yaml"
+QUANT_STORES = ("int8", "int4")
+# the config's corpus (msmarco_v5e8.yaml:1-2: ~8.8M MS-MARCO passages)
+CAPACITY_ROWS = 8_800_000
+CAPACITY_RT = 0.95  # the config's recall_target
+QUANT_BLOCK = 1 << 20  # the config's block_size: the plain searches' blocks
+# the store's answer against the exact plain search (sq8_topk / sq4_topk):
+# the fold may drop a row (the route's recall); by set at ties
+QUANT_EXACT_AGREE = 0.99
+PEAK_INT8_OPS = 1979e12  # dense int8 tensor cores
+
+
+def quant_op(ft, store: str) -> int:
+    return ft._OP_I8 if store == "int8" else ft._OP_I4
+
+
+def quant_case(torch, store, nq, n, d, seed):
+    """Seeded unit queries and corpus on the card, quantized as the store
+    holds them: (queries, their SQ8 codes, the corpus's int8 codes or int4
+    nibbles, the score factor, the corpus's scale)."""
+    from latentrag_torch.ops import quantization as tq
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.nn.functional.normalize(
+        torch.randn((n, d), generator=g, device="cuda"), dim=1)
+    q = torch.nn.functional.normalize(
+        torch.randn((nq, d), generator=g, device="cuda"), dim=1)
+    qc, qs = tq.sq8_quantize(q)
+    c, cs = tq.sq8_quantize(x) if store == "int8" else tq.sq4_quantize(x)
+    return q, qc, c, tq.score_factor(qs, cs), cs
+
+
+def quant_kernel(ft, store, qc, c, fac, d, **kw):
+    """The int8 or int4 kernel's wrapper (a CUDA tensor: the kernel)."""
+    if store == "int8":
+        return ft.sq8_fused_topk_raw(qc, c, fac, **kw)
+    return ft.sq4_fused_topk_raw(qc, c, fac, d=d, **kw)
+
+
+def quant_plain(ft, store, qc, c, fac, d, **kw):
+    """The same call's plain PyTorch version, on the card."""
+    return ft.quantized_fused_topk_raw_reference(
+        qc, c, fac, d=d, op=quant_op(ft, store), **kw)
+
+
+def quant_fold_plan(ft, store, n, top_k=10, rt=CAPACITY_RT):
+    """(tile, candidates) of the fold as the store plans it at top_k: the
+    int8 store asks for top_k, the int4 store's stage 1 for 8 x top_k."""
+    return ft.fold_plan(n, top_k if store == "int8" else min(8 * top_k, n),
+                        rt)
+
+
+@contextlib.contextmanager
+def plain_quantized(ft):
+    """Within it, the int8 and int4 routes run their kernels' plain
+    versions (on the card), so that a store's search can be held to the
+    same search without the kernels."""
+    real = ft._quantized_raw
+
+    def plain(q_codes, corpus, factor, *, d, k, op, mode, block_n, mask):
+        return ft.quantized_fused_topk_raw_reference(
+            q_codes, corpus, factor, d=d, k=k, op=op, mode=mode,
+            block_n=block_n, mask=mask)
+
+    ft._quantized_raw = plain
+    try:
+        yield
+    finally:
+        ft._quantized_raw = real
+
+
+def check_quantized_kernels(torch, failures: list) -> dict:
+    """Phase 2d: the int8 and int4 fold and exact kernels
+    (``fold_mma_kernel<E, OP_I8 / OP_I4>``, ``exact_mma_kernel<KP, ...>``)
+    and their row-mask instances (10 % of the rows allowed) against their
+    plain versions at the main path's corpus (N=1997, d=64): the fold at
+    the store's plan for top_k=10 under the msmarco config's recall_target
+    0.95 (int8: 40 candidates; int4: stage 1's 128 for 80), the exact
+    kernel at k=10 and k=160, each at every batch the main path brings:
+    Q=2000 (the pipeline), Q=1 (the build's self-check, one served query;
+    63 of the 64-query tile padding) and the server's coalesced 8-64, each
+    batch quantized with its own SQ8 scale. Scores are exact int32 dots
+    times one fp32 factor, so the exact kernels must equal their plain
+    versions bit for bit (ids and scores) and the fold its plain fold on
+    >= 99 % of ids, bit for bit at equal ids. Returns the largest score
+    error at equal ids a kernel (0.0 expected)."""
+    from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.ops import quantization as tq
+
+    worst = {}
+    n, d = 1997, 64
+    for si, store in enumerate(QUANT_STORES):
+        q, _, c, _, cs = quant_case(torch, store, 2000, n, d, 510 + si)
+        block_n, cand = quant_fold_plan(ft, store, n)
+        for nq in SERVE_QUERY_COUNTS + (2000,):
+            qc, qs = tq.sq8_quantize(q[:nq])
+            fac = tq.score_factor(qs, cs)
+            for masked in (False, True):
+                m, words = (row_mask(torch, n, 0.1, 10, 520 + si) if masked
+                            else (None, None))
+                for mode, k, bn in (("fold", cand, block_n),
+                                    ("exact", 10, 4096),
+                                    ("exact", 160, 4096)):
+                    ft.reset_launches()
+                    s_k, i_k = quant_kernel(ft, store, qc, c, fac, d, k=k,
+                                            mode=mode, block_n=bn,
+                                            mask=words)
+                    torch.cuda.synchronize()
+                    ran, launched = ft.last_kernel, dict(ft.launches)
+                    s_p, i_p = quant_plain(ft, store, qc, c, fac, d, k=k,
+                                           mode=mode, block_n=bn, mask=words)
+                    same = i_k == i_p
+                    id_match = same.float().mean().item()
+                    err = (s_k - s_p).abs()[same & (i_k >= 0)]
+                    max_err = err.max().item() if err.numel() else 0.0
+                    tag = "<i8>" if store == "int8" else "<i4>"
+                    want = (f"{mode}_mma_kernel{tag}"
+                            + ("<mask>" if masked else ""))
+                    ok = (ran.split("+")[0] == want and max_err == 0.0
+                          and launched[f"{store}_{mode}"] == 1
+                          and launched["masked"] == int(masked))
+                    if mode == "exact":
+                        ok = (ok and torch.equal(i_k, i_p)
+                              and torch.equal(s_k, s_p))
+                    else:
+                        ok = ok and id_match >= FOLD_ID_MATCH
+                    if masked:
+                        ok = ok and masked_match(torch, m, s_k, i_k, s_p,
+                                                 i_p)[0]
+                    key = f"{store}_{mode}" + ("_masked" if masked else "")
+                    worst[key] = max(worst.get(key, 0.0), max_err)
+                    rec = {"store": store, "mode": mode, "k": k,
+                           "block_n": bn, "Q": nq, "N": n, "d": d,
+                           "masked": masked, "c_kernel": ran,
+                           "id_match": id_match, "max_abs_err": max_err,
+                           "ok": ok}
+                    record("quant_kernel_check", **rec)
+                    if not ok:
+                        failures.append(f"quantized kernel check {rec}")
+            del qc
+        del q, c
+    torch.cuda.empty_cache()
+    return worst
+
+
+def write_dae(torch, path: str) -> None:
+    from latentrag_torch.models import DenoisingAutoencoder
+
+    torch.manual_seed(1235)
+    torch.save(DenoisingAutoencoder(384, 64, 512).state_dict(), path)
+
+
+def msmarco_overrides(workdir: str, index: str) -> list:
+    """What a run of ``configs/msmarco_v5e8.yaml`` needs on this machine:
+    the seeded DAE checkpoint, paths in ``workdir``, and the main path's
+    2000 synthetic examples (the config's own ``max_samples`` is null,
+    200 examples); every retrieval setting is the config's."""
+    return [
+        "data.max_samples=2000", f"models.dae.checkpoint={workdir}/dae.pth",
+        f"paths.data_dir={workdir}/data",
+        f"paths.checkpoints_dir={workdir}/ckpt",
+        f"paths.logs_dir={workdir}/logs",
+        f"retrieval.index_path={workdir}/{index}",
+        "logging.log_to_file=false", "logging.level=WARNING",
+    ]
+
+
+def run_msmarco(torch, workdir: str, index: str) -> dict:
+    from latentrag_torch import main as cli
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    results: list = []
+    t0 = time.perf_counter()
+    rc = cli.main(["--config", os.path.join(root, MSMARCO_CONFIG),
+                   "--ae_type", "dae", "--device", "cuda", "--tag",
+                   f"smoke_msmarco_{index}", "--set",
+                   *msmarco_overrides(workdir, index)], results=results)
+    torch.cuda.synchronize()
+    if rc != 0 or len(results) != 1:
+        fail(f"main --config {MSMARCO_CONFIG} returned {rc} with "
+             f"{len(results)} results")
+    res = results[0]
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def check_msmarco_main(torch, failures: list) -> dict:
+    """Phase 3i: ``latentrag_torch.main --config configs/msmarco_v5e8.yaml
+    --ae_type dae`` on the card (MiniLM-L6 bf16, a seeded 384->512->64
+    DAE, 2000 synthetic examples, the config's int8 store at recall_target
+    0.95 and block_size 1048576, shard_corpus served on one card): the
+    int8 fold must serve its search and self-check and the exact kernel
+    not launch; the same run with the kernels' plain versions must give
+    the same doc ids (by set at ties) and metrics; then ``python -m
+    latentrag_torch.serve`` boots the same config warm from the first
+    run's store and answers one JSONL search. Returns the int8 fold's
+    launches in the first run."""
+    import numpy as np
+
+    from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.ops import quantization as tq
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="lr_smoke_msmarco_") as wd:
+        write_dae(torch, f"{wd}/dae.pth")
+        ft.reset_launches()
+        res = run_msmarco(torch, wd, "index")
+        launches, ran = dict(ft.launches), ft.last_kernel
+        with plain_quantized(ft):
+            ft.reset_launches()
+            plain = run_msmarco(torch, wd, "index_plain")
+            plain_launches = dict(ft.launches)
+        same = float(tq.same_ids_at_ties(
+            res["doc_scores"], res["retrieved_doc_ids"], plain["doc_scores"],
+            plain["retrieved_doc_ids"]).mean())
+        ds = np.asarray(res["doc_scores"])
+        rec = {"config": MSMARCO_CONFIG, "n_queries": res["n_queries"],
+               "n_corpus": res["n_corpus"], "dim_in": res["dim_in"],
+               "dim_out": res["dim_out"], "launches": launches,
+               "c_kernel": ran, "plain_launches": plain_launches,
+               "metrics": {m: v["mean"]
+                           for m, v in res["retrieval_metrics"].items()},
+               "plain_metrics": {m: v["mean"] for m, v in
+                                 plain["retrieval_metrics"].items()},
+               "timings_s": res["timings"], "wall_s": res["wall_s"],
+               "rows_same_by_set_at_ties": same}
+        ok = (launches["int8_fold"] >= 2 and launches["int8_exact"] == 0
+              and ran.split("+")[0] == "fold_mma_kernel<i8>"
+              and not any(plain_launches.values()) and same == 1.0
+              and rec["metrics"] == rec["plain_metrics"]
+              and res["dim_in"] == 384 and res["dim_out"] == 64
+              and ds.shape == (res["n_queries"], 10)
+              and bool(np.isfinite(ds).all()))
+        rec["ok"] = ok
+        record("msmarco_main_path", **rec)
+        if not ok:
+            failures.append(f"the msmarco int8 main path: {rec}")
+        # the server, as users start it, over the first run's store
+        line = json.dumps({"query": "what is a telescope", "k": 10})
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "latentrag_torch.serve", "--config",
+             os.path.join(root, MSMARCO_CONFIG), "--device", "cuda",
+             "--ae_type", "dae", "--set", *msmarco_overrides(wd, "index"),
+             "logging.level=INFO"],
+            input=line + "\n", capture_output=True, text=True, timeout=600,
+            cwd=root)
+        try:
+            resp = [json.loads(x) for x in out.stdout.splitlines()
+                    if x.strip()]
+        except ValueError:
+            resp = None
+        hits = (resp[0].get("results", [{}])[0].get("hits", [])
+                if resp else [])
+        ok = (out.returncode == 0 and resp is not None and len(resp) == 1
+              and len(hits) == 10 and "warm boot in" in out.stderr)
+        record("msmarco_serve_cli", rc=out.returncode,
+               wall_s=time.perf_counter() - t0, hits=len(hits), ok=ok,
+               stderr_tail=out.stderr[-600:])
+        if not ok:
+            failures.append(f"the msmarco serve CLI: rc {out.returncode}, "
+                            f"{len(hits)} hits, {out.stderr[-300:]}")
+    return launches
+
+
+def capacity_search(torch, ft, r, q, k, spec=None) -> dict:
+    """One search of a quantized store: seconds, launches, C kernel, and
+    the same search with the kernels' plain versions."""
+    torch.cuda.synchronize()
+    ft.reset_launches()
+    t0 = time.perf_counter()
+    s, i = r.search(q, k, filter=spec)
+    secs = time.perf_counter() - t0
+    out = {"s": s, "i": i, "search_s": secs, "launches": dict(ft.launches),
+           "c_kernel": ft.last_kernel}
+    with plain_quantized(ft):
+        out["plain"] = r.search(q, k, filter=spec)
+    return out
+
+
+def check_quantized_capacity(torch, failures: list, store: str) -> dict:
+    """Phase 3j: a ``DenseRetriever(store_dtype=store)`` over 8.8M seeded
+    unit rows, d=64 (the msmarco config's corpus scale; int8: 563 MB of
+    codes on the card; int4: 282 MB of nibbles on the card, 563 MB of SQ8
+    codes on the host), recall_target 0.95 and block_size 1048576 as the
+    config sets them; 1024 queries at k=10 (the fold), at k=160 (int8) /
+    20 (int4: 160 candidates; the exact kernel), and both again with a
+    doc_ids filter allowing a tenth of the rows (the masked instances).
+    Each search must equal the same search with the kernels' plain
+    versions bit for bit (ids by set at ties) and agree with the exact
+    plain search (``sq8_topk`` / ``sq4_topk`` in 1M-row blocks) on >= 99 %
+    of rows by set; Recall@10 against exact fp32 search is reported. The
+    store is then saved, loaded into a fresh retriever, and searched again
+    bit for bit. Returns each search's launches."""
+    import numpy as np
+
+    from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.ops import quantization as tq
+    from latentrag_torch.ops.distances import prepare_for_metric
+    from latentrag_torch.ops.topk import exact_topk
+    from latentrag_torch.retrieval import DenseRetriever
+    from latentrag_torch.retrieval.rescore import exact_rescore_topk
+
+    n, nq, d = CAPACITY_ROWS, 1024, 64
+    g = torch.Generator(device="cuda").manual_seed(
+        61 if store == "int8" else 62)
+    x = torch.nn.functional.normalize(
+        torch.randn((n, d), generator=g, device="cuda"), dim=1)
+    q = torch.nn.functional.normalize(
+        torch.randn((nq, d), generator=g, device="cuda"), dim=1)
+    r = DenseRetriever(store_dtype=store, recall_target=CAPACITY_RT,
+                       block_size=QUANT_BLOCK, device="cuda")
+    torch.cuda.synchronize()
+    ft.reset_launches()
+    t0 = time.perf_counter()
+    r.build(x, [""] * n)
+    torch.cuda.synchronize()
+    build_s, build_launches = time.perf_counter() - t0, dict(ft.launches)
+    exact_i = exact_topk(q, x, k=10, block_size=QUANT_BLOCK)[1].cpu().numpy()
+    qp = prepare_for_metric(q, r.metric)  # the queries as the store meets them
+    del x
+    torch.cuda.empty_cache()
+    spec = {"doc_ids": list(range(0, n, 10))}
+    k_exact = 160 if store == "int8" else 20
+    out = {}
+    for name, k, f in (("fold", 10, None), ("exact", k_exact, None),
+                       ("fold_masked", 10, spec),
+                       ("exact_masked", k_exact, spec)):
+        res = capacity_search(torch, ft, r, q, k, f)
+        s, i = res["s"], res["i"]
+        s_p, i_p = res["plain"]
+        plain_same = float(tq.same_ids_at_ties(s, i, s_p, i_p).mean())
+        # the exact plain search in 1M-row blocks (int4: its stage 1, then
+        # the store's own host rescore)
+        mask = r._filter_device_mask(f) if f else None
+        if store == "int8":
+            s_x, i_x = tq.sq8_topk(qp, r._corpus, r._corpus_scale, k,
+                                   block_size=QUANT_BLOCK, mask=mask)
+            s_x, i_x = s_x.cpu().numpy(), i_x.cpu().numpy()
+        else:
+            ok_ = min(r.binary_oversample * k, r._corpus_n)
+            s1, cand = tq.sq4_topk(qp, r._corpus, r._sq4_scale, d, ok_,
+                                   block_size=QUANT_BLOCK, mask=mask)
+            cand = torch.where(s1 > -1e37, cand, -1)
+            s_x, i_x = exact_rescore_topk(
+                qp.cpu().numpy(), lambda idx: r._rescore_host[idx],
+                cand.cpu().numpy(), k, metric="dot", scale=r._corpus_scale)
+        exact_agree = float(np.mean([
+            len(set(a.tolist()) & set(b.tolist())) / k
+            for a, b in zip(i, i_x)]))
+        want = ("fold" if name.startswith("fold") else "exact") + "_mma_kernel" \
+            + ("<i8>" if store == "int8" else "<i4>") \
+            + ("<mask>" if f else "")
+        key = f"{store}_{'fold' if name.startswith('fold') else 'exact'}"
+        rec = {"store": store, "search": name, "N": n, "Q": nq, "k": k,
+               "search_s": res["search_s"], "launches": res["launches"],
+               "c_kernel": res["c_kernel"],
+               "plain_rows_same_by_set_at_ties": plain_same,
+               "exact_plain_agreement": exact_agree}
+        if name == "fold":
+            rec["recall_at_10_vs_fp32_exact"] = float(np.mean([
+                len(set(a.tolist()) & set(b.tolist())) / 10
+                for a, b in zip(i, exact_i)]))
+        if f:
+            rec["only_allowed"] = bool(all(int(v) % 10 == 0
+                                           for v in i.ravel() if v >= 0))
+        ok = (res["c_kernel"].split("+")[0] == want
+              and res["launches"][key] == 1
+              and res["launches"]["masked"] == int(bool(f))
+              and plain_same == 1.0 and exact_agree >= QUANT_EXACT_AGREE
+              and rec.get("only_allowed", True))
+        rec["ok"] = ok
+        record("quant_capacity_search", **rec)
+        if not ok:
+            failures.append(f"the 8.8M {store} store's {name} search: {rec}")
+        out[name] = res["launches"]
+        out.setdefault("first", (s, i))
+    s0, i0 = out.pop("first")
+    host_bytes = int(r._rescore_host.nbytes) if r._rescore_host is not None \
+        else 0
+    with tempfile.TemporaryDirectory(prefix="lr_smoke_store_") as path:
+        t0 = time.perf_counter()
+        r._save(path)
+        save_s = time.perf_counter() - t0
+        disk = store_bytes(path)
+        t0 = time.perf_counter()
+        r2 = DenseRetriever(store_dtype=store, recall_target=CAPACITY_RT,
+                            block_size=QUANT_BLOCK, index_path=path,
+                            device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        s2, i2 = r2.search(q, 10)
+        same_codes = r2.is_built and torch.equal(r._corpus, r2._corpus)
+        if store == "int4":
+            same_codes = same_codes and np.array_equal(
+                r._rescore_host, r2._rescore_host) and (
+                r._sq4_scale == r2._sq4_scale)
+        rec = {"store": store, "N": n, "build_s": build_s,
+               "build_launches": build_launches,
+               "device_bytes": r._corpus.numel() * r._corpus.element_size(),
+               "host_rescore_bytes": host_bytes, "save_s": save_s,
+               "warm_boot_load_s": load_s, "bytes_on_disk": disk,
+               "same_codes": bool(same_codes),
+               "same_scale": r._corpus_scale == r2._corpus_scale,
+               "ids_bit_identical": bool(np.array_equal(i0, i2)),
+               "scores_bit_identical": bool(np.array_equal(
+                   np.asarray(s0).view(np.int32),
+                   np.asarray(s2).view(np.int32)))}
+        rec["ok"] = ok = (rec["same_codes"] and rec["same_scale"]
+                          and rec["ids_bit_identical"]
+                          and rec["scores_bit_identical"])
+        record("quant_capacity_store", **rec)
+        if not ok:
+            failures.append(f"the 8.8M {store} store's round trip: {rec}")
+        del r2
+    del r, q, qp
+    torch.cuda.empty_cache()
+    return out
+
+
+def quant_bound(nq, n, d, k, store, extra_bytes=0) -> tuple[float, str]:
+    """The least time of an int8 / int4 call: the query codes, the corpus
+    (d or ceil(d/2) bytes a row), the [Q, k] output (and ``extra_bytes``,
+    a row mask's N/8) once over the memory rate, or 2 Q N d operations at
+    the int8 tensor-core peak, whichever is larger."""
+    row = d if store == "int8" else -(-d // 2)
+    by_bytes = (nq * d + n * row + nq * k * 8 + extra_bytes) / HBM_BYTES_PER_S
+    by_ops = 2.0 * nq * n * d / PEAK_INT8_OPS
+    if by_bytes >= by_ops:
+        return by_bytes * 1e3, "bytes"
+    return by_ops * 1e3, "operations"
+
+
+def int_mm_topk(torch, qc, rows, fac, k, mask=None, block=QUANT_BLOCK):
+    """The library yardstick the port never calls: ``torch._int_mm`` (int8
+    x int8 -> int32, cuBLAS) of the query codes against the int8 code
+    rows, times the factor, then ``torch.topk``, in blocks of ``block``
+    rows merged with the running list (one score matrix of 1024 x 8.8M
+    would be 36 GB). A block pads to a multiple of 8 rows, as ``_int_mm``
+    needs, with rows that never win."""
+    run_s = run_i = None
+    for base in range(0, rows.shape[0], block):
+        blk = rows[base : base + block]
+        pad = (-blk.shape[0]) % 8
+        if pad:
+            blk = torch.nn.functional.pad(blk, (0, 0, 0, pad))
+        s = torch._int_mm(qc, blk.T).float() * fac
+        s = s[:, : blk.shape[0] - pad]
+        if mask is not None:
+            s = torch.where(mask[None, base : base + s.shape[1]], s,
+                            float("-inf"))
+        s, i = torch.topk(s, min(k, s.shape[1]), dim=1)
+        i = i + base
+        if run_s is not None:
+            s, sel = torch.topk(torch.cat([run_s, s], 1), k, dim=1)
+            i = torch.gather(torch.cat([run_i, i], 1), 1, sel)
+        run_s, run_i = s, i
+    return run_s, run_i
+
+
+def time_quantized(torch) -> dict:
+    """Phase 4d: the int8 and int4 kernels at the reference shape (Q=2000,
+    N=315) and the capacity shape (Q=1024, N=8.8M), d=64: the fold at the
+    store's plan for top_k=10 (int8: 40 candidates; int4: 128), the exact
+    kernel at k=10 and k=160, and the fold and exact k=10 row-mask
+    instances with 10 % of the rows allowed; each beside its plain version
+    (at 8.8M one call), the library yardstick ``int_mm_topk`` at the
+    call's k (int4: over its codes unpacked to int8), the bound
+    (``quant_bound``), a profiler device split and the resident blocks an
+    SM. Keys: (shape, store + "_" + case)."""
+    from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.ops import quantization as tq
+
+    out = {}
+    for label, nq, n in (("reference", 2000, 315),
+                         ("capacity", 1024, CAPACITY_ROWS)):
+        big = n > QUANT_BLOCK
+        for si, store in enumerate(QUANT_STORES):
+            d = 64
+            _, qc, c, fac, _ = quant_case(torch, store, nq, n, d, 600 + si)
+            rows = c if store == "int8" else tq.sq4_unpack(c, d)
+            m, words = row_mask(torch, n, 0.1, 10, 610 + si)
+            block_n, cand = quant_fold_plan(ft, store, n)
+            for case, mode, k, bn, masked in (
+                    ("fold", "fold", cand, block_n, False),
+                    ("exact", "exact", 10, 4096, False),
+                    ("exact_k160", "exact", 160, 4096, False),
+                    ("fold_masked", "fold", cand, block_n, True),
+                    ("exact_masked", "exact", 10, 4096, True)):
+                mk = words if masked else None
+                call = lambda: quant_kernel(  # noqa: E731
+                    ft, store, qc, c, fac, d, k=k, mode=mode, block_n=bn,
+                    mask=mk)
+                kern = time_ms(torch, call)
+                ran = ft.last_kernel
+                plain = time_ms(torch, lambda: quant_plain(
+                    ft, store, qc, c, fac, d, k=k, mode=mode, block_n=bn,
+                    mask=mk), reps=1 if big else 10, warmup=0 if big else 1)
+                lib = time_ms(torch, lambda: int_mm_topk(
+                    torch, qc, rows, fac, k, m if masked else None),
+                    reps=5 if big else 25)
+                b_ms, b_by = quant_bound(nq, n, d, k, store,
+                                         n / 8 if masked else 0)
+                rec = {"shape": label, "store": store, "case": case,
+                       "mode": mode, "Q": nq, "N": n, "d": d, "k": k,
+                       "block_n": bn, "masked": masked, "c_kernel": ran,
+                       "ms": kern, "plain_ms": plain, "library_ms": lib,
+                       "library_k": k, "bound_ms": b_ms, "bound_by": b_by,
+                       "device_ms": device_split(torch, call),
+                       "blocks_per_sm": blocks_per_sm(
+                           ft, mode, qc.device.index, d, min(k, n),
+                           quant_op(ft, store), masked)}
+                record("quant_kernel_time", **rec)
+                out[(label, f"{store}_{case}")] = rec
+            del qc, c, rows
+            torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------ phase 3h
 
 SERVE_REQUESTS = 1024
@@ -2312,6 +2866,7 @@ def main() -> int:
     check_select_fallbacks(torch, failures)
     worst.update(check_binary_kernel(torch, failures))
     worst.update(check_masked_kernels(torch, failures))
+    worst.update(check_quantized_kernels(torch, failures))
     if failures:
         fail("; ".join(failures[:5]))
     # the bf16 main path's data and stores outlive it: phase 3h serves them
@@ -2357,9 +2912,24 @@ def main() -> int:
             torch, failures, store)
     if failures:
         fail("; ".join(failures))
+    # the int8 store's main path (the msmarco config), then both quantized
+    # stores at the config's corpus scale
+    launches["int8_fold"] = check_msmarco_main(torch, failures)["int8_fold"]
+    if failures:
+        fail("; ".join(failures))
+    for store in QUANT_STORES:
+        cap = check_quantized_capacity(torch, failures, store)
+        if failures:
+            fail("; ".join(failures))
+        for name, counts in cap.items():
+            kernel = "fold" if name.startswith("fold") else "exact"
+            key = f"{store}_{kernel}" + ("_masked" if "masked" in name else "")
+            if store != "int8" or key != "int8_fold":
+                launches[key] = counts[f"{store}_{kernel}"]
     times = time_kernels(torch)
     times.update(time_binary(torch))
     masked_times = time_masked(torch)
+    quant_times = time_quantized(torch)
     # phase 3h runs last: its server threads and its profiled load must not
     # touch phase 4's device splits
     serve_launches = check_serving(torch, failures, main_wd)
@@ -2460,6 +3030,32 @@ def main() -> int:
             "shape": f"Q=2000 N=315 d=64 k={t['k']} {shape} cosine, row "
                      "mask allowing 10 %",
         })
+    # the int8 and int4 stores' kernels (the JAX package scores them in
+    # XLA: sq8_topk, sq4_topk), timed at the reference and capacity shapes
+    for store, fn_line, tag in (("int8", 35, "sq8"), ("int4", 147, "sq4")):
+        for kernel, source in (("fold", "fold_mma.cuh"),
+                               ("exact", "exact_mma.cuh")):
+            for masked in ("", "_masked"):
+                key = f"{store}_{kernel}{masked}"
+                t = quant_times[("reference", key)]
+                big = quant_times[("capacity", key)]
+                kernels.append({
+                    "name": f"{tag}_fused_topk_{kernel}{masked}",
+                    "route": "cuda",
+                    "source": f"latentrag_torch/csrc/{source}",
+                    "replaces": f"latentrag_tpu/ops/quantization.py:{fn_line}",
+                    "launches": launches[key],
+                    "max_abs_err": worst[key],
+                    "ms": t["ms"], "plain_ms": t["plain_ms"],
+                    "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                    "library_ms": t["library_ms"],
+                    "shape": f"Q=2000 N=315 d=64 k={t['k']} {store} codes, "
+                             "int8 query codes"
+                             + (", row mask allowing 10 %" if masked else ""),
+                    "capacity": {f: big[f] for f in (
+                        "Q", "N", "k", "ms", "plain_ms", "library_ms",
+                        "bound_ms", "bound_by")},
+                })
     if "jax" in sys.modules:
         fail("jax was imported")
     record("done", seconds=time.perf_counter() - t_start)

@@ -3,7 +3,12 @@
 // (exact_mma_kernel<KP, OP_BF16>) and fp32 stores (<KP, OP_F32>), and for
 // the packed binary store (<KP, OP_BIN>: the exact sign-dot search
 // binary_topk, the JAX package's ops/binary.py:129, which the binary store
-// calls past the fold's 128 candidates). Included by fused_topk.cu after
+// calls past the fold's 128 candidates), and for the int8 and int4 stores
+// (<KP, OP_I8>, <KP, OP_I4>: sq8_topk / sq4_topk, the JAX package's
+// ops/quantization.py:35 / :147, past the fold's 128 candidates; the int8
+// scores of fold_mma.cuh, exact int32 dots times one fp32 factor, so the
+// lists hold the JAX package's scores bit for bit and rank their frequent
+// ties to the lower row as lax.top_k does). Included by fused_topk.cu after
 // fold_mma.cuh, whose stage machinery it reuses unchanged: the 3-stage
 // swizzled cp.async ring of 128-byte rows (64 bf16 or 32 fp32 dims), the
 // binary word stages unpacked to +-1 bf16 (0x3F80 / 0xBF80), ldmatrix, and
@@ -107,10 +112,10 @@ __host__ __device__ constexpr int em_buf(int kp) { return kp < 256 ? 256 : kp; }
 
 // Dynamic shared memory of one exact_mma_kernel block.
 __host__ __device__ inline size_t em_smem_bytes(int d, int kp, int op) {
-    const bool bin = op == OP_BIN;
+    const bool unpack = op == OP_BIN || op == OP_I4;
     const int n_dch = (d + fm_dch(op) - 1) / fm_dch(op);
-    return (size_t)FM_NST * (bin ? FM_WSLOT_BYTES : FM_SLOT_BYTES) +
-           (bin ? FM_STAGE_BYTES : 0) + (size_t)n_dch * EM_QROWS * 128 +
+    return (size_t)FM_NST * fm_slot_bytes(op) +
+           (unpack ? FM_STAGE_BYTES : 0) + (size_t)n_dch * EM_QROWS * 128 +
            EM_QROWS * 8 + (size_t)em_qb(kp) * (kp + em_buf(kp)) * 8 +
            3 * EM_QROWS * 4;
 }
@@ -210,8 +215,10 @@ __device__ void em_flush(i64* L, i64* B, int* cnt, i64* thr, float* thr_f,
 
 // grid: (ceil(nq / QB), slabs of slab_rows rows, a multiple of 128).
 // final_out (one slab): write out_s / out_i; else part[slab, q, :] keys.
-// qp and cp as fold_mma_kernel's: bf16 (OP_BF16), fp32 (OP_F32), or bf16
-// queries and packed sign words [n, ceil(d/32)] (OP_BIN; euclid and vec 0).
+// qp and cp as fold_mma_kernel's: bf16 (OP_BF16), fp32 (OP_F32), bf16
+// queries and packed sign words [n, ceil(d/32)] (OP_BIN; euclid and vec 0),
+// or int8 query codes and int8 codes (OP_I8) or packed nibbles (OP_I4), csq
+// then the one fp32 score factor (euclid 0).
 // MASK: mask is the allowed rows' bits [ceil(n/32)] (unread otherwise).
 template <int KP, int OP, bool MASK>
 __global__ void __launch_bounds__(FM_THREADS, 2)
@@ -222,14 +229,15 @@ exact_mma_kernel(const void* __restrict__ qp,
                  i64* __restrict__ part, float* __restrict__ out_s,
                  int* __restrict__ out_i) {
     constexpr int QB = em_qb(KP), BUF = em_buf(KP);
-    constexpr bool BIN = OP == OP_BIN;
-    constexpr int SLOT = BIN ? FM_WSLOT_BYTES : FM_SLOT_BYTES;
+    constexpr bool BIN = OP == OP_BIN, I4 = OP == OP_I4, INT = fm_int(OP);
+    constexpr int SLOT = fm_slot_bytes(OP);
     constexpr int CH = fm_dch(OP);
     extern __shared__ __align__(16) unsigned char smem[];
     const int n_dch = (d + CH - 1) / CH;
     unsigned char* ring = smem;                                // FM_NST slots
-    unsigned char* U = ring + FM_NST * SLOT;                   // BIN: [128][64] bf16
-    unsigned char* Qs = U + (BIN ? FM_STAGE_BYTES : 0);        // [n_dch][16][128 B]
+    // BIN: the unpacked stage [128][64] bf16; I4: [128][128] s8
+    unsigned char* U = ring + FM_NST * SLOT;
+    unsigned char* Qs = U + (BIN || I4 ? FM_STAGE_BYTES : 0);  // [n_dch][16][128 B]
     i64* thr = (i64*)(Qs + n_dch * EM_QROWS * 128);            // [16] k-th keys
     i64* L = thr + EM_QROWS;                                   // [QB][KP] lists
     i64* B = L + QB * KP;                                      // [QB][BUF] buffers
@@ -248,6 +256,7 @@ exact_mma_kernel(const void* __restrict__ qp,
     // the thread's two query rows, g and g + 8, if they carry a query
     const bool real0 = g < QB && q0 + g < nq;
     const bool real1 = g + 8 < QB && q0 + g + 8 < nq;
+    const float factor = INT ? __ldg(csq) : 0.f;  // OP_I8, OP_I4
 
 #pragma unroll
     for (int s = 0; s < FM_NST - 1; ++s) {
@@ -273,7 +282,7 @@ exact_mma_kernel(const void* __restrict__ qp,
     }
     __syncthreads();
     if (tid < EM_QROWS)  // read after the first stage's barrier
-        qsq[tid] = euclid && tid < QB && q0 + tid < nq
+        qsq[tid] = !INT && euclid && tid < QB && q0 + tid < nq
                        ? fm_row_sq<OP>(Qs, EM_QROWS, tid, d)
                        : 0.f;
     unsigned afr[4][4];
@@ -292,8 +301,11 @@ exact_mma_kernel(const void* __restrict__ qp,
             fm_commit();
         }
         const unsigned char* S = ring + (st % FM_NST) * SLOT;
-        if constexpr (BIN) {
-            fm_unpack(U, S, tid);
+        if constexpr (BIN || I4) {
+            if constexpr (BIN)
+                fm_unpack(U, S, tid);
+            else
+                fm_unpack4(U, S, tid);
             __syncthreads();
             S = U;
         }
@@ -306,9 +318,11 @@ exact_mma_kernel(const void* __restrict__ qp,
                 for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
         }
         if (n_dch > 1) fm_load_a(afr, Qs + dci * EM_QROWS * 128, 0, lane);
-        // four k steps of 16 bf16 dims, or of 8 fp32 dims in 3xTF32
+        // four k steps of 16 bf16 dims, of 8 fp32 dims in 3xTF32, or of 32
+        // int8 dims (those past d skipped)
 #pragma unroll
         for (int s = 0; s < 4; ++s) {
+            if (INT && CH * dci + 32 * s >= d) break;
             unsigned b[4];
             fm_ldsm4(b, fm_smem(S + fm_swz(wc + (lane & 7) + ((lane >> 4) << 3),
                                            2 * s + ((lane >> 3) & 1))));
@@ -316,6 +330,9 @@ exact_mma_kernel(const void* __restrict__ qp,
                 unsigned ah[4], al[4];
                 fm_split4(afr[s], ah, al);
                 fm_mma3_x2(acc[0], acc[1], ah, al, b);
+            } else if constexpr (INT) {
+                fm_mma_s8(acc[0], afr[s], b[0], b[1]);
+                fm_mma_s8(acc[1], afr[s], b[2], b[3]);
             } else {
                 fm_mma(acc[0], afr[s], b[0], b[1]);
                 fm_mma(acc[1], afr[s], b[2], b[3]);
@@ -340,8 +357,8 @@ exact_mma_kernel(const void* __restrict__ qp,
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 const int h = e >> 1, col = c0 + 8 * j + (e & 1);
-                float s = acc[j][e];
-                if (!BIN && euclid)
+                float s = INT ? fm_i2f(acc[j][e], factor) : acc[j][e];
+                if (!BIN && !INT && euclid)
                     s = 2.0f * s - qsq[g + 8 * h] - cq[8 * j + (e & 1)];
                 if (!(h ? real1 : real0) || col >= n ||
                     (MASK && !((mw >> (8 * j + (e & 1))) & 1u)) ||
@@ -487,6 +504,8 @@ static int em_kp(int k) {
 #define EM_DISPATCH(F, ...)                                                   \
     (op == OP_BIN   ? EM_DISPATCH_OP(F, OP_BIN, __VA_ARGS__)                  \
      : op == OP_F32 ? EM_DISPATCH_OP(F, OP_F32, __VA_ARGS__)                  \
+     : op == OP_I8  ? EM_DISPATCH_OP(F, OP_I8, __VA_ARGS__)                   \
+     : op == OP_I4  ? EM_DISPATCH_OP(F, OP_I4, __VA_ARGS__)                   \
                     : EM_DISPATCH_OP(F, OP_BF16, __VA_ARGS__))
 
 extern "C" {
@@ -509,9 +528,10 @@ int lr_exact_mma_occupancy(int d, int k, int op) {
 }
 
 // The exact search over bf16 (op = OP_BF16: q, c bf16 [nq, d], [n, d]) or
-// fp32 (OP_F32: fp32, 3xTF32 products) stores, or the exact sign-dot search
+// fp32 (OP_F32: fp32, 3xTF32 products) stores, the exact sign-dot search
 // (OP_BIN: bf16 queries, c the packed sign words [n, ceil(d/32)]; euclid =
-// 0): exact_mma_kernel over (query tiles x slabs), then, with more than
+// 0), or the int8 and int4 searches (OP_I8 / OP_I4: int8 query codes, c
+// int8 codes or packed nibbles, csq the one fp32 score factor; euclid = 0): exact_mma_kernel over (query tiles x slabs), then, with more than
 // one slab, exact_merge_kernel. csq is the rows' norms^2 (euclid only).
 // mask (the masked library; null in the other) is the allowed rows' bits,
 // as lr_fold_mma's;

@@ -106,6 +106,28 @@
 // operations at the 495 TFLOP/s TF32 rate (165 TFLOP/s of fp32-accurate
 // products), plus the splits on the CUDA cores.
 //
+// The int8 and int4 folds (<E, OP_I8>, <E, OP_I4>: the int8 and int4
+// stores). An int8 row of 128 dims is 128 bytes, the row of a bf16 stage, so
+// a stage holds 128 dims and its 16-byte chunks, swizzle and ldmatrix
+// addressing are the bf16 ones: ldmatrix .b16 hands lane (g, t) the 4
+// bytes at row g, bytes 4t .. 4t + 3, which is the s8 A layout of
+// mma.sync.m16n8k32 (a0 at row g, k 4t .. 4t + 3; a2 at k 16 + 4t) and its
+// .col B layout, so a bf16 k16 step's two chunks are one k32 step here. The
+// products sum exactly in int32 (s8 x s8 -> s32), and the fold reads
+// float32(sum) * factor, rounded as the JAX package rounds it, where the
+// float kinds read the fp32 sum; k steps past d are skipped (d = 64 takes
+// two of a stage's four). int4 stages arrive as packed nibbles (128 rows x
+// 64 bytes, 8 KB, by 16-byte cp.async when a row is whole 16-byte chunks,
+// else byte by byte) and, after the stage's barrier, every thread sign-
+// extends its share once for the block into a swizzled [128][128] s8 stage
+// beside the query tile (fm_unpack4: nibbles to bytes by __byte_perm, the
+// sign by one multiply), which the ldmatrix path reads; a second barrier
+// releases the products. Pad nibbles (odd d) are code 0 and dims past the
+// row's last byte load as 0, and both meet zero query codes. Bound: 2 Q N d
+// operations at the int8 tensor-core rate (1,979 TOPS dense), twice the
+// bf16 rate, so the epilogue (the fold and the lists), not the products,
+// sets the pace as in the bf16 fold, and more so.
+//
 // The row mask (fold_mma_kernel<E, OP, true>: a filtered search). mask is
 // the packed bits of the allowed rows, int32 words [ceil(n/32)], bit r & 31
 // of word r >> 5 for row r. A warp's 64 columns of a sub-tile are two whole
@@ -127,6 +149,7 @@
 #define FM_STAGE_BYTES (TN * DCH * 2)              // 128 rows x 64 bf16
 #define FM_SLOT_BYTES (FM_STAGE_BYTES + TN * 4)    // + the rows' norms^2
 #define FM_WSLOT_BYTES (TN * 2 * 4)                // binary: 128 rows x 2 words
+#define FM_NSLOT_BYTES (TN * 64)                   // int4: 128 rows x 64 bytes
 #define FM_TSTRIDE 136                             // ints a row of the flush buffer
 #define FM_FULL 0xffffffffu
 
@@ -138,7 +161,19 @@ static_assert(FM_THREADS == 2 * TN, "one sign word a thread a binary stage");
 
 // Dims a stage (and a query-tile chunk) holds: 128 bytes a row.
 __host__ __device__ constexpr int fm_dch(int op) {
-    return op == OP_F32 ? DCH / 2 : DCH;
+    return op == OP_F32 ? DCH / 2 : op == OP_I8 || op == OP_I4 ? 2 * DCH : DCH;
+}
+
+// Whether the operand kind scores int8 codes (products summed in int32).
+__host__ __device__ constexpr bool fm_int(int op) {
+    return op == OP_I8 || op == OP_I4;
+}
+
+// Bytes of a ring slot: a stage of bf16, fp32 or int8 rows (with the rows'
+// norms^2 after it), of sign words, or of packed nibbles.
+__host__ __device__ constexpr int fm_slot_bytes(int op) {
+    return op == OP_BIN ? FM_WSLOT_BYTES
+           : op == OP_I4 ? FM_NSLOT_BYTES : FM_SLOT_BYTES;
 }
 
 // Stages in the ring of fold_mma_kernel<E, OP>: the fp32 list-of-128
@@ -151,11 +186,13 @@ __device__ __forceinline__ unsigned fm_smem(const void* p) {
     return (unsigned)__cvta_generic_to_shared(p);
 }
 
-// Bytes of the query tile's region: the bf16 or fp32 query tile, and for
-// the binary fold the unpacked stage too (in the tile's own room when d <=
-// 64, since the A fragments are then read once before the loop).
+// Bytes of the query tile's region: the bf16, fp32 or int8 query tile, and
+// for the binary fold the unpacked stage too (in the tile's own room when d
+// <= 64, since the A fragments are then read once before the loop); for the
+// int4 fold the unpacked stage after the tile.
 __host__ __device__ __forceinline__ int fm_qu_bytes(int n_dch, int op) {
     const int qs = n_dch * FM_TQ * 128;
+    if (op == OP_I4) return qs + FM_STAGE_BYTES;
     if (op != OP_BIN) return qs;
     return n_dch > 1 ? qs + FM_STAGE_BYTES
                      : (qs > FM_STAGE_BYTES ? qs : FM_STAGE_BYTES);
@@ -223,25 +260,44 @@ __device__ __forceinline__ uint4 fm_row4(const float* p, int d, int dim) {
     return make_uint4(h[0], h[1], h[2], h[3]);
 }
 
+// 16 int8 values [dim, dim + 16) of one row, zero past d (any alignment).
+__device__ __forceinline__ uint4 fm_row16(const unsigned char* p, int d,
+                                          int dim) {
+    unsigned h[4];
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+        h[w] = 0u;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int j = dim + 4 * w + e;
+            h[w] |= (j < d ? (unsigned)p[j] : 0u) << (8 * e);
+        }
+    }
+    return make_uint4(h[0], h[1], h[2], h[3]);
+}
+
 // The 16-byte chunk from dim on of row `row` of a [*, d] matrix: 8 bf16
-// values, or 4 fp32 for OP_F32; zero past d.
+// values, 4 fp32 for OP_F32, or 16 int8 codes for OP_I8 and OP_I4 (whose
+// queries are int8 codes); zero past d.
 template <int OP>
 __device__ __forceinline__ uint4 fm_chunk(const void* m, size_t row, int d,
                                           int dim) {
     if constexpr (OP == OP_F32)
         return fm_row4((const float*)m + row * d, d, dim);
+    else if constexpr (fm_int(OP))
+        return fm_row16((const unsigned char*)m + row * d, d, dim);
     else
         return fm_row8((const unsigned short*)m + row * d, d, dim);
 }
 
-// Stage = rows [t0, t0 + 128) x dims [d0, d0 + fm_dch(OP)) of a bf16 or
-// fp32 corpus into a ring slot, and for euclidean the rows' norms^2 after
+// Stage = rows [t0, t0 + 128) x dims [d0, d0 + fm_dch(OP)) of a bf16, fp32
+// or int8 corpus into a ring slot, and for euclidean the rows' norms^2 after
 // it. Rows >= n and dims >= d are 0.
 template <int OP>
 __device__ __forceinline__ void fm_load_stage(
     unsigned char* slot, const void* c, const float* csq, int n, int d,
     int t0, int d0, int vec, int euclid, int tid) {
-    constexpr int ES = OP == OP_F32 ? 4 : 2;  // bytes a value
+    constexpr int ES = OP == OP_F32 ? 4 : OP == OP_I8 ? 1 : 2;  // bytes a value
     const unsigned base = fm_smem(slot);
 #pragma unroll
     for (int u = 0; u < (TN * 8) / FM_THREADS; ++u) {
@@ -280,6 +336,59 @@ __device__ __forceinline__ void fm_load_words(unsigned char* slot,
            in ? 4 : 0);
 }
 
+// int4 stage = the packed nibbles of rows [t0, t0 + 128) x dims [d0, d0 +
+// 128) into a ring slot (row r's 64 bytes at 64 r), two 16-byte chunks a
+// thread: by cp.async when `vec` (a row of `w` bytes is whole chunks and the
+// base is aligned), else byte by byte; rows >= n and bytes past the row's
+// last are 0.
+__device__ __forceinline__ void fm_load_nibbles(unsigned char* slot,
+                                                const unsigned char* c, int n,
+                                                int w, int t0, int d0,
+                                                int vec, int tid) {
+#pragma unroll
+    for (int u = 0; u < (TN * 4) / FM_THREADS; ++u) {
+        const int v = tid + FM_THREADS * u, r = v >> 2, ch = v & 3;
+        const int row = t0 + r, b = (d0 >> 1) + 16 * ch;
+        const bool in = row < n && b < w;
+        if (vec) {
+            fm_cp16(fm_smem(slot + 64 * r + 16 * ch),
+                    in ? (const void*)(c + (size_t)row * w + b)
+                       : (const void*)c,
+                    in ? 16 : 0);
+        } else {
+            *reinterpret_cast<uint4*>(slot + 64 * r + 16 * ch) =
+                in ? fm_row16(c + (size_t)row * w, w, b)
+                   : make_uint4(0u, 0u, 0u, 0u);
+        }
+    }
+}
+
+// Four packed bytes (8 nibbles, low nibble first) as 8 sign-extended int8
+// codes in two words: nibbles to bytes by __byte_perm, then each byte's
+// bit 3 copied into its high 4 bits (a multiply that cannot carry).
+__device__ __forceinline__ uint2 fm_s4x8(unsigned x) {
+    const unsigned lo = x & 0x0F0F0F0Fu, hi = (x >> 4) & 0x0F0F0F0Fu;
+    unsigned a = __byte_perm(lo, hi, 0x5140), b = __byte_perm(lo, hi, 0x7362);
+    a |= (a & 0x08080808u) * 0x1Eu;
+    b |= (b & 0x08080808u) * 0x1Eu;
+    return make_uint2(a, b);
+}
+
+// Unpack an int4 ring slot into the swizzled [128][128] s8 stage U: a
+// 16-byte chunk (16 dims) is 8 packed bytes, 4 chunks a thread.
+__device__ __forceinline__ void fm_unpack4(unsigned char* U,
+                                           const unsigned char* slot, int tid) {
+#pragma unroll
+    for (int u = 0; u < (TN * 8) / FM_THREADS; ++u) {
+        const int v = tid + FM_THREADS * u, r = v >> 3, ch = v & 7;
+        const uint2 p =
+            *reinterpret_cast<const uint2*>(slot + 64 * r + 8 * ch);
+        const uint2 a = fm_s4x8(p.x), b = fm_s4x8(p.y);
+        *reinterpret_cast<uint4*>(U + fm_swz(r, ch)) =
+            make_uint4(a.x, a.y, b.x, b.y);
+    }
+}
+
 // Sign bits 0 and 1 of t as two bf16 values in one word, bit 0 in the low
 // half: a set bit is 0x3F80 (+1.0), a clear one 0xBF80 (-1.0).
 __device__ __forceinline__ unsigned fm_pm1x2(unsigned t) {
@@ -301,8 +410,8 @@ __device__ __forceinline__ void fm_unpack(unsigned char* U,
     }
 }
 
-// One stage of the corpus into a ring slot: bf16 or fp32 rows, or the
-// binary fold's sign words.
+// One stage of the corpus into a ring slot: bf16, fp32 or int8 rows, the
+// binary fold's sign words, or int4 nibbles.
 template <int OP>
 __device__ __forceinline__ void fm_stage(unsigned char* slot, const void* cp,
                                          const float* csq, int n, int d,
@@ -310,6 +419,9 @@ __device__ __forceinline__ void fm_stage(unsigned char* slot, const void* cp,
                                          int tid) {
     if constexpr (OP == OP_BIN)
         fm_load_words(slot, (const unsigned*)cp, n, (d + 31) >> 5, t0, d0, tid);
+    else if constexpr (OP == OP_I4)
+        fm_load_nibbles(slot, (const unsigned char*)cp, n, (d + 1) >> 1, t0,
+                        d0, vec, tid);
     else
         fm_load_stage<OP>(slot, cp, csq, n, d, t0, d0, vec, euclid, tid);
 }
@@ -414,6 +526,32 @@ __device__ __forceinline__ void fm_mma3(float (&c)[4], const unsigned (&ah)[4],
     fm_mma_tf32(p, ah, bh0, bh1);
 #pragma unroll
     for (int e = 0; e < 4; ++e) c[e] = __fadd_rn(c[e], p[e]);
+}
+
+// c += a.b for one k32 step of int8 codes, summed exactly in int32: the
+// accumulators are int32 values kept in the bits of the float array the
+// other kinds sum in (0.f is int 0), read by fm_i2f.
+__device__ __forceinline__ void fm_mma_s8(float (&c)[4],
+                                          const unsigned (&a)[4], unsigned b0,
+                                          unsigned b1) {
+    unsigned r0 = __float_as_uint(c[0]), r1 = __float_as_uint(c[1]);
+    unsigned r2 = __float_as_uint(c[2]), r3 = __float_as_uint(c[3]);
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+r"(r0), "+r"(r1), "+r"(r2), "+r"(r3)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+    c[0] = __uint_as_float(r0);
+    c[1] = __uint_as_float(r1);
+    c[2] = __uint_as_float(r2);
+    c[3] = __uint_as_float(r3);
+}
+
+// The score of an int32 dot held in a float's bits: float32(dot) * factor,
+// each step rounded to nearest, as the JAX package computes it.
+__device__ __forceinline__ float fm_i2f(float acc, float factor) {
+    return __fmul_rn(__int2float_rn(__float_as_int(acc)), factor);
 }
 
 // c0 += a.b and c1 += a.b' for one k8 step of two n8 blocks in 3xTF32, A
@@ -669,8 +807,10 @@ __device__ __forceinline__ void fm_decode(i64 key, unsigned R, int block_n,
 // grid: (ceil(nq / FM_TQ), slabs of slab_rows rows, a multiple of block_n).
 // Lists are held E = KP / 32 a lane in registers (KP >= k). final_out (one
 // slab): write out_s / out_i; else part[slab, q, :] keys. qp and cp are
-// bf16 [nq, d] and [n, d] (OP_BF16), fp32 (OP_F32), or bf16 queries and the
-// packed sign words [n, ceil(d/32)] (OP_BIN; euclid and vec are 0). MASK:
+// bf16 [nq, d] and [n, d] (OP_BF16), fp32 (OP_F32), bf16 queries and the
+// packed sign words [n, ceil(d/32)] (OP_BIN; euclid and vec are 0), or int8
+// query codes and int8 codes [n, d] (OP_I8) or packed nibbles [n, ceil(d /
+// 2)] (OP_I4), for which csq is the one fp32 score factor (euclid 0). MASK:
 // mask is the allowed rows' bits [ceil(n/32)] (unread otherwise).
 template <int E, int OP, bool MASK>
 __global__ void __launch_bounds__(FM_THREADS, 2)
@@ -681,14 +821,14 @@ fold_mma_kernel(const void* __restrict__ qp, const void* __restrict__ cp,
                 int final_out, i64* __restrict__ part,
                 float* __restrict__ out_s, int* __restrict__ out_i) {
     extern __shared__ __align__(16) unsigned char smem[];
-    constexpr bool BIN = OP == OP_BIN;
-    constexpr int SLOT = BIN ? FM_WSLOT_BYTES : FM_SLOT_BYTES;
+    constexpr bool BIN = OP == OP_BIN, I4 = OP == OP_I4, INT = fm_int(OP);
+    constexpr int SLOT = fm_slot_bytes(OP);
     constexpr int NST = fm_nst(E, OP), CH = fm_dch(OP);
     const int n_dch = (d + CH - 1) / CH;
     unsigned char* ring = smem;                            // NST slots
     unsigned char* Qs = ring + NST * SLOT;                 // [n_dch][64][128 B]
-    // BIN: the unpacked stage [128][64] bf16
-    unsigned char* U = Qs + (n_dch > 1 ? n_dch * FM_TQ * 128 : 0);
+    // BIN: the unpacked stage [128][64] bf16; I4: [128][128] s8
+    unsigned char* U = Qs + (n_dch > 1 || I4 ? n_dch * FM_TQ * 128 : 0);
     float* qsq = (float*)(Qs + fm_qu_bytes(n_dch, OP));    // [64]
     int* Tb = (int*)(qsq + FM_TQ);                         // [4 pairs][8][136]
     i64* Cb = (i64*)(Tb + FM_PAIRS * 8 * FM_TSTRIDE);      // [8 warps][128]
@@ -706,6 +846,7 @@ fold_mma_kernel(const void* __restrict__ qp, const void* __restrict__ cp,
     const int n_st = n_sub * n_dch;
     const int n_tiles = (n + block_n - 1) / block_n;
     const unsigned R = (unsigned)(n_tiles - 1) * (unsigned)block_n;
+    const float factor = INT ? __ldg(csq) : 0.f;  // OP_I8, OP_I4
 
     // the ring's first stages go out before the query tile is read
 #pragma unroll
@@ -727,7 +868,8 @@ fold_mma_kernel(const void* __restrict__ qp, const void* __restrict__ cp,
     for (int e = tid; e < FM_TQ * k; e += FM_THREADS) L[e] = EMPTY64;
     __syncthreads();
     // |q|^2 of the stored values, dim by dim, rounded as the plain version
-    if (euclid && tid < FM_TQ) qsq[tid] = fm_row_sq<OP>(Qs, FM_TQ, tid, d);
+    if (!INT && euclid && tid < FM_TQ)
+        qsq[tid] = fm_row_sq<OP>(Qs, FM_TQ, tid, d);
     // (qsq is read after the first stage's barrier)
     // with one 64-dim chunk the A fragments are read once: the binary fold
     // here, before its first unpack takes the query tile's room; the bf16
@@ -745,7 +887,7 @@ fold_mma_kernel(const void* __restrict__ qp, const void* __restrict__ cp,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
             folded[j][e] = MIN_I32;
-            if (MASK) acc[j][e] = 0.f;
+            if (MASK || INT) acc[j][e] = 0.f;
         }
     int* T = Tb + pair * 8 * FM_TSTRIDE;
     i64* cbuf = Cb + warp * 128;
@@ -762,15 +904,18 @@ fold_mma_kernel(const void* __restrict__ qp, const void* __restrict__ cp,
             fm_commit();
         }
         const unsigned char* S = ring + (st % NST) * SLOT;
-        if constexpr (BIN) {  // every warp unpacks its share, active or not
-            fm_unpack(U, S, tid);
+        if constexpr (BIN || I4) {  // every warp unpacks its share, active or not
+            if constexpr (BIN)
+                fm_unpack(U, S, tid);
+            else
+                fm_unpack4(U, S, tid);
             __syncthreads();
             S = U;
         }
         if (!active) continue;
         const int sub = st / n_dch, dci = st - sub * n_dch;
         const int t0 = row0 + sub * TN;
-        if (!MASK && dci == 0) {
+        if (!MASK && !INT && dci == 0) {
 #pragma unroll
             for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -779,9 +924,11 @@ fold_mma_kernel(const void* __restrict__ qp, const void* __restrict__ cp,
         const unsigned char* Qc = Qs + dci * FM_TQ * 128;
         if (OP != OP_F32 && (n_dch > 1 || (!BIN && st == 0)))
             fm_load_a(afr, Qc, wq0, lane);
-        // four k steps of 16 bf16 dims, or of 8 fp32 dims in 3xTF32
+        // four k steps of 16 bf16 dims, of 8 fp32 dims in 3xTF32, or of 32
+        // int8 dims (those past d skipped)
 #pragma unroll
         for (int s = 0; s < 4; ++s) {
+            if (INT && CH * dci + 32 * s >= d) break;
             unsigned ah[4], al[4];  // OP_F32: the A fragment's tf32 parts
             if constexpr (OP == OP_F32) {
                 unsigned a[4];
@@ -796,6 +943,9 @@ fold_mma_kernel(const void* __restrict__ qp, const void* __restrict__ cp,
                                                2 * s + ((lane >> 3) & 1))));
                 if constexpr (OP == OP_F32) {
                     fm_mma3_x2(acc[2 * jp], acc[2 * jp + 1], ah, al, b);
+                } else if constexpr (INT) {
+                    fm_mma_s8(acc[2 * jp], afr[s], b[0], b[1]);
+                    fm_mma_s8(acc[2 * jp + 1], afr[s], b[2], b[3]);
                 } else {
                     fm_mma(acc[2 * jp], afr[s], b[0], b[1]);
                     fm_mma(acc[2 * jp + 1], afr[s], b[2], b[3]);
@@ -803,6 +953,12 @@ fold_mma_kernel(const void* __restrict__ qp, const void* __restrict__ cp,
             }
         }
         if (dci != n_dch - 1) continue;  // more dims of this sub-tile to come
+        if constexpr (INT) {  // the int32 dots as the JAX package's scores
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[j][e] = fm_i2f(acc[j][e], factor);
+        }
 
         // fold this sub-tile's scores into the lane maxima; the metric and
         // the corpus's ragged end choose one branch-free copy
@@ -835,11 +991,13 @@ fold_mma_kernel(const void* __restrict__ qp, const void* __restrict__ cp,
             fm_fold<false, false, MASK>(folded, acc, local0, valid, 0.f, 0.f,
                                         cq, mb);
         }
-        // MASK: the sums start again here, not at the next sub-tile's first
-        // stage, so that they are dead across the flush below; live there
-        // (32 registers) they made ptxas spill 20-64 bytes in 7 of the 9
-        // masked instances. The unmasked instances keep the parent's order
-        if constexpr (MASK) {
+        // MASK and the int kinds: the sums start again here, not at the
+        // next sub-tile's first stage, so that they are dead across the
+        // flush below; live there (32 registers) they made ptxas spill 20-64
+        // bytes in 7 of the 9 masked instances and 60-96 bytes in each
+        // unmasked int instance. The float and binary unmasked instances
+        // keep the parent's order
+        if constexpr (MASK || INT) {
 #pragma unroll
             for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -999,6 +1157,8 @@ static int fm_e(int k) { return k <= 32 ? 1 : k <= 64 ? 2 : 4; }
 #define FM_DISPATCH(F, ...)                                                   \
     (op == OP_BIN   ? FM_DISPATCH_OP(F, OP_BIN, __VA_ARGS__)                  \
      : op == OP_F32 ? FM_DISPATCH_OP(F, OP_F32, __VA_ARGS__)                  \
+     : op == OP_I8  ? FM_DISPATCH_OP(F, OP_I8, __VA_ARGS__)                   \
+     : op == OP_I4  ? FM_DISPATCH_OP(F, OP_I4, __VA_ARGS__)                   \
                     : FM_DISPATCH_OP(F, OP_BF16, __VA_ARGS__))
 
 extern "C" {
@@ -1006,8 +1166,7 @@ extern "C" {
 // Dynamic shared memory of one fold_mma_kernel<fm_e(k), op> block.
 size_t lr_fold_mma_smem(int d, int k, int op) {
     const int n_dch = (d + fm_dch(op) - 1) / fm_dch(op);
-    return (size_t)fm_nst(fm_e(k), op) *
-               (op == OP_BIN ? FM_WSLOT_BYTES : FM_SLOT_BYTES) +
+    return (size_t)fm_nst(fm_e(k), op) * fm_slot_bytes(op) +
            fm_qu_bytes(n_dch, op) + FM_TQ * 4 +
            (size_t)FM_PAIRS * 8 * FM_TSTRIDE * 4 +
            (size_t)FM_WARPS * 128 * 8 + (size_t)FM_TQ * k * 8;
@@ -1022,8 +1181,11 @@ int lr_fold_mma_occupancy(int d, int k, int op) {
 }
 
 // The fold over bf16 (op = OP_BF16: q, c bf16 [nq, d], [n, d]) or fp32
-// (OP_F32: fp32, 3xTF32 products) stores, or the binary fold (OP_BIN: bf16
-// queries, c the packed sign words [n, ceil(d/32)]; euclid = 0):
+// (OP_F32: fp32, 3xTF32 products) stores, the binary fold (OP_BIN: bf16
+// queries, c the packed sign words [n, ceil(d/32)]; euclid = 0), or the
+// int8 and int4 folds (OP_I8 / OP_I4: int8 query codes, c int8 codes [n, d]
+// or packed nibbles [n, ceil(d/2)], csq the one fp32 score factor; euclid =
+// 0):
 // fold_mma_kernel over (query tiles x slabs), then, with more than one
 // slab, fold_merge_kernel; lists of 32, 64 or 128 entries in registers,
 // the least that holds k. mask (the masked library; null in the other) is

@@ -1,21 +1,25 @@
 // Fused distance + top-k for Hopper (sm_90a): the CUDA port of the JAX
 // package's Pallas kernels in ops/pallas_topk.py. Every kernel runs on the
 // tensor cores (mma.sync), one template for each TPU kernel, instantiated
-// for three operand kinds (OP: bf16, packed binary, fp32), and, for the fold
-// and the exact search, with and without the row mask of a filtered search
-// (MASK):
+// for the operand kinds (OP: bf16, packed binary, fp32, int8, packed int4),
+// and, for the fold and the exact search, with and without the row mask of
+// a filtered search (MASK):
 //
 //   fold_mma_kernel<E, OP, MASK> (fold_mma.cuh) replaces _fold_kernel
 //                            (pallas_topk.py:162-179, _fold_body :114-159)
 //                            for bf16 (OP_BF16) and fp32 (OP_F32) stores, and
-//                            _binary_fold_kernel (:354-401) as OP_BIN;
+//                            _binary_fold_kernel (:354-401) as OP_BIN; as
+//                            OP_I8 / OP_I4 the int8 and int4 stores' search
+//                            (the JAX package's sq8_topk / sq4_topk,
+//                            ops/quantization.py:35 / :147, XLA there);
 //                            fold_merge_kernel<E, MASK> merges its slabs
 //   exact_mma_kernel<KP, OP, MASK> (exact_mma.cuh) replaces _exact_kernel
 //                            (pallas_topk.py:182-221) for bf16 and fp32
 //                            stores, and as OP_BIN the exact sign-dot search
 //                            binary_topk (the JAX package's ops/binary.py:129)
 //                            where the binary store's stage 1 asks for more
-//                            candidates than the fold's 128 lanes hold;
+//                            candidates than the fold's 128 lanes hold, and
+//                            as OP_I8 / OP_I4 sq8_topk / sq4_topk past them;
 //                            exact_merge_kernel<KP> merges its slabs. The TPU
 //                            grid ran the corpus tiles in order and carried
 //                            the running top-k in VMEM; here slabs run in
@@ -39,7 +43,15 @@
 //   memory. binary: score(q, c) = sum_{j<d} bf16(q_j) * (2 bit_j(c) - 1)
 //   (pad bits past d never count), from a row-major store of packed sign
 //   words [N, ceil(d/32)] (bit j of word w <-> dim 32w + j), unpacked to +-1
-//   bf16 a stage at a time in shared memory. Scores become order-preserving
+//   bf16 a stage at a time in shared memory. int8 (OP_I8): score(q, c) =
+//   float32(sum_j qc_j * c_j) * factor, int8 query codes qc [nq, d] against
+//   int8 corpus codes [n, d], the dot an exact int32 (mma.sync m16n8k32 s8),
+//   factor = float32(q_scale * corpus_scale), one fp32 value on the device
+//   (passed in csq's place: these stores are cosine / dot only); int4
+//   (OP_I4): the same against packed nibbles uint8 [n, ceil(d/2)] (low
+//   nibble the even dim, two's complement), sign-extended to s8 a stage at
+//   a time in shared memory. Both are the JAX package's scores bit for bit.
+//   Scores become order-preserving
 //   int32 keys (_monotone_i32). Rows >= n never win.
 //   exact: the top-k of (key desc, row asc) over all rows: ties go to the lower row.
 //   row mask (a filtered search; the fold and exact kernels): only rows
@@ -114,8 +126,9 @@ constexpr bool LR_MASK = LR_MASKED != 0;
 
 // Operand kinds of the tensor-core kernels (the C API's `op`): bf16 queries
 // and corpus; bf16 queries and packed sign words; fp32 queries and corpus,
-// multiplied in 3xTF32.
-enum { OP_BF16 = 0, OP_BIN = 1, OP_F32 = 2 };
+// multiplied in 3xTF32; int8 query codes and int8 corpus codes; int8 query
+// codes and packed int4 corpus codes.
+enum { OP_BF16 = 0, OP_BIN = 1, OP_F32 = 2, OP_I8 = 3, OP_I4 = 4 };
 
 extern "C" {
 

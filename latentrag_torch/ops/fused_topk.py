@@ -28,6 +28,16 @@ The port of the JAX package's ``ops/pallas_topk.py``:
   candidates it takes ``binary_exact_topk_raw``, the exact sign-dot search
   (``ops/binary.py``'s ``binary_topk`` in a kernel), as the float route
   takes the exact kernel.
+* ``sq8_fused_topk_raw`` / ``sq4_fused_topk_raw`` run the fold and exact
+  kernels over the int8 store's codes and the int4 store's packed nibbles
+  against int8 query codes, scoring ``float32(int32 dot) * factor`` as the
+  JAX package's ``sq8_topk`` / ``sq4_topk`` do (XLA there, not Pallas), and
+  ``approx_sq8_fused_topk`` / ``approx_sq4_fused_topk`` are those stores'
+  searches on the card: the queries quantized with one SQ8 scale over the
+  batch, the fold at ``fold_plan``'s width and candidates, the candidates
+  rescored exactly in int32 and ranked with ties to the lower row (as
+  ``lax.top_k`` ranks them), the exact kernel above 128 and a blocked plain
+  search past ``EXACT_MAX_K``.
 * Past ``EXACT_MAX_K`` (2048) the two approximate routes take a blocked
   search on any device: the corpus scored in blocks by ``torch.matmul``
   and each block's top k merged with the running list
@@ -63,7 +73,8 @@ fold included.
 Every store runs tensor-core kernels that write the scores and ids
 themselves: the folds in ``csrc/fold_mma.cuh``, the exact searches in
 ``csrc/exact_mma.cuh`` (batched list upkeep in both), each instantiated
-for bf16, packed binary and fp32 operands, and the float stores' exact
+for bf16, packed binary, fp32, int8 and packed int4 operands (the last two
+on ``mma.sync`` s8 with int32 sums), and the float stores' exact
 search past 2048 in ``csrc/exact_select.cuh``. fp32 stores multiply in
 3xTF32 (each operand split into rounded tf32 hi and lo parts, three
 products a pair), within ~3 x 2^-22 of each exact product, the size of
@@ -71,12 +82,13 @@ fp32 sum-order differences. The kernel sources say what bounds them on
 the H100 and what their designs do about that.
 
 ``launches`` counts kernel launches per kernel (``fold``, ``exact``,
-``binary_fold``, ``binary_exact``; a call that launches several kernels,
-a partial and a merge or the select's passes and sort, counts once) and
-the blocked route's calls on the card (``blocked``, ``binary_blocked``);
-``masked`` counts, beside them, the launches of those four that read a
-row mask; plain-version calls and the blocked route on the CPU do not
-count.
+``binary_fold``, ``binary_exact``, ``int8_fold``, ``int8_exact``,
+``int4_fold``, ``int4_exact``; a call that launches several kernels, a
+partial and a merge or the select's passes and sort, counts once) and the
+blocked routes' calls on the card (``blocked``, ``binary_blocked``,
+``int8_blocked``, ``int4_blocked``); ``masked`` counts, beside them, the
+kernel launches that read a row mask; plain-version calls and the blocked
+routes on the CPU do not count.
 ``last_kernel`` names the C kernels the latest launch ran.
 
 Euclidean scores are 2 q.c - |q|^2 - |c|^2. Every kernel and the plain
@@ -94,6 +106,14 @@ import math
 
 import torch
 
+from .quantization import (
+    order_keys,
+    quantized_scores,
+    quantized_topk,
+    score_factor,
+    sq4_unpack,
+    sq8_quantize,
+)
 from .topk import NEG_INF, as_bool_mask
 
 _MIN_I32 = -(2**31) + 1
@@ -106,8 +126,10 @@ FOLD_OVERSAMPLE = 4  # candidates per wanted row on the approximate route
 
 # operand kinds of the tensor-core kernels (OP_* in csrc/fused_topk.cu) and
 # the suffix each gives a kernel's name in ``last_kernel``
-_OP_BF16, _OP_BIN, _OP_F32 = 0, 1, 2
-_OP_TAG = {_OP_BF16: "", _OP_BIN: "<bin>", _OP_F32: "<f32>"}
+_OP_BF16, _OP_BIN, _OP_F32, _OP_I8, _OP_I4 = 0, 1, 2, 3, 4
+_OP_TAG = {_OP_BF16: "", _OP_BIN: "<bin>", _OP_F32: "<f32>", _OP_I8: "<i8>",
+           _OP_I4: "<i4>"}
+_OP_STORE = {_OP_I8: "int8", _OP_I4: "int4"}  # the launch counters' prefix
 
 _FM_TQ = 64  # queries per block of the fold kernel (FM_TQ)
 _ES_TQ = 16  # queries per block of the radix select's passes (EM_QROWS)
@@ -125,7 +147,9 @@ _ES_SAMPLE_RANK = 256
 _ES_BUFFER_BYTES = 1 << 30
 
 launches = {"fold": 0, "exact": 0, "binary_fold": 0, "binary_exact": 0,
-            "blocked": 0, "binary_blocked": 0, "masked": 0}
+            "int8_fold": 0, "int8_exact": 0, "int4_fold": 0, "int4_exact": 0,
+            "blocked": 0, "binary_blocked": 0, "int8_blocked": 0,
+            "int4_blocked": 0, "masked": 0}
 last_kernel: str | None = None
 # the latest exact select's plan: route, sample stride and rank, capacity
 last_select: dict | None = None
@@ -390,10 +414,11 @@ def _require_contiguous(queries, corpus) -> None:
 
 def _vec(corpus, d: int, op: int) -> bool:
     """Whether the corpus stages may load by 16-byte ``cp.async``: whole
-    chunks (8 bf16 or 4 fp32 values) a row and an aligned base. The binary
-    stages move 4-byte words."""
-    per_chunk = {_OP_BF16: 8, _OP_F32: 4}.get(op)
-    return (per_chunk is not None and d % per_chunk == 0
+    16-byte chunks a row (8 bf16, 4 fp32 or 16 int8 values, 32 int4 codes)
+    and an aligned base. The binary stages move 4-byte words."""
+    row_bytes = {_OP_BF16: 2 * d, _OP_F32: 4 * d, _OP_I8: d,
+                 _OP_I4: -(-d // 2)}.get(op)
+    return (row_bytes is not None and row_bytes % 16 == 0
             and corpus.data_ptr() % 16 == 0)
 
 
@@ -430,8 +455,9 @@ def _launched(name: str, mask) -> str:
 def _fold_mma(queries, corpus, csq, *, d, k_eff, block_n, euclid, op,
               mask=None):
     """The fold on the tensor cores (``csrc/fold_mma.cuh``) over bf16 or
-    fp32 stores, or packed sign words (``op``), with the row mask when
-    ``mask`` is given: the corpus in slabs of whole tiles, as many as fill
+    fp32 stores, packed sign words, int8 codes or int4 nibbles (``op``; the
+    int kinds take their fp32 score factor as ``csq``), with the row mask
+    when ``mask`` is given: the corpus in slabs of whole tiles, as many as fill
     the card's resident block slots for the query tiles at hand; the
     kernels write the fp32 scores and int32 ids."""
     _require_contiguous(queries, corpus)
@@ -476,8 +502,9 @@ def _exact_slab_rows(n: int, q_tiles: int, slots: int) -> int:
 
 
 def _exact_mma(queries, corpus, csq, *, d, k_eff, euclid, op, mask=None):
-    """The exact search over bf16 or fp32 stores, or the exact sign-dot
-    search over packed sign words (``op``), on the tensor cores
+    """The exact search over bf16 or fp32 stores, the exact sign-dot
+    search over packed sign words, or the int8 / int4 search (``op``; the
+    int kinds take their fp32 score factor as ``csq``), on the tensor cores
     (``csrc/exact_mma.cuh``), with the row mask when ``mask`` is given,
     k <= 2048, the corpus in slabs (``_exact_slab_rows``); the kernels
     write the fp32 scores and int32 ids."""
@@ -956,3 +983,226 @@ def approx_binary_fused_topk(
                                    block_n=block_n, mask=mask)
     scores, idx = rescore_binary_candidates(queries, packed, idx, d)
     return scores[:, :k_eff], idx[:, :k_eff]
+
+
+# ------------------------------------------------------------ int8 and int4
+
+
+def _validate_quantized(q_codes, corpus, factor, d, k, op, block_n=_LANES,
+                        max_k=FOLD_MAX_K):
+    if block_n > (1 << _IDX_BITS) or block_n % _LANES:
+        raise ValueError(
+            f"block_n must be <= {1 << _IDX_BITS} and a multiple of {_LANES}"
+        )
+    if q_codes.ndim != 2 or corpus.ndim != 2:
+        raise ValueError("query codes and corpus must be 2-D")
+    if q_codes.dtype != torch.int8 or q_codes.shape[1] != d:
+        raise ValueError(f"query codes must be int8 [Q, {d}] (got "
+                         f"{q_codes.dtype} {tuple(q_codes.shape)})")
+    want = ((torch.int8, d, "int8 codes") if op == _OP_I8
+            else (torch.uint8, -(-d // 2), "uint8 packed nibbles"))
+    if corpus.dtype != want[0] or corpus.shape[1] != want[1]:
+        raise ValueError(f"corpus must be {want[2]} [N, {want[1]}] (got "
+                         f"{corpus.dtype} {tuple(corpus.shape)})")
+    if factor.dtype != torch.float32 or factor.numel() != 1:
+        raise ValueError("factor must be one float32 value")
+    if not (q_codes.device == corpus.device == factor.device):
+        raise ValueError("query codes, corpus and factor must be on one "
+                         "device")
+    n = corpus.shape[0]
+    if n == 0:
+        raise ValueError("empty corpus")
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    k_eff = min(k, n)
+    if max_k is not None and k_eff > max_k:
+        raise ValueError(f"the {_OP_STORE[op]} "
+                         f"{'fold' if max_k == FOLD_MAX_K else 'exact'} "
+                         f"kernel takes k <= {max_k} (got {k_eff})")
+    return k_eff
+
+
+def _code_rows(corpus, d: int, op: int):
+    """``rows_of(lo, hi)``: rows [lo, hi) of the store as int8 codes (the
+    int4 store's nibbles unpacked)."""
+    if op == _OP_I8:
+        return lambda lo, hi: corpus[lo:hi]
+    return lambda lo, hi: sq4_unpack(corpus[lo:hi], d)
+
+
+def quantized_fused_topk_raw_reference(
+    q_codes: torch.Tensor, corpus: torch.Tensor, factor: torch.Tensor, *,
+    d: int, k: int, op: int, mode: str = "fold", block_n: int = 4096,
+    mask: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the int8 (``op`` = ``_OP_I8``) and int4
+    (``_OP_I4``) kernels, on any device. ``mode="fold"``: the fold tile by
+    tile (``_plain_topk``) over ``quantized_scores`` of each tile's codes,
+    19-bit-quantized scores; ``mode="exact"``: ``quantized_topk``, the
+    exact scores best first, ties to the lower row, at any k. Slots no
+    allowed row fills are (NEG_INF, -1)."""
+    if mode not in ("fold", "exact"):
+        raise ValueError(f"mode must be 'fold' or 'exact', got {mode!r}")
+    fold = mode == "fold"
+    k_eff = _validate_quantized(q_codes, corpus, factor, d, k, op,
+                                block_n if fold else _LANES,
+                                FOLD_MAX_K if fold else None)
+    n = corpus.shape[0]
+    _validate_mask(mask, n, corpus.device)
+    rows_of = _code_rows(corpus, d, op)
+    if not fold:
+        s, i = quantized_topk(q_codes, n, rows_of, factor, k_eff,
+                              block_size=1 << 20, mask=mask)
+        return _sentinel(s, i.to(torch.int32))
+    dev = q_codes.device
+
+    def score_tile(base, end):
+        tile = torch.zeros((block_n, d), dtype=torch.int8, device=dev)
+        tile[: end - base] = rows_of(base, end)
+        return quantized_scores(q_codes, tile, factor)
+
+    return _plain_topk(score_tile, q_codes.shape[0], n, k_eff, "fold",
+                       block_n, dev, as_bool_mask(mask, n))
+
+
+def _quantized_raw(q_codes, corpus, factor, *, d, k, op, mode, block_n,
+                   mask):
+    """The int8 / int4 kernels' entry: on a CPU tensor the plain version,
+    on a CUDA tensor the fold kernel (k <= 128) or the exact kernel (k <=
+    ``EXACT_MAX_K``), counted as ``int8_fold`` ... ``int4_exact``."""
+    if mode not in ("fold", "exact"):
+        raise ValueError(f"mode must be 'fold' or 'exact', got {mode!r}")
+    if q_codes.device.type == "cpu":
+        return quantized_fused_topk_raw_reference(
+            q_codes, corpus, factor, d=d, k=k, op=op, mode=mode,
+            block_n=block_n, mask=mask)
+    if q_codes.device.type != "cuda":
+        raise ValueError(f"unsupported device {q_codes.device}")
+    fold = mode == "fold"
+    k_eff = _validate_quantized(q_codes, corpus, factor, d, k, op,
+                                block_n if fold else _LANES,
+                                FOLD_MAX_K if fold else EXACT_MAX_K)
+    _validate_mask(mask, corpus.shape[0], corpus.device)
+    factor = factor.reshape(1).contiguous()
+    if fold:
+        out = _fold_mma(q_codes, corpus, factor, d=d, k_eff=k_eff,
+                        block_n=block_n, euclid=False, op=op, mask=mask)
+    else:
+        out = _exact_mma(q_codes, corpus, factor, d=d, k_eff=k_eff,
+                         euclid=False, op=op, mask=mask)
+    launches[f"{_OP_STORE[op]}_{mode}"] += 1
+    return out
+
+
+def sq8_fused_topk_raw(
+    q_codes: torch.Tensor, codes: torch.Tensor, factor: torch.Tensor, *,
+    k: int, mode: str = "fold", block_n: int = 4096,
+    mask: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused int8 top-k: int8 query codes [Q, d] against the int8 store's
+    codes [N, d], scores ``float32(int32 dot) * factor`` (``factor``: one
+    fp32 value, ``float32(q_scale * corpus_scale)``). Returns (scores [Q, k]
+    f32, ids [Q, k] i32); ``mode="fold"`` (k <= 128) scores are
+    19-bit-quantized, ``mode="exact"`` scores exact, ties to the lower row.
+    On a CUDA tensor this launches ``fold_mma_kernel<E, OP_I8>`` or
+    ``exact_mma_kernel<KP, OP_I8>`` (k <= ``EXACT_MAX_K``) or raises; on a
+    CPU tensor it runs ``quantized_fused_topk_raw_reference``. ``mask``
+    restricts the search (see the module's docstring)."""
+    return _quantized_raw(q_codes, codes, factor, d=codes.shape[1], k=k,
+                          op=_OP_I8, mode=mode, block_n=block_n, mask=mask)
+
+
+def sq4_fused_topk_raw(
+    q_codes: torch.Tensor, packed: torch.Tensor, factor: torch.Tensor, *,
+    d: int, k: int, mode: str = "fold", block_n: int = 4096,
+    mask: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``sq8_fused_topk_raw`` over the int4 store's packed nibbles, uint8
+    [N, ceil(d/2)] (``ops.quantization.sq4_quantize``), sign-extended to
+    int8 codes inside the kernels (``OP_I4``)."""
+    return _quantized_raw(q_codes, packed, factor, d=d, k=k, op=_OP_I4,
+                          mode=mode, block_n=block_n, mask=mask)
+
+
+def rescore_quantized_candidates(
+    q_codes: torch.Tensor, rows: torch.Tensor, idx: torch.Tensor,
+    factor: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact scores of the candidate rows ``idx`` [Q, K] whose int8 codes
+    are ``rows`` [Q, K, d]: int32 dots (exact integers) times ``factor``,
+    as the kernels and the JAX package score them, best first with ties to
+    the lower row; an empty slot (id -1) stays (NEG_INF, -1), after every
+    real row."""
+    dots = torch.sum(q_codes.to(torch.int32)[:, None, :]
+                     * rows.to(torch.int32), dim=2)
+    scores = torch.where(idx >= 0, dots.float() * factor, NEG_INF)
+    order = torch.sort(order_keys(scores, idx), dim=1, descending=True,
+                       stable=True)[1]
+    return torch.gather(scores, 1, order), torch.gather(idx, 1, order)
+
+
+def _approx_quantized(q_codes, corpus, factor, *, d, k, recall_target, mask,
+                      op, block_size):
+    n = corpus.shape[0]
+    k_eff = min(k, n)
+    rows_of = _code_rows(corpus, d, op)
+    if k_eff > EXACT_MAX_K:  # the blocked plain search, as for float stores
+        _validate_mask(mask, n, corpus.device)
+        s, i = quantized_topk(q_codes, n, rows_of, factor, k_eff,
+                              block_size=block_size, mask=mask)
+        if q_codes.device.type == "cuda":
+            launches[f"{_OP_STORE[op]}_blocked"] += 1
+        return _sentinel(s, i.to(torch.int32))
+    if k_eff > FOLD_MAX_K:  # exact scores, ties to the lower row
+        return _quantized_raw(q_codes, corpus, factor, d=d, k=k_eff, op=op,
+                              mode="exact", block_n=_LANES, mask=mask)
+    block_n, cand = fold_plan(n, k_eff, recall_target)
+    _, idx = _quantized_raw(q_codes, corpus, factor, d=d, k=cand, op=op,
+                            mode="fold", block_n=block_n, mask=mask)
+    flat = idx.reshape(-1).clamp_min(0).long()
+    rows = rows_of(0, n)[flat] if op == _OP_I8 else sq4_unpack(
+        corpus[flat], d)
+    scores, idx = rescore_quantized_candidates(
+        q_codes, rows.reshape(*idx.shape, d), idx, factor)
+    return scores[:, :k_eff], idx[:, :k_eff]
+
+
+def approx_sq8_fused_topk(
+    queries: torch.Tensor, codes: torch.Tensor, corpus_scale, *, k: int,
+    recall_target: float = 0.99, mask: torch.Tensor | None = None,
+    block_size: int = 1 << 20,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 store's search on the card (the part XLA's ``approx_max_k``
+    played in ``sq8_topk`` on the TPU): the prepared queries quantized with
+    one SQ8 scale over the batch (``sq8_quantize``, as the JAX function
+    does, so a query's scores depend on its batch), the int8 fold at
+    ``fold_plan``'s width and candidates from ``recall_target``, the
+    candidates rescored exactly in int32 and ranked with ties to the lower
+    row, the best k kept; above the fold's 128 the exact int8 kernel, and
+    past ``EXACT_MAX_K`` the blocked plain search in ``block_size``-row
+    blocks (``int8_blocked``). Every returned score is the JAX package's
+    score of that row bit for bit. ``mask`` restricts every route; slots no
+    allowed row fills are (NEG_INF, -1). On a CPU tensor each route runs
+    its plain version."""
+    q_codes, q_scale = sq8_quantize(queries)
+    return _approx_quantized(
+        q_codes, codes, score_factor(q_scale, corpus_scale),
+        d=codes.shape[1], k=k, recall_target=recall_target, mask=mask,
+        op=_OP_I8, block_size=block_size)
+
+
+def approx_sq4_fused_topk(
+    queries: torch.Tensor, packed: torch.Tensor, corpus_scale, *, d: int,
+    k: int, recall_target: float = 0.99, mask: torch.Tensor | None = None,
+    block_size: int = 1 << 20,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int4 store's stage 1 on the card: ``approx_sq8_fused_topk``'s
+    routes over the packed nibbles (``sq4_topk``'s scores: the SQ8 query
+    codes against the int4 codes, times ``q_scale * corpus_scale``), the
+    fold's candidates unpacked and rescored exactly in int32
+    (``int4_fold``, ``int4_exact``, ``int4_blocked``)."""
+    q_codes, q_scale = sq8_quantize(queries)
+    return _approx_quantized(
+        q_codes, packed, score_factor(q_scale, corpus_scale), d=d, k=k,
+        recall_target=recall_target, mask=mask, op=_OP_I4,
+        block_size=block_size)

@@ -3,9 +3,11 @@
 
 * ``build`` prepares the corpus for its metric (cosine: normalized;
   euclidean: raw; mahalanobis: whitened with a factor fitted at build) and
-  holds it on the device as an fp32 or bf16 store, or as the binary
-  cascade store (cosine / dot only): packed sign bits on the device, SQ8
-  rescore codes on the host;
+  holds it on the device as an fp32 or bf16 store, as the int8 store
+  (cosine / dot only: SQ8 codes and their scale on the device), or as a
+  cascade store (cosine / dot only): the binary store's packed sign bits
+  or the int4 store's packed nibbles on the device, SQ8 rescore codes on
+  the host;
 * ``search(queries, k)`` scores all queries in one batch; ``retrieve``
   wraps it for one query;
 * scoring backends keep the JAX package's names, so a config means the
@@ -17,48 +19,60 @@
   ``xla_exact`` on the CPU. On CUDA ``xla`` runs the fused fold kernel at a
   tile width and candidate count set by ``recall_target`` and rescores
   its candidates exactly (the exact kernel above k=128);
-* the binary store searches in two stages, as the JAX package's does:
-  stage 1 takes ``binary_oversample`` x k candidates by sign-dot score
-  (on CUDA the fused binary fold kernel, planned by ``fold_plan`` from
-  the recall target of k; on the CPU the plain exact search), stage 2
-  rescores them exactly on the host against the SQ8 codes, and the
-  results come back as host numpy;
+* the int8 store searches as the JAX package's ``sq8_topk`` does: the
+  queries quantized with one SQ8 scale over the batch, int32 dots, the
+  JAX package's scores bit for bit (on CUDA ``approx_sq8_fused_topk``: the
+  int8 fold kernel planned by ``fold_plan``, rescored exactly, the exact
+  int8 kernel above 128; on the CPU the plain exact ``sq8_topk``);
+* the binary and int4 stores search in two stages, as the JAX package's
+  do: stage 1 takes ``binary_oversample`` x k candidates by sign-dot or
+  int4 score (on CUDA the binary or int4 fold kernel, planned by
+  ``fold_plan`` from the recall target of k; on the CPU the plain exact
+  search), stage 2 rescores them exactly on the host against the SQ8
+  codes, and the results come back as host numpy;
 * ``search(..., filter=)`` restricts the search to the rows a filter spec
   allows (``retrieval.filtering``): the spec compiles once to the packed
   row mask the kernels read (cached per spec, dropped on any mutation);
   ``xla`` masks inside the fold and exact kernels on the card,
-  ``xla_exact`` inside the oracle, the binary cascade in stage 1;
+  ``xla_exact`` inside the oracle, the int8 store in its kernels, the
+  cascades in stage 1;
   ``pallas`` / ``pallas_exact`` refuse a filter, as in the JAX package;
 * ``add`` / ``remove`` mutate a built index live: new rows are prepared
   with the build-time whitener and SQ8 scale, removal gathers the
   survivors on the device in one ``index_select`` and leaves their scores
   unchanged bit for bit;
 * persistence (``index_path``): the JAX package's store, file for file
-  (``corpus.npy`` of prepared fp32 rows, ``binary_packed.npy`` /
-  ``sq8_scale.npy`` for the binary store, ``whitener.npy``, the lazy text
+  (``corpus.npy`` of prepared fp32 rows, the int8 store's dequantized;
+  ``binary_packed.npy`` / ``sq8_scale.npy`` for the binary store,
+  ``sq4_packed.npy`` / ``sq4_scale.npy`` / ``sq8_scale.npy`` for the int4
+  store; ``whitener.npy``, the lazy text
   store, ``metadata.jsonl``, and ``meta.json`` last with the fingerprint
   and sampled digests of every sidecar), so a store written by either
   package loads in the other. A retriever built with an ``index_path``
   that holds a valid store loads it; ``build()`` with the same
   fingerprint and corpus digest then skips the rebuild and the
-  self-check. A store that fails validation starts clean; an error of the
-  device while the validated store is uploaded propagates;
+  self-check. A store of any tier loads at the tier asked for, as the
+  JAX package's load does (an int8 store re-quantizes the stored rows; a
+  cascade store without its sidecars re-derives them on the host, with
+  the JAX package's warnings). A store that fails validation starts
+  clean; an error of the device while the validated store is uploaded
+  propagates;
 * a post-build self-search: the first corpus row must retrieve itself
-  top-1, searched through the store's configured backend (float stores)
-  or through the cascade (binary store, probe = the dequantized SQ8 row),
-  as the JAX package's check searches (its dense.py:657-665).
+  top-1, searched through the store's configured backend (float stores),
+  the int8 search (probe = the dequantized row), or the cascade (binary
+  and int4 stores, probe = the dequantized SQ8 row), as the JAX package's
+  check searches (its dense.py:657-665).
 
 The JAX package's ``_self_check`` turned any exception into a silent
 rebuild. Here a kernel that fails to build or launch raises; only a wrong
 top-1 counts as a failed check.
 
-The device IVF, the int8 / int4 stores and the sharded store are later
-slices (ROADMAP queue 1 items 15, 17 and 23); config values that need
-them raise ``NotImplementedError``. A store written by the JAX package
-loads at the store dtype asked for (its int8 and int4 stores keep
-dequantized fp32 rows in ``corpus.npy``); its IVF sidecars are ignored on
-load and removed by the next save, and a sharded store, which has no
-``corpus.npy``, fails validation and starts clean.
+The device IVF and the sharded store are later slices (ROADMAP queue 1
+items 17 and 23); config values that need them raise
+``NotImplementedError``. A store written by the JAX package loads here
+and one written here loads there; the JAX package's IVF sidecars are
+ignored on load and removed by the next save, and a sharded store, which
+has no ``corpus.npy``, fails validation and starts clean.
 """
 
 from __future__ import annotations
@@ -81,8 +95,19 @@ from ..ops.distances import (
     prepare_for_metric,
     whitening_factor,
 )
-from ..ops.fused_topk import approx_binary_fused_topk, fused_topk
-from ..ops.quantization import sq8_quantize
+from ..ops.fused_topk import (
+    approx_binary_fused_topk,
+    approx_sq4_fused_topk,
+    approx_sq8_fused_topk,
+    fused_topk,
+)
+from ..ops.quantization import (
+    sq4_quantize,
+    sq4_quantize_with_scale,
+    sq4_topk,
+    sq8_quantize,
+    sq8_topk,
+)
 from ..ops.topk import NEG_INF, approx_topk, exact_topk
 from ..utils.device import resolve_device
 from ..utils.timing import StatsTracker, force_completion
@@ -106,8 +131,13 @@ log = logging.getLogger("latentrag_torch.retrieval")
 
 FINGERPRINT_VERSION = 1
 BACKENDS = ("auto", "xla", "xla_exact", "pallas", "pallas_exact")
+# the device dtype of each store: binary the packed sign words, int8 the
+# SQ8 codes, int4 the packed nibbles
 STORE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-                "binary": torch.int32}  # binary: packed sign words
+                "binary": torch.int32, "int8": torch.int8,
+                "int4": torch.uint8}
+QUANTIZED = ("int8", "int4", "binary")
+CASCADES = ("binary", "int4")  # stage 1 on the device, SQ8 codes on the host
 EXACT_BACKENDS = ("xla_exact", "pallas_exact")
 
 
@@ -224,10 +254,13 @@ class _Store:
     fingerprint: dict | None
     n: int
     dim: int
-    rows: np.ndarray  # prepared fp32 rows, or the binary store's words
+    # prepared fp32 rows, or the binary store's words, or the int4 store's
+    # nibbles
+    rows: np.ndarray
     whitener: np.ndarray | None
-    rescore: np.ndarray | None = None  # binary: SQ8 codes
-    scale: float | None = None  # binary: their scale
+    rescore: np.ndarray | None = None  # cascades: SQ8 codes
+    scale: float | None = None  # cascades: their scale
+    sq4_scale: float | None = None  # int4: the nibbles' scale
 
 
 @dataclass
@@ -253,10 +286,13 @@ class DenseRetriever:
     _corpus: Any = None  # prepared [N, D] store on the device
     _corpus_n: int = 0
     _whitener: Any = None
-    # binary store: _corpus holds only the packed sign words [N, D/32] on
-    # the device; the SQ8 rescore codes and their scale stay on the host
+    # cascade stores: _corpus holds only the packed sign words [N, D/32]
+    # (binary) or nibbles [N, D/2] (int4) on the device; the SQ8 rescore
+    # codes and their scale stay on the host. The int8 store's codes are
+    # _corpus, their scale _corpus_scale.
     _rescore_host: Any = None  # np.int8 [N, D]
-    _corpus_scale: Any = None  # float
+    _corpus_scale: Any = None  # float: the SQ8 scale (int8, cascades)
+    _sq4_scale: Any = None  # float: the int4 store's stage-1 scale
     _dim: int = 0  # the vectors' dim (a packed row has D/32 words)
     binary_oversample: int = 8  # cascade stage-1 candidates per k
     _loaded_fingerprint: Any = None
@@ -271,18 +307,18 @@ class DenseRetriever:
         if self.backend not in BACKENDS:
             raise ValueError(f"backend {self.backend!r} not in {BACKENDS}")
         if self.store_dtype not in STORE_DTYPES:
-            raise NotImplementedError(
-                f"store_dtype={self.store_dtype!r}: the int8 and int4 stores "
-                "are ROADMAP queue 1 item 15; use float32, bfloat16 or binary"
+            raise ValueError(f"store_dtype {self.store_dtype!r} not in "
+                             f"{tuple(STORE_DTYPES)}")
+        # quantized stores cannot serve the exact oracle, and the cascades
+        # take cosine / dot only, as in the JAX package
+        if self.store_dtype in QUANTIZED and self.backend in EXACT_BACKENDS:
+            raise ValueError(
+                f"backend={self.backend!r} requests the exact oracle, but "
+                f"store_dtype={self.store_dtype!r} is quantized; use a float "
+                "store for oracle comparisons"
             )
-        if self.store_dtype == "binary":
+        if self.store_dtype in CASCADES:
             self._validate_binary_combo()
-            if self.backend in EXACT_BACKENDS:
-                raise ValueError(
-                    f"backend={self.backend!r} requests the exact oracle, "
-                    "but store_dtype='binary' is quantized; use a float "
-                    "store for oracle comparisons"
-                )
         self.device = resolve_device(self.device)
         if self.index_path and os.path.exists(
             os.path.join(self.index_path, "meta.json")
@@ -303,7 +339,8 @@ class DenseRetriever:
 
     def _validate_binary_combo(self):
         if self.metric not in ("cosine", "dot"):
-            raise ValueError("binary store supports cosine/dot only")
+            raise ValueError(
+                f"{self.store_dtype} store supports cosine/dot only")
 
     @property
     def is_built(self) -> bool:
@@ -398,13 +435,21 @@ class DenseRetriever:
             self._whitener = whitening_factor(estimate_covariance(x))
         prepared = prepare_for_metric(x, self.metric, self._whitener)
         self._dim = int(x.shape[1])
-        self._rescore_host = self._corpus_scale = None
-        if self.store_dtype == "binary":
+        self._rescore_host = self._corpus_scale = self._sq4_scale = None
+        if self.store_dtype in CASCADES:
             self._validate_binary_combo()
             codes, scale = sq8_quantize(prepared)
             self._rescore_host = codes.cpu().numpy()
             self._corpus_scale = float(scale)
-            self._corpus = binary_quantize(prepared)
+            if self.store_dtype == "binary":
+                self._corpus = binary_quantize(prepared)
+            else:  # int4: the nibbles at their own scale
+                self._corpus, scale4 = sq4_quantize(prepared)
+                self._sq4_scale = float(scale4)
+        elif self.store_dtype == "int8":
+            self._validate_binary_combo()
+            self._corpus, scale = sq8_quantize(prepared)
+            self._corpus_scale = float(scale)
         else:
             self._corpus = prepared.to(
                 STORE_DTYPES[self.store_dtype]).contiguous()
@@ -424,18 +469,21 @@ class DenseRetriever:
 
     def _self_check(self) -> bool:
         """The first corpus row must come back top-1, searched as a query
-        would be: through the configured backend (float stores) or the
-        cascade (binary store). Kernel build and launch errors propagate."""
+        would be: through the configured backend (float stores), the int8
+        search or the cascade (binary and int4 stores). Kernel build and
+        launch errors propagate."""
         probe = self._corpus_row(0)[None, :]
         _, idx = self._search_prepared(probe, min(4, self._corpus_n))
         return int(idx[0, 0]) == 0
 
     def _corpus_row(self, i: int) -> torch.Tensor:
-        """Row ``i`` of the store as fp32 on the device (the binary store:
-        its dequantized SQ8 row)."""
+        """Row ``i`` of the store as fp32 on the device (the int8 store:
+        its dequantized row; the cascades: the dequantized SQ8 row)."""
         if self._rescore_host is not None:
             row = torch.from_numpy(self._rescore_host[i].astype(np.float32))
             return (row * self._corpus_scale).to(self.device)
+        if self.store_dtype == "int8":
+            return self._corpus[i].float() * self._corpus_scale
         return self._corpus[i].float()
 
     # ------------------------------------------------------------- mutation
@@ -449,9 +497,9 @@ class DenseRetriever:
     ) -> None:
         """Append documents to a built index. New rows are prepared with
         the build-time transform (the whitener of the build's covariance;
-        the binary store's SQ8 scale) and concatenated on the device, so
-        the scores of the rows already there do not change. Persists when
-        ``index_path`` is set."""
+        the quantized stores' SQ8 and int4 scales) and concatenated on the
+        device, so the scores of the rows already there do not change.
+        Persists when ``index_path`` is set."""
         if not self.is_built:
             raise RuntimeError("build() the index before add()")
         x = torch.as_tensor(embeddings).to(self.device, torch.float32)
@@ -474,7 +522,12 @@ class DenseRetriever:
             self._rescore_host = np.concatenate(
                 [self._rescore_host, self._requantize(prepared).cpu().numpy()]
             )
-            prepared = binary_quantize(prepared)
+            if self.store_dtype == "int4":
+                prepared = sq4_quantize_with_scale(prepared, self._sq4_scale)
+            else:
+                prepared = binary_quantize(prepared)
+        elif self.store_dtype == "int8":
+            prepared = self._requantize(prepared)
         else:
             prepared = prepared.to(self._corpus.dtype)
         self._corpus = torch.cat(
@@ -555,11 +608,20 @@ class DenseRetriever:
     def _search_prepared(self, q: torch.Tensor, k: int, mask=None):
         """Top-k of queries already in the prepared space: (scores [Q, k]
         f32, indices [Q, k]), tensors on the device (host numpy from the
-        binary store). ``mask`` (the packed int32 words of the allowed
+        cascade stores). ``mask`` (the packed int32 words of the allowed
         rows) restricts eligibility; slots no allowed row fills score
         NEG_INF."""
         if self._rescore_host is not None:
             return self._search_cascade(q, k, mask)
+        if self.store_dtype == "int8":  # whatever the backend
+            q = q.float().contiguous()
+            if self.device.type == "cuda":
+                return approx_sq8_fused_topk(
+                    q, self._corpus, self._corpus_scale, k=k,
+                    recall_target=self._effective_recall_target(k),
+                    mask=mask, block_size=self.block_size)
+            return sq8_topk(q, self._corpus, self._corpus_scale, k,
+                            block_size=self.block_size, mask=mask)
         backend = self._resolve_backend()
         q = q.to(self._corpus.dtype).contiguous()
         if backend == "xla":
@@ -581,23 +643,35 @@ class DenseRetriever:
         return fused_topk(q, self._corpus, k=k, metric=self.metric, mode=mode)
 
     def _search_cascade(self, q: torch.Tensor, k: int, mask=None):
-        """The binary store: stage 1 takes ``binary_oversample`` x k
-        candidates by sign-dot score on the device, stage 2 rescores them
-        exactly on the host against the SQ8 codes. The recall target is
-        k's, not the candidates'. Stage 1 takes the filter's mask and
-        gives -1 in the slots no allowed row fills, which the rescore
-        cannot revive. Returns host numpy (scores, ids), with (-inf, -1)
-        in empty slots."""
+        """The binary and int4 stores: stage 1 takes
+        ``binary_oversample`` x k candidates by sign-dot or int4 score on
+        the device, stage 2 rescores them exactly on the host against the
+        SQ8 codes. The recall target is k's, not the candidates'. Stage 1
+        takes the filter's mask and gives -1 in the slots no allowed row
+        fills, which the rescore cannot revive. Returns host numpy
+        (scores, ids), with (-inf, -1) in empty slots."""
         ok = min(self.binary_oversample * k, self._corpus_n)
         q = q.float().contiguous()
+        int4 = self.store_dtype == "int4"
         if self.device.type == "cuda":  # empty slots come back as -1
-            _, cand = approx_binary_fused_topk(
-                q, self._corpus, d=self._dim, k=ok,
-                recall_target=self._effective_recall_target(k), mask=mask,
-            )
+            rt = self._effective_recall_target(k)
+            if int4:
+                _, cand = approx_sq4_fused_topk(
+                    q, self._corpus, self._sq4_scale, d=self._dim, k=ok,
+                    recall_target=rt, mask=mask, block_size=self.block_size)
+            else:
+                _, cand = approx_binary_fused_topk(
+                    q, self._corpus, d=self._dim, k=ok, recall_target=rt,
+                    mask=mask,
+                )
         else:
-            s1, cand = binary_topk(q, self._corpus, d=self._dim, k=ok,
-                                   mask=mask)
+            if int4:
+                s1, cand = sq4_topk(q, self._corpus, self._sq4_scale,
+                                    self._dim, ok, block_size=self.block_size,
+                                    mask=mask)
+            else:
+                s1, cand = binary_topk(q, self._corpus, d=self._dim, k=ok,
+                                       mask=mask)
             if mask is not None:  # its NEG_INF slots hold arbitrary rows
                 cand = torch.where(s1 > NEG_INF * 0.5, cand, -1)
         return exact_rescore_topk(
@@ -639,7 +713,7 @@ class DenseRetriever:
         q = torch.as_tensor(queries).to(self.device, torch.float32)
         q = prepare_for_metric(q, self.metric, self._whitener)
         s, i = self._search_prepared(q, k, mask)
-        if isinstance(s, torch.Tensor):  # the binary store returns numpy
+        if isinstance(s, torch.Tensor):  # the cascades return numpy
             s, i = s.float().cpu().numpy(), i.cpu().numpy()
         i = i.astype(np.int64)
         i = np.where(s > NEG_INF * 0.5, i, -1)
@@ -673,27 +747,43 @@ class DenseRetriever:
         os.makedirs(path, exist_ok=True)
         n = self._corpus_n
         stored_digests: dict[str, str] = {}
-        if self._rescore_host is not None:  # binary store
-            # the words persist verbatim (re-deriving them from the
-            # dequantized rows would flip the signs of values that round
-            # to code 0), as uint32, the JAX package's dtype
-            packed = self._corpus[:n].cpu().numpy().view(np.uint32)
+        if self._rescore_host is not None:  # cascade store
+            # the words and nibbles persist verbatim (re-deriving them from
+            # the dequantized rows would flip the signs of values that round
+            # to code 0, and re-derive the nibbles' scale), the words as
+            # uint32, the JAX package's dtype
+            int4 = self.store_dtype == "int4"
+            packed = self._corpus[:n].cpu().numpy()
+            if not int4:
+                packed = packed.view(np.uint32)
+            pk_name = "sq4_packed.npy" if int4 else "binary_packed.npy"
             scale = np.asarray(self._corpus_scale, dtype=np.float32)
             corpus_arr = (
                 self._rescore_host[:n].astype(np.float32)
                 * float(self._corpus_scale)
             )
-            atomic_save(os.path.join(path, "binary_packed.npy"), packed)
+            atomic_save(os.path.join(path, pk_name), packed)
             atomic_save(os.path.join(path, "sq8_scale.npy"), scale)
             atomic_save(os.path.join(path, "corpus.npy"), corpus_arr)
             stored_digests.update({
-                "binary_packed.npy": _stored_digest(packed),
+                pk_name: _stored_digest(packed),
                 "sq8_scale.npy": _stored_digest(scale),
                 "corpus.npy": _stored_digest(corpus_arr),
             })
-            _drop_stale(path, "sharded", "sq4_packed.npy", "sq4_scale.npy")
+            if int4:
+                s4 = np.asarray(self._sq4_scale, dtype=np.float32)
+                atomic_save(os.path.join(path, "sq4_scale.npy"), s4)
+                stored_digests["sq4_scale.npy"] = _stored_digest(s4)
+                _drop_stale(path, "sharded", "binary_packed.npy")
+            else:
+                _drop_stale(path, "sharded", "sq4_packed.npy",
+                            "sq4_scale.npy")
         else:
-            corpus_arr = self._corpus[:n].float().cpu().numpy()
+            if self.store_dtype == "int8":  # dequantized fp32
+                corpus_arr = (self._corpus[:n].cpu().numpy()
+                              .astype(np.float32) * float(self._corpus_scale))
+            else:
+                corpus_arr = self._corpus[:n].float().cpu().numpy()
             atomic_save(os.path.join(path, "corpus.npy"), corpus_arr)
             stored_digests["corpus.npy"] = _stored_digest(corpus_arr)
             _drop_stale(path, "binary_packed.npy", "sq8_scale.npy", "sharded",
@@ -793,12 +883,13 @@ class DenseRetriever:
             fingerprint=meta.get("fingerprint"), n=n,
             dim=int(corpus.shape[1]), rows=corpus, whitener=whitener,
         )
-        if self.store_dtype != "binary":  # read off the mmap, once
+        if self.store_dtype not in CASCADES:  # read off the mmap, once
             store.rows = np.array(corpus, dtype=np.float32)
             return store
-        # the binary store stays on the host until its words go up
+        # a cascade store stays on the host until its packed rows go up
         if store.metric not in ("cosine", "dot"):
-            raise ValueError("binary store supports cosine/dot only")
+            raise ValueError(
+                f"{self.store_dtype} store supports cosine/dot only")
         host = np.ascontiguousarray(corpus, dtype=np.float32)
         spath = os.path.join(path, "sq8_scale.npy")
         if os.path.exists(spath):
@@ -811,9 +902,12 @@ class DenseRetriever:
                 "differ from the original build (save again to pin it)",
                 path,
             )
-        store.scale = scale
+        store.scale = float(np.float32(scale))  # the JAX store's fp32
         store.rescore = np.clip(np.round(host / scale), -127, 127).astype(
             np.int8)
+        if self.store_dtype == "int4":
+            store.rows, store.sq4_scale = self._read_nibbles(path, host)
+            return store
         ppath = os.path.join(path, "binary_packed.npy")
         if os.path.exists(ppath):  # bit-stable packed store
             words = np.load(ppath)
@@ -840,6 +934,32 @@ class DenseRetriever:
         store.rows = np.ascontiguousarray(words).view(np.int32)
         return store
 
+    @staticmethod
+    def _read_nibbles(path: str, host: np.ndarray) -> tuple[np.ndarray,
+                                                             float]:
+        """The int4 store's nibbles and their scale: its sidecars, or,
+        without them (a store of another tier), packed on the host from the
+        stored rows with a re-derived scale, as the JAX package's load
+        does."""
+        ppath = os.path.join(path, "sq4_packed.npy")
+        spath4 = os.path.join(path, "sq4_scale.npy")
+        if os.path.exists(ppath) and os.path.exists(spath4):
+            packed = np.load(ppath)
+            if (packed.dtype != np.uint8
+                    or packed.shape != (host.shape[0], -(-host.shape[1] // 2))):
+                raise ValueError("sq4_packed.npy shape or dtype mismatch")
+            return packed, float(np.load(spath4))
+        log.warning(
+            "int4 index at %s lacks sq4 sidecars — packing "
+            "nibbles from the fp store with a re-derived "
+            "scale; stage-1 candidates may differ from the "
+            "original build (save again to pin them)",
+            path,
+        )
+        # the JAX load's scale, a double divided in numpy as its fp32 value
+        s4 = float(np.float32(max(float(np.abs(host).max()) / 7.0, 1e-12)))
+        return sq4_quantize_with_scale(torch.tensor(host), s4).numpy(), s4
+
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
@@ -849,7 +969,11 @@ class DenseRetriever:
         whitener = (None if store.whitener is None
                     else self._upload(store.whitener.astype(np.float32)))
         rows = self._upload(store.rows)
-        if self.store_dtype != "binary":
+        scale = store.scale
+        if self.store_dtype == "int8":  # the stored rows, re-quantized
+            rows, scale = sq8_quantize(rows)
+            scale = float(scale)
+        elif self.store_dtype not in CASCADES:
             rows = rows.to(STORE_DTYPES[self.store_dtype]).contiguous()
         self._corpus = rows
         self._whitener = whitener
@@ -862,4 +986,5 @@ class DenseRetriever:
         self._corpus_n = store.n
         self._dim = store.dim
         self._rescore_host = store.rescore
-        self._corpus_scale = store.scale
+        self._corpus_scale = scale
+        self._sq4_scale = store.sq4_scale

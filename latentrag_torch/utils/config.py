@@ -163,8 +163,9 @@ class RetrievalConfig:
     max_chunks_per_doc: int = 3
     normalize: bool = True
     block_size: int = 1048576  # corpus block for streamed scoring
-    # device dtype of the prepared corpus: bfloat16 | float32 (the
-    # quantized int8 | int4 | binary tiers are a later slice)
+    # device dtype of the prepared corpus: bfloat16 | float32 | int8 (SQ8
+    # codes) | int4 (packed nibbles, SQ8 rescore on the host) | binary
+    # (packed sign bits, SQ8 rescore on the host)
     store_dtype: str = "bfloat16"
     binary_oversample: int = 8  # cascade stage-1 candidates per k
     # per-block candidate recall of the approximate search; "auto" is

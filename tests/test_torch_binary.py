@@ -394,9 +394,10 @@ def test_binary_store_refused_combinations():
         with pytest.raises(ValueError, match="exact oracle"):
             DenseRetriever(store_dtype="binary", backend=backend,
                            device="cpu")
-    for store in ("int8", "int4"):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            DenseRetriever(store_dtype=store, device="cpu")
+    for store in ("int8", "int4"):  # ported: they refuse what binary does
+        with pytest.raises(ValueError, match="exact oracle"):
+            DenseRetriever(store_dtype=store, backend="xla_exact",
+                           device="cpu")
     r = DenseRetriever(store_dtype="binary", metric="dot", device="cpu")
     r.build(np.eye(4, 8, dtype=np.float32), list("abcd"))
     # the binary store filters in stage 1 (a filter allowing one row)

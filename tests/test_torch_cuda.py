@@ -24,6 +24,12 @@ def cuda():
     return torch.device("cuda")
 
 
+def _counts(**launched):
+    """Every launch counter at 0 but those given: a route launches what
+    it should and nothing else."""
+    return {**dict.fromkeys(ft.launches, 0), **launched}
+
+
 def _data(cuda, dtype, nq=37, n=9000, d=64, seed=0):
     """Seeded queries and corpus on the card. d=64 takes the kernels'
     16-byte staged loads; other widths the element-wise loads."""
@@ -105,9 +111,7 @@ def test_fold_routes_by_store_dtype(cuda):
     assert ft.last_kernel.split("+")[0] == "exact_mma_kernel"
     ft.fused_topk_raw(q, c, k=10, mode="exact")
     assert ft.last_kernel.split("+")[0] == "exact_mma_kernel<f32>"
-    assert ft.launches == {"fold": 2, "exact": 2, "binary_fold": 0,
-                           "binary_exact": 0, "blocked": 0,
-                           "binary_blocked": 0, "masked": 0}
+    assert ft.launches == _counts(fold=2, exact=2)
 
 
 @pytest.mark.parametrize("mode", ["exact", "fold"])
@@ -240,9 +244,7 @@ def test_launch_counts_and_validation(cuda):
     ft.fused_topk(q, c, k=5, mode="fold")
     ft.fused_topk(q, c, k=5, mode="exact")
     ft.approx_fused_topk(q, c, k=5)
-    assert ft.launches == {"fold": 2, "exact": 1, "binary_fold": 0,
-                           "binary_exact": 0, "blocked": 0,
-                           "binary_blocked": 0, "masked": 0}
+    assert ft.launches == _counts(fold=2, exact=1)
     # past the exact kernels' 2048 the blocked route, counted apart
     big = _data(cuda, torch.float32, n=2100)[1]
     s, i = ft.approx_fused_topk(q, big, k=2050)
@@ -511,9 +513,7 @@ def test_binary_launch_counts_and_store(cuda):
     ft.reset_launches()
     ft.binary_fused_topk(q, packed, d=64, k=5)
     ft.approx_binary_fused_topk(q, packed, d=64, k=40)
-    assert ft.launches == {"fold": 0, "exact": 0, "binary_fold": 2,
-                           "binary_exact": 0, "blocked": 0,
-                           "binary_blocked": 0, "masked": 0}
+    assert ft.launches == _counts(binary_fold=2)
     # above 128 candidates the route takes the exact binary kernel
     ft.approx_binary_fused_topk(q, packed, d=64, k=129)
     assert ft.launches["binary_exact"] == 1
@@ -595,9 +595,7 @@ def test_binary_store_top_k_20_launches(cuda):
     ft.reset_launches()
     assert r._self_check()
     s, i = r.search(emb[:20].numpy(), 20)
-    assert ft.launches == {"fold": 0, "exact": 0, "binary_fold": 1,
-                           "binary_exact": 1, "blocked": 0,
-                           "binary_blocked": 0, "masked": 0}
+    assert ft.launches == _counts(binary_fold=1, binary_exact=1)
     assert i.shape == (20, 20) and (i[:, 0] == np.arange(20)).all()
     assert np.isfinite(s).all()
 
@@ -861,3 +859,170 @@ def test_http_serve_on_card(cuda, tmp_path):
             assert o["results"][0]["query"] == queries[i]
             got = [h["doc_id"] for h in o["results"][0]["hits"]]
             assert got == [retriever.doc_ids[j] for j in idx[i]]
+
+
+# ------------------------------------------------------------ int8 and int4
+
+
+def _quantized(cuda, store, nq, n, d, seed=3, dup_every=0):
+    """Seeded unit rows quantized as the int8 / int4 stores hold them, the
+    SQ8 query codes and the score factor. ``dup_every`` copies row 0 into
+    every such row, so that scores tie across lanes and tiles."""
+    from latentrag_torch.ops import quantization as tq
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.nn.functional.normalize(
+        torch.randn((n, d), generator=g, device=cuda), dim=1)
+    if dup_every:
+        x[::dup_every] = x[0]
+    q = torch.nn.functional.normalize(
+        torch.randn((nq, d), generator=g, device=cuda), dim=1)
+    qc, qs = tq.sq8_quantize(q)
+    c, cs = (tq.sq8_quantize(x) if store == "int8" else tq.sq4_quantize(x))
+    return qc, c, tq.score_factor(qs, cs), g
+
+
+def _quantized_raw(store, qc, c, fac, d, **kw):
+    if store == "int8":
+        return ft.sq8_fused_topk_raw(qc, c, fac, **kw)
+    return ft.sq4_fused_topk_raw(qc, c, fac, d=d, **kw)
+
+
+@pytest.mark.parametrize("nq", [100, 1])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("d", [64, 33, 384])
+@pytest.mark.parametrize("k", [10, 40, 128, 160, 2048])
+@pytest.mark.parametrize("store", ["int8", "int4"])
+def test_quantized_kernels_match_plain(cuda, store, k, d, masked, nq):
+    """The int8 and int4 fold (k <= 128, at ``fold_plan``'s tile) and exact
+    (k = 160, 2048) kernels, and their row-mask instances (10 % allowed),
+    against their plain versions on the same codes: scores are exact
+    integer dots times one factor, so the exact kernel equals its plain
+    version bit for bit (ids and scores, ties to the lower row), and the
+    fold's keys equal the plain fold's wherever the ids do (>= 99 %; the
+    lanes keep the higher column of a tie in both). d = 33 takes the
+    element-wise loads (and int4's pad nibble), d = 384 three stages a
+    sub-tile; N = 5003 leaves a ragged tile, 100 queries a ragged query
+    tile and one query (a served search, the self-check) 63 of the 64
+    tile rows padding."""
+    from latentrag_torch.ops.topk import pack_row_mask
+
+    qc, c, fac, g = _quantized(cuda, store, nq, 5003, d)
+    mask = (pack_row_mask(torch.rand(5003, generator=g, device=cuda) < 0.1)
+            if masked else None)
+    mode = "fold" if k <= 128 else "exact"
+    block_n = ft.fold_plan(5003, k, 0.99)[0] if mode == "fold" else 4096
+    ft.reset_launches()
+    s_k, i_k = _quantized_raw(store, qc, c, fac, d, k=k, mode=mode,
+                              block_n=block_n, mask=mask)
+    tag = "<i8>" if store == "int8" else "<i4>"
+    assert ft.last_kernel.split("+")[0] == (
+        f"{mode}_mma_kernel{tag}" + ("<mask>" if masked else ""))
+    assert ft.launches[f"{store}_{mode}"] == 1
+    assert ft.launches["masked"] == int(masked)
+    op = ft._OP_I8 if store == "int8" else ft._OP_I4
+    s_p, i_p = ft.quantized_fused_topk_raw_reference(
+        qc, c, fac, d=d, k=k, op=op, mode=mode, block_n=block_n, mask=mask)
+    if mode == "exact":
+        assert torch.equal(i_k, i_p) and torch.equal(s_k, s_p)
+    else:
+        same = i_k == i_p
+        assert same.float().mean().item() >= 0.99
+        assert torch.equal(s_k[same], s_p[same])
+    if masked:  # only allowed rows; empty slots (NEG_INF, -1)
+        from latentrag_torch.ops.topk import unpack_row_mask
+
+        allowed = unpack_row_mask(mask, 5003)
+        live = i_k >= 0
+        assert bool(allowed[i_k[live].long()].all())
+
+
+@pytest.mark.parametrize("store", ["int8", "int4"])
+def test_quantized_kernels_ties_and_unaligned(cuda, store):
+    """Every 7th row a copy of row 0 (ties across lanes and tiles) and a
+    corpus whose base is not 16-byte aligned (the element-wise loads): the
+    exact kernel still equals its plain version bit for bit, ties to the
+    lower row, and the approximate route returns exact scores."""
+    qc, c, fac, _ = _quantized(cuda, store, 64, 3001, 64, dup_every=7)
+    buf = torch.empty(c.numel() + 1, dtype=c.dtype, device=cuda)
+    c = buf[1:].view(c.shape).copy_(c)
+    assert c.data_ptr() % 16 != 0
+    op = ft._OP_I8 if store == "int8" else ft._OP_I4
+    s_k, i_k = _quantized_raw(store, qc, c, fac, 64, k=300, mode="exact")
+    s_p, i_p = ft.quantized_fused_topk_raw_reference(
+        qc, c, fac, d=64, k=300, op=op, mode="exact")
+    assert torch.equal(i_k, i_p) and torch.equal(s_k, s_p)
+
+
+@pytest.mark.parametrize("k", [10, 200, 2100])
+@pytest.mark.parametrize("store", ["int8", "int4"])
+def test_quantized_routes_on_card(cuda, store, k):
+    """``approx_sq8_fused_topk`` / ``approx_sq4_fused_topk`` on the card:
+    the fold (k=10), the exact kernel (k=200) and the blocked route
+    (k=2100), each counted; every returned score is the exact score of
+    its row; the exact routes return the plain exact search's scores, the
+    fold finds >= 99 % of its rows (recall_target 0.99)."""
+    from latentrag_torch.ops import quantization as tq
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.nn.functional.normalize(
+        torch.randn((20000, 64), generator=g, device=cuda), dim=1)
+    q = torch.randn((50, 64), generator=g, device=cuda)
+    ft.reset_launches()
+    if store == "int8":
+        c, cs = tq.sq8_quantize(x)
+        s, i = ft.approx_sq8_fused_topk(q, c, float(cs), k=k)
+        s0, i0 = tq.sq8_topk(q, c, float(cs), k)
+        rows = c
+    else:
+        c, cs = tq.sq4_quantize(x)
+        s, i = ft.approx_sq4_fused_topk(q, c, float(cs), d=64, k=k)
+        s0, i0 = tq.sq4_topk(q, c, float(cs), 64, k)
+        rows = tq.sq4_unpack(c, 64)
+    route = "fold" if k <= 128 else "exact" if k <= 2048 else "blocked"
+    assert ft.launches[f"{store}_{route}"] == 1
+    qc, qs = tq.sq8_quantize(q)
+    exact = tq.quantized_scores(qc, rows, tq.score_factor(qs, cs))
+    assert torch.equal(torch.gather(exact, 1, i.long()), s)
+    if route == "fold":
+        found = [len(set(a) & set(b)) for a, b in zip(i.tolist(),
+                                                      i0.tolist())]
+        assert sum(found) >= 0.99 * i0.numel()
+    else:
+        assert torch.equal(s, s0)
+
+
+@pytest.mark.parametrize("store", ["int8", "int4"])
+def test_quantized_store_on_card(cuda, store):
+    """A ``DenseRetriever`` of each quantized store on the card: built,
+    self-checked and searched through the int8 / int4 kernels, filtered
+    through their masked instances, and answering as the same store on
+    the CPU does (the JAX package's exact answer, by
+    ``test_torch_int8_store``): >= 99 % of its ids in each row (the fold's
+    recall_target 0.99), scores bit for bit at equal ids."""
+    from latentrag_torch.retrieval import DenseRetriever
+
+    rng = np.random.default_rng(4)
+    emb = rng.standard_normal((6000, 64)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    texts = [str(i) for i in range(6000)]
+    meta = [{"s": i % 4} for i in range(6000)]
+    q = rng.standard_normal((33, 64)).astype(np.float32)
+    on = DenseRetriever(store_dtype=store, metric="dot", device="cuda")
+    ft.reset_launches()
+    on.build(emb.copy(), texts, metadata=meta)
+    assert ft.launches[f"{store}_fold"] == 1  # the self-check
+    cpu = DenseRetriever(store_dtype=store, metric="dot", device="cpu")
+    cpu.build(emb.copy(), texts, metadata=meta)
+    for k, spec in ((10, None), (20, None), (10, {"where": {"s": 1}})):
+        ft.reset_launches()
+        s_c, i_c = on.search(q, k, filter=spec)
+        s_p, i_p = cpu.search(q, k, filter=spec)
+        route = "exact" if store == "int4" and k == 20 else "fold"
+        assert ft.launches[f"{store}_{route}"] == 1
+        assert ft.launches["masked"] == int(spec is not None)
+        found = sum(len(set(a) & set(b)) for a, b in zip(i_c.tolist(),
+                                                          i_p.tolist()))
+        assert found >= 0.99 * i_p.size
+        same = i_c == i_p
+        np.testing.assert_array_equal(s_c[same], s_p[same])

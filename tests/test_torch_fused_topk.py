@@ -234,9 +234,18 @@ def test_cpu_path_counts_no_launches(rng):
     mask = torch.full((2,), -1, dtype=torch.int32)  # every row of 50
     ft.fused_topk(q, c, k=4, mode="fold", mask=mask)
     ft.approx_fused_topk(q, c, k=4, mask=mask)
-    assert ft.launches == {"fold": 0, "exact": 0, "binary_fold": 0,
-                           "binary_exact": 0, "blocked": 0,
-                           "binary_blocked": 0, "masked": 0}
+    # the int8 and int4 routes (fold, exact, blocked) and raw entries
+    codes = torch.zeros((2100, 8), dtype=torch.int8)
+    nibbles = torch.zeros((2100, 4), dtype=torch.uint8)
+    for k in (4, 150, 2050):
+        ft.approx_sq8_fused_topk(q, codes, 0.01, k=k)
+        ft.approx_sq4_fused_topk(q, nibbles, 0.1, d=8, k=k, mask=mask[:1]
+                                 .repeat(66) if k == 4 else None)
+    ft.sq8_fused_topk_raw(torch.zeros((2, 8), dtype=torch.int8), codes,
+                          torch.tensor([0.5]), k=4, mode="exact")
+    assert set(ft.launches) >= {"int8_fold", "int8_exact", "int8_blocked",
+                                "int4_fold", "int4_exact", "int4_blocked"}
+    assert ft.launches == dict.fromkeys(ft.launches, 0)
 
 
 @pytest.mark.parametrize("n,k,rt,want", [

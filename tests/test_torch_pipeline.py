@@ -118,8 +118,10 @@ def test_every_backend_runs_on_cpu(rng, backend):
 
 
 def test_unported_options_raise(rng):
-    with pytest.raises(NotImplementedError):
-        DenseRetriever(store_dtype="int8", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 17"):
+        build_retriever(np.zeros((2, 4), np.float32), ["a", "b"], None,
+                        apply_overrides(Config(), ["retrieval.ivf_nlist=8"])
+                        .retrieval, device="cpu")
     with pytest.raises(ValueError):
         DenseRetriever(backend="faiss", device="cpu")
     cfg = apply_overrides(Config(), ["retrieval.backend=hnsw"])
