@@ -56,6 +56,13 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    integer dots times one factor, so the exact kernels must equal their
    plain versions bit for bit and the fold its plain fold (ids >= 99 %,
    scores bit for bit at equal ids);
+2e. holds the device IVF's scan (``ivf_scan_kernel``, ``csrc/ivf_scan.cu``)
+   against ``ivf_scan_reference``: int8, bf16, fp32, int4 and binary
+   blocks over clustered ~20k-row corpora at cap 64 and 512 (d=64; also
+   48 and 384 for the float blocks, 63 for int4), with appended blocks, a
+   sentinel probe slot, Q in {1, 8, 64}, unmasked and with 1, 10, 100 %
+   and none of the rows allowed: int8 / int4 bit for bit, float and
+   binary within the exact kernels' limits;
 3. drives the main path through ``latentrag_torch.main.main`` at the full
    MiniLM-L6 width in bf16 with a seeded 384->512->64 VAE: synthetic data,
    2000 queries, a bf16 cosine store, top_k=10, kernel=auto; checks that the
@@ -115,6 +122,14 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    versions, and >= 99 % by set to the exact plain search in 1M-row
    blocks; Recall@10 against exact fp32 search reported; then saved,
    loaded and searched again bit for bit;
+3k. the msmarco int8 store with its documented IVF (``ivf_nlist=8192``, cap
+   512) over 8.8M seeded clustered rows (``check_ivf_deployment``: the
+   build split, the routes the store's size gives, each routed search one
+   ``ivf_scan`` launch and equal bit for bit to the plain scan, the
+   exhaustive route above the traffic guard, the full probe equal to the
+   exact search, a filter, the warm boot from the sidecars without
+   k-means, add and remove), then the int4 and binary cascades' stage 1
+   through the IVF over 1M rows (``check_ivf_cascades``);
 3d. builds a ``DenseRetriever(backend="pallas_exact")`` over 1M seeded unit
    rows (d=64), bf16 and then fp32, and searches 1024 queries at k=3000:
    the exact select (its sampled route) must serve it and agree with
@@ -146,6 +161,13 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    codes unpacked to int8), the bound (bytes over 3.35 TB/s, or 2 Q N d
    over 1,979 TOPS of int8), a profiler device split and the resident
    blocks an SM;
+4e. (inside 3k, on its store) times ``ivf_scan`` at Q=1 and 8 with the
+   auto budget and Q=64 with the pinned budgets: the wrapper (CUDA events)
+   and the kernel (profiler), its plain version, its bound (the probed
+   rows, their ids and the scores once over 3.35 TB/s), the library
+   yardstick (``index_select`` + fp32 ``bmm`` + ``torch.topk``), the IVF
+   search call's other steps, and the whole call beside the exhaustive
+   int8 search of the same queries;
 3h. (run last, so that its server threads and profiled load do not
    touch phase 4's device splits) serves the bf16 main path's store (a
    copy of what its first run persisted, with that run's data_dir, so the
@@ -169,6 +191,10 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    -m latentrag_torch.serve --device cuda`` answers three JSONL lines (a
    search, a bad request, stats) with three JSON lines, logging to
    stderr only;
+3l. (after 3h) the same server warm-boots the 3k store from its sidecars
+   and serves 256 single-query requests carrying ``"nprobe": 64`` at
+   window 0 (QPS, p50/p99; ids held to direct searches; /stats carries
+   ``ivf_recall_estimate``; a bad "nprobe" gets the JAX server's 400);
 5. prints a ``kernels`` JSON line and, last, the device line.
 
 Every check that fails exits non-zero. Without CUDA, or without the
@@ -179,6 +205,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import functools
 import json
 import logging
 import os
@@ -2284,6 +2311,645 @@ def time_quantized(torch) -> dict:
     return out
 
 
+# ------------------------------------------------------ the device IVF
+
+IVF_NLIST = 8192  # docs/DEPLOYMENT.md's setting for the msmarco store
+IVF_CAP = 512
+IVF_SPREAD = 0.08  # scripts/ivf_bench.py's mixture: 4 x nlist centres
+IVF_PINNED = 64  # the served probes' budget (phase 3l)
+IVF_CASCADE_ROWS = 1_000_000
+IVF_CASCADE_NLIST = 1024
+IVF_ANCHOR_AGREE = 0.999  # full probe vs the exact plain search, by set
+IVF_BIN_AGREE = 0.99  # binary cascade: kernel vs plain scan, ids
+IVF_SERVE_REQUESTS = 256
+IVF_SCAN_KINDS = ("int8", "bfloat16", "float32", "int4", "binary")
+IVF_SCAN_MASKS = (None, 0.01, 0.1, 1.0, "none")
+
+
+def ivf_mixture(torch, n, d, n_centers, seed, centers=None):
+    """Seeded clustered unit rows on the card, as scripts/ivf_bench.py
+    builds its corpora: unit centres, each row a centre plus
+    ``IVF_SPREAD`` Gaussian noise, normalized. Returns (rows, centres)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if centers is None:
+        centers = torch.nn.functional.normalize(
+            torch.randn((n_centers, d), generator=g, device="cuda"), dim=1)
+    x = torch.empty((n, d), device="cuda")
+    for base in range(0, n, 1 << 22):  # bounded temporaries
+        m = min(1 << 22, n - base)
+        which = torch.randint(0, centers.shape[0], (m,), generator=g,
+                              device="cuda")
+        x[base : base + m] = torch.nn.functional.normalize(
+            centers[which] + IVF_SPREAD * torch.randn(
+                (m, d), generator=g, device="cuda"), dim=1)
+    return x, centers
+
+
+def ivf_rows(torch, x, kind):
+    """``x`` as the store of ``kind`` holds it: (rows, scale, dim)."""
+    from latentrag_torch.ops import quantization as tq
+    from latentrag_torch.ops.binary import binary_quantize
+
+    if kind == "int8":
+        c, s = tq.sq8_quantize(x)
+        return c, float(s), 0
+    if kind == "int4":
+        c, s = tq.sq4_quantize(x)
+        return c, float(s), x.shape[1]
+    if kind == "binary":
+        return binary_quantize(x), None, x.shape[1]
+    return x.to(getattr(torch, kind)).contiguous(), None, 0
+
+
+def ivf_operands(torch, kind, q, scale):
+    """The scan's queries for ``kind`` and its factor."""
+    from latentrag_torch.ops import quantization as tq
+
+    if kind in ("int8", "int4"):
+        qc, qs = tq.sq8_quantize(q)
+        return qc.contiguous(), tq.score_factor(qs, scale)
+    if kind == "float32":
+        return q.contiguous(), None
+    return q.to(torch.bfloat16).contiguous(), None
+
+
+def ivf_scan_match(torch, kind, got, want):
+    """(ok, ids equal share, max |score error| at live slots) of the
+    kernel's (scores, ids) against the plain version's."""
+    s_k, i_k = got
+    s_p, i_p = want
+    ids_eq = (i_k == i_p).float().mean().item()
+    live = (i_p >= 0) & (i_k == i_p)
+    empty_ok = bool(((s_k == -3.4e38) == (i_k < 0)).all()
+                    and ((s_p == -3.4e38) == (i_p < 0)).all())
+    err = (s_k - s_p).abs()[live]
+    worst = float(err.max()) if err.numel() else 0.0
+    if kind in ("int8", "int4"):
+        ok = torch.equal(i_k, i_p) and torch.equal(
+            s_k.view(torch.int32), s_p.view(torch.int32))
+    else:
+        atol, rtol = ((BIN_SCORE_ATOL, BIN_SCORE_RTOL) if kind == "binary"
+                      else (EXACT_SCORE_ATOL, EXACT_SCORE_RTOL))
+        ok = ids_eq >= EXACT_ID_MATCH and bool(
+            (err <= atol + rtol * s_p.abs()[live]).all())
+    return ok and empty_ok, ids_eq, worst
+
+
+def check_ivf_scan(torch, failures: list) -> dict:
+    """Phase 2e: ``ivf_scan`` against ``ivf_scan_reference`` on the card,
+    every operand kind (int8, bf16, fp32, int4, binary), unmasked and
+    masked (1, 10, 100 % allowed, none allowed), Q = 1, 8 and 64, over
+    clustered corpora of ~20k rows at cap 64 and 512: d = 64 for every
+    kind, d = 48 and 384 for the float blocks (48: element loads; 384:
+    wide 16-byte rows), d = 63 for int4 (an odd width, element loads);
+    each index with 500 rows appended as blocks at the tail, each probe
+    set the 16 best blocks plus a sentinel slot (never read). int8 / int4
+    bit for bit; float and binary as phase 2's exact kernels; empty slots
+    (NEG_INF, -1) on both sides; the C kernel's name as the kind routes.
+    Euclidean scores for the float kinds at Q = 8. Returns the worst
+    score error."""
+    from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.ops import ivf as tivf
+    from latentrag_torch.ops.kmeans import assign_clusters
+    from latentrag_torch.ops.quantization import sq4_quantize_with_scale
+    from latentrag_torch.ops.topk import pack_row_mask
+
+    t_phase = time.perf_counter()
+    tags = {"int8": "<i8>", "bfloat16": "", "float32": "<f32>",
+            "int4": "<i4>", "binary": "<bin>"}
+    worst, checks, bad = 0.0, 0, 0
+    cases = [(kind, 64) for kind in IVF_SCAN_KINDS] + [
+        ("bfloat16", 48), ("bfloat16", 384), ("float32", 48),
+        ("float32", 384), ("int4", 63)]
+    for ci, (kind, d) in enumerate(cases):
+        x, cent = ivf_mixture(torch, 20_000, d, 64, 700 + ci)
+        extra, _ = ivf_mixture(torch, 500, d, 64, 800 + ci, centers=cent)
+        assign = assign_clusters(x, cent)
+        rows, scale, dim = ivf_rows(torch, x, kind)
+        if kind in ("int8", "int4"):  # at the store's own scale
+            lim = 127 if kind == "int8" else 7
+            codes = torch.clamp(torch.round(extra / scale), -lim, lim)
+            new_rows = codes.to(torch.int8) if kind == "int8" else \
+                sq4_quantize_with_scale(extra, scale)
+        else:
+            new_rows = ivf_rows(torch, extra, kind)[0]
+        n_total = 20_500
+        for cap in (64, 512):
+            idx = tivf.ivf_build_from_assign(rows, cent, assign, cap)
+            idx = tivf.ivf_append(idx, new_rows, 20_000, dim=dim)
+            for nq in (1, 8, 64):
+                q, _ = ivf_mixture(torch, nq, d, 64, 900 + nq, centers=cent)
+                qv, fac = ivf_operands(torch, kind, q, scale)
+                sel = tivf._coarse(q @ idx.centroids.T, idx, 16, True, None)
+                sel = torch.cat([sel, torch.full((nq, 1), idx.nblocks,
+                                                 dtype=torch.int32,
+                                                 device="cuda")], 1)
+                for mi, allowed in enumerate(IVF_SCAN_MASKS):
+                    m = None
+                    if allowed is not None:
+                        g = torch.Generator(device="cuda").manual_seed(mi)
+                        keep = (torch.rand(n_total, generator=g, device="cuda")
+                                < (0.0 if allowed == "none" else allowed))
+                        m = pack_row_mask(keep)
+                    for euclid in ((False, True) if kind in (
+                            "bfloat16", "float32") and nq == 8
+                            and allowed is None else (False,)):
+                        kw = dict(dim=dim, factor=fac, mask=m, euclid=euclid)
+                        before = ft.launches["ivf_scan"]
+                        got = tivf.ivf_scan(qv, idx.blocks, idx.block_ids,
+                                            sel, **kw)
+                        torch.cuda.synchronize()
+                        ran = ft.last_kernel
+                        launched = ft.launches["ivf_scan"] - before
+                        want = tivf.ivf_scan_reference(
+                            qv, idx.blocks, idx.block_ids, sel, **kw)
+                        ok, ids_eq, err = ivf_scan_match(torch, kind, got,
+                                                         want)
+                        name = f"ivf_scan_kernel{tags[kind]}" + (
+                            "<mask>" if m is not None else "")
+                        ok = ok and ran == name and launched == 1
+                        if allowed == "none":
+                            ok = ok and bool((got[1] == -1).all())
+                        worst = max(worst, err)
+                        checks += 1
+                        if not ok:
+                            bad += 1
+                            rec = {"kind": kind, "d": d, "cap": cap,
+                                   "Q": nq, "allowed": allowed,
+                                   "euclid": euclid, "ids_equal": ids_eq,
+                                   "max_abs_err": err, "c_kernel": ran,
+                                   "launches": launched}
+                            record("ivf_scan_check", ok=False, **rec)
+                            failures.append(f"ivf_scan vs plain: {rec}")
+        del x, extra, rows, new_rows, idx
+    torch.cuda.empty_cache()
+    record("ivf_scan_check", ok=not bad, checks=checks,
+           max_abs_err=worst, phase_s=time.perf_counter() - t_phase)
+    return {"ivf_scan": worst}
+
+
+@contextlib.contextmanager
+def plain_ivf_scan():
+    """Within it, ``ivf_search`` scores with ``ivf_scan_reference`` (on the
+    card), so a search can be held to the same search without the
+    kernel."""
+    from latentrag_torch.ops import ivf as tivf
+
+    real = tivf.ivf_scan
+    tivf.ivf_scan = tivf.ivf_scan_reference
+    try:
+        yield
+    finally:
+        tivf.ivf_scan = real
+
+
+def same_bits(a, b) -> bool:
+    import numpy as np
+
+    (s_a, i_a), (s_b, i_b) = a, b
+    return bool(np.array_equal(np.asarray(i_a), np.asarray(i_b))
+                and np.array_equal(np.asarray(s_a, np.float32).view(np.int32),
+                                   np.asarray(s_b, np.float32).view(np.int32)))
+
+
+def ivf_route_search(torch, ft, r, q, k, nprobe=None, spec=None) -> dict:
+    """One search with its launches, seconds, C kernel, and the same
+    search on the plain scan."""
+    torch.cuda.synchronize()
+    ft.reset_launches()
+    t0 = time.perf_counter()
+    s, i = r.search(q, k, filter=spec, nprobe=nprobe)
+    out = {"s": s, "i": i, "search_s": time.perf_counter() - t0,
+           "launches": dict(ft.launches), "c_kernel": ft.last_kernel}
+    with plain_ivf_scan():
+        out["plain"] = r.search(q, k, filter=spec, nprobe=nprobe)
+    return out
+
+
+def ivf_scan_bound(torch, idx, sel, ids, row_bytes) -> tuple[float, str]:
+    """The least time of a scan: the distinct probed blocks' live rows
+    and their 4-byte ids read once, the [Q, S*cap] scores and ids written
+    once, over the memory rate (2 d operations a row byte at most: far
+    under the card's ridge)."""
+    blocks = torch.unique(sel)
+    blocks = blocks[blocks < idx.nblocks].long()
+    live = int((idx.block_ids[blocks] >= 0).sum())
+    nbytes = (live * row_bytes + blocks.numel() * idx.cap * 4
+              + ids.numel() * 8 + sel.numel() * 4)
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def ivf_library(torch, qv, fac, blocks, sel, k):
+    """The library yardstick the port never calls: ``index_select`` of the
+    probed blocks, one fp32 ``bmm`` (the int8 codes as fp32, exact below
+    2^24), ``torch.topk``."""
+    nq, s_n = sel.shape
+    nb, cap, w = blocks.shape
+    rows = blocks.index_select(0, sel.clamp(max=nb - 1).reshape(-1).long())
+    rows = rows.reshape(nq, s_n * cap, w).float()
+    s = torch.bmm(rows, qv.float()[:, :, None])[..., 0]
+    if fac is not None:
+        s = s * fac
+    return torch.topk(s, k, dim=1)
+
+
+def time_ivf(torch, r, cases) -> dict:
+    """Phase 4e on the 3k store: for each (label, queries, pinned nprobe),
+    the scan at the search's own probe set (wrapper ms by CUDA events,
+    device ms by the profiler), its plain version, its bound, the library
+    yardstick, and the whole IVF search call beside the exhaustive int8
+    search of the same queries on the same store."""
+    from latentrag_torch.ops import ivf as tivf
+    from latentrag_torch.ops.distances import prepare_for_metric
+
+    out = {}
+    idx = r._ensure_ivf()
+    for label, q, nprobe in cases:
+        qp = prepare_for_metric(q.float(), r.metric)
+        budget = (min(1 << (nprobe - 1).bit_length(), idx.nblocks)
+                  if nprobe else tivf.auto_nprobe(idx.nblocks))
+        sel = tivf._coarse(qp @ idx.centroids.T, idx, budget, False,
+                           r._ivf_mlb[1])
+        qv, fac = ivf_operands(torch, "int8", qp, r._corpus_scale)
+        call = lambda: tivf.ivf_scan(  # noqa: E731
+            qv, idx.blocks, idx.block_ids, sel, factor=fac)
+        s, ids = call()
+        b_ms, b_by = ivf_scan_bound(torch, idx, sel, ids, idx.row_width)
+        # the search call's other device steps, alone: the coarse stage
+        # (centroid scores, the list or block top-k, the expansion), the
+        # queries' SQ8 codes, the select over the scan's slots
+        split = {
+            "coarse_ms": time_ms(torch, lambda: tivf._coarse(
+                qp @ idx.centroids.T, idx, budget, False, r._ivf_mlb[1])),
+            "quantize_ms": time_ms(torch, lambda: ivf_operands(
+                torch, "int8", qp, r._corpus_scale)),
+            "select_ms": time_ms(torch, lambda: tivf._top_lower(s, 10)),
+        }
+        rec = {"case": label, "Q": int(q.shape[0]), "nprobe": budget,
+               "probed_blocks": int(sel.shape[1]),
+               "slots": int(ids.shape[1]),
+               "live_slots": int((ids >= 0).sum()),
+               "ms": time_ms(torch, call),
+               "device_ms": device_split(torch, call),
+               "plain_ms": time_ms(torch, lambda: tivf.ivf_scan_reference(
+                   qv, idx.blocks, idx.block_ids, sel, factor=fac), reps=3,
+                   warmup=1),
+               "library_ms": time_ms(torch, lambda: ivf_library(
+                   torch, qv, fac, idx.blocks, sel, 10), reps=5),
+               "bound_ms": b_ms, "bound_by": b_by, **split,
+               "search_ms": time_ms(torch, lambda: r.search(
+                   q, 10, nprobe=nprobe), reps=10)}
+        nlist = r.ivf_nlist
+        r.ivf_nlist = 0  # the same store's exhaustive route
+        try:
+            rec["exhaustive_search_ms"] = time_ms(
+                torch, lambda: r.search(q, 10), reps=10)
+        finally:
+            r.ivf_nlist = nlist
+        record("ivf_kernel_time", card=card_line(), **rec)
+        out[label] = rec
+    return out
+
+
+def check_ivf_deployment(torch, failures: list, workdir: str) -> dict:
+    """Phase 3k: the msmarco int8 store with the IVF its documentation
+    names (configs/msmarco_v5e8.yaml:28-37, docs/DEPLOYMENT.md:60-63:
+    ``ivf_nlist=8192``, cap 512) over 8.8M x 64 seeded clustered rows (4 x
+    nlist centres, spread 0.08), persisted at ``workdir/ivf_store`` (phase
+    3l serves it). Records the build split, the layout and the recall
+    estimate; works out the routes from the built store and holds them:
+    Q = 1 and 8 at the auto budget and Q = 64 with pinned budgets go
+    through one ``ivf_scan`` launch and no fold, each equal bit for bit to
+    the same search on the plain scan (overlap with the exhaustive route
+    reported); Q = 64 at the auto budget and Q = 1024 stay exhaustive;
+    the full probe with ``exact_select`` equals the exact plain search by
+    set on >= 99.9 % of rows; a doc_ids filter (a tenth of the rows) runs
+    the masked scan and returns only allowed ids; a second retriever on
+    the same path restores the layout from the sidecars without k-means
+    and answers bit for bit; 1000 added rows append to the layout and
+    each comes back top-1 on itself at the auto budget (at 64, reported);
+    a remove drops the IVF. Phase 4e's
+    timings run on this store. Returns the ivf_scan launches of the
+    searches driven here and the timings."""
+    import numpy as np
+
+    from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.ops import ivf as tivf
+    from latentrag_torch.ops import quantization as tq
+    from latentrag_torch.ops.distances import prepare_for_metric
+    from latentrag_torch.retrieval import DenseRetriever
+
+    t_phase = time.perf_counter()
+    n, d = CAPACITY_ROWS, 64
+    path = f"{workdir}/ivf_store"
+    kw = dict(store_dtype="int8", backend="xla", recall_target=CAPACITY_RT,
+              block_size=QUANT_BLOCK, ivf_nlist=IVF_NLIST, ivf_cap=IVF_CAP,
+              device="cuda")
+    x, centers = ivf_mixture(torch, n, d, 4 * IVF_NLIST, 71)
+    torch.cuda.reset_peak_memory_stats()
+    r = DenseRetriever(index_path=path, **kw)
+    t0 = time.perf_counter()
+    r.build(x, [""] * n)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del x
+    torch.cuda.empty_cache()
+    idx = r._ivf_index
+    b2l = idx.block2list.cpu().numpy()
+    rows_est = n // IVF_CAP
+    auto_est = tivf.auto_nprobe(max(1, rows_est))
+    auto = tivf.auto_nprobe(idx.nblocks)
+    routes = {f"Q={nq}": r._ivf_eligible(nq, "xla") for nq in
+              (1, 8, 12, 13, 64, 1024)}
+    build = {"N": n, "nlist": IVF_NLIST, "cap": IVF_CAP,
+             "build_and_save_s": build_s, **r._ivf_build_info,
+             "nblocks": idx.nblocks,
+             "max_list_blocks": int(np.bincount(b2l).max()),
+             "empty_lists": int(IVF_NLIST - len(np.unique(b2l))),
+             "ivf_recall_estimate": r._ivf_recall_estimate,
+             "auto_nprobe": auto, "guard_nprobe_estimate": auto_est,
+             "guard_rows": n // 4, "routes": routes,
+             "corpus_bytes": r._corpus.numel(),
+             "ivf_block_bytes": idx.blocks.numel(),
+             "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    record("ivf_build", card=card_line(), **build)
+    if not (routes["Q=1"] and routes["Q=8"] and not routes["Q=64"]
+            and not routes["Q=1024"]):
+        failures.append(f"the IVF's routes at 8.8M: {routes}")
+    qs = {nq: ivf_mixture(torch, nq, d, 0, 72 + nq, centers=centers)[0]
+          for nq in (1, 8, 64, 1024)}
+    launches = 0
+    routed = [("Q=1 auto", 1, None), ("Q=8 auto", 8, None),
+              ("Q=64 pinned 64", 64, IVF_PINNED), ("Q=64 pinned auto", 64,
+                                                   auto)]
+    first = {}
+    for label, nq, nprobe in routed:
+        res = ivf_route_search(torch, ft, r, qs[nq], 10, nprobe)
+        launches += res["launches"]["ivf_scan"]
+        with_ivf = r.ivf_nlist
+        r.ivf_nlist = 0
+        s_x, i_x = r.search(qs[nq], 10)  # the exhaustive route
+        r.ivf_nlist = with_ivf
+        rec = {"case": label, "Q": nq, "nprobe": nprobe,
+               "search_s": res["search_s"], "launches": {
+                   k: v for k, v in res["launches"].items() if v},
+               "c_kernel": res["c_kernel"],
+               "plain_scan_bit_identical": same_bits(
+                   (res["s"], res["i"]), res["plain"]),
+               "overlap_with_exhaustive": float(np.mean([
+                   len(set(a.tolist()) & set(b.tolist())) / 10
+                   for a, b in zip(res["i"], i_x)]))}
+        ok = (res["launches"]["ivf_scan"] == 1
+              and res["launches"]["int8_fold"] == 0
+              and res["launches"]["int8_exact"] == 0
+              and rec["plain_scan_bit_identical"]
+              and (res["c_kernel"] or "").startswith("ivf_scan_kernel<i8>"))
+        record("ivf_search", ok=ok, **rec)
+        if not ok:
+            failures.append(f"the 8.8M IVF search {label}: {rec}")
+        first[label] = (res["s"], res["i"])
+    for label, nq in (("Q=64 auto", 64), ("Q=1024", 1024)):
+        torch.cuda.synchronize()
+        ft.reset_launches()
+        r.search(qs[nq], 10)
+        got = dict(ft.launches)
+        ok = got["ivf_scan"] == 0 and got["int8_fold"] >= 1
+        record("ivf_search", ok=ok, case=label, Q=nq, launches={
+            k: v for k, v in got.items() if v})
+        if not ok:
+            failures.append(f"the 8.8M store at {label} left the exhaustive "
+                            f"route: {got}")
+    # the differential anchor: every block probed, exact select
+    qp = prepare_for_metric(qs[8], r.metric)
+    ft.reset_launches()
+    s_a, i_a = tivf.ivf_search(qp, idx, k=10, nprobe=idx.nblocks,
+                               scale=r._corpus_scale, exact_select=True)
+    launches += ft.launches["ivf_scan"]
+    s_x, i_x = tq.sq8_topk(qp, r._corpus, r._corpus_scale, 10,
+                           block_size=QUANT_BLOCK)
+    anchor = float(tq.same_ids_at_ties(s_a, i_a, s_x, i_x).mean())
+    record("ivf_anchor", Q=8, nprobe=idx.nblocks, rows_same_by_set=anchor)
+    if anchor < IVF_ANCHOR_AGREE:
+        failures.append(f"the full IVF probe vs the exact plain search: "
+                        f"{anchor} of rows")
+    # a filter: a tenth of the rows, the masked scan
+    spec = {"doc_ids": list(range(0, n, 10))}
+    res = ivf_route_search(torch, ft, r, qs[8], 10, None, spec)
+    launches += res["launches"]["ivf_scan"]
+    ids = res["i"]
+    frec = {"search_s": res["search_s"], "c_kernel": res["c_kernel"],
+            "launches": {k: v for k, v in res["launches"].items() if v},
+            "only_allowed": bool(all(int(v) % 10 == 0 for v in ids.ravel()
+                                     if v >= 0)),
+            "plain_scan_bit_identical": same_bits((res["s"], ids),
+                                                  res["plain"])}
+    ok = (res["launches"]["ivf_scan"] == 1 and res["launches"]["masked"] == 1
+          and frec["only_allowed"] and frec["plain_scan_bit_identical"])
+    record("ivf_filtered", ok=ok, **frec)
+    if not ok:
+        failures.append(f"the filtered 8.8M IVF search: {frec}")
+    # the warm boot: the sidecars, no k-means, the same answers
+    real_kmeans = tivf.kmeans
+
+    def refuse(*a, **k):
+        raise RuntimeError("k-means ran on a warm boot")
+
+    tivf.kmeans = refuse
+    try:
+        t0 = time.perf_counter()
+        r2 = DenseRetriever(index_path=path, **kw)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        again = {label: r2.search(qs[nq], 10, nprobe=nprobe)
+                 for label, nq, nprobe in routed}
+    finally:
+        tivf.kmeans = real_kmeans
+    wrec = {"load_s": load_s, "restore": r2._ivf_build_info,
+            "recall_estimate": r2._ivf_recall_estimate,
+            "bit_identical": all(same_bits(first[k], again[k])
+                                 for k in first)}
+    ok = (r2._ivf_build_info.get("restored") is True
+          and wrec["bit_identical"]
+          and r2._ivf_recall_estimate == r._ivf_recall_estimate)
+    record("ivf_warm_boot", ok=ok, **wrec)
+    if not ok:
+        failures.append(f"the 8.8M IVF warm boot: {wrec}")
+    times = time_ivf(torch, r2, [("Q=1 auto", qs[1], None),
+                                 ("Q=8 auto", qs[8], None),
+                                 ("Q=64 pinned 64", qs[64], IVF_PINNED),
+                                 ("Q=64 pinned auto", qs[64], auto)])
+    del r2
+    torch.cuda.empty_cache()
+    # add 1000 rows to the built retriever (its texts a list: a loaded
+    # store's lazy texts would materialise 8.8M strings first), not
+    # persisted (the CPU tests hold the append's save)
+    r.index_path = None
+    new, _ = ivf_mixture(torch, 1000, d, 0, 79, centers=centers)
+    nb = r._ivf_index.nblocks
+    t0 = time.perf_counter()
+    r.add(new, [""] * 1000)
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    arec = {"add_s": add_s, "appended": r._ivf_appended,
+            "nblocks": [nb, r._ivf_index.nblocks]}
+    ft.reset_launches()
+    for budget in (auto, IVF_PINNED):  # held at the auto budget
+        top1 = []
+        for base in range(0, 1000, r.ivf_query_limit):
+            _, i = r.search(new[base : base + r.ivf_query_limit], 1,
+                            nprobe=budget)
+            top1 += (i[:, 0] == np.arange(n + base, n + base + len(i))
+                     ).tolist()
+        arec[f"top1_on_itself_nprobe_{budget}"] = float(np.mean(top1))
+    launches += ft.launches["ivf_scan"]
+    arec["scan_launches"] = ft.launches["ivf_scan"]
+    r.remove([0])
+    arec["ivf_after_remove"] = r._ivf_index is not None
+    ok = (arec["appended"] == 1000 and arec["nblocks"][1] > nb
+          and arec[f"top1_on_itself_nprobe_{auto}"] == 1.0
+          and not arec["ivf_after_remove"])
+    record("ivf_mutation", ok=ok, **arec)
+    if not ok:
+        failures.append(f"the 8.8M IVF add/remove: {arec}")
+    del r, qs, new
+    torch.cuda.empty_cache()
+    record("ivf_deployment", phase_s=time.perf_counter() - t_phase)
+    return {"launches": launches, "times": times, "auto": auto}
+
+
+def check_ivf_cascades(torch, failures: list) -> int:
+    """Phase 3k, the cascades: int4 and binary stores over a 1M-row
+    clustered mixture with ``ivf_nlist=1024`` (cap 512); stage 1 (8 x k
+    candidates) through the IVF at Q = 1 and 8 with the auto budget and
+    at Q = 64 pinned to it, one ``ivf_scan`` launch a search and no fold;
+    int4 equal bit for bit to the same search on the plain scan, binary on
+    >= 99 % of ids. Returns the ivf_scan launches."""
+    import numpy as np
+
+    from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.ops import ivf as tivf
+    from latentrag_torch.retrieval import DenseRetriever
+
+    t_phase = time.perf_counter()
+    n, d = IVF_CASCADE_ROWS, 64
+    x, centers = ivf_mixture(torch, n, d, 4 * IVF_CASCADE_NLIST, 81)
+    launches = 0
+    for store in ("int4", "binary"):
+        r = DenseRetriever(store_dtype=store, backend="xla",
+                           recall_target=CAPACITY_RT,
+                           block_size=QUANT_BLOCK,
+                           ivf_nlist=IVF_CASCADE_NLIST, ivf_cap=IVF_CAP,
+                           device="cuda")
+        t0 = time.perf_counter()
+        r.build(x, [""] * n)
+        r._ensure_ivf()  # the layout and its recall probe, before the counts
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        auto = tivf.auto_nprobe(max(1, n // IVF_CAP))
+        for nq, nprobe in ((1, None), (8, None), (64, auto)):
+            q = ivf_mixture(torch, nq, d, 0, 90 + nq, centers=centers)[0]
+            res = ivf_route_search(torch, ft, r, q, 10, nprobe)
+            launches += res["launches"]["ivf_scan"]
+            if store == "int4":
+                agree = float(same_bits((res["s"], res["i"]), res["plain"]))
+            else:
+                agree = float(np.mean(res["i"] == res["plain"][1]))
+            rec = {"store": store, "Q": nq, "nprobe": nprobe,
+                   "build_s": build_s if nq == 1 else None,
+                   "ivf_build": r._ivf_build_info if nq == 1 else None,
+                   "recall_estimate": r._ivf_recall_estimate,
+                   "search_s": res["search_s"], "c_kernel": res["c_kernel"],
+                   "launches": {k: v for k, v in res["launches"].items()
+                                if v},
+                   "plain_scan_agreement": agree}
+            exhaustive = sum(v for key, v in res["launches"].items()
+                             if key.startswith(store + "_"))
+            ok = (res["launches"]["ivf_scan"] == 1 and exhaustive == 0
+                  and agree >= (1.0 if store == "int4" else IVF_BIN_AGREE))
+            record("ivf_cascade", ok=ok, **rec)
+            if not ok:
+                failures.append(f"the 1M {store} cascade's IVF stage 1: "
+                                f"{rec}")
+        del r
+        torch.cuda.empty_cache()
+    del x
+    torch.cuda.empty_cache()
+    record("ivf_cascades", phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def check_ivf_serving(torch, failures: list, workdir: str) -> int:
+    """Phase 3l: the server (``latentrag_torch.serve``'s boot and HTTP
+    handler, in this process as phase 3h runs it) warm-boots the 3k store
+    from its sidecars with the main path's encoder and a 64-d VAE, then
+    serves 256 single-query requests carrying ``"nprobe": 64`` at window
+    0 from 64 clients: each answer's ids match the same query encoded
+    alone and searched directly with ``nprobe=64`` on >= 99 % of slots,
+    every search call launches ``ivf_scan`` once and no fold, /stats
+    carries ``ivf_recall_estimate``, and a request whose "nprobe" is not a
+    positive integer gets the JAX server's 400 text. Records QPS and the
+    client p50/p99. Returns the ivf_scan launches of the load."""
+    import numpy as np
+
+    from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.utils import apply_overrides, load_config
+
+    t_phase = time.perf_counter()
+    queries = eval_queries(IVF_SERVE_REQUESTS)
+    cfg = apply_overrides(load_config(None), main_overrides(
+        workdir, "xla", "int8") + [
+        f"retrieval.index_path={workdir}/ivf_store",
+        f"retrieval.ivf_nlist={IVF_NLIST}", f"retrieval.ivf_cap={IVF_CAP}",
+        f"retrieval.recall_target={CAPACITY_RT}",
+        f"retrieval.block_size={QUANT_BLOCK}"])
+    server_env, spy, boot_rec = boot_server(torch, cfg, failures, "IVF")
+    retriever = server_env[2]
+    with running_server(cfg, server_env, 0.0) as srv:
+        warm = serve_load(queries[:8], srv.port, extra={"nprobe": IVF_PINNED})
+        spy.reset()
+        ft.reset_launches()
+        res = serve_load(queries, srv.port, extra={"nprobe": IVF_PINNED})
+        got = dict(ft.launches)
+        calls = list(spy.sizes)
+        stats = http_json(srv.port, "GET", "/stats")
+        bad = http_json(srv.port, "POST", "/search",
+                        {"query": queries[0], "nprobe": 0})
+    direct = []
+    for qtext in queries:
+        emb = spy.encode([qtext])
+        _, i = spy.search(emb, SERVE_K, nprobe=IVF_PINNED)
+        direct.append([retriever.doc_ids[j] for j in i[0] if j >= 0])
+    served = [(r or {}).get("ids", []) for r in res["responses"]]
+    errors = [r for r in res["responses"] if not r or "ids" not in r]
+    lat = np.asarray([x for x in res["latency_ms"] if x is not None])
+    rec = {"boot": boot_rec, "requests": len(queries), "nprobe": IVF_PINNED,
+           "warmup_wall_s": warm["wall_s"],
+           "qps": len(queries) / res["wall_s"], "wall_s": res["wall_s"],
+           "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)),
+           "search_calls": len(calls), "encode_s": spy.encode_s,
+           "search_s": spy.search_s,
+           "launches": {k: v for k, v in got.items() if v},
+           "direct_agreement": slot_agreement(served, direct),
+           "ivf_recall_estimate": stats.get("ivf_recall_estimate"),
+           "bad_nprobe": [bad.get("status"), bad.get("error")],
+           "failed_requests": len(errors),
+           "first_failure": errors[0] if errors else None,
+           "phase_s": time.perf_counter() - t_phase}
+    ok = (not errors and rec["direct_agreement"] >= SERVE_DIRECT_AGREE
+          and got["ivf_scan"] == len(calls) == len(queries)
+          and got["int8_fold"] == 0
+          and rec["ivf_recall_estimate"] is not None
+          and rec["bad_nprobe"] == [
+              400, 'ValueError: "nprobe" must be a positive integer'])
+    record("ivf_serve", card=card_line(), ok=ok, **rec)
+    if not ok:
+        failures.append(f"the served IVF probes: {rec}")
+    del server_env, spy, retriever
+    torch.cuda.empty_cache()
+    return got["ivf_scan"]
+
+
 # ------------------------------------------------------------ phase 3h
 
 SERVE_REQUESTS = 1024
@@ -2303,6 +2969,7 @@ SERVE_1M_ROWS = 1_000_000
 SERVE_CLIENT = r"""
 import http.client, json, sys, threading, time
 port, n, clients, k = (int(a) for a in sys.argv[1:5])
+extra = json.loads(sys.argv[5]) if len(sys.argv) > 5 else {}
 queries = json.load(sys.stdin)
 lat, resp, nxt, lock = [None] * n, [None] * n, [0], threading.Lock()
 start = threading.Barrier(clients + 1)
@@ -2315,7 +2982,8 @@ def work():
             nxt[0] += 1
         if i >= n:
             return
-        body = json.dumps({"query": queries[i % len(queries)], "k": k})
+        body = json.dumps({"query": queries[i % len(queries)], "k": k,
+                           **extra})
         t0 = time.perf_counter()
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
         try:
@@ -2347,12 +3015,13 @@ json.dump({"wall_s": wall, "latency_ms": lat, "responses": resp},
 
 
 def serve_load(queries, port: int, k: int = SERVE_K,
-               clients: int = SERVE_CLIENTS) -> dict:
+               clients: int = SERVE_CLIENTS, extra: dict | None = None) -> dict:
     """``len(queries)`` single-query searches from ``clients`` concurrent
-    clients in a subprocess; its JSON result."""
+    clients in a subprocess (each request's body with ``extra``'s keys);
+    its JSON result."""
     out = subprocess.run(
         [sys.executable, "-c", SERVE_CLIENT, str(port), str(len(queries)),
-         str(clients), str(k)],
+         str(clients), str(k), json.dumps(extra or {})],
         input=json.dumps(list(queries)), capture_output=True, text=True,
         timeout=600)
     if out.returncode != 0:
@@ -2370,6 +3039,9 @@ class ServeSpy:
         self.search, self.encode = retriever.search, compressor.encode_text
         self.reset()
 
+        # the original's signature stays visible: the server reads it
+        # (inspect) to accept "filter" and "nprobe"
+        @functools.wraps(self.search)
         def search(q_emb, k, **kw):
             t0 = time.perf_counter()
             out = self.search(q_emb, k, **kw)
@@ -2845,14 +3517,15 @@ def main() -> int:
 
     from latentrag_torch.ops import cuda_build
     from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.ops import ivf as tivf
     from latentrag_torch.utils import native
 
     card = card_line()
     print(card, flush=True)
     t0 = time.perf_counter()
-    # the kernels' two libraries (without and with the row mask), by two
-    # nvcc processes at once
-    cuda_build.load_libraries(ft.LIBRARIES)
+    # the kernels' three libraries (the fold and exact kernels without and
+    # with the row mask, the IVF's scan), by three nvcc processes at once
+    cuda_build.load_libraries(ft.LIBRARIES + tivf.LIBRARIES)
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     native.load_library()  # the C++ tokenizer's library, g++
@@ -2867,6 +3540,7 @@ def main() -> int:
     worst.update(check_binary_kernel(torch, failures))
     worst.update(check_masked_kernels(torch, failures))
     worst.update(check_quantized_kernels(torch, failures))
+    worst.update(check_ivf_scan(torch, failures))
     if failures:
         fail("; ".join(failures[:5]))
     # the bf16 main path's data and stores outlive it: phase 3h serves them
@@ -2926,6 +3600,14 @@ def main() -> int:
             key = f"{store}_{kernel}" + ("_masked" if "masked" in name else "")
             if store != "int8" or key != "int8_fold":
                 launches[key] = counts[f"{store}_{kernel}"]
+    # the device IVF: the msmarco store with its documented IVF (phase
+    # 3k, with phase 4e's timings on it), then the cascades' stage 1
+    ivf = check_ivf_deployment(torch, failures, main_wd)
+    if failures:
+        fail("; ".join(failures))
+    ivf["launches"] += check_ivf_cascades(torch, failures)
+    if failures:
+        fail("; ".join(failures))
     times = time_kernels(torch)
     times.update(time_binary(torch))
     masked_times = time_masked(torch)
@@ -2933,6 +3615,10 @@ def main() -> int:
     # phase 3h runs last: its server threads and its profiled load must not
     # touch phase 4's device splits
     serve_launches = check_serving(torch, failures, main_wd)
+    if failures:
+        fail("; ".join(failures))
+    # phase 3l: the 3k store served with per-request probe budgets
+    ivf_serve_launches = check_ivf_serving(torch, failures, main_wd)
     if failures:
         fail("; ".join(failures))
 
@@ -3056,6 +3742,28 @@ def main() -> int:
                         "Q", "N", "k", "ms", "plain_ms", "library_ms",
                         "bound_ms", "bound_by")},
                 })
+    # the device IVF's scan (the JAX package scores the probed blocks in
+    # XLA there: score_group), timed on the 3k store at Q=8, auto budget
+    t = ivf["times"]["Q=8 auto"]
+    kernels.append({
+        "name": "ivf_scan",
+        "route": "cuda",
+        "source": "latentrag_torch/csrc/ivf_scan.cu",
+        "replaces": "latentrag_tpu/ops/ivf.py:771",
+        "launches": ivf["launches"],
+        "serve_launches": ivf_serve_launches,
+        "max_abs_err": worst["ivf_scan"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],
+        "shape": f"Q=8 nprobe={t['nprobe']} ({t['probed_blocks']} blocks "
+                 f"x {IVF_CAP}) over {CAPACITY_ROWS} int8 rows, d=64, "
+                 f"nlist={IVF_NLIST}",
+        "timings": [{f: r[f] for f in (
+            "case", "Q", "nprobe", "probed_blocks", "ms", "device_ms",
+            "plain_ms", "library_ms", "bound_ms", "search_ms",
+            "exhaustive_search_ms")} for r in ivf["times"].values()],
+    })
     if "jax" in sys.modules:
         fail("jax was imported")
     record("done", seconds=time.perf_counter() - t_start)

@@ -83,7 +83,8 @@ the H100 and what their designs do about that.
 
 ``launches`` counts kernel launches per kernel (``fold``, ``exact``,
 ``binary_fold``, ``binary_exact``, ``int8_fold``, ``int8_exact``,
-``int4_fold``, ``int4_exact``; a call that launches several kernels, a
+``int4_fold``, ``int4_exact``, and ``ivf_scan``, the device IVF's scan in
+``ops.ivf``; a call that launches several kernels, a
 partial and a merge or the select's passes and sort, counts once) and the
 blocked routes' calls on the card (``blocked``, ``binary_blocked``,
 ``int8_blocked``, ``int4_blocked``); ``masked`` counts, beside them, the
@@ -149,7 +150,7 @@ _ES_BUFFER_BYTES = 1 << 30
 launches = {"fold": 0, "exact": 0, "binary_fold": 0, "binary_exact": 0,
             "int8_fold": 0, "int8_exact": 0, "int4_fold": 0, "int4_exact": 0,
             "blocked": 0, "binary_blocked": 0, "int8_blocked": 0,
-            "int4_blocked": 0, "masked": 0}
+            "int4_blocked": 0, "ivf_scan": 0, "masked": 0}
 last_kernel: str | None = None
 # the latest exact select's plan: route, sample stride and rank, capacity
 last_select: dict | None = None

@@ -67,12 +67,24 @@ The JAX package's ``_self_check`` turned any exception into a silent
 rebuild. Here a kernel that fails to build or launch raises; only a wrong
 top-1 counts as a failed check.
 
-The device IVF and the sharded store are later slices (ROADMAP queue 1
-items 17 and 23); config values that need them raise
-``NotImplementedError``. A store written by the JAX package loads here
-and one written here loads there; the JAX package's IVF sidecars are
-ignored on load and removed by the next save, and a sharded store, which
-has no ``corpus.npy``, fails validation and starts clean.
+* the device IVF (``ivf_nlist > 0``, ``ops.ivf``): small batches (at
+  most ``ivf_query_limit`` queries, a corpus of at least ``IVF_MIN_ROWS``
+  rows, the ``xla`` backend or a cascade's stage 1) scan only the blocks
+  of the lists whose centroids score best, when the probe's estimated
+  bytes stay under a quarter of the sweep's or the probe budget is pinned
+  (``ivf_nprobe``, ``search(..., nprobe=)``: bucketed up to a power of
+  two); ``_ivf_eligible`` decides, as the JAX package's does. The layout
+  is built at the first eligible search (or at ``build``'s save), with a
+  recall probe against the exhaustive route (``ivf_recall_estimate``);
+  ``add`` appends to it within a budget, ``remove`` drops it. Its
+  centroids and assignments persist as the JAX package's sidecars
+  (``ivf_centroids.npy``, ``ivf_assign.npy``), so a warm boot rebuilds the
+  layout without k-means, from a store either package wrote.
+
+The sharded store is a later slice (ROADMAP queue 1 item 23). A store
+written by the JAX package loads here and one written here loads there; a
+sharded store, which has no ``corpus.npy``, fails validation and starts
+clean.
 """
 
 from __future__ import annotations
@@ -95,6 +107,7 @@ from ..ops.distances import (
     prepare_for_metric,
     whitening_factor,
 )
+from ..ops import ivf as ivf_ops
 from ..ops.fused_topk import (
     approx_binary_fused_topk,
     approx_sq4_fused_topk,
@@ -105,6 +118,7 @@ from ..ops.quantization import (
     sq4_quantize,
     sq4_quantize_with_scale,
     sq4_topk,
+    sq4_unpack,
     sq8_quantize,
     sq8_topk,
 )
@@ -261,6 +275,10 @@ class _Store:
     rescore: np.ndarray | None = None  # cascades: SQ8 codes
     scale: float | None = None  # cascades: their scale
     sq4_scale: float | None = None  # int4: the nibbles' scale
+    # the device IVF's persisted (centroids, assignments), when the store
+    # holds them at this retriever's nlist and cap, and its recall estimate
+    ivf_sidecar: tuple | None = None
+    ivf_recall_estimate: float | None = None
 
 
 @dataclass
@@ -299,9 +317,30 @@ class DenseRetriever:
     # compiled filter masks on the device (the packed int32 words), keyed
     # by canonical spec; dropped on any build or mutation
     _filter_cache: Any = None
+    # the device IVF (ops.ivf): built at the first eligible search (or at
+    # build()'s save) from the store on the device. 0 lists = disabled
+    ivf_nlist: int = 0
+    ivf_cap: int = 512
+    ivf_nprobe: int = 0  # 0 = auto (~2 % of the blocks, at least 32)
+    ivf_query_limit: int = 64
+    # corpus rows the build's recall probe samples (0 skips it)
+    ivf_selfcheck: int = 64
+    _ivf_index: Any = None
+    _ivf_recall_estimate: Any = None  # float | None, set by the probe
+    _ivf_appended: int = 0  # rows appended since the last full IVF build
+    # persisted (centroids, assignments) of a warm boot: the next
+    # _ensure_ivf regroups them instead of running k-means
+    _ivf_sidecar: Any = None
+    # (block2list, its largest list in blocks) of the current layout
+    _ivf_mlb: Any = None
+    # the latest IVF build's seconds by stage (kmeans_s, assign_s,
+    # layout_s, probe_s) and whether it came from the sidecar
+    _ivf_build_info: dict = field(default_factory=dict)
 
     # k at/above this is treated as re-rank oversampling
     RERANK_K = 64
+    # corpora below this never route through the IVF
+    IVF_MIN_ROWS = 8192
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -430,6 +469,8 @@ class DenseRetriever:
         self.metadata = list(metadata) if metadata is not None else None
         if self._filter_cache is not None:
             self._filter_cache.clear()
+        # the IVF and its sidecar describe the corpus being replaced
+        self._ivf_index = self._ivf_recall_estimate = self._ivf_sidecar = None
         self._whitener = None
         if self.metric == "mahalanobis":
             self._whitener = whitening_factor(estimate_covariance(x))
@@ -459,7 +500,7 @@ class DenseRetriever:
         self.stats.add_build(time.perf_counter() - t0)
 
         if self.index_path:
-            self._save(self.index_path)
+            self._save(self.index_path, eager_ivf=True)
 
         if sanity_check and self._corpus_n > 0 and not self._self_check():
             log.warning("post-build self-check failed; rebuilding once")
@@ -470,10 +511,11 @@ class DenseRetriever:
     def _self_check(self) -> bool:
         """The first corpus row must come back top-1, searched as a query
         would be: through the configured backend (float stores), the int8
-        search or the cascade (binary and int4 stores). Kernel build and
-        launch errors propagate."""
+        search or the cascade (binary and int4 stores), never through the
+        IVF. Kernel build and launch errors propagate."""
         probe = self._corpus_row(0)[None, :]
-        _, idx = self._search_prepared(probe, min(4, self._corpus_n))
+        _, idx = self._search_prepared(probe, min(4, self._corpus_n),
+                                       allow_ivf=False)
         return int(idx[0, 0]) == 0
 
     def _corpus_row(self, i: int) -> torch.Tensor:
@@ -517,6 +559,13 @@ class DenseRetriever:
             raise ValueError("texts/doc_ids/embeddings row count mismatch")
         if metadata is not None and len(metadata) != x.shape[0]:
             raise ValueError("metadata/embeddings row count mismatch")
+        m = int(x.shape[0])
+        if (self._ivf_index is None and self._ivf_sidecar is not None
+                and self._ivf_append_budget(m, n_total=self._corpus_n + m)):
+            # a warm boot's first add: lay the IVF out from the sidecar now
+            # (no k-means), so the append below extends it and the next
+            # save persists its assignments; no recall probe for an add
+            self._ensure_ivf(probe=False)
         prepared = prepare_for_metric(x, self.metric, self._whitener)
         if self._rescore_host is not None:  # codes and words both grow
             self._rescore_host = np.concatenate(
@@ -540,7 +589,15 @@ class DenseRetriever:
         self.metadata = extend_aligned_metadata(
             self.metadata, start, metadata, len(texts)
         )
+        ivf = self._ivf_index
         self._mark_mutated()
+        if ivf is not None and self._ivf_append_budget(m):
+            # the new rows go to the existing centroids, in blocks appended
+            # at the tail; earlier rows keep their ids, so the layout stays
+            self._ivf_index = ivf_ops.ivf_append(
+                ivf, prepared, start,
+                dim=self._dim if self._rescore_host is not None else 0)
+            self._ivf_appended += m
         if self.index_path:
             self._save(self.index_path)
 
@@ -596,6 +653,16 @@ class DenseRetriever:
             self._loaded_fingerprint = dict(fp)
         if self._filter_cache is not None:
             self._filter_cache.clear()
+        # the IVF layout indexes rows by position: any mutation stales it
+        self._ivf_index = self._ivf_recall_estimate = self._ivf_sidecar = None
+
+    def _ivf_append_budget(self, m: int, n_total: int | None = None) -> bool:
+        """Whether ``m`` more rows may be appended to the IVF: each append
+        pads at least one block a touched list, so past a quarter of the
+        corpus appended the next eligible search rebuilds instead.
+        ``n_total`` is the corpus size to judge by (before an add lands)."""
+        denom = self._corpus_n if n_total is None else n_total
+        return (self._ivf_appended + m) * 4 <= denom
 
     def _requantize(self, prepared: torch.Tensor) -> torch.Tensor:
         """SQ8 codes at the existing scale, so old and new codes compare."""
@@ -605,14 +672,24 @@ class DenseRetriever:
 
     # --------------------------------------------------------------- search
 
-    def _search_prepared(self, q: torch.Tensor, k: int, mask=None):
+    def _search_prepared(self, q: torch.Tensor, k: int, mask=None,
+                         allow_ivf: bool = True, nprobe: int | None = None):
         """Top-k of queries already in the prepared space: (scores [Q, k]
         f32, indices [Q, k]), tensors on the device (host numpy from the
         cascade stores). ``mask`` (the packed int32 words of the allowed
         rows) restricts eligibility; slots no allowed row fills score
-        NEG_INF."""
+        NEG_INF. ``allow_ivf=False`` keeps the search exhaustive (the
+        self-check and the recall probe's reference); ``nprobe`` pins the
+        IVF's probe budget."""
+        backend = self._resolve_backend()
+        pinned = nprobe is not None
+        if allow_ivf and self._ivf_eligible(q.shape[0], backend,
+                                            pinned=pinned):
+            return self._ivf_search(q, k, mask, nprobe)
         if self._rescore_host is not None:
-            return self._search_cascade(q, k, mask)
+            ivf = allow_ivf and self._ivf_eligible(
+                q.shape[0], backend, binary=True, pinned=pinned)
+            return self._search_cascade(q, k, mask, ivf, nprobe)
         if self.store_dtype == "int8":  # whatever the backend
             q = q.float().contiguous()
             if self.device.type == "cuda":
@@ -622,7 +699,6 @@ class DenseRetriever:
                     mask=mask, block_size=self.block_size)
             return sq8_topk(q, self._corpus, self._corpus_scale, k,
                             block_size=self.block_size, mask=mask)
-        backend = self._resolve_backend()
         q = q.to(self._corpus.dtype).contiguous()
         if backend == "xla":
             return approx_topk(
@@ -642,42 +718,205 @@ class DenseRetriever:
         mode = "fold" if backend == "pallas" else "exact"
         return fused_topk(q, self._corpus, k=k, metric=self.metric, mode=mode)
 
-    def _search_cascade(self, q: torch.Tensor, k: int, mask=None):
-        """The binary and int4 stores: stage 1 takes
-        ``binary_oversample`` x k candidates by sign-dot or int4 score on
-        the device, stage 2 rescores them exactly on the host against the
-        SQ8 codes. The recall target is k's, not the candidates'. Stage 1
-        takes the filter's mask and gives -1 in the slots no allowed row
-        fills, which the rescore cannot revive. Returns host numpy
-        (scores, ids), with (-inf, -1) in empty slots."""
-        ok = min(self.binary_oversample * k, self._corpus_n)
-        q = q.float().contiguous()
+    def _stage1(self, q: torch.Tensor, ok: int, rt: float, mask=None):
+        """The cascades' exhaustive stage 1: ``ok`` candidates by sign-dot
+        or int4 score (the fold or exact kernels on the card, the plain
+        exact search on the CPU); slots no allowed row fills are -1."""
         int4 = self.store_dtype == "int4"
         if self.device.type == "cuda":  # empty slots come back as -1
-            rt = self._effective_recall_target(k)
             if int4:
-                _, cand = approx_sq4_fused_topk(
+                return approx_sq4_fused_topk(
                     q, self._corpus, self._sq4_scale, d=self._dim, k=ok,
                     recall_target=rt, mask=mask, block_size=self.block_size)
-            else:
-                _, cand = approx_binary_fused_topk(
-                    q, self._corpus, d=self._dim, k=ok, recall_target=rt,
-                    mask=mask,
-                )
+            return approx_binary_fused_topk(
+                q, self._corpus, d=self._dim, k=ok, recall_target=rt,
+                mask=mask)
+        if int4:
+            s1, cand = sq4_topk(q, self._corpus, self._sq4_scale, self._dim,
+                                ok, block_size=self.block_size, mask=mask)
         else:
-            if int4:
-                s1, cand = sq4_topk(q, self._corpus, self._sq4_scale,
-                                    self._dim, ok, block_size=self.block_size,
-                                    mask=mask)
-            else:
-                s1, cand = binary_topk(q, self._corpus, d=self._dim, k=ok,
-                                       mask=mask)
-            if mask is not None:  # its NEG_INF slots hold arbitrary rows
-                cand = torch.where(s1 > NEG_INF * 0.5, cand, -1)
+            s1, cand = binary_topk(q, self._corpus, d=self._dim, k=ok,
+                                   mask=mask)
+        if mask is not None:  # its NEG_INF slots hold arbitrary rows
+            cand = torch.where(s1 > NEG_INF * 0.5, cand, -1)
+        return s1, cand
+
+    def _search_cascade(self, q: torch.Tensor, k: int, mask=None,
+                        ivf: bool = False, nprobe: int | None = None):
+        """The binary and int4 stores: stage 1 takes
+        ``binary_oversample`` x k candidates by sign-dot or int4 score on
+        the device (through the IVF with ``ivf``, at ``nprobe`` if
+        pinned), stage 2 rescores them exactly on the host against the
+        SQ8 codes. The recall target is k's, not the
+        candidates'. Stage 1 takes the filter's mask and gives -1 in the
+        slots no allowed row fills, which the rescore cannot revive.
+        Returns host numpy (scores, ids), with (-inf, -1) in empty
+        slots."""
+        ok = min(self.binary_oversample * k, self._corpus_n)
+        q = q.float().contiguous()
+        if ivf:  # stage 1 through the IVF
+            _, cand = self._ivf_search(q, ok, mask, nprobe)
+        else:
+            _, cand = self._stage1(q, ok, self._effective_recall_target(k),
+                                   mask)
         return exact_rescore_topk(
             q.cpu().numpy(), lambda idx: self._rescore_host[idx],
             cand.cpu().numpy(), k, metric="dot", scale=self._corpus_scale,
         )
+
+    # ----------------------------------------------------------- device IVF
+
+    def _ivf_eligible(self, nq: int, backend: str, *, binary: bool = False,
+                      pinned: bool = False) -> bool:
+        """Route this search through the device IVF? Small batches only
+        (at most ``ivf_query_limit`` queries) over corpora of at least
+        ``IVF_MIN_ROWS`` rows, on the approximate backend (``xla``) for
+        the float and int8 stores, or as a cascade's stage 1
+        (``binary=True``). A pinned budget (``ivf_nprobe``, a search's
+        ``nprobe``) goes; otherwise the batch's estimated probe rows
+        (nq x auto nprobe x cap) must stay within a quarter of the sweep's
+        n rows, as the JAX package's rule sets it."""
+        if not (self.ivf_nlist > 0 and nq <= self.ivf_query_limit
+                and self._corpus_n >= self.IVF_MIN_ROWS):
+            return False
+        if not binary and not (backend == "xla"
+                               and self._rescore_host is None):
+            return False
+        if pinned or self.ivf_nprobe:
+            return True
+        rows = self._corpus_n
+        nprobe_est = ivf_ops.auto_nprobe(max(1, rows // self.ivf_cap))
+        return nq * nprobe_est * self.ivf_cap <= rows // 4
+
+    def _ensure_ivf(self, probe: bool = True):
+        """The IVF, built if there is none: from the warm boot's sidecar
+        (a regrouping, no k-means) or by k-means over the store; then, with
+        ``probe``, the recall probe (skipped for a restore whose estimate
+        was persisted)."""
+        if self._ivf_index is not None:
+            return self._ivf_index
+        t0 = time.perf_counter()
+        info: dict = {}
+        corpus = self._corpus[: self._corpus_n]
+        restored = self._ivf_sidecar is not None
+        if restored:
+            cent, assign = self._ivf_sidecar
+            self._ivf_index = ivf_ops.ivf_build_from_assign(
+                corpus, cent, assign, self.ivf_cap)
+        elif self.store_dtype == "int4":
+            self._ivf_index = ivf_ops.ivf_build_sq4(
+                corpus, self._dim, self.ivf_nlist, self.ivf_cap,
+                timings=info)
+        elif self._rescore_host is not None:
+            self._ivf_index = ivf_ops.ivf_build_binary(
+                corpus, self._dim, self.ivf_nlist, self.ivf_cap,
+                timings=info)
+        else:
+            self._ivf_index = ivf_ops.ivf_build(
+                corpus, self.ivf_nlist, self.ivf_cap, timings=info)
+        self._ivf_appended = 0
+        force_completion(self._ivf_index.blocks)
+        info["build_s"] = time.perf_counter() - t0
+        info["restored"] = restored
+        log.info(
+            "device IVF %s: nblocks=%d cap=%d in %.2fs",
+            "restored from sidecar (no k-means)" if restored else "built",
+            self._ivf_index.nblocks, self.ivf_cap, info["build_s"],
+        )
+        if probe and self.ivf_selfcheck and not (
+                restored and self._ivf_recall_estimate is not None):
+            t0 = time.perf_counter()
+            self._ivf_recall_estimate = self._ivf_recall_probe(
+                self._ivf_index)
+            info["probe_s"] = time.perf_counter() - t0
+            r_est = self._ivf_recall_estimate
+            if r_est is not None:
+                (log.warning if r_est < 0.8 else log.info)(
+                    "device IVF candidate recall ~%.3f@10 at the configured "
+                    "probe budget (%d corpus-row probes)%s",
+                    r_est, min(self.ivf_selfcheck, self._corpus_n),
+                    "" if r_est >= 0.8 else
+                    " — weakly clustered corpus for this budget: raise "
+                    "retrieval.ivf_nprobe or disable ivf_nlist",
+                )
+        self._ivf_build_info = info
+        return self._ivf_index
+
+    def _ivf_scale(self):
+        """The scale of the IVF's blocks: the int4 nibbles', the int8
+        codes' (None for float blocks and sign words)."""
+        if self.store_dtype == "int4":
+            return self._sq4_scale
+        if self._rescore_host is not None:
+            return None
+        return self._corpus_scale
+
+    def _ivf_probe_queries(self, rows: np.ndarray) -> torch.Tensor:
+        """Prepared-space fp32 queries rebuilt from stored rows (the int4
+        nibbles and the cascades' SQ8 codes dequantized)."""
+        idx = torch.as_tensor(rows, dtype=torch.long, device=self.device)
+        if self.store_dtype == "int4":
+            return sq4_unpack(self._corpus[idx], self._dim).float() \
+                * self._sq4_scale
+        if self._rescore_host is not None:
+            return torch.from_numpy(
+                self._rescore_host[rows].astype(np.float32)).to(
+                self.device) * self._corpus_scale
+        q = self._corpus[idx].float()
+        if self._corpus_scale is not None:  # int8 codes
+            q = q * self._corpus_scale
+        return q
+
+    def _ivf_recall_probe(self, idx) -> float | None:
+        """Candidate recall@10 of the configured probe budget on a sample
+        of corpus rows as queries, against the exhaustive route of the same
+        store (the cascades: stage 1 against stage 1). A corpus property,
+        logged and served as ``ivf_recall_estimate``; corpus rows as probes
+        flatter it a little (their own row sits in a probed list)."""
+        if self.metric not in ("cosine", "dot"):
+            return None
+        n = self._corpus_n
+        s = max(2, min(self.ivf_selfcheck, n))
+        rows = np.linspace(0, n - 1, s).astype(np.int32)
+        q = self._ivf_probe_queries(rows)
+        kk = min(10, n)
+        if self._rescore_host is not None:
+            _, ref = self._stage1(q, kk, self._effective_recall_target(kk))
+        else:
+            _, ref = self._search_prepared(q, kk, allow_ivf=False)
+        _, est = ivf_ops.ivf_search(
+            q, idx, k=kk,
+            nprobe=min(self.ivf_nprobe or ivf_ops.auto_nprobe(idx.nblocks),
+                       idx.nblocks),
+            metric=self.metric, scale=self._ivf_scale(),
+            dim=self._dim if self._rescore_host is not None else 0)
+        ref, est = ref.cpu().numpy(), est.cpu().numpy()
+        hits = sum(len(set(a.tolist()) & set(b.tolist()))
+                   for a, b in zip(est, ref))
+        return hits / ref.size
+
+    def _ivf_search(self, q: torch.Tensor, k: int, mask,
+                    nprobe_override: int | None = None):
+        """The IVF's top-k, (scores, ids) on the device, -1 in empty slots.
+        A per-search ``nprobe`` is bucketed up to the next power of two and
+        clamped to the blocks, as the JAX package buckets it; the wide
+        path's list expansion takes the layout's largest list."""
+        idx = self._ensure_ivf()
+        if nprobe_override:
+            nprobe = min(1 << (int(nprobe_override) - 1).bit_length(),
+                         idx.nblocks)
+        else:
+            nprobe = self.ivf_nprobe or ivf_ops.auto_nprobe(idx.nblocks)
+        if self._ivf_mlb is None or self._ivf_mlb[0] is not idx.block2list:
+            b2l = idx.block2list.cpu().numpy()
+            real = b2l[b2l >= 0]
+            mlb = int(np.bincount(real).max()) if real.size else 1
+            self._ivf_mlb = (idx.block2list, mlb)
+        return ivf_ops.ivf_search(
+            q, idx, k=min(k, self._corpus_n), nprobe=nprobe,
+            metric=self.metric, scale=self._ivf_scale(), mask=mask,
+            dim=self._dim if self._rescore_host is not None else 0,
+            max_list_blocks=self._ivf_mlb[1])
 
     def _filter_device_mask(self, spec: dict) -> torch.Tensor:
         """The row mask of a filter spec on the device, compiled once per
@@ -699,20 +938,24 @@ class DenseRetriever:
             self._filter_cache.put(key, m)
         return m
 
-    def search(self, queries, k: int, filter: dict | None = None):
+    def search(self, queries, k: int, filter: dict | None = None,
+               nprobe: int | None = None):
         """Batched top-k. queries: [Q, D] in the raw embedding space (numpy
         or a tensor). Returns (scores [Q, k], indices [Q, k]) as numpy.
         ``filter`` (``retrieval.filtering``'s spec) restricts the search
-        to the rows it allows. Slots with no candidate (a filter that
-        allows fewer than k rows) come back as (NEG_INF, -1): skip ids < 0
-        before indexing texts or doc_ids."""
+        to the rows it allows. ``nprobe`` (device-IVF stores) pins this
+        search's probe budget: it passes the traffic guard (not the query
+        limit), is bucketed up to a power of two and clamped to the blocks,
+        and is ignored without an IVF. Slots with no candidate (a filter
+        that allows fewer than k rows, a small probe budget) come back as
+        (NEG_INF, -1): skip ids < 0 before indexing texts or doc_ids."""
         if not self.is_built:
             raise RuntimeError("index not built")
         t0 = time.perf_counter()
         mask = self._filter_device_mask(filter) if filter is not None else None
         q = torch.as_tensor(queries).to(self.device, torch.float32)
         q = prepare_for_metric(q, self.metric, self._whitener)
-        s, i = self._search_prepared(q, k, mask)
+        s, i = self._search_prepared(q, k, mask, nprobe=nprobe)
         if isinstance(s, torch.Tensor):  # the cascades return numpy
             s, i = s.float().cpu().numpy(), i.cpu().numpy()
         i = i.astype(np.int64)
@@ -741,9 +984,13 @@ class DenseRetriever:
 
     # ---------------------------------------------------------- persistence
 
-    def _save(self, path: str) -> None:
+    def _save(self, path: str, eager_ivf: bool = False) -> None:
         """Write the store, each sidecar atomically, meta.json last with
-        the sampled digest of every array it pairs with."""
+        the sampled digest of every array it pairs with. With an IVF
+        (``ivf_nlist`` over at least ``IVF_MIN_ROWS`` rows) its centroids
+        and assignments persist too: a live IVF always, and at ``build``'s
+        save (``eager_ivf``) one is built first where searches can route
+        through it, so that warm boots skip k-means."""
         os.makedirs(path, exist_ok=True)
         n = self._corpus_n
         stored_digests: dict[str, str] = {}
@@ -794,7 +1041,25 @@ class DenseRetriever:
             stored_digests["whitener.npy"] = _stored_digest(wh)
         else:
             _drop_stale(path, "whitener.npy")
-        _drop_stale(path, "ivf_centroids.npy", "ivf_assign.npy")
+        eager_ok = eager_ivf and (self._rescore_host is not None
+                                  or self._resolve_backend() == "xla")
+        ivf_saved = (self.ivf_nlist > 0 and n >= self.IVF_MIN_ROWS
+                     and (self._ivf_index is not None or eager_ok))
+        if ivf_saved:
+            if self._ivf_index is None:
+                log.info("building device IVF at save time so warm boots "
+                         "skip k-means (retrieval.ivf_nlist=%d)",
+                         self.ivf_nlist)
+            idx = self._ensure_ivf()
+            cent = idx.centroids.float().cpu().numpy()
+            assign = ivf_ops.ivf_assignments(idx, n).cpu().numpy().astype(
+                np.int32)
+            atomic_save(os.path.join(path, "ivf_centroids.npy"), cent)
+            atomic_save(os.path.join(path, "ivf_assign.npy"), assign)
+            stored_digests["ivf_centroids.npy"] = _stored_digest(cent)
+            stored_digests["ivf_assign.npy"] = _stored_digest(assign)
+        else:
+            _drop_stale(path, "ivf_centroids.npy", "ivf_assign.npy")
         ids_as_npy = save_texts(
             os.path.join(path, "texts"), self.texts, self.doc_ids
         )
@@ -809,6 +1074,12 @@ class DenseRetriever:
         }
         if metadata_digest is not None:
             meta["metadata_digest"] = metadata_digest
+        if ivf_saved:
+            # a restore regroups with the same cap; another nlist re-clusters
+            meta["ivf_cap"] = self.ivf_cap
+            meta["ivf_nlist"] = self.ivf_nlist
+            if self._ivf_recall_estimate is not None:
+                meta["ivf_recall_estimate"] = float(self._ivf_recall_estimate)
         if not ids_as_npy:
             meta["doc_ids"] = list(self.doc_ids)
         tmp = os.path.join(path, "meta.json.tmp")
@@ -883,6 +1154,7 @@ class DenseRetriever:
             fingerprint=meta.get("fingerprint"), n=n,
             dim=int(corpus.shape[1]), rows=corpus, whitener=whitener,
         )
+        self._read_ivf_sidecar(path, meta, store)
         if self.store_dtype not in CASCADES:  # read off the mmap, once
             store.rows = np.array(corpus, dtype=np.float32)
             return store
@@ -933,6 +1205,26 @@ class DenseRetriever:
         # int32 with the same bits: torch's uint32 has no shifts
         store.rows = np.ascontiguousarray(words).view(np.int32)
         return store
+
+    def _read_ivf_sidecar(self, path: str, meta: dict, store: _Store) -> None:
+        """The IVF's persisted centroids and assignments (digests verified
+        with the rest), taken only when this retriever asks for the same
+        structure: the same nlist and cap, on one device (a mesh save's
+        sidecar is per shard), one assignment a row."""
+        if not (self.ivf_nlist > 0
+                and "ivf_centroids.npy" in (meta.get("stored_digests") or {})
+                and int(meta.get("ivf_cap", -1)) == self.ivf_cap
+                and int(meta.get("ivf_nlist", -1)) == self.ivf_nlist
+                and int(meta.get("ivf_mesh_p", -1)) == -1):
+            return
+        cent = np.load(os.path.join(path, "ivf_centroids.npy"))
+        assign = np.load(os.path.join(path, "ivf_assign.npy"), mmap_mode="r")
+        if assign.ndim != 1 or assign.shape[0] != store.n:
+            return
+        store.ivf_sidecar = (np.asarray(cent, dtype=np.float32),
+                             np.ascontiguousarray(assign, dtype=np.int32))
+        if meta.get("ivf_recall_estimate") is not None:
+            store.ivf_recall_estimate = float(meta["ivf_recall_estimate"])
 
     @staticmethod
     def _read_nibbles(path: str, host: np.ndarray) -> tuple[np.ndarray,
@@ -988,3 +1280,7 @@ class DenseRetriever:
         self._rescore_host = store.rescore
         self._corpus_scale = scale
         self._sq4_scale = store.sq4_scale
+        self._ivf_index = None
+        self._ivf_appended = 0
+        self._ivf_sidecar = store.ivf_sidecar
+        self._ivf_recall_estimate = store.ivf_recall_estimate

@@ -36,10 +36,6 @@ def _make_dense(cfg: RetrievalConfig, device) -> DenseRetriever:
             )
         log.info("retrieval.shard_corpus: one device; the corpus is served "
                  "unsharded")
-    if cfg.ivf_nlist:
-        raise NotImplementedError(
-            "retrieval.ivf_nlist (device IVF) is ROADMAP queue 1 item 17"
-        )
     backend = "xla_exact" if cfg.backend == "bruteforce" else cfg.kernel
     return DenseRetriever(
         metric=cfg.metric,
@@ -50,6 +46,11 @@ def _make_dense(cfg: RetrievalConfig, device) -> DenseRetriever:
         binary_oversample=cfg.binary_oversample,
         index_path=cfg.index_path or None,
         device=device,
+        ivf_nlist=cfg.ivf_nlist,
+        ivf_cap=cfg.ivf_cap,
+        ivf_nprobe=cfg.ivf_nprobe,
+        ivf_query_limit=cfg.ivf_query_limit,
+        ivf_selfcheck=cfg.ivf_selfcheck,
     )
 
 

@@ -30,10 +30,13 @@ Protocol:
            "metadata": [{...}, ...]}}       -> incremental index growth
   {"remove": {"doc_ids": [..]}}             -> drop docs (survivors'
                                                scores unchanged)
+  {"query": "...", "nprobe": 64}            -> the device IVF's probe
+                                               budget for this search
+                                               (retrieval.ivf_nlist > 0)
   {"stats": true[, "reset": true]}          -> serving stats + index info
+                                               (+ ivf_recall_estimate)
 
-Not served yet, as in the rest of the port: ``"nprobe"`` is refused (the
-device IVF, ROADMAP queue 1 item 17); ``"generate": true`` is ignored, as
+Not served yet, as in the rest of the port: ``"generate": true`` is ignored, as
 the JAX server ignores it when not started with ``--generate``, and
 ``--generate`` raises (item 24); ``retrieval.rerank`` raises (item 19).
 
@@ -127,7 +130,7 @@ def make_handle(cfg, args, runner, compressor, retriever, mode):
     lock = threading.Lock()
 
     def _validate_search(req: dict):
-        """Shared request validation -> (queries, k, filter)."""
+        """Shared request validation -> (queries, k, filter, nprobe)."""
         queries = req.get("queries")
         if queries is None:
             queries = [req["query"]]
@@ -143,20 +146,32 @@ def make_handle(cfg, args, runner, compressor, retriever, mode):
                 f"{type(retriever).__name__} does not support filtered "
                 "search"
             )
-        if req.get("nprobe") is not None:
-            raise ValueError(
-                '"nprobe" (the device IVF probe budget) is ROADMAP queue 1 '
-                "item 17; the port has no IVF yet"
-            )
-        return queries, k, flt
+        nprobe = req.get("nprobe")
+        if nprobe is not None:
+            # the per-request device-IVF probe budget: a strict int (a
+            # float would truncate, a bool would pass as 0 or 1), and only
+            # where an IVF is configured
+            if isinstance(nprobe, bool) or not isinstance(nprobe, int) \
+                    or nprobe <= 0:
+                raise ValueError('"nprobe" must be a positive integer')
+            if "nprobe" not in inspect.signature(
+                retriever.search
+            ).parameters or not getattr(retriever, "ivf_nlist", 0):
+                raise ValueError(
+                    '"nprobe" requires the dense backend with '
+                    "retrieval.ivf_nlist > 0 (the device IVF tier)"
+                )
+        return queries, k, flt, nprobe
 
-    def _hits_for(queries, k, flt):
+    def _hits_for(queries, k, flt, nprobe=None):
         """Encode + search + assemble per-query hit lists. Must run under
         the lock: hit assembly reads texts/doc_ids, which mutations
         rewrite. The search returns host numpy, so the device work has
         finished when the lock drops."""
         q_emb = compressor.encode_text(queries)
         kw = {"filter": flt} if flt is not None else {}
+        if nprobe is not None:
+            kw["nprobe"] = nprobe
         scores, idx = retriever.search(q_emb, k, **kw)
         return [
             [
@@ -178,14 +193,14 @@ def make_handle(cfg, args, runner, compressor, retriever, mode):
     batcher = None
     window_ms = float(getattr(args, "batch_window_ms", 0) or 0)
     if window_ms > 0 and getattr(args, "http", None) is not None:
-        def _score_batch(queries, k, flt):
+        def _score_batch(queries, k, flt, nprobe=None):
             # burst sizes are arbitrary; pad the query list to the
             # encoder's power-of-two batch buckets, so the search sees
             # only those sizes too
             n = len(queries)
             padded = list(queries) + [queries[0]] * (_bucket_batch(n) - n)
             with lock:
-                return _hits_for(padded, k, flt)[:n]
+                return _hits_for(padded, k, flt, nprobe)[:n]
 
         batcher = MicroBatcher(
             _score_batch, window_ms=window_ms,
@@ -198,10 +213,10 @@ def make_handle(cfg, args, runner, compressor, retriever, mode):
         ):
             with lock:
                 return _handle_locked(req)
-        queries, k, flt = _validate_search(req)
+        queries, k, flt, nprobe = _validate_search(req)
         fkey = canonical_filter_key(flt) if flt is not None else None
         t0 = time.perf_counter()
-        hits = batcher.submit(queries, k, flt, fkey)
+        hits = batcher.submit(queries, k, flt, fkey, nprobe)
         return {
             "results": [
                 {"query": q, "hits": h} for q, h in zip(queries, hits)
@@ -211,7 +226,7 @@ def make_handle(cfg, args, runner, compressor, retriever, mode):
 
     def _handle_locked(req: dict) -> dict:
         if req.get("stats"):
-            return {
+            out_stats = {
                 "stats": retriever.get_stats(reset=bool(req.get("reset"))),
                 "n_docs": len(retriever.texts),
                 "boot": mode,
@@ -220,6 +235,10 @@ def make_handle(cfg, args, runner, compressor, retriever, mode):
                 "rerank": cfg.retrieval.rerank,
                 "micro_batch_window_ms": window_ms if batcher else 0,
             }
+            ivf_r = getattr(retriever, "_ivf_recall_estimate", None)
+            if ivf_r is not None:
+                out_stats["ivf_recall_estimate"] = round(float(ivf_r), 4)
+            return out_stats
         if "add" in req:
             spec = req["add"]
             texts = spec.get("texts")
@@ -248,9 +267,9 @@ def make_handle(cfg, args, runner, compressor, retriever, mode):
                 "n_total": len(retriever.texts),
                 "latency_ms": round((time.perf_counter() - t0) * 1000, 3),
             }
-        queries, k, flt = _validate_search(req)
+        queries, k, flt, nprobe = _validate_search(req)
         t0 = time.perf_counter()
-        hits = _hits_for(queries, k, flt)
+        hits = _hits_for(queries, k, flt, nprobe)
         return {
             "results": [
                 {"query": q, "hits": h} for q, h in zip(queries, hits)

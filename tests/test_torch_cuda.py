@@ -1026,3 +1026,154 @@ def test_quantized_store_on_card(cuda, store):
         assert found >= 0.99 * i_p.size
         same = i_c == i_p
         np.testing.assert_array_equal(s_c[same], s_p[same])
+
+
+# ------------------------------------------------------ the device IVF
+
+
+def _ivf_setup(cuda, kind, d, cap, n=6000, seed=11):
+    """A clustered store of ``kind`` laid out in an IVF (nearest of 48
+    centres), 300 rows appended at the tail; the scan's queries, factor
+    and a probe set of 12 blocks plus a sentinel."""
+    from latentrag_torch.ops import ivf as tivf
+    from latentrag_torch.ops import quantization as tq
+    from latentrag_torch.ops.kmeans import assign_clusters
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    cent = torch.nn.functional.normalize(
+        torch.randn((48, d), generator=g, device=cuda), dim=1)
+
+    def rows(m):
+        which = torch.randint(0, 48, (m,), generator=g, device=cuda)
+        return torch.nn.functional.normalize(
+            cent[which] + 0.1 * torch.randn((m, d), generator=g,
+                                            device=cuda), dim=1)
+
+    x, extra = rows(n), rows(300)
+    scale, dim = None, 0
+    if kind == "int8":
+        store, scale = tq.sq8_quantize(x)
+        scale = float(scale)
+        new = torch.clamp(torch.round(extra / scale), -127, 127).to(
+            torch.int8)
+    elif kind == "int4":
+        store, scale = tq.sq4_quantize(x)
+        scale, dim = float(scale), d
+        new = tq.sq4_quantize_with_scale(extra, scale)
+    elif kind == "binary":
+        store, new, dim = tb.binary_quantize(x), tb.binary_quantize(extra), d
+    else:
+        store = x.to(getattr(torch, kind)).contiguous()
+        new = extra.to(store.dtype)
+    idx = tivf.ivf_build_from_assign(store, cent, assign_clusters(x, cent),
+                                     cap)
+    idx = tivf.ivf_append(idx, new, n, dim=dim)
+    return idx, cent, scale, dim, rows
+
+
+def _ivf_queries(kind, q, scale):
+    from latentrag_torch.ops import quantization as tq
+
+    if kind in ("int8", "int4"):
+        qc, qs = tq.sq8_quantize(q)
+        return qc, tq.score_factor(qs, scale)
+    if kind == "float32":
+        return q.contiguous(), None
+    return q.to(torch.bfloat16).contiguous(), None
+
+
+IVF_KINDS = ["int8", "bfloat16", "float32", "int4", "binary"]
+
+
+@pytest.mark.parametrize("nq", [1, 64])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("d", [64, 33, 384])
+@pytest.mark.parametrize("kind", IVF_KINDS)
+def test_ivf_scan_matches_plain(cuda, kind, d, masked, nq):
+    """``ivf_scan_kernel`` against ``ivf_scan_reference``: the same slots
+    and ids, int8 / int4 scores bit for bit, float and binary within the
+    exact kernels' limits; d=64 and 384 take 16-byte row loads where the
+    row's bytes allow, d=33 the element loads."""
+    from latentrag_torch.ops import ivf as tivf
+    from latentrag_torch.ops.topk import NEG_INF, pack_row_mask
+
+    idx, cent, scale, dim, rows = _ivf_setup(cuda, kind, d, 64)
+    q = rows(nq)
+    qv, fac = _ivf_queries(kind, q, scale)
+    sel = tivf._coarse(q @ cent.T, idx, 12, True, None)
+    sel = torch.cat([sel, torch.full((nq, 1), idx.nblocks, dtype=torch.int32,
+                                     device=cuda)], 1)
+    mask = None
+    if masked:
+        keep = torch.rand(6300, generator=torch.Generator(
+            device=cuda).manual_seed(2), device=cuda) < 0.3
+        mask = pack_row_mask(keep)
+    euclids = (False, True) if kind in ("bfloat16", "float32") else (False,)
+    for euclid in euclids:
+        kw = dict(dim=dim, factor=fac, mask=mask, euclid=euclid)
+        before = ft.launches["ivf_scan"]
+        s_k, i_k = tivf.ivf_scan(qv, idx.blocks, idx.block_ids, sel, **kw)
+        torch.cuda.synchronize()
+        assert ft.launches["ivf_scan"] == before + 1
+        assert ft.last_kernel.startswith("ivf_scan_kernel")
+        assert ft.last_kernel.endswith("<mask>") == masked
+        s_p, i_p = tivf.ivf_scan_reference(qv, idx.blocks, idx.block_ids,
+                                           sel, **kw)
+        assert torch.equal(i_k, i_p)
+        assert bool((i_k[:, -64:] == -1).all())  # the sentinel slot
+        assert bool(((s_k == NEG_INF) == (i_k < 0)).all())
+        if masked:
+            live = i_k[i_k >= 0].long()
+            assert bool(keep[live].all())
+        if kind in ("int8", "int4"):
+            assert torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
+        else:
+            tol = (1e-5 + 1e-6 * s_p.abs() if kind == "binary"
+                   else 1e-4 + 1e-5 * s_p.abs())
+            assert bool(((s_k - s_p).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("store", ["int8", "int4", "bfloat16"])
+def test_ivf_store_on_card(cuda, store, tmp_path):
+    """An IVF store's search on the card: a small batch goes through one
+    ``ivf_scan`` launch and no fold, equal to the same search on the plain
+    scan; a large batch stays exhaustive; the store warm-boots from its
+    sidecars and answers the same."""
+    from latentrag_torch.ops import ivf as tivf
+    from latentrag_torch.retrieval import DenseRetriever
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    cent = torch.nn.functional.normalize(
+        torch.randn((256, 64), generator=g, device=cuda), dim=1)
+    which = torch.randint(0, 256, (40_000,), generator=g, device=cuda)
+    x = torch.nn.functional.normalize(
+        cent[which] + 0.08 * torch.randn((40_000, 64), generator=g,
+                                         device=cuda), dim=1)
+    kw = dict(store_dtype=store, backend="xla", ivf_nlist=64, ivf_cap=64,
+              index_path=str(tmp_path / "s"), device="cuda")
+    r = DenseRetriever(**kw)
+    r.build(x, [""] * 40_000)
+    assert r._ivf_index is not None
+    q = x[:8] + 0.01
+    ft.reset_launches()
+    s, i = r.search(q, 10, nprobe=16)
+    assert ft.launches["ivf_scan"] == 1
+    assert sum(v for k, v in ft.launches.items() if k != "ivf_scan") == 0
+    real = tivf.ivf_scan
+    tivf.ivf_scan = tivf.ivf_scan_reference
+    try:
+        s_p, i_p = r.search(q, 10, nprobe=16)
+    finally:
+        tivf.ivf_scan = real
+    if store == "bfloat16":
+        assert np.mean(i == i_p) >= 0.99
+    else:
+        np.testing.assert_array_equal(i, i_p)
+        np.testing.assert_array_equal(s.view(np.int32), s_p.view(np.int32))
+    ft.reset_launches()
+    r.search(x[:512], 10)
+    assert ft.launches["ivf_scan"] == 0
+    r2 = DenseRetriever(**kw)
+    s2, i2 = r2.search(q, 10, nprobe=16)
+    assert r2._ivf_build_info["restored"] is True
+    np.testing.assert_array_equal(i2, i)

@@ -406,7 +406,8 @@ def test_cross_tier_store_loads_as_jax_loads_it(rng, tmp_path, written,
 
 def test_save_drops_stale_sidecars(rng, tmp_path):
     """A rebuild of another store type removes the old type's sidecars,
-    and the JAX package's IVF sidecars, which the port does not write."""
+    and IVF sidecars that the new store does not hold (it has no IVF: no
+    ``ivf_nlist``, and 30 rows)."""
     path = _built(rng, tmp_path, "binary")
     assert os.path.exists(os.path.join(path, "binary_packed.npy"))
     for name in ("ivf_centroids.npy", "ivf_assign.npy"):

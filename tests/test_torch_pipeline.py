@@ -118,9 +118,9 @@ def test_every_backend_runs_on_cpu(rng, backend):
 
 
 def test_unported_options_raise(rng):
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(NotImplementedError, match="item 18"):
         build_retriever(np.zeros((2, 4), np.float32), ["a", "b"], None,
-                        apply_overrides(Config(), ["retrieval.ivf_nlist=8"])
+                        apply_overrides(Config(), ["retrieval.backend=ivfpq"])
                         .retrieval, device="cpu")
     with pytest.raises(ValueError):
         DenseRetriever(backend="faiss", device="cpu")

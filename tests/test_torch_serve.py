@@ -159,6 +159,8 @@ def test_jsonl_stream_matches_jax(env, capsys, store, kernel):
     for line, g, w in zip(payload, got, want):
         if "error" in w:
             assert "error" in g, (line, g)
+            if "nprobe" in line:  # the JAX server's own text
+                assert g["error"] == w["error"], (line, g, w)
             continue
         assert "error" not in g, (line, g)
         if "results" in w:
@@ -187,6 +189,72 @@ def test_jsonl_stream_matches_jax(env, capsys, store, kernel):
     assert got[5]["results"][0]["hits"][0]["doc_id"] == 900
     assert all(h["doc_id"] != 900 for h in got[8]["results"][0]["hits"])
     assert got[7]["removed"] == 1 and got[4]["added"] == 2
+
+
+def _with_ivf_sidecar(path, nlist=4, cap=8, estimate=0.912345):
+    """Give a persisted store IVF sidecars and their meta.json entries, as
+    a save of an IVF store writes them (the rows' lists all 0)."""
+    from latentrag_torch.retrieval.dense import _stored_digest
+
+    with open(f"{path}/meta.json") as f:
+        meta = json.load(f)
+    cent = np.zeros((nlist, 8), np.float32)
+    assign = np.zeros(meta["n"], np.int32)
+    np.save(f"{path}/ivf_centroids.npy", cent)
+    np.save(f"{path}/ivf_assign.npy", assign)
+    meta["stored_digests"]["ivf_centroids.npy"] = _stored_digest(cent)
+    meta["stored_digests"]["ivf_assign.npy"] = _stored_digest(assign)
+    meta.update(ivf_cap=cap, ivf_nlist=nlist, ivf_recall_estimate=estimate)
+    with open(f"{path}/meta.json", "w") as f:
+        json.dump(meta, f)
+
+
+def test_nprobe_requests_and_ivf_stats_match_jax(env, capsys):
+    """A request's "nprobe" is validated with the JAX server's texts, with
+    and without ``retrieval.ivf_nlist``, and ``stats`` carries the store's
+    ``ivf_recall_estimate`` as the JAX server rounds it."""
+    cold = _cold_store(env, capsys, "float32", "xla_exact")
+    q0 = env.queries[0]
+    payload = [
+        json.dumps({"query": q0, "k": 3, "nprobe": 4}),
+        json.dumps({"query": q0, "nprobe": 0}),
+        json.dumps({"query": q0, "nprobe": -3}),
+        json.dumps({"query": q0, "nprobe": 2.5}),
+        json.dumps({"query": q0, "nprobe": True}),
+        json.dumps({"query": q0, "nprobe": "8"}),
+        json.dumps({"stats": True}),
+    ]
+    for ivf in (True, False):
+        extra = ["retrieval.store_dtype=float32", "retrieval.kernel=xla"]
+        if ivf:
+            extra += ["retrieval.ivf_nlist=4", "retrieval.ivf_cap=8"]
+        out = {}
+        for side in ("jax", "port"):
+            path = f"{env.base}/ivf_{side}"
+            shutil.rmtree(path, ignore_errors=True)
+            shutil.copytree(cold, path)
+            _with_ivf_sidecar(path)
+            if side == "jax":
+                out[side] = _run(jax_serve.main,
+                                 ["--ae_type", "vae", "--set",
+                                  *_overrides(env.base, path), *extra],
+                                 payload, capsys)
+            else:
+                out[side] = _port(env, path, payload, capsys, extra=extra)
+        got, want = out["port"], out["jax"]
+        assert len(got) == len(want) == len(payload)
+        for line, g, w in zip(payload[1:6], got[1:6], want[1:6]):
+            assert g == w and "error" in g, (line, g, w)
+        assert ("error" in got[0]) == ("error" in want[0]) == (not ivf)
+        if ivf:
+            assert [h["doc_id"] for h in got[0]["results"][0]["hits"]] == [
+                h["doc_id"] for h in want[0]["results"][0]["hits"]]
+            assert got[6]["ivf_recall_estimate"] == want[6][
+                "ivf_recall_estimate"] == 0.9123
+        else:
+            assert got[0] == want[0]
+            assert "ivf_recall_estimate" not in got[6]
+            assert "ivf_recall_estimate" not in want[6]
 
 
 def _post(port, path, body):
@@ -270,7 +338,9 @@ def test_http_micro_batching_end_to_end(env, capsys):
         with pytest.raises(urllib.error.HTTPError) as e:
             _post(port, "/search", {"query": "x", "nprobe": 8})
         assert e.value.code == 400
-        assert "item 17" in json.loads(e.value.read())["error"]
+        assert json.loads(e.value.read())["error"] == (
+            'ValueError: "nprobe" requires the dense backend with '
+            "retrieval.ivf_nlist > 0 (the device IVF tier)")
     # leaving the block stops the server and closes the handle's batcher
     with pytest.raises(ConnectionRefusedError):
         socket.create_connection(("127.0.0.1", port), timeout=5)
