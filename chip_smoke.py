@@ -63,6 +63,12 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    sentinel probe slot, Q in {1, 8, 64}, unmasked and with 1, 10, 100 %
    and none of the rows allowed: int8 / int4 bit for bit, float and
    binary within the exact kernels' limits;
+2f. holds the fp32 fold at the HNSW build's shape (the first 4096 rows of
+   the 1M lowrank corpus of 3m as queries over all of it, the plan
+   ``knn_graph`` asks for at k + 1 = 65: tile 4096, 128 candidates, the
+   list-of-128 instance ``fold_mma_kernel<f32>``) to its plain version
+   with phase 2's fold limits, and that block's ``knn_graph`` lists to the
+   plain exact lists (neighbour recall >= 0.95);
 3. drives the main path through ``latentrag_torch.main.main`` at the full
    MiniLM-L6 width in bf16 with a seeded 384->512->64 VAE: synthetic data,
    2000 queries, a bf16 cosine store, top_k=10, kernel=auto; checks that the
@@ -161,6 +167,10 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    codes unpacked to int8), the bound (bytes over 3.35 TB/s, or 2 Q N d
    over 1,979 TOPS of int8), a profiler device split and the resident
    blocks an SM;
+4f. (after 4) times 2f's call: the wrapper, its plain version, the
+   library call at 128, the profiler's device split, the bound, and the
+   instance's registers and stack bytes (``cuobjdump -res-usage`` on the
+   built library);
 4e. (inside 3k, on its store) times ``ivf_scan`` at Q=1 and 8 with the
    auto budget and Q=64 with the pinned budgets: the wrapper (CUDA events)
    and the kernel (profiler), its plain version, its bound (the probed
@@ -195,6 +205,24 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    and serves 256 single-query requests carrying ``"nprobe": 64`` at
    window 0 (QPS, p50/p99; ids held to direct searches; /stats carries
    ``ivf_recall_estimate``; a bad "nprobe" gets the JAX server's 400);
+3m. (after 3l) the ANN tiers over 1M x 64 lowrank unit rows (after
+   ``scripts/backend_sweep.py``: rank 16, noise 0.05) through
+   ``ANNRetriever`` with ``auto`` builds on the card: HNSW (M 32, efC
+   200, knn_k 64) must launch the fp32 fold ceil(N / 4096) = 245 times and
+   nothing else, reach Recall@10 >= 0.98 at efS 128 on 1024 held-out
+   queries against the exact search on the card (efS 64 reported), and
+   answer bit for bit after a save and a warm load; IVF-PQ (nlist 4096, m
+   16, 8 bits, 15 iterations, trained and encoded on the card) reports
+   Recall@10 at nprobe 32 and 64 and refined 4x and 8x at 64, held >= 0.95
+   at 8x; each with its build split and search QPS;
+3n. ``main --set retrieval.backend=hnsw`` and ``ivfpq`` on the main path
+   (fp32 rows), each twice: the second run loads the first one's store
+   and returns its doc ids, the cold HNSW run launches the fold once and
+   the warm one nothing; HNSW doc ids against the fp32 ``xla_exact``
+   oracle >= 0.95 of slots (IVF-PQ's reported); then ``python -m
+   latentrag_torch.serve`` over a copy of the HNSW store: a search, a
+   filtered search, an add found top-1, and the refusals of "remove" and
+   "nprobe" (the JAX server's text);
 5. prints a ``kernels`` JSON line and, last, the device line.
 
 Every check that fails exits non-zero. Without CUDA, or without the
@@ -205,6 +233,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import dataclasses
 import functools
 import json
 import logging
@@ -563,9 +592,11 @@ class _Lines(logging.Handler):
 
 
 def run_main(torch, workdir: str, kernel: str,
-             store: str = "bfloat16", top_k: int = 10) -> dict:
-    """One ``main`` run; ``res["retrieval_log"]`` holds the retriever's
-    INFO lines (load, save, skip)."""
+             store: str = "bfloat16", top_k: int = 10,
+             extra: tuple = ()) -> dict:
+    """One ``main`` run (``extra``: overrides after the main path's);
+    ``res["retrieval_log"]`` holds the retriever's INFO lines (load, save,
+    skip)."""
     from latentrag_torch import main as cli
 
     lg = logging.getLogger("latentrag_torch.retrieval")
@@ -573,7 +604,7 @@ def run_main(torch, workdir: str, kernel: str,
     lg.addHandler(lines)
     lg.setLevel(logging.INFO)
     try:
-        res = _run_main(torch, cli, workdir, kernel, store, top_k)
+        res = _run_main(torch, cli, workdir, kernel, store, top_k, extra)
     finally:
         lg.removeHandler(lines)
         lg.setLevel(level)
@@ -581,11 +612,11 @@ def run_main(torch, workdir: str, kernel: str,
     return res
 
 
-def _run_main(torch, cli, workdir, kernel, store, top_k) -> dict:
+def _run_main(torch, cli, workdir, kernel, store, top_k, extra=()) -> dict:
     results: list = []
     argv = ["--ae_type", "vae", "--device", "cuda", "--tag",
             f"smoke_{kernel}_{store}_{top_k}", "--set",
-            *main_overrides(workdir, kernel, store, top_k)]
+            *main_overrides(workdir, kernel, store, top_k), *extra]
     t0 = time.perf_counter()
     rc = cli.main(argv, results=results)
     torch.cuda.synchronize()
@@ -2950,6 +2981,403 @@ def check_ivf_serving(torch, failures: list, workdir: str) -> int:
     return got["ivf_scan"]
 
 
+# ------------------------------------------------------------ the ANN tiers
+
+ANN_ROWS = 1_000_000  # docs/BACKENDS_200K.md's 1M x 64 cell for both tiers
+ANN_D = 64
+ANN_QUERIES = 1024  # held-out queries from the corpus's manifold
+ANN_M, ANN_EFC, ANN_KNN_K = 32, 200, 64  # the JAX package's operating point
+ANN_QUERY_BLOCK = 4096  # knn_graph's query rows a fold launch
+KNN_RECALL = 0.95  # one block's lists vs the plain exact lists
+HNSW_RECALL = 0.98  # Recall@10 at efS 128 vs the exact search
+IVFPQ_NLIST, IVFPQ_M, IVFPQ_NBITS, IVFPQ_ITERS = 4096, 16, 8, 15
+IVFPQ_RECALL = 0.95  # Recall@10 at nprobe 64, refine 8
+# HNSW main path's doc ids vs xla_exact, by slot, at efS >= N (the beam
+# reaches every linked row). At the default efS 64 the k-NN-assembled
+# graph over the main path's near-collinear latents (pairwise cosine
+# 0.984-0.9998) finds ~0.72 of the exact top 10, from the fold's lists or
+# from exact ones alike, so there the agreement is reported only
+ANN_MAIN_AGREE = 0.95
+ANN_MAIN_EF_ALL = 2048  # >= the main path's 1997 rows
+
+
+@functools.cache
+def ann_rows():
+    """(corpus [1M, 64], queries [1024, 64]) fp32 unit rows, numpy, after
+    ``scripts/backend_sweep.py``'s lowrank data: rows of a seeded rank-16
+    projection plus 0.05 noise; the queries drawn from the same
+    projection."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    rank = ANN_D // 4
+    proj = rng.standard_normal((rank, ANN_D)).astype(np.float32)
+    n = ANN_ROWS + ANN_QUERIES
+    x = rng.standard_normal((n, rank)).astype(np.float32) @ proj
+    x += 0.05 * rng.standard_normal((n, ANN_D)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    return x[:ANN_ROWS], np.ascontiguousarray(x[ANN_ROWS:])
+
+
+def resource_usage(path: str, mangled: str) -> dict | None:
+    """Registers and stack frame (spill) bytes of one kernel instance in a
+    built library, as ``cuobjdump -res-usage`` reads them; None when the
+    tool or the instance is not found."""
+    import re
+
+    from latentrag_torch.ops import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    try:
+        out = subprocess.run([tool, "-res-usage", path], capture_output=True,
+                             text=True, timeout=120).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    m = re.search(r"Function (\S*" + re.escape(mangled) + r"\S*):\s*\n\s*"
+                  r"REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)", out)
+    if not m:
+        return None
+    return {"function": m.group(1), "registers": int(m.group(2)),
+            "stack_bytes": int(m.group(3)), "local_bytes": int(m.group(5))}
+
+
+def knn_block(torch):
+    """The 1M corpus on the card, its first 4096 rows (the k-NN stage's
+    first query block) and the plan ``knn_graph`` asks for at k + 1 = 65
+    and recall 0.95: (corpus, queries, tile width, candidates)."""
+    from latentrag_torch.ops import fused_topk as ft
+
+    corpus, _ = ann_rows()
+    c = torch.tensor(corpus, device="cuda")
+    block_n, cand = ft.fold_plan(ANN_ROWS, ANN_KNN_K + 1, 0.95)
+    return c, c[:ANN_QUERY_BLOCK], block_n, cand
+
+
+def check_knn_fold(torch, failures: list) -> float:
+    """Phase 2f: the fp32 fold at the HNSW build's shape, the first 4096
+    rows of the 1M corpus as queries over all of it, at ``knn_graph``'s
+    plan (tile 4096, 128 candidates), against its plain version with
+    phase 2's fold limits; then that block's ``knn_graph`` lists (fold,
+    exact rescore, self stripped) against the plain exact lists by
+    neighbour recall. Returns the largest score error at equal ids."""
+    import numpy as np
+
+    from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.ops import knn
+    from latentrag_torch.ops.topk import approx_topk, exact_topk
+
+    c, q, block_n, cand = knn_block(torch)
+    s_k, i_k = ft.fused_topk_raw(q, c, k=cand, metric="cosine",
+                                 mode="fold", block_n=block_n)
+    torch.cuda.synchronize()
+    ran = ft.last_kernel
+    s_p, i_p = ft.fused_topk_raw_reference(q, c, k=cand, metric="cosine",
+                                           mode="fold", block_n=block_n)
+    id_match = (i_k == i_p).float().mean().item()
+    s_k, i_k = ft.rescore_candidates(q, c, i_k, "cosine")
+    s_p, i_p = ft.rescore_candidates(q, c, i_p, "cosine")
+    err = (s_k - s_p).abs()[i_k == i_p]
+    max_err = err.max().item() if err.numel() else 0.0
+    # one block of knn_graph: the approximate route against exact lists
+    kk = ANN_KNN_K + 1
+    _, got = approx_topk(q, c, k=kk, metric="cosine", recall_target=0.95)
+    _, want = exact_topk(q, c, k=kk, metric="cosine")
+    got = knn.strip_self(got.cpu().numpy(), 0, ANN_KNN_K)
+    want = knn.strip_self(want.cpu().numpy(), 0, ANN_KNN_K)
+    recall = float((got[:, :, None] == want[:, None, :]).any(-1).mean())
+    rec = {"Q": ANN_QUERY_BLOCK, "N": ANN_ROWS, "d": ANN_D, "k": cand,
+           "block_n": block_n, "store": "float32", "c_kernel": ran,
+           "id_match": id_match, "max_abs_err": max_err,
+           "knn_recall": recall, "self_free": bool(
+               (got != np.arange(ANN_QUERY_BLOCK)[:, None]).all())}
+    ok = (ran.split("+")[0] == "fold_mma_kernel<f32>" and cand == 128
+          and block_n == 4096 and id_match >= FOLD_ID_MATCH
+          and recall >= KNN_RECALL and rec["self_free"])
+    rec["ok"] = ok
+    record("knn_fold_check", **rec)
+    if not ok:
+        failures.append(f"the knn build's fp32 fold: {rec}")
+    del c, q
+    torch.cuda.empty_cache()
+    return max_err
+
+
+def time_knn_fold(torch) -> dict:
+    """Phase 4f (with phase 4's other device splits: a profiler session
+    opened before the main path's runs left every later one without
+    device time): the call ``knn_graph`` makes a query block, its plain
+    version and the library call (``torch.topk`` of ``torch.matmul`` at
+    128), with the profiler's device split, the bound, and the instance's
+    registers and stack bytes."""
+    from latentrag_torch.ops import cuda_build
+    from latentrag_torch.ops import fused_topk as ft
+
+    c, q, block_n, cand = knn_block(torch)
+    fold = lambda: ft.fused_topk_raw(q, c, k=cand, metric="cosine",  # noqa: E731
+                                     mode="fold", block_n=block_n)
+    t = {"ms": time_ms(torch, fold, reps=10),
+         "plain_ms": time_ms(torch, lambda: ft.fused_topk_raw_reference(
+             q, c, k=cand, metric="cosine", mode="fold", block_n=block_n),
+             reps=3, warmup=1),
+         "library_ms": time_ms(torch, lambda: torch.topk(
+             torch.matmul(q, c.T), cand, dim=1), reps=5, warmup=1),
+         "device_ms": device_split(torch, fold),
+         "blocks_per_sm": blocks_per_sm(ft, "fold", q.device.index, ANN_D,
+                                        cand, ft._OP_F32)}
+    t["bound_ms"], t["bound_by"] = bound(ANN_QUERY_BLOCK, ANN_ROWS, ANN_D,
+                                         cand, "float32")
+    # fold_mma_kernel<4, OP_F32 = 2, false>: the list-of-128 fp32 instance
+    t["resources"] = resource_usage(
+        cuda_build.library_path(*ft.LIBRARIES[0]),
+        "fold_mma_kernelILi4ELi2ELb0E")
+    t.update(Q=ANN_QUERY_BLOCK, N=ANN_ROWS, k=cand, block_n=block_n,
+             launches_per_build=-(-ANN_ROWS // ANN_QUERY_BLOCK))
+    record("knn_fold_time", card=card_line(), **t)
+    del c, q
+    torch.cuda.empty_cache()
+    return t
+
+
+def ann_recall(got, true) -> float:
+    return float(sum(len(set(g[g >= 0].tolist()) & set(t.tolist()))
+                     for g, t in zip(got, true)) / true.size)
+
+
+def timed_search(r, q, k=10) -> tuple:
+    t0 = time.perf_counter()
+    s, i = r.search(q, k)
+    return s, i, time.perf_counter() - t0
+
+
+def check_ann_tiers(torch, failures: list) -> int:
+    """Phase 3m: both ANN tiers over the 1M x 64 lowrank rows through
+    ``ANNRetriever`` with ``auto`` builds on the card. HNSW (M 32, efC
+    200, knn_k 64): the k-NN stage launches the fp32 fold once a 4096-row
+    block and nothing else; Recall@10 of the 1024 held-out queries
+    against the exact search on the card at efS 64 (reported) and 128
+    (held); a save and a warm load answer bit for bit. IVF-PQ (nlist
+    4096, m 16, 8 bits, 15 iterations, trained and encoded on the card):
+    recall unrefined at nprobe 32 and 64 and refined 4x and 8x at 64
+    (held at 8x). Returns the build's fold launches."""
+    import numpy as np
+
+    from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.ops.topk import exact_topk
+    from latentrag_torch.retrieval.ann_retriever import ANNRetriever
+    from latentrag_torch.utils.config import RetrievalConfig
+
+    t_phase = time.perf_counter()
+    corpus, queries = ann_rows()
+    qd = torch.tensor(queries, device="cuda")
+    cd = torch.tensor(corpus, device="cuda")
+    _, true = exact_topk(qd, cd, k=10, metric="cosine")
+    true = true.cpu().numpy()
+    del qd, cd
+    torch.cuda.empty_cache()
+    texts = [""] * ANN_ROWS
+    rec: dict = {"N": ANN_ROWS, "d": ANN_D, "queries": ANN_QUERIES}
+    with tempfile.TemporaryDirectory(prefix="lr_ann_") as tmp:
+        cfg = RetrievalConfig(backend="hnsw", index_path=f"{tmp}/ix",
+                              hnsw_m=ANN_M, hnsw_ef_construction=ANN_EFC,
+                              hnsw_knn_k=ANN_KNN_K, hnsw_build="auto")
+        r = ANNRetriever(cfg, "hnsw", device="cuda")
+        ft.reset_launches()
+        t0 = time.perf_counter()
+        r.build(corpus, texts)
+        rec["hnsw_build_s"] = time.perf_counter() - t0
+        launches = dict(ft.launches)
+        rec["hnsw_launches"] = {k: v for k, v in launches.items() if v}
+        rec["hnsw_c_kernel"] = ft.last_kernel
+        rec["hnsw_split"] = r.build_split
+        # build() saves after its stages: the rest of its wall time
+        rec["hnsw_save_s"] = rec["hnsw_build_s"] - sum(
+            v for x, v in r.build_split.items() if x.endswith("_s"))
+        for ef in (64, 128):
+            r.cfg = dataclasses.replace(r.cfg, hnsw_ef_search=ef)
+            _, ids, wall = timed_search(r, queries)
+            rec[f"hnsw_recall_ef{ef}"] = ann_recall(ids, true)
+            rec[f"hnsw_qps_ef{ef}"] = ANN_QUERIES / wall
+        s0, i0 = r.search(queries, 10)
+        t0 = time.perf_counter()
+        warm = ANNRetriever(cfg, "hnsw", device="cuda")
+        loaded = warm.load_persisted()
+        rec["hnsw_load_s"] = time.perf_counter() - t0
+        warm.cfg = dataclasses.replace(warm.cfg, hnsw_ef_search=128)
+        s1, i1 = warm.search(queries, 10)
+        rec["hnsw_round_trip"] = loaded and np.array_equal(i0, i1) and (
+            np.array_equal(s0.view(np.int32), s1.view(np.int32)))
+        del r, warm
+    want = {"fold": -(-ANN_ROWS // ANN_QUERY_BLOCK)}
+    ok_hnsw = (rec["hnsw_launches"] == want
+               and rec["hnsw_c_kernel"].split("+")[0]
+               == "fold_mma_kernel<f32>"
+               and rec["hnsw_split"].get("mode") == "knn"
+               and rec["hnsw_recall_ef128"] >= HNSW_RECALL
+               and rec["hnsw_round_trip"])
+    cfg = RetrievalConfig(backend="ivfpq", index_path="",
+                          ivfpq_nlist=IVFPQ_NLIST, ivfpq_m=IVFPQ_M,
+                          ivfpq_nbits=IVFPQ_NBITS, ivfpq_build="auto",
+                          ivfpq_train_iters=IVFPQ_ITERS, ivfpq_refine=8)
+    r = ANNRetriever(cfg, "ivfpq", device="cuda")
+    ft.reset_launches()
+    t0 = time.perf_counter()
+    r.build(corpus, texts)
+    rec["ivfpq_build_s"] = time.perf_counter() - t0
+    rec["ivfpq_split"] = r.build_split
+    rec["ivfpq_launches"] = {k: v for k, v in ft.launches.items() if v}
+    for nprobe in (32, 64):
+        t0 = time.perf_counter()
+        _, ids = r._index.search(queries, 10, nprobe=nprobe)
+        wall = time.perf_counter() - t0
+        rec[f"ivfpq_recall_np{nprobe}"] = ann_recall(ids, true)
+        rec[f"ivfpq_qps_np{nprobe}"] = ANN_QUERIES / wall
+    r.cfg = dataclasses.replace(r.cfg, ivfpq_nprobe=64)
+    for refine in (4, 8):
+        r._refine = refine
+        _, ids, wall = timed_search(r, queries)
+        rec[f"ivfpq_recall_np64_refine{refine}"] = ann_recall(ids, true)
+        rec[f"ivfpq_qps_np64_refine{refine}"] = ANN_QUERIES / wall
+    del r
+    ok_ivfpq = (rec["ivfpq_split"].get("mode") == "device"
+                and rec["ivfpq_recall_np64_refine8"] >= IVFPQ_RECALL)
+    rec.update(phase_s=time.perf_counter() - t_phase, ok_hnsw=ok_hnsw,
+               ok_ivfpq=ok_ivfpq)
+    record("ann_tiers", card=card_line(), **rec)
+    if not (ok_hnsw and ok_ivfpq):
+        failures.append(f"the 1M ANN tiers: {rec}")
+    return launches["fold"]
+
+
+def ann_overrides(workdir: str, backend: str) -> list:
+    """The main path's fp32 config with the ANN ``backend``, its store at
+    ``<workdir>/index_<backend>`` (files ``index_<backend>.<backend>*``)."""
+    return [f"retrieval.backend={backend}",
+            f"retrieval.index_path={workdir}/index_{backend}"]
+
+
+def check_ann_main(torch, failures: list, workdir: str, oracle: dict) -> int:
+    """Phase 3n: ``main --set retrieval.backend=hnsw`` and ``ivfpq`` over
+    the main path (MiniLM-L6 bf16, 384->512->64 VAE, 1997 contexts), each
+    run twice: the second run logs "<kind> index loaded from" and returns
+    the first run's doc ids; the cold HNSW build launches the fp32 fold
+    once (its k-NN stage) and the warm one nothing. Doc ids against the
+    fp32 ``xla_exact`` oracle ``oracle`` are reported at the default efS
+    (HNSW) and nprobe (IVF-PQ); a third HNSW run on the same store at efS
+    2048 (>= N) must agree on >= 0.95 of slots. Then the JSONL server over a copy of the HNSW store: a
+    search, a filtered search, an add found top-1, and the "remove" and
+    "nprobe" refusals. Returns the cold HNSW run's fold launches."""
+    from latentrag_torch.ops import fused_topk as ft
+
+    t_phase = time.perf_counter()
+    rec: dict = {}
+    fold = 0
+    for backend in ("hnsw", "ivfpq"):
+        runs = []
+        for _ in range(2):
+            ft.reset_launches()
+            res = run_main(torch, workdir, "auto", "float32",
+                           extra=ann_overrides(workdir, backend))
+            runs.append((res, {k: v for k, v in ft.launches.items() if v}))
+        (cold, cold_l), (warm, warm_l) = runs
+        loaded = [x for x in warm["retrieval_log"]
+                  if x.startswith(f"{backend} index loaded from")]
+        r = {"launches": [cold_l, warm_l],
+             "timings_s": [cold["timings"], warm["timings"]],
+             "metrics": {m: v["mean"]
+                         for m, v in cold["retrieval_metrics"].items()},
+             "warm_loaded": bool(loaded) and not any(
+                 x.startswith(f"{backend} index loaded from")
+                 for x in cold["retrieval_log"]),
+             "same_doc_ids": warm["retrieved_doc_ids"]
+             == cold["retrieved_doc_ids"],
+             "oracle_agreement": slot_agreement(
+                 cold["retrieved_doc_ids"], oracle["retrieved_doc_ids"]),
+             "oracle_recall": sum(
+                 len(set(a) & set(b)) for a, b in zip(
+                     cold["retrieved_doc_ids"], oracle["retrieved_doc_ids"]))
+             / max(sum(len(b) for b in oracle["retrieved_doc_ids"]), 1)}
+        ok = r["warm_loaded"] and r["same_doc_ids"] and not warm_l
+        if backend == "hnsw":
+            fold = cold_l.get("fold", 0)
+            wide = run_main(torch, workdir, "auto", "float32",
+                            extra=ann_overrides(workdir, backend) + [
+                                f"retrieval.hnsw_ef_search={ANN_MAIN_EF_ALL}"])
+            r["oracle_agreement_ef_all"] = slot_agreement(
+                wide["retrieved_doc_ids"], oracle["retrieved_doc_ids"])
+            ok = ok and cold_l == {"fold": 1} and (
+                r["oracle_agreement_ef_all"] >= ANN_MAIN_AGREE)
+        else:
+            ok = ok and not cold_l
+        r["ok"] = ok
+        rec[backend] = r
+        if not ok:
+            failures.append(f"the {backend} main path: {r}")
+    rec["serve"] = check_ann_serve(failures, workdir)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    record("ann_main_path", card=card_line(), **rec)
+    return fold
+
+
+def check_ann_serve(failures: list, workdir: str) -> dict:
+    """Phase 3n's server: ``python -m latentrag_torch.serve`` warm-booted
+    from a copy of the HNSW main path's store, over JSONL."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    index = f"{workdir}/serve_hnsw/index_hnsw"
+    os.makedirs(os.path.dirname(index), exist_ok=True)
+    for name in os.listdir(workdir):
+        if name.startswith("index_hnsw."):
+            shutil.copy(f"{workdir}/{name}", os.path.dirname(index))
+    overrides = main_overrides(workdir, "auto", "float32") + [
+        "retrieval.backend=hnsw", f"retrieval.index_path={index}",
+        "logging.level=INFO"]
+    query = eval_queries(1)[0]
+    added = "zzqx a freshly added note about quasars"
+    lines = [json.dumps({"query": query, "k": SERVE_K}),
+             json.dumps({"query": query, "k": SERVE_K,
+                         "filter": {"doc_ids": [0, 5, 7, 11]}}),
+             json.dumps({"add": {"texts": [added], "doc_ids": [90001]}}),
+             json.dumps({"query": added, "k": 3}),
+             json.dumps({"remove": {"doc_ids": [90001]}}),
+             json.dumps({"query": query, "nprobe": 8}),
+             json.dumps({"stats": True})]
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "latentrag_torch.serve", "--device", "cuda",
+         "--ae_type", "vae", "--set", *overrides],
+        input="".join(x + "\n" for x in lines), capture_output=True,
+        text=True, timeout=600, cwd=root)
+    rec = {"rc": out.returncode, "wall_s": time.perf_counter() - t0,
+           "stderr_tail": out.stderr[-600:]}
+    try:
+        resp = [json.loads(x) for x in out.stdout.splitlines() if x.strip()]
+    except ValueError:
+        resp = []
+    ok = out.returncode == 0 and len(resp) == len(lines)
+    if ok:
+        hits = [resp[i].get("results", [{}])[0].get("hits", [])
+                for i in (0, 1, 3)]
+        rec.update(hits=[len(h) for h in hits],
+                   filtered_ids=[h["doc_id"] for h in hits[1]],
+                   added_top1=hits[2][0]["doc_id"] if hits[2] else None,
+                   remove_error=resp[4].get("error"),
+                   nprobe_error=resp[5].get("error"),
+                   boot=resp[6].get("boot"), n_docs=resp[6].get("n_docs"))
+        ok = (rec["hits"][0] == SERVE_K
+              and set(rec["filtered_ids"]) <= {0, 5, 7, 11}
+              and len(rec["filtered_ids"]) == 4
+              and rec["added_top1"] == 90001
+              and "does not support remove" in (rec["remove_error"] or "")
+              and rec["nprobe_error"] == (
+                  'ValueError: "nprobe" requires the dense backend with '
+                  "retrieval.ivf_nlist > 0 (the device IVF tier)")
+              and rec["boot"] == "warm"
+              and "hnsw index warm-loaded from" in out.stderr)
+    rec["ok"] = ok
+    if not ok:
+        failures.append(f"the HNSW server: {rec}")
+    return rec
+
+
 # ------------------------------------------------------------ phase 3h
 
 SERVE_REQUESTS = 1024
@@ -3541,6 +3969,7 @@ def main() -> int:
     worst.update(check_masked_kernels(torch, failures))
     worst.update(check_quantized_kernels(torch, failures))
     worst.update(check_ivf_scan(torch, failures))
+    worst["fold_fp32_knn"] = check_knn_fold(torch, failures)  # phase 2f
     if failures:
         fail("; ".join(failures[:5]))
     # the bf16 main path's data and stores outlive it: phase 3h serves them
@@ -3557,7 +3986,7 @@ def main() -> int:
     launches["fold_masked"] = filtered["fold"]
     launches["exact_masked"] = filtered["exact"]
     # the same runs over an fp32 store: its kernels' main path
-    launches32, _, launches32_150, filtered32 = check_main_path(
+    launches32, oracle32, launches32_150, filtered32 = check_main_path(
         torch, failures, worst.pop("main_exact_kernel_float32"), "float32")
     if failures:
         fail("; ".join(failures))
@@ -3609,6 +4038,7 @@ def main() -> int:
     if failures:
         fail("; ".join(failures))
     times = time_kernels(torch)
+    knn_time = time_knn_fold(torch)
     times.update(time_binary(torch))
     masked_times = time_masked(torch)
     quant_times = time_quantized(torch)
@@ -3619,6 +4049,14 @@ def main() -> int:
         fail("; ".join(failures))
     # phase 3l: the 3k store served with per-request probe budgets
     ivf_serve_launches = check_ivf_serving(torch, failures, main_wd)
+    if failures:
+        fail("; ".join(failures))
+    # phases 3m and 3n: the ANN tiers at 1M, then through main and serve;
+    # each drive's fold launches read with the counts set to 0 before it
+    knn_launches = check_ann_tiers(torch, failures)
+    if failures:
+        fail("; ".join(failures))
+    knn_main_launches = check_ann_main(torch, failures, main_wd, oracle32)
     if failures:
         fail("; ".join(failures))
 
@@ -3763,6 +4201,25 @@ def main() -> int:
             "case", "Q", "nprobe", "probed_blocks", "ms", "device_ms",
             "plain_ms", "library_ms", "bound_ms", "search_ms",
             "exhaustive_search_ms")} for r in ivf["times"].values()],
+    })
+    # the fp32 fold's list-of-128 instance as the HNSW build runs it
+    # (phase 2f at 4096 x 1M; launches: the 1M build of 3m and the cold
+    # main run of 3n)
+    t = knn_time
+    kernels.append({
+        "name": "fused_topk_fold_fp32_knn",
+        "route": "cuda",
+        "source": "latentrag_torch/csrc/fold_mma.cuh",
+        "replaces": "latentrag_tpu/ops/pallas_topk.py:162",
+        "launches": knn_launches,
+        "main_launches": knn_main_launches,
+        "max_abs_err": worst["fold_fp32_knn"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],
+        "shape": f"Q={t['Q']} N={t['N']} d={ANN_D} k={t['k']} "
+                 f"block_n={t['block_n']} fp32 cosine (knn_graph's block)",
+        "resources": t["resources"],
     })
     if "jax" in sys.modules:
         fail("jax was imported")

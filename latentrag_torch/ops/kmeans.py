@@ -1,7 +1,10 @@
 """Lloyd's k-means on the device: the device IVF's coarse quantizer.
 
-The port of the JAX package's ``ops/kmeans.py`` (``kmeans`` and
-``assign_clusters``; the IVF-PQ assists there belong to the ANN tiers).
+The port of the JAX package's ``ops/kmeans.py``: ``kmeans`` and
+``assign_clusters`` (the device IVF's), and the IVF-PQ tier's device
+assists ``pq_encode``, ``ivfpq_train_device`` and ``ivfpq_encode_device``,
+whose parameters and codes the C++ index takes as they are
+(``retrieval.ann.IVFPQIndex.set_trained`` / ``add_encoded``).
 Plain L2 Lloyd's: a row's list is ``argmax(x . c - |c|^2 / 2)`` (the |x|^2
 term does not change the ranking), empty clusters are re-seeded from
 random rows, and rows are scored in blocks so that no [N, k] score matrix
@@ -13,9 +16,11 @@ assigned to on well-separated data:
 
 * random numbers come from a ``torch.Generator`` on the CPU seeded from
   ``seed`` (the same numbers on every device), not from ``jax.random``, so
-  the initial centroids differ from the JAX package's for the same seed;
-  ``kmeans_init`` draws them and ``lloyd`` iterates from any given start,
-  so a test can start the port from the JAX package's own init;
+  the initial centroids differ from the JAX package's for the same seed
+  (PQ sub-quantizer s takes ``seed + 1000 + s``, where the JAX package
+  folds ``1000 + s`` into its key); ``kmeans_init`` draws them and
+  ``lloyd`` iterates from any given start, so a test can start the port
+  from the JAX package's own init;
 * the update sums each cluster's rows with ``index_add_`` in place of the
   JAX package's one-hot product (at 8.8M rows and 8192 lists a
   [block, k + 1] one-hot is 4.3 GB a block). The sums run in another
@@ -31,7 +36,10 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
+
+from ..utils.device import resolve_device
 
 
 @contextlib.contextmanager
@@ -124,4 +132,78 @@ def assign_clusters(
             xb = x[base : base + block_size].float()
             out[base : base + xb.shape[0]] = _argmax_l2(xb, c, c_half).to(
                 torch.int32)
+    return out
+
+
+def _on_device(x, device) -> torch.Tensor:
+    """``x`` (numpy or a tensor) as a tensor on ``device`` (default: a
+    tensor's own device, numpy to ``cuda``)."""
+    if isinstance(x, torch.Tensor):
+        return x if device is None else x.to(device)
+    return torch.tensor(np.asarray(x), device=resolve_device(
+        device if device is not None else "cuda"))
+
+
+def ivfpq_train_device(
+    x,
+    nlist: int,
+    m: int,
+    *,
+    ksub: int = 256,
+    iters: int = 15,
+    seed: int = 0,
+    block_size: int = 131072,
+    device=None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """IVF-PQ parameters trained on the device: (coarse [nlist, d],
+    codebooks [m, ksub, d / m]) as host float32, for
+    ``IVFPQIndex.set_trained``. L2 Lloyd's for the coarse quantizer, then
+    L2 Lloyd's in each subspace over the residuals of every row to its
+    nearest list, as the C++ trainer does."""
+    x = _on_device(x, device)
+    dsub = x.shape[1] // m
+    coarse = kmeans(x, nlist, iters=iters, seed=seed, block_size=block_size)
+    assigns = assign_clusters(x, coarse, block_size=block_size)
+    resid = x.float() - coarse[assigns.long()]
+    books = [
+        kmeans(resid[:, s * dsub : (s + 1) * dsub].contiguous(), ksub,
+               iters=iters, seed=seed + 1000 + s, block_size=block_size)
+        for s in range(m)
+    ]
+    return coarse.cpu().numpy(), torch.stack(books).cpu().numpy()
+
+
+def ivfpq_encode_device(x, coarse, codebooks, *, block_size: int = 131072,
+                        device=None) -> tuple[np.ndarray, np.ndarray]:
+    """Each row's list and PQ codes on the device: (assigns [n] int32,
+    codes [n, m] uint8) as host arrays, for ``IVFPQIndex.add_encoded``."""
+    x = _on_device(x, device)
+    coarse = _on_device(coarse, x.device).float()
+    cb = _on_device(codebooks, x.device)
+    assigns = assign_clusters(x, coarse, block_size=block_size)
+    resid = x.float() - coarse[assigns.long()]
+    codes = pq_encode(resid, cb, m=int(cb.shape[0]),
+                      block_size=min(block_size, 32768))
+    return assigns.cpu().numpy(), codes.cpu().numpy()
+
+
+def pq_encode(resid: torch.Tensor, codebooks: torch.Tensor, *, m: int,
+              block_size: int = 32768) -> torch.Tensor:
+    """[n, m] uint8 PQ codes: each subspace's nearest codebook entry (L2).
+
+    ``resid`` is [n, d] residuals (row minus its list's centroid),
+    ``codebooks`` [m, ksub, d / m], the C++ index's layout. Rows go in
+    blocks: an unblocked [n, m, ksub] score tensor is ~16 GB fp32 at 1M
+    rows, 16 subspaces and 256 entries."""
+    n, d = resid.shape
+    dsub = d // m
+    cb = codebooks.float().to(resid.device)
+    half_norm = 0.5 * torch.sum(cb * cb, dim=2)  # [m, ksub]
+    out = torch.empty((n, m), dtype=torch.uint8, device=resid.device)
+    with _full_fp32():
+        for base in range(0, n, block_size):
+            rb = resid[base : base + block_size].float().reshape(-1, m, dsub)
+            scores = torch.einsum("nmd,mkd->nmk", rb, cb) - half_norm[None]
+            out[base : base + rb.shape[0]] = torch.argmax(scores, dim=2).to(
+                torch.uint8)
     return out

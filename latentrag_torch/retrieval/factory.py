@@ -1,5 +1,5 @@
-"""Retriever factory: the dense / bruteforce branch of the JAX package's
-``retrieval/factory.py``."""
+"""Retriever factory: the JAX package's ``retrieval/factory.py`` for the
+dense / bruteforce backends and the C++ ANN tiers (hnsw / ivfpq)."""
 
 from __future__ import annotations
 
@@ -9,12 +9,15 @@ from typing import Sequence
 import torch
 
 from ..utils.config import RetrievalConfig
+from .ann_retriever import ANNRetriever
 from .dense import DenseRetriever, make_fingerprint
 
 log = logging.getLogger("latentrag_torch.retrieval")
 
 # backends whose index consumes device tensors straight from the encoder
 DEVICE_BACKENDS = ("dense", "bruteforce")
+# the C++ tiers: host numpy in, searched on the host
+ANN_BACKENDS = ("hnsw", "ivfpq")
 
 
 def _make_dense(cfg: RetrievalConfig, device) -> DenseRetriever:
@@ -23,7 +26,7 @@ def _make_dense(cfg: RetrievalConfig, device) -> DenseRetriever:
     if cfg.backend not in DEVICE_BACKENDS:
         raise NotImplementedError(
             f"retrieval.backend={cfg.backend!r} is not ported yet (ROADMAP "
-            "queue 1: bm25 in item 24, hnsw/ivfpq in item 18)"
+            "queue 1: bm25 in item 24)"
         )
     if cfg.shard_corpus:
         # one device holds the whole corpus, as the JAX package serves the
@@ -66,12 +69,19 @@ def build_retriever(
     latent_dim: int | None = None,
     chunking: dict | None = None,
     metadata: Sequence[dict] | None = None,
-) -> DenseRetriever:
-    """Config-driven dense retriever construction + build. The fingerprint
+) -> DenseRetriever | ANNRetriever:
+    """Config-driven retriever construction + build. The fingerprint
     carries the full provenance, so a store persisted at
     ``cfg.index_path`` is reused only by a run with the same encoder, AE,
     chunking, metric and corpus. ``metadata`` (row-aligned dicts) enables
-    ``search(..., filter={"where": ...})``."""
+    ``search(..., filter={"where": ...})``. ``hnsw`` / ``ivfpq`` build the
+    C++ ANN tiers (``ANNRetriever``; their device builds on ``device``)."""
+    if cfg.backend in ANN_BACKENDS:
+        ann = ANNRetriever(cfg, cfg.backend, device=device)
+        ann.build(embeddings, texts, doc_ids,
+                  embedding_model=embedding_model, ae_type=ae_type,
+                  metadata=metadata)
+        return ann
     return _dense_retriever(
         cfg, embeddings, texts, doc_ids, device=device,
         embedding_model=embedding_model, ae_type=ae_type,
@@ -80,7 +90,7 @@ def build_retriever(
 
 
 def load_retriever(cfg: RetrievalConfig, *, device="cuda",
-                   expect: dict | None = None) -> DenseRetriever | None:
+                   expect: dict | None = None):
     """Warm boot: a retriever from the store persisted at
     ``cfg.index_path`` alone, with no embeddings and no encode. Returns
     None when no valid store is there, or when its provenance contradicts
@@ -89,6 +99,9 @@ def load_retriever(cfg: RetrievalConfig, *, device="cuda",
     matches anything); callers then take ``build_retriever``."""
     if not cfg.index_path:
         return None
+    if cfg.backend in ANN_BACKENDS:
+        ann = ANNRetriever(cfg, cfg.backend, device=device)
+        return ann if ann.load_persisted(expect=expect) else None
     retriever = _make_dense(cfg, device)
     if not retriever.is_built:
         return None

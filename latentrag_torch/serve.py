@@ -28,8 +28,8 @@ Protocol:
                                                / where: retrieval.filtering)
   {"add": {"texts": ["..."], "doc_ids": [..],
            "metadata": [{...}, ...]}}       -> incremental index growth
-  {"remove": {"doc_ids": [..]}}             -> drop docs (survivors'
-                                               scores unchanged)
+  {"remove": {"doc_ids": [..]}}             -> drop docs (dense tiers;
+                                               survivors' scores unchanged)
   {"query": "...", "nprobe": 64}            -> the device IVF's probe
                                                budget for this search
                                                (retrieval.ivf_nlist > 0)
@@ -39,6 +39,10 @@ Protocol:
 Not served yet, as in the rest of the port: ``"generate": true`` is ignored, as
 the JAX server ignores it when not started with ``--generate``, and
 ``--generate`` raises (item 24); ``retrieval.rerank`` raises (item 19).
+
+``retrieval.backend=hnsw|ivfpq`` serves the C++ ANN tiers (their
+searches, filters and adds on the host; ``"nprobe"`` and ``remove`` are
+refused there with the JAX server's texts).
 
 Boot modes: when ``retrieval.index_path`` holds a loadable persisted
 index (written by the port or by the JAX package), the server WARM-boots
@@ -69,7 +73,7 @@ import time
 from .data import get_examples, load_evaluation_data
 from .models.encoder.minilm import _bucket_batch
 from .pipeline import PipelineRunner
-from .retrieval import build_retriever, load_retriever
+from .retrieval import DEVICE_BACKENDS, build_retriever, load_retriever
 from .retrieval.filtering import canonical_filter_key
 from .serving import MicroBatcher
 from .utils import apply_overrides, canonical_ae_type, init_logger, load_config
@@ -109,8 +113,11 @@ def boot(cfg, args, loggers):
 
     _, corpus, _ = load_evaluation_data(get_examples(cfg))
     compressor = runner._ensure_compressor(corpus)
+    corpus_emb = compressor.encode_text(corpus)
+    if cfg.retrieval.backend not in DEVICE_BACKENDS:
+        corpus_emb = corpus_emb.cpu().numpy()  # the C++ tiers read numpy
     retriever = build_retriever(
-        compressor.encode_text(corpus), corpus, None, cfg.retrieval,
+        corpus_emb, corpus, None, cfg.retrieval,
         device=runner.device,
         embedding_model=cfg.encoder.name,
         ae_type=ae,
@@ -144,7 +151,7 @@ def make_handle(cfg, args, runner, compressor, retriever, mode):
         ).parameters:
             raise ValueError(
                 f"{type(retriever).__name__} does not support filtered "
-                "search"
+                'search; use backend "dense", "hnsw" or "ivfpq"'
             )
         nprobe = req.get("nprobe")
         if nprobe is not None:
@@ -260,6 +267,11 @@ def make_handle(cfg, args, runner, compressor, retriever, mode):
             ids = spec.get("doc_ids") if isinstance(spec, dict) else spec
             if not isinstance(ids, list) or not ids:
                 raise ValueError('"remove.doc_ids" must be a non-empty list')
+            if not hasattr(retriever, "remove"):
+                raise ValueError(
+                    f"{type(retriever).__name__} does not support remove; "
+                    "rebuild the index without those docs"
+                )
             t0 = time.perf_counter()
             removed = retriever.remove(ids)
             return {

@@ -1177,3 +1177,100 @@ def test_ivf_store_on_card(cuda, store, tmp_path):
     s2, i2 = r2.search(q, 10, nprobe=16)
     assert r2._ivf_build_info["restored"] is True
     np.testing.assert_array_equal(i2, i)
+
+
+# ------------------------------------------------------------ the ANN tiers
+
+def _lowrank_rows(n, d, seed):
+    """Unit rows near a d/4-rank subspace (noise 0.05), numpy."""
+    rng = np.random.default_rng(seed)
+    rank = max(d // 4, 8)
+    g = rng.standard_normal((n, rank)).astype(np.float32)
+    proj = rng.standard_normal((rank, d)).astype(np.float32)
+    x = g @ proj + 0.05 * rng.standard_normal((n, d)).astype(np.float32)
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [9000, 1997])
+def test_knn_graph_runs_the_fp32_fold(cuda, n):
+    """The k-NN stage of the HNSW build on the card: one fp32 fold launch
+    a 4096-row query block at k + 1 = 65 (128 candidates), lists against
+    the plain exact ones by neighbour recall."""
+    from latentrag_torch.ops import knn
+
+    c = _lowrank_rows(n, 64, 3)
+    ft.reset_launches()
+    ids = knn.knn_graph(c, 64, metric="cosine", device="cuda")
+    assert ft.launches == _counts(fold=-(-n // 4096))
+    assert ft.last_kernel.split("+")[0] == "fold_mma_kernel<f32>"
+    want = knn.knn_graph(c, 64, metric="cosine", exact=True, device="cuda")
+    hits = (ids[:, :, None] == want[:, None, :]).any(-1)
+    assert hits.mean() >= 0.95
+    assert (ids != np.arange(n)[:, None]).all() and (ids >= 0).all()
+
+
+def test_hnsw_auto_build_on_card(cuda):
+    """``hnsw_build=auto`` on CUDA is the knn build; recall of the graph
+    against the exact search."""
+    from latentrag_torch.retrieval.ann_retriever import ANNRetriever
+    from latentrag_torch.utils.config import RetrievalConfig
+
+    c = _lowrank_rows(10_000, 64, 4)
+    q = _lowrank_rows(64, 64, 5)
+    r = ANNRetriever(RetrievalConfig(backend="hnsw", index_path="",
+                                     hnsw_m=16, hnsw_ef_search=128),
+                     "hnsw", device="cuda")
+    ft.reset_launches()
+    r.build(c, [""] * 10_000)
+    assert r.build_split["mode"] == "knn"
+    assert ft.launches == _counts(fold=3)
+    _, got = r.search(q, 10)
+    true = np.argsort(-(q @ c.T), axis=1)[:, :10]
+    recall = np.mean([len(set(got[i]) & set(true[i])) / 10
+                      for i in range(64)])
+    assert recall >= 0.95
+
+
+def test_ivfpq_device_build_on_card(cuda):
+    """``ivfpq_build=auto`` on CUDA trains and encodes on the card; given
+    the card's parameters, the CPU encoder gives the same lists and codes
+    but at fp32 near-ties."""
+    from latentrag_torch.ops import kmeans as tkm
+    from latentrag_torch.retrieval.ann_retriever import ANNRetriever
+    from latentrag_torch.utils.config import RetrievalConfig
+
+    x = _lowrank_rows(20_000, 64, 6)
+    coarse, books = tkm.ivfpq_train_device(x, 128, 16, iters=8,
+                                           device="cuda")
+    a_card, c_card = tkm.ivfpq_encode_device(x, coarse, books, device="cuda")
+    a_cpu, c_cpu = tkm.ivfpq_encode_device(x, coarse, books, device="cpu")
+    assert np.mean(a_card == a_cpu) >= 0.999
+    assert np.mean(c_card == c_cpu) >= 0.999
+    r = ANNRetriever(RetrievalConfig(backend="ivfpq", index_path="",
+                                     ivfpq_nlist=128, ivfpq_nprobe=32,
+                                     ivfpq_refine=8),
+                     "ivfpq", device="cuda")
+    r.build(x, [""] * 20_000)
+    assert r.build_split["mode"] == "device"
+    q = _lowrank_rows(64, 64, 7)
+    _, got = r.search(q, 10)
+    true = np.argsort(-(q @ x.T), axis=1)[:, :10]
+    assert np.mean([len(set(got[i]) & set(true[i])) / 10
+                    for i in range(64)]) >= 0.9
+
+
+def test_ann_device_builds_never_fall_back(cuda, monkeypatch):
+    """A kernel that cannot launch fails the build; nothing drops to the
+    beam build or the plain fold."""
+    from latentrag_torch.retrieval.ann_retriever import ANNRetriever
+    from latentrag_torch.utils.config import RetrievalConfig
+
+    def broken(*a, **k):
+        raise RuntimeError("fold kernel unavailable")
+
+    monkeypatch.setattr(ft, "_fold_mma", broken)
+    r = ANNRetriever(RetrievalConfig(backend="hnsw", index_path=""),
+                     "hnsw", device="cuda")
+    with pytest.raises(RuntimeError, match="fold kernel unavailable"):
+        r.build(_lowrank_rows(500, 64, 8), [""] * 500)
+    assert not r.is_built

@@ -87,6 +87,39 @@ def test_pipeline_end_to_end_matches_jax(tmp_path):
     assert os.path.exists(f"{base}/logs/benchmarks/experiments.csv")
 
 
+@pytest.mark.parametrize("backend", ["hnsw", "ivfpq"])
+def test_ann_pipeline_matches_jax_and_warm_boots(tmp_path, capsys, backend):
+    """``retrieval.backend=hnsw|ivfpq`` through ``main`` on the CPU (the
+    beam and host builds): the JAX pipeline's doc ids; a second run on the
+    same store loads it instead of building."""
+    base = str(tmp_path)
+    ov = _overrides(base) + [f"retrieval.backend={backend}"]
+    queries, corpus, relevant = load_evaluation_data(synthetic_examples(60))
+    torch.manual_seed(5)
+    torch.save(VariationalAutoencoder(32, 8, 16).state_dict(),
+               f"{base}/vae.pth")
+    cfg_j = jax_overrides(JaxConfig(), ov + [
+        f"retrieval.index_path={base}/jax_index"])
+    tok = resolve_tokenizer(cfg_j.paths.data_dir, 800, corpus)
+    save_params(JaxEncoder(tok, cfg_j.encoder, seed=11).params,
+                f"{base}/ckpt/encoder.msgpack")
+    want = JaxRunner(cfg_j, ae_type="vae").process(queries, corpus, relevant)
+    runs = []
+    for _ in range(2):
+        results = []
+        capsys.readouterr()
+        assert torch_main.main(["--ae_type", "vae", "--device", "cpu",
+                                "--set", *ov], results=results) == 0
+        logged = capsys.readouterr()  # main logs to stdout
+        runs.append((results[0], logged.out + logged.err))
+    (cold, cold_log), (warm, warm_log) = runs
+    assert cold["retrieved_doc_ids"] == want["retrieved_doc_ids"]
+    assert f"{backend} index loaded from" not in cold_log
+    assert f"{backend} index loaded from" in warm_log
+    assert warm["retrieved_doc_ids"] == cold["retrieved_doc_ids"]
+    assert os.path.exists(f"{base}/index.{backend}.meta.json")
+
+
 @pytest.mark.parametrize("metric", ["cosine", "euclidean", "mahalanobis"])
 @pytest.mark.parametrize("store", ["float32", "bfloat16"])
 def test_dense_retriever_matches_jax(rng, metric, store):
@@ -118,16 +151,12 @@ def test_every_backend_runs_on_cpu(rng, backend):
 
 
 def test_unported_options_raise(rng):
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(NotImplementedError, match="item 24"):
         build_retriever(np.zeros((2, 4), np.float32), ["a", "b"], None,
-                        apply_overrides(Config(), ["retrieval.backend=ivfpq"])
+                        apply_overrides(Config(), ["retrieval.backend=bm25"])
                         .retrieval, device="cpu")
     with pytest.raises(ValueError):
         DenseRetriever(backend="faiss", device="cpu")
-    cfg = apply_overrides(Config(), ["retrieval.backend=hnsw"])
-    with pytest.raises(NotImplementedError):
-        build_retriever(np.zeros((2, 4), np.float32), ["a", "b"], None,
-                        cfg.retrieval, device="cpu")
     with pytest.raises(NotImplementedError):
         PipelineRunner(apply_overrides(Config(), ["chunking.enabled=true"]),
                        device="cpu")

@@ -191,6 +191,58 @@ def test_jsonl_stream_matches_jax(env, capsys, store, kernel):
     assert got[7]["removed"] == 1 and got[4]["added"] == 2
 
 
+@pytest.mark.parametrize("backend", ["hnsw", "ivfpq"])
+def test_ann_jsonl_stream_matches_jax(env, capsys, backend):
+    """An ANN store the port cold-boots and persists, warm-booted by the
+    JAX server and the port's from copies: the same stream, line for line
+    (filters, an add with metadata, the refusals of "remove" and
+    "nprobe" in the JAX server's words)."""
+    cold = f"{env.base}/cold_{backend}"
+    extra = [f"retrieval.backend={backend}"]
+    if not os.path.exists(cold):
+        _port(env, f"{cold}/ix", [], capsys, extra=extra)
+    assert os.path.exists(f"{cold}/ix.{backend}.meta.json")
+    copies = {}
+    for side in ("jax", "port"):
+        copies[side] = f"{env.base}/{backend}_{side}"
+        shutil.rmtree(copies[side], ignore_errors=True)
+        shutil.copytree(cold, copies[side])
+    payload = _stream(env)
+    want = _run(jax_serve.main,
+                ["--ae_type", "vae", "--set",
+                 *_overrides(env.base, f"{copies['jax']}/ix"), *extra],
+                payload, capsys)
+    got = _port(env, f"{copies['port']}/ix", payload, capsys, extra=extra)
+    assert len(got) == len(want) == len(payload)
+    for line, g, w in zip(payload, got, want):
+        if "error" in w:
+            assert "error" in g, (line, g)
+            if "nprobe" in line or "remove" in line:
+                assert g["error"] == w["error"], (line, g, w)
+            continue
+        assert "error" not in g, (line, g)
+        if "results" in w:
+            for rg, rw in zip(g["results"], w["results"]):
+                assert [h["doc_id"] for h in rg["hits"]] == [
+                    h["doc_id"] for h in rw["hits"]], line
+                np.testing.assert_allclose(
+                    [h["score"] for h in rg["hits"]],
+                    [h["score"] for h in rw["hits"]], atol=1e-5)
+        elif "stats" in w:
+            for key in ("n_docs", "boot", "ae_type", "dim"):
+                assert g[key] == w[key], key
+            assert g["boot"] == "warm"
+        else:
+            for key in ("added", "n_total"):
+                assert g.get(key) == w.get(key), (line, key)
+    assert got[4]["added"] == 2
+    assert got[5]["results"][0]["hits"][0]["doc_id"] == 900
+    assert "does not support remove" in got[7]["error"]
+    assert got[11]["error"] == ('ValueError: "nprobe" requires the dense '
+                                "backend with retrieval.ivf_nlist > 0 (the "
+                                "device IVF tier)")
+
+
 def _with_ivf_sidecar(path, nlist=4, cap=8, estimate=0.912345):
     """Give a persisted store IVF sidecars and their meta.json entries, as
     a save of an IVF store writes them (the rows' lists all 0)."""
