@@ -68,7 +68,9 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    ``knn_graph`` asks for at k + 1 = 65: tile 4096, 128 candidates, the
    list-of-128 instance ``fold_mma_kernel<f32>``) to its plain version
    with phase 2's fold limits, and that block's ``knn_graph`` lists to the
-   plain exact lists (neighbour recall >= 0.95);
+   plain exact lists (neighbour recall >= 0.95); the same at the main
+   path's size, its first 1997 rows over themselves (tile 128: every row
+   a lane winner, 16 slabs merged);
 3. drives the main path through ``latentrag_torch.main.main`` at the full
    MiniLM-L6 width in bf16 with a seeded 384->512->64 VAE: synthetic data,
    2000 queries, a bf16 cosine store, top_k=10, kernel=auto; checks that the
@@ -218,8 +220,15 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
 3n. ``main --set retrieval.backend=hnsw`` and ``ivfpq`` on the main path
    (fp32 rows), each twice: the second run loads the first one's store
    and returns its doc ids, the cold HNSW run launches the fold once and
-   the warm one nothing; HNSW doc ids against the fp32 ``xla_exact``
-   oracle >= 0.95 of slots (IVF-PQ's reported); then ``python -m
+   the warm one nothing; on the cold HNSW run's own latents, the fold at
+   its plan (Q = N = 1997, tile 128, 128 candidates) against its plain
+   version (candidate sets >= 0.999; slots reported beside the plain
+   fold's own match under another fp32 sum order), its k-NN lists vs
+   exact (>= 0.95), and one-thread graphs from the fold's lists, from
+   exact lists and by the beam build: the fold's lists may cost the
+   graph <= 0.005 of Recall@10 at efS 64; the run's docs hold >= 0.70 of
+   the fp32 ``xla_exact`` oracle's (by set) and, at efS 2048 (>= N),
+   >= 0.95 by slot (IVF-PQ's reported); then ``python -m
    latentrag_torch.serve`` over a copy of the HNSW store: a search, a
    filtered search, an add found top-1, and the refusals of "remove" and
    "nprobe" (the JAX server's text);
@@ -2988,15 +2997,25 @@ ANN_D = 64
 ANN_QUERIES = 1024  # held-out queries from the corpus's manifold
 ANN_M, ANN_EFC, ANN_KNN_K = 32, 200, 64  # the JAX package's operating point
 ANN_QUERY_BLOCK = 4096  # knn_graph's query rows a fold launch
+ANN_MAIN_ROWS = 1997  # the main path's contexts: its k-NN stage's one block
 KNN_RECALL = 0.95  # one block's lists vs the plain exact lists
 HNSW_RECALL = 0.98  # Recall@10 at efS 128 vs the exact search
 IVFPQ_NLIST, IVFPQ_M, IVFPQ_NBITS, IVFPQ_ITERS = 4096, 16, 8, 15
 IVFPQ_RECALL = 0.95  # Recall@10 at nprobe 64, refine 8
-# HNSW main path's doc ids vs xla_exact, by slot, at efS >= N (the beam
-# reaches every linked row). At the default efS 64 the k-NN-assembled
-# graph over the main path's near-collinear latents (pairwise cosine
-# 0.984-0.9998) finds ~0.72 of the exact top 10, from the fold's lists or
-# from exact ones alike, so there the agreement is reported only
+# The HNSW main path (3n). Its latents are near-collinear (pairwise
+# cosine 0.984-0.9998) and its queries lie off the rows' cap; there the
+# k-NN-assembled graph of the shared C++ finds 0.7223 of the exact top 10
+# at the default efS 64 from exact lists, in either package, and the beam
+# build 0.9315 (tests/test_torch_ann.py::test_main_path_latents_recall_
+# matches_jax), so the default's limit is set from that reading:
+ANN_MAIN_RECALL = 0.70  # the main run's docs vs xla_exact's, by set
+ANN_LIST_COST = 0.005  # fold lists' graph recall below exact lists'
+# the fold's candidate sets vs its plain version's on those latents: a
+# row's 128 candidates span ~4 19-bit keys, so two fp32 sum orders of the
+# plain fold alone agree on only ~0.98 of slots; sets are held
+ANN_FOLD_SET_MATCH = EXACT_ID_MATCH
+# doc ids vs xla_exact by slot at efS >= N, where the beam reaches every
+# linked row: the scores' order, whatever the graph
 ANN_MAIN_AGREE = 0.95
 ANN_MAIN_EF_ALL = 2048  # >= the main path's 1997 rows
 
@@ -3053,20 +3072,14 @@ def knn_block(torch):
     return c, c[:ANN_QUERY_BLOCK], block_n, cand
 
 
-def check_knn_fold(torch, failures: list) -> float:
-    """Phase 2f: the fp32 fold at the HNSW build's shape, the first 4096
-    rows of the 1M corpus as queries over all of it, at ``knn_graph``'s
-    plan (tile 4096, 128 candidates), against its plain version with
-    phase 2's fold limits; then that block's ``knn_graph`` lists (fold,
-    exact rescore, self stripped) against the plain exact lists by
-    neighbour recall. Returns the largest score error at equal ids."""
-    import numpy as np
-
+def fold_against_plain(torch, q, c) -> dict:
+    """The fp32 fold as ``knn_graph`` plans it over ``c`` (k + 1 = 65,
+    recall 0.95) against its plain version on the card: the plan, the C
+    kernel that ran, the slot-by-slot id match and the largest rescored
+    score error at equal ids, and whether phase 2's fold limits hold."""
     from latentrag_torch.ops import fused_topk as ft
-    from latentrag_torch.ops import knn
-    from latentrag_torch.ops.topk import approx_topk, exact_topk
 
-    c, q, block_n, cand = knn_block(torch)
+    block_n, cand = ft.fold_plan(c.shape[0], ANN_KNN_K + 1, 0.95)
     s_k, i_k = ft.fused_topk_raw(q, c, k=cand, metric="cosine",
                                  mode="fold", block_n=block_n)
     torch.cuda.synchronize()
@@ -3074,32 +3087,66 @@ def check_knn_fold(torch, failures: list) -> float:
     s_p, i_p = ft.fused_topk_raw_reference(q, c, k=cand, metric="cosine",
                                            mode="fold", block_n=block_n)
     id_match = (i_k == i_p).float().mean().item()
+    sets = set_match(torch, i_k, i_p)
     s_k, i_k = ft.rescore_candidates(q, c, i_k, "cosine")
     s_p, i_p = ft.rescore_candidates(q, c, i_p, "cosine")
     err = (s_k - s_p).abs()[i_k == i_p]
-    max_err = err.max().item() if err.numel() else 0.0
-    # one block of knn_graph: the approximate route against exact lists
+    rec = {"Q": int(q.shape[0]), "N": int(c.shape[0]), "d": int(c.shape[1]),
+           "k": cand, "block_n": block_n, "store": "float32",
+           "c_kernel": ran, "id_match": id_match, "set_match": sets,
+           "max_abs_err": err.max().item() if err.numel() else 0.0}
+    rec["kernel_ok"] = (ran.split("+")[0] == "fold_mma_kernel<f32>"
+                        and cand == 128 and id_match >= FOLD_ID_MATCH)
+    return rec
+
+
+def knn_list_recall(torch, q, c) -> dict:
+    """Neighbour recall of the k-NN lists of the rows ``q`` (the first
+    rows of ``c``) from ``knn_graph``'s approximate route (the fold,
+    rescored) against the plain exact lists, self stripped; and whether
+    every list is free of its own row."""
+    import numpy as np
+
+    from latentrag_torch.ops import knn
+    from latentrag_torch.ops.topk import approx_topk, exact_topk
+
     kk = ANN_KNN_K + 1
     _, got = approx_topk(q, c, k=kk, metric="cosine", recall_target=0.95)
     _, want = exact_topk(q, c, k=kk, metric="cosine")
     got = knn.strip_self(got.cpu().numpy(), 0, ANN_KNN_K)
     want = knn.strip_self(want.cpu().numpy(), 0, ANN_KNN_K)
-    recall = float((got[:, :, None] == want[:, None, :]).any(-1).mean())
-    rec = {"Q": ANN_QUERY_BLOCK, "N": ANN_ROWS, "d": ANN_D, "k": cand,
-           "block_n": block_n, "store": "float32", "c_kernel": ran,
-           "id_match": id_match, "max_abs_err": max_err,
-           "knn_recall": recall, "self_free": bool(
-               (got != np.arange(ANN_QUERY_BLOCK)[:, None]).all())}
-    ok = (ran.split("+")[0] == "fold_mma_kernel<f32>" and cand == 128
-          and block_n == 4096 and id_match >= FOLD_ID_MATCH
-          and recall >= KNN_RECALL and rec["self_free"])
-    rec["ok"] = ok
-    record("knn_fold_check", **rec)
-    if not ok:
-        failures.append(f"the knn build's fp32 fold: {rec}")
+    return {"knn_recall": float(
+                (got[:, :, None] == want[:, None, :]).any(-1).mean()),
+            "self_free": bool(
+                (got != np.arange(got.shape[0])[:, None]).all())}
+
+
+def check_knn_fold(torch, failures: list) -> float:
+    """Phase 2f: the fp32 fold at the HNSW builds' shapes against its
+    plain version with phase 2's fold limits, at ``knn_graph``'s plan
+    (k + 1 = 65, 128 candidates): the first 4096 rows of the 1M corpus as
+    queries over all of it (tile 4096), and a corpus of the main path's
+    size, its first 1997 rows, over itself (tile 128: every row is a
+    lane winner and 16 slabs merge); then each block's ``knn_graph``
+    lists against the plain exact lists by neighbour recall. Returns the
+    largest score error at equal ids."""
+    c, q, _, _ = knn_block(torch)
+    worst = 0.0
+    for case, qc, cc, plan in (
+            ("1m", q, c, (4096, 128)),
+            ("main_size", c[:ANN_MAIN_ROWS], c[:ANN_MAIN_ROWS], (128, 128))):
+        rec = {"case": case, **fold_against_plain(torch, qc, cc)}
+        rec.update(knn_list_recall(torch, qc, cc))
+        ok = (rec.pop("kernel_ok") and (rec["block_n"], rec["k"]) == plan
+              and rec["knn_recall"] >= KNN_RECALL and rec["self_free"])
+        rec["ok"] = ok
+        record("knn_fold_check", **rec)
+        worst = max(worst, rec["max_abs_err"])
+        if not ok:
+            failures.append(f"the knn build's fp32 fold: {rec}")
     del c, q
     torch.cuda.empty_cache()
-    return max_err
+    return worst
 
 
 def time_knn_fold(torch) -> dict:
@@ -3248,6 +3295,103 @@ def check_ann_tiers(torch, failures: list) -> int:
     return launches["fold"]
 
 
+@contextlib.contextmanager
+def ann_inputs():
+    """The first build's rows and the first search's queries that reach
+    ``ANNRetriever`` inside the block, as host fp32 (``seen["corpus"]``,
+    ``seen["queries"]``)."""
+    import numpy as np
+
+    from latentrag_torch.retrieval.ann_retriever import ANNRetriever
+
+    seen: dict = {}
+    build, search = ANNRetriever.build, ANNRetriever.search
+
+    def host(x):
+        return np.asarray(x.float().cpu() if hasattr(x, "cpu") else x,
+                          dtype=np.float32)
+
+    def spy_build(self, embeddings, *a, **kw):
+        seen.setdefault("corpus", host(embeddings))
+        return build(self, embeddings, *a, **kw)
+
+    def spy_search(self, queries, *a, **kw):
+        seen.setdefault("queries", host(queries))
+        return search(self, queries, *a, **kw)
+
+    ANNRetriever.build, ANNRetriever.search = spy_build, spy_search
+    try:
+        yield seen
+    finally:
+        ANNRetriever.build, ANNRetriever.search = build, search
+
+
+def check_ann_main_graphs(torch, corpus, queries) -> dict:
+    """Phase 3n's HNSW check on the main path's own latents (the cold
+    run's rows and queries, normalized as ``ANNRetriever`` does): the fold
+    at that k-NN stage's plan (Q = N = 1997, tile 128, 128 candidates)
+    against its plain version, its ``knn_graph`` lists against the plain
+    exact lists, and Recall@10 against the exact search at the default
+    efS of three graphs over the same rows, each built on one thread (so
+    bit for bit repeatable): assembled by ``HNSWIndex.from_knn`` from the
+    fold's lists and from the exact lists, and built by the C++ beam
+    insertion. Also the latents' geometry: the range of the rows' pairwise
+    cosines and the mean best cosine of a row (to another row) and of a
+    query (to a row)."""
+    import numpy as np
+
+    from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.ops import knn
+    from latentrag_torch.ops.topk import exact_topk
+    from latentrag_torch.retrieval.ann import HNSWIndex
+    from latentrag_torch.utils.config import RetrievalConfig
+
+    def unit(x):
+        return x / np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-12)
+
+    cn, qn = unit(corpus), unit(queries)
+    cd, qd = torch.tensor(cn, device="cuda"), torch.tensor(qn, device="cuda")
+    rec = {"case": "main_latents", **fold_against_plain(torch, cd, cd),
+           **knn_list_recall(torch, cd, cd)}
+    # the plain fold against itself over the dims in reverse order (the
+    # same products summed in another fp32 order): the slot-by-slot match
+    # any two fp32 roundings reach where a row's 128 candidates span ~4
+    # 19-bit keys and ~100 rows share the 128th's key
+    block_n, cand = ft.fold_plan(cn.shape[0], ANN_KNN_K + 1, 0.95)
+    _, i_p = ft.fused_topk_raw_reference(cd, cd, k=cand, metric="cosine",
+                                         mode="fold", block_n=block_n)
+    _, i_r = ft.fused_topk_raw_reference(
+        cd.flip(1).contiguous(), cd.flip(1).contiguous(), k=cand,
+        metric="cosine", mode="fold", block_n=block_n)
+    rec["plain_reordered_id_match"] = (i_r == i_p).float().mean().item()
+    rec["plain_reordered_set_match"] = set_match(torch, i_r, i_p)
+    cos = cd @ cd.T
+    off = cos[~torch.eye(cos.shape[0], dtype=torch.bool, device="cuda")]
+    rec["row_cosine_range"] = [off.min().item(), off.max().item()]
+    rec["row_best_cosine"] = cos.fill_diagonal_(-2).max(1).values.mean().item()
+    best_q, true = exact_topk(qd, cd, k=10, metric="cosine")
+    rec["query_best_cosine"] = best_q[:, 0].mean().item()
+    true = true.cpu().numpy()
+    cfg = RetrievalConfig()
+    knn_k = cfg.hnsw_knn_k or 2 * cfg.hnsw_m
+    kw = {"M": cfg.hnsw_m, "ef_construction": cfg.hnsw_ef_construction,
+          "ef_search": cfg.hnsw_ef_search}
+    beam = HNSWIndex(cn.shape[1], **kw)
+    beam.add(cn, nthreads=1)
+    graphs = {"fold_lists": HNSWIndex.from_knn(
+                  cn, knn.knn_graph(cd, knn_k), nthreads=1, **kw),
+              "exact_lists": HNSWIndex.from_knn(
+                  cn, knn.knn_graph(cd, knn_k, exact=True), nthreads=1, **kw),
+              "beam": beam}
+    rec["graph_recall"] = {
+        name: ann_recall(ix.search(qn, 10, nthreads=1)[1], true)
+        for name, ix in graphs.items()}
+    rec["ef_search"] = cfg.hnsw_ef_search
+    del cd, qd, cos, off, i_p, i_r
+    torch.cuda.empty_cache()
+    return rec
+
+
 def ann_overrides(workdir: str, backend: str) -> list:
     """The main path's fp32 config with the ANN ``backend``, its store at
     ``<workdir>/index_<backend>`` (files ``index_<backend>.<backend>*``)."""
@@ -3260,12 +3404,16 @@ def check_ann_main(torch, failures: list, workdir: str, oracle: dict) -> int:
     the main path (MiniLM-L6 bf16, 384->512->64 VAE, 1997 contexts), each
     run twice: the second run logs "<kind> index loaded from" and returns
     the first run's doc ids; the cold HNSW build launches the fp32 fold
-    once (its k-NN stage) and the warm one nothing. Doc ids against the
-    fp32 ``xla_exact`` oracle ``oracle`` are reported at the default efS
-    (HNSW) and nprobe (IVF-PQ); a third HNSW run on the same store at efS
-    2048 (>= N) must agree on >= 0.95 of slots. Then the JSONL server over a copy of the HNSW store: a
-    search, a filtered search, an add found top-1, and the "remove" and
-    "nprobe" refusals. Returns the cold HNSW run's fold launches."""
+    once (its k-NN stage) and the warm one nothing. HNSW: the cold run's
+    latents through ``check_ann_main_graphs`` (the fold at that run's
+    plan against its plain version, its lists, and the graphs they make);
+    its docs must hold >= 0.70 of the fp32 ``xla_exact`` oracle's at the
+    default efS (by set; by slot reported), and a third run on the same
+    store at efS 2048 (>= N) must agree on >= 0.95 of slots. IVF-PQ's
+    agreement is reported. Then the JSONL server over a copy of the HNSW
+    store: a search, a filtered search, an add found top-1, and the
+    "remove" and "nprobe" refusals. Returns the cold HNSW run's fold
+    launches."""
     from latentrag_torch.ops import fused_topk as ft
 
     t_phase = time.perf_counter()
@@ -3275,10 +3423,12 @@ def check_ann_main(torch, failures: list, workdir: str, oracle: dict) -> int:
         runs = []
         for _ in range(2):
             ft.reset_launches()
-            res = run_main(torch, workdir, "auto", "float32",
-                           extra=ann_overrides(workdir, backend))
-            runs.append((res, {k: v for k, v in ft.launches.items() if v}))
-        (cold, cold_l), (warm, warm_l) = runs
+            with ann_inputs() as seen:
+                res = run_main(torch, workdir, "auto", "float32",
+                               extra=ann_overrides(workdir, backend))
+            runs.append((res, {k: v for k, v in ft.launches.items() if v},
+                         seen))
+        (cold, cold_l, cold_in), (warm, warm_l, _) = runs
         loaded = [x for x in warm["retrieval_log"]
                   if x.startswith(f"{backend} index loaded from")]
         r = {"launches": [cold_l, warm_l],
@@ -3299,12 +3449,23 @@ def check_ann_main(torch, failures: list, workdir: str, oracle: dict) -> int:
         ok = r["warm_loaded"] and r["same_doc_ids"] and not warm_l
         if backend == "hnsw":
             fold = cold_l.get("fold", 0)
+            g = check_ann_main_graphs(torch, cold_in["corpus"],
+                                      cold_in["queries"])
+            g.pop("kernel_ok")  # slots: held by sets here (see above)
+            g["ok"] = (g["c_kernel"].split("+")[0] == "fold_mma_kernel<f32>"
+                       and (g["block_n"], g["k"]) == (128, 128)
+                       and g["set_match"] >= ANN_FOLD_SET_MATCH
+                       and g["knn_recall"] >= KNN_RECALL and g["self_free"]
+                       and g["graph_recall"]["fold_lists"]
+                       >= g["graph_recall"]["exact_lists"] - ANN_LIST_COST)
+            r["graphs"] = g
             wide = run_main(torch, workdir, "auto", "float32",
                             extra=ann_overrides(workdir, backend) + [
                                 f"retrieval.hnsw_ef_search={ANN_MAIN_EF_ALL}"])
             r["oracle_agreement_ef_all"] = slot_agreement(
                 wide["retrieved_doc_ids"], oracle["retrieved_doc_ids"])
-            ok = ok and cold_l == {"fold": 1} and (
+            ok = ok and cold_l == {"fold": 1} and g["ok"] and (
+                r["oracle_recall"] >= ANN_MAIN_RECALL) and (
                 r["oracle_agreement_ef_all"] >= ANN_MAIN_AGREE)
         else:
             ok = ok and not cold_l
@@ -4203,14 +4364,16 @@ def main() -> int:
             "exhaustive_search_ms")} for r in ivf["times"].values()],
     })
     # the fp32 fold's list-of-128 instance as the HNSW build runs it
-    # (phase 2f at 4096 x 1M; launches: the 1M build of 3m and the cold
-    # main run of 3n)
+    # (phase 2f at 4096 x 1M and at the main path's 1997 rows; launches:
+    # the 1M build of 3m and the cold main run of 3n). The JAX package's
+    # k-NN stage is no Pallas kernel: XLA's approx_max_k (ops/topk.py),
+    # which the port runs on this fold kernel
     t = knn_time
     kernels.append({
         "name": "fused_topk_fold_fp32_knn",
         "route": "cuda",
         "source": "latentrag_torch/csrc/fold_mma.cuh",
-        "replaces": "latentrag_tpu/ops/pallas_topk.py:162",
+        "replaces": "latentrag_tpu/ops/topk.py:209",
         "launches": knn_launches,
         "main_launches": knn_main_launches,
         "max_abs_err": worst["fold_fp32_knn"],

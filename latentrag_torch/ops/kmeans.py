@@ -39,7 +39,7 @@ import contextlib
 import numpy as np
 import torch
 
-from ..utils.device import resolve_device
+from ..utils.device import as_tensor
 
 
 @contextlib.contextmanager
@@ -135,15 +135,6 @@ def assign_clusters(
     return out
 
 
-def _on_device(x, device) -> torch.Tensor:
-    """``x`` (numpy or a tensor) as a tensor on ``device`` (default: a
-    tensor's own device, numpy to ``cuda``)."""
-    if isinstance(x, torch.Tensor):
-        return x if device is None else x.to(device)
-    return torch.tensor(np.asarray(x), device=resolve_device(
-        device if device is not None else "cuda"))
-
-
 def ivfpq_train_device(
     x,
     nlist: int,
@@ -153,14 +144,14 @@ def ivfpq_train_device(
     iters: int = 15,
     seed: int = 0,
     block_size: int = 131072,
-    device=None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """IVF-PQ parameters trained on the device: (coarse [nlist, d],
     codebooks [m, ksub, d / m]) as host float32, for
     ``IVFPQIndex.set_trained``. L2 Lloyd's for the coarse quantizer, then
     L2 Lloyd's in each subspace over the residuals of every row to its
-    nearest list, as the C++ trainer does."""
-    x = _on_device(x, device)
+    nearest list, as the C++ trainer does. ``x``: a tensor, trained on
+    its device, or numpy, which goes to the card."""
+    x = as_tensor(x)
     dsub = x.shape[1] // m
     coarse = kmeans(x, nlist, iters=iters, seed=seed, block_size=block_size)
     assigns = assign_clusters(x, coarse, block_size=block_size)
@@ -173,13 +164,16 @@ def ivfpq_train_device(
     return coarse.cpu().numpy(), torch.stack(books).cpu().numpy()
 
 
-def ivfpq_encode_device(x, coarse, codebooks, *, block_size: int = 131072,
-                        device=None) -> tuple[np.ndarray, np.ndarray]:
+def ivfpq_encode_device(x, coarse, codebooks, *,
+                        block_size: int = 131072
+                        ) -> tuple[np.ndarray, np.ndarray]:
     """Each row's list and PQ codes on the device: (assigns [n] int32,
-    codes [n, m] uint8) as host arrays, for ``IVFPQIndex.add_encoded``."""
-    x = _on_device(x, device)
-    coarse = _on_device(coarse, x.device).float()
-    cb = _on_device(codebooks, x.device)
+    codes [n, m] uint8) as host arrays, for ``IVFPQIndex.add_encoded``.
+    ``x`` as ``ivfpq_train_device``'s; the parameters (numpy or tensors)
+    go to its device."""
+    x = as_tensor(x)
+    coarse = torch.as_tensor(coarse, device=x.device).float()
+    cb = torch.as_tensor(codebooks, device=x.device)
     assigns = assign_clusters(x, coarse, block_size=block_size)
     resid = x.float() - coarse[assigns.long()]
     codes = pq_encode(resid, cb, m=int(cb.shape[0]),

@@ -28,7 +28,7 @@ import time
 import numpy as np
 import torch
 
-from ..utils.device import resolve_device
+from ..utils.device import as_tensor
 from .topk import approx_topk, exact_topk
 
 log = logging.getLogger("latentrag_torch.ops")
@@ -64,21 +64,15 @@ def knn_graph(
     block_size: int = 1048576,
     exact: bool = False,
     recall_target: float = 0.95,
-    device=None,
 ) -> np.ndarray:
     """[N, k] int32 neighbour ids a row, self excluded, best first.
 
-    ``corpus`` (numpy or a tensor) must be prepared for ``metric``
-    (normalized for cosine), as the top-k functions require. It goes to
-    ``device`` (default: a tensor's own device, numpy to ``cuda``) once;
-    its rows are the queries, ``query_block`` at a time."""
-    if isinstance(corpus, torch.Tensor):
-        dev = resolve_device(device) if device is not None else corpus.device
-        c = corpus.to(dev)
-    else:
-        dev = resolve_device(device if device is not None else "cuda")
-        c = torch.tensor(np.asarray(corpus), device=dev)
-    c = c.contiguous()
+    ``corpus`` (a tensor, searched on its device, or numpy, which goes to
+    the card once) must be prepared for ``metric`` (normalized for
+    cosine), as the top-k functions require; its rows are the queries,
+    ``query_block`` at a time."""
+    c = as_tensor(corpus).contiguous()
+    dev = c.device
     n = int(c.shape[0])
     if n == 0:
         return np.zeros((0, k), np.int32)

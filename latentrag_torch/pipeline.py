@@ -5,8 +5,8 @@ The port of the JAX package's ``pipeline.py`` (``PipelineRunner.process``),
 on a device chosen by the caller (default CUDA; the CPU only when asked):
 
 * corpus and queries encode on the device and stay there into the index
-  build and the one batched search (for the C++ ANN tiers, ``hnsw`` and
-  ``ivfpq``, they come back to the host as numpy);
+  build and the one batched search (the C++ ANN tiers, ``hnsw`` and
+  ``ivfpq``, copy them to the host there);
 * ``candidate_k = top_k`` clipped to the corpus (the JAX package's x3
   widening for chunks and x4 for the reranker come with those slices);
 * empty candidate slots (id -1) map to a sentinel doc whose score is
@@ -34,7 +34,7 @@ from .models.convert import minilm_state_dict_from_jax
 from .models.encoder import SentenceEncoder
 from .models.encoder.msgpack_io import load_msgpack
 from .ops import maxsim_aggregate
-from .retrieval import DEVICE_BACKENDS, EmbeddingCompressor, build_retriever
+from .retrieval import EmbeddingCompressor, build_retriever
 from .utils import Config, canonical_ae_type, force_completion, resolve_device
 
 log = logging.getLogger("latentrag_torch.main")
@@ -111,14 +111,6 @@ def aggregate_docs(scores, idx, doc_ids, k: int, device):
     return doc_scores, [row[m].tolist() for row, m in zip(doc_top, keep)]
 
 
-def _encoded(emb: torch.Tensor, on_device: bool):
-    """The encoder's output, finished: on the device, or as host numpy."""
-    if on_device:
-        force_completion(emb)
-        return emb
-    return emb.cpu().numpy()
-
-
 class PipelineRunner:
     def __init__(
         self,
@@ -170,14 +162,13 @@ class PipelineRunner:
         texts = list(corpus)
         doc_ids = list(range(len(corpus)))
 
-        # the dense tiers take the embeddings on the device; the C++ ANN
-        # tiers are host consumers, so theirs come back as numpy
-        on_device = cfg.retrieval.backend in DEVICE_BACKENDS
         t0 = time.perf_counter()
-        corpus_emb = _encoded(compressor.encode_text(texts), on_device)
+        corpus_emb = compressor.encode_text(texts)
+        force_completion(corpus_emb)
         timings["encode_corpus_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        query_emb = _encoded(compressor.encode_text(queries), on_device)
+        query_emb = compressor.encode_text(queries)
+        force_completion(query_emb)
         timings["encode_queries_s"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()

@@ -154,9 +154,9 @@ class ANNRetriever:
         from ..ops import knn
 
         t0 = time.perf_counter()
-        ids = knn.knn_graph(emb, cfg.hnsw_knn_k or 2 * cfg.hnsw_m,
-                            metric="cosine" if self._normalize else "dot",
-                            device=self.device)
+        ids = knn.knn_graph(torch.tensor(emb, device=self.device),
+                            cfg.hnsw_knn_k or 2 * cfg.hnsw_m,
+                            metric="cosine" if self._normalize else "dot")
         t1 = time.perf_counter()
         ix = HNSWIndex.from_knn(emb, ids, M=cfg.hnsw_m,
                                 ef_construction=cfg.hnsw_ef_construction,

@@ -73,7 +73,7 @@ import time
 from .data import get_examples, load_evaluation_data
 from .models.encoder.minilm import _bucket_batch
 from .pipeline import PipelineRunner
-from .retrieval import DEVICE_BACKENDS, build_retriever, load_retriever
+from .retrieval import build_retriever, load_retriever
 from .retrieval.filtering import canonical_filter_key
 from .serving import MicroBatcher
 from .utils import apply_overrides, canonical_ae_type, init_logger, load_config
@@ -113,11 +113,8 @@ def boot(cfg, args, loggers):
 
     _, corpus, _ = load_evaluation_data(get_examples(cfg))
     compressor = runner._ensure_compressor(corpus)
-    corpus_emb = compressor.encode_text(corpus)
-    if cfg.retrieval.backend not in DEVICE_BACKENDS:
-        corpus_emb = corpus_emb.cpu().numpy()  # the C++ tiers read numpy
     retriever = build_retriever(
-        corpus_emb, corpus, None, cfg.retrieval,
+        compressor.encode_text(corpus), corpus, None, cfg.retrieval,
         device=runner.device,
         embedding_model=cfg.encoder.name,
         ae_type=ae,

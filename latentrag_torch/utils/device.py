@@ -7,6 +7,7 @@ so a run that reports device numbers has run on the device.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -20,3 +21,11 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}; use 'cuda' or 'cpu'")
     return dev
+
+
+def as_tensor(x) -> torch.Tensor:
+    """``x`` as a tensor: a tensor stays on its device, numpy goes to the
+    card (``resolve_device``'s default, which raises without CUDA)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.tensor(np.asarray(x), device=resolve_device())

@@ -1200,13 +1200,56 @@ def test_knn_graph_runs_the_fp32_fold(cuda, n):
 
     c = _lowrank_rows(n, 64, 3)
     ft.reset_launches()
-    ids = knn.knn_graph(c, 64, metric="cosine", device="cuda")
+    ids = knn.knn_graph(c, 64, metric="cosine")
     assert ft.launches == _counts(fold=-(-n // 4096))
     assert ft.last_kernel.split("+")[0] == "fold_mma_kernel<f32>"
-    want = knn.knn_graph(c, 64, metric="cosine", exact=True, device="cuda")
+    want = knn.knn_graph(c, 64, metric="cosine", exact=True)
     hits = (ids[:, :, None] == want[:, None, :]).any(-1)
     assert hits.mean() >= 0.95
     assert (ids != np.arange(n)[:, None]).all() and (ids >= 0).all()
+
+
+def test_knn_fold_on_main_path_latents(cuda):
+    """The fold at the HNSW main path's own k-NN plan (Q = N = 1997, tile
+    128, 128 candidates) over its near-collinear latents
+    (``tests/data/main_path_latents.npz``): candidate sets as the plain
+    fold's (a row's 128 candidates span ~4 19-bit keys, so slot order
+    follows the fp32 sum order), lists >= 0.95 of the exact ones, and a
+    one-thread graph from them as good as one from exact lists."""
+    import os
+
+    from latentrag_torch.ops import knn
+    from latentrag_torch.retrieval.ann import HNSWIndex
+
+    z = np.load(os.path.join(os.path.dirname(__file__), "data",
+                             "main_path_latents.npz"))
+    c, q = (x / np.linalg.norm(x, axis=1, keepdims=True)
+            for x in (z["corpus"], z["queries"]))
+    cd = torch.tensor(c, device=cuda)
+    block_n, cand = ft.fold_plan(1997, 65, 0.95)
+    assert (block_n, cand) == (128, 128)
+    _, i_k = ft.fused_topk_raw(cd, cd, k=cand, metric="cosine", mode="fold",
+                               block_n=block_n)
+    _, i_p = ft.fused_topk_raw_reference(cd, cd, k=cand, metric="cosine",
+                                         mode="fold", block_n=block_n)
+    i_k, i_p = i_k.cpu().numpy(), i_p.cpu().numpy()
+    assert np.mean([len(set(a) & set(b)) / cand
+                    for a, b in zip(i_k, i_p)]) >= 0.999
+    ft.reset_launches()
+    ids = knn.knn_graph(cd, 64, metric="cosine")
+    assert ft.launches == _counts(fold=1)
+    want = knn.knn_graph(cd, 64, metric="cosine", exact=True)
+    assert (ids[:, :, None] == want[:, None, :]).any(-1).mean() >= 0.95
+    true = np.argsort(-(q.astype(np.float64) @ c.astype(np.float64).T),
+                      axis=1)[:, :10]
+    recall = {}
+    for name, lists in (("fold", ids), ("exact", want)):
+        ix = HNSWIndex.from_knn(c, lists, M=32, ef_construction=200,
+                                nthreads=1)
+        got = ix.search(q, 10, nthreads=1)[1]
+        recall[name] = np.mean([len(set(g) & set(t)) / 10
+                                for g, t in zip(got, true)])
+    assert recall["fold"] >= recall["exact"] - 0.005, recall
 
 
 def test_hnsw_auto_build_on_card(cuda):
@@ -1240,10 +1283,10 @@ def test_ivfpq_device_build_on_card(cuda):
     from latentrag_torch.utils.config import RetrievalConfig
 
     x = _lowrank_rows(20_000, 64, 6)
-    coarse, books = tkm.ivfpq_train_device(x, 128, 16, iters=8,
-                                           device="cuda")
-    a_card, c_card = tkm.ivfpq_encode_device(x, coarse, books, device="cuda")
-    a_cpu, c_cpu = tkm.ivfpq_encode_device(x, coarse, books, device="cpu")
+    coarse, books = tkm.ivfpq_train_device(x, 128, 16, iters=8)
+    a_card, c_card = tkm.ivfpq_encode_device(x, coarse, books)
+    a_cpu, c_cpu = tkm.ivfpq_encode_device(torch.from_numpy(x), coarse,
+                                           books)
     assert np.mean(a_card == a_cpu) >= 0.999
     assert np.mean(c_card == c_cpu) >= 0.999
     r = ANNRetriever(RetrievalConfig(backend="ivfpq", index_path="",

@@ -60,15 +60,15 @@ def test_pq_encode_matches_jax(data, block_size):
 def test_ivfpq_encode_device_matches_jax(data):
     x, coarse, books = data
     ja, jc = jkm.ivfpq_encode_device(x, coarse, books)
-    ta, tc = tkm.ivfpq_encode_device(x, coarse, books, device="cpu")
+    ta, tc = tkm.ivfpq_encode_device(torch.from_numpy(x), coarse, books)
     coarse_scores = x @ coarse.T - 0.5 * np.sum(coarse * coarse, axis=1)
     assert _exact_ties(coarse_scores) == 0
     assert ta.dtype == np.int32 and tc.dtype == np.uint8
     np.testing.assert_array_equal(ta, np.asarray(ja))
     np.testing.assert_array_equal(tc, np.asarray(jc))
     # blocked assignment gives the same answer
-    ta2, tc2 = tkm.ivfpq_encode_device(x, coarse, books, block_size=700,
-                                       device="cpu")
+    ta2, tc2 = tkm.ivfpq_encode_device(torch.from_numpy(x), coarse, books,
+                                       block_size=700)
     np.testing.assert_array_equal(ta2, ta)
     np.testing.assert_array_equal(tc2, tc)
 
@@ -80,7 +80,7 @@ def test_port_encoded_index_answers_as_jax(data):
     q = _lowrank(1, 40, 64)
     out = []
     for assign, codes in (
-        tkm.ivfpq_encode_device(x, coarse, books, device="cpu"),
+        tkm.ivfpq_encode_device(torch.from_numpy(x), coarse, books),
         jkm.ivfpq_encode_device(x, coarse, books),
     ):
         ix = tann.IVFPQIndex(64, nlist=64, m=16, nbits=8)
@@ -98,8 +98,8 @@ def test_ivfpq_train_device_serves_in_the_jax_band():
     x = _lowrank(2, 3000, 64)
     q = _lowrank(3, 60, 64)
     true = np.argsort(-(q @ x.T), axis=1)[:, :10]
-    t1 = tkm.ivfpq_train_device(x, 32, 16, iters=8, device="cpu")
-    t2 = tkm.ivfpq_train_device(x, 32, 16, iters=8, device="cpu")
+    t1 = tkm.ivfpq_train_device(torch.from_numpy(x), 32, 16, iters=8)
+    t2 = tkm.ivfpq_train_device(torch.from_numpy(x), 32, 16, iters=8)
     coarse, books = t1
     assert coarse.shape == (32, 64) and books.shape == (16, 256, 4)
     assert coarse.dtype == books.dtype == np.float32
@@ -108,7 +108,7 @@ def test_ivfpq_train_device_serves_in_the_jax_band():
     recall = {}
     for name, (c, b), (enc, pkg) in (
         ("port", t1, (lambda c, b: tkm.ivfpq_encode_device(
-            x, c, b, device="cpu"), tann)),
+            torch.from_numpy(x), c, b), tann)),
         ("jax", jkm.ivfpq_train_device(x, 32, 16, iters=8),
          (lambda c, b: jkm.ivfpq_encode_device(x, c, b), jann)),
     ):
@@ -126,7 +126,7 @@ def test_train_on_tiny_corpus_keeps_shapes():
     """Fewer rows than codebook entries: duplicated starting rows, as the
     JAX package's init."""
     x = _lowrank(4, 40, 16)
-    coarse, books = tkm.ivfpq_train_device(x, 5, 4, ksub=256, iters=3,
-                                           device="cpu")
+    coarse, books = tkm.ivfpq_train_device(torch.from_numpy(x), 5, 4,
+                                           ksub=256, iters=3)
     assert coarse.shape == (5, 16) and books.shape == (4, 256, 4)
     assert np.isfinite(books).all()

@@ -60,8 +60,8 @@ def test_knn_graph_matches_jax(exact, k, query_block):
     """Ids equal on >= 99.9 % of slots; where they differ the two rows'
     scores for that query are within 1e-6 (an fp32 near-tie)."""
     c = _lowrank(0, 3000, 32)
-    got = tknn.knn_graph(c, k, metric="cosine", query_block=query_block,
-                         exact=exact, device="cpu")
+    got = tknn.knn_graph(torch.from_numpy(c), k, metric="cosine",
+                         query_block=query_block, exact=exact)
     want = jknn.knn_graph(c, k, metric="cosine", query_block=query_block,
                           exact=exact)
     assert got.shape == want.shape == (3000, k) and got.dtype == np.int32
@@ -77,13 +77,13 @@ def test_knn_graph_matches_jax(exact, k, query_block):
 
 def test_knn_graph_pads_sentinels_like_jax():
     c = _unit(np.random.default_rng(1), 4, 8)
-    got = tknn.knn_graph(c, 6, metric="cosine", exact=True, device="cpu")
+    got = tknn.knn_graph(torch.from_numpy(c), 6, metric="cosine", exact=True)
     want = jknn.knn_graph(c, 6, metric="cosine", exact=True)
     np.testing.assert_array_equal(got, want)
     assert (got[:, :3] >= 0).all() and (got[:, 3:] == -1).all()
     # the approximate route pads the same way
     np.testing.assert_array_equal(
-        tknn.knn_graph(c, 6, metric="cosine", device="cpu"), want)
+        tknn.knn_graph(torch.from_numpy(c), 6, metric="cosine"), want)
 
 
 def test_knn_graph_dot_metric_and_tensor_input():

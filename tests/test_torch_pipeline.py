@@ -15,6 +15,7 @@ from latentrag_tpu.data.tokenizer import resolve_tokenizer
 from latentrag_tpu.models.encoder import SentenceEncoder as JaxEncoder
 from latentrag_tpu.models.encoder import save_params
 from latentrag_tpu.pipeline import PipelineRunner as JaxRunner
+from latentrag_tpu.retrieval.ann import HNSWIndex as JaxHNSW
 from latentrag_tpu.retrieval.dense import DenseRetriever as JaxDense
 from latentrag_tpu.utils import apply_overrides as jax_overrides
 from latentrag_tpu.utils import Config as JaxConfig
@@ -23,7 +24,7 @@ from latentrag_torch import serve as torch_serve
 from latentrag_torch.models import VariationalAutoencoder
 from latentrag_torch.models.convert import minilm_state_dict_from_jax
 from latentrag_torch.pipeline import PipelineRunner
-from latentrag_torch.retrieval import DenseRetriever, build_retriever
+from latentrag_torch.retrieval import DenseRetriever, HNSWIndex, build_retriever
 from latentrag_torch.utils import Config, apply_overrides, resolve_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -88,10 +89,18 @@ def test_pipeline_end_to_end_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("backend", ["hnsw", "ivfpq"])
-def test_ann_pipeline_matches_jax_and_warm_boots(tmp_path, capsys, backend):
+def test_ann_pipeline_matches_jax_and_warm_boots(tmp_path, capsys, backend,
+                                                 monkeypatch):
     """``retrieval.backend=hnsw|ivfpq`` through ``main`` on the CPU (the
     beam and host builds): the JAX pipeline's doc ids; a second run on the
-    same store loads it instead of building."""
+    same store loads it instead of building. Both packages' beam builds
+    run on one thread: on several, either package links rows in a racy
+    order (``tests/test_torch_ann.py``), so two builds of the same rows
+    can strand different rows."""
+    for cls in (JaxHNSW, HNSWIndex):
+        monkeypatch.setattr(
+            cls, "add", lambda self, v, nthreads=0, _add=cls.add:
+            _add(self, v, nthreads=1))
     base = str(tmp_path)
     ov = _overrides(base) + [f"retrieval.backend={backend}"]
     queries, corpus, relevant = load_evaluation_data(synthetic_examples(60))
