@@ -232,6 +232,35 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    latentrag_torch.serve`` over a copy of the HNSW store: a search, a
    filtered search, an add found top-1, and the refusals of "remove" and
    "nprobe" (the JAX server's text);
+3o. ``main --set retrieval.rerank=cross`` on the main path with a seeded
+   cross-encoder at the MiniLM-L6 geometry (bf16), written by the port as
+   ``reranker.msgpack`` with a sidecar (pair length 128, query budget
+   64) and its head along the pooled outputs' main variation (logits of
+   unit spread): candidate_k 40, the fold launched for search and
+   self-check and the exact kernel not at all, the reranker's weights on
+   the card, the run's docs and doc scores bit for bit MaxSim's over its
+   own logits, its 80,000 logits within RERANK_BAND of the same pairs in
+   fp32 mode and spread over more than 10 bands, 256 pairs scored alone
+   within 1e-5 (relative) of their batched logits, the run's docs MaxSim's
+   over the fp32 logits on >= 98 % of slots (a swap within twice the bf16
+   gap counting as agreement), and a second run warm-booting its store
+   with the same docs (rerank seconds, pairs/s and the rerank's share of
+   the run recorded);
+3p. ``main --set chunking.enabled=true`` over a ``jsonl:`` corpus of the
+   2000 synthetic questions whose documents are each a passage and its 5
+   successors' (~200 tokens), at the config's windows: sliding chunks,
+   the same with ``xla_exact``, semantic chunks with the reranker;
+   n_chunks >= 2 x n_corpus, candidate_k 30 and 40, ids all documents'
+   and none twice in a query, the fold launched, and the sliding run's
+   docs on >= 98 % of slots the xla_exact run's (ties within 1e-6
+   counting as agreement), with fp64 MaxSim over the run's own stored
+   chunks as the witness that every differing slot is such a tie;
+3q. the reranked server over 3o's store: the JSONL CLI (a search, a bad
+   request, stats), then 256 single-query HTTP searches from 64 clients
+   at window 0 and 2 ms: each response its own query's with k hits, one
+   fold launch a search call, the served ids on >= 99 % of slots one
+   direct encode + search + rescore's (QPS, p50/p99, the rescore's
+   seconds under the lock recorded);
 5. prints a ``kernels`` JSON line and, last, the device line.
 
 Every check that fails exits non-zero. Without CUDA, or without the
@@ -3626,6 +3655,7 @@ class ServeSpy:
 
     def __init__(self, torch, retriever, compressor):
         self.search, self.encode = retriever.search, compressor.encode_text
+        self.rescores: list = []  # a ``rescore_calls`` list, when attached
         self.reset()
 
         # the original's signature stays visible: the server reads it
@@ -3651,6 +3681,7 @@ class ServeSpy:
     def reset(self) -> None:
         self.sizes: list = []
         self.search_s = self.encode_s = 0.0
+        self.rescores.clear()
 
 
 def serve_args(window_ms: float):
@@ -3707,12 +3738,13 @@ def running_server(cfg, server_env, window_ms: float):
                               window_ms=window_ms)
 
 
-def timed_load(torch, srv, spy, queries) -> dict:
+def timed_load(torch, srv, spy, queries, profiled: bool = True) -> dict:
     """A warm-up burst under the profiler (the device's busy share of its
-    wall time: the timed load runs without the profiler), then the timed
-    load with the counts at 0: QPS, client latency percentiles, the search
-    calls' sizes, the fold and exact launches, and the host time in encode
-    and search."""
+    wall time: the timed load runs without the profiler; ``profiled``
+    False: no profiler, no busy share), then the timed load with the
+    counts at 0: QPS, client latency percentiles, the search calls' sizes,
+    the fold and exact launches, and the host time in encode and
+    search."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -3725,10 +3757,14 @@ def timed_load(torch, srv, spy, queries) -> dict:
     # request there
     warmup = SERVE_CLIENTS if srv.window_ms > 0 else SERVE_WARMUP_W0
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    busy = None
+    if profiled:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            wall = serve_load(queries[:warmup], srv.port)["wall_s"]
+        busy = sum(getattr(ev, "device_time_total", 0) or 0
+                   for ev in prof.key_averages()) / 1e6 / wall
+    else:
         wall = serve_load(queries[:warmup], srv.port)["wall_s"]
-    busy_us = sum(getattr(ev, "device_time_total", 0) or 0
-                  for ev in prof.key_averages())
     profiled_s = time.perf_counter() - t0
     spy.reset()
     ft.reset_launches()
@@ -3750,7 +3786,7 @@ def timed_load(torch, srv, spy, queries) -> dict:
         "encode_s": encode_s, "search_s": search_s,
         "launches": {key: launches[key] for key in ("fold", "exact")},
         "c_kernel": ft.last_kernel,
-        "device_busy_share": busy_us / 1e6 / wall,
+        "device_busy_share": busy,
         "profiled_requests": warmup, "profiled_wall_s": wall,
         "profiled_s": profiled_s,
         "responses": res["responses"],
@@ -3967,16 +4003,19 @@ def check_serving_1m(torch, failures: list, workdir: str, queries) -> int:
     return load["launches"]["fold"]
 
 
-def check_serve_cli(failures: list, workdir: str, query: str) -> None:
+def check_serve_cli(failures: list, workdir: str, query: str,
+                    source: str = "index_auto_10", extra: tuple = (),
+                    label: str = "serve_cli") -> None:
     """Phase 3h (vi): ``python -m latentrag_torch.serve --device cuda``
-    as users start it, over JSONL on a copy of the main path's store: a
+    as users start it, over JSONL on a copy of the main path's store
+    (``source``, with ``extra`` overrides: 3q's reranked server): a
     search, a bad request and a stats request give three JSON lines on
     stdout, one of them an error, rc 0, and the logs on stderr."""
     root = os.path.dirname(os.path.abspath(__file__))
-    index = f"{workdir}/serve_index_cli"
-    shutil.copytree(f"{workdir}/index_auto_10", index)
+    index = f"{workdir}/{label}_index"
+    shutil.copytree(f"{workdir}/{source}", index)
     overrides = main_overrides(workdir, "auto", "bfloat16") + [
-        f"retrieval.index_path={index}", "logging.level=INFO"]
+        *extra, f"retrieval.index_path={index}", "logging.level=INFO"]
     lines = [json.dumps({"query": query, "k": SERVE_K}),
              json.dumps({"queries": "a bare string"}),
              json.dumps({"stats": True})]
@@ -3998,13 +4037,510 @@ def check_serve_cli(failures: list, workdir: str, query: str) -> None:
     if ok:
         hits = resp[0].get("results", [{}])[0].get("hits", [])
         rec.update(hits=len(hits), error=resp[1].get("error"),
-                   boot=resp[2].get("boot"), n_docs=resp[2].get("n_docs"))
+                   boot=resp[2].get("boot"), n_docs=resp[2].get("n_docs"),
+                   rerank=resp[2].get("rerank"))
         ok = (len(hits) == SERVE_K and "error" in resp[1]
               and "error" not in resp[0] and resp[2].get("boot") == "warm"
+              and rec["rerank"] == ("cross" if extra else "none")
               and "warm boot in" in out.stderr)
-    record("serve_cli", **rec)
+    record(label, **rec)
     if not ok:
-        failures.append(f"the serve CLI: {rec}")
+        failures.append(f"the serve CLI ({label}): {rec}")
+
+
+# ------------------------------------- phases 3o-3q: reranking and chunking
+
+# the reranker of 3o-3q: a seeded cross-encoder at the encoder config's
+# MiniLM-L6 geometry (384 wide, 6 layers, 12 heads, MLP 1536, bf16), written
+# by the port as <checkpoints_dir>/reranker.msgpack with a sidecar pinning
+# the JAX trainer's default pair length (128) and query budget (64)
+RERANK_SEED = 2024
+RERANK_MAX_LENGTH = 128
+RERANK_QUERY_MAX = 64
+# the head is fitted to RERANK_FIT_PAIRS pairs: along the top principal
+# direction of their pooled outputs, scaled to logits of mean 0, std 1
+RERANK_FIT_PAIRS = 512
+# |bf16 logit - fp32 logit| of one pair; the logits must spread over more
+# than 10 bands, so the band is not their spread. With the fitted head the
+# 80,000 pairs' gaps reach 0.0758 over a spread of 4.74 (H100 80GB HBM3,
+# 700 W)
+RERANK_BAND = 0.15
+RERANK_SAMPLED = 256  # pairs scored one a call (bucket invariance)
+# |alone - batched| over max(1, |logit|): the trunk's bf16 values agree
+# across batch buckets, the fp32 pooler and head sum in other orders
+RERANK_SINGLE_REL = 1e-5
+# the run's docs vs MaxSim over the fp32 logits, slot by slot, where a slot
+# also agrees when its doc's fp32 score is within twice the run's largest
+# bf16 gap of the fp32 list's at that slot: a swap that the bf16 rounding
+# explains (each logit moves by at most that gap); the plain slot
+# agreement is recorded beside it
+RERANK_DOC_AGREE = 0.98
+CHUNK_SUCCESSORS = 5  # 3p's documents: a passage and its 5 successors'
+# sliding chunks, the fold vs xla_exact as stage 1, slot by slot, where a
+# slot also agrees when the two runs' doc scores there are within
+# CHUNK_TIE_TOL: overlapping chunks of near-collinear latents tie to fp32
+# rounding, and the two routes sum in other orders (a few ulps at ~1); fp64
+# MaxSim over the run's stored chunks ties 820 of the 839 differing slots
+# exactly and the rest within 9.9e-8 (H100 80GB HBM3, 700 W)
+CHUNK_DOC_AGREE = 0.98
+CHUNK_TIE_TOL = 1e-6
+SERVE_RERANK_REQUESTS = 256
+
+
+def write_reranker(torch, workdir: str) -> dict:
+    """The seeded cross-encoder, written by the port in the JAX package's
+    format beside the main path's checkpoints; returns the file's facts."""
+    from latentrag_torch.data.tokenizer import resolve_tokenizer
+    from latentrag_torch.models.encoder.cross import CrossEncoderScorer
+    from latentrag_torch.retrieval.reranker import save_reranker
+    from latentrag_torch.utils import apply_overrides, load_config
+
+    cfg = apply_overrides(load_config(None),
+                          main_overrides(workdir, "auto", "bfloat16"))
+    tok = resolve_tokenizer(cfg.paths.data_dir, cfg.encoder.vocab_size)
+    scorer = CrossEncoderScorer(tok, cfg.encoder, seed=RERANK_SEED,
+                                device="cuda")
+    fit_head(torch, scorer)
+    path = save_reranker(cfg, scorer, max_length=RERANK_MAX_LENGTH,
+                         query_max=RERANK_QUERY_MAX)
+    rec = {"path": path, "bytes": os.path.getsize(path),
+           "params": sum(p.numel() for p in scorer.module.parameters()),
+           "geometry": [cfg.encoder.hidden_dim, cfg.encoder.num_layers,
+                        cfg.encoder.num_heads, cfg.encoder.mlp_dim,
+                        cfg.encoder.dtype]}
+    del scorer
+    torch.cuda.empty_cache()
+    return rec
+
+
+def fit_head(torch, scorer) -> None:
+    """Point the seeded scorer's head along the top principal direction of
+    its pooled outputs over RERANK_FIT_PAIRS seeded (question, context)
+    pairs of the synthetic examples, scaled so their logits have mean 0
+    and std 1. A random head reads a direction in which the pairs barely
+    differ, so its logits' spread is near the bf16 rounding."""
+    import numpy as np
+
+    from latentrag_torch.data import synthetic_examples
+    from latentrag_torch.models.encoder.cross import encode_pairs
+
+    examples = synthetic_examples(2000)
+    rng = np.random.default_rng(RERANK_SEED)
+    qi, di = (rng.integers(0, len(examples), RERANK_FIT_PAIRS)
+              for _ in range(2))
+    arrays = encode_pairs(
+        scorer.tokenizer, [examples[i]["question"] for i in qi],
+        [examples[i]["context"] for i in di],
+        max_length=RERANK_MAX_LENGTH, query_max=RERANK_QUERY_MAX)
+    head = scorer.module.classifier
+    with torch.no_grad():
+        pooled = scorer.module.pool(*(torch.from_numpy(a).to(
+            scorer.device, torch.long) for a in arrays)).double()
+        v = torch.linalg.svd(pooled - pooled.mean(dim=0),
+                             full_matrices=False).Vh[0]
+        proj = pooled @ v
+        head.weight.copy_((v / proj.std())[None].float())
+        head.bias.fill_(float(-proj.mean() / proj.std()))
+
+
+@contextlib.contextmanager
+def search_calls():
+    """Every ``DenseRetriever.search`` call while open: its retriever, the
+    queries it got and k."""
+    from latentrag_torch.retrieval.dense import DenseRetriever
+
+    calls: list = []
+    orig = DenseRetriever.search
+
+    @functools.wraps(orig)
+    def spy(self, queries, k, *args, **kw):
+        calls.append(SimpleNamespace(retriever=self, queries=queries, k=k))
+        return orig(self, queries, k, *args, **kw)
+
+    DenseRetriever.search = spy
+    try:
+        yield calls
+    finally:
+        DenseRetriever.search = orig
+
+
+@contextlib.contextmanager
+def rescore_calls():
+    """Every ``CrossEncoderReranker.rescore_candidates`` call while open:
+    its reranker, inputs, result and host seconds (the result is host
+    numpy, so the card has finished when it returns)."""
+    from latentrag_torch.retrieval import reranker as rr
+
+    calls: list = []
+    orig = rr.CrossEncoderReranker.rescore_candidates
+
+    def spy(self, queries, idx, texts):
+        t0 = time.perf_counter()
+        out = orig(self, queries, idx, texts)
+        calls.append(SimpleNamespace(
+            reranker=self, queries=list(queries), idx=idx, texts=texts,
+            out=out, s=time.perf_counter() - t0))
+        return out
+
+    rr.CrossEncoderReranker.rescore_candidates = spy
+    try:
+        yield calls
+    finally:
+        rr.CrossEncoderReranker.rescore_candidates = orig
+
+
+def run_counted(torch, workdir: str, kernel: str, extra=()) -> tuple:
+    """A bf16 ``run_main`` with the kernels' counts at 0 just before it;
+    returns the result and the counts it left (those above 0)."""
+    from latentrag_torch.ops import fused_topk as ft
+
+    ft.reset_launches()
+    res = run_main(torch, workdir, kernel, extra=tuple(extra))
+    return res, {k: v for k, v in ft.launches.items() if v}
+
+
+def rounding_agreement(ids, ref_ids, ref_scores, score_of, tol) -> float:
+    """Share of slots where ``ids`` hold ``ref_ids``' doc, or a doc whose
+    reference score (``score_of[q][doc]``) is within ``tol`` of the
+    reference list's score at that slot."""
+    same = slots = 0
+    for q, (row, ref, ref_s) in enumerate(zip(ids, ref_ids, ref_scores)):
+        for r, doc in enumerate(ref):
+            slots += 1
+            got = row[r] if r < len(row) else None
+            same += got == doc or (got is not None and abs(
+                score_of[q].get(got, float("-inf")) - ref_s[r]) <= tol)
+    return same / max(slots, 1)
+
+
+def check_rerank_main(torch, failures: list, workdir: str) -> int:
+    """Phase 3o: ``main --ae_type vae --set retrieval.rerank=cross`` on the
+    main path (the synthetic 2000 examples, MiniLM-L6 bf16, the seeded VAE)
+    with the seeded full-width cross-encoder, top_k 10, its store at its
+    own index_path: candidate_k 40; the fold serves search and self-check,
+    the exact kernel nothing; the reranker's weights on the card; the run's
+    docs and doc scores bit for bit MaxSim's over its own logits (the
+    rescore -> MaxSim plumbing); its 80,000-pair logit matrix within
+    RERANK_BAND of the same pairs scored in fp32 mode on the card, and
+    spread over more than 10 bands; 256 sampled pairs, each scored alone,
+    within RERANK_SINGLE_REL of their batched logits; the run's docs on
+    >= 98 % of slots MaxSim's over the fp32 logits; a second run warm-boots
+    the store and returns the same docs. Returns the cold run's fold
+    launches."""
+    import numpy as np
+
+    from latentrag_torch.models.encoder.cross import CrossEncoderScorer
+    from latentrag_torch.pipeline import aggregate_docs
+    from latentrag_torch.retrieval.reranker import CrossEncoderReranker
+
+    t_phase = time.perf_counter()
+    written = write_reranker(torch, workdir)
+    extra = ["retrieval.rerank=cross",
+             f"retrieval.index_path={workdir}/index_rerank"]
+    with rescore_calls() as calls:
+        res, launches = run_counted(torch, workdir, "auto", extra)
+        again, again_launches = run_counted(torch, workdir, "auto", extra)
+    call = calls[0]
+    scorer = call.reranker.scorer
+    live = call.idx >= 0
+    # the same pairs in fp32 mode on the card
+    twin = CrossEncoderScorer(
+        scorer.tokenizer, dataclasses.replace(scorer.cfg, dtype="float32"),
+        state_dict=scorer.module.state_dict(), query_max=scorer.query_max,
+        device="cuda")
+    t0 = time.perf_counter()
+    exact = CrossEncoderReranker(twin).rescore_candidates(
+        call.queries, call.idx, call.texts)
+    fp32_s = time.perf_counter() - t0
+    del twin
+    gap = np.abs(call.out[live].astype(np.float64) - exact[live])
+    own_scores, own_docs = aggregate_docs(
+        call.out, call.idx, range(len(call.texts)), res["top_k"],
+        scorer.device)
+    plumbing = (own_docs == res["retrieved_doc_ids"]
+                and np.array_equal(own_scores, res["doc_scores"]))
+    fp32_scores, fp32_docs = aggregate_docs(
+        exact, call.idx, range(len(call.texts)), res["top_k"], scorer.device)
+    agree = slot_agreement(res["retrieved_doc_ids"], fp32_docs)
+    score_of = [dict(zip(row[ok].tolist(), s[ok].tolist()))
+                for row, s, ok in zip(call.idx, exact, live)]
+    agree_rounding = rounding_agreement(
+        res["retrieved_doc_ids"], fp32_docs, fp32_scores, score_of,
+        2 * float(gap.max()))
+    # bucket invariance: pairs scored one a call (batch bucket 8, the
+    # pair's own length bucket) against their slots of the run's matrix
+    rows, cols = np.nonzero(live)
+    pick = np.random.default_rng(15).choice(rows.size, RERANK_SAMPLED,
+                                            replace=False)
+    single = np.asarray([
+        scorer.score_pairs([call.queries[rows[p]]],
+                           [call.texts[call.idx[rows[p], cols[p]]]])[0]
+        for p in pick])
+    single_gap = np.abs(single - call.out[rows[pick], cols[pick]])
+    logits = call.out[live]
+    pairs = int(live.sum())
+    rerank_s = res["timings"]["rerank_s"]
+    rec = {
+        "card": card_line(), "reranker": written,
+        "pair_length": scorer.cfg.max_length, "query_max": scorer.query_max,
+        "on_card": all(p.is_cuda for p in scorer.module.parameters()),
+        "n_queries": res["n_queries"], "n_corpus": res["n_corpus"],
+        "candidate_k": res["candidate_k"], "pairs": pairs,
+        "launches": launches, "again_launches": again_launches,
+        "rerank_s": rerank_s, "pairs_per_s": pairs / rerank_s,
+        "rerank_share": rerank_s / res["wall_s"], "wall_s": res["wall_s"],
+        "timings_s": res["timings"], "again_timings_s": again["timings"],
+        "metrics": {m: v["mean"] for m, v in res["retrieval_metrics"].items()},
+        "logit_range": [float(logits.min()), float(logits.max())],
+        "logit_std": float(logits.std()),
+        "fp32_logit_ptp": float(np.ptp(exact[live])),
+        "docs_bit_for_bit_maxsim_of_own_logits": plumbing,
+        "fp32_s": fp32_s, "fp32_max_gap": float(gap.max()),
+        "fp32_p99_gap": float(np.percentile(gap, 99)),
+        "fp32_doc_agreement": agree,
+        "fp32_doc_agreement_within_rounding": agree_rounding,
+        "single_max_gap": float(single_gap.max()),
+        "single_max_rel_gap": float((single_gap / np.maximum(
+            1.0, np.abs(single))).max()),
+        "warm": {"skipped": "index compatible; skipping rebuild"
+                            in again["retrieval_log"],
+                 "same_doc_ids": again["retrieved_doc_ids"]
+                 == res["retrieved_doc_ids"],
+                 "rescored": len(calls) == 2},
+    }
+    rec["ok"] = ok = (
+        rec["on_card"] and rec["candidate_k"] == 40
+        and pairs == res["n_queries"] * 40
+        and launches.get("fold", 0) >= 2 and "exact" not in launches
+        and "exact" not in again_launches
+        and plumbing
+        and rec["fp32_max_gap"] <= RERANK_BAND
+        and rec["fp32_logit_ptp"] > 10 * RERANK_BAND
+        and rec["single_max_rel_gap"] <= RERANK_SINGLE_REL
+        and agree_rounding >= RERANK_DOC_AGREE
+        and all(rec["warm"].values()))
+    rec["phase_s"] = time.perf_counter() - t_phase
+    record("rerank_main_path", **rec)
+    if not ok:
+        failures.append(f"the reranked main path: {rec}")
+    del call, calls, scorer
+    torch.cuda.empty_cache()
+    return launches.get("fold", 0)
+
+
+def write_chunked_corpus(workdir: str) -> str:
+    """Phase 3p's ``jsonl:`` corpus: each of the synthetic 2000 examples
+    keeps its question and answer, and its context becomes its own passage
+    followed by its CHUNK_SUCCESSORS successors' (wrapping at the end), so
+    the answer span stays where it was."""
+    from latentrag_torch.data import synthetic_examples
+
+    examples = synthetic_examples(2000)
+    n = len(examples)
+    path = f"{workdir}/chunked.jsonl"
+    with open(path, "w") as f:
+        for i, ex in enumerate(examples):
+            context = " ".join(examples[(i + j) % n]["context"]
+                               for j in range(CHUNK_SUCCESSORS + 1))
+            assert context[ex["answer_start"]:].startswith(ex["answer_text"])
+            f.write(json.dumps({**ex, "context": context}) + "\n")
+    return path
+
+
+def check_chunked_main(torch, failures: list, workdir: str) -> dict:
+    """Phase 3p: ``main --set chunking.enabled=true`` over the ``jsonl:``
+    corpus of ``write_chunked_corpus`` (2000 questions, documents of about
+    six passages) at the config's windows (128 tokens, stride 64, min 48):
+    sliding chunks, the same with ``xla_exact`` as stage 1, and semantic
+    chunks with the reranker of 3o. Each run: n_chunks >= 2 x n_corpus,
+    candidate_k 30 (40 with the reranker), every returned id a document's,
+    none twice in a query, the fold launched (auto); the sliding run's
+    docs on >= 98 % of slots the xla_exact run's, a slot also agreeing
+    where the two runs' doc scores tie within CHUNK_TIE_TOL, and at every
+    slot where the docs differ, fp64 MaxSim over the sliding run's own
+    stored chunks (``tie_witness``) scores the two docs within
+    CHUNK_TIE_TOL. Returns the auto runs' fold launches."""
+    import numpy as np
+
+    from latentrag_torch.data import load_evaluation_data, load_jsonl_examples
+    from latentrag_torch.data.tokenizer import resolve_tokenizer
+
+    t_phase = time.perf_counter()
+    corpus = write_chunked_corpus(workdir)
+    base = [f"data.dataset=jsonl:{corpus}", "chunking.enabled=true"]
+    runs = {}
+    searched: list = []
+    for name, kernel, extra in (
+        ("sliding", "auto", ["chunking.mode=sliding"]),
+        ("sliding_exact", "xla_exact", ["chunking.mode=sliding"]),
+        ("semantic_rerank", "auto", ["chunking.mode=semantic",
+                                     "retrieval.rerank=cross"]),
+    ):
+        with search_calls() as calls:
+            res, launches = run_counted(
+                torch, workdir, kernel, base + extra
+                + [f"retrieval.index_path={workdir}/index_{name}"])
+        searched.append(calls[-1])
+        rows = res["retrieved_doc_ids"]
+        runs[name] = res
+        rec = {
+            "candidate_k": res["candidate_k"], "n_corpus": res["n_corpus"],
+            "n_chunks": res["n_chunks"], "n_queries": res["n_queries"],
+            "chunks_per_doc": res["n_chunks"] / res["n_corpus"],
+            "launches": launches, "timings_s": res["timings"],
+            "wall_s": res["wall_s"],
+            "split": {k: v / res["wall_s"] for k, v in res["timings"].items()},
+            "metrics": {m: v["mean"]
+                        for m, v in res["retrieval_metrics"].items()},
+            "valid_ids": all(0 <= d < res["n_corpus"] for r in rows
+                             for d in r),
+            "no_duplicates": all(len(r) == len(set(r)) for r in rows),
+            "full_rows": all(len(r) == res["top_k"] for r in rows),
+        }
+        want_k = 40 if name == "semantic_rerank" else 30
+        ok = (rec["n_chunks"] >= 2 * rec["n_corpus"]
+              and rec["candidate_k"] == want_k and rec["valid_ids"]
+              and rec["no_duplicates"] and rec["full_rows"])
+        if kernel == "auto":
+            ok = ok and launches.get("fold", 0) >= 2 and (
+                "exact" not in launches)
+        rec["ok"] = ok
+        runs[name + "_rec"] = rec
+        if not ok:
+            failures.append(f"the chunked main path ({name}): {rec}")
+    fold_run, exact_run = runs["sliding"], runs["sliding_exact"]
+    agree = slot_agreement(fold_run["retrieved_doc_ids"],
+                           exact_run["retrieved_doc_ids"])
+    gaps = np.abs(np.asarray(fold_run["doc_scores"], np.float64)
+                  - np.asarray(exact_run["doc_scores"], np.float64))
+    tied = np.asarray([
+        [a == b or g <= CHUNK_TIE_TOL for a, b, g in zip(ra, rb, rg)]
+        for ra, rb, rg in zip(fold_run["retrieved_doc_ids"],
+                              exact_run["retrieved_doc_ids"], gaps)])
+    agree_ties = float(tied.mean())
+    if agree_ties < CHUNK_DOC_AGREE:
+        failures.append(f"sliding chunks: the fold's docs on {agree} of "
+                        f"slots xla_exact's, {agree_ties} with ties (>= "
+                        f"{CHUNK_DOC_AGREE})")
+    witness = tie_witness(torch, searched[0], fold_run, exact_run)
+    if witness["max_fp64_gap"] > CHUNK_TIE_TOL:
+        failures.append(f"sliding chunks: fp64 MaxSim does not tie the "
+                        f"differing docs: {witness}")
+    tok = resolve_tokenizer(f"{workdir}/data", 30522)
+    _, docs, _ = load_evaluation_data(load_jsonl_examples(corpus))
+    lengths = np.asarray([len(tok.encode(d, add_special_tokens=False).ids)
+                          for d in docs])
+    record("chunked_main_path", card=card_line(),
+           doc_tokens={"mean": float(lengths.mean()),
+                       "min": int(lengths.min()), "max": int(lengths.max())},
+           sliding=runs["sliding_rec"],
+           sliding_exact=runs["sliding_exact_rec"],
+           semantic_rerank=runs["semantic_rerank_rec"],
+           sliding_vs_exact_agreement=agree,
+           sliding_vs_exact_agreement_with_ties=agree_ties,
+           tie_witness=witness,
+           misses=slot_misses(fold_run, exact_run),
+           phase_s=time.perf_counter() - t_phase)
+    return {"sliding": runs["sliding_rec"]["launches"].get("fold", 0),
+            "semantic_rerank":
+                runs["semantic_rerank_rec"]["launches"].get("fold", 0)}
+
+
+def tie_witness(torch, call, run_a: dict, run_b: dict) -> dict:
+    """At each slot where two runs over one chunked store return other
+    docs, the gap between those two docs' fp64 MaxSim scores: the search
+    ``call``'s queries, prepared as the retriever prepares them and cast to
+    its store's dtype, against its stored chunk rows, every product exact
+    in fp64. Gaps at fp32 rounding say the differing docs are ties; a
+    missed doc shows a larger gap."""
+    import numpy as np
+
+    from latentrag_torch.ops.distances import prepare_for_metric
+
+    r = call.retriever
+    q = prepare_for_metric(
+        torch.as_tensor(call.queries).to(r.device, torch.float32),
+        r.metric, r._whitener).to(r._corpus.dtype)
+    chunk = q.double() @ r._corpus.double().T
+    n_docs = max(r.doc_ids) + 1
+    doc = torch.as_tensor(r.doc_ids, device=r.device).expand_as(chunk)
+    maxsim = torch.full((chunk.shape[0], n_docs), float("-inf"),
+                        dtype=torch.float64, device=r.device).scatter_reduce(
+        1, doc, chunk, "amax").cpu().numpy()
+    gaps = [abs(maxsim[qi, a] - maxsim[qi, b])
+            for qi, (ra, rb) in enumerate(zip(run_a["retrieved_doc_ids"],
+                                              run_b["retrieved_doc_ids"]))
+            for a, b in zip(ra, rb) if a != b]
+    gaps = np.asarray(gaps, np.float64)
+    return {"differing_slots": int(gaps.size),
+            "max_fp64_gap": float(gaps.max()) if gaps.size else 0.0,
+            "exact_fp64_ties": int((gaps == 0).sum())}
+
+
+def check_rerank_serving(torch, failures: list, workdir: str) -> dict:
+    """Phase 3q: the reranked server over (copies of) 3o's store: the JSONL
+    CLI (a search, a bad request, stats; rc 0), then ``make_handle`` behind
+    HTTP in this process with 256 single-query searches, k 10, from 64
+    clients at window 0 and 2 ms: every response its own query's with k
+    hits, the fold launched once a search call and the exact kernel never,
+    the served ids on >= 99 % of slots those of one direct encode + search
+    + rescore of the same queries; QPS, p50/p99 and the rescore's seconds
+    under the lock recorded. Returns each load's fold launches."""
+    import numpy as np
+
+    from latentrag_torch.utils import apply_overrides, load_config
+
+    t_phase = time.perf_counter()
+    overrides = ["retrieval.rerank=cross"]
+    check_serve_cli(failures, workdir, eval_queries(1)[0],
+                    source="index_rerank", extra=overrides,
+                    label="serve_cli_rerank")
+    index = f"{workdir}/serve_index_rerank"
+    shutil.copytree(f"{workdir}/index_rerank", index)
+    cfg = apply_overrides(load_config(None), main_overrides(
+        workdir, "auto", "bfloat16") + overrides + [
+        f"retrieval.index_path={index}"])
+    queries = eval_queries(SERVE_RERANK_REQUESTS)
+    server_env, spy, boot_rec = boot_server(torch, cfg, failures, "reranked")
+    runner, _, retriever = server_env[:3]
+    reranker = runner._ensure_reranker()  # the instance make_handle takes
+    loads = {}
+    for window in (0.0, 2.0):
+        with running_server(cfg, server_env, window) as srv, \
+                rescore_calls() as spy.rescores:
+            # the timed load's rescores: timed_load empties the list
+            # after its warm-up (``spy.reset``)
+            load = timed_load(torch, srv, spy, queries, profiled=False)
+            # the rescore's host seconds under the lock in the timed load
+            # (it returns host numpy, so they include the card's work)
+            rerank_s = sum(c.s for c in spy.rescores)
+            load.update(rerank_s=rerank_s, rerank_pairs=sum(
+                int((c.idx >= 0).sum()) for c in spy.rescores),
+                rerank_share=rerank_s / load["wall_s"])
+            check_load(load, queries, failures,
+                       f"reranked serve window {window}")
+            loads[window] = load
+    spy.rescores = []
+    emb = spy.encode(queries)
+    _, idx = spy.search(emb, 4 * SERVE_K)
+    scores = reranker.rescore_candidates(queries, idx, retriever.texts)
+    order = np.argsort(-scores, axis=1)[:, :SERVE_K]
+    top = np.take_along_axis(np.asarray(idx), order, axis=1)
+    direct = [[retriever.doc_ids[j] for j in row if j >= 0] for row in top]
+    for load in loads.values():
+        served = [r["ids"] for r in load.pop("responses")]
+        load["direct_agreement"] = slot_agreement(served, direct)
+        if load["direct_agreement"] < SERVE_DIRECT_AGREE:
+            failures.append(
+                f"reranked served ids at window {load['window_ms']}: "
+                f"{load['direct_agreement']} of slots as the direct call "
+                f"(>= {SERVE_DIRECT_AGREE})")
+    record("serve_rerank", card=card_line(), **boot_rec,
+           loads=list(loads.values()), phase_s=time.perf_counter() - t_phase)
+    del server_env, spy, retriever, reranker
+    torch.cuda.empty_cache()
+    return {f"serve_rerank_w{int(w)}": load["launches"]["fold"]
+            for w, load in loads.items()}
 
 
 def time_masked(torch) -> dict:
@@ -4220,6 +4756,18 @@ def main() -> int:
     knn_main_launches = check_ann_main(torch, failures, main_wd, oracle32)
     if failures:
         fail("; ".join(failures))
+    # phases 3o-3q: the second stage and chunked documents through main
+    # and serve; each drive's fold launches read with the counts at 0
+    slice_launches = {"rerank_main": check_rerank_main(torch, failures,
+                                                       main_wd)}
+    if failures:
+        fail("; ".join(failures))
+    slice_launches.update(check_chunked_main(torch, failures, main_wd))
+    if failures:
+        fail("; ".join(failures))
+    slice_launches.update(check_rerank_serving(torch, failures, main_wd))
+    if failures:
+        fail("; ".join(failures))
 
     kernels = []
     for mode, fn_line, source in (("fold", 162, "fold_mma.cuh"),
@@ -4240,8 +4788,10 @@ def main() -> int:
                          f"block_n={t['block_n']} {store} cosine",
             })
     # the served searches' launches (phase 3h), each load with its counts
-    # at 0: the bf16 fold serves them all
+    # at 0: the bf16 fold serves them all, as it serves stage 1 of the
+    # reranked and chunked runs (phases 3o-3q)
     kernels[0]["serve_launches"] = serve_launches
+    kernels[0]["rerank_chunk_launches"] = slice_launches
     for tag, store in (("", "bf16"), ("_fp32", "fp32")):
         t = times[("1m", "exact_k3000" + tag)]
         kernels.append({

@@ -447,3 +447,15 @@ def resolve_tokenizer(
     os.makedirs(data_dir, exist_ok=True)
     tokenizer.save(tok_path)
     return tokenizer
+
+
+def tokenizer_digest(tok: "WordPieceTokenizer") -> str:
+    """Stable identity of a tokenizer's vocabulary (sha1 over the (token,
+    id) items in id order), the JAX package's digest: a checkpoint's
+    sidecar refuses to serve under another vocabulary of the same size."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for token, idx in sorted(tok.vocab.items(), key=lambda kv: kv[1]):
+        h.update(f"{idx}:{token}\n".encode("utf-8"))
+    return h.hexdigest()

@@ -8,6 +8,10 @@ The JAX package keeps Flax parameter trees: ``Dense`` layers as
 (numpy, or anything ``np.asarray`` reads) and return the port's
 ``state_dict``; they import nothing of JAX.
 
+``cross_encoder_params_from_state_dict`` goes the other way for the
+cross-encoder reranker: the port's state dict -> the Flax tree, keys in the
+order the Flax module creates them, for ``msgpack_io.save_msgpack``.
+
 ``load_autoencoder_pth`` reads a reference-keyed ``.pth``, which needs no
 conversion. The JAX package's encoder msgpack reads into such a tree with
 ``models.encoder.msgpack_io.load_msgpack`` (a bf16 leaf arrives as a
@@ -42,24 +46,89 @@ def _ln(node: Mapping, prefix: str) -> dict:
             f"{prefix}.bias": _t(node["bias"])}
 
 
-def minilm_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
-    """Flax ``MiniLMEncoder`` params -> ``MiniLMEncoder`` state dict."""
+_LAYER_DENSE = ("q", "k", "v", "attn_out", "mlp_in", "mlp_out")
+# a TransformerLayer's submodules in the order the Flax module makes them
+_LAYER_ORDER = ("q", "k", "v", "attn_out", "attn_ln", "mlp_in", "mlp_out",
+                "mlp_ln")
+
+
+def _trunk(params: Mapping) -> dict[str, torch.Tensor]:
+    """The word and position embeddings, the embedding LayerNorm and the
+    ``layer_<i>`` blocks, shared by the sentence and cross encoders."""
     sd = {
         "word_embeddings.weight": _t(params["word_embeddings"]["embedding"]),
         "position_embeddings.weight":
             _t(params["position_embeddings"]["embedding"]),
-        "token_type_embedding": _t(params["token_type_embedding"]),
         **_ln(params["embed_ln"], "embed_ln"),
     }
     n_layers = sum(1 for key in params if key.startswith("layer_"))
     for i in range(n_layers):
         p = params[f"layer_{i}"]
         pre = f"layers.{i}"
-        for name in ("q", "k", "v", "attn_out", "mlp_in", "mlp_out"):
+        for name in _LAYER_DENSE:
             sd.update(_linear(p[name], f"{pre}.{name}"))
         sd.update(_ln(p["attn_ln"], f"{pre}.attn_ln"))
         sd.update(_ln(p["mlp_ln"], f"{pre}.mlp_ln"))
     return sd
+
+
+def minilm_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """Flax ``MiniLMEncoder`` params -> ``MiniLMEncoder`` state dict."""
+    return {**_trunk(params),
+            "token_type_embedding": _t(params["token_type_embedding"])}
+
+
+def cross_encoder_state_dict_from_jax(
+    params: Mapping,
+) -> dict[str, torch.Tensor]:
+    """Flax ``CrossEncoderModel`` params -> ``CrossEncoderModel`` state
+    dict."""
+    return {
+        **_trunk(params),
+        "token_type_embeddings.weight":
+            _t(params["token_type_embeddings"]["embedding"]),
+        **_linear(params["pooler"], "pooler"),
+        **_linear(params["classifier"], "classifier"),
+    }
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def cross_encoder_params_from_state_dict(
+    sd: Mapping[str, torch.Tensor],
+) -> dict:
+    """``CrossEncoderModel`` state dict -> the Flax ``CrossEncoderModel``
+    tree (fp32 numpy leaves, Flax's key order): what the JAX package's
+    ``load_params`` restores from a ``save_msgpack`` of it."""
+
+    def dense(pre):
+        return {"kernel": _np(sd[f"{pre}.weight"]).T.copy(),
+                "bias": _np(sd[f"{pre}.bias"])}
+
+    def ln(pre):
+        return {"scale": _np(sd[f"{pre}.weight"]),
+                "bias": _np(sd[f"{pre}.bias"])}
+
+    tree = {
+        "word_embeddings": {"embedding": _np(sd["word_embeddings.weight"])},
+        "position_embeddings": {
+            "embedding": _np(sd["position_embeddings.weight"])},
+        "token_type_embeddings": {
+            "embedding": _np(sd["token_type_embeddings.weight"])},
+        "embed_ln": ln("embed_ln"),
+    }
+    n_layers = len({key.split(".")[1] for key in sd
+                    if key.startswith("layers.")})
+    for i in range(n_layers):
+        tree[f"layer_{i}"] = {
+            name: (ln if name.endswith("_ln") else dense)(f"layers.{i}.{name}")
+            for name in _LAYER_ORDER
+        }
+    tree["pooler"] = dense("pooler")
+    tree["classifier"] = dense("classifier")
+    return tree
 
 
 # Flax AE module path -> the reference torch key (models/convert_torch.py

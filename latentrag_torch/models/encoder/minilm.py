@@ -46,6 +46,21 @@ def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
                         ln.eps)
 
 
+def seeded_init(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded init with the Flax modules' initializer scales: weights and
+    embeddings N(0, 1/fan_in) (an embedding's fan-in is its width), a
+    vector N(0, 0.02), zero biases, unit LayerNorms."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            elif "_ln" in name:
+                p.fill_(1.0)
+            else:
+                std = 0.02 if p.ndim == 1 else p.shape[1] ** -0.5
+                p.copy_(torch.randn(p.shape, generator=generator) * std)
+
+
 class TransformerLayer(nn.Module):
     def __init__(self, hidden_dim: int, num_heads: int, mlp_dim: int):
         super().__init__()
@@ -120,21 +135,6 @@ class MiniLMEncoder(nn.Module):
             TransformerLayer(hidden_dim, num_heads, mlp_dim)
             for _ in range(num_layers)
         )
-
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        """Seeded init with the Flax module's initializer scales: weights
-        and embeddings N(0, 1/fan_in), the token-type vector N(0, 0.02),
-        zero biases, unit LayerNorms (the self-init encoder used when no
-        weights exist)."""
-        with torch.no_grad():
-            for name, p in self.named_parameters():
-                if name.endswith("bias"):
-                    p.zero_()
-                elif "_ln" in name:
-                    p.fill_(1.0)
-                else:
-                    std = 0.02 if p.ndim == 1 else p.shape[1] ** -0.5
-                    p.copy_(torch.randn(p.shape, generator=generator) * std)
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: torch.Tensor) -> torch.Tensor:
@@ -214,7 +214,8 @@ class SentenceEncoder:
             dtype=dtype,
         )
         if state_dict is None:
-            self.module.reset_parameters(torch.Generator().manual_seed(seed))
+            # the self-init encoder used when no weights exist
+            seeded_init(self.module, torch.Generator().manual_seed(seed))
         else:
             self.module.load_state_dict(state_dict)
         self.module.to(self.device).eval()

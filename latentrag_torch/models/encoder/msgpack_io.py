@@ -1,9 +1,14 @@
-"""A reader of the JAX package's msgpack parameter files, in plain Python.
+"""The JAX package's msgpack parameter files, read and written in plain
+Python.
 
-The JAX package saves its trained encoder with
-``flax.serialization.to_bytes(params)`` (``encoder.msgpack``). Neither
-flax nor the ``msgpack`` package is needed to read it back: this module
-decodes the subset of msgpack that flax writes, byte by byte.
+The JAX package saves its trained encoder and reranker with
+``flax.serialization.to_bytes(params)`` (``encoder.msgpack``,
+``reranker.msgpack``). Neither flax nor the ``msgpack`` package is needed
+to read them back or to write one: this module decodes the subset of
+msgpack that flax writes, byte by byte, and ``save_msgpack`` encodes a
+tree the way ``to_bytes`` does (string-keyed maps in insertion order,
+ndarray leaves as ExtType 1, each integer and length in msgpack's
+smallest form), so the JAX package's ``load_params`` reads it.
 
 * maps, arrays, str, bin, int, float, bool and nil;
 * ExtType 1, an ndarray: a nested msgpack ``(shape, dtype name, bytes)``,
@@ -17,6 +22,10 @@ decodes the subset of msgpack that flax writes, byte by byte.
 Anything else (another extension type, a reserved byte) raises
 ``ValueError``. ``load_msgpack(path)`` returns the nested dicts of the
 params tree, ready for ``models.convert.minilm_state_dict_from_jax``.
+The writer takes what a params tree holds: string-keyed maps of numpy
+arrays and tensors (a ``torch.bfloat16`` leaf is written as flax writes a
+bfloat16 array); it refuses a leaf over flax's chunk size (1 GiB), which
+flax would split into chunks.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import torch
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
 _CHUNKED = "__msgpack_chunked_array__"
+_MAX_LEAF_BYTES = 1 << 30  # flax.serialization.MAX_CHUNK_SIZE
 
 
 class _Reader:
@@ -154,3 +164,102 @@ def load_msgpack(path: str) -> Any:
     dicts of numpy arrays (``torch.bfloat16`` tensors for bf16 leaves)."""
     with open(path, "rb") as f:
         return _unchunk(unpackb(f.read()))
+
+
+# ------------------------------------------------------------------ writer
+
+
+def _head(out: bytearray, n: int, small: int | None, small_max: int,
+          codes: tuple[int, int, int]) -> None:
+    """A length header: the fixed form when ``small`` is given and ``n``
+    fits, else the 8/16/32-bit form (``codes``; 0 = no 8-bit form)."""
+    if small is not None and n <= small_max:
+        out.append(small | n)
+    elif codes[0] and n <= 0xFF:
+        out += struct.pack(">BB", codes[0], n)
+    elif n <= 0xFFFF:
+        out += struct.pack(">BH", codes[1], n)
+    else:
+        out += struct.pack(">BI", codes[2], n)
+
+
+def _pack_int(out: bytearray, x: int) -> None:
+    """A non-negative integer (shapes) in its smallest form."""
+    for code, fmt, top in ((None, ">B", 0x7F), (0xCC, ">BB", 0xFF),
+                           (0xCD, ">BH", 0xFFFF), (0xCE, ">BI", 0xFFFFFFFF),
+                           (0xCF, ">BQ", 0xFFFFFFFFFFFFFFFF)):
+        if 0 <= x <= top:
+            out += struct.pack(fmt, x) if code is None else struct.pack(
+                fmt, code, x)
+            return
+    raise ValueError(f"integer {x} cannot be written")
+
+
+def _ndarray_bytes(arr) -> bytes:
+    """flax's ndarray payload, msgpack ``(shape, dtype name, C bytes)``."""
+    if isinstance(arr, torch.Tensor):
+        arr = arr.detach().cpu()
+        if arr.dtype == torch.bfloat16:
+            shape = tuple(arr.shape)
+            data = arr.contiguous().view(torch.int16).numpy().tobytes()
+            return packb((shape, "bfloat16", data))
+        arr = arr.numpy()
+    arr = np.asarray(arr)
+    if arr.dtype.hasobject or arr.dtype.fields is not None:
+        raise ValueError(f"dtype {arr.dtype} cannot be written")
+    if arr.nbytes > _MAX_LEAF_BYTES:
+        raise ValueError(f"a leaf of {arr.nbytes} bytes is over flax's "
+                         "chunk size; flax would write it in chunks")
+    return packb((arr.shape, arr.dtype.name, arr.tobytes("C")))
+
+
+def _pack(out: bytearray, x: Any) -> None:
+    if isinstance(x, int) and not isinstance(x, bool):
+        _pack_int(out, x)
+    elif isinstance(x, str):
+        data = x.encode("utf-8")
+        _head(out, len(data), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+        out += data
+    elif isinstance(x, bytes):
+        _head(out, len(x), None, 0, (0xC4, 0xC5, 0xC6))
+        out += x
+    elif isinstance(x, (list, tuple)):
+        _head(out, len(x), 0x90, 15, (0, 0xDC, 0xDD))
+        for item in x:
+            _pack(out, item)
+    elif isinstance(x, dict):
+        _head(out, len(x), 0x80, 15, (0, 0xDE, 0xDF))
+        for key, value in x.items():
+            _pack(out, str(key))
+            _pack(out, value)
+    elif isinstance(x, (np.ndarray, torch.Tensor)):
+        data = _ndarray_bytes(x)
+        fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}.get(len(data))
+        if fixed is not None:
+            out.append(fixed)
+        else:
+            _head(out, len(data), None, 0, (0xC7, 0xC8, 0xC9))
+        out += struct.pack(">b", _EXT_NDARRAY)
+        out += data
+    else:
+        raise TypeError(f"{type(x).__name__} cannot be written to msgpack")
+
+
+def packb(obj: Any) -> bytes:
+    """``obj`` (dicts, lists, tuples, non-negative ints, str, bytes,
+    arrays) as msgpack bytes, arrays as flax's extension records."""
+    out = bytearray()
+    _pack(out, obj)
+    return bytes(out)
+
+
+def save_msgpack(tree: Any, path: str) -> None:
+    """Write ``tree`` (nested dicts of arrays) to ``path`` as
+    ``flax.serialization.to_bytes`` would, atomically."""
+    import os
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(packb(tree))
+    os.replace(tmp, path)

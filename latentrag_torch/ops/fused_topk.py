@@ -108,14 +108,13 @@ import math
 import torch
 
 from .quantization import (
-    order_keys,
     quantized_scores,
     quantized_topk,
     score_factor,
     sq4_unpack,
     sq8_quantize,
 )
-from .topk import NEG_INF, as_bool_mask
+from .topk import NEG_INF, as_bool_mask, order_keys
 
 _MIN_I32 = -(2**31) + 1
 _IDX_BITS = 13  # tile-local column bits => block_n <= 8192
@@ -544,11 +543,13 @@ def _blocked_topk(queries, corpus, k_eff, metric, mask=None):
     """``approx_fused_topk``'s route past ``EXACT_MAX_K``: ``exact_topk``
     (one ``torch.matmul`` and ``torch.topk`` a block, merged with the
     running list, masked rows at NEG_INF), fp32 scores of the stored
-    values. Counts ``blocked`` on the card."""
+    values, on the float select (the JAX route is approximate, so no tie
+    order to match). Counts ``blocked`` on the card."""
     from .topk import exact_topk
 
     s, i = exact_topk(queries, corpus, k=k_eff, metric=metric,
-                      mask=as_bool_mask(mask, corpus.shape[0]))
+                      mask=as_bool_mask(mask, corpus.shape[0]),
+                      lax_order=False)
     if queries.device.type == "cuda":
         launches["blocked"] += 1
     return _sentinel(s, i.to(torch.int32))

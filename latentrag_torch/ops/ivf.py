@@ -60,8 +60,8 @@ import torch
 from . import fused_topk as ft
 from .binary import binary_unpack
 from .kmeans import _full_fp32, assign_clusters, kmeans
-from .quantization import order_keys, score_factor, sq4_unpack, sq8_quantize
-from .topk import NEG_INF, unpack_row_mask
+from .quantization import score_factor, sq4_unpack, sq8_quantize
+from .topk import NEG_INF, order_keys, unpack_row_mask
 
 # the kernel's library: one source, no defines (csrc/ivf_scan.cu)
 LIBRARIES = (("ivf_scan", ()),)

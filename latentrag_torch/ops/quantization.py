@@ -34,10 +34,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .topk import NEG_INF, as_bool_mask
+from .topk import NEG_INF, as_bool_mask, decode_keys, order_keys
 
 SQ4_LEVELS = 7  # symmetric [-7, 7]; code -8 is unused so negation is exact
-_INT_MAX = 2**31 - 1
 # fp32 reciprocals of the code ranges, as XLA folds the JAX package's
 # division by the constant
 _INV_127 = float(np.float32(1) / np.float32(127))
@@ -103,15 +102,6 @@ def quantized_scores(q_codes: torch.Tensor, rows: torch.Tensor,
     return (q_codes.float() @ rows.float().T) * factor
 
 
-def order_keys(scores: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """int64 keys whose descending order is (score desc, row asc), the
-    order of ``lax.top_k``: the scores' order-preserving int32 bits above
-    ``INT_MAX - row``."""
-    bits = scores.float().contiguous().view(torch.int32)
-    mono = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).to(torch.int64)
-    return (mono << 32) | (_INT_MAX - rows.to(torch.int64))
-
-
 def quantized_topk(q_codes: torch.Tensor, n: int, rows_of, factor, k: int,
                    block_size: int = 2097152, mask=None):
     """Exact top-k of ``quantized_scores`` over N code rows, the corpus in
@@ -135,10 +125,7 @@ def quantized_topk(q_codes: torch.Tensor, n: int, rows_of, factor, k: int,
         if run is not None:
             keys = torch.topk(torch.cat([run, keys], dim=1), k, dim=1)[0]
         run = keys
-    mono = (run >> 32).to(torch.int32)
-    scores = torch.where(mono >= 0, mono, mono ^ 0x7FFFFFFF).view(
-        torch.float32)
-    return scores, _INT_MAX - (run & 0xFFFFFFFF)
+    return decode_keys(run)
 
 
 def same_ids_at_ties(scores_a, ids_a, scores_b, ids_b) -> np.ndarray:

@@ -6,6 +6,12 @@ The port of the JAX package's ``ops/topk.py``:
   running top-k merge, so the [Q, N] score matrix never exists beyond one
   block. It is the oracle the kernels are held against, and like the JAX
   version it runs outside the kernels (``torch.matmul`` + ``torch.topk``).
+  Its order is ``lax.top_k``'s, ties to the lower row: it selects on
+  ``order_keys``, as ``torch.topk`` alone leaves the order of equal
+  scores open (identical chunks of templated documents tie exactly).
+  ``lax_order=False`` selects on the float scores alone, which is faster
+  on the card at large k; the approximate route past the fused kernels'
+  k takes it, as its JAX counterpart has no tie order to match.
 * ``approx_topk`` keeps its signature. XLA's ``approx_max_k`` has no CUDA
   counterpart, so on the card it routes to the fused kernel in fold mode,
   with ``recall_target`` setting the fold's tile width and candidate count
@@ -24,6 +30,24 @@ import torch
 from .distances import pairwise_scores
 
 NEG_INF = float(-3.4e38)
+_INT_MAX = 2**31 - 1
+
+
+def order_keys(scores: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """int64 keys whose descending order is (score desc, row asc), the
+    order of ``lax.top_k``: the scores' order-preserving int32 bits above
+    ``INT_MAX - row``."""
+    bits = scores.float().contiguous().view(torch.int32)
+    mono = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).to(torch.int64)
+    return (mono << 32) | (_INT_MAX - rows.to(torch.int64))
+
+
+def decode_keys(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``order_keys``' keys back to (scores f32, rows i64), bit for bit."""
+    mono = (keys >> 32).to(torch.int32)
+    scores = torch.where(mono >= 0, mono, mono ^ 0x7FFFFFFF).view(
+        torch.float32)
+    return scores, _INT_MAX - (keys & 0xFFFFFFFF)
 
 
 def unpack_row_mask(packed: torch.Tensor, n: int) -> torch.Tensor:
@@ -67,15 +91,37 @@ def exact_topk(
     metric: str = "cosine",
     block_size: int = 8192,
     mask: torch.Tensor | None = None,
+    lax_order: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k over the full corpus: (scores [Q, k] f32, indices [Q, k] i64).
+    """Top-k over the full corpus: (scores [Q, k] f32, indices [Q, k] i64),
+    best first, ties to the lower row (``lax_order=False``: equal scores
+    in no set order).
 
     Inputs must be prepared for ``metric``. k is clipped to N. ``mask``
     (bool [N], or its packed int32 words) restricts eligibility; excluded
     rows score NEG_INF."""
     n_total = corpus.shape[0]
     mask = as_bool_mask(mask, n_total)
-    k = min(k, n_total) if n_total else k
+    k = min(k, n_total)
+    if not lax_order:
+        return _float_topk(queries, corpus, k, metric, block_size, mask)
+    run = torch.zeros((queries.shape[0], 0), dtype=torch.int64,
+                      device=queries.device)
+    for base in range(0, n_total, block_size):
+        block = corpus[base : base + block_size]
+        m_blk = None if mask is None else mask[base : base + block_size]
+        scores = _apply_mask(pairwise_scores(queries, block, metric), m_blk)
+        rows = torch.arange(base, base + block.shape[0],
+                            device=scores.device)
+        keys = order_keys(scores, rows[None, :])
+        run = torch.topk(torch.cat([run, keys], dim=1), k, dim=1)[0]
+    return decode_keys(run)
+
+
+def _float_topk(queries, corpus, k, metric, block_size, mask):
+    """``exact_topk(lax_order=False)``: ``torch.topk`` of each block's
+    float scores, merged with the running list."""
+    n_total = corpus.shape[0]
     if n_total <= block_size:
         scores = _apply_mask(pairwise_scores(queries, corpus, metric), mask)
         return torch.topk(scores, k, dim=1)

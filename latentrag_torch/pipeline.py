@@ -1,20 +1,27 @@
-"""End-to-end retrieval pipeline: encode -> (compress) -> index -> search ->
-MaxSim -> evaluate.
+"""End-to-end retrieval pipeline: (chunk) -> encode -> (compress) -> index
+-> search -> (rerank) -> MaxSim -> evaluate.
 
 The port of the JAX package's ``pipeline.py`` (``PipelineRunner.process``),
 on a device chosen by the caller (default CUDA; the CPU only when asked):
 
+* ``chunking.enabled`` splits each document into token windows on the
+  host (``data/chunking.py``, sliding or semantic); chunk texts are
+  indexed and each carries its doc id;
 * corpus and queries encode on the device and stay there into the index
   build and the one batched search (the C++ ANN tiers, ``hnsw`` and
   ``ivfpq``, copy them to the host there);
-* ``candidate_k = top_k`` clipped to the corpus (the JAX package's x3
-  widening for chunks and x4 for the reranker come with those slices);
+* ``candidate_k = top_k``, x3 with chunking, widened to
+  ``retrieval.rerank_candidates`` (0 = 4 x top_k) with a reranker, and
+  clipped to the rows;
+* ``retrieval.rerank=cross`` rescores the candidates with the
+  cross-encoder on the device (``retrieval/reranker.py``) before MaxSim;
 * empty candidate slots (id -1) map to a sentinel doc whose score is
   forced to NEG_INF before MaxSim, and sentinel docs are dropped after;
-* MaxSim runs on the device, as the JAX package runs it there.
+* MaxSim folds chunks to docs on the device, as the JAX package runs it
+  there.
 
-Chunking, reranking and generation are later slices (ROADMAP queue 1
-items 19 and 24); asking for them raises ``NotImplementedError``.
+Generation is a later slice (ROADMAP queue 1 item 24); asking for it
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from .data.chunking import build_inference_corpus
 from .data.tokenizer import resolve_tokenizer
 from .evaluation import evaluate_retrieval
 from .models import build_autoencoder, load_autoencoder_pth
@@ -119,23 +127,17 @@ class PipelineRunner:
         generate: bool = False,
         compressor: EmbeddingCompressor | None = None,
         device: str | torch.device = "cuda",
+        reranker=None,
     ):
         if generate:
             raise NotImplementedError(
                 "generation is ROADMAP queue 1 item 24 (auxiliaries)"
             )
-        if cfg.chunking.enabled:
-            raise NotImplementedError(
-                "chunking is not ported yet (ROADMAP queue 1, slice E)"
-            )
-        if cfg.retrieval.rerank != "none":
-            raise NotImplementedError(
-                "retrieval.rerank is ROADMAP queue 1 item 19"
-            )
         self.cfg = cfg
         self.device = resolve_device(device)
         self.ae_type = canonical_ae_type(ae_type)
         self._compressor = compressor
+        self._reranker = reranker
         self._autoencoder = load_autoencoder(cfg, self.ae_type, self.device)
 
     def _ensure_compressor(self, corpus: Sequence[str]) -> EmbeddingCompressor:
@@ -150,6 +152,25 @@ class PipelineRunner:
             self._compressor.autoencoder = self._autoencoder
         return self._compressor
 
+    def _ensure_reranker(self):
+        """The configured second stage, or None: built from the trained
+        checkpoint with the compressor's tokenizer, on the runner's
+        device; an injected one (tests, a booted server) wins. Call after
+        ``_ensure_compressor``."""
+        rerank = self.cfg.retrieval.rerank
+        if rerank == "none":
+            return None
+        if self._reranker is None:
+            if rerank != "cross":
+                raise ValueError(f"unknown retrieval.rerank={rerank!r}; use "
+                                 "'none' or 'cross'")
+            from .retrieval.reranker import build_reranker
+
+            self._reranker = build_reranker(
+                self.cfg, self._compressor.encoder.tokenizer,
+                device=self.device)
+        return self._reranker
+
     def process(
         self,
         queries: Sequence[str],
@@ -159,8 +180,20 @@ class PipelineRunner:
         cfg = self.cfg
         compressor = self._ensure_compressor(corpus)
         timings: dict[str, float] = {}
-        texts = list(corpus)
-        doc_ids = list(range(len(corpus)))
+        chunking = cfg.chunking
+        if chunking.enabled:
+            t0 = time.perf_counter()
+            records = build_inference_corpus(
+                corpus, None, compressor.encoder.tokenizer,
+                mode=chunking.mode, max_tokens=chunking.max_tokens,
+                stride=chunking.stride, min_tokens=chunking.min_tokens,
+            )
+            texts = [r.text for r in records]
+            doc_ids = [r.doc_id for r in records]
+            timings["chunking_s"] = time.perf_counter() - t0
+        else:
+            texts = list(corpus)
+            doc_ids = list(range(len(corpus)))
 
         t0 = time.perf_counter()
         corpus_emb = compressor.encode_text(texts)
@@ -175,7 +208,6 @@ class PipelineRunner:
         # the run's provenance, as the JAX package records it: a store at
         # retrieval.index_path from a run with the same provenance and
         # corpus is loaded, and the build and its self-check are skipped
-        chunking = cfg.chunking
         retriever = build_retriever(
             corpus_emb,
             texts,
@@ -198,10 +230,21 @@ class PipelineRunner:
         timings["build_index_s"] = time.perf_counter() - t0
 
         top_k = cfg.retrieval.top_k
-        candidate_k = min(top_k, len(texts))
+        candidate_k = top_k * 3 if chunking.enabled else top_k
+        reranker = self._ensure_reranker()
+        if reranker is not None:
+            # rescoring only top_k candidates could merely reorder them
+            candidate_k = max(candidate_k,
+                              cfg.retrieval.rerank_candidates or 4 * top_k)
+        candidate_k = min(candidate_k, len(texts))
         t0 = time.perf_counter()
         scores, idx = retriever.search(query_emb, candidate_k)
         timings["search_s"] = time.perf_counter() - t0
+        if reranker is not None:
+            # the logits replace stage 1's scores; empty slots stay NEG_INF
+            t0 = time.perf_counter()
+            scores = reranker.rescore_candidates(queries, idx, texts)
+            timings["rerank_s"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
         doc_scores, retrieved_doc_ids = aggregate_docs(
@@ -236,9 +279,11 @@ class PipelineRunner:
     def print_run_card(self, result: dict[str, Any]) -> None:
         """The run's metrics and timings as log lines."""
         log.info(
-            "ae_type=%s device=%s corpus=%d queries=%d compression %d->%d",
+            "ae_type=%s device=%s corpus=%d chunks=%d queries=%d "
+            "candidate_k=%d compression %d->%d",
             result["ae_type"], result["device"], result["n_corpus"],
-            result["n_queries"], result["dim_in"], result["dim_out"],
+            result["n_chunks"], result["n_queries"], result["candidate_k"],
+            result["dim_in"], result["dim_out"],
         )
         for name, stats in result["retrieval_metrics"].items():
             log.info("%s: %.4f ± %.4f", name, stats["mean"], stats["std"])

@@ -36,9 +36,18 @@ Protocol:
   {"stats": true[, "reset": true]}          -> serving stats + index info
                                                (+ ivf_recall_estimate)
 
+``retrieval.rerank=cross`` adds the second stage (``retrieval/
+reranker.py``): boot loads the cross-encoder and fails without its
+checkpoint; each search fetches ``max(k, rerank_candidates or 4 k)``
+candidates, rescores them on the device and keeps the best k, whose
+scores are then cross-encoder logits. The micro-batcher's padding rows
+(copies of a burst's last query) are encoded and searched at their bucket
+but not rescored: the JAX server rescores them for its fixed jit shapes,
+which the port does not have.
+
 Not served yet, as in the rest of the port: ``"generate": true`` is ignored, as
 the JAX server ignores it when not started with ``--generate``, and
-``--generate`` raises (item 24); ``retrieval.rerank`` raises (item 19).
+``--generate`` raises (item 24).
 
 ``retrieval.backend=hnsw|ivfpq`` serves the C++ ANN tiers (their
 searches, filters and adds on the host; ``"nprobe"`` and ``remove`` are
@@ -69,6 +78,8 @@ import json
 import sys
 import threading
 import time
+
+import numpy as np
 
 from .data import get_examples, load_evaluation_data
 from .models.encoder.minilm import _bucket_batch
@@ -167,16 +178,34 @@ def make_handle(cfg, args, runner, compressor, retriever, mode):
                 )
         return queries, k, flt, nprobe
 
-    def _hits_for(queries, k, flt, nprobe=None):
-        """Encode + search + assemble per-query hit lists. Must run under
-        the lock: hit assembly reads texts/doc_ids, which mutations
-        rewrite. The search returns host numpy, so the device work has
+    # the second stage (retrieval.rerank=cross): boot fails here when its
+    # checkpoint is missing
+    reranker = runner._ensure_reranker()
+
+    def _hits_for(queries, k, flt, nprobe=None, live=None):
+        """Encode + search (+ rerank) + assemble per-query hit lists, for
+        the first ``live`` queries (default all; the rest are padding that
+        is encoded and searched, never rescored). Must run under the lock:
+        hit assembly reads texts/doc_ids, which mutations rewrite. The
+        search and the rescore return host numpy, so the device work has
         finished when the lock drops."""
+        n = len(queries) if live is None else live
+        fetch_k = k
+        if reranker is not None:
+            fetch_k = max(k, cfg.retrieval.rerank_candidates or 4 * k)
         q_emb = compressor.encode_text(queries)
         kw = {"filter": flt} if flt is not None else {}
         if nprobe is not None:
             kw["nprobe"] = nprobe
-        scores, idx = retriever.search(q_emb, k, **kw)
+        scores, idx = retriever.search(q_emb, fetch_k, **kw)
+        scores, idx = scores[:n], np.asarray(idx)[:n]
+        if reranker is not None:
+            rescored = reranker.rescore_candidates(queries[:n], idx,
+                                                   retriever.texts)
+            order = np.argsort(-rescored, axis=1)[:, :k]
+            scores = np.take_along_axis(rescored, order, axis=1)
+            idx = np.take_along_axis(idx, order, axis=1)
+            idx = np.where(scores > -1e37, idx, -1)
         return [
             [
                 {
@@ -187,7 +216,7 @@ def make_handle(cfg, args, runner, compressor, retriever, mode):
                 for rank, j in enumerate(idx[qi])
                 if j >= 0
             ]
-            for qi in range(len(queries))
+            for qi in range(n)
         ]
 
     # dynamic micro-batching (HTTP mode ONLY: a single-stream JSONL caller
@@ -200,11 +229,17 @@ def make_handle(cfg, args, runner, compressor, retriever, mode):
         def _score_batch(queries, k, flt, nprobe=None):
             # burst sizes are arbitrary; pad the query list to the
             # encoder's power-of-two batch buckets, so the search sees
-            # only those sizes too
+            # only those sizes too. The batcher pads with copies of the
+            # burst's last query: past the first of that trailing run,
+            # rows take its hits and are not rescored
             n = len(queries)
+            live = n
+            while live > 1 and queries[live - 2] == queries[n - 1]:
+                live -= 1
             padded = list(queries) + [queries[0]] * (_bucket_batch(n) - n)
             with lock:
-                return _hits_for(padded, k, flt, nprobe)[:n]
+                hits = _hits_for(padded, k, flt, nprobe, live=live)
+            return hits + [hits[-1]] * (n - live)
 
         batcher = MicroBatcher(
             _score_batch, window_ms=window_ms,

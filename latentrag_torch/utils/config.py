@@ -172,8 +172,7 @@ class RetrievalConfig:
     # 0.95 when k >= 64 (re-rank oversampling), 0.99 otherwise
     recall_target: float | str = "auto"
     shard_corpus: bool = False  # shard corpus rows over the mesh data axis
-    # the fields below belong to later slices (rerank, the ANN tiers,
-    # the device IVF); kept so a config file means the same to both
+    # the second stage: 'none' | 'cross' (the cross-encoder reranker)
     rerank: str = "none"
     rerank_candidates: int = 0  # stage-1 fetch width; 0 = 4 * top_k
     hnsw_m: int = 32

@@ -1317,3 +1317,90 @@ def test_ann_device_builds_never_fall_back(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="fold kernel unavailable"):
         r.build(_lowrank_rows(500, 64, 8), [""] * 500)
     assert not r.is_built
+
+
+# ---------------------------------------------- the second stage, chunking
+
+RERANK_TEXTS = [
+    "the telescope observes distant galaxies and stars",
+    "mitochondria produce energy inside living cells",
+    "markets react to interest rate announcements",
+    "volcanic eruptions reshape the island coastline",
+    "quantum processors need error correction to scale",
+]
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4),
+                                        ("bfloat16", 0.03)])
+def test_cross_encoder_on_card_matches_cpu(cuda, dtype, atol):
+    """The same weights score the same pairs on the card as on the CPU:
+    fp32 to sum-order noise, bf16 within the band the CPU parity test
+    holds the port to the JAX package."""
+    from latentrag_torch.data.tokenizer import WordPieceTokenizer
+    from latentrag_torch.models.encoder.cross import CrossEncoderScorer
+    from latentrag_torch.utils.config import EncoderConfig
+
+    tok = WordPieceTokenizer.train_from_corpus(RERANK_TEXTS, vocab_size=300)
+    cfg = EncoderConfig(vocab_size=300, hidden_dim=64, num_layers=2,
+                        num_heads=4, mlp_dim=128, max_length=64,
+                        batch_size=16, dtype=dtype)
+    cpu = CrossEncoderScorer(tok, cfg, seed=3, device="cpu")
+    card = CrossEncoderScorer(tok, cfg, state_dict=cpu.module.state_dict(),
+                              device=cuda)
+    assert all(p.is_cuda for p in card.module.parameters())
+    rng = np.random.default_rng(0)
+    queries = [" ".join(rng.choice(RERANK_TEXTS[i % 5].split(), 4))
+               for i in range(40)]
+    docs = [" ".join([RERANK_TEXTS[(i * 3) % 5]] * (1 + i % 4))
+            for i in range(40)]
+    np.testing.assert_allclose(card.score_pairs(queries, docs),
+                               cpu.score_pairs(queries, docs), atol=atol,
+                               rtol=1e-4)
+
+
+def test_reranked_chunked_main_on_card(cuda, tmp_path):
+    """``main`` with a reranker the port wrote and sliding chunks: the
+    fold serves stage 1 (search and self-check), the cross-encoder runs
+    on the card, candidate_k widens to 40."""
+    from latentrag_torch import main as torch_main
+    from latentrag_torch.data.tokenizer import resolve_tokenizer
+    from latentrag_torch.models import VariationalAutoencoder
+    from latentrag_torch.models.encoder.cross import CrossEncoderScorer
+    from latentrag_torch.retrieval.reranker import save_reranker
+    from latentrag_torch.utils import Config, apply_overrides
+
+    base = str(tmp_path)
+    overrides = [
+        "data.dataset=synthetic", "data.max_samples=60",
+        "encoder.vocab_size=800", "encoder.hidden_dim=32",
+        "encoder.num_layers=1", "encoder.num_heads=4", "encoder.mlp_dim=64",
+        "models.vae.input_dim=32", "models.vae.latent_dim=8",
+        "models.vae.hidden_dim=16", f"models.vae.checkpoint={base}/vae.pth",
+        f"paths.data_dir={base}/data", f"paths.checkpoints_dir={base}/ckpt",
+        f"paths.logs_dir={base}/logs", "logging.log_to_file=false",
+        f"retrieval.index_path={base}/index", "retrieval.rerank=cross",
+        "chunking.enabled=true", "chunking.mode=sliding",
+        "chunking.max_tokens=16", "chunking.stride=8",
+    ]
+    torch.manual_seed(5)
+    torch.save(VariationalAutoencoder(32, 8, 16).state_dict(),
+               f"{base}/vae.pth")
+    from latentrag_torch.data import load_evaluation_data, synthetic_examples
+
+    _, corpus, _ = load_evaluation_data(synthetic_examples(60))
+    cfg = apply_overrides(Config(), overrides)
+    tok = resolve_tokenizer(cfg.paths.data_dir, 800, corpus)
+    save_reranker(cfg, CrossEncoderScorer(tok, cfg.encoder, seed=4,
+                                          device="cpu"),
+                  max_length=48, query_max=16)
+    ft.reset_launches()
+    results = []
+    assert torch_main.main(["--ae_type", "vae", "--set", *overrides],
+                           results=results) == 0
+    res = results[0]
+    assert res["candidate_k"] == 40 and res["n_chunks"] > 2 * len(corpus)
+    assert "rerank_s" in res["timings"] and "chunking_s" in res["timings"]
+    assert ft.launches["fold"] >= 2 and ft.launches["exact"] == 0
+    assert np.isfinite(res["doc_scores"]).all()
+    for row in res["retrieved_doc_ids"]:
+        assert len(row) == len(set(row)) == 10

@@ -88,6 +88,29 @@ def test_exact_topk_matches_blocked(rng, metric, n, block):
     np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
 
 
+@pytest.mark.parametrize("lax_order", [True, False])
+@pytest.mark.parametrize("n,block", [(300, 8192), (2500, 512)])
+def test_exact_topk_tie_order(rng, n, block, lax_order):
+    """Small integer vectors tie exactly, in any sum order. ``lax_order``
+    (the default) gives ``lax.top_k``'s ids, ties to the lower row; the
+    float select gives its scores and, within each tie group but the
+    last, its ids by set."""
+    from latentrag_torch.ops.quantization import same_ids_at_ties
+
+    q = rng.integers(-2, 3, (11, 8)).astype(np.float32)
+    c = rng.integers(-2, 3, (n, 8)).astype(np.float32)
+    s_j, i_j = jt.exact_topk(jnp.asarray(q), jnp.asarray(c), k=40,
+                             metric="cosine", block_size=block)
+    s_t, i_t = tt.exact_topk(_t(q), _t(c), k=40, metric="cosine",
+                             block_size=block, lax_order=lax_order)
+    if lax_order:
+        np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+        np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
+    else:
+        assert same_ids_at_ties(np.asarray(s_j), np.asarray(i_j),
+                                s_t, i_t).all()
+
+
 def test_exact_topk_clips_k_and_masks(rng):
     q = rng.standard_normal((3, 4)).astype(np.float32)
     c = rng.standard_normal((5, 4)).astype(np.float32)

@@ -129,6 +129,143 @@ def test_ann_pipeline_matches_jax_and_warm_boots(tmp_path, capsys, backend,
     assert os.path.exists(f"{base}/index.{backend}.meta.json")
 
 
+# the second stage and chunking: a chunk window that cuts each synthetic
+# document (~35 tokens) into several chunks
+CHUNKING = ["chunking.max_tokens=16", "chunking.stride=8",
+            "chunking.min_tokens=6"]
+SLICE_R_CASES = {
+    "rerank": ["retrieval.rerank=cross"],
+    "sliding": ["chunking.enabled=true", "chunking.mode=sliding"],
+    "semantic": ["chunking.enabled=true", "chunking.mode=semantic"],
+    "semantic_rerank": ["chunking.enabled=true", "chunking.mode=semantic",
+                        "retrieval.rerank=cross"],
+}
+
+
+def _slice_r_env(base, ov):
+    """The encoder (JAX params carried across as a .pt), a VAE .pth and a
+    JAX-saved fp32 reranker with its sidecar, in ``base``."""
+    from latentrag_tpu.models.encoder.cross import CrossEncoderScorer
+    from latentrag_tpu.retrieval.reranker import (
+        reranker_checkpoint_path,
+        save_reranker_meta,
+    )
+
+    queries, corpus, relevant = load_evaluation_data(synthetic_examples(60))
+    torch.manual_seed(5)
+    torch.save(VariationalAutoencoder(32, 8, 16).state_dict(),
+               f"{base}/vae.pth")
+    cfg_j = jax_overrides(JaxConfig(), ov)
+    tok = resolve_tokenizer(cfg_j.paths.data_dir, 800, corpus)
+    params = JaxEncoder(tok, cfg_j.encoder, seed=11).params
+    save_params(params, f"{base}/ckpt/encoder.msgpack")
+    torch.save(minilm_state_dict_from_jax(params), f"{base}/ckpt/encoder.pt")
+    save_params(CrossEncoderScorer(tok, cfg_j.encoder, seed=12).params,
+                reranker_checkpoint_path(cfg_j))
+    save_reranker_meta(cfg_j, tok, max_length=48, query_max=16)
+    return queries, corpus, relevant
+
+
+@pytest.mark.parametrize("case", list(SLICE_R_CASES))
+def test_rerank_and_chunking_match_jax(tmp_path, case):
+    """``retrieval.rerank=cross`` and ``chunking.enabled`` (sliding,
+    semantic, semantic with the reranker) through ``main`` on the CPU
+    against the JAX pipeline on the same weights (fp32 encoder, store and
+    cross-encoder): the same chunks, candidate_k, docs and metrics."""
+    base = str(tmp_path)
+    ov = _overrides(base) + CHUNKING + SLICE_R_CASES[case]
+    queries, corpus, relevant = _slice_r_env(base, ov)
+    cfg_j = jax_overrides(JaxConfig(), ov + [
+        "retrieval.kernel=xla_exact", f"retrieval.index_path={base}/jax"])
+    want = JaxRunner(cfg_j, ae_type="vae").process(queries, corpus, relevant)
+    results = []
+    assert torch_main.main(
+        ["--ae_type", "vae", "--device", "cpu", "--set", *ov,
+         f"encoder.weights_path={base}/ckpt/encoder.pt"],
+        results=results) == 0
+    got = results[0]
+    chunked = "chunking.enabled=true" in ov
+    reranked = "retrieval.rerank=cross" in ov
+    assert got["n_chunks"] == want["n_chunks"]
+    assert (got["n_chunks"] > 2 * len(corpus)) == chunked
+    assert got["candidate_k"] == want["candidate_k"] == (40 if reranked
+                                                         else 30)
+    assert ("chunking_s" in got["timings"]) == chunked
+    assert ("rerank_s" in got["timings"]) == reranked
+    assert got["retrieved_doc_ids"] == want["retrieved_doc_ids"]
+    for row in got["retrieved_doc_ids"]:  # docs, each once
+        assert len(row) == len(set(row)) == 10
+        assert all(0 <= d < len(corpus) for d in row)
+    for name, stats in want["retrieval_metrics"].items():
+        for key in ("mean", "std"):
+            assert got["retrieval_metrics"][name][key] == pytest.approx(
+                stats[key], abs=1e-6)
+    np.testing.assert_allclose(got["doc_scores"], want["doc_scores"],
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_chunked_and_unchunked_stores_never_share(tmp_path, capsys):
+    """A store persisted by an unchunked run is rebuilt by a chunked run
+    at the same ``index_path``, and the reverse (the provenance records
+    the chunking), while a repeat of either run warm-boots."""
+    import json
+
+    base = str(tmp_path)
+    ov = _overrides(base) + CHUNKING
+    _slice_r_env(base, ov)
+    sliding = SLICE_R_CASES["sliding"]
+    runs = []
+    for extra in ([], sliding, sliding, []):
+        capsys.readouterr()
+        results = []
+        assert torch_main.main(
+            ["--ae_type", "vae", "--device", "cpu", "--set", *ov, *extra,
+             f"encoder.weights_path={base}/ckpt/encoder.pt"],
+            results=results) == 0
+        logged = capsys.readouterr()  # main logs to stdout
+        with open(f"{base}/index/meta.json") as f:
+            chunking = json.load(f)["fingerprint"]["chunking"]
+        runs.append((results[0],
+                     "skipping rebuild" in logged.out + logged.err,
+                     chunking))
+    (plain, skip0, fp0), (chunked, skip1, fp1), (again, skip2, fp2), \
+        (plain2, skip3, fp3) = runs
+    assert (skip0, skip1, skip2, skip3) == (False, False, True, False)
+    assert fp0 == fp3 and fp0["enabled"] is False
+    assert fp1 == fp2 == {"enabled": True, "mode": "sliding",
+                          "max_tokens": 16, "stride": 8, "min_tokens": 6}
+    assert chunked["n_chunks"] == again["n_chunks"] > plain["n_chunks"]
+    assert again["retrieved_doc_ids"] == chunked["retrieved_doc_ids"]
+    assert plain2["retrieved_doc_ids"] == plain["retrieved_doc_ids"]
+
+
+def test_injected_reranker_reorders_candidates(tmp_path):
+    """An injected reranker wins over the config's checkpoint (none
+    exists here): candidate_k widens to ``rerank_candidates`` and each
+    query's docs follow the injected scores (longer text first)."""
+    from latentrag_torch.retrieval.reranker import CrossEncoderReranker
+
+    class LongestWins:
+        def score_pairs(self, queries, docs):
+            return np.asarray([float(len(d)) for d in docs], np.float32)
+
+    base = str(tmp_path)
+    ov = _overrides(base) + ["retrieval.rerank=cross",
+                             "retrieval.rerank_candidates=25",
+                             "retrieval.top_k=3", "models.vae.checkpoint="]
+    queries, corpus, relevant = load_evaluation_data(synthetic_examples(60))
+    runner = PipelineRunner(apply_overrides(Config(), ov), device="cpu",
+                            reranker=CrossEncoderReranker(LongestWins()))
+    out = runner.process(queries, corpus, relevant)
+    assert out["candidate_k"] == 25 and "rerank_s" in out["timings"]
+    for row in out["retrieved_doc_ids"]:
+        lens = [len(corpus[d]) for d in row]
+        assert lens == sorted(lens, reverse=True) and len(row) == 3
+    with pytest.raises(FileNotFoundError, match="reranker"):
+        PipelineRunner(apply_overrides(Config(), ov), device="cpu").process(
+            queries, corpus, relevant)
+
+
 @pytest.mark.parametrize("metric", ["cosine", "euclidean", "mahalanobis"])
 @pytest.mark.parametrize("store", ["float32", "bfloat16"])
 def test_dense_retriever_matches_jax(rng, metric, store):
@@ -166,9 +303,9 @@ def test_unported_options_raise(rng):
                         .retrieval, device="cpu")
     with pytest.raises(ValueError):
         DenseRetriever(backend="faiss", device="cpu")
-    with pytest.raises(NotImplementedError):
-        PipelineRunner(apply_overrides(Config(), ["chunking.enabled=true"]),
-                       device="cpu")
+    with pytest.raises(ValueError, match="bogus"):
+        PipelineRunner(apply_overrides(Config(), ["retrieval.rerank=bogus"]),
+                       device="cpu")._ensure_reranker()
     with pytest.raises(NotImplementedError):
         PipelineRunner(Config(), generate=True, device="cpu")
 

@@ -243,6 +243,77 @@ def test_ann_jsonl_stream_matches_jax(env, capsys, backend):
                                 "device IVF tier)")
 
 
+def test_reranked_jsonl_stream_matches_jax(env, capsys):
+    """``retrieval.rerank=cross``: a JAX-saved fp32 reranker (with its
+    sidecar) in both servers, each warm-booted from a copy of the port's
+    fp32 store; the same stream gives the same hits, scores (the
+    cross-encoder's logits) and errors, line for line. Without the
+    checkpoint both refuse to boot."""
+    from latentrag_tpu.models.encoder.cross import CrossEncoderScorer
+    from latentrag_tpu.retrieval.reranker import (
+        reranker_checkpoint_path,
+        save_reranker_meta,
+    )
+
+    ckpt = f"{env.base}/rerank_ckpt"
+    extra = ["retrieval.store_dtype=float32", "retrieval.kernel=xla_exact",
+             "retrieval.rerank=cross", "retrieval.rerank_candidates=6",
+             f"encoder.weights_path={env.base}/ckpt/encoder.msgpack",
+             f"paths.checkpoints_dir={ckpt}"]
+    cfg_j = jax_overrides(JaxConfig(), _overrides(env.base, "") + extra)
+    tok = resolve_tokenizer(f"{env.base}/data", 800, env.corpus)
+    with pytest.raises(FileNotFoundError, match="reranker"):
+        _port(env, f"{env.base}/rr_missing", [], capsys, extra=extra)
+    os.makedirs(ckpt, exist_ok=True)
+    save_params(CrossEncoderScorer(tok, cfg_j.encoder, seed=13).params,
+                reranker_checkpoint_path(cfg_j))
+    save_reranker_meta(cfg_j, tok, max_length=48, query_max=16)
+    cold = _cold_store(env, capsys, "float32", "xla_exact")
+    copies = {}
+    for side in ("jax", "port"):
+        copies[side] = f"{env.base}/rerank_{side}"
+        shutil.rmtree(copies[side], ignore_errors=True)
+        shutil.copytree(cold, copies[side])
+    payload = _stream(env)
+    want = _run(jax_serve.main,
+                ["--ae_type", "vae", "--set",
+                 *_overrides(env.base, copies["jax"]), *extra],
+                payload, capsys)
+    got = _port(env, copies["port"], payload, capsys, extra=extra)
+    assert len(got) == len(want) == len(payload)
+    n_results = 0
+    for line, g, w in zip(payload, got, want):
+        if "error" in w:
+            assert "error" in g, (line, g)
+            continue
+        assert "error" not in g, (line, g)
+        if "results" in w:
+            for rg, rw in zip(g["results"], w["results"]):
+                assert [h["doc_id"] for h in rg["hits"]] == [
+                    h["doc_id"] for h in rw["hits"]], line
+                assert [h["text"] for h in rg["hits"]] == [
+                    h["text"] for h in rw["hits"]]
+                np.testing.assert_allclose(
+                    [h["score"] for h in rg["hits"]],
+                    [h["score"] for h in rw["hits"]], rtol=1e-5, atol=1e-5)
+                n_results += 1
+        elif "stats" in w:
+            for key in ("n_docs", "boot", "ae_type", "dim", "rerank"):
+                assert g[key] == w[key], key
+            assert g["rerank"] == "cross"
+        else:
+            for key in ("added", "removed", "n_total"):
+                assert g.get(key) == w.get(key), (line, key)
+    assert n_results >= 9
+    # the filter leaves 3 rows for k=4: the rescored hits keep 3
+    assert len(got[2]["results"][0]["hits"]) == 3
+    # hits are ranked by the cross-encoder's logits
+    for line in got:
+        for res in line.get("results", []):
+            scores = [h["score"] for h in res["hits"]]
+            assert scores == sorted(scores, reverse=True)
+
+
 def _with_ivf_sidecar(path, nlist=4, cap=8, estimate=0.912345):
     """Give a persisted store IVF sidecars and their meta.json entries, as
     a save of an IVF store writes them (the rows' lists all 0)."""
@@ -398,6 +469,87 @@ def test_http_micro_batching_end_to_end(env, capsys):
         socket.create_connection(("127.0.0.1", port), timeout=5)
     with pytest.raises(RuntimeError, match="MicroBatcher is closed"):
         handle({"query": "x", "k": 2})
+
+
+def test_micro_batched_rerank_rescores_live_queries_only(
+        env, capsys, monkeypatch):
+    """With the reranker and the window on, a burst is encoded and
+    searched at its padded batch bucket (the batcher's copies of its last
+    query, then the encoder's bucket), but only its live queries are
+    rescored; each still gets the hits and logits a lone search gives."""
+    from latentrag_torch.data.tokenizer import resolve_tokenizer as port_tok
+    from latentrag_torch.models.encoder.cross import CrossEncoderScorer
+    from latentrag_torch.retrieval import reranker as rr
+
+    extra = ["retrieval.store_dtype=float32", "retrieval.kernel=xla_exact",
+             "retrieval.rerank=cross", "retrieval.rerank_candidates=6",
+             f"encoder.weights_path={env.base}/ckpt/encoder.msgpack",
+             f"paths.checkpoints_dir={env.base}/rerank_batched_ckpt"]
+    index = f"{env.base}/rerank_batched"
+    shutil.rmtree(index, ignore_errors=True)
+    shutil.copytree(_cold_store(env, capsys, "float32", "xla_exact"), index)
+    cfg = apply_overrides(load_config(None),
+                          _overrides(env.base, index) + extra)
+    tok = port_tok(cfg.paths.data_dir, cfg.encoder.vocab_size)
+    rr.save_reranker(cfg, CrossEncoderScorer(tok, cfg.encoder, seed=13,
+                                             device="cpu"),
+                     max_length=48, query_max=16)
+    loggers = init_logger(cfg.logging, stream=sys.stderr)
+    args = SimpleNamespace(
+        ae_type="vae", generate=False, cold_boot=False, device="cpu",
+        batch_window_ms=200.0, max_batch=64, http=0,
+    )
+    runner, compressor, retriever, mode = serve.boot(cfg, args, loggers)
+    searched, rescored = [], []
+    orig_search = retriever.search
+
+    def search_spy(q_emb, k, **kw):
+        searched.append(int(q_emb.shape[0]))
+        return orig_search(q_emb, k, **kw)
+
+    orig_rescore = rr.CrossEncoderReranker.rescore_candidates
+
+    def rescore_spy(self, queries, idx, texts):
+        rescored.append((len(queries), idx.shape[0]))
+        return orig_rescore(self, queries, idx, texts)
+
+    retriever.search = search_spy
+    monkeypatch.setattr(rr.CrossEncoderReranker, "rescore_candidates",
+                        rescore_spy)
+    handle = serve.make_handle(cfg, args, runner, compressor, retriever,
+                               mode)
+    searched.clear()  # the handle's warm-up
+    rescored.clear()
+    queries = env.queries[:3]
+    out = [None] * len(queries)
+
+    def ask(i):
+        out[i] = handle({"query": queries[i], "k": 2})
+
+    threads = [threading.Thread(target=ask, args=(i,))
+               for i in range(len(queries))]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+    finally:
+        handle.close()
+    assert len(searched) == len(rescored) >= 1
+    assert all(c in (8, 16, 32, 64) for c in searched), searched
+    assert all(n == rows for n, rows in rescored), rescored
+    assert sum(n for n, _ in rescored) == len(queries), (rescored, searched)
+    direct = serve.make_handle(cfg, SimpleNamespace(), runner, compressor,
+                               retriever, mode)
+    for q, o in zip(queries, out):
+        alone = direct({"query": q, "k": 2})["results"][0]["hits"]
+        hits = o["results"][0]["hits"]
+        assert o["results"][0]["query"] == q and len(hits) == 2
+        assert [h["doc_id"] for h in hits] == [h["doc_id"] for h in alone]
+        np.testing.assert_allclose([h["score"] for h in hits],
+                                   [h["score"] for h in alone],
+                                   rtol=1e-5, atol=1e-5)
 
 
 def test_warm_boot_skips_the_corpus_encode(env, capsys, monkeypatch):
