@@ -261,6 +261,26 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    fold launch a search call, the served ids on >= 99 % of slots one
    direct encode + search + rescore's (QPS, p50/p99, the rescore's
    seconds under the lock recorded);
+3r. ``main --generate --set generation.provider=extractive
+   evaluation.generation_metrics=[METEOR]`` on the main path at its own
+   index_path (the card machine has neither sacrebleu nor rouge-score):
+   2000 answers, each ``extractive_answer`` recomputed on the host from
+   the run's own search, the docs, doc scores and metrics bit for bit the
+   same run's without ``--generate`` on the store it left, METEOR inside
+   its CI, the fold for search and self-check and the exact kernel never;
+   then a warm ``main --profile``, whose trace must name the fold kernel;
+3s. ``main --ae_type none --benchmark bm25 sbert vae dpr --generate``
+   with ``retrieval.index_path`` unset: no system may report an error,
+   bm25 Recall@10 >= 0.99, sbert's and vae's docs bit for bit those of
+   ``main --ae_type none`` / 3r's ``main``, DPR's (seeded towers, metric
+   dot over unnormalized [CLS] rows) >= 98 % of slots ``xla_exact``'s over
+   the same store, the fold at DPR's own plan held to its plain version
+   with phase 2's fold limits, a p-value for every pair, and the fold
+   launched for search and self-check by each dense system and DPR;
+3t. the JSONL CLI with ``--generate`` (a generating search, a plain one,
+   a malformed line), then 64 generating HTTP searches at window 2 ms
+   over 3h's store: every answer ``extractive_answer`` over its own hits,
+   none unasked, one fold launch a search call;
 5. prints a ``kernels`` JSON line and, last, the device line.
 
 Every check that fails exits non-zero. Without CUDA, or without the
@@ -631,8 +651,9 @@ class _Lines(logging.Handler):
 
 def run_main(torch, workdir: str, kernel: str,
              store: str = "bfloat16", top_k: int = 10,
-             extra: tuple = ()) -> dict:
-    """One ``main`` run (``extra``: overrides after the main path's);
+             extra: tuple = (), flags: tuple = ()) -> dict:
+    """One ``main`` run (``extra``: overrides after the main path's;
+    ``flags``: options before them, such as ``--generate``);
     ``res["retrieval_log"]`` holds the retriever's INFO lines (load, save,
     skip)."""
     from latentrag_torch import main as cli
@@ -642,7 +663,8 @@ def run_main(torch, workdir: str, kernel: str,
     lg.addHandler(lines)
     lg.setLevel(logging.INFO)
     try:
-        res = _run_main(torch, cli, workdir, kernel, store, top_k, extra)
+        res = _run_main(torch, cli, workdir, kernel, store, top_k, extra,
+                        flags)
     finally:
         lg.removeHandler(lines)
         lg.setLevel(level)
@@ -650,10 +672,11 @@ def run_main(torch, workdir: str, kernel: str,
     return res
 
 
-def _run_main(torch, cli, workdir, kernel, store, top_k, extra=()) -> dict:
+def _run_main(torch, cli, workdir, kernel, store, top_k, extra=(),
+              flags=()) -> dict:
     results: list = []
     argv = ["--ae_type", "vae", "--device", "cuda", "--tag",
-            f"smoke_{kernel}_{store}_{top_k}", "--set",
+            f"smoke_{kernel}_{store}_{top_k}", *flags, "--set",
             *main_overrides(workdir, kernel, store, top_k), *extra]
     t0 = time.perf_counter()
     rc = cli.main(argv, results=results)
@@ -3616,6 +3639,9 @@ def work():
             res = out["results"][0]
             resp[i] = {"query": res["query"],
                        "ids": [h["doc_id"] for h in res["hits"]]}
+            if "answer" in res:
+                resp[i].update(answer=res["answer"],
+                               texts=[h["text"] for h in res["hits"]])
         else:
             resp[i] = {"status": r.status, "error": out.get("error")}
 
@@ -3684,8 +3710,8 @@ class ServeSpy:
         self.rescores.clear()
 
 
-def serve_args(window_ms: float):
-    return SimpleNamespace(ae_type="vae", generate=False, cold_boot=False,
+def serve_args(window_ms: float, generate: bool = False):
+    return SimpleNamespace(ae_type="vae", generate=generate, cold_boot=False,
                            device="cuda", batch_window_ms=window_ms,
                            max_batch=64, http=0)
 
@@ -3723,14 +3749,15 @@ def boot_server(torch, cfg, failures: list, label: str):
 
 
 @contextlib.contextmanager
-def running_server(cfg, server_env, window_ms: float):
-    """``make_handle`` at ``window_ms`` behind a started HTTP server
-    (``serve.running_http``), stopped with its batcher on exit; yields
-    (port, window_ms)."""
+def running_server(cfg, server_env, window_ms: float,
+                   generate: bool = False):
+    """``make_handle`` at ``window_ms`` (started with ``--generate`` when
+    ``generate``) behind a started HTTP server (``serve.running_http``),
+    stopped with its batcher on exit; yields (port, window_ms)."""
     from latentrag_torch import serve
 
     runner, compressor, retriever, mode, loggers = server_env
-    handle = serve.make_handle(cfg, serve_args(window_ms), runner,
+    handle = serve.make_handle(cfg, serve_args(window_ms, generate), runner,
                                compressor, retriever, mode)
     with serve.running_http(handle, retriever, mode, "127.0.0.1", 0,
                             loggers) as server:
@@ -3738,13 +3765,14 @@ def running_server(cfg, server_env, window_ms: float):
                               window_ms=window_ms)
 
 
-def timed_load(torch, srv, spy, queries, profiled: bool = True) -> dict:
+def timed_load(torch, srv, spy, queries, profiled: bool = True,
+               extra: dict | None = None) -> dict:
     """A warm-up burst under the profiler (the device's busy share of its
     wall time: the timed load runs without the profiler; ``profiled``
     False: no profiler, no busy share), then the timed load with the
     counts at 0: QPS, client latency percentiles, the search calls' sizes,
     the fold and exact launches, and the host time in encode and
-    search."""
+    search. ``extra``: keys every request's body carries."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -3760,15 +3788,16 @@ def timed_load(torch, srv, spy, queries, profiled: bool = True) -> dict:
     busy = None
     if profiled:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            wall = serve_load(queries[:warmup], srv.port)["wall_s"]
+            wall = serve_load(queries[:warmup], srv.port,
+                              extra=extra)["wall_s"]
         busy = sum(getattr(ev, "device_time_total", 0) or 0
                    for ev in prof.key_averages()) / 1e6 / wall
     else:
-        wall = serve_load(queries[:warmup], srv.port)["wall_s"]
+        wall = serve_load(queries[:warmup], srv.port, extra=extra)["wall_s"]
     profiled_s = time.perf_counter() - t0
     spy.reset()
     ft.reset_launches()
-    res = serve_load(queries, srv.port)
+    res = serve_load(queries, srv.port, extra=extra)
     launches = dict(ft.launches)
     calls, encode_s, search_s = list(spy.sizes), spy.encode_s, spy.search_s
     lat = np.asarray([x for x in res["latency_ms"] if x is not None])
@@ -4146,7 +4175,7 @@ def fit_head(torch, scorer) -> None:
 @contextlib.contextmanager
 def search_calls():
     """Every ``DenseRetriever.search`` call while open: its retriever, the
-    queries it got and k."""
+    queries it got, k and what it returned."""
     from latentrag_torch.retrieval.dense import DenseRetriever
 
     calls: list = []
@@ -4154,8 +4183,10 @@ def search_calls():
 
     @functools.wraps(orig)
     def spy(self, queries, k, *args, **kw):
-        calls.append(SimpleNamespace(retriever=self, queries=queries, k=k))
-        return orig(self, queries, k, *args, **kw)
+        out = orig(self, queries, k, *args, **kw)
+        calls.append(SimpleNamespace(retriever=self, queries=queries, k=k,
+                                     out=out))
+        return out
 
     DenseRetriever.search = spy
     try:
@@ -4189,13 +4220,15 @@ def rescore_calls():
         rr.CrossEncoderReranker.rescore_candidates = orig
 
 
-def run_counted(torch, workdir: str, kernel: str, extra=()) -> tuple:
+def run_counted(torch, workdir: str, kernel: str, extra=(),
+                flags=()) -> tuple:
     """A bf16 ``run_main`` with the kernels' counts at 0 just before it;
     returns the result and the counts it left (those above 0)."""
     from latentrag_torch.ops import fused_topk as ft
 
     ft.reset_launches()
-    res = run_main(torch, workdir, kernel, extra=tuple(extra))
+    res = run_main(torch, workdir, kernel, extra=tuple(extra),
+                   flags=tuple(flags))
     return res, {k: v for k, v in ft.launches.items() if v}
 
 
@@ -4543,6 +4576,404 @@ def check_rerank_serving(torch, failures: list, workdir: str) -> dict:
             for w, load in loads.items()}
 
 
+# ------------------------ phases 3r-3t: generation, the benchmark harness
+
+# the card machine has neither sacrebleu nor rouge-score, so the generated
+# runs score with METEOR, which needs no package
+GENERATE_OVERRIDES = ("generation.provider=extractive",
+                      "evaluation.generation_metrics=[METEOR]")
+BENCH_SYSTEMS = ("bm25", "sbert", "vae", "dpr")
+BM25_RECALL = 0.99  # Recall@10 of the bm25 system (1.0 on the CPU)
+SERVE_GENERATE_REQUESTS = 64
+
+
+def expected_answers(retriever, idx, retrieved, queries,
+                     max_chunks: int, budget_tokens: int) -> list:
+    """The answers of an extractive ``--generate`` run recomputed on the
+    host from its own search: each query's candidate chunks in search
+    order that belong to one of its retrieved docs, at most ``max_chunks``
+    a doc, truncated to the generator's character budget."""
+    from latentrag_torch.generation import (
+        GeneratorSettings,
+        RAGGenerator,
+        extractive_answer,
+    )
+
+    truncate = RAGGenerator(GeneratorSettings(
+        max_context_tokens=budget_tokens))._truncate_docs
+    out = []
+    for q, row, top in zip(queries, idx, retrieved):
+        per, chosen = {}, []
+        for j in row:
+            if j < 0:
+                continue
+            doc = retriever.doc_ids[j]
+            if doc in top and per.get(doc, 0) < max_chunks:
+                per[doc] = per.get(doc, 0) + 1
+                chosen.append(retriever.texts[j])
+        out.append(extractive_answer(q, truncate(chosen)))
+    return out
+
+
+def check_generate_main(torch, failures: list, workdir: str) -> dict:
+    """Phase 3r: ``main --ae_type vae --generate --set
+    generation.provider=extractive evaluation.generation_metrics=[METEOR]``
+    on the main path, its store at its own index_path (cold: the fold
+    serves search and self-check, the exact kernel nothing): 2000 answers,
+    each equal to ``extractive_answer`` recomputed on the host from the
+    run's own search; the doc ids, doc scores and metrics bit for bit
+    those of the same run without ``--generate`` on the store it left
+    (warm); METEOR's mean inside its bootstrap CI. Then one warm ``main
+    --profile``: its trace names the fold kernel. Returns the generated
+    run's fold launches and its doc ids."""
+    from latentrag_torch.data import load_evaluation_data, synthetic_examples
+    from latentrag_torch.utils import apply_overrides, load_config
+
+    t_phase = time.perf_counter()
+    index = f"retrieval.index_path={workdir}/index_generate"
+    with search_calls() as calls:
+        gen, launches = run_counted(torch, workdir, "auto",
+                                    (*GENERATE_OVERRIDES, index),
+                                    ("--generate",))
+        plain, plain_launches = run_counted(torch, workdir, "auto", (index,))
+    cfg = apply_overrides(load_config(None), main_overrides(
+        workdir, "auto", "bfloat16") + list(GENERATE_OVERRIDES))
+    queries, _, _ = load_evaluation_data(synthetic_examples(2000))
+    call = calls[0]
+    t0 = time.perf_counter()
+    want = expected_answers(
+        call.retriever, call.out[1], gen["retrieved_doc_ids"], queries,
+        cfg.retrieval.max_chunks_per_doc, cfg.generation.max_context_tokens)
+    recompute_s = time.perf_counter() - t0
+    answers = gen.get("answers", [])
+    meteor = gen.get("generation_metrics", {}).get("METEOR", {})
+    rec = {
+        "card": card_line(), "n_queries": gen["n_queries"],
+        "answers": len(answers),
+        "answers_as_recomputed": sum(a == b for a, b in zip(answers, want)),
+        "empty_answers": sum(not a for a in answers),
+        "same_doc_ids": gen["retrieved_doc_ids"] == plain["retrieved_doc_ids"],
+        "same_doc_scores": bool(torch.equal(
+            torch.as_tensor(gen["doc_scores"]),
+            torch.as_tensor(plain["doc_scores"]))),
+        "same_metrics": gen["retrieval_metrics"] == plain["retrieval_metrics"],
+        "plain_warm": "index compatible; skipping rebuild"
+                      in plain["retrieval_log"],
+        "meteor": meteor, "launches": launches,
+        "plain_launches": plain_launches,
+        "generate_s": gen["timings"].get("generate_s"),
+        "generation_eval_s": gen["timings"].get("generation_eval_s"),
+        "recompute_s": recompute_s, "wall_s": gen["wall_s"],
+        "plain_wall_s": plain["wall_s"], "timings_s": gen["timings"],
+        "metrics": {m: v["mean"] for m, v in gen["retrieval_metrics"].items()},
+    }
+    ok = (rec["answers"] == rec["n_queries"] == 2000
+          and rec["answers_as_recomputed"] == 2000
+          and rec["same_doc_ids"] and rec["same_doc_scores"]
+          and rec["same_metrics"] and rec["plain_warm"]
+          and set(gen.get("generation_metrics", {})) == {"METEOR"}
+          and meteor.get("ci_low", 1.0) <= meteor.get("mean", -1.0)
+          <= meteor.get("ci_high", -1.0)
+          and launches.get("fold", 0) >= 2 and "exact" not in launches)
+    # the profiler over a warm run of the same path: its trace file must
+    # name the card's fold kernel
+    trace_dir = f"{workdir}/trace_generate"
+    prof, prof_launches = run_counted(
+        torch, workdir, "auto", (index,), ("--profile", trace_dir))
+    traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)
+              if f.endswith(".json")] if os.path.isdir(trace_dir) else []
+    named = False
+    for path in traces:
+        with open(path, encoding="utf-8") as f:
+            named = named or "fold_mma_kernel" in f.read()
+    rec["profile"] = {"traces": len(traces),
+                      "bytes": sum(os.path.getsize(p) for p in traces),
+                      "names_fold_mma_kernel": named,
+                      "wall_s": prof["wall_s"], "launches": prof_launches}
+    ok = ok and len(traces) == 1 and named
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    rec["ok"] = ok
+    rec["phase_s"] = time.perf_counter() - t_phase
+    record("generate_main_path", **rec)
+    if not ok:
+        failures.append(f"the generated main path: {rec}")
+    return {"launches": launches.get("fold", 0),
+            "vae_doc_ids": plain["retrieved_doc_ids"]}
+
+
+@contextlib.contextmanager
+def counted_calls(owner, name: str, calls: list):
+    """Wrap ``owner.name`` while open: each call appends its arguments,
+    result, host seconds and the kernels' launches it made."""
+    from latentrag_torch.ops import fused_topk as ft
+
+    orig = getattr(owner, name)
+
+    @functools.wraps(orig)
+    def spy(*args, **kw):
+        before = dict(ft.launches)
+        t0 = time.perf_counter()
+        out = orig(*args, **kw)
+        calls.append(SimpleNamespace(
+            name=name, args=args, out=out, s=time.perf_counter() - t0,
+            launches={k: v - before[k] for k, v in ft.launches.items()
+                      if v != before[k]}))
+        return out
+
+    setattr(owner, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, orig)
+
+
+def dpr_fold_check(torch, r, q) -> dict:
+    """The bf16 fold on the DPR store's own prepared queries and rows
+    (metric dot over unnormalized [CLS] rows), at the plan its search
+    takes, against its plain version with phase 2's fold limits."""
+    from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.ops.distances import prepare_for_metric
+
+    d = r.dense
+    qp = prepare_for_metric(q.float(), d.metric, d._whitener).to(
+        d._corpus.dtype).contiguous()
+    c = d._corpus
+    k = SERVE_K
+    block_n, cand = ft.fold_plan(c.shape[0], k, d._effective_recall_target(k))
+    s_k, i_k = ft.fused_topk_raw(qp, c, k=cand, metric=d.metric, mode="fold",
+                                 block_n=block_n)
+    torch.cuda.synchronize()
+    ran = ft.last_kernel
+    s_p, i_p = ft.fused_topk_raw_reference(qp, c, k=cand, metric=d.metric,
+                                           mode="fold", block_n=block_n)
+    _, ex = ft.fused_topk_raw_reference(qp, c, k=cand, metric=d.metric,
+                                        mode="exact")
+    id_match = (i_k == i_p).float().mean().item()
+    recall = (i_k[:, :, None] == ex[:, None, :]).any(-1).float().mean().item()
+    s_k, i_k = ft.rescore_candidates(qp, c, i_k, d.metric)
+    s_p, i_p = ft.rescore_candidates(qp, c, i_p, d.metric)
+    err = (s_k - s_p).abs()[i_k == i_p]
+    rec = {"Q": int(qp.shape[0]), "N": int(c.shape[0]), "d": int(c.shape[1]),
+           "metric": d.metric, "store": str(c.dtype), "k": cand,
+           "block_n": block_n, "c_kernel": ran, "id_match": id_match,
+           "recall_vs_exact": recall,
+           "max_abs_err": err.max().item() if err.numel() else 0.0,
+           "row_norm_mean": c.float().norm(dim=1).mean().item()}
+    rec["ok"] = ((ran or "").split("+")[0] == "fold_mma_kernel"
+                 and id_match >= FOLD_ID_MATCH)
+    return rec
+
+
+def check_benchmark(torch, failures: list, workdir: str,
+                    vae_doc_ids) -> dict:
+    """Phase 3s: ``main --ae_type none --benchmark bm25 sbert vae dpr
+    --generate`` (extractive, METEOR) on the main path's data, with
+    ``retrieval.index_path`` unset, so each dense system builds its own
+    store: no system may report an error; bm25 Recall@10 >= 0.99; sbert's
+    and vae's doc ids bit for bit those of ``main --ae_type none`` and 3r's
+    ``main --ae_type vae``; dpr's (seeded towers, metric dot over
+    unnormalized [CLS] rows, bf16 store) on >= 98 % of slots those of
+    ``xla_exact`` over the same store, and the fold there held to its plain
+    version; a p-value for every pair of systems; fold >= 2 and exact 0
+    for each dense system and for dpr. Returns each system's fold
+    launches and the DPR fold check's largest error."""
+    from latentrag_torch import main as cli
+    from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.pipeline import PipelineRunner
+    from latentrag_torch.retrieval import BM25Retriever
+    from latentrag_torch.retrieval.dpr import DPRRetriever
+    from latentrag_torch.training import train_dpr
+
+    t_phase = time.perf_counter()
+    overrides = main_overrides(workdir, "auto", "bfloat16") + [
+        "retrieval.index_path="]
+    runs, bm25, dpr, towers = [], [], [], []
+    results: list = []
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(counted_calls(PipelineRunner, "process", runs))
+        stack.enter_context(counted_calls(BM25Retriever, "search", bm25))
+        stack.enter_context(counted_calls(DPRRetriever, "build_index", dpr))
+        stack.enter_context(counted_calls(DPRRetriever, "search", dpr))
+        stack.enter_context(counted_calls(train_dpr, "build_dpr_encoders",
+                                          towers))
+        ft.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(["--ae_type", "none", "--device", "cuda", "--benchmark",
+                       *BENCH_SYSTEMS, "--generate", "--set", *overrides,
+                       *GENERATE_OVERRIDES], results=results)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in ft.launches.items() if v}
+    if rc != 0 or len(results) != 1:
+        fail(f"main --benchmark returned {rc} with {len(results)} results")
+    out = results[0]
+    # the same config through main --ae_type none (sbert's twin)
+    plain: list = []
+    t0 = time.perf_counter()
+    cli.main(["--ae_type", "none", "--device", "cuda", "--set", *overrides],
+             results=plain)
+    plain_s = time.perf_counter() - t0
+    by_ae = {run.args[0].ae_type: run for run in runs}
+    dpr_search = [c for c in dpr if c.name == "search"][0]
+    r, queries = dpr_search.args[0], dpr_search.args[1]
+    q = r.q_encoder.encode_batch(list(queries))
+    again = r.dense.search(q, SERVE_K)[1]
+    backend = r.dense.backend
+    r.dense.backend = "xla_exact"  # the oracle over the same store
+    try:
+        oracle = r.dense.search(q, SERVE_K)[1]
+    finally:
+        r.dense.backend = backend
+    ids = [[j for j in row if j >= 0] for row in dpr_search.out[1]]
+    fold = dpr_fold_check(torch, r, q)
+    systems = {s: res for s, res in out.items() if not s.startswith("_")}
+    pairs = len(BENCH_SYSTEMS) * (len(BENCH_SYSTEMS) - 1) // 2
+    dpr_launches = {}
+    for c in dpr:
+        for k, v in c.launches.items():
+            dpr_launches[k] = dpr_launches.get(k, 0) + v
+    rec = {
+        "card": card_line(), "wall_s": wall, "launches": launches,
+        "errors": {s: res["error"] for s, res in systems.items()
+                   if "error" in res},
+        "metrics": {s: {m: v["mean"] for m, v in res.get("metrics",
+                                                         {}).items()}
+                    for s, res in systems.items()},
+        "generation": {s: res.get("generation_metrics")
+                       for s, res in systems.items()},
+        "system_launches": {
+            "sbert": by_ae["none"].launches if "none" in by_ae else None,
+            "vae": by_ae["vae"].launches if "vae" in by_ae else None,
+            "dpr": dpr_launches,
+            "bm25": sum(sum(c.launches.values()) for c in bm25)},
+        "seconds": {"bm25_search": sum(c.s for c in bm25),
+                    "sbert": by_ae["none"].s if "none" in by_ae else None,
+                    "vae": by_ae["vae"].s if "vae" in by_ae else None,
+                    "dpr_towers": sum(c.s for c in towers),
+                    "dpr_build_search": sum(c.s for c in dpr),
+                    "main_none": plain_s},
+        "sbert_as_main": by_ae["none"].out["retrieved_doc_ids"]
+        == plain[0]["retrieved_doc_ids"] if "none" in by_ae else False,
+        "vae_as_main": by_ae["vae"].out["retrieved_doc_ids"] == vae_doc_ids
+        if "vae" in by_ae else False,
+        "dpr_repeatable": bool((again == dpr_search.out[1]).all()),
+        "dpr_vs_exact": slot_agreement(ids, [[j for j in row if j >= 0]
+                                             for row in oracle]),
+        "dpr_fold": fold,
+        "deltas_pairs": {m: sum("p_value" in e for e in d.values())
+                         for m, d in out.get("_deltas", {}).items()},
+        "generation_deltas": "_generation_deltas" in out,
+    }
+    if "vae" in by_ae and not rec["vae_as_main"]:
+        rec["vae_slot_agreement"] = slot_agreement(
+            by_ae["vae"].out["retrieved_doc_ids"], vae_doc_ids)
+    sys_l = rec["system_launches"]
+    ok = (not rec["errors"] and set(systems) == set(BENCH_SYSTEMS)
+          and rec["metrics"]["bm25"].get("Recall@10", 0.0) >= BM25_RECALL
+          and rec["sbert_as_main"] and rec["vae_as_main"]
+          and rec["dpr_repeatable"] and rec["dpr_vs_exact"] >= MAIN_DOC_AGREE
+          and fold["ok"]
+          and rec["deltas_pairs"]
+          and all(n == pairs for n in rec["deltas_pairs"].values())
+          and all((sys_l[s] or {}).get("fold", 0) >= 2
+                  and "exact" not in (sys_l[s] or {})
+                  for s in ("sbert", "vae", "dpr"))
+          and sys_l["bm25"] == 0)
+    rec["ok"] = ok
+    rec["phase_s"] = time.perf_counter() - t_phase
+    record("benchmark", **rec)
+    if not ok:
+        failures.append(f"the benchmark harness: {rec}")
+    del r, q, runs, dpr, towers
+    torch.cuda.empty_cache()
+    return {"launches": {f"benchmark_{s}": (sys_l[s] or {}).get("fold", 0)
+                         for s in ("sbert", "vae", "dpr")},
+            "dpr_max_abs_err": fold["max_abs_err"]}
+
+
+def check_generate_serving(torch, failures: list, workdir: str) -> dict:
+    """Phase 3t: ``python -m latentrag_torch.serve --generate --set
+    generation.provider=extractive`` over a copy of 3h's store: a search
+    with ``"generate": true``, one without and a malformed line give three
+    JSON lines, rc 0; then ``make_handle`` (started with ``--generate``)
+    behind HTTP at window 2 ms takes 64 single-query searches with
+    ``"generate": true`` from 64 clients. Every answer is
+    ``extractive_answer`` over its own hits' texts; no answer comes
+    without ``"generate"``; one fold launch a search call. Returns the
+    load's fold launches."""
+    from latentrag_torch.generation import RAGGenerator, extractive_answer
+    from latentrag_torch.utils import apply_overrides, load_config
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    truncate = RAGGenerator()._truncate_docs
+    queries = eval_queries(SERVE_GENERATE_REQUESTS)
+    index = f"{workdir}/serve_generate_cli_index"
+    shutil.copytree(f"{workdir}/serve_index", index)
+    overrides = main_overrides(workdir, "auto", "bfloat16") + [
+        "generation.provider=extractive", f"retrieval.index_path={index}",
+        "logging.level=INFO"]
+    lines = [json.dumps({"query": queries[0], "k": SERVE_K,
+                         "generate": True}),
+             json.dumps({"query": queries[1], "k": SERVE_K}),
+             "not json"]
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "latentrag_torch.serve", "--device", "cuda",
+         "--ae_type", "vae", "--generate", "--set", *overrides],
+        input="".join(x + "\n" for x in lines), capture_output=True,
+        text=True, timeout=600, cwd=root)
+    cli_s = time.perf_counter() - t0
+    try:
+        resp = [json.loads(x) for x in out.stdout.splitlines() if x.strip()]
+    except ValueError:
+        resp = None
+    cli = {"rc": out.returncode, "wall_s": cli_s,
+           "json_lines": None if resp is None else len(resp),
+           "stderr_tail": out.stderr[-600:]}
+    ok = out.returncode == 0 and resp is not None and len(resp) == 3
+    if ok:
+        first = resp[0].get("results", [{}])[0]
+        second = resp[1].get("results", [{}])[0]
+        cli.update(
+            hits=len(first.get("hits", [])),
+            answer=first.get("answer"),
+            answer_as_recomputed=first.get("answer") == extractive_answer(
+                queries[0], truncate([h["text"] for h in first["hits"]])),
+            unasked_answer="answer" in second, error=resp[2].get("error"))
+        ok = (cli["hits"] == SERVE_K and bool(cli["answer"])
+              and cli["answer_as_recomputed"] and not cli["unasked_answer"]
+              and len(second.get("hits", [])) == SERVE_K
+              and "error" in resp[2])
+    if not ok:
+        failures.append(f"the generating serve CLI: {cli}")
+    # HTTP, the window on
+    http_index = f"{workdir}/serve_generate_index"
+    shutil.copytree(f"{workdir}/serve_index", http_index)
+    cfg = apply_overrides(load_config(None), main_overrides(
+        workdir, "auto", "bfloat16") + [
+        "generation.provider=extractive",
+        f"retrieval.index_path={http_index}"])
+    server_env, spy, boot_rec = boot_server(torch, cfg, failures,
+                                            "generating")
+    with running_server(cfg, server_env, 2.0, generate=True) as srv:
+        load = timed_load(torch, srv, spy, queries, profiled=False,
+                          extra={"generate": True})
+    check_load(load, queries, failures, "generating serve window 2.0")
+    resp = load.pop("responses")
+    load["answers_as_recomputed"] = sum(
+        r is not None and "answer" in r and r["answer"] == extractive_answer(
+            r["query"], truncate(r["texts"])) for r in resp)
+    if load["answers_as_recomputed"] != len(queries):
+        failures.append(f"generating serve: {load['answers_as_recomputed']} "
+                        f"of {len(queries)} answers as recomputed")
+    record("serve_generate", card=card_line(), cli=cli, **boot_rec,
+           load=load, phase_s=time.perf_counter() - t_phase)
+    del server_env, spy
+    torch.cuda.empty_cache()
+    return {"serve_generate_w2": load["launches"]["fold"]}
+
+
 def time_masked(torch) -> dict:
     """Phase 4c: the masked kernels with 10 % of the rows allowed, cosine,
     at the reference shape and at 1024 x 1M: the fold at the plan and the
@@ -4768,6 +5199,22 @@ def main() -> int:
     slice_launches.update(check_rerank_serving(torch, failures, main_wd))
     if failures:
         fail("; ".join(failures))
+    # phases 3r-3t: generation, the benchmark harness (DPR: the fold at
+    # metric dot) and served generation; each drive's fold launches read
+    # with the counts at 0
+    generated = check_generate_main(torch, failures, main_wd)
+    if failures:
+        fail("; ".join(failures))
+    gen_launches = {"generate_main": generated["launches"]}
+    bench = check_benchmark(torch, failures, main_wd,
+                            generated["vae_doc_ids"])
+    if failures:
+        fail("; ".join(failures))
+    gen_launches.update(bench["launches"])
+    worst["fold"] = max(worst["fold"], bench["dpr_max_abs_err"])
+    gen_launches.update(check_generate_serving(torch, failures, main_wd))
+    if failures:
+        fail("; ".join(failures))
 
     kernels = []
     for mode, fn_line, source in (("fold", 162, "fold_mma.cuh"),
@@ -4792,6 +5239,10 @@ def main() -> int:
     # reranked and chunked runs (phases 3o-3q)
     kernels[0]["serve_launches"] = serve_launches
     kernels[0]["rerank_chunk_launches"] = slice_launches
+    # and stage 1 of the generated main path, of each dense system of the
+    # benchmark harness, DPR's (metric dot) included, and of the
+    # generating server (phases 3r-3t)
+    kernels[0]["generate_benchmark_launches"] = gen_launches
     for tag, store in (("", "bf16"), ("_fp32", "fp32")):
         t = times[("1m", "exact_k3000" + tag)]
         kernels.append({

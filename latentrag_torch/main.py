@@ -3,11 +3,19 @@
 Usage:
   python -m latentrag_torch.main --ae_type vae --device cuda \
       --set data.dataset=synthetic models.vae.checkpoint=/path/vae.pth
+  python -m latentrag_torch.main --generate \
+      --set generation.provider=extractive
+  python -m latentrag_torch.main --benchmark bm25 sbert dpr
+  python -m latentrag_torch.main --ae_type vae --profile /tmp/trace
 
 Each AE variant runs the pipeline once, logs its run card and appends one
 row to ``<logs_dir>/benchmarks/experiments.csv`` (the JAX package's CSV
-schema). ``--device`` defaults to ``cuda`` and never falls back to the
-CPU on its own; ``--device cpu`` runs the plain PyTorch path.
+schema; with ``--generate`` its generation columns too). ``--benchmark
+[SYSTEM ...]`` runs the multi-system harness instead (default systems
+``bm25 sbert``). ``--profile DIR`` writes a ``torch.profiler`` trace of
+each pipeline run into DIR. ``--device`` defaults to ``cuda`` and never
+falls back to the CPU on its own; ``--device cpu`` runs the plain PyTorch
+path.
 """
 
 from __future__ import annotations
@@ -34,14 +42,24 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--config", default=None, help="YAML config path")
     p.add_argument("--ae_type", default="none", choices=AE_CHOICES)
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    p.add_argument("--generate", action="store_true",
+                   help="generate an answer for each query (and score the "
+                        "answers against the gold ones)")
+    p.add_argument("--benchmark", nargs="*", metavar="SYSTEM",
+                   help="run the multi-system benchmark instead of the "
+                        "pipeline (default systems: bm25 sbert)")
     p.add_argument("--tag", default="run", help="experiment CSV tag")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the pipeline run "
+                        "into DIR (TensorBoard / chrome://tracing)")
     p.add_argument("--set", nargs="*", default=[], metavar="a.b=v",
                    help="config overrides")
     return p.parse_args(argv)
 
 
 def main(argv=None, results: list | None = None) -> int:
-    """Run the pipeline; each variant's result dict is appended to
+    """Run the pipeline (or, with ``--benchmark``, the harness); each
+    variant's result dict (the harness's result) is appended to
     ``results`` when the caller passes a list."""
     args = parse_args(argv)
     cfg = apply_overrides(load_config(args.config), args.set)
@@ -50,8 +68,29 @@ def main(argv=None, results: list | None = None) -> int:
 
     loggers.main.info("loading dataset %r", cfg.data.dataset)
     examples = get_examples(cfg)
-    queries, corpus, relevant = load_evaluation_data(examples)
+    queries, corpus, relevant, gold = load_evaluation_data(
+        examples, with_answers=True)
     loggers.main.info("|queries|=%d |corpus|=%d", len(queries), len(corpus))
+
+    if args.benchmark is not None:
+        from .evaluation import run_benchmark
+
+        systems = tuple(args.benchmark) or ("bm25", "sbert")
+        out = run_benchmark(cfg, queries, corpus, relevant, systems=systems,
+                            generate=args.generate, gold_answers=gold,
+                            device=args.device)
+        if results is not None:
+            results.append(out)
+        for system, res in out.items():
+            if system.startswith("_"):
+                loggers.main.info("%s: %s", system, res)
+            elif "metrics" in res:
+                loggers.main.info("%s: %s", system, {
+                    m: round(v["mean"], 4) for m, v in res["metrics"].items()
+                })
+            else:
+                loggers.main.info("%s: ERROR %s", system, res.get("error"))
+        return 0
 
     variants = (
         ["vae", "dae", "cae"]
@@ -60,11 +99,21 @@ def main(argv=None, results: list | None = None) -> int:
     )
     for ae in variants:
         try:
-            runner = PipelineRunner(cfg, ae_type=ae, device=args.device)
+            runner = PipelineRunner(cfg, ae_type=ae, generate=args.generate,
+                                    device=args.device)
         except FileNotFoundError as e:
             loggers.main.error("%s", e)
             return 2
-        result = runner.process(queries, corpus, relevant)
+        answers = gold if args.generate else None
+        if args.profile:
+            from .utils.profiling import trace
+
+            with trace(args.profile):
+                result = runner.process(queries, corpus, relevant,
+                                        gold_answers=answers)
+        else:
+            result = runner.process(queries, corpus, relevant,
+                                    gold_answers=answers)
         runner.print_run_card(result)
         if results is not None:
             results.append(result)
@@ -84,6 +133,7 @@ def main(argv=None, results: list | None = None) -> int:
             retrieval_metrics=result["retrieval_metrics"],
             retriever_stats=result["retriever_stats"],
             logs_dir=cfg.paths.logs_dir,
+            generation_metrics=result.get("generation_metrics"),
         )
         append_csv_row(
             row, f"{cfg.paths.logs_dir}/benchmarks/experiments.csv"

@@ -18,14 +18,18 @@ on a device chosen by the caller (default CUDA; the CPU only when asked):
 * empty candidate slots (id -1) map to a sentinel doc whose score is
   forced to NEG_INF before MaxSim, and sentinel docs are dropped after;
 * MaxSim folds chunks to docs on the device, as the JAX package runs it
-  there.
-
-Generation is a later slice (ROADMAP queue 1 item 24); asking for it
-raises ``NotImplementedError``.
+  there;
+* with ``generate=True`` each query's answer comes from its retrieved
+  chunks (at most ``retrieval.max_chunks_per_doc`` of each top doc) through
+  ``RAGGenerator`` (``generation.provider=extractive`` answers offline),
+  and with gold answers and at least
+  ``evaluation.min_pairs_for_bootstrap`` pairs the generation metrics get
+  bootstrap CIs; both on the host, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import asyncio
 import logging
 import os
 import time
@@ -37,6 +41,7 @@ import torch
 from .data.chunking import build_inference_corpus
 from .data.tokenizer import resolve_tokenizer
 from .evaluation import evaluate_retrieval
+from .generation import GeneratorSettings, LLMSettings, RAGGenerator
 from .models import build_autoencoder, load_autoencoder_pth
 from .models.convert import minilm_state_dict_from_jax
 from .models.encoder import SentenceEncoder
@@ -128,16 +133,15 @@ class PipelineRunner:
         compressor: EmbeddingCompressor | None = None,
         device: str | torch.device = "cuda",
         reranker=None,
+        generator: RAGGenerator | None = None,
     ):
-        if generate:
-            raise NotImplementedError(
-                "generation is ROADMAP queue 1 item 24 (auxiliaries)"
-            )
         self.cfg = cfg
         self.device = resolve_device(device)
         self.ae_type = canonical_ae_type(ae_type)
+        self.generate = generate
         self._compressor = compressor
         self._reranker = reranker
+        self._generator = generator
         self._autoencoder = load_autoencoder(cfg, self.ae_type, self.device)
 
     def _ensure_compressor(self, corpus: Sequence[str]) -> EmbeddingCompressor:
@@ -171,11 +175,30 @@ class PipelineRunner:
                 device=self.device)
         return self._reranker
 
+    def _ensure_generator(self) -> RAGGenerator:
+        """The configured generator; an injected one wins."""
+        if self._generator is None:
+            g = self.cfg.generation
+            self._generator = RAGGenerator(
+                GeneratorSettings(
+                    llm=LLMSettings(
+                        provider=g.provider,
+                        model=g.model,
+                        temperature=g.temperature,
+                        max_tokens=g.max_tokens,
+                    ),
+                    system_prompt_path=g.system_prompt_path,
+                    max_context_tokens=g.max_context_tokens,
+                )
+            )
+        return self._generator
+
     def process(
         self,
         queries: Sequence[str],
         corpus: Sequence[str],
         relevant_ids: Sequence[int],
+        gold_answers: Sequence[str] | None = None,
     ) -> dict[str, Any]:
         cfg = self.cfg
         compressor = self._ensure_compressor(corpus)
@@ -259,7 +282,7 @@ class PipelineRunner:
         )
         timings["evaluate_s"] = time.perf_counter() - t0
 
-        return {
+        result: dict[str, Any] = {
             "ae_type": self.ae_type,
             "device": str(self.device),
             "dim_in": compressor.input_dim,
@@ -275,6 +298,67 @@ class PipelineRunner:
             "retrieved_doc_ids": retrieved_doc_ids,
             "doc_scores": doc_scores,
         }
+        if self.generate:
+            # generation, then its metrics when gold answers exist and the
+            # sample is large enough for stable CIs
+            t0 = time.perf_counter()
+            result["answers"] = self._run_generation(
+                queries, texts, doc_ids, idx, retrieved_doc_ids)
+            timings["generate_s"] = time.perf_counter() - t0
+            ecfg = cfg.evaluation
+            n = len(result["answers"])
+            if gold_answers is None:
+                log.info("no gold answers supplied; skipping generation eval")
+            elif n < ecfg.min_pairs_for_bootstrap:
+                log.info("generation eval skipped: %d pairs < min %d for a "
+                         "stable bootstrap", n, ecfg.min_pairs_for_bootstrap)
+            else:
+                from .evaluation import evaluate_generation_bootstrap
+
+                t0 = time.perf_counter()
+                result["generation_metrics"] = evaluate_generation_bootstrap(
+                    result["answers"],
+                    [str(a) for a in gold_answers],
+                    metrics=ecfg.generation_metrics,
+                    n_resamples=ecfg.bootstrap_samples,
+                    alpha=ecfg.bootstrap_alpha,
+                    min_pairs=ecfg.min_pairs_for_bootstrap,
+                )
+                timings["generation_eval_s"] = time.perf_counter() - t0
+        return result
+
+    def _run_generation(self, queries, texts, doc_ids, chunk_idx,
+                        retrieved_doc_ids) -> list[str]:
+        """Each query's context: its candidate chunks in search order that
+        belong to one of its retrieved docs, at most
+        ``retrieval.max_chunks_per_doc`` a doc (empty slots, id -1,
+        skipped). The completions run through ``generate_batch_async`` at
+        ``generation.concurrency`` (answers in query order); a generator
+        without it (a duck-typed stand-in) answers one query at a time."""
+        gen = self._ensure_generator()
+        max_chunks = self.cfg.retrieval.max_chunks_per_doc
+        docs_per_query: list[list[str]] = []
+        for row, top in zip(chunk_idx, retrieved_doc_ids):
+            top_docs = set(top)
+            per_doc: dict[int, int] = {}
+            chosen: list[str] = []
+            for j in row:
+                if j < 0:
+                    continue
+                did = doc_ids[j]
+                if did not in top_docs or per_doc.get(did, 0) >= max_chunks:
+                    continue
+                per_doc[did] = per_doc.get(did, 0) + 1
+                chosen.append(texts[j])
+            docs_per_query.append(chosen)
+        concurrency = max(1, self.cfg.generation.concurrency)
+        if not hasattr(gen, "generate_batch_async"):
+            concurrency = 1
+        if concurrency == 1:
+            return [gen.generate(q, d)
+                    for q, d in zip(queries, docs_per_query)]
+        return asyncio.run(gen.generate_batch_async(
+            list(queries), docs_per_query, concurrency=concurrency))
 
     def print_run_card(self, result: dict[str, Any]) -> None:
         """The run's metrics and timings as log lines."""
@@ -287,5 +371,8 @@ class PipelineRunner:
         )
         for name, stats in result["retrieval_metrics"].items():
             log.info("%s: %.4f ± %.4f", name, stats["mean"], stats["std"])
+        for name, stats in result.get("generation_metrics", {}).items():
+            log.info("%s: %.2f [%.2f, %.2f]", name, stats["mean"],
+                     stats["ci_low"], stats["ci_high"])
         for name, sec in result["timings"].items():
             log.info("%s: %.2f ms", name, sec * 1e3)

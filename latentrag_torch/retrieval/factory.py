@@ -22,12 +22,10 @@ ANN_BACKENDS = ("hnsw", "ivfpq")
 
 def _make_dense(cfg: RetrievalConfig, device) -> DenseRetriever:
     """Construct (not build) a DenseRetriever from config; with
-    ``cfg.index_path`` set it loads the store there, if one is valid."""
-    if cfg.backend not in DEVICE_BACKENDS:
-        raise NotImplementedError(
-            f"retrieval.backend={cfg.backend!r} is not ported yet (ROADMAP "
-            "queue 1: bm25 in item 24)"
-        )
+    ``cfg.index_path`` set it loads the store there, if one is valid. As
+    in the JAX package, a backend other than dense, bruteforce and the ANN
+    tiers (``bm25``: BM25 runs only in the benchmark harness) gets a dense
+    store on kernel ``auto``."""
     if cfg.shard_corpus:
         # one device holds the whole corpus, as the JAX package serves the
         # flag on a single device (no mesh, or a 1-device mesh dropped)
@@ -39,7 +37,8 @@ def _make_dense(cfg: RetrievalConfig, device) -> DenseRetriever:
             )
         log.info("retrieval.shard_corpus: one device; the corpus is served "
                  "unsharded")
-    backend = "xla_exact" if cfg.backend == "bruteforce" else cfg.kernel
+    backend = {"dense": cfg.kernel, "bruteforce": "xla_exact"}.get(
+        cfg.backend, "auto")
     return DenseRetriever(
         metric=cfg.metric,
         backend=backend,

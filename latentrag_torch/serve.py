@@ -22,6 +22,9 @@ encode and one fold or exact launch (``latentrag_torch.serving``).
 Protocol:
 
   {"query": "...", "k": 5}                  -> retrieval
+  {"query": "...", "generate": true}        -> retrieval + an answer
+                                               (server started with
+                                               --generate)
   {"queries": ["...", "..."], "k": 5}       -> one batched device call
   {"query": "...", "filter": {...}}         -> predicate-filtered search
                                                (doc_ids / exclude_doc_ids
@@ -45,9 +48,14 @@ scores are then cross-encoder logits. The micro-batcher's padding rows
 but not rescored: the JAX server rescores them for its fixed jit shapes,
 which the port does not have.
 
-Not served yet, as in the rest of the port: ``"generate": true`` is ignored, as
-the JAX server ignores it when not started with ``--generate``, and
-``--generate`` raises (item 24).
+``--generate`` answers requests that carry ``"generate": true``: each
+result gets an ``"answer"`` from its own hits' texts through the
+configured generator (``generation.provider=extractive`` answers offline;
+a multi-query request's answers run through ``generate_batch_async``).
+Generation runs on the host after the lock is released, on the direct
+and the micro-batched path alike, so a slow LLM call never holds up other
+requests' device work. Without ``--generate`` the flag is ignored, as the
+JAX server ignores it.
 
 ``retrieval.backend=hnsw|ivfpq`` serves the C++ ANN tiers (their
 searches, filters and adds on the host; ``"nprobe"`` and ``remove`` are
@@ -72,6 +80,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import asyncio
 import contextlib
 import inspect
 import json
@@ -251,17 +260,37 @@ def make_handle(cfg, args, runner, compressor, retriever, mode):
             req.get("stats") or "add" in req or "remove" in req
         ):
             with lock:
-                return _handle_locked(req)
-        queries, k, flt, nprobe = _validate_search(req)
-        fkey = canonical_filter_key(flt) if flt is not None else None
-        t0 = time.perf_counter()
-        hits = batcher.submit(queries, k, flt, fkey, nprobe)
-        return {
-            "results": [
-                {"query": q, "hits": h} for q, h in zip(queries, hits)
-            ],
-            "latency_ms": round((time.perf_counter() - t0) * 1000, 3),
-        }
+                out = _handle_locked(req)
+        else:
+            queries, k, flt, nprobe = _validate_search(req)
+            fkey = canonical_filter_key(flt) if flt is not None else None
+            t0 = time.perf_counter()
+            hits = batcher.submit(queries, k, flt, fkey, nprobe)
+            out = {
+                "results": [
+                    {"query": q, "hits": h} for q, h in zip(queries, hits)
+                ],
+                "latency_ms": round((time.perf_counter() - t0) * 1000, 3),
+            }
+        if (req.get("generate") and getattr(args, "generate", False)
+                and "results" in out):
+            # outside the lock: the hits are host data already
+            _answer(out["results"])
+        return out
+
+    def _answer(results: list) -> None:
+        """An ``"answer"`` on each result, from its own hits' texts."""
+        gen = runner._ensure_generator()
+        queries = [r["query"] for r in results]
+        docs = [[h["text"] for h in r["hits"]] for r in results]
+        if len(results) > 1:  # overlap in-flight completions
+            answers = asyncio.run(gen.generate_batch_async(
+                queries, docs,
+                concurrency=max(1, cfg.generation.concurrency)))
+        else:
+            answers = [gen.generate(queries[0], docs[0])]
+        for r, a in zip(results, answers):
+            r["answer"] = a
 
     def _handle_locked(req: dict) -> dict:
         if req.get("stats"):
@@ -424,7 +453,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--ae_type", default="none")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     p.add_argument("--generate", action="store_true",
-                   help="generation is not ported yet (ROADMAP item 24)")
+                   help='answer requests that carry "generate": true')
     p.add_argument(
         "--cold-boot", action="store_true",
         help="force dataset load + corpus re-encode even when a persisted "

@@ -15,7 +15,11 @@ import torch
 from latentrag_tpu.retrieval import build_retriever as jax_build
 from latentrag_tpu.retrieval.ann_retriever import ANNRetriever as JaxANN
 from latentrag_tpu.utils.config import RetrievalConfig as JaxCfg
-from latentrag_torch.retrieval import build_retriever, load_retriever
+from latentrag_torch.retrieval import (
+    DenseRetriever,
+    build_retriever,
+    load_retriever,
+)
 from latentrag_torch.retrieval.ann_retriever import ANNRetriever
 from latentrag_torch.utils.config import RetrievalConfig
 
@@ -197,9 +201,16 @@ def test_factory_dispatches_ann_and_bm25_still_refuses(corpus):
         j = jax_build(corpus[:300], [f"t{i}" for i in range(300)], None,
                       JaxCfg(backend=backend, index_path=""))
         assert j.retrieve(corpus[5], top_k=3)[0][0] == "t5"
-    with pytest.raises(NotImplementedError, match="item 24"):
-        build_retriever(corpus[:10], ["a"] * 10, None,
-                        RetrievalConfig(backend="bm25"), device="cpu")
+    # bm25 no longer refuses: as in the JAX factory, it is a dense store on
+    # kernel auto (BM25 itself runs only in the benchmark harness)
+    r = build_retriever(corpus[:10], ["a"] * 10, None,
+                        RetrievalConfig(backend="bm25", index_path=""),
+                        device="cpu")
+    j = jax_build(corpus[:10], ["a"] * 10, None,
+                  JaxCfg(backend="bm25", index_path=""))
+    assert isinstance(r, DenseRetriever) and r.backend == j.backend == "auto"
+    np.testing.assert_array_equal(r.search(corpus[:3], 4)[1],
+                                  np.asarray(j.search(corpus[:3], 4)[1]))
     with pytest.raises(ValueError, match="cannot rank"):
         ANNRetriever(RetrievalConfig(backend="hnsw", metric="euclidean"),
                      "hnsw", device="cpu")

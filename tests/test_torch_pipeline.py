@@ -24,7 +24,12 @@ from latentrag_torch import serve as torch_serve
 from latentrag_torch.models import VariationalAutoencoder
 from latentrag_torch.models.convert import minilm_state_dict_from_jax
 from latentrag_torch.pipeline import PipelineRunner
-from latentrag_torch.retrieval import DenseRetriever, HNSWIndex, build_retriever
+from latentrag_torch.retrieval import (
+    DenseRetriever,
+    HNSWIndex,
+    build_retriever,
+    load_retriever,
+)
 from latentrag_torch.utils import Config, apply_overrides, resolve_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -297,17 +302,130 @@ def test_every_backend_runs_on_cpu(rng, backend):
 
 
 def test_unported_options_raise(rng):
-    with pytest.raises(NotImplementedError, match="item 24"):
-        build_retriever(np.zeros((2, 4), np.float32), ["a", "b"], None,
-                        apply_overrides(Config(), ["retrieval.backend=bm25"])
-                        .retrieval, device="cpu")
     with pytest.raises(ValueError):
         DenseRetriever(backend="faiss", device="cpu")
     with pytest.raises(ValueError, match="bogus"):
         PipelineRunner(apply_overrides(Config(), ["retrieval.rerank=bogus"]),
                        device="cpu")._ensure_reranker()
-    with pytest.raises(NotImplementedError):
-        PipelineRunner(Config(), generate=True, device="cpu")
+
+
+def test_bm25_backend_matches_jax(rng, tmp_path):
+    """``retrieval.backend=bm25`` in the factory is a dense store on kernel
+    ``auto``, as the JAX factory maps it (BM25 itself runs only in the
+    benchmark harness): the same searches as the JAX package's, built and
+    warm-booted from its index_path."""
+    from latentrag_tpu.retrieval import build_retriever as jax_build
+    from latentrag_tpu.retrieval import load_retriever as jax_load
+
+    emb = rng.standard_normal((300, 12)).astype(np.float32)
+    q = rng.standard_normal((7, 12)).astype(np.float32)
+    texts = [f"t{i}" for i in range(300)]
+    ov = ["retrieval.backend=bm25", "retrieval.store_dtype=float32",
+          "retrieval.kernel=pallas", f"retrieval.index_path={tmp_path}/i"]
+    want = jax_build(emb, texts, None, jax_overrides(
+        JaxConfig(), ov[:-1] + ["retrieval.index_path="]).retrieval)
+    got = build_retriever(emb, texts, None,
+                          apply_overrides(Config(), ov).retrieval,
+                          device="cpu")
+    assert isinstance(got, DenseRetriever) and got.backend == "auto"
+    assert want.backend == "auto"
+    (s_t, i_t), (s_j, i_j) = got.search(q, 6), want.search(q, 6)
+    np.testing.assert_array_equal(i_t, np.asarray(i_j))
+    np.testing.assert_allclose(s_t, np.asarray(s_j), rtol=1e-5, atol=1e-5)
+    warm = load_retriever(apply_overrides(Config(), ov).retrieval,
+                          device="cpu")
+    np.testing.assert_array_equal(warm.search(q, 6)[1], i_t)
+    jwarm = jax_load(jax_overrides(JaxConfig(), ov).retrieval)
+    np.testing.assert_array_equal(np.asarray(jwarm.search(q, 6)[1]), i_t)
+
+
+GENERATION = ["generation.provider=extractive",
+              "evaluation.generation_metrics=[ROUGE-L,METEOR,BLEU]",
+              "evaluation.min_pairs_for_bootstrap=20",
+              "evaluation.bootstrap_samples=300"]
+
+
+class EchoGenerator:
+    """A duck-typed generator with ``generate`` only: the top context."""
+
+    def generate(self, query, docs):
+        return docs[0] if docs else ""
+
+
+@pytest.mark.parametrize("case", ["extractive", "echo", "chunked"])
+def test_generation_matches_jax(tmp_path, case):
+    """``PipelineRunner(generate=True)``: the same answers (the extractive
+    provider through ``generate_batch_async``; a duck-typed generator one
+    query at a time; chunked documents, several chunks a doc) and the same
+    bootstrap generation metrics as the JAX runner."""
+    base = str(tmp_path)
+    ov = _overrides(base) + GENERATION
+    if case == "chunked":
+        ov += CHUNKING + ["chunking.enabled=true",
+                          "retrieval.max_chunks_per_doc=2"]
+    queries, corpus, relevant, gold = load_evaluation_data(
+        synthetic_examples(60), with_answers=True)
+    torch.manual_seed(5)
+    torch.save(VariationalAutoencoder(32, 8, 16).state_dict(),
+               f"{base}/vae.pth")
+    cfg_j = jax_overrides(JaxConfig(), ov + [
+        f"retrieval.index_path={base}/jax", "retrieval.kernel=xla_exact"])
+    tok = resolve_tokenizer(cfg_j.paths.data_dir, 800, corpus)
+    save_params(JaxEncoder(tok, cfg_j.encoder, seed=11).params,
+                f"{base}/ckpt/encoder.msgpack")
+    gen = EchoGenerator() if case == "echo" else None
+    want = JaxRunner(cfg_j, ae_type="vae", generate=True,
+                     generator=gen).process(queries, corpus, relevant,
+                                            gold_answers=gold)
+    got = PipelineRunner(apply_overrides(Config(), ov), ae_type="vae",
+                         generate=True, generator=gen, device="cpu").process(
+        queries, corpus, relevant, gold_answers=gold)
+    assert got["retrieved_doc_ids"] == want["retrieved_doc_ids"]
+    assert len(got["answers"]) == len(queries)
+    assert got["answers"] == want["answers"]
+    assert got["generation_metrics"] == want["generation_metrics"]
+    assert set(got["generation_metrics"]) == {"ROUGE-L", "METEOR", "BLEU"}
+    assert {"generate_s", "generation_eval_s"} <= set(got["timings"])
+    # without gold answers, or below the bootstrap floor: answers only
+    few = PipelineRunner(apply_overrides(Config(), ov), ae_type="vae",
+                         generate=True, generator=gen, device="cpu")
+    out = few.process(queries[:10], corpus, relevant[:10],
+                      gold_answers=gold[:10])
+    assert out["answers"] == got["answers"][:10]
+    assert "generation_metrics" not in out
+    assert "generation_metrics" not in few.process(queries, corpus, relevant)
+
+
+def test_main_generate_and_profile_on_cpu(tmp_path):
+    """``main --generate`` writes the generation columns to the CSV row;
+    ``--profile DIR`` writes a trace file there."""
+    import csv
+
+    base = str(tmp_path)
+    torch.manual_seed(5)
+    torch.save(VariationalAutoencoder(32, 8, 16).state_dict(),
+               f"{base}/vae.pth")
+    ov = _overrides(base) + GENERATION
+    results = []
+    assert torch_main.main(["--ae_type", "vae", "--device", "cpu",
+                            "--generate", "--set", *ov],
+                           results=results) == 0
+    assert len(results[0]["answers"]) == 60
+    assert set(results[0]["generation_metrics"]) == {"ROUGE-L", "METEOR",
+                                                     "BLEU"}
+    with open(f"{base}/logs/benchmarks/experiments.csv") as f:
+        row = list(csv.DictReader(f))[-1]
+    assert float(row["meteor"]) == pytest.approx(
+        results[0]["generation_metrics"]["METEOR"]["mean"], abs=1e-3)
+    assert torch_main.main(["--ae_type", "vae", "--device", "cpu",
+                            "--profile", f"{base}/trace", "--set", *ov],
+                           results=results) == 0
+    traces = [f for f in os.listdir(f"{base}/trace")
+              if f.endswith(".pt.trace.json")]
+    assert len(traces) == 1
+    with open(f"{base}/trace/{traces[0]}") as f:
+        assert "traceEvents" in f.read(200_000)
+    assert "answers" not in results[1]
 
 
 def test_entry_points_refuse_missing_cuda(monkeypatch, tmp_path):

@@ -654,3 +654,108 @@ def test_dim_matches_jax(rng, tmp_path, store):
     t2 = DenseRetriever(store_dtype=store, device="cpu",
                         index_path=str(tmp_path / "idx"))
     assert t2.is_built and t2.dim == j2.dim == 64
+
+
+def _generate_stream(env):
+    q0, q1, q2 = env.queries[:3]
+    return [
+        json.dumps({"query": q0, "k": 3, "generate": True}),
+        json.dumps({"queries": [q1, q2], "k": 2, "generate": True}),
+        json.dumps({"query": q1, "k": 2}),
+        json.dumps({"query": q2, "k": 4, "generate": True,
+                    "filter": {"exclude_doc_ids": [0, 1]}}),
+        "not json",
+    ]
+
+
+@pytest.mark.parametrize("flags", [["--generate"], []])
+def test_serve_generate_with_extractive_provider_matches_jax(env, capsys,
+                                                             flags):
+    """The counterpart of the JAX package's
+    ``test_serve_generate_with_extractive_provider``: servers started with
+    ``--generate --set generation.provider=extractive`` answer each result
+    of a ``"generate": true`` request offline, from its own hits' texts,
+    line for line as the JAX server does; without ``"generate"``, or
+    without ``--generate``, no result gets an answer."""
+    from latentrag_torch.generation import RAGGenerator, extractive_answer
+
+    cold = _cold_store(env, capsys, "float32", "xla_exact")
+    copies = {}
+    for side in ("jax", "port"):
+        copies[side] = f"{env.base}/generate_{side}"
+        shutil.rmtree(copies[side], ignore_errors=True)
+        shutil.copytree(cold, copies[side])
+    extra = ["retrieval.store_dtype=float32", "retrieval.kernel=xla_exact",
+             "generation.provider=extractive"]
+    payload = _generate_stream(env)
+    want = _run(jax_serve.main,
+                ["--ae_type", "vae", *flags, "--set",
+                 *_overrides(env.base, copies["jax"]), *extra],
+                payload, capsys)
+    got = _port(env, copies["port"], payload, capsys, extra=extra,
+                flags=flags)
+    assert len(got) == len(want) == len(payload)
+    assert "error" in got[-1] and "error" in want[-1]
+    truncate = RAGGenerator()._truncate_docs
+    for line, g, w in zip(payload[:-1], got, want):
+        assert len(g["results"]) == len(w["results"])
+        for rg, rw in zip(g["results"], w["results"]):
+            assert rg.get("answer") == rw.get("answer"), line
+            assert [(h["doc_id"], h["text"]) for h in rg["hits"]] == [
+                (h["doc_id"], h["text"]) for h in rw["hits"]], line
+            np.testing.assert_allclose([h["score"] for h in rg["hits"]],
+                                       [h["score"] for h in rw["hits"]],
+                                       atol=1e-5)
+        asked = flags and json.loads(line).get("generate")
+        for r in g["results"]:
+            assert ("answer" in r) == bool(asked), line
+            if asked:
+                texts = [h["text"] for h in r["hits"]]
+                assert r["answer"] == extractive_answer(r["query"],
+                                                        truncate(texts))
+                assert r["answer"]
+    assert len(got[1]["results"]) == 2
+
+
+def test_micro_batched_generation_answers_each_query(env, capsys):
+    """With the HTTP window on, a coalesced burst of ``"generate": true``
+    searches: each response's answer is its own query's, from its own
+    hits, computed after the lock is released."""
+    from latentrag_torch.generation import extractive_answer
+
+    index = _cold_store(env, capsys, "float32", "xla_exact")
+    cfg = apply_overrides(load_config(None), _overrides(env.base, index) + [
+        "generation.provider=extractive"])
+    loggers = init_logger(cfg.logging, stream=sys.stderr)
+    args = SimpleNamespace(
+        ae_type="vae", generate=True, cold_boot=False, device="cpu",
+        batch_window_ms=40.0, max_batch=64, http=0,
+    )
+    runner, compressor, retriever, mode = serve.boot(cfg, args, loggers)
+    handle = serve.make_handle(cfg, args, runner, compressor, retriever,
+                               mode)
+    queries = env.queries[:6]
+    out = [None] * len(queries)
+
+    def post(i):
+        out[i] = _post(port, "/search", {"query": queries[i], "k": 3,
+                                         "generate": i % 3 != 2})
+
+    with serve.running_http(handle, retriever, mode, "127.0.0.1", 0,
+                            loggers) as server:
+        port = server.server_address[1]
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(len(queries))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+            assert not t.is_alive()
+    for i, o in enumerate(out):
+        r = o["results"][0]
+        assert r["query"] == queries[i] and len(r["hits"]) == 3
+        if i % 3 == 2:
+            assert "answer" not in r
+        else:
+            assert r["answer"] == extractive_answer(
+                queries[i], [h["text"] for h in r["hits"]])
