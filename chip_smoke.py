@@ -281,6 +281,26 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    a malformed line), then 64 generating HTTP searches at window 2 ms
    over 3h's store: every answer ``extractive_answer`` over its own hits,
    none unasked, one fold launch a search call;
+3u. ``python -m latentrag_torch.training.train --ae_type vae|dae|cae``
+   in this process on the card, 50 epochs each on the synthetic 2000
+   examples (MiniLM-L6 at full width, bf16, the 384->512->64 AEs; the
+   early stop may end a run sooner): the weights and every batch on the
+   card, the last epoch's val loss below the first's; one train step of the trained VAE on the card (fp32, TF32
+   off) against the same step on the CPU from the same model, optimizer
+   state, batch and eps (loss within 1e-5 relative, params within 1e-6);
+   a 2-epoch DAE run resumed to 4 continuing at epoch 2 with Adam's step
+   count; then ``main --ae_type <ae>`` over each trained checkpoint by
+   its default name (the fold for search and self-check, the exact kernel
+   never), the trained VAE's docs on >= 98 % of slots ``xla_exact``'s;
+3v. ``train_encoder`` for 1 epoch, then ``main --ae_type none`` loading
+   ``encoder.msgpack``; ``train_dpr`` for 1 epoch, then ``main
+   --benchmark dpr``, whose towers must equal the written msgpacks, with
+   DPR's fold at its own plan held to its plain version;
+3w. ``train_reranker`` for 1 epoch on 512 pairs, then the reranked
+   ``main`` over its checkpoint (no fitted head): candidate_k 40, the
+   reranker's weights the trained ones, the run's docs bit for bit
+   MaxSim's over its own logits (each trainer's steps/s, samples/s,
+   seconds an epoch and peak device memory recorded);
 5. prints a ``kernels`` JSON line and, last, the device line.
 
 Every check that fails exits non-zero. Without CUDA, or without the
@@ -649,6 +669,20 @@ class _Lines(logging.Handler):
         self.lines.append(rec.getMessage())
 
 
+@contextlib.contextmanager
+def logged(name: str):
+    """The INFO messages of logger ``name`` while open."""
+    lg = logging.getLogger(name)
+    lines, level = _Lines(), lg.level
+    lg.addHandler(lines)
+    lg.setLevel(logging.INFO)
+    try:
+        yield lines.lines
+    finally:
+        lg.removeHandler(lines)
+        lg.setLevel(level)
+
+
 def run_main(torch, workdir: str, kernel: str,
              store: str = "bfloat16", top_k: int = 10,
              extra: tuple = (), flags: tuple = ()) -> dict:
@@ -658,17 +692,10 @@ def run_main(torch, workdir: str, kernel: str,
     skip)."""
     from latentrag_torch import main as cli
 
-    lg = logging.getLogger("latentrag_torch.retrieval")
-    lines, level = _Lines(), lg.level
-    lg.addHandler(lines)
-    lg.setLevel(logging.INFO)
-    try:
+    with logged("latentrag_torch.retrieval") as lines:
         res = _run_main(torch, cli, workdir, kernel, store, top_k, extra,
                         flags)
-    finally:
-        lg.removeHandler(lines)
-        lg.setLevel(level)
-    res["retrieval_log"] = lines.lines
+    res["retrieval_log"] = lines
     return res
 
 
@@ -4974,6 +5001,381 @@ def check_generate_serving(torch, failures: list, workdir: str) -> dict:
     return {"serve_generate_w2": load["launches"]["fold"]}
 
 
+# --------------------------------- phases 3u-3w: training, then main on it
+
+# 50 epochs, not 5: over the seeded encoder's embeddings (mean pairwise
+# cosine 0.970) the VAE sits in posterior collapse for its first ~20
+# epochs (its latents' mean cosine 0.99999 at 5 epochs, where the fold's
+# 19-bit keys cannot order them: 0.147 of slots as xla_exact's; 0.9996 at
+# 20) and leaves it by 50 (0.601, 1.0 of slots), about 3 s on the card
+# (H100 80GB HBM3, 700 W; scripts/torch_training_sweep.py)
+TRAIN_AE_EPOCHS = 50
+TRAIN_RERANK_PAIRS = 512
+STEP_LOSS_RTOL = 1e-5  # one AE step, card vs CPU from the same state
+STEP_PARAM_ATOL = 1e-6
+
+
+def train_overrides(workdir: str, index: str = "index") -> list:
+    """The main path's data and encoder with every checkpoint at its
+    default name under ``<workdir>/ckpt``."""
+    return [
+        "data.dataset=synthetic", "data.max_samples=2000",
+        "encoder.dtype=bfloat16", "retrieval.store_dtype=bfloat16",
+        "retrieval.metric=cosine", "retrieval.top_k=10",
+        "retrieval.kernel=auto", f"retrieval.index_path={workdir}/{index}",
+        f"paths.data_dir={workdir}/data",
+        f"paths.checkpoints_dir={workdir}/ckpt",
+        f"paths.logs_dir={workdir}/logs",
+        "logging.log_to_file=false", "logging.level=WARNING",
+    ]
+
+
+def timed_training(torch, owner, step_owner, run) -> tuple:
+    """Run ``run()`` (a trainer's CLI) with the peak device memory reset;
+    returns its record (steps and samples from ``step_owner.train_step``'s
+    calls, rates over the ``owner.fit`` call's seconds, the devices every
+    batch lay on) and the fit call (trainer, data, result)."""
+    fits, steps = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with counted_calls(owner, "fit", fits), \
+            counted_calls(step_owner, "train_step", steps):
+        t0 = time.perf_counter()
+        rc = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fit = fits[0]
+    history = fit.out.history
+    rows = [next(iter(c.args[1].values())).shape[0] for c in steps]
+    devices = sorted({v.device.type for c in steps
+                      for v in c.args[1].values()})
+    return {"rc": rc, "wall_s": wall, "fit_s": fit.s, "fits": len(fits),
+            "epochs": len(history), "steps": len(steps),
+            "samples": sum(rows), "history": history,
+            "steps_per_s": len(steps) / fit.s,
+            "samples_per_s": sum(rows) / fit.s,
+            "epoch_s": fit.s / max(len(history), 1),
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "batch_devices": devices}, fit
+
+
+def ae_step_check(torch, trainer, data) -> dict:
+    """One train step of ``trainer`` (on the card, after its fit) against
+    the same step on the CPU from copies of its model and optimizer
+    state, on the first 128 training rows, the VAE with one eps drawn on
+    the host for both; fp32, TF32 off."""
+    import copy
+
+    from latentrag_torch.training.trainer import Trainer
+
+    batch = {k: torch.from_numpy(v[:128]) for k, v in data.items()}
+    twin = Trainer(copy.deepcopy(trainer.model).cpu(), trainer.ae_type,
+                   trainer.cfg, device="cpu")
+    # a deep copy: the step count is a host tensor the two would share
+    twin.optimizer.load_state_dict(copy.deepcopy(
+        trainer.optimizer.state_dict()))
+    eps = None
+    if trainer.ae_type == "vae":
+        eps = torch.randn((128, trainer.model.latent_dim),
+                          generator=torch.Generator().manual_seed(17))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        loss = trainer.train_step({k: v.cuda() for k, v in batch.items()},
+                                  eps=None if eps is None else eps.cuda())
+        loss = loss.item()
+        card_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    t0 = time.perf_counter()
+    want = twin.train_step(batch, eps=eps).item()
+    cpu_s = time.perf_counter() - t0
+    got_sd, want_sd = trainer.model.state_dict(), twin.model.state_dict()
+    err = max((got_sd[k].cpu() - want_sd[k]).abs().max().item()
+              for k in want_sd)
+    rec = {"ae_type": trainer.ae_type, "rows": 128, "loss": loss,
+           "cpu_loss": want, "loss_rel_err": abs(loss - want) / abs(want),
+           "param_max_abs_err": err, "card_step_s": card_s,
+           "cpu_step_s": cpu_s, "steps_per_s": 1.0 / card_s,
+           "samples_per_s": 128 / card_s,
+           "step_count": int(trainer.optimizer.state_dict()["state"][0][
+               "step"])}
+    rec["ok"] = (rec["loss_rel_err"] <= STEP_LOSS_RTOL
+                 and err <= STEP_PARAM_ATOL)
+    return rec
+
+
+def trained_main(torch, workdir: str, ae: str, kernel: str = "auto",
+                 extra=(), tag: str = "") -> tuple:
+    """``main --ae_type ae`` on the card over ``train_overrides`` (its
+    store at its own index_path), the kernels' counts at 0 before it;
+    returns the result and the counts it left."""
+    from latentrag_torch import main as cli
+    from latentrag_torch.ops import fused_topk as ft
+
+    results: list = []
+    ft.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(["--ae_type", ae, "--device", "cuda", "--tag",
+                   f"smoke_trained_{ae}_{kernel}{tag}", "--set",
+                   *train_overrides(workdir,
+                                    f"index_trained_{ae}_{kernel}{tag}"),
+                   f"retrieval.kernel={kernel}", *extra], results=results)
+    torch.cuda.synchronize()
+    if rc != 0 or len(results) != 1:
+        fail(f"main --ae_type {ae} over the trained checkpoints returned "
+             f"{rc} with {len(results)} results")
+    res = results[0]
+    res["wall_s"] = time.perf_counter() - t0
+    return res, {k: v for k, v in ft.launches.items() if v}
+
+
+def mean_cosine(torch, rows) -> float:
+    """The mean pairwise cosine of up to 1024 rows (1 = collinear)."""
+    x = rows[:1024].float()
+    x = x / x.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    n = x.shape[0]
+    return ((x @ x.T).sum().item() - n) / (n * (n - 1))
+
+
+def check_train_ae(torch, failures: list, workdir: str) -> dict:
+    """Phase 3u; returns the fold launches of each trained AE's ``main``."""
+    from latentrag_torch.training import train as cli
+    from latentrag_torch.training import trainer as tt
+
+    t_phase = time.perf_counter()
+    out, launches = {}, {}
+    for ae in ("vae", "dae", "cae"):
+        run, fit = timed_training(
+            torch, tt.Trainer, tt.Trainer, lambda ae=ae: cli.main(
+                ["--ae_type", ae, "--epochs", str(TRAIN_AE_EPOCHS),
+                 "--device", "cuda", "--set", *train_overrides(workdir)]))
+        trainer, hist = fit.args[0], run["history"]
+        run.update(
+            ae_type=ae, card=card_line(),
+            stopped_early=fit.out.stopped_early,
+            weights_on_card=all(p.is_cuda for p in trainer.model.parameters()),
+            val_first=hist[0][2], val_last=hist[-1][2],
+            checkpoint=os.path.exists(f"{workdir}/ckpt/{ae}.pth"))
+        # every epoch ran, or the early stop ended the run
+        run["ok"] = (run["rc"] == 0 and run["fits"] == 1
+                     and run["epochs"] == fit.out.epochs_ran
+                     and (run["epochs"] == TRAIN_AE_EPOCHS
+                          or run["stopped_early"])
+                     and run["weights_on_card"]
+                     and run["batch_devices"] == ["cuda"]
+                     and run["val_last"] < run["val_first"]
+                     and run["checkpoint"])
+        record("train_ae", **run)
+        if not run["ok"]:
+            failures.append(f"training the {ae}: {run}")
+        if ae == "vae":
+            step = ae_step_check(torch, trainer, fit.args[1])
+            step["card"] = card_line()
+            record("train_step_check", **step)
+            if not step["ok"]:
+                failures.append(f"the VAE train step, card vs CPU: {step}")
+        out[ae] = run
+        del trainer, fit
+    # resume: a 2-epoch DAE run, then the same run to 4 with --resume
+    resume_ov = train_overrides(workdir) + [
+        f"paths.checkpoints_dir={workdir}/ckpt_resume"]
+    state = f"{workdir}/ckpt_resume/dae.train.pt"
+    first, _ = timed_training(torch, tt.Trainer, tt.Trainer, lambda: (
+        cli.main(["--ae_type", "dae", "--epochs", "2", "--device", "cuda",
+                  "--set", *resume_ov])))
+    saved = torch.load(state, weights_only=True)
+    again, _ = timed_training(torch, tt.Trainer, tt.Trainer, lambda: (
+        cli.main(["--ae_type", "dae", "--epochs", "4", "--resume",
+                  "--device", "cuda", "--set", *resume_ov])))
+    final = torch.load(state, weights_only=True)
+    per_epoch = first["steps"] // 2
+    rec = {"steps_per_epoch": per_epoch, "saved_epoch": saved["epoch"],
+           "saved_step": int(saved["optimizer"]["state"][0]["step"]),
+           "resumed_epochs": [h[0] for h in again["history"]],
+           "resumed_steps": again["steps"], "final_epoch": final["epoch"],
+           "final_step": int(final["optimizer"]["state"][0]["step"])}
+    rec["ok"] = (saved["epoch"] == 1 and rec["saved_step"] == 2 * per_epoch
+                 and rec["resumed_epochs"] == [2, 3]
+                 and rec["final_step"] == (final["epoch"] + 1) * per_epoch)
+    record("train_resume", **rec)
+    if not rec["ok"]:
+        failures.append(f"the resumed DAE run: {rec}")
+    # main over each trained checkpoint by its default name
+    for ae in ("vae", "dae", "cae"):
+        with search_calls() as calls:
+            res, counts = trained_main(torch, workdir, ae)
+        rec = {"ae_type": ae, "launches": counts, "wall_s": res["wall_s"],
+               "timings_s": res["timings"], "dim_out": res["dim_out"],
+               "metrics": {m: v["mean"] for m, v in
+                           res["retrieval_metrics"].items()},
+               "latent_mean_cosine": mean_cosine(torch,
+                                                 calls[0].retriever._corpus)}
+        ok = (res["dim_out"] == 64 and counts.get("fold", 0) >= 2
+              and "exact" not in counts)
+        if ae == "vae":
+            oracle, _ = trained_main(torch, workdir, ae, "xla_exact")
+            rec["doc_id_agreement"] = slot_agreement(
+                res["retrieved_doc_ids"], oracle["retrieved_doc_ids"])
+            rec["oracle_metrics"] = {m: v["mean"] for m, v in
+                                     oracle["retrieval_metrics"].items()}
+            ok = ok and rec["doc_id_agreement"] >= MAIN_DOC_AGREE
+        rec["ok"] = ok
+        record("trained_main", **rec)
+        if not ok:
+            failures.append(f"main over the trained {ae}: {rec}")
+        launches[f"trained_main_{ae}"] = counts.get("fold", 0)
+        del calls
+    torch.cuda.empty_cache()
+    record("phase_3u", seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def check_train_encoders(torch, failures: list, workdir: str) -> dict:
+    """Phase 3v; returns the fold launches of the encoder's ``main`` and of
+    DPR's in the harness."""
+    from latentrag_torch import main as cli
+    from latentrag_torch.models.convert import minilm_state_dict_from_jax
+    from latentrag_torch.models.encoder.msgpack_io import load_msgpack
+    from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.retrieval.dpr import DPRRetriever
+    from latentrag_torch.training import train_dpr as td
+    from latentrag_torch.training import train_encoder as te
+
+    t_phase = time.perf_counter()
+    ov = train_overrides(workdir)
+    launches = {}
+    run, fit = timed_training(torch, te.EncoderTrainer, te.PairTrainer,
+                              lambda: te.main(["--epochs", "1", "--device",
+                                               "cuda", "--set", *ov]))
+    trainer = fit.args[0]
+    path = f"{workdir}/ckpt/encoder.msgpack"
+    run.update(card=card_line(), checkpoint=os.path.exists(path),
+               weights_on_card=all(p.is_cuda for p in trainer.params),
+               dtype=str(trainer.module.dtype))
+    with logged("latentrag_torch.main") as lines, search_calls() as calls:
+        res, counts = trained_main(torch, workdir, "none")
+    run.update(main_launches=counts, main_wall_s=res["wall_s"],
+               embedding_mean_cosine=mean_cosine(
+                   torch, calls[0].retriever._corpus),
+               main_metrics={m: v["mean"] for m, v in
+                             res["retrieval_metrics"].items()},
+               loaded=f"loaded encoder weights: {path}" in lines)
+    run["ok"] = (run["rc"] == 0 and run["steps"] > 0 and run["checkpoint"]
+                 and run["weights_on_card"] and run["batch_devices"]
+                 == ["cuda"] and run["loaded"]
+                 and counts.get("fold", 0) >= 2 and "exact" not in counts)
+    record("train_encoder", **run)
+    if not run["ok"]:
+        failures.append(f"training the encoder: {run}")
+    launches["trained_encoder_main"] = counts.get("fold", 0)
+    del trainer, fit, calls
+    # DPR: its towers, then the harness's dpr system over them
+    run, _ = timed_training(torch, td.DualEncoderTrainer, te.PairTrainer,
+                            lambda: td.main(["--epochs", "1", "--device",
+                                             "cuda", "--set", *ov]))
+    dpr, results = [], []
+    with counted_calls(DPRRetriever, "search", dpr):
+        ft.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(["--ae_type", "none", "--device", "cuda",
+                       "--benchmark", "dpr", "--set", *ov,
+                       "retrieval.index_path="], results=results)
+        torch.cuda.synchronize()
+        bench_s = time.perf_counter() - t0
+        counts = {k: v for k, v in ft.launches.items() if v}
+    if rc != 0 or len(results) != 1:
+        fail(f"main --benchmark dpr returned {rc} with {len(results)} "
+             "results")
+    r, queries = dpr[0].args[0], dpr[0].args[1]
+    same = {}
+    for name, enc in (("dpr_question", r.q_encoder),
+                      ("dpr_context", r.c_encoder)):
+        want = minilm_state_dict_from_jax(load_msgpack(
+            f"{workdir}/ckpt/{name}.msgpack"))
+        got = enc.module.state_dict()
+        same[name] = all(torch.equal(got[k].cpu(), want[k]) for k in want)
+    fold = dpr_fold_check(torch, r, r.q_encoder.encode_batch(list(queries)))
+    out = results[0].get("dpr", {})
+    run.update(card=card_line(), bench_rc=rc, bench_s=bench_s,
+               bench_launches=counts, towers_from_msgpacks=same,
+               error=out.get("error"), dpr_fold=fold,
+               metrics={m: v["mean"] for m, v in out.get("metrics",
+                                                         {}).items()})
+    run["ok"] = (run["rc"] == 0 and run["steps"] > 0
+                 and run["batch_devices"] == ["cuda"] and all(same.values())
+                 and "error" not in out and fold["ok"]
+                 and counts.get("fold", 0) >= 2 and "exact" not in counts)
+    record("train_dpr", **run)
+    if not run["ok"]:
+        failures.append(f"training DPR: {run}")
+    launches["trained_dpr_benchmark"] = counts.get("fold", 0)
+    del r, dpr
+    torch.cuda.empty_cache()
+    record("phase_3v", seconds=time.perf_counter() - t_phase)
+    return {"launches": launches, "dpr_max_abs_err": fold["max_abs_err"]}
+
+
+def check_train_reranker(torch, failures: list, workdir: str) -> dict:
+    """Phase 3w; returns the reranked ``main``'s fold launches."""
+    from latentrag_torch.models.convert import (
+        cross_encoder_state_dict_from_jax,
+    )
+    from latentrag_torch.models.encoder.msgpack_io import load_msgpack
+    from latentrag_torch.pipeline import aggregate_docs
+    from latentrag_torch.training import train_encoder as te
+    from latentrag_torch.training import train_reranker as trr
+
+    t_phase = time.perf_counter()
+    run, _ = timed_training(
+        torch, trr.RerankerTrainer, te.PairTrainer, lambda: trr.main(
+            ["--epochs", "1", "--device", "cuda", "--set",
+             *train_overrides(workdir),
+             f"data.max_samples={TRAIN_RERANK_PAIRS}"]))
+    path = f"{workdir}/ckpt/reranker.msgpack"
+    with rescore_calls() as calls:
+        res, counts = trained_main(torch, workdir, "none",
+                                   extra=("retrieval.rerank=cross",),
+                                   tag="_rerank")
+    call = calls[0]
+    scorer = call.reranker.scorer
+    want = cross_encoder_state_dict_from_jax(load_msgpack(path))
+    got = scorer.module.state_dict()
+    own_scores, own_docs = aggregate_docs(
+        call.out, call.idx, range(len(call.texts)), res["top_k"],
+        scorer.device)
+    live = call.idx >= 0
+    rerank_s = res["timings"]["rerank_s"]
+    run.update(
+        card=card_line(), pairs_trained=TRAIN_RERANK_PAIRS,
+        sidecar=os.path.exists(path + ".meta.json"),
+        trained_weights=all(torch.equal(got[k].cpu(), want[k]) for k in want),
+        on_card=all(p.is_cuda for p in scorer.module.parameters()),
+        pair_length=scorer.cfg.max_length, candidate_k=res["candidate_k"],
+        pairs=int(live.sum()), rerank_s=rerank_s,
+        pairs_per_s=int(live.sum()) / rerank_s, main_wall_s=res["wall_s"],
+        main_launches=counts,
+        docs_bit_for_bit_maxsim_of_own_logits=(
+            own_docs == res["retrieved_doc_ids"]
+            and bool((own_scores == res["doc_scores"]).all())),
+        logit_std=float(call.out[live].std()),
+        metrics={m: v["mean"] for m, v in res["retrieval_metrics"].items()})
+    run["ok"] = (run["rc"] == 0 and run["steps"] > 0
+                 and run["batch_devices"] == ["cuda"] and run["sidecar"]
+                 and run["trained_weights"] and run["on_card"]
+                 and run["candidate_k"] == 40
+                 and run["docs_bit_for_bit_maxsim_of_own_logits"]
+                 and counts.get("fold", 0) >= 2 and "exact" not in counts)
+    record("train_reranker", **run)
+    if not run["ok"]:
+        failures.append(f"training the reranker: {run}")
+    del call, calls, scorer
+    torch.cuda.empty_cache()
+    record("phase_3w", seconds=time.perf_counter() - t_phase)
+    return {"trained_rerank_main": counts.get("fold", 0)}
+
+
 def time_masked(torch) -> dict:
     """Phase 4c: the masked kernels with 10 % of the rows allowed, cosine,
     at the reference shape and at 1024 x 1M: the fold at the plan and the
@@ -5215,6 +5617,21 @@ def main() -> int:
     gen_launches.update(check_generate_serving(torch, failures, main_wd))
     if failures:
         fail("; ".join(failures))
+    # phases 3u-3w: the trainers on the card, then main over what they
+    # wrote; each main's fold launches read with the counts at 0
+    train_wd = tempfile.mkdtemp(prefix="lr_train_")
+    atexit.register(shutil.rmtree, train_wd, True)
+    train_launches = check_train_ae(torch, failures, train_wd)
+    if failures:
+        fail("; ".join(failures))
+    trained_encoders = check_train_encoders(torch, failures, train_wd)
+    if failures:
+        fail("; ".join(failures))
+    train_launches.update(trained_encoders["launches"])
+    worst["fold"] = max(worst["fold"], trained_encoders["dpr_max_abs_err"])
+    train_launches.update(check_train_reranker(torch, failures, train_wd))
+    if failures:
+        fail("; ".join(failures))
 
     kernels = []
     for mode, fn_line, source in (("fold", 162, "fold_mma.cuh"),
@@ -5243,6 +5660,9 @@ def main() -> int:
     # benchmark harness, DPR's (metric dot) included, and of the
     # generating server (phases 3r-3t)
     kernels[0]["generate_benchmark_launches"] = gen_launches
+    # and stage 1 of main over the trained AEs, encoder, DPR towers and
+    # reranker (phases 3u-3w)
+    kernels[0]["trained_launches"] = train_launches
     for tag, store in (("", "bf16"), ("_fp32", "fp32")):
         t = times[("1m", "exact_k3000" + tag)]
         kernels.append({

@@ -1,4 +1,5 @@
-"""Inference-time document chunking: sliding-window and semantic chunkers.
+"""Document chunking: the inference-time sliding-window and semantic
+chunkers, and the training-time answer-aware chunker.
 
 The port of the JAX package's ``data/chunking.py`` for what
 ``PipelineRunner.process`` needs (``chunking.enabled``): token windows cut
@@ -9,20 +10,29 @@ word, each record carrying its doc id for doc-level MaxSim.
   tokens;
 * ``semantic_window_chunker``: window ends snapped to the last
   sentence-final punctuation token within ``[min_tokens, max_tokens]``;
-* ``build_inference_corpus``: either one over a corpus.
+* ``build_inference_corpus``: either one over a corpus;
+* ``chunk_context_with_alignment`` / ``build_chunked_corpus``: the
+  training-time chunker, a window centred on the answer plus sliding
+  windows, each record marking whether it holds the answer
+  (``data.squad.prepare_training_arrays`` takes each example's first such
+  chunk as its positive).
 
 Records equal the JAX package's field by field, offsets included, through
 either tokenizer path (the C++ WordPiece for ASCII text, Python for the
-rest: both give the same offsets). Training-time answer-aware chunking and
-the parquet chunk index are later work (ROADMAP items 21 and 24).
+rest: both give the same offsets). The parquet chunk index is later work
+(ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import logging
 from dataclasses import dataclass
 from typing import Sequence
 
 from .tokenizer import WordPieceTokenizer
+
+log = logging.getLogger("latentrag_torch.data")
 
 _SENT_PUNCT = (".", "!", "?", ";", ":")
 
@@ -157,4 +167,84 @@ def build_inference_corpus(
         else:
             out.extend(semantic_window_chunker(
                 text, tokenizer, max_tokens, min_tokens, doc_id=did))
+    return out
+
+
+def chunk_context_with_alignment(
+    context: str,
+    answer_text: str,
+    answer_char_start: int,
+    tokenizer: WordPieceTokenizer,
+    max_tokens: int = 128,
+    stride: int = 64,
+    doc_id=0,
+) -> list[ChunkRecord]:
+    """Answer-aware training chunker.
+
+    A window centred on the answer's token span, then sliding windows,
+    deduplicated by token span. A window holds the answer when it covers
+    the answer's span or its text contains the answer text. If no window
+    holds it, the full context is appended as a last chunk; if the answer
+    span cannot be aligned, or the context fits one window, the full
+    context is the single chunk."""
+    tokens, offsets = _body_tokens(tokenizer, context)
+    n = len(tokens)
+
+    def full_context(chunk_id: int) -> ChunkRecord:
+        return ChunkRecord(doc_id=doc_id, chunk_id=chunk_id, text=context,
+                           tok_start=0, tok_end=n, char_start=0,
+                           char_end=len(context), contains_answer=True)
+
+    if n <= max_tokens:
+        return [full_context(0)]
+    span = _char_to_token_span(offsets, answer_char_start,
+                               answer_char_start + len(answer_text))
+    if span is None:
+        log.debug("answer span alignment failed; full-context fallback")
+        return [full_context(0)]
+    a_start, a_end = span
+
+    centre = (a_start + a_end) // 2
+    w_start = max(0, min(centre - max_tokens // 2, n - max_tokens))
+    windows = [(w_start, w_start + max_tokens)]
+    s = 0
+    while s < n:
+        e = min(s + max_tokens, n)
+        windows.append((s, e))
+        if e == n:
+            break
+        s += stride
+
+    seen: set[tuple[int, int]] = set()
+    records: list[ChunkRecord] = []
+    for ws, we in windows:
+        if (ws, we) in seen:
+            continue
+        seen.add((ws, we))
+        rec = _window_record(context, offsets, doc_id, len(records), ws, we)
+        # the text check catches answers repeated elsewhere
+        contains = (ws <= a_start and a_end <= we) or (
+            answer_text.lower() in rec.text.lower())
+        records.append(dataclasses.replace(rec, contains_answer=contains))
+
+    if not any(r.contains_answer for r in records):
+        log.debug("answer lost by chunking; re-appending full context")
+        records.append(full_context(len(records)))
+    return records
+
+
+def build_chunked_corpus(
+    examples: Sequence[dict],
+    tokenizer: WordPieceTokenizer,
+    max_tokens: int = 128,
+    stride: int = 64,
+) -> list[ChunkRecord]:
+    """Answer-aware chunks for training examples
+    ({context, answer_text, answer_start, doc_id})."""
+    out: list[ChunkRecord] = []
+    for ex in examples:
+        out.extend(chunk_context_with_alignment(
+            ex["context"], ex.get("answer_text", ""),
+            ex.get("answer_start", 0), tokenizer, max_tokens=max_tokens,
+            stride=stride, doc_id=ex.get("doc_id", 0)))
     return out

@@ -1,20 +1,26 @@
-"""SQuAD-format evaluation data: loaders, the synthetic corpus, eval triples.
+"""SQuAD-format data: loaders, the synthetic corpus, eval triples, and the
+autoencoders' training arrays.
 
-The slice of the JAX package's ``data/squad.py`` that the main path runs:
-``synthetic``, ``squad:<local official json>`` and ``jsonl:<path>``
-sources, and ``load_evaluation_data``. The hub ``squad`` source needs the
-network, which the port never uses, so it raises; ``cloze:`` and
-``msmarco`` sources and the AE training arrays are later slices.
+The port of the JAX package's ``data/squad.py``: ``synthetic``,
+``squad:<local official json>`` and ``jsonl:<path>`` sources,
+``load_evaluation_data``, and ``prepare_training_arrays`` /
+``split_dataset`` with the arrays' save and load. The hub ``squad``
+source needs the network, which the port never uses, so it raises;
+``cloze:`` and ``msmarco`` sources are a later slice.
 """
 
 from __future__ import annotations
 
 import json
+import os
 from typing import Mapping, Sequence
 
 import numpy as np
 
 from ..utils.config import Config
+from .cache import ensure_embedding_cache
+from .chunking import build_chunked_corpus
+from .processing import build_contrastive_triples, clean_text
 
 
 def load_local_squad(path: str, max_samples: int | None = None) -> list[dict]:
@@ -174,3 +180,107 @@ def load_evaluation_data(
     if with_answers:
         return queries, corpus, relevant, answers
     return queries, corpus, relevant
+
+
+# ---------------------------------------------------------- training arrays
+
+
+def prepare_training_arrays(
+    examples: Sequence[Mapping],
+    encoder,
+    tokenizer,
+    variant: str,
+    cache_dir: str,
+    *,
+    noise_std: float = 0.05,
+    max_jaccard: float = 0.1,
+    chunk_max_tokens: int = 128,
+    chunk_stride: int = 64,
+    seed: int = 42,
+    model_name: str = "",
+    mine_hard_negatives: bool = False,
+) -> dict[str, np.ndarray]:
+    """The host fp32 arrays a ``Trainer`` takes for one AE variant.
+
+    vae: {x: clean_emb, y: clean_emb};
+    dae: {x: clean_emb + N(0, noise_std^2), y: clean_emb}, the noise drawn
+    on the host from ``default_rng(seed)``;
+    cae: {q, p, n} embeddings of (question, positive chunk, mined
+    negative). With ``mine_hard_negatives`` the trainer mines negatives in
+    the batch, so only {q, p} are built.
+
+    The positive is each example's first answer-aware chunk that holds the
+    answer (``build_chunked_corpus``). ``encoder`` is an
+    ``EmbeddingCompressor`` (its ``encode_text``); embeddings go through
+    the content-addressed cache (``data/cache.py``)."""
+    rng = np.random.default_rng(seed)
+    chunks = build_chunked_corpus(
+        list(examples), tokenizer, max_tokens=chunk_max_tokens,
+        stride=chunk_stride,
+    )
+    by_doc: dict = {}
+    for rec in chunks:
+        by_doc.setdefault(rec.doc_id, []).append(rec)
+
+    questions, positives = [], []
+    for ex in examples:
+        doc_chunks = by_doc.get(ex["doc_id"], [])
+        pos = next(
+            (r for r in doc_chunks if r.contains_answer),
+            doc_chunks[0] if doc_chunks else None,
+        )
+        if pos is None:
+            continue
+        questions.append(clean_text(ex["question"]))
+        positives.append(clean_text(pos.text))
+
+    def encode(texts, tag):
+        return ensure_embedding_cache(texts, encoder.encode_text, cache_dir,
+                                      model_name, tag=tag)
+
+    if variant in ("vae", "dae"):
+        emb = encode(positives, f"squad_{variant}")
+        if variant == "vae":
+            return {"x": emb, "y": emb}
+        noisy = emb + rng.normal(0.0, noise_std, emb.shape).astype(np.float32)
+        return {"x": noisy, "y": emb}
+
+    if variant == "cae":
+        n = len(questions)
+        if mine_hard_negatives:
+            all_emb = encode(questions + positives, "squad_cae_qp")
+            return {"q": all_emb[:n], "p": all_emb[n:]}
+        triples = build_contrastive_triples(
+            questions, positives, rng, max_jaccard=max_jaccard
+        )
+        all_emb = encode([t[0] for t in triples] + [t[1] for t in triples]
+                         + [t[2] for t in triples], "squad_cae")
+        return {"q": all_emb[:n], "p": all_emb[n:2 * n],
+                "n": all_emb[2 * n:]}
+    raise ValueError(f"unknown variant {variant!r}")
+
+
+def split_dataset(
+    data: Mapping[str, np.ndarray], val_split: float = 0.1, seed: int = 42
+) -> tuple[dict, dict]:
+    """Seeded shuffle split into (train, val): the first
+    ``max(1, int(n * val_split))`` rows of ``default_rng(seed)``'s
+    permutation are the validation set."""
+    keys = list(data.keys())
+    n = len(data[keys[0]])
+    idx = np.random.default_rng(seed).permutation(n)
+    n_val = max(1, int(n * val_split)) if n > 1 else 0
+    val_idx, train_idx = idx[:n_val], idx[n_val:]
+    train = {k: data[k][train_idx] for k in keys}
+    val = {k: data[k][val_idx] for k in keys}
+    return train, val
+
+
+def save_training_arrays(data: Mapping[str, np.ndarray], path: str) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **data)
+
+
+def load_training_arrays(path: str) -> dict[str, np.ndarray]:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}

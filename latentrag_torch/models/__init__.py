@@ -4,10 +4,12 @@ from .autoencoders import (
     DenoisingAutoencoder,
     VariationalAutoencoder,
     build_autoencoder,
+    init_autoencoder,
 )
 from .convert import (
     autoencoder_state_dict_from_jax,
     load_autoencoder_pth,
+    minilm_params_from_state_dict,
     minilm_state_dict_from_jax,
 )
 
@@ -17,7 +19,9 @@ __all__ = [
     "DenoisingAutoencoder",
     "VariationalAutoencoder",
     "build_autoencoder",
+    "init_autoencoder",
     "autoencoder_state_dict_from_jax",
     "load_autoencoder_pth",
+    "minilm_params_from_state_dict",
     "minilm_state_dict_from_jax",
 ]

@@ -8,10 +8,13 @@ modules use the reference torch checkpoints' own key names (``encoder.0``,
 
 ``latent(x)`` is the retrieval-time latent: the posterior mean for the VAE,
 the encoder output for the DAE, the L2-normalised encoder output for the
-CAE.
+CAE. ``init_autoencoder`` draws the weights at Flax's ``Dense`` init
+scales from a ``torch.Generator``, as the trainer starts them.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -43,11 +46,22 @@ class VariationalAutoencoder(nn.Module):
     def decode(self, z):
         return self.decoder(z)
 
-    def forward(self, x):
-        """(recon, mu, logvar) with z = mu, the JAX package's deterministic
-        path; reparameterised sampling comes with training (slice D)."""
+    def forward(self, x, train: bool = False,
+                generator: torch.Generator | None = None,
+                eps: torch.Tensor | None = None):
+        """(recon, mu, logvar). By default z = mu, the deterministic path
+        of retrieval. With ``train=True`` z = mu + eps * exp(0.5 * logvar),
+        where ``eps`` is given or drawn N(0, 1) from ``generator`` (on
+        ``x``'s device); one of them is required."""
         mu, logvar = self.encode(x)
-        return self.decode(mu), mu, logvar
+        if not train:
+            return self.decode(mu), mu, logvar
+        if eps is None:
+            if generator is None:
+                raise ValueError("train=True needs a generator or eps")
+            eps = torch.randn(mu.shape, generator=generator,
+                              device=mu.device, dtype=mu.dtype)
+        return self.decode(mu + eps * torch.exp(0.5 * logvar)), mu, logvar
 
     def latent(self, x):
         return self.encode(x)[0]
@@ -108,3 +122,25 @@ def build_autoencoder(ae_type: str, cfg) -> nn.Module:
         latent_dim=cfg.latent_dim,
         hidden_dim=cfg.hidden_dim,
     )
+
+
+# jax.nn.initializers.lecun_normal: variance 1 / fan_in through a normal
+# truncated to two standard deviations, whose own deviation this restores
+_TRUNC_STD = 0.87962566103423978
+
+
+def init_autoencoder(model: nn.Module, generator: torch.Generator) -> None:
+    """Draw ``model``'s weights in place at the JAX package's init scales
+    (Flax ``nn.Dense``: lecun-normal kernels, a normal truncated at two
+    standard deviations with variance 1 / fan_in, and zero biases) from
+    ``generator``, a CPU generator. The draws differ from JAX's PRNG."""
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+                continue
+            std = math.sqrt(1.0 / p.shape[1]) / _TRUNC_STD
+            u = torch.rand(p.shape, generator=generator, dtype=torch.float64)
+            z = torch.erfinv((2.0 * (lo + u * (1.0 - 2.0 * lo)) - 1.0))
+            p.copy_((z * math.sqrt(2.0) * std).to(p.dtype))

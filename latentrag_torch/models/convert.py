@@ -8,14 +8,16 @@ The JAX package keeps Flax parameter trees: ``Dense`` layers as
 (numpy, or anything ``np.asarray`` reads) and return the port's
 ``state_dict``; they import nothing of JAX.
 
-``cross_encoder_params_from_state_dict`` goes the other way for the
-cross-encoder reranker: the port's state dict -> the Flax tree, keys in the
-order the Flax module creates them, for ``msgpack_io.save_msgpack``.
+``minilm_params_from_state_dict`` and ``cross_encoder_params_from_state_dict``
+go the other way for the sentence encoder (and the DPR towers) and the
+cross-encoder reranker: the port's state dict -> the Flax tree, keys in
+the order the Flax module creates them, for ``msgpack_io.save_msgpack``.
 
 ``load_autoencoder_pth`` reads a reference-keyed ``.pth``, which needs no
 conversion. The JAX package's encoder msgpack reads into such a tree with
 ``models.encoder.msgpack_io.load_msgpack`` (a bf16 leaf arrives as a
-``torch.bfloat16`` tensor); its Orbax AE checkpoints have no reader yet.
+``torch.bfloat16`` tensor); its Orbax AE checkpoints have no reader (the
+port's own trainer writes the ``.pth``).
 """
 
 from __future__ import annotations
@@ -96,39 +98,59 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", torch.float32).numpy().copy()
 
 
+def _dense_params(sd: Mapping[str, torch.Tensor], pre: str) -> dict:
+    return {"kernel": _np(sd[f"{pre}.weight"]).T.copy(),
+            "bias": _np(sd[f"{pre}.bias"])}
+
+
+def _ln_params(sd: Mapping[str, torch.Tensor], pre: str) -> dict:
+    return {"scale": _np(sd[f"{pre}.weight"]), "bias": _np(sd[f"{pre}.bias"])}
+
+
+def _trunk_params(sd: Mapping[str, torch.Tensor], segment: dict) -> dict:
+    """The trunk's half of a Flax tree (fp32 numpy leaves, in the order the
+    Flax module creates them): word and position embeddings, ``segment``
+    (the segment embedding's entry), the embedding LayerNorm and the
+    ``layer_<i>`` blocks; shared by the sentence and cross encoders."""
+    tree = {
+        "word_embeddings": {"embedding": _np(sd["word_embeddings.weight"])},
+        "position_embeddings": {
+            "embedding": _np(sd["position_embeddings.weight"])},
+        **segment,
+        "embed_ln": _ln_params(sd, "embed_ln"),
+    }
+    n_layers = len({key.split(".")[1] for key in sd
+                    if key.startswith("layers.")})
+    for i in range(n_layers):
+        tree[f"layer_{i}"] = {
+            name: (_ln_params if name.endswith("_ln") else _dense_params)(
+                sd, f"layers.{i}.{name}")
+            for name in _LAYER_ORDER
+        }
+    return tree
+
+
+def minilm_params_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
+    """``MiniLMEncoder`` state dict -> the Flax ``MiniLMEncoder`` tree, the
+    inverse of ``minilm_state_dict_from_jax``: what the JAX package's
+    ``load_params`` restores from a ``save_msgpack`` of it (the encoder's
+    and the DPR towers' checkpoints)."""
+    return _trunk_params(sd, {
+        "token_type_embedding": _np(sd["token_type_embedding"])})
+
+
 def cross_encoder_params_from_state_dict(
     sd: Mapping[str, torch.Tensor],
 ) -> dict:
     """``CrossEncoderModel`` state dict -> the Flax ``CrossEncoderModel``
     tree (fp32 numpy leaves, Flax's key order): what the JAX package's
     ``load_params`` restores from a ``save_msgpack`` of it."""
-
-    def dense(pre):
-        return {"kernel": _np(sd[f"{pre}.weight"]).T.copy(),
-                "bias": _np(sd[f"{pre}.bias"])}
-
-    def ln(pre):
-        return {"scale": _np(sd[f"{pre}.weight"]),
-                "bias": _np(sd[f"{pre}.bias"])}
-
-    tree = {
-        "word_embeddings": {"embedding": _np(sd["word_embeddings.weight"])},
-        "position_embeddings": {
-            "embedding": _np(sd["position_embeddings.weight"])},
-        "token_type_embeddings": {
-            "embedding": _np(sd["token_type_embeddings.weight"])},
-        "embed_ln": ln("embed_ln"),
+    return {
+        **_trunk_params(sd, {"token_type_embeddings": {
+            "embedding": _np(sd["token_type_embeddings.weight"])}}),
+        "pooler": _dense_params(sd, "pooler"),
+        "classifier": _dense_params(sd, "classifier"),
     }
-    n_layers = len({key.split(".")[1] for key in sd
-                    if key.startswith("layers.")})
-    for i in range(n_layers):
-        tree[f"layer_{i}"] = {
-            name: (ln if name.endswith("_ln") else dense)(f"layers.{i}.{name}")
-            for name in _LAYER_ORDER
-        }
-    tree["pooler"] = dense("pooler")
-    tree["classifier"] = dense("classifier")
-    return tree
 
 
 # Flax AE module path -> the reference torch key (models/convert_torch.py

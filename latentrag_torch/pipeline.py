@@ -53,25 +53,37 @@ from .utils import Config, canonical_ae_type, force_completion, resolve_device
 log = logging.getLogger("latentrag_torch.main")
 
 
+def autoencoder_checkpoint_path(cfg: Config, ae_type: str) -> str:
+    """The ``.pth`` of ``ae_type``: ``models.<ae>.checkpoint`` (default the
+    AE's name; absolute, or under ``paths.checkpoints_dir``), with
+    ``.pth`` added when the name lacks it. The port's trainer writes it
+    there and ``load_autoencoder`` reads it."""
+    ckpt = cfg.models.for_type(ae_type).checkpoint or ae_type
+    if not ckpt.endswith(".pth"):
+        ckpt += ".pth"
+    return os.path.join(cfg.paths.checkpoints_dir, ckpt)
+
+
 def load_autoencoder(cfg: Config, ae_type: str, device="cuda"):
     """The AE module for ``ae_type`` with its trained weights, on
-    ``device``. ``models.<ae>.checkpoint`` must name a reference-keyed
-    ``.pth`` (absolute, or under ``paths.checkpoints_dir``)."""
+    ``device``, from ``autoencoder_checkpoint_path``: a reference-keyed
+    ``.pth``, as the port's trainer (``python -m
+    latentrag_torch.training.train``) writes it. A checkpoint name without
+    ``.pth`` and no such file is a JAX package Orbax checkpoint, which
+    the port cannot read."""
     ae_type = canonical_ae_type(ae_type)
     if ae_type == "none":
         return None
     acfg = cfg.models.for_type(ae_type)
     ckpt = acfg.checkpoint or ae_type
-    if not ckpt.endswith(".pth"):
+    path = autoencoder_checkpoint_path(cfg, ae_type)
+    if not ckpt.endswith(".pth") and not os.path.isfile(path):
         raise NotImplementedError(
             f"models.{ae_type}.checkpoint={ckpt!r}: the JAX package's Orbax "
             "checkpoints (OCDBT, read through tensorstore) have no reader "
             "here (an open design question in ROADMAP); point it at a "
             "reference-keyed .pth"
         )
-    path = ckpt if os.path.isabs(ckpt) else os.path.join(
-        cfg.paths.checkpoints_dir, ckpt
-    )
     if not os.path.isfile(path):
         raise FileNotFoundError(f"autoencoder checkpoint not found: {path}")
     model = build_autoencoder(ae_type, acfg)

@@ -8,11 +8,11 @@ or ANN tier) fetches an oversampled candidate set; this stage rescores each
 ``retrieval.rerank=cross`` makes the pipeline and the server rescore the
 chunk-level candidates before MaxSim; ``retrieval.rerank_candidates``
 widens the stage-1 fetch (0 = 4 x top_k). The reranker needs a trained
-checkpoint, ``<checkpoints_dir>/reranker.msgpack`` (the JAX package's
-``train_reranker`` output, or one the port wrote with ``save_reranker``),
-and its ``.meta.json`` sidecar: an untrained cross-encoder would scramble
-stage 1's ranking, so a missing checkpoint raises, as a missing AE
-checkpoint does. The port has no trainer yet (ROADMAP item 22).
+checkpoint, ``<checkpoints_dir>/reranker.msgpack`` (written by
+``python -m latentrag_torch.training.train_reranker``, or by the JAX
+package's ``train_reranker``), and its ``.meta.json`` sidecar: an
+untrained cross-encoder would scramble stage 1's ranking, so a missing
+checkpoint raises, as a missing AE checkpoint does.
 """
 
 from __future__ import annotations
@@ -113,8 +113,8 @@ def build_reranker(cfg, tokenizer, device="cuda") -> CrossEncoderReranker:
     if not os.path.exists(path):
         raise FileNotFoundError(
             f"retrieval.rerank=cross needs a trained reranker at {path}; "
-            "train one with train_reranker --epochs 5 (the port's trainer "
-            "is ROADMAP item 22)"
+            "train one with python -m latentrag_torch.training."
+            "train_reranker --epochs 5"
         )
     ecfg = cfg.encoder
     query_max = DEFAULT_QUERY_MAX

@@ -1,6 +1,35 @@
-"""Training entry points. So far only the DPR towers' builder: the
-trainers (ROADMAP queue 1, items 21-22) are not ported yet."""
+"""Training: the autoencoder trainer and its CLI (``train``), the sentence
+encoder's, DPR's and the reranker's trainers, their losses and the
+checkpoint functions (``.pth`` weights, ``.train.pt`` resume state)."""
 
+from .losses import (
+    contrastive_loss,
+    cosine_reconstruction,
+    dae_loss,
+    kl_divergence,
+    triplet_loss,
+    vae_loss,
+)
 from .train_dpr import build_dpr_encoders
+from .trainer import (
+    TrainResult,
+    Trainer,
+    restore_training_state,
+    save_training_state,
+    save_weights,
+)
 
-__all__ = ["build_dpr_encoders"]
+__all__ = [
+    "contrastive_loss",
+    "cosine_reconstruction",
+    "dae_loss",
+    "kl_divergence",
+    "triplet_loss",
+    "vae_loss",
+    "build_dpr_encoders",
+    "TrainResult",
+    "Trainer",
+    "restore_training_state",
+    "save_training_state",
+    "save_weights",
+]

@@ -1404,3 +1404,104 @@ def test_reranked_chunked_main_on_card(cuda, tmp_path):
     assert np.isfinite(res["doc_scores"]).all()
     for row in res["retrieved_doc_ids"]:
         assert len(row) == len(set(row)) == 10
+
+
+# one train step on the card against the same step on the CPU from the
+# same model, optimizer state and batch (fp32, TF32 off): the smoke's 3u
+# limits
+STEP_LOSS_RTOL, STEP_PARAM_ATOL = 1e-5, 1e-6
+
+
+def _step_twins(cuda, trainer, twin, module, batch, eps=None, skip=()):
+    """Step ``trainer`` (card) and ``twin`` (CPU, the same model and a
+    copy of the optimizer's state) on ``batch``; returns the two losses
+    and the largest error of ``module(trainer)``'s params outside ``skip``
+    (name suffixes) and inside it."""
+    import copy
+
+    twin.optimizer.load_state_dict(copy.deepcopy(
+        trainer.optimizer.state_dict()))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        kw = {} if eps is None else {"eps": eps.to(cuda)}
+        got = trainer.train_step({k: v.to(cuda) for k, v in batch.items()},
+                                 **kw).item()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    kw = {} if eps is None else {"eps": eps}
+    want = twin.train_step(batch, **kw).item()
+    sd, ref = module(trainer).state_dict(), module(twin).state_dict()
+    errs = {k: (sd[k].cpu() - ref[k]).abs().max().item() for k in ref}
+    held = max(e for k, e in errs.items() if not k.endswith(skip))
+    rest = max([e for k, e in errs.items() if k.endswith(skip)] or [0.0])
+    return got, want, held, rest
+
+
+@pytest.mark.parametrize("ae_type", ["vae", "dae", "cae"])
+def test_ae_train_step_card_matches_cpu(cuda, ae_type):
+    import copy
+
+    from latentrag_torch.models import build_autoencoder
+    from latentrag_torch.training.trainer import Trainer
+    from latentrag_torch.utils.config import AutoencoderConfig, TrainingConfig
+
+    cfg = TrainingConfig(batch_size=64, learning_rate=1e-3,
+                         weight_decay=1e-4 if ae_type == "cae" else 0.0,
+                         grad_clip_norm=1.0 if ae_type == "cae" else 0.0)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((64, 384)).astype(np.float32))
+    batch = ({"q": x, "p": x.roll(1, 0) + 0.1 * x} if ae_type == "cae"
+             else {"x": x + 0.05, "y": x})
+    model = build_autoencoder(ae_type, AutoencoderConfig())
+    trainer = Trainer(model, ae_type, cfg, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for _ in range(3):  # a state past Adam's first steps
+        trainer.train_step({k: v.to(cuda) for k, v in batch.items()}, g)
+    twin = Trainer(copy.deepcopy(trainer.model).cpu(), ae_type, cfg,
+                   device="cpu")
+    eps = (torch.randn((64, 64), generator=torch.Generator().manual_seed(2))
+           if ae_type == "vae" else None)
+    got, want, err, _ = _step_twins(cuda, trainer, twin, lambda t: t.model,
+                                    batch, eps)
+    assert abs(got - want) <= STEP_LOSS_RTOL * abs(want)
+    assert err <= STEP_PARAM_ATOL
+    assert all(p.device.type == cuda.type for p in trainer.model.parameters())
+
+
+def test_encoder_train_step_card_matches_cpu(cuda):
+    """fp32 mode at 2 layers and width 128. The attention key biases are
+    held to 2 x lr instead: their true gradient is 0 (the softmax drops a
+    constant logit shift) and each device's is rounding noise, which
+    Adam's normalisation scales up to the order of lr
+    (tests/test_torch_encoder_training.py)."""
+    from latentrag_torch.data import WordPieceTokenizer, synthetic_examples
+    from latentrag_torch.models.encoder import SentenceEncoder
+    from latentrag_torch.training.train_encoder import EncoderTrainer
+    from latentrag_torch.utils.config import EncoderConfig, TrainingConfig
+
+    ex = synthetic_examples(64)
+    queries = [e["question"] for e in ex]
+    passages = [e["context"] for e in ex]
+    tok = WordPieceTokenizer.train_from_corpus(passages + queries,
+                                               vocab_size=500)
+    ecfg = EncoderConfig(vocab_size=500, hidden_dim=128, num_layers=2,
+                         num_heads=4, mlp_dim=256, dtype="float32")
+    cfg = TrainingConfig(batch_size=16, learning_rate=3e-4)
+    enc = SentenceEncoder(tok, ecfg, seed=3, device=cuda)
+    trainer = EncoderTrainer(enc, cfg, max_length=48)
+    data = trainer._tokenize_pairs(queries, passages)
+    for s in range(0, 48, 16):  # a state past Adam's first steps
+        trainer.train_step(trainer.to_device(
+            {k: v[s:s + 16] for k, v in data.items()}))
+    cpu_enc = SentenceEncoder(tok, ecfg, device="cpu", state_dict={
+        k: v.cpu() for k, v in enc.module.state_dict().items()})
+    twin = EncoderTrainer(cpu_enc, cfg, max_length=48)
+    batch = {k: torch.from_numpy(v[48:64]) for k, v in data.items()}
+    got, want, err, kbias = _step_twins(cuda, trainer, twin,
+                                        lambda t: t.module, batch,
+                                        skip=(".k.bias",))
+    assert abs(got - want) <= STEP_LOSS_RTOL * abs(want)
+    assert err <= STEP_PARAM_ATOL
+    assert kbias <= 2 * cfg.learning_rate
+    assert int(trainer.optimizer.state_dict()["state"][0]["step"]) == 4

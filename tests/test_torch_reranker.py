@@ -106,7 +106,9 @@ def _write_port(base, tok, max_length, query_max, seed=6):
 
 def test_missing_checkpoint_raises(toks, tmp_path):
     cfg = apply_overrides(Config(), _overrides(tmp_path))
-    with pytest.raises(FileNotFoundError, match="train_reranker.*item 22"):
+    with pytest.raises(FileNotFoundError,
+                       match=r"python -m latentrag_torch\.training\."
+                             r"train_reranker"):
         tr.build_reranker(cfg, toks[1], device="cpu")
 
 
