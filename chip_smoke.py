@@ -301,6 +301,32 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    reranker's weights the trained ones, the run's docs bit for bit
    MaxSim's over its own logits (each trainer's steps/s, samples/s,
    seconds an epoch and peak device memory recorded);
+3x. outside inputs: the seeded MiniLM-L6 (full width) written as a Hugging
+   Face ``BertModel`` directory (config.json, model.safetensors, a
+   vocab.txt of 4000 pseudo-words) and 2000 MS MARCO-shaped queries of 10
+   passages (40-80 words, one selected; ~20,000 unique passages), then
+   ``main --config configs/msmarco_v5e8.yaml --ae_type dae --set
+   data.dataset=msmarco:<jsonl> encoder.name=<dir>`` in a fresh
+   checkpoints_dir: ``encoder.msgpack`` holds the written tensors bit for
+   bit and vocab.txt was copied, the corpus is the loader's (distractors
+   included), the int8 fold serves search and self-check and the exact
+   kernel nothing, the same run on the plain versions gives the same doc
+   ids (by set at ties) and metrics, and a warm run loads the msgpack,
+   converts nothing and returns the same ids; then ``main --set
+   data.dataset=cloze:<txt>`` (2000 of those passages) over the converted
+   encoder, its docs on >= 98 % of slots ``xla_exact``'s;
+3y. a seeded cross-encoder (full width) written as an HF
+   ``BertForSequenceClassification`` directory ("bert." prefix, 1 label)
+   and converted into ``reranker.msgpack``: its logits on 64 pairs equal
+   bit for bit those of a ``CrossEncoderModel`` built from the written
+   state dict; then the reranked ``main`` over 500 cloze queries;
+3z. ``python -m latentrag_torch.doctor`` over 3x's store and checkpoints
+   (exit 0, one JSON line, platform and kernels pass) and, at the same
+   time, over a copy whose doc-ids sidecar is corrupted (exit 1, the
+   store's FAIL); ``visualize_compressed_vs_original(make_plots=False)``
+   over 1000 of 3x's (query, positive) embeddings and DAE latents on the
+   card, the same recall as on the CPU; ``reconstruction_mse`` and
+   ``summarise_sizes`` over the 3x store;
 5. prints a ``kernels`` JSON line and, last, the device line.
 
 Every check that fails exits non-zero. Without CUDA, or without the
@@ -5459,6 +5485,531 @@ def time_masked(torch) -> dict:
     return out
 
 
+# ------------------- phases 3x-3z: outside inputs and the operator's tools
+
+HF_SEED = 1818  # the seeded MiniLM-L6 written as an HF checkpoint (3x)
+HF_CROSS_SEED = 1819  # the seeded cross-encoder written as one (3y)
+HF_VOCAB_WORDS = 4000  # the pseudo-words of the 3x data and its vocab.txt
+MSMARCO_DATA_QUERIES = 2000  # the main path's queries, over ~10x its corpus
+MSMARCO_DATA_PASSAGES = 10  # each query's passages, one selected
+MSMARCO_DATA_WORDS = (40, 80)  # a passage's words, both ends included
+MSMARCO_SNIPPET = (12, 3)  # a query: 12 words of its passage, 3 dropped
+CLOZE_DOCS = 2000
+CLOZE_RERANK_QUERIES = 500  # the reranked cloze run: 20,000 pairs
+CROSS_PAIRS = 64  # 3y's pairs scored by the converted and the built model
+VIZ_PAIRS = 1000  # 3z's (query, positive) pairs on the card and the CPU
+# HF BERT module names of the port's TransformerLayer children
+HF_LAYER_NAMES = {
+    "q": "attention.self.query", "k": "attention.self.key",
+    "v": "attention.self.value", "attn_out": "attention.output.dense",
+    "attn_ln": "attention.output.LayerNorm", "mlp_in": "intermediate.dense",
+    "mlp_out": "output.dense", "mlp_ln": "output.LayerNorm",
+}
+
+
+def pseudo_words(n: int, seed: int) -> list:
+    """``n`` distinct lowercase ASCII words of 2-4 consonant-vowel
+    syllables, each one WordPiece token of the vocab written with them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cons, vows = "bcdfghjklmnprstvwz", "aeiou"
+    words, seen = [], set()
+    while len(words) < n:
+        w = "".join(cons[rng.integers(len(cons))] + vows[rng.integers(5)]
+                    for _ in range(int(rng.integers(2, 5))))
+        if w not in seen:
+            seen.add(w)
+            words.append(w)
+    return words
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """``tensors`` as a safetensors file (F32, little-endian): an 8-byte
+    header length, the JSON header, then the buffers in order."""
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        data = t.detach().to("cpu").float().contiguous().numpy().tobytes()
+        header[name] = {"dtype": "F32", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        blobs.append(data)
+        offset += len(data)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for data in blobs:
+            f.write(data)
+
+
+def hf_trunk_tensors(sd: dict, token_types, prefix: str) -> dict:
+    """The port's trunk state dict under HF BERT names (``prefix`` "bert."
+    for a sequence classifier)."""
+    out = {
+        f"{prefix}embeddings.word_embeddings.weight":
+            sd["word_embeddings.weight"],
+        f"{prefix}embeddings.position_embeddings.weight":
+            sd["position_embeddings.weight"],
+        f"{prefix}embeddings.token_type_embeddings.weight": token_types,
+        f"{prefix}embeddings.LayerNorm.weight": sd["embed_ln.weight"],
+        f"{prefix}embeddings.LayerNorm.bias": sd["embed_ln.bias"],
+    }
+    for key, t in sd.items():
+        if key.startswith("layers."):
+            _, i, name, leaf = key.split(".")
+            out[f"{prefix}encoder.layer.{i}.{HF_LAYER_NAMES[name]}.{leaf}"] = t
+    return out
+
+
+def write_hf_dir(path: str, tensors: dict, ecfg, vocab: list,
+                 architecture: str) -> None:
+    """An HF BERT checkpoint directory: config.json, model.safetensors
+    and vocab.txt."""
+    os.makedirs(path, exist_ok=True)
+    config = {
+        "architectures": [architecture], "model_type": "bert",
+        "vocab_size": ecfg.vocab_size, "hidden_size": ecfg.hidden_dim,
+        "num_hidden_layers": ecfg.num_layers,
+        "num_attention_heads": ecfg.num_heads,
+        "intermediate_size": ecfg.mlp_dim, "hidden_act": "gelu",
+        "max_position_embeddings": ecfg.max_position_embeddings,
+        "type_vocab_size": 2, "layer_norm_eps": 1e-12,
+        "torch_dtype": "float32",
+    }
+    if architecture == "BertForSequenceClassification":
+        config["id2label"] = {"0": "LABEL_0"}
+        config["label2id"] = {"LABEL_0": 0}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=1)
+    write_safetensors(os.path.join(path, "model.safetensors"), tensors)
+    with open(os.path.join(path, "vocab.txt"), "w") as f:
+        f.write("\n".join(vocab) + "\n")
+
+
+def write_hf_bert(torch, path: str, vocab: list) -> dict:
+    """The seeded MiniLM-L6 (the config's full width, the self-init
+    encoder's draws from ``HF_SEED``) as an HF ``BertModel`` checkpoint;
+    returns the port's state dict of it (fp32, on the CPU)."""
+    from latentrag_torch.models.encoder.minilm import MiniLMEncoder, seeded_init
+    from latentrag_torch.utils import load_config
+
+    ecfg = load_config(None).encoder
+    module = MiniLMEncoder(
+        vocab_size=ecfg.vocab_size, hidden_dim=ecfg.hidden_dim,
+        num_layers=ecfg.num_layers, num_heads=ecfg.num_heads,
+        mlp_dim=ecfg.mlp_dim,
+        max_position_embeddings=ecfg.max_position_embeddings)
+    g = torch.Generator().manual_seed(HF_SEED)
+    seeded_init(module, g)
+    sd = {k: v.detach().clone() for k, v in module.state_dict().items()}
+    h = ecfg.hidden_dim
+    # the segment table's row 1 and the pooler, which the bi-encoder drops
+    token_types = torch.stack([sd["token_type_embedding"],
+                               0.02 * torch.randn(h, generator=g)])
+    tensors = hf_trunk_tensors(sd, token_types, "")
+    tensors["pooler.dense.weight"] = 0.02 * torch.randn((h, h), generator=g)
+    tensors["pooler.dense.bias"] = torch.zeros(h)
+    write_hf_dir(path, tensors, ecfg, vocab, "BertModel")
+    return sd
+
+
+def write_msmarco_data(path: str, words: list, seed: int) -> None:
+    """MS MARCO-shaped records: MSMARCO_DATA_QUERIES queries, each with
+    MSMARCO_DATA_PASSAGES seeded passages of pseudo-words, one selected,
+    the query a snippet of it with a few words dropped."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    vocab = np.asarray(words)
+    n_words, n_drop = MSMARCO_SNIPPET
+    with open(path, "w") as f:
+        for _ in range(MSMARCO_DATA_QUERIES):
+            lens = rng.integers(MSMARCO_DATA_WORDS[0],
+                                MSMARCO_DATA_WORDS[1] + 1,
+                                MSMARCO_DATA_PASSAGES)
+            texts = [vocab[rng.integers(0, len(vocab), n)] for n in lens]
+            sel = int(rng.integers(MSMARCO_DATA_PASSAGES))
+            start = int(rng.integers(0, len(texts[sel]) - n_words))
+            keep = np.ones(n_words, bool)
+            keep[rng.choice(n_words, n_drop, replace=False)] = False
+            query = " ".join(texts[sel][start:start + n_words][keep])
+            f.write(json.dumps({"query": query, "passages": {
+                "passage_text": [" ".join(t) + "." for t in texts],
+                "is_selected": [int(j == sel) for j in range(len(texts))],
+            }}) + "\n")
+
+
+def run_cli(torch, argv: list) -> dict:
+    """One ``latentrag_torch.main`` run on the card; the result, its wall
+    seconds, the launches it made (the counts at 0 just before it) and
+    its pipeline log lines."""
+    from latentrag_torch import main as cli
+    from latentrag_torch.ops import fused_topk as ft
+
+    results: list = []
+    ft.reset_launches()
+    t0 = time.perf_counter()
+    with logged("latentrag_torch.main") as lines:
+        rc = cli.main(argv, results=results)
+    torch.cuda.synchronize()
+    if rc != 0 or len(results) != 1:
+        fail(f"main {argv[:6]} returned {rc} with {len(results)} results")
+    res = results[0]
+    res["wall_s"] = time.perf_counter() - t0
+    res["launches"] = {k: v for k, v in ft.launches.items() if v}
+    res["c_kernel"] = ft.last_kernel
+    res["log"] = lines
+    return res
+
+
+def outside_overrides(wd: str, dataset: str, index: str) -> list:
+    """A run over the 3x checkpoint and data directories: the HF
+    directory as ``encoder.name``, ``dataset``, its own index_path."""
+    return [f"data.dataset={dataset}", f"encoder.name={wd}/hf_bert",
+            f"paths.data_dir={wd}/data", f"paths.checkpoints_dir={wd}/ckpt",
+            f"paths.logs_dir={wd}/logs",
+            f"retrieval.index_path={wd}/{index}",
+            "logging.log_to_file=false", "logging.level=WARNING"]
+
+
+def run_msmarco_data(torch, wd: str, index: str) -> dict:
+    """``main --config configs/msmarco_v5e8.yaml --ae_type dae`` over the
+    written MS MARCO data with the HF directory as its encoder."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return run_cli(torch, [
+        "--config", os.path.join(root, MSMARCO_CONFIG), "--ae_type", "dae",
+        "--device", "cuda", "--tag", f"smoke_outside_{index}", "--set",
+        *msmarco_overrides(wd, index),
+        *outside_overrides(wd, f"msmarco:{wd}/msmarco.jsonl", index)])
+
+
+def run_cloze(torch, wd: str, index: str, extra=()) -> dict:
+    """``main --set data.dataset=cloze:<txt>`` on the default config
+    (``--ae_type none``: the 384-d embeddings in a bf16 store), over the
+    converted encoder."""
+    return run_cli(torch, [
+        "--device", "cuda", "--tag", f"smoke_outside_{index}", "--set",
+        f"data.max_samples={CLOZE_DOCS}",
+        *outside_overrides(wd, f"cloze:{wd}/cloze.txt", index), *extra])
+
+
+def check_outside_inputs(torch, failures: list, wd: str) -> dict:
+    """Phase 3x: a local HF checkpoint and MS MARCO-shaped data through
+    ``main`` on the card. Writes the seeded MiniLM-L6 as an HF BERT
+    directory (config.json, model.safetensors, vocab.txt) and 2000
+    MS MARCO queries of 10 passages, then runs the msmarco config with
+    ``encoder.name`` that directory in a fresh checkpoints_dir: the
+    conversion must write ``encoder.msgpack`` with the written tensors bit
+    for bit and copy vocab.txt; the corpus is the loader's, distractors
+    included; the int8 fold serves search and self-check and the exact
+    kernel nothing; the same run on the kernels' plain versions gives the
+    same doc ids (by set at ties) and metrics; a warm run loads the
+    msgpack, converts nothing and returns the same ids. Then ``main --set
+    data.dataset=cloze:<txt>`` over the converted encoder: its docs on >=
+    98 % of slots ``xla_exact``'s. Returns the drives' fold launches."""
+    import numpy as np
+
+    from latentrag_torch.data.msmarco import load_msmarco_eval
+    from latentrag_torch.models.convert import minilm_state_dict_from_jax
+    from latentrag_torch.models.encoder.msgpack_io import load_msgpack
+    from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.ops import quantization as tq
+
+    t_phase = time.perf_counter()
+    words = pseudo_words(HF_VOCAB_WORDS, HF_SEED)
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "."] + words
+    t0 = time.perf_counter()
+    written = write_hf_bert(torch, f"{wd}/hf_bert", vocab)
+    write_msmarco_data(f"{wd}/msmarco.jsonl", words, HF_SEED)
+    write_dae(torch, f"{wd}/dae.pth")
+    queries, corpus, relevant = load_msmarco_eval(
+        MSMARCO_DATA_QUERIES, f"{wd}/msmarco.jsonl")
+    with open(f"{wd}/cloze.txt", "w") as f:
+        f.write("\n".join(corpus[r] for r in relevant[:CLOZE_DOCS]) + "\n")
+    write_s = time.perf_counter() - t0
+
+    res = run_msmarco_data(torch, wd, "index")
+    converted = load_msgpack(f"{wd}/ckpt/encoder.msgpack")
+    got = minilm_state_dict_from_jax(converted)
+    bits = sorted(got) == sorted(written) and all(
+        torch.equal(got[k], written[k]) for k in written)
+    with open(f"{wd}/hf_bert/vocab.txt", "rb") as a, \
+            open(f"{wd}/data/vocab.txt", "rb") as b:
+        vocab_copied = a.read() == b.read()
+    warm = run_msmarco_data(torch, wd, "index")
+    with plain_quantized(ft):
+        plain = run_msmarco_data(torch, wd, "index_plain")
+    same = float(tq.same_ids_at_ties(
+        res["doc_scores"], res["retrieved_doc_ids"], plain["doc_scores"],
+        plain["retrieved_doc_ids"]).mean())
+    ds = np.asarray(res["doc_scores"])
+    metrics = {m: v["mean"] for m, v in res["retrieval_metrics"].items()}
+    rec = {
+        "card": card_line(), "write_s": write_s,
+        "hf_dir_bytes": store_bytes(f"{wd}/hf_bert"),
+        "n_queries": res["n_queries"], "n_corpus": res["n_corpus"],
+        "loader_queries": len(queries), "loader_corpus": len(corpus),
+        "converted_bit_for_bit": bits, "vocab_copied": vocab_copied,
+        "converted_logged": any("converted HF checkpoint" in x
+                                for x in res["log"]),
+        "launches": res["launches"], "c_kernel": res["c_kernel"],
+        "plain_launches": plain["launches"],
+        "rows_same_by_set_at_ties": same, "metrics": metrics,
+        "plain_metrics": {m: v["mean"] for m, v in
+                          plain["retrieval_metrics"].items()},
+        "timings_s": res["timings"], "wall_s": res["wall_s"],
+        "warm": {"loaded_msgpack": any("loaded encoder weights" in x
+                                       for x in warm["log"]),
+                 "converted": any("converted" in x for x in warm["log"]),
+                 "same_doc_ids": warm["retrieved_doc_ids"]
+                 == res["retrieved_doc_ids"],
+                 "wall_s": warm["wall_s"], "launches": warm["launches"]},
+    }
+    ok = (bits and vocab_copied and rec["converted_logged"]
+          and res["n_corpus"] == len(corpus) == plain["n_corpus"]
+          and res["n_queries"] == len(queries)
+          and res["launches"].get("int8_fold", 0) >= 2
+          and "int8_exact" not in res["launches"]
+          and res["c_kernel"].split("+")[0] == "fold_mma_kernel<i8>"
+          and not plain["launches"] and same == 1.0
+          and metrics == rec["plain_metrics"]
+          and rec["warm"]["loaded_msgpack"] and not rec["warm"]["converted"]
+          and rec["warm"]["same_doc_ids"]
+          and ds.shape == (res["n_queries"], 10)
+          and bool(np.isfinite(ds).all()))
+    rec["ok"] = ok
+    record("msmarco_data_main_path", **rec)
+    if not ok:
+        failures.append(f"the msmarco data main path: {rec}")
+
+    cloze = run_cloze(torch, wd, "index_cloze")
+    oracle = run_cloze(torch, wd, "index_cloze_exact",
+                       ["retrieval.kernel=xla_exact"])
+    agree = slot_agreement(cloze["retrieved_doc_ids"],
+                           oracle["retrieved_doc_ids"])
+    crec = {
+        "n_queries": cloze["n_queries"], "n_corpus": cloze["n_corpus"],
+        "dim_out": cloze["dim_out"], "launches": cloze["launches"],
+        "oracle_launches": oracle["launches"], "doc_agreement": agree,
+        "metrics": {m: v["mean"]
+                    for m, v in cloze["retrieval_metrics"].items()},
+        "oracle_metrics": {m: v["mean"]
+                           for m, v in oracle["retrieval_metrics"].items()},
+        "timings_s": cloze["timings"], "wall_s": cloze["wall_s"],
+        "loaded_msgpack": any("loaded encoder weights" in x
+                              for x in cloze["log"]),
+    }
+    cok = (cloze["n_queries"] == cloze["n_corpus"] == CLOZE_DOCS
+           and crec["loaded_msgpack"]
+           and cloze["launches"].get("fold", 0) >= 2
+           and "exact" not in cloze["launches"]
+           and agree >= MAIN_DOC_AGREE)
+    crec["ok"] = cok
+    crec["phase_s"] = time.perf_counter() - t_phase
+    record("cloze_main_path", **crec)
+    if not cok:
+        failures.append(f"the cloze main path: {crec}")
+    return {"msmarco_data_int8_fold": res["launches"].get("int8_fold", 0),
+            "cloze_fold": cloze["launches"].get("fold", 0),
+            "n_corpus": res["n_corpus"]}
+
+
+def check_outside_reranker(torch, failures: list, wd: str) -> int:
+    """Phase 3y: a seeded cross-encoder at the MiniLM-L6 geometry written
+    as an HF ``BertForSequenceClassification`` directory ("bert."
+    prefix, 1 label), converted by ``convert_hf_cross_encoder_to_params``
+    into ``reranker.msgpack``: the reranker built from it scores
+    CROSS_PAIRS pairs as a ``CrossEncoderModel`` built from the written
+    state dict does, bit for bit; then the reranked ``main`` over the
+    cloze data (CLOZE_RERANK_QUERIES queries, candidate_k 40). Returns
+    the reranked run's fold launches."""
+    import numpy as np
+
+    from latentrag_torch.data import (
+        cloze_examples,
+        load_evaluation_data,
+        load_text_corpus,
+    )
+    from latentrag_torch.data.tokenizer import resolve_tokenizer
+    from latentrag_torch.models.encoder.convert import (
+        convert_hf_cross_encoder_to_params,
+        save_params,
+    )
+    from latentrag_torch.models.encoder.cross import CrossEncoderScorer
+    from latentrag_torch.retrieval.reranker import (
+        build_reranker,
+        reranker_checkpoint_path,
+    )
+    from latentrag_torch.utils import apply_overrides, load_config
+
+    t_phase = time.perf_counter()
+    cfg = apply_overrides(load_config(None), outside_overrides(
+        wd, f"cloze:{wd}/cloze.txt", "index_cloze_rerank"))
+    tok = resolve_tokenizer(cfg.paths.data_dir, cfg.encoder.vocab_size)
+    seeded = CrossEncoderScorer(tok, cfg.encoder, seed=HF_CROSS_SEED,
+                                device="cpu")
+    sd = {k: v.detach().clone() for k, v in seeded.module.state_dict().items()}
+    tensors = hf_trunk_tensors(sd, sd["token_type_embeddings.weight"], "bert.")
+    tensors.update({"bert.pooler.dense.weight": sd["pooler.weight"],
+                    "bert.pooler.dense.bias": sd["pooler.bias"],
+                    "classifier.weight": sd["classifier.weight"],
+                    "classifier.bias": sd["classifier.bias"]})
+    with open(f"{wd}/hf_bert/vocab.txt") as f:
+        vocab = f.read().split("\n")[:-1]
+    write_hf_dir(f"{wd}/hf_cross", tensors, cfg.encoder, vocab,
+                 "BertForSequenceClassification")
+    t0 = time.perf_counter()
+    params, vocab_file = convert_hf_cross_encoder_to_params(f"{wd}/hf_cross")
+    save_params(params, reranker_checkpoint_path(cfg))
+    convert_s = time.perf_counter() - t0
+    built = build_reranker(cfg, tok, device="cuda").scorer
+    twin = CrossEncoderScorer(tok, cfg.encoder, state_dict=sd,
+                              query_max=built.query_max, device="cuda")
+    queries, corpus, _ = load_evaluation_data(cloze_examples(
+        load_text_corpus(f"{wd}/cloze.txt"), CLOZE_DOCS))
+    rng = np.random.default_rng(HF_CROSS_SEED)
+    qi = rng.integers(0, len(queries), CROSS_PAIRS)
+    di = rng.integers(0, len(corpus), CROSS_PAIRS)
+    pq, pd = [queries[i] for i in qi], [corpus[i] for i in di]
+    got, want = built.score_pairs(pq, pd), twin.score_pairs(pq, pd)
+    del twin
+    res = run_cloze(torch, wd, "index_cloze_rerank", [
+        "retrieval.rerank=cross", f"data.max_samples={CLOZE_RERANK_QUERIES}"])
+    rec = {
+        "card": card_line(), "convert_s": convert_s,
+        "vocab_file": vocab_file is not None,
+        "hf_dir_bytes": store_bytes(f"{wd}/hf_cross"),
+        "pairs": CROSS_PAIRS, "logits_bit_for_bit": bool(
+            np.array_equal(got, want)),
+        "logit_range": [float(got.min()), float(got.max())],
+        "on_card": all(p.is_cuda for p in built.module.parameters()),
+        "n_queries": res["n_queries"], "candidate_k": res["candidate_k"],
+        "launches": res["launches"], "timings_s": res["timings"],
+        "wall_s": res["wall_s"],
+        "metrics": {m: v["mean"] for m, v in res["retrieval_metrics"].items()},
+    }
+    ok = (rec["logits_bit_for_bit"] and rec["on_card"]
+          and bool(np.isfinite(got).all())
+          and res["n_queries"] == CLOZE_RERANK_QUERIES
+          and res["candidate_k"] == 40
+          and res["launches"].get("fold", 0) >= 2
+          and "exact" not in res["launches"]
+          and bool(np.isfinite(np.asarray(res["doc_scores"])).all()))
+    rec["ok"] = ok
+    rec["phase_s"] = time.perf_counter() - t_phase
+    record("hf_cross_encoder", **rec)
+    if not ok:
+        failures.append(f"the converted cross-encoder: {rec}")
+    del built
+    torch.cuda.empty_cache()
+    return res["launches"].get("fold", 0)
+
+
+def run_doctor(args: list) -> subprocess.Popen:
+    root = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen(
+        [sys.executable, "-m", "latentrag_torch.doctor", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root)
+
+
+def doctor_report(proc: subprocess.Popen) -> dict:
+    out, err = proc.communicate(timeout=600)
+    lines = [x for x in out.splitlines() if x.strip()]
+    try:
+        rep = json.loads(lines[0])["doctor"] if len(lines) == 1 else None
+    except (ValueError, KeyError):
+        rep = None
+    return {"rc": proc.returncode, "stdout_lines": len(lines), "report": rep,
+            "stderr_tail": err[-800:]}
+
+
+def check_operator_tools(torch, failures: list, wd: str,
+                         n_corpus: int) -> None:
+    """Phase 3z: ``python -m latentrag_torch.doctor`` over 3x's store and
+    checkpoints (exit 0, one JSON line, platform and kernels pass) and
+    over a copy of the store with a corrupted sidecar (exit 1, that
+    store's FAIL), both at once; then ``visualize_compressed_vs_original
+    (make_plots=False)`` over VIZ_PAIRS of 3x's (query, positive)
+    embeddings and DAE latents on the card, equal in recall to the same
+    call on the CPU; ``reconstruction_mse`` and ``summarise_sizes`` over
+    the 3x store."""
+    import numpy as np
+
+    from latentrag_torch.data.msmarco import load_msmarco_eval
+    from latentrag_torch.evaluation import (
+        reconstruction_mse,
+        summarise_sizes,
+        visualize_compressed_vs_original,
+    )
+    from latentrag_torch.models import encode_latents
+    from latentrag_torch.pipeline import default_encoder, load_autoencoder
+    from latentrag_torch.utils import apply_overrides, load_config
+
+    t_phase = time.perf_counter()
+    bad = f"{wd}/index_corrupt"
+    shutil.copytree(f"{wd}/index", bad)
+    with open(f"{bad}/texts_doc_ids.npy", "wb") as f:
+        f.write(b"\x93NUMPY corrupted")
+    t0 = time.perf_counter()
+    procs = [run_doctor(["--index", f"{wd}/index", "--checkpoints",
+                         f"{wd}/ckpt"]),
+             run_doctor(["--index", bad, "--checkpoints", f"{wd}/ckpt"])]
+    good, broken = (doctor_report(p) for p in procs)
+    doctor_s = time.perf_counter() - t0
+    checks = (good["report"] or {}).get("checks", {})
+    bchecks = (broken["report"] or {}).get("checks", {})
+    drec = {"good": good, "corrupt": broken, "wall_s": doctor_s}
+    dok = (good["rc"] == 0 and good["stdout_lines"] == 1
+           and checks.get("platform", {}).get("status") == "pass"
+           and checks.get("kernels", {}).get("status") == "pass"
+           and checks.get("store:dense", {}).get("status") == "pass"
+           and broken["rc"] == 1 and broken["stdout_lines"] == 1
+           and bchecks.get("store:dense", {}).get("status") == "fail"
+           and bchecks.get("kernels", {}).get("status") == "pass")
+    drec["ok"] = dok
+    record("doctor", **drec)
+    if not dok:
+        failures.append(f"the doctor: {drec}")
+
+    cfg = apply_overrides(load_config(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), MSMARCO_CONFIG)),
+        [*msmarco_overrides(wd, "index"),
+         *outside_overrides(wd, f"msmarco:{wd}/msmarco.jsonl", "index")])
+    queries, corpus, relevant = load_msmarco_eval(
+        VIZ_PAIRS, f"{wd}/msmarco.jsonl")
+    t0 = time.perf_counter()
+    enc = default_encoder(cfg, corpus, device="cuda")
+    dae = load_autoencoder(cfg, "dae", device="cuda")
+    q = enc.encode_batch(queries)
+    d = enc.encode_batch([corpus[r] for r in relevant])
+    q_lat, d_lat = encode_latents(dae, q), encode_latents(dae, d)
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card = visualize_compressed_vs_original(q, d, q_lat, d_lat,
+                                            make_plots=False)
+    torch.cuda.synchronize()
+    viz_s = time.perf_counter() - t0
+    host = visualize_compressed_vs_original(
+        q.cpu(), d.cpu(), q_lat.cpu(), d_lat.cpu(), make_plots=False)
+    mse = reconstruction_mse(dae, d)
+    sizes = summarise_sizes(f"{wd}/index", n_corpus, 384, 64)
+    vrec = {"pairs": len(queries), "card": card, "cpu": host,
+            "encode_s": encode_s, "viz_s": viz_s,
+            "reconstruction_mse": mse, "sizes": sizes}
+    vok = (card["recall_original"] == host["recall_original"]
+           and card["recall_compressed"] == host["recall_compressed"]
+           and q.is_cuda and q_lat.is_cuda and np.isfinite(mse) and mse >= 0
+           and sizes["index_bytes"] > 0 and sizes["compression_ratio"] == 6.0)
+    vrec["ok"] = vok
+    vrec["phase_s"] = time.perf_counter() - t_phase
+    record("latent_diagnostics", **vrec)
+    if not vok:
+        failures.append(f"the latent diagnostics: {vrec}")
+    del enc, dae, q, d, q_lat, d_lat
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "latentrag_torch", "csrc")):
@@ -5632,6 +6183,23 @@ def main() -> int:
     train_launches.update(check_train_reranker(torch, failures, train_wd))
     if failures:
         fail("; ".join(failures))
+    # phases 3x-3z: an HF checkpoint, MS MARCO and cloze data through main,
+    # the converted cross-encoder, the doctor and the latent diagnostics;
+    # each main's launches read with the counts at 0 just before it
+    outside_wd = tempfile.mkdtemp(prefix="lr_outside_")
+    atexit.register(shutil.rmtree, outside_wd, True)
+    t_outside = time.perf_counter()
+    outside = check_outside_inputs(torch, failures, outside_wd)
+    if failures:
+        fail("; ".join(failures))
+    outside["cloze_rerank_fold"] = check_outside_reranker(torch, failures,
+                                                         outside_wd)
+    if failures:
+        fail("; ".join(failures))
+    check_operator_tools(torch, failures, outside_wd, outside.pop("n_corpus"))
+    if failures:
+        fail("; ".join(failures))
+    record("outside_inputs_phases", seconds=time.perf_counter() - t_outside)
 
     kernels = []
     for mode, fn_line, source in (("fold", 162, "fold_mma.cuh"),
@@ -5663,6 +6231,11 @@ def main() -> int:
     # and stage 1 of main over the trained AEs, encoder, DPR towers and
     # reranker (phases 3u-3w)
     kernels[0]["trained_launches"] = train_launches
+    # and stage 1 of main over the cloze data, plain and reranked, on the
+    # converted HF encoder (phases 3x-3y)
+    kernels[0]["outside_inputs_launches"] = {
+        "cloze_main": outside["cloze_fold"],
+        "cloze_rerank_main": outside["cloze_rerank_fold"]}
     for tag, store in (("", "bf16"), ("_fp32", "fp32")):
         t = times[("1m", "exact_k3000" + tag)]
         kernels.append({
@@ -5762,6 +6335,10 @@ def main() -> int:
                         "Q", "N", "k", "ms", "plain_ms", "library_ms",
                         "bound_ms", "bound_by")},
                 })
+                if key == "int8_fold":
+                    # the msmarco config over MS MARCO-shaped data (3x)
+                    kernels[-1]["msmarco_data_launches"] = outside[
+                        "msmarco_data_int8_fold"]
     # the device IVF's scan (the JAX package scores the probed blocks in
     # XLA there: score_group), timed on the 3k store at Q=8, auto budget
     t = ivf["times"]["Q=8 auto"]

@@ -19,8 +19,9 @@ word, each record carrying its doc id for doc-level MaxSim.
 
 Records equal the JAX package's field by field, offsets included, through
 either tokenizer path (the C++ WordPiece for ASCII text, Python for the
-rest: both give the same offsets). The parquet chunk index is later work
-(ROADMAP queue 1).
+rest: both give the same offsets). ``save_chunk_index`` /
+``load_chunk_index`` keep records in the JAX package's parquet file (one
+row a record; through pandas and pyarrow, imported at the call).
 """
 
 from __future__ import annotations
@@ -248,3 +249,18 @@ def build_chunked_corpus(
             ex.get("answer_start", 0), tokenizer, max_tokens=max_tokens,
             stride=stride, doc_id=ex.get("doc_id", 0)))
     return out
+
+
+def save_chunk_index(records: Sequence[ChunkRecord], path: str) -> None:
+    """Write ``records`` as a parquet table (pandas, at the call)."""
+    import pandas as pd
+
+    pd.DataFrame([dataclasses.asdict(r) for r in records]).to_parquet(path)
+
+
+def load_chunk_index(path: str) -> list[ChunkRecord]:
+    """The records of a parquet chunk index (either package's)."""
+    import pandas as pd
+
+    df = pd.read_parquet(path)
+    return [ChunkRecord(**row) for row in df.to_dict("records")]

@@ -2,11 +2,11 @@
 autoencoders' training arrays.
 
 The port of the JAX package's ``data/squad.py``: ``synthetic``,
-``squad:<local official json>`` and ``jsonl:<path>`` sources,
-``load_evaluation_data``, and ``prepare_training_arrays`` /
-``split_dataset`` with the arrays' save and load. The hub ``squad``
-source needs the network, which the port never uses, so it raises;
-``cloze:`` and ``msmarco`` sources are a later slice.
+``msmarco:<local jsonl>``, ``jsonl:<path>``, ``cloze:<text corpus>`` and
+``<name>:<local official json>`` sources, ``load_evaluation_data``, and
+``prepare_training_arrays`` / ``split_dataset`` with the arrays' save and
+load. The hub forms (``squad``, ``msmarco`` without a path) need the
+network, which the port never uses, so they raise and name the local form.
 """
 
 from __future__ import annotations
@@ -127,21 +127,85 @@ def load_jsonl_examples(path: str, max_samples: int | None = None) -> list[dict]
     return out
 
 
+def cloze_examples(
+    texts: Sequence[str],
+    max_samples: int | None = None,
+    snippet_words: int = 12,
+    seed: int = 0,
+) -> list[dict]:
+    """Self-supervised eval pairs from a raw text corpus: the query is a
+    sampled snippet of a document, the document is the relevant answer
+    (retrieval quality = can the snippet find its source doc)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, text in enumerate(texts):
+        if max_samples is not None and len(out) >= max_samples:
+            break
+        words = text.split()
+        if len(words) < snippet_words + 2:
+            continue
+        start = int(rng.integers(0, len(words) - snippet_words))
+        snippet = " ".join(words[start : start + snippet_words])
+        out.append(
+            {
+                "question": snippet,
+                "context": text,
+                "answer_text": snippet,
+                "answer_start": text.find(snippet) if snippet in text else 0,
+                "doc_id": i,
+            }
+        )
+    return out
+
+
+def load_text_corpus(path: str) -> list[str]:
+    """One document per line (.txt) or a JSON list of strings (.json, also
+    as ``{"texts": [...]}``)."""
+    if path.endswith(".json"):
+        with open(path) as f:
+            data = json.load(f)
+        if isinstance(data, dict):
+            data = data.get("texts")
+        if not isinstance(data, list):
+            raise ValueError(
+                f"{path}: expected a JSON list of strings or "
+                '{"texts": [...]}'
+            )
+        return [str(t) for t in data]
+    with open(path) as f:
+        return [line.strip() for line in f if line.strip()]
+
+
 def get_examples(cfg: Config, split: str = "train") -> list[dict]:
-    """Dispatch: 'synthetic', 'squad:<path>' (local official json),
-    'jsonl:<path>' (custom corpus). ``split`` is accepted for the JAX
-    package's signature; the local sources have one split."""
+    """Dispatch: 'synthetic', 'msmarco:<path>' (local jsonl; the selected
+    passage of each query), 'jsonl:<path>' (custom corpus),
+    'cloze:<textfile>' (snippet->doc pairs from raw text), and
+    '<name>:<path>' (a local official SQuAD json). ``split`` is accepted
+    for the JAX package's signature; the local sources have one split."""
     ds = cfg.data.dataset
     if ds.startswith("synthetic"):
         return synthetic_examples(cfg.data.max_samples or 200)
+    if ds.startswith("msmarco"):
+        # (question, selected-passage) pairs; main loads load_msmarco_eval
+        # itself to keep the distractor passages in its corpus
+        from .msmarco import load_msmarco_eval
+
+        _, _, src = ds.partition(":")
+        queries, corpus, relevant = load_msmarco_eval(
+            max_queries=cfg.data.max_samples, source=src or None
+        )
+        return [
+            {"question": q, "context": corpus[r], "answer_text": "",
+             "answer_start": 0, "doc_id": r}
+            for q, r in zip(queries, relevant)
+        ]
     if ds.startswith("jsonl:"):
         return load_jsonl_examples(ds.split(":", 1)[1], cfg.data.max_samples)
-    if ds.startswith(("cloze:", "msmarco")):
-        raise NotImplementedError(
-            f"data.dataset={ds!r} is not ported yet (ROADMAP queue 1, "
-            "slice E auxiliaries); use synthetic, squad:<path> or jsonl:<path>"
+    if ds.startswith("cloze:"):
+        return cloze_examples(
+            load_text_corpus(ds.split(":", 1)[1]), cfg.data.max_samples
         )
-    if ds.startswith("squad:"):
+    if ":" in ds:
         return load_local_squad(ds.split(":", 1)[1], cfg.data.max_samples)
     raise ValueError(
         f"data.dataset={ds!r} needs the HF hub, and the port never uses the "

@@ -1,3 +1,8 @@
+from .autoencoder_metrics import (
+    compression_ratio,
+    reconstruction_mse,
+    summarise_sizes,
+)
 from .benchmark import run_benchmark
 from .generation_metrics import (
     bootstrap_ci,
@@ -10,8 +15,17 @@ from .generation_metrics import (
     rouge_l_scores,
 )
 from .retrieval_metrics import evaluate_retrieval, hit_matrix, parse_metric
+from .visualization import (
+    plot_positive_vs_negative_distances,
+    positive_ranks,
+    recall_at_k,
+    visualize_compressed_vs_original,
+)
 
 __all__ = [
+    "compression_ratio",
+    "reconstruction_mse",
+    "summarise_sizes",
     "run_benchmark",
     "bootstrap_ci",
     "corpus_bleu",
@@ -24,4 +38,8 @@ __all__ = [
     "evaluate_retrieval",
     "hit_matrix",
     "parse_metric",
+    "plot_positive_vs_negative_distances",
+    "positive_ranks",
+    "recall_at_k",
+    "visualize_compressed_vs_original",
 ]

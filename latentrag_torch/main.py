@@ -7,12 +7,16 @@ Usage:
       --set generation.provider=extractive
   python -m latentrag_torch.main --benchmark bm25 sbert dpr
   python -m latentrag_torch.main --ae_type vae --profile /tmp/trace
+  python -m latentrag_torch.main --config configs/msmarco_v5e8.yaml \
+      --ae_type dae --set data.dataset=msmarco:/path/dev.jsonl
 
 Each AE variant runs the pipeline once, logs its run card and appends one
 row to ``<logs_dir>/benchmarks/experiments.csv`` (the JAX package's CSV
 schema; with ``--generate`` its generation columns too). ``--benchmark
 [SYSTEM ...]`` runs the multi-system harness instead (default systems
-``bm25 sbert``). ``--profile DIR`` writes a ``torch.profiler`` trace of
+``bm25 sbert``). ``data.dataset=msmarco:<jsonl>`` evaluates each query
+against every passage of the file, distractors included (no gold
+answers). ``--profile DIR`` writes a ``torch.profiler`` trace of
 each pipeline run into DIR. ``--device`` defaults to ``cuda`` and never
 falls back to the CPU on its own; ``--device cpu`` runs the plain PyTorch
 path.
@@ -67,9 +71,20 @@ def main(argv=None, results: list | None = None) -> int:
     set_seed(cfg.training.seed, cfg.training.deterministic)
 
     loggers.main.info("loading dataset %r", cfg.data.dataset)
-    examples = get_examples(cfg)
-    queries, corpus, relevant, gold = load_evaluation_data(
-        examples, with_answers=True)
+    if cfg.data.dataset.startswith("msmarco"):
+        # 'msmarco:<local.jsonl>': the corpus keeps every passage
+        # (positives and distractors), which the example -> dedup shape of
+        # load_evaluation_data cannot hold
+        from .data.msmarco import load_msmarco_eval
+
+        _, _, src = cfg.data.dataset.partition(":")
+        queries, corpus, relevant = load_msmarco_eval(
+            max_queries=cfg.data.max_samples, source=src or None
+        )
+        gold = None
+    else:
+        queries, corpus, relevant, gold = load_evaluation_data(
+            get_examples(cfg), with_answers=True)
     loggers.main.info("|queries|=%d |corpus|=%d", len(queries), len(corpus))
 
     if args.benchmark is not None:

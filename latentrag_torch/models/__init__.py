@@ -4,6 +4,7 @@ from .autoencoders import (
     DenoisingAutoencoder,
     VariationalAutoencoder,
     build_autoencoder,
+    encode_latents,
     init_autoencoder,
 )
 from .convert import (
@@ -19,6 +20,7 @@ __all__ = [
     "DenoisingAutoencoder",
     "VariationalAutoencoder",
     "build_autoencoder",
+    "encode_latents",
     "init_autoencoder",
     "autoencoder_state_dict_from_jax",
     "load_autoencoder_pth",

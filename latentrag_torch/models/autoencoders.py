@@ -8,8 +8,9 @@ modules use the reference torch checkpoints' own key names (``encoder.0``,
 
 ``latent(x)`` is the retrieval-time latent: the posterior mean for the VAE,
 the encoder output for the DAE, the L2-normalised encoder output for the
-CAE. ``init_autoencoder`` draws the weights at Flax's ``Dense`` init
-scales from a ``torch.Generator``, as the trainer starts them.
+CAE (``encode_latents`` takes it without autograd). ``init_autoencoder``
+draws the weights at Flax's ``Dense`` init scales from a
+``torch.Generator``, as the trainer starts them.
 """
 
 from __future__ import annotations
@@ -104,6 +105,12 @@ class ContrastiveAutoencoder(DenoisingAutoencoder):
     def forward(self, x):
         z = self.encode(x)
         return self.decode(z), z
+
+
+def encode_latents(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Deterministic retrieval-time latent for any AE type (VAE -> mu)."""
+    with torch.no_grad():
+        return model.latent(x)
 
 
 AE_CLASSES = {

@@ -16,8 +16,11 @@ the order the Flax module creates them, for ``msgpack_io.save_msgpack``.
 ``load_autoencoder_pth`` reads a reference-keyed ``.pth``, which needs no
 conversion. The JAX package's encoder msgpack reads into such a tree with
 ``models.encoder.msgpack_io.load_msgpack`` (a bf16 leaf arrives as a
-``torch.bfloat16`` tensor); its Orbax AE checkpoints have no reader (the
-port's own trainer writes the ``.pth``).
+``torch.bfloat16`` tensor), and a local Hugging Face checkpoint with
+``models.encoder.convert``. Its Orbax AE checkpoints are read where the
+JAX package runs: ``scripts/orbax_ae_to_pth.py`` maps their params through
+``autoencoder_state_dict_from_jax`` into the ``.pth`` that
+``load_autoencoder_pth`` reads (the port's own trainer writes one too).
 """
 
 from __future__ import annotations

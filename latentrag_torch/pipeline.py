@@ -32,6 +32,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import os
+import shutil
 import time
 from typing import Any, Sequence
 
@@ -45,6 +46,7 @@ from .generation import GeneratorSettings, LLMSettings, RAGGenerator
 from .models import build_autoencoder, load_autoencoder_pth
 from .models.convert import minilm_state_dict_from_jax
 from .models.encoder import SentenceEncoder
+from .models.encoder.convert import convert_hf_bert_to_params, save_params
 from .models.encoder.msgpack_io import load_msgpack
 from .ops import maxsim_aggregate
 from .retrieval import EmbeddingCompressor, build_retriever
@@ -64,31 +66,84 @@ def autoencoder_checkpoint_path(cfg: Config, ae_type: str) -> str:
     return os.path.join(cfg.paths.checkpoints_dir, ckpt)
 
 
+ORBAX_SCRIPT = "scripts/orbax_ae_to_pth.py"
+
+
 def load_autoencoder(cfg: Config, ae_type: str, device="cuda"):
     """The AE module for ``ae_type`` with its trained weights, on
     ``device``, from ``autoencoder_checkpoint_path``: a reference-keyed
     ``.pth``, as the port's trainer (``python -m
-    latentrag_torch.training.train``) writes it. A checkpoint name without
-    ``.pth`` and no such file is a JAX package Orbax checkpoint, which
-    the port cannot read."""
+    latentrag_torch.training.train``) writes it, or as
+    ``scripts/orbax_ae_to_pth.py`` converts an AE that the JAX package
+    trained. An Orbax checkpoint directory (the JAX trainer's) with no
+    ``.pth`` beside it raises NotImplementedError with the command that
+    converts it; no checkpoint at all raises FileNotFoundError."""
     ae_type = canonical_ae_type(ae_type)
     if ae_type == "none":
         return None
     acfg = cfg.models.for_type(ae_type)
-    ckpt = acfg.checkpoint or ae_type
     path = autoencoder_checkpoint_path(cfg, ae_type)
-    if not ckpt.endswith(".pth") and not os.path.isfile(path):
-        raise NotImplementedError(
-            f"models.{ae_type}.checkpoint={ckpt!r}: the JAX package's Orbax "
-            "checkpoints (OCDBT, read through tensorstore) have no reader "
-            "here (an open design question in ROADMAP); point it at a "
-            "reference-keyed .pth"
-        )
     if not os.path.isfile(path):
-        raise FileNotFoundError(f"autoencoder checkpoint not found: {path}")
+        orbax_dir = path[: -len(".pth")]
+        if os.path.isfile(os.path.join(orbax_dir, "_CHECKPOINT_METADATA")):
+            raise NotImplementedError(
+                f"{orbax_dir} is an Orbax checkpoint of the JAX package's "
+                "trainer (OCDBT, read through tensorstore), which the port "
+                "does not read; where the JAX package is installed, run "
+                f"`python {ORBAX_SCRIPT} --checkpoint {orbax_dir} "
+                f"--ae_type {ae_type}` to write {path}"
+            )
+        raise FileNotFoundError(
+            f"no checkpoint for ae_type={ae_type!r} at {path}; train it "
+            "with `python -m latentrag_torch.training.train --ae_type "
+            f"{ae_type}`, or convert the JAX package's Orbax checkpoint "
+            f"with {ORBAX_SCRIPT}"
+        )
     model = build_autoencoder(ae_type, acfg)
     model.load_state_dict(load_autoencoder_pth(path, ae_type))
     return model.to(resolve_device(device)).eval()
+
+
+def _hf_checkpoint_usable(ecfg) -> bool:
+    """Whether ``encoder.name`` is a local HF checkpoint directory (with a
+    ``config.json``). The hub forms need the network, which the port never
+    uses: ``encoder.hub_fallback=true`` with another name raises."""
+    name = ecfg.name
+    if os.path.isdir(name) and os.path.exists(
+        os.path.join(name, "config.json")
+    ):
+        return True
+    if ecfg.hub_fallback:
+        raise ValueError(
+            f"encoder.hub_fallback=true asks for {name!r} from the HF hub, "
+            "and the port never uses the network; download the checkpoint "
+            "and set encoder.name to its local directory"
+        )
+    return False
+
+
+def _convert_hf_encoder(cfg: Config, weights: str, vocab_path: str) -> None:
+    """Convert the local HF checkpoint ``encoder.name`` into ``weights``
+    (msgpack, or a state dict where the name ends in .pt/.pth) and copy
+    its vocab.txt to ``vocab_path`` unless one is there. A failed
+    conversion logs the JAX package's warning; the seeded init serves."""
+    try:
+        hf_params, vocab_file = convert_hf_bert_to_params(cfg.encoder.name)
+        if weights.endswith((".pt", ".pth")):
+            os.makedirs(os.path.dirname(weights) or ".", exist_ok=True)
+            torch.save(minilm_state_dict_from_jax(hf_params), weights)
+        else:
+            save_params(hf_params, weights)
+        if vocab_file and not os.path.exists(vocab_path):
+            os.makedirs(cfg.paths.data_dir, exist_ok=True)
+            shutil.copyfile(vocab_file, vocab_path)
+        log.info("converted HF checkpoint %s -> %s", cfg.encoder.name,
+                 weights)
+    except Exception as e:
+        log.warning(
+            "HF checkpoint %r unusable (%s); falling back to the "
+            "self-init encoder", cfg.encoder.name, e,
+        )
 
 
 def default_encoder(cfg: Config, corpus: Sequence[str],
@@ -98,13 +153,18 @@ def default_encoder(cfg: Config, corpus: Sequence[str],
     weights from ``encoder.weights_path`` or, unset,
     ``<checkpoints_dir>/encoder.msgpack``: a ``MiniLMEncoder`` state dict
     in a .pt/.pth file, or the JAX package's Flax params in msgpack
-    (``models.encoder.msgpack_io``); when no file is there, a seeded
-    init."""
-    tokenizer = resolve_tokenizer(
-        cfg.paths.data_dir, cfg.encoder.vocab_size, corpus
-    )
+    (``models.encoder.msgpack_io``). When no file is there and
+    ``encoder.name`` is a local HF checkpoint directory, it is converted
+    now and persisted (the weights file, and its vocab.txt into
+    ``paths.data_dir``), as the JAX package does; else a seeded init."""
+    vocab_path = os.path.join(cfg.paths.data_dir, "vocab.txt")
     weights = cfg.encoder.weights_path or os.path.join(
         cfg.paths.checkpoints_dir, "encoder.msgpack"
+    )
+    if not os.path.exists(weights) and _hf_checkpoint_usable(cfg.encoder):
+        _convert_hf_encoder(cfg, weights, vocab_path)
+    tokenizer = resolve_tokenizer(
+        cfg.paths.data_dir, cfg.encoder.vocab_size, corpus
     )
     state_dict = None
     if os.path.exists(weights):

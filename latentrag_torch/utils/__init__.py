@@ -4,11 +4,20 @@ from .config import (
     canonical_ae_type,
     load_config,
     parse_scalar,
+    to_dict,
 )
 from .device import resolve_device
+from .dotenv import load_dotenv
 from .logging_utils import init_logger
 from .prng import set_seed
-from .timing import StatsTracker, force_completion, percentiles
+from .timing import (
+    StatsTracker,
+    Stopwatch,
+    device_stopwatch,
+    force_completion,
+    percentiles,
+    stopwatch,
+)
 
 __all__ = [
     "Config",
@@ -16,10 +25,15 @@ __all__ = [
     "canonical_ae_type",
     "load_config",
     "parse_scalar",
+    "to_dict",
     "resolve_device",
+    "load_dotenv",
     "init_logger",
     "set_seed",
     "StatsTracker",
+    "Stopwatch",
+    "device_stopwatch",
     "force_completion",
     "percentiles",
+    "stopwatch",
 ]

@@ -79,7 +79,8 @@ class EncoderConfig:
     # torch state_dict (.pt/.pth) of the port's MiniLMEncoder; "" => the
     # default path, and a seeded init when no file is there
     weights_path: str = ""
-    # kept for config compatibility; the port never reads the network
+    # true asks for encoder.name from the HF hub, which the port never
+    # reads: default_encoder then raises and names the local form
     hub_fallback: bool = False
 
 
@@ -419,3 +420,8 @@ def _replace_path(node: Any, parts: Sequence[str], raw_value: str) -> Any:
             value = _coerce(value, type(current))
         return replace(node, **{name: value})
     return replace(node, **{name: _replace_path(current, parts[1:], raw_value)})
+
+
+def to_dict(cfg: Any) -> dict:
+    """Config tree -> plain nested dict (for fingerprints / CSV / logging)."""
+    return dataclasses.asdict(cfg)

@@ -1,8 +1,9 @@
 """Global seeding for the host RNGs and PyTorch.
 
-The JAX package threads ``jax.random`` keys; the port seeds Python's,
-numpy's and PyTorch's default generators here, and modules that draw
-weights take an explicit ``torch.Generator``.
+The JAX package threads ``jax.random`` keys (its ``KeySeq`` hands out
+fresh ones); the port seeds Python's, numpy's and PyTorch's default
+generators here, and modules that draw weights take an explicit
+``torch.Generator`` in ``KeySeq``'s place, so ``KeySeq`` has no port.
 """
 
 from __future__ import annotations

@@ -1,13 +1,17 @@
-"""Wall-clock instrumentation: percentiles and the retriever's StatsTracker.
+"""Wall-clock instrumentation: stopwatch spans, percentiles, StatsTracker.
 
 The counterpart of the JAX package's ``utils/timing.py``. CUDA kernels
 return before the card finishes, so a timed span that ends on device work
 calls ``force_completion`` first: ``torch.cuda.synchronize`` for CUDA
-tensors, nothing for CPU tensors.
+tensors, nothing for CPU tensors. ``device_stopwatch`` does that for the
+outputs its span appends.
 """
 
 from __future__ import annotations
 
+import time
+from collections import defaultdict
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -18,6 +22,46 @@ def force_completion(x: torch.Tensor) -> None:
     """Wait until the device work that produced ``x`` has finished."""
     if x.device.type == "cuda":
         torch.cuda.synchronize(x.device)
+
+
+class Stopwatch:
+    """Accumulates seconds per named key across ``span`` context entries."""
+
+    def __init__(self) -> None:
+        self.totals: dict[str, float] = defaultdict(float)
+        self.counts: dict[str, int] = defaultdict(int)
+
+    @contextmanager
+    def span(self, key: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.totals[key] += time.perf_counter() - t0
+            self.counts[key] += 1
+
+
+@contextmanager
+def stopwatch(store: dict, key: str):
+    """Accumulate the span's seconds into ``store[key]``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        store[key] = store.get(key, 0.0) + (time.perf_counter() - t0)
+
+
+@contextmanager
+def device_stopwatch(store: dict, key: str, outputs: list):
+    """Time device work: wait for every tensor appended to ``outputs``
+    before the clock stops."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        for x in outputs:
+            force_completion(x)
+        store[key] = store.get(key, 0.0) + (time.perf_counter() - t0)
 
 
 def percentiles(values, qs=(50, 95)) -> dict[str, float]:

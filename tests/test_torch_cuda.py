@@ -1505,3 +1505,98 @@ def test_encoder_train_step_card_matches_cpu(cuda):
     assert err <= STEP_PARAM_ATOL
     assert kbias <= 2 * cfg.learning_rate
     assert int(trainer.optimizer.state_dict()["state"][0]["step"]) == 4
+
+
+# ------------------------------------------ HF checkpoints and the doctor
+
+_HF_LAYER = {"q": "attention.self.query", "k": "attention.self.key",
+             "v": "attention.self.value",
+             "attn_out": "attention.output.dense",
+             "attn_ln": "attention.output.LayerNorm",
+             "mlp_in": "intermediate.dense", "mlp_out": "output.dense",
+             "mlp_ln": "output.LayerNorm"}
+
+
+def _write_hf_bert(path, sd, vocab):
+    """A ``BertModel`` checkpoint directory (config.json,
+    pytorch_model.bin, vocab.txt) of the port's encoder state dict."""
+    import json
+    import os
+
+    os.makedirs(path)
+    h = sd["embed_ln.weight"].shape[0]
+    tensors = {
+        "embeddings.word_embeddings.weight": sd["word_embeddings.weight"],
+        "embeddings.position_embeddings.weight":
+            sd["position_embeddings.weight"],
+        "embeddings.token_type_embeddings.weight": torch.stack(
+            [sd["token_type_embedding"], torch.zeros(h)]),
+        "embeddings.LayerNorm.weight": sd["embed_ln.weight"],
+        "embeddings.LayerNorm.bias": sd["embed_ln.bias"],
+    }
+    for key, t in sd.items():
+        if key.startswith("layers."):
+            _, i, name, leaf = key.split(".")
+            tensors[f"encoder.layer.{i}.{_HF_LAYER[name]}.{leaf}"] = t
+    torch.save(tensors, os.path.join(path, "pytorch_model.bin"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"model_type": "bert", "hidden_size": h}, f)
+    with open(os.path.join(path, "vocab.txt"), "w") as f:
+        f.write("\n".join(vocab) + "\n")
+
+
+def test_hf_checkpoint_converted_and_served_on_card(cuda, tmp_path):
+    """``default_encoder`` on the card converts a local HF directory into
+    ``encoder.msgpack`` (the written tensors bit for bit) and encodes on
+    the card as the CPU encoder of the same file does (fp32, 1e-5)."""
+    from latentrag_torch.models.convert import minilm_state_dict_from_jax
+    from latentrag_torch.models.encoder.minilm import (
+        MiniLMEncoder,
+        seeded_init,
+    )
+    from latentrag_torch.models.encoder.msgpack_io import load_msgpack
+    from latentrag_torch.pipeline import default_encoder
+    from latentrag_torch.utils import Config, apply_overrides
+
+    words = [f"w{i}" for i in range(115)]
+    module = MiniLMEncoder(vocab_size=120, hidden_dim=32, num_layers=2,
+                           num_heads=4, mlp_dim=64,
+                           max_position_embeddings=64)
+    seeded_init(module, torch.Generator().manual_seed(4))
+    sd = module.state_dict()
+    _write_hf_bert(str(tmp_path / "hf"), sd,
+                   ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words)
+    cfg = apply_overrides(Config(), [
+        f"encoder.name={tmp_path}/hf", "encoder.dtype=float32",
+        "encoder.vocab_size=120", "encoder.hidden_dim=32",
+        "encoder.num_layers=2", "encoder.num_heads=4", "encoder.mlp_dim=64",
+        "encoder.max_position_embeddings=64",
+        f"paths.data_dir={tmp_path}/data",
+        f"paths.checkpoints_dir={tmp_path}/ckpt"])
+    enc = default_encoder(cfg, words, device=cuda)
+    got = minilm_state_dict_from_jax(
+        load_msgpack(f"{tmp_path}/ckpt/encoder.msgpack"))
+    assert all(torch.equal(got[k], sd[k]) for k in sd)
+    assert all(p.is_cuda for p in enc.module.parameters())
+    texts = [" ".join(words[i:i + 9]) for i in range(0, 100, 7)]
+    on_card = enc.encode_batch(texts)
+    on_cpu = default_encoder(cfg, words, device="cpu").encode_batch(texts)
+    assert on_card.is_cuda
+    np.testing.assert_allclose(on_card.cpu().numpy(), on_cpu.numpy(),
+                               atol=1e-5)
+
+
+def test_doctor_on_card(cuda, tmp_path, capsys):
+    """``python -m latentrag_torch.doctor`` on the card: the kernels build,
+    launch and match their plain versions; stdout is one JSON line."""
+    import json
+
+    from latentrag_torch import doctor
+
+    rc = doctor.main(["--index", str(tmp_path / "none"),
+                      "--checkpoints", str(tmp_path / "none")])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert rc == 0 and len(out) == 1
+    checks = json.loads(out[0])["doctor"]["checks"]
+    for name in ("imports", "platform", "kernels", "native", "tokenizer"):
+        assert checks[name]["status"] == "pass", (name, checks[name])

@@ -279,8 +279,8 @@ def test_pth_loads_in_port_and_jax_reference_reader(tmp_path, ae_type):
     train, val = _data(9, 32, ae_type), _data(10, 16, ae_type)
     path = autoencoder_checkpoint_path(cfg, ae_type)
     assert path == f"{tmp_path}/ckpt/{ae_type}.pth"
-    # the default name, without .pth, and no file yet: the Orbax refusal
-    with pytest.raises(NotImplementedError, match="Orbax"):
+    # the default name, without .pth, and no file yet: the train command
+    with pytest.raises(FileNotFoundError, match="training.train"):
         load_autoencoder(cfg, ae_type, device="cpu")
     tt.Trainer(build_autoencoder(ae_type, ACFG), ae_type,
                TrainingConfig(batch_size=16, epochs=1),
