@@ -327,7 +327,32 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    over 1000 of 3x's (query, positive) embeddings and DAE latents on the
    card, the same recall as on the CPU; ``reconstruction_mse`` and
    ``summarise_sizes`` over the 3x store;
-5. prints a ``kernels`` JSON line and, last, the device line.
+5a. the sharded top-k (``latentrag_torch.parallel``) on a mesh of four
+   shards of cuda:0 over 1,000,003 seeded rows (d=64, Q=1024): bf16
+   (cosine, and euclidean: the pad-row case) and fp32 stores at k=10
+   (the fold), 160 (the exact kernel) and 3000 (the exact select), int8
+   and binary stores at 10 and 160, a 10 % row mask at 10 and 160; each
+   search launches its kernel once a shard (4), each shard's call is held
+   to the kernel's plain version, the exact routes to the unsharded exact
+   route, the fold routes by candidate recall; no pad or masked row
+   comes back; the sharded and unsharded searches are timed;
+5b. the main path at full width through ``PipelineRunner(mesh=<those 4
+   shards>)`` with ``retrieval.shard_corpus``: the bf16 store at top_k
+   10 and 150 against the unsharded ``xla_exact`` oracle, the binary
+   store at 10 and 20 against the unsharded binary run, the 4-shard
+   encode against the unsharded one, the store saved as ``sharded/``,
+   warm-booted, mutated and passed by the doctor; then ``main --set
+   retrieval.shard_corpus=true`` on the one card, equal to the unsharded
+   run bit for bit;
+5c. the ring k-NN graph over 200,000 x 64 fp32 rows in 4 shards: the
+   approximate ring (the fp32 fold, 4 launches a step) against
+   ``knn_graph``'s exact lists, the exact ring equal to them;
+5d. two processes on gloo (``scripts/torch_multiproc_worker.py``), two
+   shards each on cuda:0: their sharded exact bf16 and SQ8 searches bit
+   for bit this process's 4-shard search; the store both saved loads
+   here on 4 shards and on one device and searches as they did;
+6. prints a ``kernels`` JSON line (each kernel's ``sharded_launches`` from
+   5a-5c) and, last, the device line.
 
 Every check that fails exits non-zero. Without CUDA, or without the
 package beside it, it exits 1 and prints no result.
@@ -6010,6 +6035,716 @@ def check_operator_tools(torch, failures: list, wd: str,
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------- phases 5a-5d: the sharded corpus
+
+SHARDS = 4  # the virtual mesh: four shards on cuda:0
+SHARD_ROWS = 1_000_003  # not a multiple of 4: pad rows on the last shard
+SHARD_QUERIES = 1024
+SHARD_D = 64
+SHARD_MASK = 0.1  # the filtered cases' allowed share
+RING_ROWS = 200_000  # the ring k-NN's corpus, in SHARDS shards
+RING_K = 16
+MP_ROWS = 100_003  # phase 5d's rows (two processes of 2 shards each)
+MP_QUERIES = 256
+
+
+def shard_mesh():
+    from latentrag_torch.parallel import make_mesh
+
+    return make_mesh(devices=["cuda:0"] * SHARDS)
+
+
+def shard_kernel_check(torch, ft, case: dict, q, shard, k: int, mask):
+    """One shard's kernel call, as its route makes it at ``k``, against
+    the kernel's plain version on the same inputs, with phase 2's limits
+    (2b's for the binary kernels, 2d's for the int8 ones). Not counted:
+    the caller reads the launches before it."""
+    from latentrag_torch.ops.quantization import score_factor, sq8_quantize
+
+    store, rt = case["store"], case["rt"]
+    n = shard.shape[0]
+    k_eff = min(k, n)
+    fold = k_eff <= ft.FOLD_MAX_K and case["backend"] != "exact"
+    rec = {"rows": n, "k": k_eff, "fold": fold}
+    if store == "int8":
+        qc, qs = sq8_quantize(q.float())
+        fac = score_factor(qs, case["scale"])
+        if fold:
+            block_n, cand = ft.fold_plan(n, k_eff, rt)
+            kw = dict(k=cand, mode="fold", block_n=block_n, mask=mask)
+        else:
+            kw = dict(k=k_eff, mode="exact", mask=mask)
+        s_k, i_k = ft.sq8_fused_topk_raw(qc, shard, fac, **kw)
+        s_p, i_p = ft.quantized_fused_topk_raw_reference(
+            qc, shard, fac, d=shard.shape[1], op=ft._OP_I8, **kw)
+        same = i_k == i_p
+        rec["id_match"] = same.float().mean().item()
+        rec["max_abs_err"] = (s_k - s_p).abs()[same].max().item()
+        rec["ok"] = rec["id_match"] >= (FOLD_ID_MATCH if fold else 1.0) \
+            and rec["max_abs_err"] == 0.0
+        return rec
+    if store == "binary":
+        from latentrag_torch.ops.binary import binary_topk
+
+        if fold:
+            block_n, cand = ft.fold_plan(n, k_eff, rt)
+            s_k, i_k = ft.binary_fused_topk_raw(
+                q, shard, d=SHARD_D, k=cand, block_n=block_n, mask=mask)
+            s_p, i_p = ft.binary_fused_topk_raw_reference(
+                q, shard, d=SHARD_D, k=cand, block_n=block_n, mask=mask)
+            tol = 2.0 ** -10 * s_p.abs() + 1e-6  # one 19-bit key step
+        else:
+            s_k, i_k = ft.binary_exact_topk_raw(q, shard, d=SHARD_D,
+                                                k=k_eff, mask=mask)
+            s_p, i_p = binary_topk(q, shard, SHARD_D, k_eff, mask=mask)
+            tol = EXACT_SCORE_ATOL + EXACT_SCORE_RTOL * s_p.abs()
+        same = i_k == i_p.to(i_k.dtype)
+        rec["id_match"] = same.float().mean().item()
+        rec["max_abs_err"] = (s_k - s_p).abs()[same].max().item()
+        rec["ok"] = rec["id_match"] >= (BIN_ID_MATCH if fold
+                                        else EXACT_ID_MATCH) and bool(
+            ((s_k - s_p).abs() <= tol)[same].all())
+        return rec
+    metric = case["metric"]
+    if fold:
+        block_n, cand = ft.fold_plan(n, k_eff, rt)
+        kw = dict(k=cand, metric=metric, mode="fold", block_n=block_n,
+                  mask=mask)
+    else:
+        kw = dict(k=k_eff, metric=metric, mode="exact", mask=mask)
+    s_k, i_k = ft.fused_topk_raw(q, shard, **kw)
+    s_p, i_p = ft.fused_topk_raw_reference(q, shard, **kw)
+    same = i_k == i_p
+    rec["id_match"] = same.float().mean().item()
+    if fold:  # exact rescored scores at equal ids
+        s_k, i_k = ft.rescore_candidates(q, shard, i_k, metric)
+        s_p, i_p = ft.rescore_candidates(q, shard, i_p, metric)
+        same = i_k == i_p
+        err = (s_k - s_p).abs()[same]
+        rec["max_abs_err"] = err.max().item() if err.numel() else 0.0
+        rec["ok"] = rec["id_match"] >= FOLD_ID_MATCH
+        return rec
+    tol = EXACT_SCORE_ATOL + EXACT_SCORE_RTOL * s_p.abs()
+    slot_err = (s_k - s_p).abs()
+    rec["max_abs_err"] = slot_err[same].max().item() if same.any() else 0.0
+    if k_eff > ft.EXACT_MAX_K:
+        # ranks near 3000 of 250k scores lie ~1e-5 apart: sets and every
+        # slot's score, as phase 2 holds the select at 1M
+        rec["set_match"] = set_match(torch, i_k, i_p)
+        rec["slot_max_abs_err"] = slot_err.max().item()
+        rec["ok"] = rec["set_match"] >= EXACT_ID_MATCH and bool(
+            (slot_err <= tol).all())
+    else:
+        rec["ok"] = rec["id_match"] >= EXACT_ID_MATCH and bool(
+            (slot_err <= tol)[same].all())
+    return rec
+
+
+def sharded_cases(torch) -> list:
+    """Phase 5a's searches: (store, metric, backend, k, masked), each with
+    the kernel it runs on every shard, its launch counter and the name of
+    that kernel's entry in the kernels line."""
+    cases = []
+    for store, metric in (("bfloat16", "cosine"), ("bfloat16", "euclidean"),
+                          ("float32", "cosine")):
+        tag = "_fp32" if store == "float32" else ""
+        cases += [
+            dict(store=store, metric=metric, backend="approx", k=10,
+                 counter="fold", entry=f"fused_topk_fold{tag}"),
+            dict(store=store, metric=metric, backend="exact", k=160,
+                 counter="exact", entry=f"fused_topk_exact{tag}"),
+            dict(store=store, metric=metric, backend="exact", k=3000,
+                 counter="exact", entry=f"fused_topk_exact_select{tag}"),
+        ]
+    cases += [
+        dict(store="bfloat16", metric="cosine", backend="approx", k=10,
+             masked=True, counter="fold", entry="fused_topk_fold_masked"),
+        dict(store="bfloat16", metric="cosine", backend="exact", k=160,
+             masked=True, counter="exact", entry="fused_topk_exact_masked"),
+        dict(store="int8", metric="cosine", backend="sq8", k=10,
+             counter="int8_fold", entry="sq8_fused_topk_fold"),
+        dict(store="int8", metric="cosine", backend="sq8", k=160,
+             counter="int8_exact", entry="sq8_fused_topk_exact"),
+        dict(store="int8", metric="cosine", backend="sq8", k=10, masked=True,
+             counter="int8_fold", entry="sq8_fused_topk_fold_masked"),
+        dict(store="binary", metric="cosine", backend="binary", k=10,
+             counter="binary_fold", entry="binary_fused_topk_fold"),
+        dict(store="binary", metric="cosine", backend="binary", k=160,
+             counter="binary_exact", entry="binary_exact_topk"),
+    ]
+    for c in cases:
+        c.setdefault("masked", False)
+        c["rt"] = 0.99
+    return cases
+
+
+def check_sharded_topk(torch, failures: list) -> dict:
+    """Phase 5a: ``make_sharded_topk`` on a 4-shard mesh of cuda:0 over
+    SHARD_ROWS seeded rows (d=64), Q=1024: bf16 (cosine, euclidean: the
+    pad-row case) and fp32 stores at k=10 (the fold), 160 (the exact
+    kernel) and 3000 (the exact select), the int8 and binary stores at 10
+    and 160, a 10 % row mask at 10 and 160. Each search is read with the
+    counts at 0 (4 launches of its kernel, one a shard); each shard's
+    kernel call is then held to its plain version; the exact routes to
+    the unsharded exact route (ids by set where scores tie, scores within
+    phase 2's exact limits), the fold routes by candidate recall against
+    it; no pad row's or masked row's id. The sharded and unsharded searches
+    are timed. Returns the launches by kernel entry."""
+    from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.ops.binary import binary_quantize
+    from latentrag_torch.ops.quantization import score_factor, sq8_quantize
+    from latentrag_torch.ops.store_search import store_topk
+    from latentrag_torch.ops.topk import pack_row_mask
+    from latentrag_torch.parallel import make_sharded_topk, shard_rows
+
+    t_phase = time.perf_counter()
+    mesh = shard_mesh()
+    g = torch.Generator(device="cuda").manual_seed(505)
+    raw = torch.randn((SHARD_ROWS, SHARD_D), generator=g, device="cuda")
+    qraw = torch.randn((SHARD_QUERIES, SHARD_D), generator=g, device="cuda")
+    unit = torch.nn.functional.normalize(raw, dim=1)
+    qunit = torch.nn.functional.normalize(qraw, dim=1)
+    allowed = torch.rand(SHARD_ROWS, generator=g, device="cuda") < SHARD_MASK
+    mask_sh = shard_rows(allowed, mesh)
+    mask_sh.shards = [pack_row_mask(m) for m in mask_sh.shards]
+    whole_mask = pack_row_mask(allowed)
+    codes, cscale = sq8_quantize(unit)
+    words = binary_quantize(unit)
+    stores = {}
+    out: dict = {}
+    for case in sharded_cases(torch):
+        store, metric = case["store"], case["metric"]
+        key = (store, metric)
+        if key not in stores:
+            if store == "int8":
+                c, q = codes, qunit
+            elif store == "binary":
+                c, q = words, qunit
+            else:
+                dt = getattr(torch, store)
+                src, qs = (raw, qraw) if metric == "euclidean" else (
+                    unit, qunit)
+                c, q = src.to(dt).contiguous(), qs.to(dt).contiguous()
+            stores[key] = (c, q, shard_rows(c, mesh))
+        c, q, sh = stores[key]
+        case["scale"] = float(cscale)
+        k, masked = case["k"], case["masked"]
+        fn = make_sharded_topk(mesh, k=k, metric=metric,
+                               backend=case["backend"], d=SHARD_D,
+                               filtered=masked)
+        args = (q, sh, SHARD_ROWS, float(cscale) if store == "int8"
+                else None)
+        kw = {"mask_shard": mask_sh} if masked else {}
+        ft.reset_launches()
+        s, i = fn(*args, **kw)
+        torch.cuda.synchronize()
+        launches = dict(ft.launches)
+        local_k = k + SHARDS - 1
+        checks = [shard_kernel_check(
+            torch, ft, case, q, sh.shards[j], local_k,
+            mask_sh.shards[j] if masked else None) for j in range(SHARDS)]
+        # the unsharded route of the same store, whole corpus
+        route_store = {"bfloat16": "float", "float32": "float"}.get(
+            store, store)
+        route = {"approx": "xla", "exact": "exact"}.get(case["backend"])
+        whole = functools.partial(
+            store_topk, q, c, k, store=route_store, backend=route,
+            metric=metric, recall_target=case["rt"],
+            mask=whole_mask if masked else None,
+            scale=float(cscale) if store == "int8" else None, d=SHARD_D)
+        wm = whole_mask if masked else None
+        if store == "int8":  # the exact int8 kernel over the whole store
+            qc, qs = sq8_quantize(q.float())
+            s0, i0 = ft.sq8_fused_topk_raw(
+                qc, c, score_factor(qs, float(cscale)), k=k, mode="exact",
+                mask=wm)
+        elif store == "binary":
+            s0, i0 = ft.binary_exact_topk_raw(q, c, d=SHARD_D, k=k, mask=wm)
+        else:
+            s0, i0 = store_topk(q, c, k, store="float", backend="exact",
+                                metric=metric, mask=wm)
+        torch.cuda.synchronize()
+        i_cpu = i.cpu()
+        live = i_cpu >= 0
+        rec = {**{f: case[f] for f in ("store", "metric", "backend", "k",
+                                       "masked", "counter", "entry")},
+               "launches": launches[case["counter"]],
+               "masked_launches": launches["masked"],
+               "shard_checks": checks,
+               "pad_ids": int((i_cpu >= SHARD_ROWS).sum()),
+               "empty_slots": int((~live).sum())}
+        if masked:
+            ok_rows = allowed.cpu()[i_cpu.clamp_min(0)]
+            rec["masked_ids"] = int((live & ~ok_rows).sum())
+        sharded_exact = case["backend"] == "exact" or k > ft.FOLD_MAX_K
+        if sharded_exact:
+            rec["set_match"] = set_match(torch, i, i0.long())
+            tol = EXACT_SCORE_ATOL + EXACT_SCORE_RTOL * s0.abs()
+            rec["slot_max_abs_err"] = (s - s0).abs().max().item()
+            score_ok = bool(((s - s0).abs() <= tol).all())
+            rec["ok_vs_unsharded"] = (rec["set_match"] >= EXACT_ID_MATCH
+                                      and score_ok)
+        else:
+            rec["recall_vs_exact"] = set_match(torch, i, i0.long())
+            rec["ok_vs_unsharded"] = rec["recall_vs_exact"] >= FOLD_RECALL
+        rec["sharded_ms"] = time_ms(torch, lambda: fn(*args, **kw), reps=10,
+                                    warmup=2)
+        rec["unsharded_ms"] = time_ms(torch, whole, reps=10, warmup=2)
+        rec["ok"] = (rec["launches"] == SHARDS
+                     and (not masked or rec["masked_launches"] == SHARDS)
+                     and all(x["ok"] for x in checks)
+                     and rec["pad_ids"] == 0
+                     and rec.get("masked_ids", 0) == 0
+                     and rec["ok_vs_unsharded"])
+        record("sharded_topk", **rec)
+        if not rec["ok"]:
+            failures.append(f"sharded top-k {rec}")
+        out.setdefault(case["entry"], {})[
+            f"{store}_{metric}_k{k}"] = rec["launches"]
+    del stores, raw, unit, codes, words
+    torch.cuda.empty_cache()
+    record("sharded_topk_phase", phase_s=time.perf_counter() - t_phase)
+    return out
+
+
+def sharded_main_overrides(wd: str, store: str, top_k: int,
+                           kernel: str = "auto") -> list:
+    return main_overrides(wd, kernel, store, top_k) + [
+        "retrieval.shard_corpus=true",
+        f"retrieval.index_path={wd}/sharded_{kernel}_{store}_{top_k}"]
+
+
+def plain_sharded_cascade(torch, r, queries, k: int, p: int):
+    """The binary store ``r`` (unsharded) searched over ``p`` shards built
+    here, apart from the port's ``parallel/``: its words split into row
+    ranges of ceil(n / p) rows, zero words padding the last; each range
+    searched by the plain version of the kernel that a shard's stage 1
+    launches, at that shard's plan (k + p - 1 of its rows: the fold's plain
+    version up to 128 candidates, the exact search's past them); its ids
+    offset by its start, pad rows dropped; the ranges' candidates ranked by
+    score, ties to the lower shard-major position (a stable sort); then
+    the store's stage 2. Host numpy (scores, ids)."""
+    import numpy as np
+
+    from latentrag_torch.ops import binary as tb
+    from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.ops.distances import prepare_for_metric
+    from latentrag_torch.retrieval.rescore import exact_rescore_topk
+
+    q = prepare_for_metric(torch.as_tensor(queries).float().cuda(),
+                           r.metric, r._whitener)
+    n, d = r._corpus_n, r._dim
+    ok = min(r.binary_oversample * k, n)
+    rt = r._effective_recall_target(k)
+    rows = -(-n // p)
+    words = torch.zeros((rows * p, r._corpus.shape[1]), dtype=torch.int32,
+                        device="cuda")
+    words[:n] = r._corpus[:n]
+    parts_s, parts_i = [], []
+    for j in range(p):
+        w = words[j * rows:(j + 1) * rows].contiguous()
+        kk = min(ok + p - 1, rows)
+        if kk > ft.FOLD_MAX_K:
+            s1, idx = tb.binary_topk(q, w, d, kk)
+        else:
+            block_n, cand = ft.fold_plan(rows, kk, rt)
+            _, idx = ft.binary_fused_topk_raw_reference(
+                q, w, d=d, k=cand, block_n=block_n)
+            s1, idx = ft.rescore_binary_candidates(q, w, idx, d)
+            s1, idx = s1[:, :kk], idx[:, :kk]
+        gi = idx.long().cpu().numpy() + j * rows
+        parts_s.append(np.where(gi < n, s1.float().cpu().numpy(), -np.inf))
+        parts_i.append(gi)
+    cat_s, cat_i = np.concatenate(parts_s, 1), np.concatenate(parts_i, 1)
+    order = np.argsort(-cat_s, axis=1, kind="stable")[:, :ok]
+    cand = np.take_along_axis(cat_i, order, 1)
+    cand = np.where(np.take_along_axis(cat_s, order, 1) > -np.inf, cand, -1)
+    return exact_rescore_topk(
+        q.cpu().numpy(), lambda i: r._rescore_host[i], cand, k,
+        metric="dot", scale=r._corpus_scale)
+
+
+def check_sharded_main(torch, failures: list) -> dict:
+    """Phase 5b: the main path at full width (MiniLM-L6 bf16, 384 -> VAE
+    64, 1997 contexts, 2000 queries) through ``PipelineRunner(cfg,
+    ae_type="vae", mesh=<4 shards of cuda:0>).process`` under
+    ``retrieval.shard_corpus``: the bf16 store at top_k 10 and 150 held to
+    the ``xla_exact`` oracle over one unsharded store of the same latents
+    (MAIN_DOC_AGREE of the slots, metrics within MAIN_METRIC_TOL), the
+    binary store at top_k 10 and 20 to ``plain_sharded_cascade`` over the
+    unsharded binary store's words (BIN_DOC_AGREE of the slots: the same
+    plans, so the same ties) and to the unsharded binary store (metrics
+    within BIN_METRIC_TOL; at 20, where stage 1 is exact, BIN_DOC_AGREE of
+    the slots; at 10 the two fold plans keep different rows among equal
+    sign-dots, its slot agreement recorded); the 4-shard encode against the
+    unsharded one (the encoder's bf16 band); the bf16 store saved as
+    sharded/, warm-booted by a second run ("skipping rebuild", the same
+    docs), mutated (an added row top-1 on itself, a removed id never
+    back) and checked by ``python -m latentrag_torch.doctor``; then
+    ``main --set retrieval.shard_corpus=true`` on the one card (a 1-device
+    mesh, dropped: the unsharded run bit for bit). Returns the launches of
+    each run, read with the counts at 0 before it."""
+    import numpy as np
+
+    from latentrag_torch.data import get_examples, load_evaluation_data
+    from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.pipeline import PipelineRunner
+    from latentrag_torch.retrieval import load_retriever
+    from latentrag_torch.utils import Config, apply_overrides
+
+    t_phase = time.perf_counter()
+    mesh = shard_mesh()
+    launches: dict = {}
+    wd = tempfile.mkdtemp(prefix="lr_sharded_")
+    atexit.register(shutil.rmtree, wd, True)
+    write_vae(torch, f"{wd}/vae.pth")
+    base = apply_overrides(Config(), sharded_main_overrides(wd, "bfloat16",
+                                                            10))
+    queries, corpus, relevant = load_evaluation_data(get_examples(base))
+
+    def run(store, top_k, kernel="auto", sharded=True):
+        """One run on the 4-shard encode; ``sharded``: the store too (the
+        reference runs search one unsharded store of the same latents)."""
+        ov = sharded_main_overrides(wd, store, top_k, kernel)
+        if not sharded:
+            ov = [o for o in ov if "shard_corpus" not in o] + [
+                f"retrieval.index_path={wd}/plain_{kernel}_{store}_{top_k}"]
+        cfg = apply_overrides(Config(), ov)
+        ft.reset_launches()
+        t0 = time.perf_counter()
+        with logged("latentrag_torch.retrieval") as lines:
+            res = PipelineRunner(cfg, ae_type="vae", device="cuda",
+                                 mesh=mesh).process(
+                queries, corpus, relevant)
+        torch.cuda.synchronize()
+        res["wall_s"] = time.perf_counter() - t0
+        res["launches"] = dict(ft.launches)
+        res["retrieval_log"] = lines
+        return res, cfg
+
+    rows = lambda ids: [list(r) for r in ids]  # noqa: E731
+    results = {}
+    # the queries' latents of the main runs, by the 4-shard encode
+    sharded_enc = PipelineRunner(base, ae_type="vae", device="cuda",
+                                 mesh=mesh)._ensure_compressor(corpus)
+    q_emb = sharded_enc.encode_text(list(queries))
+    # the binary store at top_k=10: stage 1 is the fold, whose plan differs
+    # between 500-row shards (128-row tiles, 4 a lane) and the 1997-row
+    # store (16 a lane); these seeded latents' sign words repeat by the
+    # hundred (recorded), so the two folds keep different rows among
+    # equal sign-dots: against the unsharded store it is held on the
+    # metrics, its slot agreement recorded, and on its slots against
+    # plain_sharded_cascade, whose plans break the ties as the shards do.
+    # At top_k=20 stage 1 is exact, ties to the lower row, on both sides
+    for store, top_k, ref_kernel, agree_min, tol in (
+            ("bfloat16", 10, "xla_exact", MAIN_DOC_AGREE, MAIN_METRIC_TOL),
+            ("bfloat16", 150, "xla_exact", MAIN_DOC_AGREE, MAIN_METRIC_TOL),
+            ("binary", 10, "auto", 0.0, BIN_METRIC_TOL),
+            ("binary", 20, "auto", BIN_DOC_AGREE, BIN_METRIC_TOL)):
+        res, cfg = run(store, top_k)
+        ref, _ = run(store, top_k, ref_kernel, sharded=False)
+        agree = slot_agreement(rows(res["retrieved_doc_ids"]),
+                               rows(ref["retrieved_doc_ids"]))
+        deltas = {m: abs(res["retrieval_metrics"][m]["mean"]
+                         - ref["retrieval_metrics"][m]["mean"])
+                  for m in res["retrieval_metrics"]}
+        ds = np.asarray(res["doc_scores"])
+        want = {("bfloat16", 10): {"fold": 2 * SHARDS},
+                ("bfloat16", 150): {"exact": SHARDS, "fold": SHARDS},
+                ("binary", 10): {"binary_fold": 2 * SHARDS},
+                ("binary", 20): {"binary_exact": SHARDS,
+                                 "binary_fold": SHARDS}}[(store, top_k)]
+        got = {c: res["launches"][c] for c in want}
+        persisted = any(x.startswith("index persisted to")
+                        for x in res["retrieval_log"])
+        rec = {"store": store, "top_k": top_k, "reference": ref_kernel,
+               "doc_agreement": agree, "metric_deltas": deltas,
+               "metrics": {m: v["mean"] for m, v in
+                           res["retrieval_metrics"].items()},
+               "timings_s": res["timings"], "wall_s": res["wall_s"],
+               "reference_wall_s": ref["wall_s"], "launches": got,
+               "persisted": persisted, "agreement_held": agree_min > 0,
+               "finite": bool(np.isfinite(ds).all()),
+               "shape_ok": ds.shape == (res["n_queries"], top_k)}
+        rec["ok"] = (agree >= agree_min and max(deltas.values()) <= tol
+                     and got == want and rec["finite"] and rec["shape_ok"]
+                     and persisted and res["dim_out"] == 64)
+        rec["self_check_failed"] = {
+            name: "post-build self-check failed; rebuilding once" in x[
+                "retrieval_log"] for name, x in (("sharded", res),
+                                                 ("reference", ref))}
+        if store == "binary":
+            # the unsharded store of the same latents, split into shards
+            # here: the main run's docs on BIN_DOC_AGREE of the slots
+            plain_cfg = apply_overrides(Config(), main_overrides(
+                wd, "auto", store, top_k) + [
+                f"retrieval.index_path={wd}/plain_auto_{store}_{top_k}"])
+            u = load_retriever(plain_cfg.retrieval, device="cuda")
+            _, ids = plain_sharded_cascade(torch, u, q_emb, top_k, SHARDS)
+            split_docs = [[u.doc_ids[int(j)] for j in row if j >= 0]
+                          for row in ids]
+            rec["plain_sharded_doc_agreement"] = slot_agreement(
+                rows(res["retrieved_doc_ids"]), split_docs)
+            rec["distinct_sign_rows"] = int(torch.unique(
+                u._rows(), dim=0).shape[0])
+            rec["ok"] = rec["ok"] and (rec["plain_sharded_doc_agreement"]
+                                       >= BIN_DOC_AGREE)
+        record("sharded_main_path", **rec)
+        if not rec["ok"]:
+            failures.append(f"sharded main path {rec}")
+        launches[f"{store}_top_k_{top_k}"] = got
+        results[(store, top_k)] = (res, cfg)
+
+    # the 4-shard encode against the unsharded one, bf16 MiniLM-L6
+    res, cfg = results[("bfloat16", 10)]
+    plain_enc = PipelineRunner(cfg, ae_type="vae",
+                               device="cuda")._ensure_compressor(corpus)
+    texts = list(corpus[:512])
+    e_sh = sharded_enc.encoder.encode_batch(texts)
+    e_pl = plain_enc.encoder.encode_batch(texts)
+    enc_err = (e_sh - e_pl).abs().max().item()
+    enc = {"rows": len(texts), "max_abs_err": enc_err,
+           "bit_for_bit": torch.equal(e_sh, e_pl),
+           "ok": enc_err <= 5e-3}
+    record("sharded_encode", **enc)
+    if not enc["ok"]:
+        failures.append(f"the 4-shard encode {enc}")
+
+    # the sharded store: on disk, the doctor, a warm boot, mutation
+    path = cfg.retrieval.index_path
+    files = sorted(os.listdir(path))
+    # the doctor reads a copy: the mutations below rewrite the store
+    shutil.copytree(path, f"{wd}/doctor_copy")
+    doctor_proc = run_doctor(["--index", f"{wd}/doctor_copy",
+                              "--checkpoints", f"{wd}/ckpt"])
+    again, _ = run("bfloat16", 10)
+    warm = {"files": files,
+            "skipped": "index compatible; skipping rebuild"
+                       in again["retrieval_log"],
+            "same_docs": again["retrieved_doc_ids"]
+            == res["retrieved_doc_ids"],
+            "search_launches": again["launches"]["fold"]}
+    r = load_retriever(cfg.retrieval, device="cuda", mesh=mesh)
+    comp = sharded_enc
+    new_text = "a sharded store takes a new document about comets"
+    new_emb = comp.encode_text([new_text])
+    ft.reset_launches()
+    r.add(new_emb, [new_text], doc_ids=[10 ** 6])
+    removed = r.remove([0, 1])
+    _, ids = r.search(comp.encode_text([new_text, corpus[0]]), 10)
+    mutation_launches = dict(ft.launches)
+    warm["added_top1"] = r.doc_ids[int(ids[0, 0])] == 10 ** 6
+    warm["removed_back"] = any(r.doc_ids[int(j)] in (0, 1)
+                               for j in ids.ravel() if j >= 0)
+    warm["removed"] = removed
+    r2 = load_retriever(cfg.retrieval, device="cuda", mesh=mesh)
+    warm["reloaded_n"] = r2._corpus_n if r2 is not None else None
+    d_out, d_err = doctor_proc.communicate(timeout=600)
+    try:
+        report = json.loads(d_out.strip().splitlines()[-1])["doctor"]
+    except (ValueError, KeyError, IndexError):
+        report = {}
+    store_check = report.get("checks", {}).get("store:dense", {})
+    note = [x for x in d_err.splitlines() if "sharded/ store present" in x]
+    warm["doctor"] = {"rc": doctor_proc.returncode, "store": store_check,
+                      "note": note}
+    warm["ok"] = ("sharded" in files and "corpus.npy" not in files
+                  and warm["skipped"] and warm["same_docs"]
+                  and warm["added_top1"] and not warm["removed_back"]
+                  and removed == 2 and warm["reloaded_n"] == len(corpus) - 1
+                  and doctor_proc.returncode == 0
+                  and store_check.get("status") == "pass" and bool(note))
+    record("sharded_store", **warm)
+    if not warm["ok"]:
+        failures.append(f"the sharded store {warm}")
+    launches["warm_boot"] = {"fold": warm["search_launches"]}
+    launches["mutation"] = {"fold": mutation_launches["fold"]}
+
+    # main on the one card with shard_corpus: a 1-device mesh, dropped
+    from latentrag_torch import main as cli
+
+    outs = []
+    for sharded_flag in (True, False):
+        ov = main_overrides(wd, "auto", "bfloat16") + [
+            f"retrieval.index_path={wd}/one_card_{sharded_flag}"]
+        if sharded_flag:
+            ov.append("retrieval.shard_corpus=true")
+        got: list = []
+        with logged("latentrag_torch.main") as lines:
+            rc = cli.main(["--ae_type", "vae", "--device", "cuda", "--set",
+                           *ov], results=got)
+        outs.append((rc, got, lines))
+    (rc1, r1, l1), (rc2, r2_, _) = outs
+    one = {"logged": "sharding corpus over 1 devices" in l1,
+           "rc": [rc1, rc2],
+           "same_docs": bool(r1 and r2_ and r1[0]["retrieved_doc_ids"]
+                             == r2_[0]["retrieved_doc_ids"]),
+           "same_scores": bool(r1 and r2_ and np.array_equal(
+               r1[0]["doc_scores"], r2_[0]["doc_scores"]))}
+    one["ok"] = rc1 == rc2 == 0 and all(
+        one[f] for f in ("logged", "same_docs", "same_scores"))
+    record("shard_corpus_one_card", **one)
+    if not one["ok"]:
+        failures.append(f"main with shard_corpus on one card {one}")
+    record("sharded_main_phase", phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def check_ring_knn(torch, failures: list) -> dict:
+    """Phase 5c: ``sharded_knn_graph`` over RING_ROWS x 64 fp32 unit rows
+    in 4 shards of cuda:0, k=RING_K: the approximate ring (the fp32 fold,
+    one launch a shard a step) at recall >= KNN_RECALL of ``knn_graph``'s
+    exact lists, the exact ring equal to them by set. Returns the
+    approximate ring's launches."""
+    import numpy as np
+
+    from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.ops.knn import knn_graph
+    from latentrag_torch.parallel import sharded_knn_graph
+
+    t_phase = time.perf_counter()
+    mesh = shard_mesh()
+    g = torch.Generator(device="cuda").manual_seed(707)
+    c = torch.nn.functional.normalize(
+        torch.randn((RING_ROWS, ANN_D), generator=g, device="cuda"), dim=1)
+    t0 = time.perf_counter()
+    want = knn_graph(c, RING_K, exact=True)
+    exact_single_s = time.perf_counter() - t0
+    ft.reset_launches()
+    t0 = time.perf_counter()
+    approx = sharded_knn_graph(c, RING_K, mesh)
+    approx_s = time.perf_counter() - t0
+    launches = dict(ft.launches)
+    t0 = time.perf_counter()
+    exact = sharded_knn_graph(c, RING_K, mesh, exact=True)
+    exact_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single = knn_graph(c, RING_K)
+    single_s = time.perf_counter() - t0
+
+    def recall(got):
+        hits = sum(len(set(a.tolist()) & set(b.tolist()))
+                   for a, b in zip(got, want))
+        return hits / want.size
+
+    rec = {"rows": RING_ROWS, "k": RING_K, "shards": SHARDS,
+           "fold_launches": launches["fold"],
+           "approx_recall": recall(approx), "exact_recall": recall(exact),
+           "exact_same_order": bool(np.array_equal(exact, want)),
+           "single_device_approx_recall": recall(single),
+           "approx_s": approx_s, "exact_s": exact_s,
+           "single_device_approx_s": single_s,
+           "single_device_exact_s": exact_single_s}
+    rec["ok"] = (rec["approx_recall"] >= KNN_RECALL
+                 and rec["exact_recall"] == 1.0
+                 and launches["fold"] == SHARDS * SHARDS)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    record("ring_knn", **rec)
+    if not rec["ok"]:
+        failures.append(f"the ring k-NN {rec}")
+    del c
+    torch.cuda.empty_cache()
+    return {"ring_approx": launches["fold"]}
+
+
+def check_two_processes(torch, failures: list) -> None:
+    """Phase 5d: two processes on gloo (``scripts/torch_multiproc_worker.py
+    --device cuda:0 --local_devices 2 --dtype bfloat16``), a 4-shard global
+    mesh on the one card: their sharded exact bf16 and SQ8 searches equal
+    bit for bit to this process's 4-shard search of the same rows; the
+    sharded store both saved, loaded here on a 4-shard mesh and with no
+    mesh, searches as they did. A worker's failure fails the phase."""
+    import socket
+
+    import numpy as np
+
+    from latentrag_torch.parallel import (
+        load_sharded_index,
+        make_sharded_topk,
+        shard_rows,
+    )
+    from latentrag_torch.retrieval import DenseRetriever
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "scripts"))
+    from torch_multiproc_worker import data
+
+    t_phase = time.perf_counter()
+    wd = tempfile.mkdtemp(prefix="lr_mp_")
+    atexit.register(shutil.rmtree, wd, True)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(root, "scripts",
+                                      "torch_multiproc_worker.py"),
+         "--process_id", str(r), "--num_processes", "2",
+         "--coordinator", f"localhost:{port}", "--local_devices", "2",
+         "--device", "cuda:0", "--dtype", "bfloat16", "--n", str(MP_ROWS),
+         "--d", "64", "--queries", str(MP_QUERIES), "--out", f"{wd}/res",
+         "--checkpoint_dir", f"{wd}/ckpt"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=root) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=300)
+            outs.append((p.returncode, out))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    workers_s = time.perf_counter() - t_phase
+    rec = {"workers_rc": [rc for rc, _ in outs], "workers_s": workers_s}
+    if any(rc != 0 or "TORCH_MULTIPROC_OK" not in out for rc, out in outs):
+        rec["tails"] = [out[-1500:] for _, out in outs]
+        record("two_processes", **rec)
+        failures.append(f"a phase 5d worker failed: {rec}")
+        return
+    res = [dict(np.load(f"{wd}/res.{r}.npz")) for r in range(2)]
+    corpus, queries, _ = data(MP_ROWS, 64, MP_QUERIES)
+    mesh = shard_mesh()
+    q = torch.tensor(queries, device="cuda")
+    c = torch.tensor(corpus, device="cuda").to(torch.bfloat16)
+    sh = shard_rows(c, mesh)
+    s, i = make_sharded_topk(mesh, k=10, backend="exact")(q, sh, MP_ROWS)
+    codes = torch.tensor(res[0]["codes"], device="cuda")
+    s8, i8 = make_sharded_topk(mesh, k=10, backend="sq8")(
+        q, shard_rows(codes, mesh), MP_ROWS, float(res[0]["scale"]))
+    same = lambda a, b: bool(np.array_equal(a, b))  # noqa: E731
+    rec["ranks_agree"] = all(same(res[0][x], res[1][x]) for x in res[0])
+    rec["exact_bit_for_bit"] = same(res[0]["exact_i"], i.cpu().numpy()) \
+        and same(res[0]["exact_s"], s.cpu().numpy())
+    rec["sq8_bit_for_bit"] = same(res[0]["sq8_i"], i8.cpu().numpy()) \
+        and same(res[0]["sq8_s"], s8.cpu().numpy())
+    loaded, meta = load_sharded_index(f"{wd}/ckpt/sharded", mesh)
+    s2, i2 = make_sharded_topk(mesh, k=10, backend="exact")(q, loaded,
+                                                           MP_ROWS)
+    rec["checkpoint_mesh_bit_for_bit"] = same(i2.cpu().numpy(),
+                                              res[0]["exact_i"]) and same(
+        s2.cpu().numpy(), res[0]["exact_s"])
+    whole, _ = load_sharded_index(f"{wd}/ckpt/sharded", device="cuda")
+    rec["checkpoint_rows_bit_for_bit"] = torch.equal(whole[:MP_ROWS], c)
+    dense = {}
+    for label, m in (("mesh", mesh), ("no_mesh", None)):
+        r = DenseRetriever(backend="xla_exact", store_dtype="bfloat16",
+                           mesh=m, device="cuda",
+                           index_path=f"{wd}/ckpt/dense")
+        sd, idd = r.search(queries, 10)
+        dense[label] = r.is_built and same(idd, res[0]["dense_i"]) and same(
+            sd, res[0]["dense_s"])
+    rec["dense_store_bit_for_bit"] = dense
+    rec["ok"] = (rec["ranks_agree"] and rec["exact_bit_for_bit"]
+                 and rec["sq8_bit_for_bit"]
+                 and rec["checkpoint_mesh_bit_for_bit"]
+                 and rec["checkpoint_rows_bit_for_bit"]
+                 and all(dense.values()))
+    rec["phase_s"] = time.perf_counter() - t_phase
+    record("two_processes", **rec)
+    if not rec["ok"]:
+        failures.append(f"phase 5d {rec}")
+
+
 def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "latentrag_torch", "csrc")):
@@ -6200,6 +6935,28 @@ def main() -> int:
     if failures:
         fail("; ".join(failures))
     record("outside_inputs_phases", seconds=time.perf_counter() - t_outside)
+    # phases 5a-5d: the sharded corpus on a mesh of four shards of the one
+    # card; each search and run read with the counts at 0 just before it
+    t_sharded = time.perf_counter()
+    sharded = check_sharded_topk(torch, failures)
+    if failures:
+        fail("; ".join(failures[:5]))
+    counter_entry = {"fold": "fused_topk_fold", "exact": "fused_topk_exact",
+                     "binary_fold": "binary_fused_topk_fold",
+                     "binary_exact": "binary_exact_topk"}
+    for label, counts in check_sharded_main(torch, failures).items():
+        for counter, n in counts.items():
+            sharded.setdefault(counter_entry[counter], {})[
+                f"main_{label}"] = n
+    if failures:
+        fail("; ".join(failures))
+    sharded["fused_topk_fold_fp32_knn"] = check_ring_knn(torch, failures)
+    if failures:
+        fail("; ".join(failures))
+    check_two_processes(torch, failures)
+    if failures:
+        fail("; ".join(failures))
+    record("sharded_phases", seconds=time.perf_counter() - t_sharded)
 
     kernels = []
     for mode, fn_line, source in (("fold", 162, "fold_mma.cuh"),
@@ -6382,6 +7139,9 @@ def main() -> int:
                  f"block_n={t['block_n']} fp32 cosine (knn_graph's block)",
         "resources": t["resources"],
     })
+    # the slice's drives (5a-5c): each kernel's launches there, by run
+    for entry in kernels:
+        entry["sharded_launches"] = sharded.get(entry["name"], {})
     if "jax" in sys.modules:
         fail("jax was imported")
     record("done", seconds=time.perf_counter() - t_start)

@@ -13,8 +13,10 @@ a TPU relay; this one probes CUDA and the port's kernels):
 * tokenizer: the C++ WordPiece fast path;
 * the stores at ``--index`` (the dense store's meta, texts, sidecars,
   generation and sampled digests; the HNSW / IVF-PQ sidecars), each under
-  its own crash guard; a ``sharded/`` store, which the port cannot load
-  yet, fails;
+  its own crash guard; a ``sharded/`` store's meta, row count,
+  generation tag and shard files, as the JAX doctor checks its meta and
+  generation (the JAX package's Orbax layout fails, naming the script that
+  rewrites it);
 * checkpoints: encoder / reranker ``.msgpack``, AE ``.pth``, and the JAX
   trainer's Orbax AE directories, which get a warning naming the command
   that converts them.
@@ -156,10 +158,10 @@ def _dense_store(path: str):
         return int(np.load(p, mmap_mode="r").shape[0])
 
     corpus_rows = rows("corpus.npy")
-    if corpus_rows is None:
-        return FAIL, "corpus.npy missing (a sharded/ store is not read by " \
-                     "the port yet)", notes
-    if corpus_rows != n:
+    sharded = os.path.isdir(os.path.join(path, "sharded"))
+    if corpus_rows is None and not sharded:
+        return FAIL, "corpus.npy missing (and no sharded/ store)", notes
+    if corpus_rows is not None and corpus_rows != n:
         return FAIL, f"corpus.npy holds {corpus_rows} rows vs n={n}", notes
     for name, tier in (("binary_packed.npy", "binary"),
                        ("sq4_packed.npy", "int4")):
@@ -176,6 +178,12 @@ def _dense_store(path: str):
         verify_stored_digests(path, meta)
     except ValueError as e:
         return FAIL, str(e), notes
+    if sharded:
+        status, why = _sharded_store(os.path.join(path, "sharded"), n,
+                                     meta.get("sharded_generation"))
+        if status == FAIL:
+            return FAIL, why, notes
+        notes.append(why)
     if os.path.exists(os.path.join(path, "whitener.npy")):
         notes.append("whitener present (mahalanobis/whitened metric)")
     fp = meta.get("fingerprint") or {}
@@ -183,6 +191,21 @@ def _dense_store(path: str):
               f"fingerprint keys={sorted(fp)}" if fp
               else f"n={n}, no fingerprint")
     return PASS, detail, notes
+
+
+def _sharded_store(path: str, n: int, want_gen):
+    """A ``sharded/`` store against meta.json: its meta (the port's
+    layout), row count and generation tag, and every shard file's shape,
+    read off the headers."""
+    from .parallel.checkpoint import read_sharded_meta
+
+    try:
+        smeta = read_sharded_meta(path, n, want_gen)
+    except (OSError, ValueError) as e:
+        return FAIL, f"sharded/: {e}"
+    return PASS, (f"sharded/ store present and generation-consistent "
+                  f"({smeta['p']} shards of {smeta['rows_per_shard']} "
+                  f"rows, {smeta['dtype']})")
 
 
 def _ann_store(stem: str, kind: str):

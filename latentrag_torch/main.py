@@ -36,6 +36,7 @@ from .utils import (
     load_config,
     set_seed,
 )
+from .utils.device import resolve_device
 from .utils.experiment_log import append_csv_row, build_metrics_row
 
 AE_CHOICES = ("none", "vae", "dae", "cae", "contrastive", "all")
@@ -107,6 +108,15 @@ def main(argv=None, results: list | None = None) -> int:
                 loggers.main.info("%s: ERROR %s", system, res.get("error"))
         return 0
 
+    mesh = None
+    if cfg.retrieval.shard_corpus:
+        from .parallel import make_mesh
+
+        dev = resolve_device(args.device)
+        # every visible card (a 1-device mesh is dropped downstream)
+        mesh = make_mesh(devices=None if dev.type == "cuda" else [dev])
+        loggers.main.info("sharding corpus over %d devices", mesh.size)
+
     variants = (
         ["vae", "dae", "cae"]
         if args.ae_type == "all"
@@ -115,7 +125,7 @@ def main(argv=None, results: list | None = None) -> int:
     for ae in variants:
         try:
             runner = PipelineRunner(cfg, ae_type=ae, generate=args.generate,
-                                    device=args.device)
+                                    device=args.device, mesh=mesh)
         except FileNotFoundError as e:
             loggers.main.error("%s", e)
             return 2

@@ -186,7 +186,16 @@ class SentenceEncoder:
     ``encode_batch(texts) -> torch.Tensor [B, dim]`` fp32 on the encoder's
     device. ``state_dict`` (optional) is a ``MiniLMEncoder`` state dict,
     e.g. from ``models.convert.minilm_state_dict_from_jax``; without one
-    the weights are a seeded init."""
+    the weights are a seeded init.
+
+    ``mesh`` (a ``parallel.Mesh`` with more than one local shard) encodes
+    data-parallel over this process's shards, as the JAX package's mesh
+    encode does: one replica of the weights on each distinct device, host
+    chunks of ``batch_size`` x P rows padded to a multiple of P, each
+    shard's equal slice of the rows on its device, and the outputs
+    concatenated in order on the mesh's first device. Each row's result is
+    its own (no collective), up to the kernels' sum order at the smaller
+    batch."""
 
     def __init__(
         self,
@@ -195,11 +204,15 @@ class SentenceEncoder:
         state_dict: dict | None = None,
         seed: int = 0,
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
         from ...utils.device import resolve_device
 
         self.cfg = cfg or EncoderConfig()
         self.tokenizer = tokenizer
+        self.mesh = mesh if mesh is not None and mesh.local_size > 1 else None
+        if self.mesh is not None:
+            device = self.mesh.devices[0]
         self.device = resolve_device(device)
         dtype = torch.bfloat16 if self.cfg.dtype == "bfloat16" else torch.float32
         self.module = MiniLMEncoder(
@@ -219,6 +232,13 @@ class SentenceEncoder:
         else:
             self.module.load_state_dict(state_dict)
         self.module.to(self.device).eval()
+        self._replicas = {self.device: self.module}
+        if self.mesh is not None:
+            import copy
+
+            for dev in self.mesh.distinct_devices():
+                if dev not in self._replicas:
+                    self._replicas[dev] = copy.deepcopy(self.module).to(dev)
 
     @property
     def dim(self) -> int:
@@ -231,7 +251,9 @@ class SentenceEncoder:
         if not texts:
             return torch.zeros((0, self.dim), dtype=torch.float32,
                                device=self.device)
-        bs = self.cfg.batch_size
+        # with a mesh each shard keeps the configured batch; the host chunk
+        # grows with the shard count
+        bs = self.cfg.batch_size * (self.mesh.local_size if self.mesh else 1)
         chunks = [self._encode_chunk(texts[i : i + bs])
                   for i in range(0, len(texts), bs)]
         return chunks[0] if len(chunks) == 1 else torch.cat(chunks)
@@ -245,11 +267,21 @@ class SentenceEncoder:
         bucket = _bucket_length(ids.shape[1], self.cfg.max_length)
         n = ids.shape[0]
         nb = _bucket_batch(n)
+        if self.mesh is not None:  # rows divide evenly across the shards
+            p = self.mesh.local_size
+            nb = -(-max(nb, p) // p) * p
         ids = np.pad(ids, ((0, nb - n), (0, bucket - ids.shape[1])),
                      constant_values=self.tokenizer.pad_id)
         mask = np.pad(mask, ((0, nb - n), (0, bucket - mask.shape[1])))
-        out = self.module(
-            torch.from_numpy(ids).long().to(self.device),
-            torch.from_numpy(mask).to(self.device),
-        )
+        ids = torch.from_numpy(ids).long()
+        mask = torch.from_numpy(mask)
+        if self.mesh is None:
+            out = self.module(ids.to(self.device), mask.to(self.device))
+        else:
+            step = nb // self.mesh.local_size
+            out = torch.cat([
+                self._replicas[dev](ids[j * step:(j + 1) * step].to(dev),
+                                    mask[j * step:(j + 1) * step].to(dev)
+                                    ).to(self.device)
+                for j, dev in enumerate(self.mesh.devices)])
         return out[:n].float()

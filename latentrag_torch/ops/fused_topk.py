@@ -112,7 +112,7 @@ from .quantization import (
     quantized_topk,
     score_factor,
     sq4_unpack,
-    sq8_quantize,
+    sq8_queries,
 )
 from .topk import NEG_INF, as_bool_mask, order_keys
 
@@ -1177,7 +1177,8 @@ def approx_sq8_fused_topk(
     """The int8 store's search on the card (the part XLA's ``approx_max_k``
     played in ``sq8_topk`` on the TPU): the prepared queries quantized with
     one SQ8 scale over the batch (``sq8_quantize``, as the JAX function
-    does, so a query's scores depend on its batch), the int8 fold at
+    does, so a query's scores depend on its batch; ``sq8_queries``: a
+    (codes, scale) pair passes as it is), the int8 fold at
     ``fold_plan``'s width and candidates from ``recall_target``, the
     candidates rescored exactly in int32 and ranked with ties to the lower
     row, the best k kept; above the fold's 128 the exact int8 kernel, and
@@ -1186,7 +1187,7 @@ def approx_sq8_fused_topk(
     score of that row bit for bit. ``mask`` restricts every route; slots no
     allowed row fills are (NEG_INF, -1). On a CPU tensor each route runs
     its plain version."""
-    q_codes, q_scale = sq8_quantize(queries)
+    q_codes, q_scale = sq8_queries(queries)
     return _approx_quantized(
         q_codes, codes, score_factor(q_scale, corpus_scale),
         d=codes.shape[1], k=k, recall_target=recall_target, mask=mask,
@@ -1203,7 +1204,7 @@ def approx_sq4_fused_topk(
     codes against the int4 codes, times ``q_scale * corpus_scale``), the
     fold's candidates unpacked and rescored exactly in int32
     (``int4_fold``, ``int4_exact``, ``int4_blocked``)."""
-    q_codes, q_scale = sq8_quantize(queries)
+    q_codes, q_scale = sq8_queries(queries)
     return _approx_quantized(
         q_codes, packed, score_factor(q_scale, corpus_scale), d=d, k=k,
         recall_target=recall_target, mask=mask, op=_OP_I4,

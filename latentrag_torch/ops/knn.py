@@ -15,9 +15,9 @@ blocked plain search ``ops.topk.exact_topk``, as the JAX package's is
 XLA. A block's ids come back to the host once and ``strip_self`` drops the
 row itself there, in numpy.
 
-The JAX package spreads the corpus over a mesh when it sees more than one
-device (``parallel.sharded_knn_graph``, the same lists); this port runs
-the single-device form on the caller's device.
+With more than one visible card the HNSW build takes
+``parallel.sharded_knn_graph`` instead (the same lists, the corpus
+sharded over a ring of the cards), as the JAX package's does.
 """
 
 from __future__ import annotations

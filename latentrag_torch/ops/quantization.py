@@ -55,6 +55,16 @@ def sq8_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return codes, scale
 
 
+def sq8_queries(queries) -> tuple:
+    """The prepared queries' SQ8 (codes, scale) by ``sq8_quantize``, one
+    scale over the batch; a pair that the caller quantized already passes
+    as it is (a sharded search quantizes its queries once, not once a
+    shard)."""
+    if isinstance(queries, tuple):
+        return queries
+    return sq8_quantize(queries)
+
+
 def sq4_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-tensor int4: (packed uint8 [N, ceil(D/2)], scale).
 
@@ -167,10 +177,10 @@ def sq8_topk(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Cosine/dot top-k over an int8 corpus: (scores [Q, k] f32, ids [Q, k]
     i64). Queries (prepared for the metric) are quantized with one scale
-    over the batch; scores return in the float scale. The JAX function at
+    over the batch (``sq8_queries``); scores return in the float scale. The JAX function at
     ``recall_target=1.0``. ``mask`` restricts eligibility; excluded slots
     score NEG_INF."""
-    q_codes, q_scale = sq8_quantize(queries)
+    q_codes, q_scale = sq8_queries(queries)
     return quantized_topk(
         q_codes, corpus_codes.shape[0],
         lambda lo, hi: corpus_codes[lo:hi],
@@ -189,7 +199,7 @@ def sq4_topk(
     """Cosine/dot top-k over a packed int4 corpus: each block unpacks to
     int8 codes and scores against the SQ8-quantized queries, as
     ``sq8_topk`` does (the JAX function at ``recall_target=1.0``)."""
-    q_codes, q_scale = sq8_quantize(queries)
+    q_codes, q_scale = sq8_queries(queries)
     return quantized_topk(
         q_codes, packed.shape[0],
         lambda lo, hi: sq4_unpack(packed[lo:hi], d),

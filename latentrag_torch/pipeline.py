@@ -147,7 +147,7 @@ def _convert_hf_encoder(cfg: Config, weights: str, vocab_path: str) -> None:
 
 
 def default_encoder(cfg: Config, corpus: Sequence[str],
-                    device="cuda") -> SentenceEncoder:
+                    device="cuda", mesh=None) -> SentenceEncoder:
     """The sentence encoder: the tokenizer resolved as the JAX package
     resolves it (vocab.txt > tokenizer.json > trained on the corpus), and
     weights from ``encoder.weights_path`` or, unset,
@@ -156,7 +156,8 @@ def default_encoder(cfg: Config, corpus: Sequence[str],
     (``models.encoder.msgpack_io``). When no file is there and
     ``encoder.name`` is a local HF checkpoint directory, it is converted
     now and persisted (the weights file, and its vocab.txt into
-    ``paths.data_dir``), as the JAX package does; else a seeded init."""
+    ``paths.data_dir``), as the JAX package does; else a seeded init.
+    ``mesh`` makes the encode data-parallel over its shards."""
     vocab_path = os.path.join(cfg.paths.data_dir, "vocab.txt")
     weights = cfg.encoder.weights_path or os.path.join(
         cfg.paths.checkpoints_dir, "encoder.msgpack"
@@ -175,7 +176,7 @@ def default_encoder(cfg: Config, corpus: Sequence[str],
             state_dict = minilm_state_dict_from_jax(load_msgpack(weights))
         log.info("loaded encoder weights: %s", weights)
     return SentenceEncoder(tokenizer, cfg.encoder, state_dict=state_dict,
-                           device=device)
+                           device=device, mesh=mesh)
 
 
 def aggregate_docs(scores, idx, doc_ids, k: int, device):
@@ -206,9 +207,14 @@ class PipelineRunner:
         device: str | torch.device = "cuda",
         reranker=None,
         generator: RAGGenerator | None = None,
+        mesh=None,
     ):
+        """``mesh`` (a ``parallel.Mesh``) encodes data-parallel over it and,
+        under ``retrieval.shard_corpus``, shards the dense store over it,
+        as the JAX package's runner does."""
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.ae_type = canonical_ae_type(ae_type)
         self.generate = generate
         self._compressor = compressor
@@ -218,7 +224,8 @@ class PipelineRunner:
 
     def _ensure_compressor(self, corpus: Sequence[str]) -> EmbeddingCompressor:
         if self._compressor is None:
-            encoder = default_encoder(self.cfg, corpus, device=self.device)
+            encoder = default_encoder(self.cfg, corpus, device=self.device,
+                                      mesh=self.mesh)
             self._compressor = EmbeddingCompressor(
                 encoder,
                 autoencoder=self._autoencoder,
@@ -309,6 +316,7 @@ class PipelineRunner:
             doc_ids,
             cfg.retrieval,
             device=self.device,
+            mesh=self.mesh,
             embedding_model=cfg.encoder.name,
             ae_type=self.ae_type if self.ae_type != "none" else None,
             latent_dim=compressor.output_dim,

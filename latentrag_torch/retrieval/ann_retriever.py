@@ -7,9 +7,10 @@ run on the host in C++. The device builds the indexes where the config
 asks for it, or where ``auto`` meets a CUDA device:
 
 * ``hnsw_build=knn``: every row's k-NN list by ``ops.knn.knn_graph`` on
-  the retriever's device (the fold kernel on the card), then the graph's
-  assembly in C++ (``HNSWIndex.from_knn``); ``beam``: per-insertion beam
-  searches in C++;
+  the retriever's device (the fold kernel on the card; with more than one
+  visible card ``parallel.sharded_knn_graph`` over all of them), then the
+  graph's assembly in C++ (``HNSWIndex.from_knn``); ``beam``:
+  per-insertion beam searches in C++;
 * ``ivfpq_build=device``: coarse quantizer, PQ codebooks and every row's
   codes by ``ops.kmeans`` on the device, lists assembled in C++;
   ``host``: the C++ trainer on a subsample.
@@ -150,13 +151,22 @@ class ANNRetriever:
             ix.add(emb)
             split["beam_s"] = time.perf_counter() - t0
             return ix
-        # every row's k-NN list on the device, then the assembly in C++
+        # every row's k-NN list on the device (with more than one visible
+        # card, the corpus shards travel a ring over all of them), then
+        # the assembly in C++
         from ..ops import knn
 
         t0 = time.perf_counter()
-        ids = knn.knn_graph(torch.tensor(emb, device=self.device),
-                            cfg.hnsw_knn_k or 2 * cfg.hnsw_m,
-                            metric="cosine" if self._normalize else "dot")
+        knn_k = cfg.hnsw_knn_k or 2 * cfg.hnsw_m
+        knn_metric = "cosine" if self._normalize else "dot"
+        if self.device.type == "cuda" and torch.cuda.device_count() > 1:
+            from ..parallel import make_mesh, sharded_knn_graph
+
+            ids = sharded_knn_graph(emb, knn_k, make_mesh(),
+                                    metric=knn_metric)
+        else:
+            ids = knn.knn_graph(torch.tensor(emb, device=self.device),
+                                knn_k, metric=knn_metric)
         t1 = time.perf_counter()
         ix = HNSWIndex.from_knn(emb, ids, M=cfg.hnsw_m,
                                 ef_construction=cfg.hnsw_ef_construction,

@@ -81,10 +81,23 @@ top-1 counts as a failed check.
   (``ivf_centroids.npy``, ``ivf_assign.npy``), so a warm boot rebuilds the
   layout without k-means, from a store either package wrote.
 
-The sharded store is a later slice (ROADMAP queue 1 item 23). A store
-written by the JAX package loads here and one written here loads there; a
-sharded store, which has no ``corpus.npy``, fails validation and starts
-clean.
+* a mesh (``mesh=``, ``parallel.make_mesh``): the store's rows sharded
+  over it (``parallel.shard_rows``: zero pad rows at the end, at most P -
+  1), each shard searched by the same route as one device's store
+  (``ops.store_search.store_topk``, the kernels on the card) at k + P - 1
+  and the candidates merged in ``lax.top_k``'s order
+  (``parallel.sharded_topk``); a filter's mask is sharded like the rows;
+  the cascades' stage 1 runs on the shards and stage 2 on the host as
+  before; ``add`` / ``remove`` gather, mutate and re-shard. A 1-device
+  mesh is dropped, as in the JAX package. The float and int8 stores then
+  persist as ``sharded/`` (``parallel.checkpoint``: one ``.npy`` a shard,
+  each written by the process that holds it) with a generation tag in
+  both metas, a mixed generation refusing to load; the cascades persist
+  their usual files. A ``sharded/`` store loads on a mesh of any size or
+  on one device. The JAX package's ``sharded/`` is Orbax, which the port
+  does not read (``scripts/orbax_sharded_to_npy.py`` rewrites it), and the
+  JAX package does not read the port's. A mesh with the device IVF
+  (``ivf_nlist > 0``) raises: the sharded IVF is ROADMAP queue 1 (a).
 """
 
 from __future__ import annotations
@@ -93,6 +106,7 @@ import hashlib
 import json
 import logging
 import os
+import secrets
 import shutil
 import time
 from dataclasses import dataclass, field
@@ -101,28 +115,29 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from ..ops.binary import binary_quantize, binary_topk
+from ..ops.binary import binary_quantize
 from ..ops.distances import (
     estimate_covariance,
     prepare_for_metric,
     whitening_factor,
 )
 from ..ops import ivf as ivf_ops
-from ..ops.fused_topk import (
-    approx_binary_fused_topk,
-    approx_sq4_fused_topk,
-    approx_sq8_fused_topk,
-    fused_topk,
-)
 from ..ops.quantization import (
     sq4_quantize,
     sq4_quantize_with_scale,
-    sq4_topk,
     sq4_unpack,
     sq8_quantize,
-    sq8_topk,
 )
-from ..ops.topk import NEG_INF, approx_topk, exact_topk
+from ..ops.store_search import prepare_queries, store_topk
+from ..ops.topk import NEG_INF, pack_row_mask
+from ..parallel.checkpoint import (
+    load_sharded_index,
+    read_sharded_meta,
+    save_sharded_index,
+)
+from ..parallel.distributed import barrier
+from ..parallel.mesh import ShardedRows, gather_rows, shard_rows
+from ..parallel.sharded_topk import sharded_search
 from ..utils.device import resolve_device
 from ..utils.timing import StatsTracker, force_completion
 from .filtering import (
@@ -269,8 +284,8 @@ class _Store:
     n: int
     dim: int
     # prepared fp32 rows, or the binary store's words, or the int4 store's
-    # nibbles
-    rows: np.ndarray
+    # nibbles; None for a float or int8 store kept as ``sharded/``
+    rows: np.ndarray | None
     whitener: np.ndarray | None
     rescore: np.ndarray | None = None  # cascades: SQ8 codes
     scale: float | None = None  # cascades: their scale
@@ -279,6 +294,9 @@ class _Store:
     # holds them at this retriever's nlist and cap, and its recall estimate
     ivf_sidecar: tuple | None = None
     ivf_recall_estimate: float | None = None
+    # a float or int8 store's ``sharded/`` directory and its checked meta:
+    # its rows go from the shard files straight to the devices (_adopt)
+    sharded: tuple | None = None
 
 
 @dataclass
@@ -293,6 +311,9 @@ class DenseRetriever:
     index_path: str | None = None
     fingerprint: dict | None = None
     device: Any = "cuda"
+    # parallel.Mesh: the store's rows sharded over it (a 1-device mesh is
+    # dropped)
+    mesh: Any = None
 
     texts: Any = field(default_factory=list)
     doc_ids: list = field(default_factory=list)
@@ -358,6 +379,16 @@ class DenseRetriever:
             )
         if self.store_dtype in CASCADES:
             self._validate_binary_combo()
+        if self.mesh is not None and self.mesh.size == 1:
+            # one shard is the single-device store with merge plumbing
+            self.mesh = None
+        if self.mesh is not None:
+            if self.ivf_nlist > 0:
+                raise NotImplementedError(
+                    "the device IVF over a mesh (retrieval.ivf_nlist > 0 with "
+                    "retrieval.shard_corpus) is ROADMAP queue 1 (a), the "
+                    "sharded IVF; serve it unsharded or set ivf_nlist=0")
+            self.device = self.mesh.devices[0]
         self.device = resolve_device(self.device)
         if self.index_path and os.path.exists(
             os.path.join(self.index_path, "meta.json")
@@ -494,9 +525,10 @@ class DenseRetriever:
         else:
             self._corpus = prepared.to(
                 STORE_DTYPES[self.store_dtype]).contiguous()
+        self._corpus = self._place(self._corpus)
         self._corpus_n = int(x.shape[0])
         self._loaded_fingerprint = dict(self.fingerprint)
-        force_completion(self._corpus)
+        self._sync()
         self.stats.add_build(time.perf_counter() - t0)
 
         if self.index_path:
@@ -524,9 +556,33 @@ class DenseRetriever:
         if self._rescore_host is not None:
             row = torch.from_numpy(self._rescore_host[i].astype(np.float32))
             return (row * self._corpus_scale).to(self.device)
+        row = (self._corpus[i] if self.mesh is None
+               else self._corpus.row(i)).float()
         if self.store_dtype == "int8":
-            return self._corpus[i].float() * self._corpus_scale
-        return self._corpus[i].float()
+            return row * self._corpus_scale
+        return row
+
+    # ----------------------------------------------------------------- mesh
+
+    def _place(self, rows: torch.Tensor):
+        """The store's rows as the retriever holds them: on its device, or
+        row-sharded over the mesh."""
+        return rows if self.mesh is None else shard_rows(rows, self.mesh)
+
+    def _rows(self) -> torch.Tensor:
+        """The store's ``_corpus_n`` rows as one tensor on the device (from
+        a mesh, gathered, across processes too)."""
+        if self.mesh is None:
+            return self._corpus[: self._corpus_n]
+        return gather_rows(self._corpus, self._corpus_n, self.device)
+
+    def _sync(self) -> None:
+        """Wait for the store's device work (every shard's device)."""
+        if self.mesh is None:
+            force_completion(self._corpus)
+        else:
+            for shard in self._corpus.shards:
+                force_completion(shard)
 
     # ------------------------------------------------------------- mutation
 
@@ -579,8 +635,8 @@ class DenseRetriever:
             prepared = self._requantize(prepared)
         else:
             prepared = prepared.to(self._corpus.dtype)
-        self._corpus = torch.cat(
-            [self._corpus[: self._corpus_n], prepared]).contiguous()
+        self._corpus = self._place(
+            torch.cat([self._rows(), prepared]).contiguous())
         self._corpus_n += int(x.shape[0])
         if not isinstance(self.texts, list):  # lazy store: materialise
             self.texts = list(self.texts)
@@ -620,10 +676,10 @@ class DenseRetriever:
                 "remove() would drop every document; rebuild the index "
                 "instead of emptying it live"
             )
-        self._corpus = torch.index_select(
-            self._corpus[: self._corpus_n], 0,
+        self._corpus = self._place(torch.index_select(
+            self._rows(), 0,
             torch.as_tensor(keep, dtype=torch.long, device=self.device),
-        )
+        ))
         if self._rescore_host is not None:
             self._rescore_host = np.ascontiguousarray(
                 self._rescore_host[np.asarray(keep, dtype=np.int64)]
@@ -690,56 +746,38 @@ class DenseRetriever:
             ivf = allow_ivf and self._ivf_eligible(
                 q.shape[0], backend, binary=True, pinned=pinned)
             return self._search_cascade(q, k, mask, ivf, nprobe)
-        if self.store_dtype == "int8":  # whatever the backend
-            q = q.float().contiguous()
-            if self.device.type == "cuda":
-                return approx_sq8_fused_topk(
-                    q, self._corpus, self._corpus_scale, k=k,
-                    recall_target=self._effective_recall_target(k),
-                    mask=mask, block_size=self.block_size)
-            return sq8_topk(q, self._corpus, self._corpus_scale, k,
-                            block_size=self.block_size, mask=mask)
-        q = q.to(self._corpus.dtype).contiguous()
-        if backend == "xla":
-            return approx_topk(
-                q, self._corpus, k=k, metric=self.metric,
-                block_size=self.block_size,
-                recall_target=self._effective_recall_target(k), mask=mask,
-            )
-        if backend == "xla_exact":
-            return exact_topk(q, self._corpus, k=k, metric=self.metric,
-                              block_size=min(self.block_size, 8192),
-                              mask=mask)
-        if mask is not None:
-            raise ValueError(
-                "pallas backends do not support filtered search; use "
-                "backend='xla'/'xla_exact'"
-            )
-        mode = "fold" if backend == "pallas" else "exact"
-        return fused_topk(q, self._corpus, k=k, metric=self.metric, mode=mode)
+        return self._topk(q, k, self._effective_recall_target(k), mask)
+
+    def _topk(self, q: torch.Tensor, k: int, rt: float, mask=None):
+        """One exhaustive search of the store by its route
+        (``ops.store_search.store_topk``: the float stores by the
+        configured backend, the int8 store, the cascades' stage 1 with -1
+        in the slots no allowed row fills): on the device, or on each shard
+        of the mesh with the candidates merged (global int64 ids)."""
+        store = ("float" if self.store_dtype in ("float32", "bfloat16")
+                 else self.store_dtype)
+        scale = (self._sq4_scale if store == "int4"
+                 else self._corpus_scale if store == "int8" else None)
+        backend = self._resolve_backend()
+
+        def search(qd, corpus, kk, m):
+            return store_topk(
+                qd, corpus, kk, store=store, backend=backend,
+                metric=self.metric, recall_target=rt,
+                block_size=self.block_size, mask=m, scale=scale,
+                d=self._dim)
+
+        if self.mesh is None:
+            return search(q, self._corpus, k, mask)
+        return sharded_search(search, prepare_queries(q, store),
+                              self._corpus, self._corpus_n, k, mask)
 
     def _stage1(self, q: torch.Tensor, ok: int, rt: float, mask=None):
         """The cascades' exhaustive stage 1: ``ok`` candidates by sign-dot
         or int4 score (the fold or exact kernels on the card, the plain
-        exact search on the CPU); slots no allowed row fills are -1."""
-        int4 = self.store_dtype == "int4"
-        if self.device.type == "cuda":  # empty slots come back as -1
-            if int4:
-                return approx_sq4_fused_topk(
-                    q, self._corpus, self._sq4_scale, d=self._dim, k=ok,
-                    recall_target=rt, mask=mask, block_size=self.block_size)
-            return approx_binary_fused_topk(
-                q, self._corpus, d=self._dim, k=ok, recall_target=rt,
-                mask=mask)
-        if int4:
-            s1, cand = sq4_topk(q, self._corpus, self._sq4_scale, self._dim,
-                                ok, block_size=self.block_size, mask=mask)
-        else:
-            s1, cand = binary_topk(q, self._corpus, d=self._dim, k=ok,
-                                   mask=mask)
-        if mask is not None:  # its NEG_INF slots hold arbitrary rows
-            cand = torch.where(s1 > NEG_INF * 0.5, cand, -1)
-        return s1, cand
+        exact search on the CPU, each shard of a mesh); slots no allowed
+        row fills are -1."""
+        return self._topk(q, ok, rt, mask)
 
     def _search_cascade(self, q: torch.Tensor, k: int, mask=None,
                         ivf: bool = False, nprobe: int | None = None):
@@ -923,7 +961,7 @@ class DenseRetriever:
         canonical spec and cached: ``pack_mask``'s little-endian bytes,
         padded to whole words and viewed as int32 [ceil(N/32)] (bit
         ``r & 31`` of word ``r >> 5`` is row r), the form the kernels
-        read."""
+        read; with a mesh, each shard's words (a ``ShardedRows``)."""
         key = canonical_filter_key(spec)
         if self._filter_cache is None:
             self._filter_cache = FilterCache()
@@ -932,9 +970,16 @@ class DenseRetriever:
             host = compile_filter_mask(
                 spec, self.doc_ids, self.metadata, self._corpus_n
             )
-            packed = pack_mask(host)
-            words = np.pad(packed, (0, (-packed.size) % 4)).view("<i4")
-            m = torch.from_numpy(words.copy()).to(self.device)
+            if self.mesh is None:
+                packed = pack_mask(host)
+                words = np.pad(packed, (0, (-packed.size) % 4)).view("<i4")
+                m = torch.from_numpy(words.copy()).to(self.device)
+            else:
+                # sharded like the rows (pads False); each shard packs its
+                # own rows' words, as a shard need not start a word
+                m = shard_rows(torch.from_numpy(np.asarray(host, bool)),
+                               self.mesh)
+                m.shards = [pack_row_mask(x) for x in m.shards]
             self._filter_cache.put(key, m)
         return m
 
@@ -991,16 +1036,36 @@ class DenseRetriever:
         and assignments persist too: a live IVF always, and at ``build``'s
         save (``eager_ivf``) one is built first where searches can route
         through it, so that warm boots skip k-means."""
-        os.makedirs(path, exist_ok=True)
         n = self._corpus_n
+        mesh = self.mesh
+        # across processes each writes its own shards and process 0 the
+        # rest; the gathers and the sharded save are collectives, so every
+        # process takes them first
+        lead = mesh is None or mesh.rank == 0
+        if lead:
+            os.makedirs(path, exist_ok=True)
         stored_digests: dict[str, str] = {}
+        sharded_generation = None
+        if self._rescore_host is not None:
+            # the cascades persist their usual files, a mesh's gathered
+            packed = self._rows().cpu().numpy()
+        elif mesh is not None:
+            # each process writes its own shards; a random generation tag
+            # in both metas catches a crash between the two writes
+            sharded_generation = secrets.token_hex(8)
+            save_sharded_index(
+                os.path.join(path, "sharded"), self._corpus,
+                {"n": n, "store_dtype": self.store_dtype,
+                 "generation": sharded_generation})
+        if not lead:
+            barrier()  # returns once process 0 has written meta.json
+            return
         if self._rescore_host is not None:  # cascade store
             # the words and nibbles persist verbatim (re-deriving them from
             # the dequantized rows would flip the signs of values that round
             # to code 0, and re-derive the nibbles' scale), the words as
             # uint32, the JAX package's dtype
             int4 = self.store_dtype == "int4"
-            packed = self._corpus[:n].cpu().numpy()
             if not int4:
                 packed = packed.view(np.uint32)
             pk_name = "sq4_packed.npy" if int4 else "binary_packed.npy"
@@ -1025,6 +1090,15 @@ class DenseRetriever:
             else:
                 _drop_stale(path, "sharded", "sq4_packed.npy",
                             "sq4_scale.npy")
+        elif mesh is not None:  # the rows went to sharded/ above
+            if self._corpus_scale is not None:  # the int8 codes' scale
+                scale = np.asarray(self._corpus_scale, dtype=np.float32)
+                atomic_save(os.path.join(path, "sq8_scale.npy"), scale)
+                stored_digests["sq8_scale.npy"] = _stored_digest(scale)
+            else:
+                _drop_stale(path, "sq8_scale.npy")
+            _drop_stale(path, "binary_packed.npy", "corpus.npy",
+                        "sq4_packed.npy", "sq4_scale.npy")
         else:
             if self.store_dtype == "int8":  # dequantized fp32
                 corpus_arr = (self._corpus[:n].cpu().numpy()
@@ -1080,12 +1154,16 @@ class DenseRetriever:
             meta["ivf_nlist"] = self.ivf_nlist
             if self._ivf_recall_estimate is not None:
                 meta["ivf_recall_estimate"] = float(self._ivf_recall_estimate)
+        if sharded_generation is not None:
+            meta["sharded_generation"] = sharded_generation
         if not ids_as_npy:
             meta["doc_ids"] = list(self.doc_ids)
         tmp = os.path.join(path, "meta.json.tmp")
         with open(tmp, "w") as f:
             json.dump(meta, f)
         os.replace(tmp, os.path.join(path, "meta.json"))
+        if mesh is not None:
+            barrier()  # the other processes return after this
         log.info("index persisted to %s (n=%d)", path, n)
 
     def _save_metadata_only(self, path: str) -> None:
@@ -1095,6 +1173,9 @@ class DenseRetriever:
         meta_path = os.path.join(path, "meta.json")
         if not os.path.exists(meta_path):  # the store vanished: full save
             self._save(path)
+            return
+        if self.mesh is not None and self.mesh.rank != 0:
+            barrier()  # process 0 writes; the others wait for it
             return
         with open(meta_path) as f:
             meta = json.load(f)
@@ -1109,6 +1190,8 @@ class DenseRetriever:
         with open(tmp, "w") as f:
             json.dump(meta, f)
         os.replace(tmp, meta_path)
+        if self.mesh is not None:
+            barrier()
 
     def _read(self, path: str) -> _Store:
         """Validate the store at ``path`` on the host: meta.json, the text
@@ -1144,17 +1227,39 @@ class DenseRetriever:
             )
         wpath = os.path.join(path, "whitener.npy")
         whitener = np.load(wpath) if os.path.exists(wpath) else None
-        # corpus.npy holds the prepared rows (a sharded store has none)
-        corpus = np.load(os.path.join(path, "corpus.npy"), mmap_mode="r")
-        if corpus.ndim != 2 or corpus.shape[0] != n:
-            raise ValueError("meta/corpus row mismatch")
+        # corpus.npy holds the prepared rows; a sharded store has
+        # sharded/ in its place
+        cpath = os.path.join(path, "corpus.npy")
+        spath = os.path.join(path, "sharded")
+        if not os.path.exists(cpath) and os.path.isdir(spath):
+            # its meta and shard headers against meta.json; the JAX
+            # package's Orbax layout raises
+            smeta = read_sharded_meta(spath, n,
+                                      meta.get("sharded_generation"))
+            if len(smeta["row_shape"]) != 1:
+                raise ValueError("sharded store rows are not vectors")
+            corpus = None
+            dim = int(smeta["row_shape"][0])
+        else:
+            corpus = np.load(cpath, mmap_mode="r")
+            if corpus.ndim != 2 or corpus.shape[0] != n:
+                raise ValueError("meta/corpus row mismatch")
+            dim = int(corpus.shape[1])
         store = _Store(
             texts=texts, doc_ids=list(doc_ids), metadata=metadata,
             metric=meta.get("metric", self.metric),
-            fingerprint=meta.get("fingerprint"), n=n,
-            dim=int(corpus.shape[1]), rows=corpus, whitener=whitener,
+            fingerprint=meta.get("fingerprint"), n=n, dim=dim, rows=corpus,
+            whitener=whitener,
         )
         self._read_ivf_sidecar(path, meta, store)
+        if corpus is None:
+            sq8 = os.path.join(path, "sq8_scale.npy")
+            if smeta["dtype"] == "int8":  # the codes' scale
+                store.scale = float(np.load(sq8))
+            if self.store_dtype not in CASCADES:  # read by _adopt
+                store.sharded = (spath, smeta)
+                return store
+            corpus = self._sharded_host_rows(spath, smeta, store.scale)
         if self.store_dtype not in CASCADES:  # read off the mmap, once
             store.rows = np.array(corpus, dtype=np.float32)
             return store
@@ -1205,6 +1310,49 @@ class DenseRetriever:
         # int32 with the same bits: torch's uint32 has no shifts
         store.rows = np.ascontiguousarray(words).view(np.int32)
         return store
+
+    @staticmethod
+    def _sharded_host_rows(spath: str, smeta: dict, scale) -> np.ndarray:
+        """A ``sharded/`` store's rows on the host as fp32 (int8 codes
+        dequantized with their ``scale``): the rows a cascade keeps
+        there."""
+        rows, _ = load_sharded_index(spath, device="cpu", meta=smeta)
+        rows = rows[: int(smeta["n"])].float()
+        if scale is not None:
+            rows = rows * scale
+        return rows.numpy()
+
+    def _load_sharded(self, store: _Store):
+        """A float or int8 ``sharded/`` store's rows as this retriever
+        holds them, read from the shard files straight onto its devices
+        (each shard of the mesh its own rows, or the first n rows on the
+        one device), and their SQ8 scale (int8). Codes stay codes for an
+        int8 store and are dequantized shard by shard for a float one; a
+        float store read as int8 is quantized over all of its rows at
+        once."""
+        spath, smeta = store.sharded
+        corpus, _ = load_sharded_index(spath, self.mesh, device=self.device,
+                                       meta=smeta)
+        if self.mesh is None:
+            corpus = corpus[: store.n]
+        stored_int8 = smeta["dtype"] == "int8"
+        if self.store_dtype == "int8":
+            if stored_int8:
+                return corpus, store.scale
+            rows = corpus if self.mesh is None else gather_rows(
+                corpus, store.n, self.device)
+            codes, scale = sq8_quantize(rows)
+            return self._place(codes), float(scale)
+        dtype = STORE_DTYPES[self.store_dtype]
+
+        def cast(t):
+            if stored_int8:
+                t = t.float() * store.scale
+            return t.to(dtype).contiguous()
+
+        if self.mesh is None:
+            return cast(corpus), None
+        return ShardedRows([cast(t) for t in corpus.shards], self.mesh), None
 
     def _read_ivf_sidecar(self, path: str, meta: dict, store: _Store) -> None:
         """The IVF's persisted centroids and assignments (digests verified
@@ -1260,14 +1408,19 @@ class DenseRetriever:
         every field is set."""
         whitener = (None if store.whitener is None
                     else self._upload(store.whitener.astype(np.float32)))
-        rows = self._upload(store.rows)
-        scale = store.scale
-        if self.store_dtype == "int8":  # the stored rows, re-quantized
-            rows, scale = sq8_quantize(rows)
-            scale = float(scale)
-        elif self.store_dtype not in CASCADES:
-            rows = rows.to(STORE_DTYPES[self.store_dtype]).contiguous()
-        self._corpus = rows
+        if store.sharded is not None:
+            corpus, scale = self._load_sharded(store)
+        else:
+            rows = self._upload(store.rows)
+            scale = store.scale
+            if self.store_dtype == "int8":
+                # the stored rows, re-quantized
+                rows, scale = sq8_quantize(rows)
+                scale = float(scale)
+            elif self.store_dtype not in QUANTIZED:
+                rows = rows.to(STORE_DTYPES[self.store_dtype]).contiguous()
+            corpus = self._place(rows)
+        self._corpus = corpus
         self._whitener = whitener
         self.texts = store.texts
         self.doc_ids = store.doc_ids

@@ -6,8 +6,6 @@ from __future__ import annotations
 import logging
 from typing import Sequence
 
-import torch
-
 from ..utils.config import RetrievalConfig
 from .ann_retriever import ANNRetriever
 from .dense import DenseRetriever, make_fingerprint
@@ -20,23 +18,13 @@ DEVICE_BACKENDS = ("dense", "bruteforce")
 ANN_BACKENDS = ("hnsw", "ivfpq")
 
 
-def _make_dense(cfg: RetrievalConfig, device) -> DenseRetriever:
+def _make_dense(cfg: RetrievalConfig, device, mesh=None) -> DenseRetriever:
     """Construct (not build) a DenseRetriever from config; with
     ``cfg.index_path`` set it loads the store there, if one is valid. As
     in the JAX package, a backend other than dense, bruteforce and the ANN
     tiers (``bm25``: BM25 runs only in the benchmark harness) gets a dense
-    store on kernel ``auto``."""
-    if cfg.shard_corpus:
-        # one device holds the whole corpus, as the JAX package serves the
-        # flag on a single device (no mesh, or a 1-device mesh dropped)
-        if torch.device(device).type == "cuda" and (
-                torch.cuda.device_count() > 1):
-            raise NotImplementedError(
-                "retrieval.shard_corpus over more than one card is ROADMAP "
-                "queue 1 item 23 (multi-GPU)"
-            )
-        log.info("retrieval.shard_corpus: one device; the corpus is served "
-                 "unsharded")
+    store on kernel ``auto``, and ``mesh`` shards it only under
+    ``retrieval.shard_corpus``."""
     backend = {"dense": cfg.kernel, "bruteforce": "xla_exact"}.get(
         cfg.backend, "auto")
     return DenseRetriever(
@@ -48,6 +36,7 @@ def _make_dense(cfg: RetrievalConfig, device) -> DenseRetriever:
         binary_oversample=cfg.binary_oversample,
         index_path=cfg.index_path or None,
         device=device,
+        mesh=mesh if cfg.shard_corpus else None,
         ivf_nlist=cfg.ivf_nlist,
         ivf_cap=cfg.ivf_cap,
         ivf_nprobe=cfg.ivf_nprobe,
@@ -63,6 +52,7 @@ def build_retriever(
     cfg: RetrievalConfig,
     *,
     device="cuda",
+    mesh=None,
     embedding_model: str | None = None,
     ae_type: str | None = None,
     latent_dim: int | None = None,
@@ -82,14 +72,14 @@ def build_retriever(
                   metadata=metadata)
         return ann
     return _dense_retriever(
-        cfg, embeddings, texts, doc_ids, device=device,
+        cfg, embeddings, texts, doc_ids, device=device, mesh=mesh,
         embedding_model=embedding_model, ae_type=ae_type,
         latent_dim=latent_dim, chunking=chunking, metadata=metadata,
     )
 
 
 def load_retriever(cfg: RetrievalConfig, *, device="cuda",
-                   expect: dict | None = None):
+                   expect: dict | None = None, mesh=None):
     """Warm boot: a retriever from the store persisted at
     ``cfg.index_path`` alone, with no embeddings and no encode. Returns
     None when no valid store is there, or when its provenance contradicts
@@ -101,7 +91,7 @@ def load_retriever(cfg: RetrievalConfig, *, device="cuda",
     if cfg.backend in ANN_BACKENDS:
         ann = ANNRetriever(cfg, cfg.backend, device=device)
         return ann if ann.load_persisted(expect=expect) else None
-    retriever = _make_dense(cfg, device)
+    retriever = _make_dense(cfg, device, mesh)
     if not retriever.is_built:
         return None
     fp = retriever.fingerprint or {}
@@ -118,9 +108,9 @@ def load_retriever(cfg: RetrievalConfig, *, device="cuda",
 
 def _dense_retriever(
     cfg, embeddings, texts, doc_ids, *, device, embedding_model, ae_type,
-    latent_dim, chunking, metadata=None,
+    latent_dim, chunking, metadata=None, mesh=None,
 ):
-    retriever = _make_dense(cfg, device)
+    retriever = _make_dense(cfg, device, mesh)
     fp = make_fingerprint(
         d=int(embeddings.shape[1]),
         embedding_model=embedding_model,

@@ -89,6 +89,7 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 from .data import get_examples, load_evaluation_data
 from .models.encoder.minilm import _bucket_batch
@@ -103,15 +104,23 @@ def boot(cfg, args, loggers):
     """Returns (runner, compressor, retriever, mode), mode "warm" or
     "cold". ``args`` carries ``ae_type``, ``generate``, ``cold_boot`` and
     ``device``."""
+    mesh = None
+    if cfg.retrieval.shard_corpus and torch.device(
+            args.device).type == "cuda" and torch.cuda.device_count() > 1:
+        from .parallel import make_mesh
+
+        # one card serves the corpus unsharded, as the JAX server does
+        mesh = make_mesh()
+        loggers.main.info("serving sharded over %d devices", mesh.size)
     runner = PipelineRunner(
         cfg, ae_type=canonical_ae_type(args.ae_type),
-        generate=args.generate, device=args.device,
+        generate=args.generate, device=args.device, mesh=mesh,
     )
     ae = runner.ae_type if runner.ae_type != "none" else None
     retriever = None
     if not args.cold_boot:
         retriever = load_retriever(
-            cfg.retrieval, device=runner.device,
+            cfg.retrieval, device=runner.device, mesh=mesh,
             expect={"embedding_model": cfg.encoder.name, "ae_type": ae},
         )
     if retriever is not None:
@@ -135,7 +144,7 @@ def boot(cfg, args, loggers):
     compressor = runner._ensure_compressor(corpus)
     retriever = build_retriever(
         compressor.encode_text(corpus), corpus, None, cfg.retrieval,
-        device=runner.device,
+        device=runner.device, mesh=mesh,
         embedding_model=cfg.encoder.name,
         ae_type=ae,
         latent_dim=compressor.output_dim,

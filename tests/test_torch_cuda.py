@@ -1600,3 +1600,78 @@ def test_doctor_on_card(cuda, tmp_path, capsys):
     checks = json.loads(out[0])["doctor"]["checks"]
     for name in ("imports", "platform", "kernels", "native", "tokenizer"):
         assert checks[name]["status"] == "pass", (name, checks[name])
+
+
+# ------------------------------------------------ the sharded corpus (mesh)
+
+
+def _mesh4():
+    from latentrag_torch.parallel import make_mesh
+
+    return make_mesh(devices=["cuda:0"] * 4)
+
+
+@pytest.mark.parametrize("backend,k,kernel", [
+    ("approx", 10, "fold"), ("exact", 160, "exact"),
+    ("exact", 3000, "exact")])
+@pytest.mark.parametrize("store", ["bfloat16", "float32"])
+def test_sharded_topk_launches_each_shard(cuda, store, backend, k, kernel):
+    """A 4-shard mesh on one card: each shard launches its kernel once
+    (the fold, the exact kernel, the exact select past 2048), and the
+    exact routes give the unsharded exact route's ids (by set where
+    scores tie) with scores within the exact kernels' limits."""
+    from latentrag_torch.parallel import make_sharded_topk, shard_rows
+
+    n = 20003  # not a multiple of 4: pad rows on the last shard
+    q, c = _data(cuda, getattr(torch, store), nq=64, n=n)
+    q = torch.nn.functional.normalize(q.float(), dim=1).to(c.dtype)
+    c = torch.nn.functional.normalize(c.float(), dim=1).to(c.dtype)
+    mesh = _mesh4()
+    sh = shard_rows(c, mesh)
+    ft.reset_launches()
+    s, i = make_sharded_topk(mesh, k=k, backend=backend)(q, sh, n)
+    assert ft.launches[kernel] == 4
+    assert int(i.max()) < n and int(i.min()) >= 0
+    s0, i0 = ft.fused_topk(q, c, k=k, mode="exact")
+    if backend == "exact":
+        assert torch.allclose(s, s0, atol=1e-4, rtol=1e-5)
+    else:
+        hit = sum(len(set(a.tolist()) & set(b.tolist()))
+                  for a, b in zip(i.cpu(), i0.cpu()))
+        assert hit / i0.numel() >= 0.95
+
+
+@pytest.mark.parametrize("store", ["int8", "binary", "bfloat16"])
+def test_sharded_dense_store_on_card(cuda, store, tmp_path):
+    """DenseRetriever(mesh=) on 4 shards of cuda:0: each search launches
+    the store's kernel once a shard, a filter the masked instances, and
+    the store saves, warm-boots and mutates."""
+    from latentrag_torch.retrieval import DenseRetriever
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.nn.functional.normalize(torch.randn(9001, 64, generator=g),
+                                      dim=1).numpy()
+    texts = [f"t{j}" for j in range(9001)]
+    path = str(tmp_path / "idx")
+    r = DenseRetriever(store_dtype=store, mesh=_mesh4(), index_path=path)
+    r.build(x, texts, metadata=[{"g": j % 10} for j in range(9001)])
+    key = {"int8": "int8_fold", "binary": "binary_fold",
+           "bfloat16": "fold"}[store]
+    ft.reset_launches()
+    _, ids = r.search(x[:32], 10)
+    assert ft.launches[key] == 4
+    assert (ids[:, 0] == np.arange(32)).mean() >= 0.95
+    ft.reset_launches()
+    _, ids = r.search(x[:8], 10, filter={"where": {"g": 3}})
+    assert ft.launches["masked"] == 4
+    live = ids[ids >= 0]
+    assert live.size and (live % 10 == 3).all()
+    r2 = DenseRetriever(store_dtype=store, mesh=_mesh4(), index_path=path)
+    assert r2.is_built
+    np.testing.assert_array_equal(r2.search(x[:32], 10)[1],
+                                  r.search(x[:32], 10)[1])
+    r2.add(x[:1] * 0.5 + 0.2, ["new"], doc_ids=[99999])
+    r2.remove([5])
+    _, ids = r2.search(np.concatenate([x[5:6], x[:1] * 0.5 + 0.2]), 5)
+    assert 5 not in {r2.doc_ids[j] for j in ids[0]}
+    assert r2.doc_ids[ids[1, 0]] == 99999

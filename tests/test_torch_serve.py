@@ -628,13 +628,23 @@ def test_shard_corpus_serves_unsharded_on_one_device(env, capsys):
 
 
 def test_shard_corpus_refuses_more_than_one_card(monkeypatch):
+    """What ``shard_corpus`` still refuses over more than one card: the
+    device IVF, whose sharded form is ROADMAP queue 1 (a). Any other store
+    shards over the mesh it is given; without a mesh the flag serves
+    unsharded, whatever cards there are."""
+    from latentrag_torch.parallel import make_mesh
+
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     cfg = apply_overrides(Config(), ["retrieval.shard_corpus=true"])
-    with pytest.raises(NotImplementedError, match="item 23"):
-        factory._make_dense(cfg.retrieval, "cuda")
-    # on the CPU the flag is served unsharded, whatever cards there are
+    mesh = make_mesh(devices=["cpu", "cpu"])
+    ivf = apply_overrides(cfg, ["retrieval.ivf_nlist=16"])
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        factory._make_dense(ivf.retrieval, "cpu", mesh)
+    r = factory._make_dense(cfg.retrieval, "cpu", mesh)
+    assert r.mesh is mesh and not r.is_built
     r = factory._make_dense(cfg.retrieval, "cpu")
     assert isinstance(r, DenseRetriever) and not r.is_built
+    assert r.mesh is None
 
 
 @pytest.mark.parametrize("store", ["bfloat16", "float32", "binary"])
