@@ -351,8 +351,41 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    shards each on cuda:0: their sharded exact bf16 and SQ8 searches bit
    for bit this process's 4-shard search; the store both saved loads
    here on 4 shards and on one device and searches as they did;
+5e. the sharded IVF over 3k's store (8.8M x 64 int8 rows, ivf_nlist=8192,
+   cap 512) on 4 shards of cuda:0 (2048 lists a shard, the narrow probe)
+   and on 2 (4096 lists, over 8192 blocks a shard: the wide probe, where
+   ``max_list_blocks`` sets the lists' expansion): Q=1 and 8 at the auto
+   budget and Q=64 pinned to 64, each search one ``ivf_scan`` launch a
+   shard and no fold, bit for bit the same search on the plain scan, each
+   shard's scan held to ``ivf_scan_reference``; the full probe (every
+   block) against the sharded exact route by set (>= 99.9 % of rows);
+   recall against it and times beside 3k's unsharded search recorded;
+5f. the 4-shard store saved by its build warm-boots from its
+   ``ivf_mesh_p`` sidecar with k-means refused and answers bit for bit;
+   on 2 shards the sidecar is refused and the IVF built cold (logged); 1000
+   added rows and a remove drop the IVF, the next eligible search rebuilds
+   it (its recall probe one scan of shard 0), each added row top-1 on
+   itself; the binary cascade's stage 1 through the sharded IVF over 1M
+   rows at Q=1 (auto) and 8 (pinned to auto: a shard's 250k rows put
+   Q=8 past the guard), 4 scans a search, >= 99 % of ids the plain
+   scan's; the 4-shard store served (``make_handle`` and
+   ``running_http`` on the mesh) with ``"nprobe": 64`` a request: 4 scans
+   a search call, the ids >= 99 % of one direct search's, ``/stats``
+   carrying ``ivf_recall_estimate``;
+5g. ``Trainer(mesh=)`` on 4 shards of cuda:0 against one device (fp32) at
+   the configs' AE widths (384 -> 512 -> 64) and batch (128): the DAE's
+   and the CAE's (hard negatives mined) first-step loss and gradients
+   within 1e-6 and latents after 3 epochs within rtol 2e-3 / atol 2e-4;
+   two gloo processes of 2 shards (``scripts/torch_trainer_worker.py
+   --shape config``) held the same way against one device, and their
+   resume from rank 0's files;
+5h. ``ivf_build_binary_streaming`` over 50M x 64 sign words made on the
+   card a chunk at a time (nlist 16384, cap 1024, 4,194,304-row chunks):
+   the layout equal (``torch.equal``) to ``ivf_build_from_assign``'s over
+   the same assignments, a centroids-only warm boot the same layout;
+   timings, peak memory and stage-1 recall@10 at Q=256 recorded;
 6. prints a ``kernels`` JSON line (each kernel's ``sharded_launches`` from
-   5a-5c) and, last, the device line.
+   5a-5c, ``ivf_scan``'s from 5e-5f) and, last, the device line.
 
 Every check that fails exits non-zero. Without CUDA, or without the
 package beside it, it exits 1 and prints no result.
@@ -2834,7 +2867,7 @@ def check_ivf_deployment(torch, failures: list, workdir: str) -> dict:
     build = {"N": n, "nlist": IVF_NLIST, "cap": IVF_CAP,
              "build_and_save_s": build_s, **r._ivf_build_info,
              "nblocks": idx.nblocks,
-             "max_list_blocks": int(np.bincount(b2l).max()),
+             "max_list_blocks": tivf.largest_list_blocks(idx),
              "empty_lists": int(IVF_NLIST - len(np.unique(b2l))),
              "ivf_recall_estimate": r._ivf_recall_estimate,
              "auto_nprobe": auto, "guard_nprobe_estimate": auto_est,
@@ -6745,6 +6778,579 @@ def check_two_processes(torch, failures: list) -> None:
         failures.append(f"phase 5d {rec}")
 
 
+# ------------------------------- phases 5e-5h: the rest of the sharded slice
+
+SHARDED_IVF_MESHES = (4, 2)  # 2048 lists a shard (narrow), 4096 (wide)
+SHARDED_IVF_SERVED = 64  # 5f's served requests
+TRAIN_SHARD_TOL = (2e-3, 2e-4)  # rtol / atol of the latents, the CPU tests'
+STREAM_ROWS = 50_000_000  # 5h: capacity_bench's shape at 50M (PERF.md)
+STREAM_NLIST, STREAM_CAP, STREAM_CHUNK = 16384, 1024, 4_194_304
+STREAM_QUERIES = 256
+
+
+def sharded_exact_int8(torch, r, q, k: int = 10):
+    """The sharded exhaustive route, exact: each shard's plain
+    ``sq8_topk`` over its codes, merged as the sharded searches merge."""
+    from latentrag_torch.ops import quantization as tq
+    from latentrag_torch.ops.distances import prepare_for_metric
+    from latentrag_torch.parallel.sharded_topk import sharded_search
+
+    qp = prepare_for_metric(q.float(), r.metric)
+
+    def search(qd, shard, kk, m):
+        return tq.sq8_topk(qd, shard, r._corpus_scale, kk,
+                           block_size=QUANT_BLOCK)
+
+    return sharded_search(search, qp, r._corpus, r._corpus_n, k)
+
+
+def shard_scan_checks(torch, r, q, nprobe=None) -> list:
+    """Each shard's ``ivf_scan`` at the search's own probe set against
+    ``ivf_scan_reference`` on the same inputs, with 2e's int8 limits (bit
+    for bit). Not counted: the caller reads the launches before it."""
+    from latentrag_torch.ops import ivf as tivf
+    from latentrag_torch.ops.distances import prepare_for_metric
+
+    sivf = r._ivf_index
+    qp = prepare_for_metric(q.float(), r.metric)
+    budget = (min(1 << (nprobe - 1).bit_length(), sivf.nblocks) if nprobe
+              else tivf.auto_nprobe(sivf.nblocks))
+    qv, fac = ivf_operands(torch, "int8", qp, r._corpus_scale)
+    out = []
+    for idx in sivf.shards:
+        sel = tivf._coarse(qp @ idx.centroids.T, idx, budget, False,
+                           sivf.max_list_blocks)
+        ok, ids_eq, worst = ivf_scan_match(
+            torch, "int8",
+            tivf.ivf_scan(qv, idx.blocks, idx.block_ids, sel, factor=fac),
+            tivf.ivf_scan_reference(qv, idx.blocks, idx.block_ids, sel,
+                                    factor=fac))
+        out.append({"probed_blocks": int(sel.shape[1]), "ok": ok,
+                    "ids_equal": ids_eq, "max_abs_err": worst})
+    return out
+
+
+def sharded_ivf_drive(torch, ft, r, qs, p: int, unsharded: dict,
+                      failures: list, label: str) -> tuple[int, dict]:
+    """5e on one mesh: the routed searches (Q=1, 8 at the auto budget, Q=64
+    pinned to 64), each launching ``ivf_scan`` once a shard and no fold,
+    equal bit for bit to the same search on the plain scan; each shard's
+    scan held to its plain version; the full probe (every block) against
+    the sharded exact route by set; recall at the auto budget against it;
+    times beside 3k's unsharded search. Returns (ivf_scan launches, the
+    searches' results)."""
+    import numpy as np
+
+    from latentrag_torch.ops import quantization as tq
+    from latentrag_torch.ops.distances import prepare_for_metric
+    from latentrag_torch.parallel.ivf import make_sharded_ivf_topk
+
+    launches, first = 0, {}
+    sivf = r._ensure_ivf()
+    for case, nq, nprobe in (("Q=1 auto", 1, None), ("Q=8 auto", 8, None),
+                             ("Q=64 pinned 64", 64, IVF_PINNED)):
+        res = ivf_route_search(torch, ft, r, qs[nq], 10, nprobe)
+        launches += res["launches"]["ivf_scan"]
+        s_x, i_x = sharded_exact_int8(torch, r, qs[nq])
+        rec = {"mesh": label, "case": case, "Q": nq, "nprobe": nprobe,
+               "launches": {k: v for k, v in res["launches"].items() if v},
+               "c_kernel": res["c_kernel"],
+               "plain_scan_bit_identical": same_bits(
+                   (res["s"], res["i"]), res["plain"]),
+               "recall_vs_sharded_exact": float(np.mean([
+                   len(set(a.tolist()) & set(b.tolist())) / 10
+                   for a, b in zip(res["i"], i_x.cpu().numpy())])),
+               "shard_scans": shard_scan_checks(torch, r, qs[nq], nprobe),
+               "ms": time_ms(torch, lambda: r.search(qs[nq], 10,
+                                                     nprobe=nprobe), reps=10),
+               "unsharded_ms": unsharded.get(case)}
+        ok = (res["launches"]["ivf_scan"] == p
+              and res["launches"]["int8_fold"] == 0
+              and res["launches"]["int8_exact"] == 0
+              and rec["plain_scan_bit_identical"]
+              and all(x["ok"] for x in rec["shard_scans"]))
+        record("sharded_ivf_search", card=card_line(), ok=ok, **rec)
+        if not ok:
+            failures.append(f"5e {label} {case}: {rec}")
+        first[case] = (res["s"], res["i"], nprobe, nq)
+    # the full probe: every block of every shard, against the exact route
+    qp = prepare_for_metric(qs[8], r.metric)
+    full = make_sharded_ivf_topk(r.mesh, k=10, nprobe=sivf.nblocks)
+    torch.cuda.synchronize()
+    ft.reset_launches()
+    s_a, i_a = full(qp, sivf, r._corpus_n, scale=r._corpus_scale)
+    launches += ft.launches["ivf_scan"]
+    s_x, i_x = sharded_exact_int8(torch, r, qs[8])
+    anchor = float(tq.same_ids_at_ties(s_a, i_a, s_x, i_x).mean())
+    rec = {"mesh": label, "Q": 8, "nprobe": sivf.nblocks,
+           "wide": sivf.nblocks > 8192,
+           "max_list_blocks": sivf.max_list_blocks,
+           "rows_same_by_set": anchor,
+           "exhaustive_ms": time_ms(torch, lambda: r._topk(
+               qp, 10, r._effective_recall_target(10)), reps=10)}
+    record("sharded_ivf_anchor", **rec)
+    if anchor < IVF_ANCHOR_AGREE:
+        failures.append(f"5e {label} full probe vs the sharded exact route: "
+                        f"{rec}")
+    return launches, first
+
+
+def mesh_server(torch, cfg, mesh):
+    """``serve.boot``'s warm path on ``mesh`` (the server makes its mesh of
+    every card, one card serving unsharded): the runner, the retriever
+    from the store, the compressor; then ``make_handle`` and
+    ``running_http`` serve it as 3l does."""
+    from latentrag_torch.pipeline import PipelineRunner
+    from latentrag_torch.retrieval import load_retriever
+
+    runner = PipelineRunner(cfg, ae_type="vae", device="cuda", mesh=mesh)
+    retriever = load_retriever(cfg.retrieval, device=runner.device,
+                               mesh=mesh, expect={"ae_type": "vae"})
+    if retriever is None:
+        return None
+    compressor = runner._ensure_compressor(retriever.texts)
+    loggers = SimpleNamespace(main=logging.getLogger("latentrag_torch.main"))
+    return (runner, compressor, retriever, "warm", loggers)
+
+
+def check_sharded_ivf(torch, failures: list, workdir: str,
+                      unsharded: dict) -> dict:
+    """Phases 5e and 5f: 3k's store (8.8M x 64 int8 rows, ivf_nlist=8192,
+    cap 512) on meshes of 4 and 2 shards of cuda:0. 5e on each
+    (``sharded_ivf_drive``). 5f: the 4-shard store, saved by its build
+    with its ``ivf_mesh_p`` sidecar, warm-boots with k-means refused and
+    answers bit for bit; on 2 shards the sidecar is refused (logged) and the
+    IVF built cold (5e's wide mesh); 1000 added rows, then a remove, drop
+    the IVF and the next eligible search rebuilds it (the added rows top-1
+    on themselves); the binary cascade's stage 1 through the sharded IVF
+    over 1M rows; the 4-shard store served with ``"nprobe": 64`` a
+    request. Returns the ivf_scan launches by drive."""
+    import numpy as np
+
+    from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.ops import ivf as tivf
+    from latentrag_torch.parallel import make_mesh
+    from latentrag_torch.retrieval import DenseRetriever
+    from latentrag_torch.utils import apply_overrides, load_config
+
+    t_phase = time.perf_counter()
+    n, d = CAPACITY_ROWS, 64
+    path = f"{workdir}/ivf_mesh4"
+    kw = dict(store_dtype="int8", backend="xla", recall_target=CAPACITY_RT,
+              block_size=QUANT_BLOCK, ivf_nlist=IVF_NLIST, ivf_cap=IVF_CAP,
+              device="cuda")
+    meshes = {p: make_mesh(devices=["cuda:0"] * p)
+              for p in SHARDED_IVF_MESHES}
+    x, centers = ivf_mixture(torch, n, d, 4 * IVF_NLIST, 71)  # 3k's rows
+    qs = {nq: ivf_mixture(torch, nq, d, 0, 72 + nq, centers=centers)[0]
+          for nq in (1, 8, 64)}
+    launches = {}
+    t0 = time.perf_counter()
+    r4 = DenseRetriever(mesh=meshes[4], index_path=path, **kw)
+    r4.build(x, [""] * n)
+    torch.cuda.synchronize()
+    build = {"mesh": "4 shards", "build_and_save_s": time.perf_counter() - t0,
+             **r4._ivf_build_info, "nblocks": r4._ivf_index.nblocks,
+             "max_list_blocks": r4._ivf_index.max_list_blocks,
+             "ivf_recall_estimate": r4._ivf_recall_estimate,
+             "routes": {f"Q={nq}": r4._ivf_eligible(nq, "xla")
+                        for nq in (1, 8, 12, 13, 64)}}
+    record("sharded_ivf_build", card=card_line(), **build)
+    launches["p4"], first = sharded_ivf_drive(
+        torch, ft, r4, qs, 4, unsharded, failures, "4 shards")
+    # 5f: the warm boot from the ivf_mesh_p sidecar, k-means refused
+    real_kmeans = tivf.kmeans
+
+    def refuse(*a, **k):
+        raise RuntimeError("k-means ran on a warm boot")
+
+    tivf.kmeans = refuse
+    try:
+        t0 = time.perf_counter()
+        warm = DenseRetriever(mesh=meshes[4], index_path=path, **kw)
+        again = {c: warm.search(qs[nq], 10, nprobe=npb)
+                 for c, (_, _, npb, nq) in first.items()}
+        warm_s = time.perf_counter() - t0
+    finally:
+        tivf.kmeans = real_kmeans
+    wrec = {"load_and_search_s": warm_s, "restore": warm._ivf_build_info,
+            "bit_identical": all(same_bits(first[c][:2], again[c])
+                                 for c in first),
+            "recall_estimate": warm._ivf_recall_estimate}
+    wrec["ok"] = (warm._ivf_build_info.get("restored") is True
+                  and wrec["bit_identical"]
+                  and warm._ivf_recall_estimate == r4._ivf_recall_estimate)
+    record("sharded_ivf_warm_boot", **wrec)
+    if not wrec["ok"]:
+        failures.append(f"5f warm boot: {wrec}")
+    del warm
+    # the other mesh size: the sidecar refused, a cold build (5e's wide mesh)
+    with logged("latentrag_torch.retrieval") as lines:
+        r2 = DenseRetriever(mesh=meshes[2], index_path=path, **kw)
+        refused = r2.is_built and r2._ivf_sidecar is None
+        r2.index_path = None  # searched, not saved again
+        launches["p2"], _ = sharded_ivf_drive(
+            torch, ft, r2, qs, 2, unsharded, failures, "2 shards")
+    rrec = {"refused": refused, "cold": r2._ivf_build_info,
+            "nblocks": r2._ivf_index.nblocks, "log": [
+                x for x in lines if "device IVF" in x]}
+    rrec["ok"] = (refused and r2._ivf_build_info.get("restored") is False
+                  and any("built" in x for x in rrec["log"]))
+    record("sharded_ivf_other_mesh", **rrec)
+    if not rrec["ok"]:
+        failures.append(f"5f the 2-shard boot of the 4-shard store: {rrec}")
+    del r2
+    torch.cuda.empty_cache()
+    # add, then remove: the IVF dropped, rebuilt at the next search
+    r4.index_path = None
+    new, _ = ivf_mixture(torch, 1000, d, 0, 79, centers=centers)
+    r4.add(new, [""] * 1000)
+    arec = {"dropped_by_add": r4._ivf_index is None}
+    torch.cuda.synchronize()
+    ft.reset_launches()
+    r4.search(qs[1], 10)  # the next eligible search rebuilds the IVF
+    arec["rebuilt"] = r4._ivf_index is not None
+    auto = tivf.auto_nprobe(r4._ivf_index.nblocks)
+    top1 = []
+    for base in range(0, 1000, r4.ivf_query_limit):
+        _, i = r4.search(new[base:base + r4.ivf_query_limit], 1,
+                         nprobe=auto)
+        top1 += (i[:, 0] == np.arange(n + base, n + base + len(i))).tolist()
+    launches["add"] = ft.launches["ivf_scan"]
+    arec.update(top1_on_itself=float(np.mean(top1)), nprobe=auto,
+                scan_launches=ft.launches["ivf_scan"],
+                searches=1 + -(-1000 // r4.ivf_query_limit))
+    r4.remove([0])
+    arec["dropped_by_remove"] = r4._ivf_index is None
+    ft.reset_launches()
+    _, i = r4.search(qs[8], 10)
+    launches["remove"] = ft.launches["ivf_scan"]
+    arec["rebuilt_after_remove"] = r4._ivf_index is not None
+    arec["removed_absent"] = 0 not in {r4.doc_ids[j] for j in i.ravel()
+                                       if j >= 0}
+    # each rebuild's recall probe scans shard 0 once
+    arec["ok"] = (arec["dropped_by_add"] and arec["rebuilt"]
+                  and arec["top1_on_itself"] == 1.0
+                  and arec["scan_launches"] == 4 * arec["searches"] + 1
+                  and arec["dropped_by_remove"]
+                  and arec["rebuilt_after_remove"]
+                  and launches["remove"] == 4 + 1 and arec["removed_absent"])
+    record("sharded_ivf_mutation", **arec)
+    if not arec["ok"]:
+        failures.append(f"5f add/remove: {arec}")
+    del r4, x, new
+    torch.cuda.empty_cache()
+    # the binary cascade's stage 1 through the sharded IVF (3k's 1M rows)
+    xb, cb = ivf_mixture(torch, IVF_CASCADE_ROWS, d,
+                         4 * IVF_CASCADE_NLIST, 81)
+    rb = DenseRetriever(store_dtype="binary", backend="xla",
+                        recall_target=CAPACITY_RT, block_size=QUANT_BLOCK,
+                        ivf_nlist=IVF_CASCADE_NLIST, ivf_cap=IVF_CAP,
+                        mesh=meshes[4], device="cuda")
+    rb.build(xb, [""] * IVF_CASCADE_ROWS)
+    rb._ensure_ivf()
+    brec = {"nblocks": rb._ivf_index.nblocks,
+            "recall_estimate": rb._ivf_recall_estimate, "searches": []}
+    launches["binary"] = 0
+    # a shard's 250k rows: Q=1 passes the auto guard, Q=8 is pinned to it
+    auto = tivf.auto_nprobe(rb._ivf_index.nblocks)
+    for nq, nprobe in ((1, None), (8, auto)):
+        q = ivf_mixture(torch, nq, d, 0, 90 + nq, centers=cb)[0]
+        res = ivf_route_search(torch, ft, rb, q, 10, nprobe)
+        launches["binary"] += res["launches"]["ivf_scan"]
+        agree = float(np.mean(res["i"] == res["plain"][1]))
+        exhaustive = sum(v for key, v in res["launches"].items()
+                         if key.startswith("binary_"))
+        ok = (res["launches"]["ivf_scan"] == 4 and exhaustive == 0
+              and agree >= IVF_BIN_AGREE)
+        brec["searches"].append({"Q": nq, "nprobe": nprobe, "ok": ok,
+                                 "plain_scan_agreement": agree,
+                                 "c_kernel": res["c_kernel"]})
+        if not ok:
+            failures.append(f"5f binary cascade Q={nq}: {brec}")
+    record("sharded_ivf_binary_cascade", **brec)
+    del rb, xb
+    torch.cuda.empty_cache()
+    # the 4-shard store served with per-request probe budgets
+    cfg = apply_overrides(load_config(None), main_overrides(
+        workdir, "xla", "int8") + [
+        f"retrieval.index_path={path}", "retrieval.shard_corpus=true",
+        f"retrieval.ivf_nlist={IVF_NLIST}", f"retrieval.ivf_cap={IVF_CAP}",
+        f"retrieval.recall_target={CAPACITY_RT}",
+        f"retrieval.block_size={QUANT_BLOCK}"])
+    server_env = mesh_server(torch, cfg, meshes[4])
+    if server_env is None:
+        failures.append("5f: the 4-shard store did not warm-boot the server")
+        return launches
+    retriever, compressor = server_env[2], server_env[1]
+    spy = ServeSpy(torch, retriever, compressor)
+    queries = eval_queries(SHARDED_IVF_SERVED)
+    with running_server(cfg, server_env, 0.0) as srv:
+        serve_load(queries[:4], srv.port, extra={"nprobe": IVF_PINNED})
+        spy.reset()
+        torch.cuda.synchronize()
+        ft.reset_launches()
+        res = serve_load(queries, srv.port, extra={"nprobe": IVF_PINNED})
+        got = dict(ft.launches)
+        calls = list(spy.sizes)
+        stats = http_json(srv.port, "GET", "/stats")
+    launches["serve"] = got["ivf_scan"]
+    direct = []
+    for qtext in queries:
+        _, i = spy.search(spy.encode([qtext]), SERVE_K, nprobe=IVF_PINNED)
+        direct.append([retriever.doc_ids[j] for j in i[0] if j >= 0])
+    served = [(x or {}).get("ids", []) for x in res["responses"]]
+    errors = [x for x in res["responses"] if not x or "ids" not in x]
+    lat = np.asarray([x for x in res["latency_ms"] if x is not None])
+    srec = {"requests": len(queries), "nprobe": IVF_PINNED,
+            "qps": len(queries) / res["wall_s"],
+            "p50_ms": float(np.percentile(lat, 50)) if lat.size else None,
+            "p99_ms": float(np.percentile(lat, 99)) if lat.size else None,
+            "search_calls": len(calls),
+            "launches": {k: v for k, v in got.items() if v},
+            "direct_agreement": slot_agreement(served, direct),
+            "ivf_recall_estimate": stats.get("ivf_recall_estimate"),
+            "failed_requests": len(errors)}
+    srec["ok"] = (not errors and srec["direct_agreement"] >= SERVE_DIRECT_AGREE
+                  and got["ivf_scan"] == 4 * len(calls) and calls
+                  and got["int8_fold"] == 0
+                  and srec["ivf_recall_estimate"] is not None)
+    record("sharded_ivf_serve", card=card_line(), **srec)
+    if not srec["ok"]:
+        failures.append(f"5f the served 4-shard IVF: {srec}")
+    del server_env, spy, retriever, compressor
+    torch.cuda.empty_cache()
+    record("sharded_ivf_phases", seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def check_trainer_mesh(torch, failures: list) -> None:
+    """Phase 5g: ``Trainer(mesh=)`` on 4 shards of cuda:0 against one
+    device (fp32, TF32 off) at the configs' AE widths and batch (the
+    worker's ``config`` shape): the DAE's and the CAE's (``mine_hard_
+    negatives``) first-step loss and gradients (``Trainer.step_grads``:
+    summed over the shards and the processes) within 1e-6, their latents
+    after 3 epochs within the CPU tests' limits; then two gloo processes
+    of 2 shards each (``scripts/torch_trainer_worker.py``) held the same
+    way against one device, and their resume from the files rank 0
+    wrote."""
+    import socket
+
+    import numpy as np
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "scripts"))
+    import torch_trainer_worker as worker
+
+    t_phase = time.perf_counter()
+    rtol, atol = TRAIN_SHARD_TOL
+    shape = worker.SHAPES["config"]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wd = tempfile.mkdtemp(prefix="lr_train_mp_")
+    atexit.register(shutil.rmtree, wd, True)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    # the workers start first: their interpreters reach the card meanwhile
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(root, "scripts",
+                                      "torch_trainer_worker.py"),
+         "--process_id", str(r), "--num_processes", "2",
+         "--coordinator", f"localhost:{port}", "--local_devices", "2",
+         "--device", "cuda:0", "--shape", "config", "--out", f"{wd}/res",
+         "--checkpoint_dir", f"{wd}/ckpt"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=root) for r in range(2)]
+
+    def step_diff(a, b):
+        """(|loss a - loss b|, the largest gradient difference)."""
+        return (abs(a[0] - b[0]),
+                max(float(np.abs(x - y).max()) for x, y in zip(a[1], b[1])))
+
+    try:
+        rec = {"widths": [shape.input_dim, shape.hidden_dim,
+                          shape.latent_dim],
+               "batch": shape.batch, "rows": shape.rows}
+        one, one_step = {}, {}
+        mesh = shard_mesh()
+        for ae_type in ("dae", "cae"):
+            one_step[ae_type] = worker.first_step(ae_type, "cuda:0",
+                                                  shape=shape)
+            dl, dg = step_diff(worker.first_step(ae_type, "cuda:0", mesh,
+                                                 shape), one_step[ae_type])
+            rec[f"{ae_type}_first_step_diff"] = [dl, dg]
+            rec[f"{ae_type}_first_step_ok"] = dl <= 1e-6 and dg <= 1e-6
+            t1, _ = worker.train(ae_type, 3, "cuda:0", shape=shape)
+            tm, _ = worker.train(ae_type, 3, "cuda:0", mesh=mesh,
+                                 shape=shape)
+            z1 = worker.probe_latents(t1, shape)
+            zm = worker.probe_latents(tm, shape)
+            one[ae_type] = z1
+            rec[f"{ae_type}_latents_max_abs_diff"] = float(
+                np.abs(z1 - zm).max())
+            rec[f"{ae_type}_within"] = bool(np.allclose(zm, z1, rtol=rtol,
+                                                        atol=atol))
+        outs = []
+        for p in procs:
+            out, _ = p.communicate(timeout=300)
+            outs.append((p.returncode, out))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    rec["workers_rc"] = [rc for rc, _ in outs]
+    in_process = all(rec[f"{a}_first_step_ok"] and rec[f"{a}_within"]
+                     for a in ("dae", "cae"))
+    if any(rc != 0 or "TORCH_TRAINER_OK" not in out for rc, out in outs):
+        rec["tails"] = [out[-1500:] for _, out in outs]
+        rec["ok"] = False
+    else:
+        res = [dict(np.load(f"{wd}/res.{r}.npz")) for r in range(2)]
+        rec["ranks_agree"] = all(np.array_equal(res[0][k], res[1][k])
+                                 for k in res[0])
+        for a in ("dae", "cae"):
+            got = (float(res[0][f"{a}_step_loss"]),
+                   [res[0][f"{a}_step_grad_{i}"]
+                    for i in range(len(one_step[a][1]))])
+            rec[f"two_process_{a}_first_step_diff"] = list(
+                step_diff(got, one_step[a]))
+        rec["two_process_first_step_ok"] = all(
+            max(rec[f"two_process_{a}_first_step_diff"]) <= 1e-6
+            for a in ("dae", "cae"))
+        rec["two_process_within"] = all(
+            np.allclose(res[0][f"{a}_latents"], one[a], rtol=rtol, atol=atol)
+            for a in ("dae", "cae"))
+        rec["resumed_epochs"] = res[0]["dae_resumed_epochs"].tolist()
+        rec["ok"] = (in_process and rec["ranks_agree"]
+                     and rec["two_process_first_step_ok"]
+                     and rec["two_process_within"]
+                     and rec["resumed_epochs"] == [3])
+    rec["phase_s"] = time.perf_counter() - t_phase
+    record("trainer_mesh", card=card_line(), **rec)
+    if not rec["ok"]:
+        failures.append(f"5g {rec}")
+
+
+def stream_chunk_fn(torch, n: int, seed: int = 2):
+    """``chunk_fn`` of a seeded mixture made on the card a chunk at a time
+    (capacity_bench's: 4 x nlist unit centres, spread 0.08, sign words),
+    the same rows at every call."""
+    from latentrag_torch.ops.binary import binary_quantize
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    centers = torch.nn.functional.normalize(torch.randn(
+        (4 * STREAM_NLIST, 64), generator=g, device="cuda"), dim=1)
+
+    def chunk_fn(i: int):
+        gi = torch.Generator(device="cuda").manual_seed(seed * 1_000_003 + i)
+        m = min(STREAM_CHUNK, n - i * STREAM_CHUNK)
+        which = torch.randint(0, centers.shape[0], (m,), generator=gi,
+                              device="cuda")
+        x = centers[which] + IVF_SPREAD * torch.randn(
+            (m, 64), generator=gi, device="cuda")
+        return binary_quantize(x)
+
+    return chunk_fn
+
+
+def check_streaming_build(torch, failures: list) -> None:
+    """Phase 5h: ``ivf_build_binary_streaming`` over STREAM_ROWS x 64
+    sign words made on the card a chunk at a time (nlist 16384, cap 1024,
+    4,194,304-row chunks): the layout ``torch.equal`` to
+    ``ivf_build_from_assign``'s over the same assignments (blocks and ids),
+    a centroids-only warm boot the same layout; timings, peak memory and
+    stage-1 recall@10 at Q=256 (the auto budget) against a streamed
+    exhaustive sweep of the sign words."""
+    import numpy as np
+
+    from latentrag_torch.ops import ivf as tivf
+    from latentrag_torch.ops.binary import binary_topk
+
+    t_phase = time.perf_counter()
+    n = STREAM_ROWS
+    nchunks = -(-n // STREAM_CHUNK)
+    chunk_fn = stream_chunk_fn(torch, n)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    timings: dict = {}
+    t0 = time.perf_counter()
+    idx = tivf.ivf_build_binary_streaming(
+        chunk_fn, n, 64, STREAM_NLIST, STREAM_CAP, chunk_rows=STREAM_CHUNK,
+        timings=timings)
+    torch.cuda.synchronize()
+    rec = {"N": n, "nlist": STREAM_NLIST, "cap": STREAM_CAP,
+           "chunks": nchunks, "build_s": time.perf_counter() - t0,
+           "timings": timings, "nblocks": idx.nblocks,
+           "peak_bytes": torch.cuda.max_memory_allocated() - base,
+           "index_bytes": idx.blocks.numel() * 4 + idx.block_ids.numel() * 4}
+    mlb = tivf.largest_list_blocks(idx)
+    rec["max_list_blocks"] = mlb
+    # the centroids-only warm boot
+    warm_t: dict = {}
+    warm = tivf.ivf_build_binary_streaming(
+        chunk_fn, n, 64, STREAM_NLIST, STREAM_CAP, chunk_rows=STREAM_CHUNK,
+        centroids=idx.centroids, timings=warm_t)
+    rec["warm_timings"] = warm_t
+    rec["warm_same_layout"] = all(torch.equal(a, b) for a, b in
+                                  zip(idx[1:], warm[1:]))
+    del warm
+    # the reference: the whole corpus at once, its assignments, the layout
+    words = torch.cat([chunk_fn(i) for i in range(nchunks)])
+    t0 = time.perf_counter()
+    assign = tivf._assign_packed(words, idx.centroids, 64, "binary", 32768)
+    ref = tivf.ivf_build_from_assign(words, idx.centroids, assign,
+                                     STREAM_CAP)
+    torch.cuda.synchronize()
+    rec["reference_s"] = time.perf_counter() - t0
+    rec["same_as_from_assign"] = (torch.equal(idx.blocks, ref.blocks)
+                                  and torch.equal(idx.block_ids,
+                                                  ref.block_ids)
+                                  and torch.equal(idx.block2list,
+                                                  ref.block2list))
+    del ref, assign
+    torch.cuda.empty_cache()
+    # stage-1 recall at the auto budget against the exhaustive sign-dots
+    g = torch.Generator(device="cuda").manual_seed(91)
+    q = torch.nn.functional.normalize(torch.randn(
+        (STREAM_QUERIES, 64), generator=g, device="cuda"), dim=1)
+    best_s, best_i = None, None
+    for i in range(nchunks):
+        s, ids = binary_topk(q, words[i * STREAM_CHUNK:(i + 1)
+                                      * STREAM_CHUNK], 64, 10)
+        ids = ids + i * STREAM_CHUNK
+        if best_s is None:
+            best_s, best_i = s, ids
+        else:
+            cat_s, cat_i = torch.cat([best_s, s], 1), torch.cat([best_i, ids],
+                                                                1)
+            top = torch.topk(cat_s, 10, dim=1)
+            best_s, best_i = top.values, torch.gather(cat_i, 1, top.indices)
+    del words
+    nprobe = tivf.auto_nprobe(idx.nblocks)
+    t0 = time.perf_counter()
+    got = []
+    for j in range(0, STREAM_QUERIES, 32):
+        got.append(tivf.ivf_search(q[j:j + 32], idx, k=10, nprobe=nprobe,
+                                   dim=64, max_list_blocks=mlb)[1])
+    torch.cuda.synchronize()
+    got = torch.cat(got).cpu().numpy()
+    rec["search_s"] = time.perf_counter() - t0
+    rec["nprobe"] = nprobe
+    rec["stage1_recall"] = float(np.mean([
+        len(set(a.tolist()) & set(b.tolist())) / 10
+        for a, b in zip(got, best_i.cpu().numpy())]))
+    rec["ok"] = rec["warm_same_layout"] and rec["same_as_from_assign"]
+    rec["phase_s"] = time.perf_counter() - t_phase
+    record("streaming_build", card=card_line(), **rec)
+    if not rec["ok"]:
+        failures.append(f"5h {rec}")
+    del idx
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "latentrag_torch", "csrc")):
@@ -6957,6 +7563,23 @@ def main() -> int:
     if failures:
         fail("; ".join(failures))
     record("sharded_phases", seconds=time.perf_counter() - t_sharded)
+    # phases 5e-5h: the sharded IVF (through the retriever, its sidecar,
+    # mutation and the server), Trainer(mesh=), the streaming build; each
+    # drive's ivf_scan launches read with the counts at 0 just before it
+    t_slice = time.perf_counter()
+    sharded["ivf_scan"] = check_sharded_ivf(
+        torch, failures, main_wd,
+        {c: t["search_ms"] for c, t in ivf["times"].items()})
+    if failures:
+        fail("; ".join(failures[:5]))
+    check_trainer_mesh(torch, failures)
+    if failures:
+        fail("; ".join(failures))
+    check_streaming_build(torch, failures)
+    if failures:
+        fail("; ".join(failures))
+    record("sharded_ivf_trainer_streaming_phases",
+           seconds=time.perf_counter() - t_slice)
 
     kernels = []
     for mode, fn_line, source in (("fold", 162, "fold_mma.cuh"),
@@ -7139,7 +7762,8 @@ def main() -> int:
                  f"block_n={t['block_n']} fp32 cosine (knn_graph's block)",
         "resources": t["resources"],
     })
-    # the slice's drives (5a-5c): each kernel's launches there, by run
+    # the slice's drives (5a-5c; 5e-5f for ivf_scan, one a shard a
+    # search): each kernel's launches there, by run
     for entry in kernels:
         entry["sharded_launches"] = sharded.get(entry["name"], {})
     if "jax" in sys.modules:

@@ -14,6 +14,9 @@ bytes drop from N rows to ``nprobe * cap`` rows.
   (``_grouped_blocks``): a stable sort of the rows by list, so within a
   list rows keep their corpus order, and one gather into the blocks. For
   the same assignments the layout is the JAX package's bit for bit.
+  ``ivf_build_binary_streaming`` builds the same layout over sign words
+  that come a chunk at a time and never exist as one array (the capacity
+  build);
 * persistence: ``ivf_assignments`` recovers every row's list from a
   layout, and ``ivf_build_from_assign`` rebuilds the layout from persisted
   centroids and assignments without k-means; ``ivf_append`` assigns new
@@ -271,6 +274,127 @@ def ivf_build_sq4(packed: torch.Tensor, d: int, nlist: int,
                                                _block_rows(c.shape[0])))
 
 
+def ivf_build_binary_streaming(
+    chunk_fn, n: int, d: int, nlist: int, cap: int = 1024, *,
+    chunk_rows: int = 4_194_304, seed: int = 0, kmeans_iters: int = 10,
+    train_rows: int | None = None, centroids=None, assign_block: int = 32768,
+    timings: dict | None = None,
+) -> IVFIndex:
+    """The inverted file over packed sign words that never exist as one
+    array: ``chunk_fn(i)`` returns packed chunk ``i`` (int32 [>= rows_i,
+    ceil(d/32)], rows ``i * chunk_rows`` on, trimmed here to the chunk's
+    size), and only the output blocks and ids are full size. Three phases:
+
+    1. train: k-means over an evenly strided sample of at most 8 evenly
+       spaced chunks (``train_rows``, default min(n, max(100k, 64 *
+       nlist))), blocked at ``max(1024, min(131072, 2^27 / nlist))`` rows;
+       ``centroids`` skips it (the centroids-only warm boot);
+    2. count: one assignment sweep (``_assign_packed``) sums the list
+       sizes, which fix the layout;
+    3. place: each chunk's assignments again, each row's rank in its list
+       from a chunk-local stable sort plus running per-list counters, and
+       the rows and ids written into their slots of the preallocated
+       blocks in place.
+
+    The layout is ``ivf_build_from_assign``'s over the same assignments
+    bit for bit. Raises ValueError when the slots overflow int32, and
+    RuntimeError when the two sweeps disagree (``running != sizes``: a
+    ``chunk_fn`` that does not return the same rows twice); a slot past
+    the blocks is never written. k-means draws from a ``torch.Generator``
+    seeded with ``seed``, as ``ivf_build`` does, where JAX splits a PRNG
+    key. ``timings`` receives ``train_s``, ``count_s`` and ``place_s``."""
+    if n <= 0:
+        raise ValueError("cannot build an IVF over an empty corpus")
+    nlist = max(1, min(nlist, n))
+    cap = max(8, min(cap, n))
+    nchunks = -(-n // chunk_rows)
+    sizes_of = [min(chunk_rows, n - i * chunk_rows) for i in range(nchunks)]
+
+    def chunk(i: int) -> torch.Tensor:
+        return chunk_fn(i)[: sizes_of[i]]
+
+    t0 = time.perf_counter()
+    if centroids is None:
+        if train_rows is None:
+            train_rows = min(n, max(100_000, 64 * nlist))
+        sample = np.unique(
+            np.linspace(0, nchunks - 1, min(nchunks, 8)).astype(int))
+        per = -(-train_rows // len(sample))
+        parts = []
+        for ci in sample:
+            pk = chunk(int(ci))
+            stride = max(1, sizes_of[ci] // per)
+            parts.append(binary_unpack(pk[::stride][:per], d))
+        train = torch.cat(parts)[:train_rows]
+        del parts
+        centroids = kmeans(train, nlist, iters=kmeans_iters, seed=seed,
+                           block_size=_block_rows(nlist))
+        del train
+    else:
+        if not isinstance(centroids, torch.Tensor):
+            centroids = torch.from_numpy(np.array(centroids,
+                                                  dtype=np.float32))
+        centroids = centroids.to(chunk(0).device, torch.float32)
+        nlist = int(centroids.shape[0])
+    centroids = centroids.contiguous()
+    dev = centroids.device
+    t1 = _tick({}, "train_s", t0, dev)
+
+    sizes_dev = torch.zeros((nlist,), dtype=torch.int64, device=dev)
+    w = 0
+    for i in range(nchunks):
+        pk = chunk(i)
+        w = int(pk.shape[1])
+        a = _assign_packed(pk, centroids, d, "binary", assign_block)
+        sizes_dev += torch.bincount(a.long(), minlength=nlist)
+    sizes = sizes_dev.cpu().numpy()
+    t2 = _tick({}, "count_s", t1, dev)
+
+    nblk = -(-sizes // cap)
+    nblocks = int(nblk.sum())
+    total = nblocks * cap
+    if total >= 2**31:
+        raise ValueError(
+            f"flat slot space {total} overflows int32; shard the corpus "
+            "(parallel/) past ~2.1B slots")
+    block_start = np.concatenate(([0], np.cumsum(nblk)[:-1])).astype(
+        np.int64)
+    bs_dev = torch.from_numpy(block_start).to(dev)
+    blocks = torch.zeros((nblocks, cap, w), dtype=torch.int32, device=dev)
+    ids = torch.full((nblocks, cap), -1, dtype=torch.int32, device=dev)
+    flat_blocks, flat_ids = blocks.view(total, w), ids.view(total)
+    running = torch.zeros((nlist,), dtype=torch.int64, device=dev)
+    for i in range(nchunks):
+        pk = chunk(i).to(dev)
+        m = int(pk.shape[0])
+        a = _assign_packed(pk, centroids, d, "binary", assign_block).long()
+        order = torch.sort(a, stable=True)[1]
+        csz = torch.bincount(a, minlength=nlist)
+        cstart = torch.cumsum(csz, 0) - csz
+        rank = torch.empty_like(order)
+        rank[order] = torch.arange(m, device=dev) - cstart[a[order]]
+        slot = bs_dev[a] * cap + running[a] + rank
+        src = torch.arange(i * chunk_rows, i * chunk_rows + m,
+                           dtype=torch.int32, device=dev)
+        keep = slot < total  # diverged sweeps: never write past the blocks
+        if not bool(keep.all()):
+            slot, pk, src = slot[keep], pk[keep], src[keep]
+        flat_blocks[slot] = pk
+        flat_ids[slot] = src
+        running += csz
+    if not np.array_equal(running.cpu().numpy(), sizes):
+        differ = int((running.cpu().numpy() != sizes).sum())
+        raise RuntimeError(
+            "streaming IVF build: assignment sweeps diverged between the "
+            f"count and place phases ({differ} lists differ)")
+    t3 = _tick({}, "place_s", t2, dev)
+    if timings is not None:
+        timings.update(train_s=t1 - t0, count_s=t2 - t1, place_s=t3 - t2)
+    block2list = torch.from_numpy(
+        np.repeat(np.arange(nlist, dtype=np.int32), nblk)).to(dev)
+    return IVFIndex(centroids, blocks, ids, block2list)
+
+
 def ivf_assignments(index: IVFIndex, n: int) -> torch.Tensor:
     """[n] int32 list of every corpus row, recovered from the layout
     (appended blocks included): with the centroids, the state a warm boot
@@ -281,6 +405,15 @@ def ivf_assignments(index: IVFIndex, n: int) -> torch.Tensor:
     out = torch.zeros((n,), dtype=torch.int32, device=ids.device)
     out[ids[live].long()] = b2l[live].to(torch.int32)
     return out
+
+
+def largest_list_blocks(index: IVFIndex) -> int:
+    """The largest list of ``index`` in blocks (pad blocks, list -1, not
+    counted; 1 for a layout with no real block): the ``max_list_blocks``
+    that keeps the wide path's list expansion whole."""
+    b2l = index.block2list.cpu().numpy()
+    real = b2l[b2l >= 0]
+    return int(np.bincount(real).max()) if real.size else 1
 
 
 def ivf_build_from_assign(corpus: torch.Tensor, centroids, assign,

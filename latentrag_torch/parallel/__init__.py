@@ -1,9 +1,10 @@
 """The corpus sharded over a 1-D device mesh (the port of the JAX
 package's ``parallel/``): the mesh and row-sharded arrays, process-group
-start-up, the sharded top-k, the ring k-NN graph and sharded checkpoints.
-The sharded IVF is not ported yet, and the JAX module's ``replicated`` /
+start-up, the sharded top-k, the sharded device IVF, the ring k-NN graph
+and sharded checkpoints. The JAX module's ``replicated`` /
 ``row_sharded`` shardings have no counterpart: a ``ShardedRows`` is the
-row-sharded layout, and nothing of the port is replicated by hand."""
+row-sharded layout, and the one replicated thing, the AE trainer's
+parameters (``Trainer(mesh=)``), is copied by the trainer itself."""
 
 from .mesh import (
     DATA_AXIS,
@@ -16,6 +17,7 @@ from .mesh import (
 from .distributed import global_mesh, initialize_distributed
 from .checkpoint import load_sharded_index, save_sharded_index
 from .sharded_topk import make_sharded_topk
+from .ivf import ShardedIVF, build_sharded_ivf, make_sharded_ivf_topk
 from .knn import sharded_knn_graph
 
 __all__ = [
@@ -26,6 +28,9 @@ __all__ = [
     "make_mesh",
     "shard_rows",
     "make_sharded_topk",
+    "ShardedIVF",
+    "build_sharded_ivf",
+    "make_sharded_ivf_topk",
     "sharded_knn_graph",
     "load_sharded_index",
     "save_sharded_index",

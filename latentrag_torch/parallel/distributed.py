@@ -11,7 +11,9 @@ that was asked for and fails raises (the JAX function logs a warning and
 goes on in one process, which would hide the mesh).
 
 ``global_mesh`` is the mesh over every process's devices, in (rank, local
-device) order.
+device) order. ``all_gather_cat_grad`` is the gather with the gradient
+flowing back through it, and ``all_reduce_sum`` sums a list of tensors
+over the processes: the data-parallel AE trainer's two collectives.
 """
 
 from __future__ import annotations
@@ -134,3 +136,51 @@ def barrier() -> None:
 
     if dist.is_available() and dist.is_initialized():
         dist.barrier()
+
+
+class _AllGatherCatGrad(torch.autograd.Function):
+    """``all_gather_cat`` whose backward sums every process's gradient of
+    this process's rows (the transpose of a gather, JAX's
+    ``psum_scatter``)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.rows, ctx.device = mesh, x.shape[0], x.device
+        return all_gather_cat(x, mesh).to(x.device)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        g = grad.to(collective_device(ctx.mesh)).contiguous()
+        dist.all_reduce(g)
+        lo = ctx.mesh.rank * ctx.rows
+        return g[lo:lo + ctx.rows].to(ctx.device), None
+
+
+def all_gather_cat_grad(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``all_gather_cat`` on ``x``'s device, with the gradient flowing back
+    through the gather: each process's rows receive the sum over every
+    process of the gradient at their place in the result (gloo stages
+    through the host, as the other collectives do). Without a process
+    group it returns ``x``."""
+    if mesh.world == 1:
+        return x
+    return _AllGatherCatGrad.apply(x, mesh)
+
+
+def all_reduce_sum(tensors: list, mesh: Mesh) -> list:
+    """Every tensor summed over the mesh's processes (one ``all_reduce`` of
+    their flattened concatenation), back on each tensor's device."""
+    import torch.distributed as dist
+
+    if mesh.world == 1 or not tensors:
+        return list(tensors)
+    flat = torch.cat([t.reshape(-1).to(collective_device(mesh))
+                      for t in tensors])
+    dist.all_reduce(flat)
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].reshape(t.shape).to(t.device))
+        at += t.numel()
+    return out

@@ -68,7 +68,6 @@ def sharded_search(search, q, sharded: ShardedRows, n_valid: int, k: int,
     (``prepare_queries``' codes and scale), copied once to each distinct
     device."""
     mesh = sharded.mesh
-    dev0 = mesh.devices[0]
     local_k = k + mesh.size - 1
     q_on = {}
     parts_s, parts_i = [], []
@@ -79,18 +78,35 @@ def sharded_search(search, q, sharded: ShardedRows, n_valid: int, k: int,
                          else q.to(dev))
         m = None if mask_shard is None else mask_shard.shards[j]
         s, i = search(q_on[dev], shard, local_k, m)
-        gi = torch.where(i >= 0, i.long() + sharded.offset(j), -1)
+        parts_s.append(s)
+        parts_i.append(i)
+    return merge_shards(mesh, parts_s, parts_i, sharded.rows_per_shard,
+                        n_valid, k)
+
+
+def merge_shards(mesh: Mesh, parts_s: list, parts_i: list,
+                 rows_per_shard: int, n_valid: int, k: int):
+    """This process's shards' candidates (each [Q, kk], LOCAL ids, -1 in
+    empty slots, in local shard order) offset to global int64 ids, the ids
+    at or past ``n_valid`` masked to NEG_INF, gathered on the mesh's first
+    device (across processes one ``all_gather``) and merged by
+    ``merge_candidates``."""
+    dev0 = mesh.devices[0]
+    glob_s, glob_i = [], []
+    for j, (s, i) in enumerate(zip(parts_s, parts_i)):
+        offset = mesh.global_index(j) * rows_per_shard
+        gi = torch.where(i >= 0, i.long() + offset, -1)
         s = torch.where((gi >= 0) & (gi < n_valid), s.float(), NEG_INF)
-        parts_s.append(s.to(dev0))
-        parts_i.append(gi.to(dev0))
+        glob_s.append(s.to(dev0))
+        glob_i.append(gi.to(dev0))
     if mesh.world > 1:
         from .distributed import all_gather_cat
 
         # [L, Q, kk] a process -> [P, Q, kk] in global shard order
-        all_s = all_gather_cat(torch.stack(parts_s), mesh).to(dev0)
-        all_i = all_gather_cat(torch.stack(parts_i), mesh).to(dev0)
-        parts_s, parts_i = list(all_s), list(all_i)
-    return merge_candidates(parts_s, parts_i, k)
+        all_s = all_gather_cat(torch.stack(glob_s), mesh).to(dev0)
+        all_i = all_gather_cat(torch.stack(glob_i), mesh).to(dev0)
+        glob_s, glob_i = list(all_s), list(all_i)
+    return merge_candidates(glob_s, glob_i, k)
 
 
 def make_sharded_topk(

@@ -96,8 +96,16 @@ top-1 counts as a failed check.
   their usual files. A ``sharded/`` store loads on a mesh of any size or
   on one device. The JAX package's ``sharded/`` is Orbax, which the port
   does not read (``scripts/orbax_sharded_to_npy.py`` rewrites it), and the
-  JAX package does not read the port's. A mesh with the device IVF
-  (``ivf_nlist > 0``) raises: the sharded IVF is ROADMAP queue 1 (a).
+  JAX package does not read the port's. The device IVF on a mesh is the
+  sharded IVF (``parallel.ivf``): an inverted file a shard over its own
+  rows, each shard probed by ``ivf_scan`` and the candidates merged; the
+  traffic guard counts one shard's rows; ``add`` / ``remove`` drop it and
+  the next eligible search rebuilds it, as in the JAX package; its
+  per-shard centroids [P, nlist / P, d] and assignments [P,
+  rows_per_shard] persist as ``ivf_centroids.npy`` / ``ivf_assign.npy``
+  with ``ivf_mesh_p = P`` in meta.json, and restore only onto a mesh of
+  the same size (a single-device sidecar and a mesh one are not
+  interchangeable).
 """
 
 from __future__ import annotations
@@ -136,6 +144,14 @@ from ..parallel.checkpoint import (
     save_sharded_index,
 )
 from ..parallel.distributed import barrier
+from ..parallel.ivf import (
+    build_sharded_ivf,
+    build_sharded_ivf_from_assign,
+    local_shard_index,
+    make_sharded_ivf_topk,
+    sharded_ivf_assignments,
+    sharded_ivf_centroids,
+)
 from ..parallel.mesh import ShardedRows, gather_rows, shard_rows
 from ..parallel.sharded_topk import sharded_search
 from ..utils.device import resolve_device
@@ -357,6 +373,8 @@ class DenseRetriever:
     # the latest IVF build's seconds by stage (kmeans_s, assign_s,
     # layout_s, probe_s) and whether it came from the sidecar
     _ivf_build_info: dict = field(default_factory=dict)
+    # a mesh's sharded-IVF searches, keyed by (k, nprobe, masked)
+    _sharded_ivf_fns: dict = field(default_factory=dict)
 
     # k at/above this is treated as re-rank oversampling
     RERANK_K = 64
@@ -383,11 +401,6 @@ class DenseRetriever:
             # one shard is the single-device store with merge plumbing
             self.mesh = None
         if self.mesh is not None:
-            if self.ivf_nlist > 0:
-                raise NotImplementedError(
-                    "the device IVF over a mesh (retrieval.ivf_nlist > 0 with "
-                    "retrieval.shard_corpus) is ROADMAP queue 1 (a), the "
-                    "sharded IVF; serve it unsharded or set ivf_nlist=0")
             self.device = self.mesh.devices[0]
         self.device = resolve_device(self.device)
         if self.index_path and os.path.exists(
@@ -617,6 +630,7 @@ class DenseRetriever:
             raise ValueError("metadata/embeddings row count mismatch")
         m = int(x.shape[0])
         if (self._ivf_index is None and self._ivf_sidecar is not None
+                and self.mesh is None
                 and self._ivf_append_budget(m, n_total=self._corpus_n + m)):
             # a warm boot's first add: lay the IVF out from the sidecar now
             # (no k-means), so the append below extends it and the next
@@ -647,7 +661,10 @@ class DenseRetriever:
         )
         ivf = self._ivf_index
         self._mark_mutated()
-        if ivf is not None and self._ivf_append_budget(m):
+        # a mesh re-shards the rows: its IVF is rebuilt at the next
+        # eligible search instead, as the JAX package does
+        if (ivf is not None and self.mesh is None
+                and self._ivf_append_budget(m)):
             # the new rows go to the existing centroids, in blocks appended
             # at the tail; earlier rows keep their ids, so the layout stays
             self._ivf_index = ivf_ops.ivf_append(
@@ -754,23 +771,31 @@ class DenseRetriever:
         configured backend, the int8 store, the cascades' stage 1 with -1
         in the slots no allowed row fills): on the device, or on each shard
         of the mesh with the candidates merged (global int64 ids)."""
-        store = ("float" if self.store_dtype in ("float32", "bfloat16")
-                 else self.store_dtype)
-        scale = (self._sq4_scale if store == "int4"
-                 else self._corpus_scale if store == "int8" else None)
-        backend = self._resolve_backend()
 
         def search(qd, corpus, kk, m):
-            return store_topk(
-                qd, corpus, kk, store=store, backend=backend,
-                metric=self.metric, recall_target=rt,
-                block_size=self.block_size, mask=m, scale=scale,
-                d=self._dim)
+            return self._store_topk(qd, corpus, kk, rt, m)
 
         if self.mesh is None:
             return search(q, self._corpus, k, mask)
-        return sharded_search(search, prepare_queries(q, store),
+        return sharded_search(search, prepare_queries(q, self._store_kind()),
                               self._corpus, self._corpus_n, k, mask)
+
+    def _store_kind(self) -> str:
+        """The store's kind as ``store_topk`` names it."""
+        return ("float" if self.store_dtype in ("float32", "bfloat16")
+                else self.store_dtype)
+
+    def _store_topk(self, q, corpus: torch.Tensor, k: int, rt: float,
+                    mask=None):
+        """One exhaustive search of ``corpus`` (the store, or one shard of
+        it) by the store's route, ``ops.store_search.store_topk``."""
+        store = self._store_kind()
+        scale = (self._sq4_scale if store == "int4"
+                 else self._corpus_scale if store == "int8" else None)
+        return store_topk(
+            q, corpus, k, store=store, backend=self._resolve_backend(),
+            metric=self.metric, recall_target=rt, block_size=self.block_size,
+            mask=mask, scale=scale, d=self._dim)
 
     def _stage1(self, q: torch.Tensor, ok: int, rt: float, mask=None):
         """The cascades' exhaustive stage 1: ``ok`` candidates by sign-dot
@@ -813,7 +838,8 @@ class DenseRetriever:
         (``binary=True``). A pinned budget (``ivf_nprobe``, a search's
         ``nprobe``) goes; otherwise the batch's estimated probe rows
         (nq x auto nprobe x cap) must stay within a quarter of the sweep's
-        n rows, as the JAX package's rule sets it."""
+        n rows, as the JAX package's rule sets it; on a mesh both count one
+        shard's rows (n / P), the rows a shard's probe and sweep read."""
         if not (self.ivf_nlist > 0 and nq <= self.ivf_query_limit
                 and self._corpus_n >= self.IVF_MIN_ROWS):
             return False
@@ -822,7 +848,7 @@ class DenseRetriever:
             return False
         if pinned or self.ivf_nprobe:
             return True
-        rows = self._corpus_n
+        rows = self._corpus_n // (self.mesh.size if self.mesh else 1)
         nprobe_est = ivf_ops.auto_nprobe(max(1, rows // self.ivf_cap))
         return nq * nprobe_est * self.ivf_cap <= rows // 4
 
@@ -835,37 +861,46 @@ class DenseRetriever:
             return self._ivf_index
         t0 = time.perf_counter()
         info: dict = {}
-        corpus = self._corpus[: self._corpus_n]
         restored = self._ivf_sidecar is not None
-        if restored:
+        if self.mesh is not None:
+            self._ivf_index, restored = self._build_sharded_ivf(info)
+        elif restored:
+            corpus = self._corpus[: self._corpus_n]
             cent, assign = self._ivf_sidecar
             self._ivf_index = ivf_ops.ivf_build_from_assign(
                 corpus, cent, assign, self.ivf_cap)
         elif self.store_dtype == "int4":
             self._ivf_index = ivf_ops.ivf_build_sq4(
-                corpus, self._dim, self.ivf_nlist, self.ivf_cap,
-                timings=info)
+                self._corpus[: self._corpus_n], self._dim, self.ivf_nlist,
+                self.ivf_cap, timings=info)
         elif self._rescore_host is not None:
             self._ivf_index = ivf_ops.ivf_build_binary(
-                corpus, self._dim, self.ivf_nlist, self.ivf_cap,
-                timings=info)
+                self._corpus[: self._corpus_n], self._dim, self.ivf_nlist,
+                self.ivf_cap, timings=info)
         else:
             self._ivf_index = ivf_ops.ivf_build(
-                corpus, self.ivf_nlist, self.ivf_cap, timings=info)
+                self._corpus[: self._corpus_n], self.ivf_nlist, self.ivf_cap,
+                timings=info)
         self._ivf_appended = 0
-        force_completion(self._ivf_index.blocks)
+        shards = (self._ivf_index.shards if self.mesh is not None
+                  else [self._ivf_index])
+        for idx in shards:
+            force_completion(idx.blocks)
         info["build_s"] = time.perf_counter() - t0
         info["restored"] = restored
         log.info(
-            "device IVF %s: nblocks=%d cap=%d in %.2fs",
+            "device IVF %s: nblocks=%d cap=%d in %.2fs%s",
             "restored from sidecar (no k-means)" if restored else "built",
             self._ivf_index.nblocks, self.ivf_cap, info["build_s"],
+            " (per shard)" if self.mesh is not None else "",
         )
         if probe and self.ivf_selfcheck and not (
                 restored and self._ivf_recall_estimate is not None):
             t0 = time.perf_counter()
-            self._ivf_recall_estimate = self._ivf_recall_probe(
-                self._ivf_index)
+            self._ivf_recall_estimate = (
+                self._ivf_recall_probe_mesh(self._ivf_index)
+                if self.mesh is not None
+                else self._ivf_recall_probe(self._ivf_index))
             info["probe_s"] = time.perf_counter() - t0
             r_est = self._ivf_recall_estimate
             if r_est is not None:
@@ -880,6 +915,29 @@ class DenseRetriever:
         self._ivf_build_info = info
         return self._ivf_index
 
+    def _build_sharded_ivf(self, info: dict):
+        """The mesh's sharded IVF and whether it came from the sidecar: a
+        restore when the sidecar's geometry is this mesh's ([P, nls, d]
+        centroids, [P, rows_per_shard] assignments), else (with a warning
+        for a sidecar that does not fit) per-shard k-means."""
+        p = self.mesh.size
+        rps = self._corpus.rows_per_shard
+        if self._ivf_sidecar is not None:
+            cent, assign = self._ivf_sidecar
+            if (cent.ndim == 3 and cent.shape[0] == p
+                    and assign.shape == (p, rps)):
+                return build_sharded_ivf_from_assign(
+                    self._corpus, self.mesh, cent, assign,
+                    self.ivf_cap), True
+            log.warning(
+                "mesh IVF sidecar geometry %s/%s does not match the "
+                "%d-device mesh (rows_per_shard=%d); rebuilding cold",
+                cent.shape, assign.shape, p, rps)
+        return build_sharded_ivf(
+            self._corpus, self.mesh, self.ivf_nlist, self.ivf_cap,
+            dim=self._dim if self._rescore_host is not None else 0,
+            timings=info), False
+
     def _ivf_scale(self):
         """The scale of the IVF's blocks: the int4 nibbles', the int8
         codes' (None for float blocks and sign words)."""
@@ -889,36 +947,47 @@ class DenseRetriever:
             return None
         return self._corpus_scale
 
-    def _ivf_probe_queries(self, rows: np.ndarray) -> torch.Tensor:
-        """Prepared-space fp32 queries rebuilt from stored rows (the int4
-        nibbles and the cascades' SQ8 codes dequantized)."""
-        idx = torch.as_tensor(rows, dtype=torch.long, device=self.device)
+    def _ivf_probe_queries(self, rows: np.ndarray,
+                           corpus: torch.Tensor) -> torch.Tensor:
+        """Prepared-space fp32 queries rebuilt from the stored ``rows`` of
+        ``corpus`` (the int4 nibbles and the cascades' SQ8 codes
+        dequantized)."""
+        idx = torch.as_tensor(rows, dtype=torch.long, device=corpus.device)
         if self.store_dtype == "int4":
-            return sq4_unpack(self._corpus[idx], self._dim).float() \
+            return sq4_unpack(corpus[idx], self._dim).float() \
                 * self._sq4_scale
         if self._rescore_host is not None:
             return torch.from_numpy(
                 self._rescore_host[rows].astype(np.float32)).to(
-                self.device) * self._corpus_scale
-        q = self._corpus[idx].float()
+                corpus.device) * self._corpus_scale
+        q = corpus[idx].float()
         if self._corpus_scale is not None:  # int8 codes
             q = q * self._corpus_scale
         return q
 
-    def _ivf_recall_probe(self, idx) -> float | None:
+    def _ivf_recall_probe(self, idx, corpus=None, n: int | None = None,
+                          max_list_blocks: int | None = None
+                          ) -> float | None:
         """Candidate recall@10 of the configured probe budget on a sample
         of corpus rows as queries, against the exhaustive route of the same
         store (the cascades: stage 1 against stage 1). A corpus property,
         logged and served as ``ivf_recall_estimate``; corpus rows as probes
-        flatter it a little (their own row sits in a probed list)."""
+        flatter it a little (their own row sits in a probed list).
+        ``corpus`` / ``n`` give the rows of one shard (the mesh's probe:
+        its exhaustive reference is that shard's own search), by default
+        the whole single-device store."""
         if self.metric not in ("cosine", "dot"):
             return None
-        n = self._corpus_n
+        n = self._corpus_n if n is None else n
         s = max(2, min(self.ivf_selfcheck, n))
         rows = np.linspace(0, n - 1, s).astype(np.int32)
-        q = self._ivf_probe_queries(rows)
+        q = self._ivf_probe_queries(
+            rows, self._corpus if corpus is None else corpus)
         kk = min(10, n)
-        if self._rescore_host is not None:
+        if corpus is not None:
+            _, ref = self._store_topk(q, corpus, kk,
+                                      self._effective_recall_target(kk))
+        elif self._rescore_host is not None:
             _, ref = self._stage1(q, kk, self._effective_recall_target(kk))
         else:
             _, ref = self._search_prepared(q, kk, allow_ivf=False)
@@ -927,11 +996,27 @@ class DenseRetriever:
             nprobe=min(self.ivf_nprobe or ivf_ops.auto_nprobe(idx.nblocks),
                        idx.nblocks),
             metric=self.metric, scale=self._ivf_scale(),
-            dim=self._dim if self._rescore_host is not None else 0)
+            dim=self._dim if self._rescore_host is not None else 0,
+            max_list_blocks=max_list_blocks)
         ref, est = ref.cpu().numpy(), est.cpu().numpy()
         hits = sum(len(set(a.tolist()) & set(b.tolist()))
                    for a, b in zip(est, ref))
         return hits / ref.size
+
+    def _ivf_recall_probe_mesh(self, sivf) -> float | None:
+        """The sharded IVF's recall probe, on shard 0: it holds global rows
+        [0, rows_per_shard), whose local ids are their global ones, and no
+        pad row (pads lie at the end), so its inverted file is probed
+        against its own exhaustive search. Shards are contiguous ranges of
+        one corpus, so one shard's pruning stands for the others'. None on
+        a process that does not hold shard 0."""
+        if self.mesh.rank != 0:
+            return None
+        n0 = min(sivf.rows_per_shard, self._corpus_n)
+        return self._ivf_recall_probe(
+            local_shard_index(sivf), corpus=self._corpus.shards[0][:n0],
+            n=n0,
+            max_list_blocks=sivf.max_list_blocks)
 
     def _ivf_search(self, q: torch.Tensor, k: int, mask,
                     nprobe_override: int | None = None):
@@ -945,13 +1030,24 @@ class DenseRetriever:
                          idx.nblocks)
         else:
             nprobe = self.ivf_nprobe or ivf_ops.auto_nprobe(idx.nblocks)
+        k_eff = min(k, self._corpus_n)
+        if self.mesh is not None:
+            # the padded block count (every shard's) set nprobe above
+            key = (k_eff, nprobe, mask is not None)
+            fn = self._sharded_ivf_fns.get(key)
+            if fn is None:
+                fn = make_sharded_ivf_topk(
+                    self.mesh, k=k_eff, nprobe=nprobe, metric=self.metric,
+                    dim=self._dim if self._rescore_host is not None else 0,
+                    filtered=mask is not None)
+                self._sharded_ivf_fns[key] = fn
+            return fn(q, idx, self._corpus_n, scale=self._ivf_scale(),
+                      mask_shard=mask)
         if self._ivf_mlb is None or self._ivf_mlb[0] is not idx.block2list:
-            b2l = idx.block2list.cpu().numpy()
-            real = b2l[b2l >= 0]
-            mlb = int(np.bincount(real).max()) if real.size else 1
-            self._ivf_mlb = (idx.block2list, mlb)
+            self._ivf_mlb = (idx.block2list,
+                             ivf_ops.largest_list_blocks(idx))
         return ivf_ops.ivf_search(
-            q, idx, k=min(k, self._corpus_n), nprobe=nprobe,
+            q, idx, k=k_eff, nprobe=nprobe,
             metric=self.metric, scale=self._ivf_scale(), mask=mask,
             dim=self._dim if self._rescore_host is not None else 0,
             max_list_blocks=self._ivf_mlb[1])
@@ -1046,6 +1142,18 @@ class DenseRetriever:
             os.makedirs(path, exist_ok=True)
         stored_digests: dict[str, str] = {}
         sharded_generation = None
+        eager_ok = eager_ivf and (self._rescore_host is not None
+                                  or self._resolve_backend() == "xla")
+        ivf_saved = (self.ivf_nlist > 0 and n >= self.IVF_MIN_ROWS
+                     and (self._ivf_index is not None or eager_ok))
+        if ivf_saved:
+            # every process builds (a mesh agrees on its block counts) and
+            # gathers the shards' state before process 0 writes it
+            if self._ivf_index is None:
+                log.info("building device IVF at save time so warm boots "
+                         "skip k-means (retrieval.ivf_nlist=%d)",
+                         self.ivf_nlist)
+            ivf_state = self._ivf_state(self._ensure_ivf())
         if self._rescore_host is not None:
             # the cascades persist their usual files, a mesh's gathered
             packed = self._rows().cpu().numpy()
@@ -1115,19 +1223,8 @@ class DenseRetriever:
             stored_digests["whitener.npy"] = _stored_digest(wh)
         else:
             _drop_stale(path, "whitener.npy")
-        eager_ok = eager_ivf and (self._rescore_host is not None
-                                  or self._resolve_backend() == "xla")
-        ivf_saved = (self.ivf_nlist > 0 and n >= self.IVF_MIN_ROWS
-                     and (self._ivf_index is not None or eager_ok))
         if ivf_saved:
-            if self._ivf_index is None:
-                log.info("building device IVF at save time so warm boots "
-                         "skip k-means (retrieval.ivf_nlist=%d)",
-                         self.ivf_nlist)
-            idx = self._ensure_ivf()
-            cent = idx.centroids.float().cpu().numpy()
-            assign = ivf_ops.ivf_assignments(idx, n).cpu().numpy().astype(
-                np.int32)
+            cent, assign = ivf_state
             atomic_save(os.path.join(path, "ivf_centroids.npy"), cent)
             atomic_save(os.path.join(path, "ivf_assign.npy"), assign)
             stored_digests["ivf_centroids.npy"] = _stored_digest(cent)
@@ -1152,6 +1249,10 @@ class DenseRetriever:
             # a restore regroups with the same cap; another nlist re-clusters
             meta["ivf_cap"] = self.ivf_cap
             meta["ivf_nlist"] = self.ivf_nlist
+            if mesh is not None:
+                # per-shard state of the row -> shard map: it restores only
+                # onto a mesh of this size
+                meta["ivf_mesh_p"] = mesh.size
             if self._ivf_recall_estimate is not None:
                 meta["ivf_recall_estimate"] = float(self._ivf_recall_estimate)
         if sharded_generation is not None:
@@ -1165,6 +1266,16 @@ class DenseRetriever:
         if mesh is not None:
             barrier()  # the other processes return after this
         log.info("index persisted to %s (n=%d)", path, n)
+
+    def _ivf_state(self, idx) -> tuple[np.ndarray, np.ndarray]:
+        """What the IVF persists: its centroids and every row's list, on a
+        mesh each shard's ([P, nls, d], [P, rows_per_shard] local lists,
+        gathered across processes)."""
+        if self.mesh is not None:
+            return sharded_ivf_centroids(idx), sharded_ivf_assignments(idx)
+        return (idx.centroids.float().cpu().numpy(),
+                ivf_ops.ivf_assignments(idx, self._corpus_n).cpu().numpy()
+                .astype(np.int32))
 
     def _save_metadata_only(self, path: str) -> None:
         """Rewrite only the metadata sidecar and its digest in meta.json
@@ -1357,17 +1468,22 @@ class DenseRetriever:
     def _read_ivf_sidecar(self, path: str, meta: dict, store: _Store) -> None:
         """The IVF's persisted centroids and assignments (digests verified
         with the rest), taken only when this retriever asks for the same
-        structure: the same nlist and cap, on one device (a mesh save's
-        sidecar is per shard), one assignment a row."""
+        structure: the same nlist and cap, and the same mesh size
+        (``ivf_mesh_p``; none on one device), one assignment a row on one
+        device, a [P, rows_per_shard] array on a mesh (its rows per shard
+        are checked when the IVF is built)."""
+        p = -1 if self.mesh is None else self.mesh.size
         if not (self.ivf_nlist > 0
                 and "ivf_centroids.npy" in (meta.get("stored_digests") or {})
                 and int(meta.get("ivf_cap", -1)) == self.ivf_cap
                 and int(meta.get("ivf_nlist", -1)) == self.ivf_nlist
-                and int(meta.get("ivf_mesh_p", -1)) == -1):
+                and int(meta.get("ivf_mesh_p", -1)) == p):
             return
         cent = np.load(os.path.join(path, "ivf_centroids.npy"))
         assign = np.load(os.path.join(path, "ivf_assign.npy"), mmap_mode="r")
-        if assign.ndim != 1 or assign.shape[0] != store.n:
+        ok = (assign.ndim == 2 and assign.shape[0] == p if p > 0
+              else assign.ndim == 1 and assign.shape[0] == store.n)
+        if not ok:
             return
         store.ivf_sidecar = (np.asarray(cent, dtype=np.float32),
                              np.ascontiguousarray(assign, dtype=np.int32))

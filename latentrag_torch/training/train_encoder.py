@@ -14,8 +14,8 @@ Flax's ``nn.Dense(dtype=...)`` trains them. The optimizer is optax's
 improvement the state is copied and, with a checkpoint path, written with
 the optimizer's state (``trainer.save_training_state``); the best state
 is loaded back into the tower at the end, as the JAX trainer sets
-``encoder.params``. One device: data parallelism waits for the port's
-``torch.distributed`` work (ROADMAP queue 1, item 4).
+``encoder.params``. One device, as in the JAX package, whose encoder
+trainer takes no mesh (only the AE trainer does: ``trainer.Trainer``).
 
   python -m latentrag_torch.training.train_encoder --epochs 5 \\
       --set data.dataset=synthetic data.max_samples=200

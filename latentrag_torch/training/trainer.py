@@ -1,7 +1,7 @@
 """The autoencoder trainer: Adam(W) behind a global-norm clip, early
 stopping, the plateau schedule, checkpoints and resume.
 
-The port of the JAX package's ``training/trainer.py``, on one device:
+The port of the JAX package's ``training/trainer.py``:
 
 * one trainer for the three variants, the loss in fp32 (``losses.py``);
 * Adam, or AdamW when ``weight_decay > 0`` (one parameter group, every
@@ -24,13 +24,35 @@ Batches come from ``np.random.default_rng(seed)``'s shuffle, so both
 packages see the same batches. The VAE draws its noise from a
 ``torch.Generator`` on the device, seeded with ``seed`` for training and
 re-seeded with ``seed + 1`` at each validation; JAX splits PRNG keys
-instead, so the draws differ. Data parallelism over a mesh
-(``Trainer(mesh=...)`` in JAX) waits for the port's ``torch.distributed``
-work (ROADMAP queue 1, item 4); this trainer runs on one device.
+instead, so the draws differ.
+
+Data parallelism (``Trainer(..., mesh=parallel.make_mesh(...))``, the JAX
+trainer's ``mesh=``): the parameters are replicated (the model on the
+mesh's first device, a copy on each other distinct device) and each batch
+is sharded over the mesh, and a step is the single-device step on the
+GLOBAL batch:
+
+* the batch size is rounded down to a multiple of the mesh size (to P
+  when that leaves 0); a ragged batch (validation's tail, a tiny dataset)
+  is not sharded and its loss is the whole batch's, on the first device;
+* each shard runs the model's forward on its rows; the outputs are
+  gathered in row order (``parallel.distributed.all_gather_cat_grad``
+  across processes, the gradient flowing back through the gather) and the
+  variant's loss is taken over the whole batch: the VAE's and the DAE's
+  means, and the CAE's hard negatives mined over the global batch;
+* the VAE's noise is one [B, latent] draw of the step's generator, split
+  over the shards, so a mesh and one device train alike from one seed;
+* the shards' gradients are summed onto the first device and across
+  processes (an ``all_reduce``), so every replica takes the same update
+  and the same early-stopping decision from the same global validation
+  loss. Each process takes its rows of the same shuffled global batch;
+  only process 0 writes the ``.pth`` and ``<ae>.train.pt`` (the others wait
+  at a barrier), and ``resume`` reads them on every process.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import math
 import os
@@ -170,53 +192,158 @@ def restore_training_state(path: str, module: nn.Module,
 # ------------------------------------------------------------------ trainer
 
 
+@dataclass
+class ShardedBatch:
+    """A global batch on a mesh: ``whole`` (every row, on the first
+    device: the targets), and ``parts``, this process's rows split over
+    its shards, ``parts[j]`` on ``mesh.devices[j]``."""
+
+    whole: dict
+    parts: list
+    rows: int  # the global batch's rows
+
+
 class Trainer:
     """Train one autoencoder variant on host numpy arrays, on ``device``
-    (default CUDA; the CPU only when asked)."""
+    (default CUDA; the CPU only when asked), or data-parallel over
+    ``mesh`` (a ``parallel.Mesh``; its first device holds the model)."""
 
     def __init__(self, model: nn.Module, ae_type: str, cfg: TrainingConfig,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         if ae_type not in ("vae", "dae", "cae"):
             raise ValueError(f"unknown ae_type {ae_type!r}")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.devices[0] if mesh is not None
+                                     else device)
         self.model = model.to(self.device)
         self.ae_type = ae_type
         self.cfg = cfg
         self.params = list(self.model.parameters())
         self.optimizer = make_optimizer(self.params, cfg.learning_rate,
                                         cfg.weight_decay)
+        # the replicas on the mesh's other devices, refreshed after a step
+        self.replicas = {} if mesh is None else {
+            d: copy.deepcopy(self.model).to(d)
+            for d in mesh.distinct_devices() if d != self.device}
 
     # -- steps --------------------------------------------------------------
 
-    def loss(self, batch: Mapping[str, torch.Tensor],
-             generator: torch.Generator | None = None,
-             eps: torch.Tensor | None = None) -> torch.Tensor:
-        """The variant's fp32 loss on one batch; the VAE samples with
-        ``eps`` when given, else from ``generator``."""
-        cfg = self.cfg
+    def _outputs(self, module: nn.Module, batch: Mapping[str, torch.Tensor],
+                 generator=None, eps=None) -> tuple:
+        """The model's outputs on ``batch`` that the loss reads."""
         if self.ae_type == "vae":
-            recon, mu, logvar = self.model(batch["x"], train=True,
-                                           generator=generator, eps=eps)
-            return vae_loss(recon, batch["y"], mu, logvar, beta=cfg.beta)[0]
+            return module(batch["x"], train=True, generator=generator,
+                          eps=eps)
         if self.ae_type == "dae":
-            return dae_loss(self.model(batch["x"]), batch["y"])
-        enc = self.model.encode
+            return (module(batch["x"]),)
+        enc = module.encode
         # when mining in-batch hard negatives the dataset's negatives are
         # unused, so they are not encoded
-        z_n = (enc(batch["n"]) if "n" in batch and not cfg.mine_hard_negatives
-               else None)
-        return contrastive_loss(enc(batch["q"]), enc(batch["p"]), z_n,
+        if "n" in batch and not self.cfg.mine_hard_negatives:
+            return enc(batch["q"]), enc(batch["p"]), enc(batch["n"])
+        return enc(batch["q"]), enc(batch["p"])
+
+    def _loss_of(self, outs: tuple, batch: Mapping[str, torch.Tensor]
+                 ) -> torch.Tensor:
+        """The variant's fp32 loss over the whole batch's outputs."""
+        cfg = self.cfg
+        if self.ae_type == "vae":
+            recon, mu, logvar = outs
+            return vae_loss(recon, batch["y"], mu, logvar, beta=cfg.beta)[0]
+        if self.ae_type == "dae":
+            return dae_loss(outs[0], batch["y"])
+        return contrastive_loss(outs[0], outs[1],
+                                outs[2] if len(outs) > 2 else None,
                                 margin=cfg.triplet_margin,
                                 mine_hard_negatives=cfg.mine_hard_negatives)
 
-    def train_step(self, batch: Mapping[str, torch.Tensor],
-                   generator: torch.Generator | None = None,
+    def _module_on(self, device) -> nn.Module:
+        return self.model if device == self.device else self.replicas[device]
+
+    def _sharded_outputs(self, sb: ShardedBatch, generator=None,
+                         eps=None) -> tuple:
+        """Each shard's outputs on its rows, gathered in global row order
+        on the first device (across processes too, the gradient flowing
+        back through the gather). The VAE's noise is one global draw, each
+        shard taking its rows of it."""
+        mesh = self.mesh
+        if self.ae_type == "vae" and eps is None:
+            if generator is None:
+                raise ValueError("train=True needs a generator or eps")
+            eps = torch.randn((sb.rows, self.model.latent_dim),
+                              generator=generator, device=self.device)
+        per = sb.rows // mesh.size
+        local = []
+        for j, part in enumerate(sb.parts):
+            dev = mesh.devices[j]
+            e = None
+            if eps is not None:
+                g = mesh.global_index(j)
+                e = eps[g * per:(g + 1) * per].to(dev)
+            local.append(self._outputs(self._module_on(dev), part, eps=e))
+        outs = tuple(torch.cat([o[i].to(self.device) for o in local])
+                     for i in range(len(local[0])))
+        if mesh.world > 1:
+            from ..parallel.distributed import all_gather_cat_grad
+
+            outs = tuple(all_gather_cat_grad(o, mesh).to(self.device)
+                         for o in outs)
+        return outs
+
+    def loss(self, batch, generator: torch.Generator | None = None,
+             eps: torch.Tensor | None = None) -> torch.Tensor:
+        """The variant's fp32 loss on one batch (a dict of tensors, or a
+        mesh's ``ShardedBatch``: the global batch's loss); the VAE samples
+        with ``eps`` when given, else from ``generator``."""
+        if isinstance(batch, ShardedBatch):
+            return self._loss_of(self._sharded_outputs(batch, generator, eps),
+                                 batch.whole)
+        return self._loss_of(self._outputs(self.model, batch, generator, eps),
+                             batch)
+
+    def train_step(self, batch, generator: torch.Generator | None = None,
                    eps: torch.Tensor | None = None) -> torch.Tensor:
-        """One optimizer step; returns the batch's loss (on the device)."""
-        loss = self.loss(batch, generator, eps)
-        grads = grads_of(loss, self.params)
+        """One optimizer step; returns the batch's loss (on the device).
+        The replicas take the updated parameters."""
+        loss, grads = self.step_grads(batch, generator, eps)
         apply_gradients(self.optimizer, grads, self.cfg.grad_clip_norm)
-        return loss.detach()
+        self._sync_replicas()
+        return loss
+
+    def step_grads(self, batch, generator: torch.Generator | None = None,
+                   eps: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, list[torch.Tensor]]:
+        """The batch's loss (detached) and the gradient a step applies, of
+        the first device's parameters. On a mesh the shards' gradients are
+        summed on the first device and across processes: the gradient of
+        the global batch's loss."""
+        loss = self.loss(batch, generator, eps)
+        sharded = isinstance(batch, ShardedBatch)
+        world = self.mesh.world if sharded else 1
+        # across processes each computes the same global loss, and the
+        # gather's backward sums every process's gradient of its rows
+        target = loss / world if world > 1 else loss
+        replicas = list(self.replicas.values()) if sharded else []
+        params = self.params + [p for r in replicas for p in r.parameters()]
+        grads = grads_of(target, params)
+        n = len(self.params)
+        for r in range(len(replicas)):
+            part = grads[n * (r + 1):n * (r + 2)]
+            grads[:n] = [g + x.to(self.device)
+                         for g, x in zip(grads[:n], part)]
+        grads = grads[:n]
+        if world > 1:
+            from ..parallel.distributed import all_reduce_sum
+
+            grads = all_reduce_sum(grads, self.mesh)
+        return loss.detach(), grads
+
+    def _sync_replicas(self) -> None:
+        """Copy the first device's parameters into every replica."""
+        for rep_module in self.replicas.values():
+            with torch.no_grad():
+                for p_r, p in zip(rep_module.parameters(), self.params):
+                    p_r.copy_(p)
 
     @torch.no_grad()
     def eval_step(self, batch: Mapping[str, torch.Tensor],
@@ -225,9 +352,22 @@ class Trainer:
 
     # -- data plumbing ------------------------------------------------------
 
-    def _device_batch(self, arrays: Mapping[str, np.ndarray]) -> dict:
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in arrays.items()}
+    def _device_batch(self, arrays: Mapping[str, np.ndarray]):
+        """A batch on the device; on a mesh a ``ShardedBatch`` when its
+        rows divide over the shards, else (a ragged batch) the whole batch
+        on the first device."""
+        whole = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                 for k, v in arrays.items()}
+        rows = len(next(iter(arrays.values())))
+        if self.mesh is None or rows % self.mesh.size:
+            return whole
+        per = rows // self.mesh.size
+        parts = []
+        for j, dev in enumerate(self.mesh.devices):
+            lo = self.mesh.global_index(j) * per
+            parts.append({k: torch.from_numpy(np.ascontiguousarray(
+                v[lo:lo + per])).to(dev) for k, v in arrays.items()})
+        return ShardedBatch(whole, parts, rows)
 
     def _batches(self, data, batch_size, rng=None, drop_last=True):
         keys = list(data.keys())
@@ -235,6 +375,10 @@ class Trainer:
         idx = np.arange(n)
         if rng is not None:
             rng.shuffle(idx)
+        if self.mesh is not None:
+            # batches of a multiple of the mesh, so each shard gets rows
+            p = self.mesh.size
+            batch_size = batch_size - (batch_size % p) or p
         if drop_last and 0 < n < batch_size:
             # rather than an epoch of no step, one batch of every row
             log.warning(
@@ -272,6 +416,7 @@ class Trainer:
             self.model.load_state_dict(init_state)
         else:
             init_autoencoder(self.model, torch.Generator().manual_seed(seed))
+        lead = self.mesh is None or self.mesh.rank == 0
         self.optimizer = make_optimizer(self.params, cfg.learning_rate,
                                         cfg.weight_decay)
         sampler = torch.Generator(device=self.device).manual_seed(seed)
@@ -285,6 +430,7 @@ class Trainer:
                 state_path, self.model, self.optimizer)
             log.info("[%s] resumed from %s at epoch %d (best val %.5f)",
                      self.ae_type, state_path, start_epoch, best_val)
+        self._sync_replicas()
         best_state = snapshot(self.model)
         patience_left = cfg.early_stop_patience
         plateau_left = cfg.lr_plateau_patience
@@ -322,9 +468,14 @@ class Trainer:
                 patience_left = cfg.early_stop_patience
                 plateau_left = cfg.lr_plateau_patience
                 if checkpoint_path:
-                    save_weights(best_state, checkpoint_path)
-                    save_training_state(state_path, self.model,
-                                        self.optimizer, epoch, best_val)
+                    if lead:  # process 0 writes; the others wait for it
+                        save_weights(best_state, checkpoint_path)
+                        save_training_state(state_path, self.model,
+                                            self.optimizer, epoch, best_val)
+                    if self.mesh is not None:
+                        from ..parallel.distributed import barrier
+
+                        barrier()
             else:
                 patience_left -= 1
                 plateau_left -= 1
@@ -338,6 +489,7 @@ class Trainer:
                     break
 
         self.model.load_state_dict(best_state)
+        self._sync_replicas()
         return TrainResult(params=best_state, best_val_loss=best_val,
                            epochs_ran=epochs_ran, history=history,
                            stopped_early=stopped)

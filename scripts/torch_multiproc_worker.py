@@ -13,9 +13,13 @@ rows:
 3. the sharded binary stage 1 of their sign words;
 4. the ring k-NN graph (``sharded_knn_graph``, exact), the shards sent
    between the processes;
-5. with ``--checkpoint_dir``: ``save_sharded_index`` from both processes,
+5. the sharded IVF (``parallel.ivf``): each process builds its shards'
+   inverted files (the padded block count agreed across the processes),
+   searched at a partial probe; its centroids and assignments gathered;
+6. with ``--checkpoint_dir``: ``save_sharded_index`` from both processes,
    reloaded on the global mesh (the search must not move), and a
-   ``DenseRetriever(mesh=)`` built, searched and saved from both.
+   ``DenseRetriever(mesh=)`` built, searched and saved from both, then one
+   with the device IVF (its ``ivf_mesh_p`` sidecar written by process 0).
 
 Each process writes its results to ``<--out>.<rank>.npz`` and prints
 ``TORCH_MULTIPROC_OK`` last; the caller holds them against each other and
@@ -123,6 +127,22 @@ def main(argv=None) -> int:
                                    exact=True)
     print(f"proc {rank}: ring k-NN graph", flush=True)
 
+    from latentrag_torch.parallel.ivf import (
+        build_sharded_ivf,
+        make_sharded_ivf_topk,
+        sharded_ivf_assignments,
+        sharded_ivf_centroids,
+    )
+
+    sivf = build_sharded_ivf(c_sh, mesh, nlist=32, cap=16)
+    s, i = make_sharded_ivf_topk(mesh, k=args.k, nprobe=8)(q, sivf, args.n)
+    out["ivf_s"], out["ivf_i"] = s.cpu().numpy(), i.cpu().numpy()
+    out["ivf_nblocks"] = np.int64(sivf.nblocks)
+    out["ivf_mlb"] = np.int64(sivf.max_list_blocks)
+    out["ivf_cent"] = sharded_ivf_centroids(sivf)
+    out["ivf_assign"] = sharded_ivf_assignments(sivf)
+    print(f"proc {rank}: sharded IVF", flush=True)
+
     if args.checkpoint_dir:
         from latentrag_torch.retrieval import DenseRetriever
 
@@ -143,6 +163,15 @@ def main(argv=None) -> int:
         s, i = r.search(queries, args.k)
         out["dense_s"], out["dense_i"] = s, i
         print(f"proc {rank}: sharded DenseRetriever saved", flush=True)
+        r = DenseRetriever(backend="xla", store_dtype=args.dtype, mesh=mesh,
+                           device=args.device, ivf_nlist=32, ivf_cap=16,
+                           ivf_nprobe=8, index_path=os.path.join(
+                               args.checkpoint_dir, "dense_ivf"))
+        r.IVF_MIN_ROWS = 512  # this small corpus routes through the IVF
+        r.build(corpus, [f"doc {j}" for j in range(args.n)])
+        s, i = r.search(queries, args.k)
+        out["dense_ivf_s"], out["dense_ivf_i"] = s, i
+        print(f"proc {rank}: sharded IVF DenseRetriever saved", flush=True)
 
     np.savez(f"{args.out}.{rank}.npz", **out)
     assert "jax" not in sys.modules and "latentrag_tpu" not in sys.modules

@@ -1675,3 +1675,112 @@ def test_sharded_dense_store_on_card(cuda, store, tmp_path):
     _, ids = r2.search(np.concatenate([x[5:6], x[:1] * 0.5 + 0.2]), 5)
     assert 5 not in {r2.doc_ids[j] for j in ids[0]}
     assert r2.doc_ids[ids[1, 0]] == 99999
+
+
+@pytest.mark.parametrize("store", ["int8", "bfloat16", "binary"])
+def test_sharded_ivf_on_card(cuda, store):
+    """The sharded IVF on 4 shards of cuda:0: one ivf_scan launch a shard
+    a search; the full probe equals its plain route (each shard's scan on
+    ``ivf_scan_reference``), the pad rows never come back."""
+    from latentrag_torch.ops import ivf as tivf
+    from latentrag_torch.ops.binary import binary_quantize
+    from latentrag_torch.ops.quantization import sq8_quantize
+    from latentrag_torch.parallel import ivf as pivf
+    from latentrag_torch.parallel import shard_rows
+
+    n = 40_003
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.nn.functional.normalize(
+        torch.randn((n, 64), generator=g, device=cuda), dim=1)
+    q = torch.nn.functional.normalize(
+        torch.randn((8, 64), generator=g, device=cuda), dim=1)
+    scale, dim = None, 0
+    if store == "int8":
+        rows, scale = sq8_quantize(x)
+        scale = float(scale)
+    elif store == "binary":
+        rows, dim = binary_quantize(x), 64
+    else:
+        rows = x.to(torch.bfloat16)
+    mesh = _mesh4()
+    sivf = pivf.build_sharded_ivf(shard_rows(rows, mesh), mesh, nlist=256,
+                                  cap=64, dim=dim)
+    search = pivf.make_sharded_ivf_topk(mesh, k=10, nprobe=10**6, dim=dim)
+    ft.reset_launches()
+    s, i = search(q, sivf, n, scale=scale)
+    assert ft.launches["ivf_scan"] == 4
+    assert int(i.max()) < n and int(i.min()) >= 0
+    real = tivf.ivf_scan
+    tivf.ivf_scan = tivf.ivf_scan_reference
+    try:
+        s_p, i_p = search(q, sivf, n, scale=scale)
+    finally:
+        tivf.ivf_scan = real
+    if store == "int8":
+        assert torch.equal(i, i_p) and torch.equal(s, s_p)
+    else:
+        assert (i == i_p).float().mean().item() >= 0.99
+        assert torch.allclose(s, s_p, atol=1e-4, rtol=1e-5)
+
+
+def test_sharded_ivf_retriever_and_mesh_training_on_card(cuda, tmp_path):
+    """DenseRetriever(mesh=, ivf_nlist>0) on 4 shards: a small batch goes
+    through the sharded IVF (4 scans), saves and warm-boots from its
+    ivf_mesh_p sidecar; then a DAE step with Trainer(mesh=) on those shards
+    equals the one-device step within 1e-6."""
+    from latentrag_torch.models import build_autoencoder
+    from latentrag_torch.retrieval import DenseRetriever
+    from latentrag_torch.training import trainer as tt
+    from latentrag_torch.utils.config import AutoencoderConfig, TrainingConfig
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.nn.functional.normalize(torch.randn(20_003, 64, generator=g),
+                                      dim=1).numpy()
+    texts = [""] * len(x)
+    path = str(tmp_path / "idx")
+    kw = dict(store_dtype="int8", mesh=_mesh4(), index_path=path,
+              ivf_nlist=256, ivf_cap=64, ivf_nprobe=64)
+    r = DenseRetriever(**kw)
+    r.build(x, texts)
+    ft.reset_launches()
+    _, ids = r.search(x[:4], 10)
+    assert ft.launches["ivf_scan"] == 4 and ft.launches["int8_fold"] == 0
+    r2 = DenseRetriever(**kw)
+    np.testing.assert_array_equal(r2.search(x[:4], 10)[1], ids)
+    assert r2._ivf_build_info["restored"] is True
+
+    acfg = AutoencoderConfig(input_dim=64, latent_dim=8, hidden_dim=32)
+    cfg = TrainingConfig(batch_size=32, learning_rate=1e-2)
+    batch = {"x": x[:32], "y": x[:32]}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 products
+    try:
+        one = tt.Trainer(build_autoencoder("dae", acfg), "dae", cfg)
+        mesh = tt.Trainer(build_autoencoder("dae", acfg), "dae", cfg,
+                          mesh=_mesh4())
+        mesh.model.load_state_dict(one.model.state_dict())
+        l1 = one.train_step(one._device_batch(batch)).item()
+        lm = mesh.train_step(mesh._device_batch(batch)).item()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert abs(l1 - lm) <= 1e-6
+    for a, b in zip(one.params, mesh.params):
+        assert torch.allclose(a, b, atol=1e-6)
+
+
+def test_streaming_build_on_card(cuda):
+    """ivf_build_binary_streaming on the card, chunks made on the card:
+    the layout of ivf_build_from_assign over the same assignments."""
+    from latentrag_torch.ops import ivf as tivf
+    from latentrag_torch.ops.binary import binary_quantize
+
+    n, chunk = 300_007, 65_536
+    g = torch.Generator(device=cuda).manual_seed(6)
+    words = binary_quantize(torch.randn((n, 64), generator=g, device=cuda))
+    idx = tivf.ivf_build_binary_streaming(
+        lambda i: words[i * chunk:(i + 1) * chunk], n, 64, nlist=512,
+        cap=256, chunk_rows=chunk, kmeans_iters=3)
+    assign = tivf._assign_packed(words, idx.centroids, 64, "binary", 32768)
+    ref = tivf.ivf_build_from_assign(words, idx.centroids, assign, 256)
+    for a, b in zip(idx[1:], ref[1:]):
+        assert torch.equal(a, b)

@@ -153,6 +153,42 @@ def test_two_process_dense_store_loads_in_one_process(workers, p):
     np.testing.assert_array_equal(s, res["dense_s"])
 
 
+def test_sharded_ivf_across_processes(workers):
+    """The workers' sharded IVF (each process its 4 shards, the padded
+    block count agreed between them) rebuilt in this process on an
+    8-shard mesh from the centroids and assignments they gathered: the
+    same block count and search, bit for bit; and the IVF store they saved
+    warm-boots here from its ``ivf_mesh_p`` sidecar and searches as they
+    did."""
+    from latentrag_torch.parallel import shard_rows
+    from latentrag_torch.parallel.ivf import (
+        build_sharded_ivf_from_assign,
+        make_sharded_ivf_topk,
+    )
+
+    base, (res, _) = workers
+    corpus, queries, _ = data(N, D, NQ)
+    mesh = make_mesh(devices=["cpu"] * 8)
+    sivf = build_sharded_ivf_from_assign(
+        shard_rows(torch.tensor(corpus), mesh), mesh, res["ivf_cent"],
+        res["ivf_assign"], 16)
+    assert sivf.nblocks == int(res["ivf_nblocks"])
+    assert sivf.max_list_blocks == int(res["ivf_mlb"])
+    s, i = make_sharded_ivf_topk(mesh, k=K, nprobe=8)(
+        torch.tensor(queries), sivf, N)
+    np.testing.assert_array_equal(i.numpy(), res["ivf_i"])
+    np.testing.assert_array_equal(s.numpy(), res["ivf_s"])
+    r = DenseRetriever(backend="xla", store_dtype="float32", device="cpu",
+                       mesh=mesh, ivf_nlist=32, ivf_cap=16, ivf_nprobe=8,
+                       index_path=str(base / "ckpt" / "dense_ivf"))
+    r.IVF_MIN_ROWS = 512
+    assert r._ivf_sidecar is not None
+    s, i = r.search(queries, K)
+    assert r._ivf_build_info["restored"] is True
+    np.testing.assert_array_equal(i, res["dense_ivf_i"])
+    np.testing.assert_array_equal(s, res["dense_ivf_s"])
+
+
 def test_initialize_distributed_noop_and_failure(monkeypatch):
     """No coordinator: a no-op returning False. An init that was asked
     for and fails raises (the JAX function only warns)."""

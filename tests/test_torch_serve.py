@@ -628,9 +628,9 @@ def test_shard_corpus_serves_unsharded_on_one_device(env, capsys):
 
 
 def test_shard_corpus_refuses_more_than_one_card(monkeypatch):
-    """What ``shard_corpus`` still refuses over more than one card: the
-    device IVF, whose sharded form is ROADMAP queue 1 (a). Any other store
-    shards over the mesh it is given; without a mesh the flag serves
+    """``shard_corpus`` over more than one card refuses nothing now: every
+    store shards over the mesh it is given, the device IVF too (the sharded
+    IVF, its settings passed through); without a mesh the flag serves
     unsharded, whatever cards there are."""
     from latentrag_torch.parallel import make_mesh
 
@@ -638,8 +638,8 @@ def test_shard_corpus_refuses_more_than_one_card(monkeypatch):
     cfg = apply_overrides(Config(), ["retrieval.shard_corpus=true"])
     mesh = make_mesh(devices=["cpu", "cpu"])
     ivf = apply_overrides(cfg, ["retrieval.ivf_nlist=16"])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        factory._make_dense(ivf.retrieval, "cpu", mesh)
+    r = factory._make_dense(ivf.retrieval, "cpu", mesh)
+    assert r.mesh is mesh and r.ivf_nlist == 16 and not r.is_built
     r = factory._make_dense(cfg.retrieval, "cpu", mesh)
     assert r.mesh is mesh and not r.is_built
     r = factory._make_dense(cfg.retrieval, "cpu")

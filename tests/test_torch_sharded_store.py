@@ -141,10 +141,19 @@ def test_sharded_self_check_and_dropped_one_device_mesh(rng):
     assert r2._self_check()
 
 
-def test_mesh_with_ivf_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        DenseRetriever(backend="xla", mesh=_mesh(2), device="cpu",
-                       ivf_nlist=16)
+def test_mesh_with_ivf_raises_naming_the_roadmap_item(rng):
+    """The refusal this test held is gone with the sharded IVF: a mesh with
+    ``ivf_nlist > 0`` builds and searches through it (its parity with the
+    JAX package: tests/test_torch_sharded_ivf.py)."""
+    from latentrag_torch.parallel.ivf import ShardedIVF
+
+    r = DenseRetriever(backend="xla", mesh=_mesh(2), device="cpu",
+                       ivf_nlist=16, ivf_nprobe=10**6)
+    c = _corpus(rng, 9000, 16)
+    r.build(c, [str(i) for i in range(9000)], sanity_check=False)
+    _, i = r.search(c[:3], 1)
+    assert isinstance(r._ivf_index, ShardedIVF)
+    assert (i[:, 0] == np.arange(3)).all()
 
 
 @pytest.mark.parametrize("store", ["float32", "bfloat16", "int8", "int4",
@@ -348,8 +357,8 @@ def test_orbax_store_refused_then_converted(rng, eight_devices, tmp_path,
 
 def test_factory_takes_the_mesh_only_under_shard_corpus(monkeypatch):
     """The factory no longer refuses more than one card: under
-    ``shard_corpus`` it shards over the mesh it is given, and the sharded
-    IVF (not ported) is still refused, naming its ROADMAP item."""
+    ``shard_corpus`` it shards over the mesh it is given, the device IVF's
+    settings passed through (the sharded IVF)."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     cfg = apply_overrides(Config(), ["retrieval.shard_corpus=true",
                                      "retrieval.index_path="])
@@ -357,9 +366,10 @@ def test_factory_takes_the_mesh_only_under_shard_corpus(monkeypatch):
     assert r.mesh is not None and r.mesh.size == 2
     plain = apply_overrides(Config(), ["retrieval.index_path="])
     assert factory._make_dense(plain.retrieval, "cpu", _mesh(2)).mesh is None
-    ivf = apply_overrides(cfg, ["retrieval.ivf_nlist=16"])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        factory._make_dense(ivf.retrieval, "cpu", _mesh(2))
+    ivf = apply_overrides(cfg, ["retrieval.ivf_nlist=16",
+                                "retrieval.ivf_nprobe=8"])
+    r = factory._make_dense(ivf.retrieval, "cpu", _mesh(2))
+    assert r.mesh.size == 2 and (r.ivf_nlist, r.ivf_nprobe) == (16, 8)
 
 
 def _np_tree(params):
