@@ -47,15 +47,16 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    at the plan, the exact kernel at k=10 and 160, bf16 and fp32 stores,
    the binary fold at 128 candidates and the exact binary kernel at
    k=160; empty slots must be (NEG_INF, -1) and every id allowed;
-2d. holds the int8 and int4 kernels (``fold_mma_kernel<E, OP_I8 / OP_I4>``,
-   ``exact_mma_kernel<KP, ...>``, on ``mma.sync`` s8) and their row-mask
-   instances against their plain versions at the main path's shape
-   (Q=2000, N=1997, d=64): the fold at the store's plan for top_k=10 under
-   the msmarco config's recall_target 0.95, the exact kernel at k=10 and
-   160, unmasked and with 10 % of the rows allowed; scores are exact
-   integer dots times one factor, so the exact kernels must equal their
-   plain versions bit for bit and the fold its plain fold (ids >= 99 %,
-   scores bit for bit at equal ids);
+2d. holds the int8 and int4 kernels (the int8 fold ``fold_i8_wgmma_kernel``,
+   TMA + ``wgmma`` s8; the int4 fold ``fold_mma_kernel<E, OP_I4>`` and the
+   exact ``exact_mma_kernel<KP, ...>``, on ``mma.sync`` s8) and their
+   row-mask instances against their plain versions at the main path's
+   shape (Q=2000, N=1997, d=64): the fold at the store's plan for top_k=10
+   under the msmarco config's recall_target 0.95, the exact kernel at k=10
+   and 160, unmasked and with 10 % of the rows allowed; scores are exact
+   integer dots times one factor, so the exact kernels and the int8 fold
+   must equal their plain versions bit for bit and the int4 fold its plain
+   fold (ids >= 99 %, scores bit for bit at equal ids);
 2e. holds the device IVF's scan (``ivf_scan_kernel``, ``csrc/ivf_scan.cu``)
    against ``ivf_scan_reference``: int8, bf16, fp32, int4 and binary
    blocks over clustered ~20k-row corpora at cap 64 and 512 (d=64; also
@@ -168,7 +169,11 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    ``torch._int_mm`` + ``torch.topk`` in 1M-row blocks (int4: over its
    codes unpacked to int8), the bound (bytes over 3.35 TB/s, or 2 Q N d
    over 1,979 TOPS of int8), a profiler device split and the resident
-   blocks an SM;
+   blocks an SM, each call held to the C kernel its store and mode route
+   to; for the int8 fold also its instances' registers, shared
+   memory and stack (spill) bytes (``cuobjdump -res-usage``) and, at 8.8M,
+   the time of the instance it replaced, ``fold_mma_kernel<2, OP_I8>``,
+   built beside the libraries from ``scripts/torch_int8_fold_split.py``;
 4f. (after 4) times 2f's call: the wrapper, its plain version, the
    library call at 128, the profiler's device split, the bound, and the
    instance's registers and stack bytes (``cuobjdump -res-usage`` on the
@@ -1054,6 +1059,8 @@ def blocks_per_sm(ft, kernel: str, dev: int, d: int, k: int, op: int,
     name = {"fold": "fold_mma", "exact": "exact_mma"}[kernel]
     if kernel == "exact" and k > ft.EXACT_MAX_K:
         name = "exact_select"
+    if kernel == "fold" and op == ft._OP_I8:  # the int8 store's own fold
+        name = "fold_i8"
     return ft._slots(dev, name, d, k, op, masked) // ft._sm_count(dev)
 
 
@@ -2027,6 +2034,13 @@ def quant_case(torch, store, nq, n, d, seed):
     return q, qc, c, tq.score_factor(qs, cs), cs
 
 
+def quant_kernel_name(store: str, mode: str) -> str:
+    """The C kernel a quantized store's fold or exact search runs."""
+    if store == "int8" and mode == "fold":
+        return "fold_i8_wgmma_kernel"
+    return f"{mode}_mma_kernel" + ("<i8>" if store == "int8" else "<i4>")
+
+
 def quant_kernel(ft, store, qc, c, fac, d, **kw):
     """The int8 or int4 kernel's wrapper (a CUDA tensor: the kernel)."""
     if store == "int8":
@@ -2110,13 +2124,12 @@ def check_quantized_kernels(torch, failures: list) -> dict:
                     id_match = same.float().mean().item()
                     err = (s_k - s_p).abs()[same & (i_k >= 0)]
                     max_err = err.max().item() if err.numel() else 0.0
-                    tag = "<i8>" if store == "int8" else "<i4>"
-                    want = (f"{mode}_mma_kernel{tag}"
+                    want = (quant_kernel_name(store, mode)
                             + ("<mask>" if masked else ""))
                     ok = (ran.split("+")[0] == want and max_err == 0.0
                           and launched[f"{store}_{mode}"] == 1
                           and launched["masked"] == int(masked))
-                    if mode == "exact":
+                    if mode == "exact" or store == "int8":
                         ok = (ok and torch.equal(i_k, i_p)
                               and torch.equal(s_k, s_p))
                     else:
@@ -2222,7 +2235,7 @@ def check_msmarco_main(torch, failures: list) -> dict:
                "timings_s": res["timings"], "wall_s": res["wall_s"],
                "rows_same_by_set_at_ties": same}
         ok = (launches["int8_fold"] >= 2 and launches["int8_exact"] == 0
-              and ran.split("+")[0] == "fold_mma_kernel<i8>"
+              and ran.split("+")[0] == quant_kernel_name("int8", "fold")
               and not any(plain_launches.values()) and same == 1.0
               and rec["metrics"] == rec["plain_metrics"]
               and res["dim_in"] == 384 and res["dim_out"] == 64
@@ -2345,8 +2358,8 @@ def check_quantized_capacity(torch, failures: list, store: str) -> dict:
         exact_agree = float(np.mean([
             len(set(a.tolist()) & set(b.tolist())) / k
             for a, b in zip(i, i_x)]))
-        want = ("fold" if name.startswith("fold") else "exact") + "_mma_kernel" \
-            + ("<i8>" if store == "int8" else "<i4>") \
+        want = quant_kernel_name(
+            store, "fold" if name.startswith("fold") else "exact") \
             + ("<mask>" if f else "")
         key = f"{store}_{'fold' if name.startswith('fold') else 'exact'}"
         rec = {"store": store, "search": name, "N": n, "Q": nq, "k": k,
@@ -2455,6 +2468,60 @@ def int_mm_topk(torch, qc, rows, fac, k, mask=None, block=QUANT_BLOCK):
     return run_s, run_i
 
 
+def split_script():
+    """``scripts/torch_int8_fold_split.py`` as a module: the scratch build
+    and launch of the int8 fold's replaced instance."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "torch_int8_fold_split.py")
+    spec = importlib.util.spec_from_file_location("torch_int8_fold_split",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def fold_i8_resources(ft, masked: bool) -> dict:
+    """Registers, stack (spill) bytes and dynamic shared memory of the
+    int8 fold's instances in their library (``cuobjdump -res-usage``; the
+    list width E and WIDE = d > 64 in each name), with the shared memory
+    a block takes at d=64 and k=40 (``lr_fold_i8_smem``)."""
+    from latentrag_torch.ops import cuda_build
+
+    lib = ft.LIBRARIES[int(masked)]
+    out = {}
+    for e in (1, 2, 4):
+        for wide in (0, 1):
+            name = f"fold_i8_wgmma_kernelILi{e}ELb{int(masked)}ELb{wide}E"
+            out[f"E{e}{'_wide' if wide else ''}"] = resource_usage(
+                cuda_build.library_path(*lib), name)
+    out["dynamic_shared_bytes_d64_k40"] = int(
+        ft._library(masked).lr_fold_i8_smem(64, 40, ft._OP_I8))
+    return out
+
+
+def time_old_int8_fold(torch, qc, c, fac, k: int, block_n: int) -> dict:
+    """The instance the int8 fold replaced, ``fold_mma_kernel<2, OP_I8>``
+    (built at the start from ``scripts/torch_int8_fold_split.py``), on the
+    same call: ms by CUDA events, device ms, and whether it returns the
+    new kernel's answer."""
+    from latentrag_torch.ops import fused_topk as ft
+
+    split = split_script()
+    lib = split.load("old")
+    call, plan = split.fold_call(torch, lib, qc, c, fac, k, block_n)
+    s_o, i_o = call()
+    s_n, i_n = ft.sq8_fused_topk_raw(qc, c, fac, k=k, mode="fold",
+                                     block_n=block_n)
+    torch.cuda.synchronize()
+    return {"kernel": "fold_mma_kernel<2, OP_I8>", **plan,
+            "ms": time_ms(torch, call, reps=10),
+            "device_ms": device_split(torch, call),
+            "same_answer": bool(torch.equal(i_o, i_n)
+                                and torch.equal(s_o, s_n))}
+
+
 def time_quantized(torch) -> dict:
     """Phase 4d: the int8 and int4 kernels at the reference shape (Q=2000,
     N=315) and the capacity shape (Q=1024, N=8.8M), d=64: the fold at the
@@ -2490,6 +2557,10 @@ def time_quantized(torch) -> dict:
                     mask=mk)
                 kern = time_ms(torch, call)
                 ran = ft.last_kernel
+                want = quant_kernel_name(store, mode) + (
+                    "<mask>" if masked else "")
+                if ran.split("+")[0] != want:
+                    fail(f"4d {label} {store} {case} ran {ran}, not {want}")
                 plain = time_ms(torch, lambda: quant_plain(
                     ft, store, qc, c, fac, d, k=k, mode=mode, block_n=bn,
                     mask=mk), reps=1 if big else 10, warmup=0 if big else 1)
@@ -2507,6 +2578,11 @@ def time_quantized(torch) -> dict:
                        "blocks_per_sm": blocks_per_sm(
                            ft, mode, qc.device.index, d, min(k, n),
                            quant_op(ft, store), masked)}
+                if store == "int8" and mode == "fold":
+                    rec["resources"] = fold_i8_resources(ft, masked)
+                    if big and not masked:
+                        rec["replaced_instance"] = time_old_int8_fold(
+                            torch, qc, c, fac, cand, block_n)
                 record("quant_kernel_time", **rec)
                 out[(label, f"{store}_{case}")] = rec
             del qc, c, rows
@@ -3201,26 +3277,34 @@ def ann_rows():
     return x[:ANN_ROWS], np.ascontiguousarray(x[ANN_ROWS:])
 
 
-def resource_usage(path: str, mangled: str) -> dict | None:
-    """Registers and stack frame (spill) bytes of one kernel instance in a
-    built library, as ``cuobjdump -res-usage`` reads them; None when the
-    tool or the instance is not found."""
-    import re
-
+@functools.cache
+def res_usage_text(path: str) -> str:
+    """``cuobjdump -res-usage`` of a built library ('' without the tool)."""
     from latentrag_torch.ops import cuda_build
 
     tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
     try:
-        out = subprocess.run([tool, "-res-usage", path], capture_output=True,
-                             text=True, timeout=120).stdout
+        return subprocess.run([tool, "-res-usage", path], capture_output=True,
+                              text=True, timeout=120).stdout
     except (OSError, subprocess.SubprocessError):
-        return None
+        return ""
+
+
+def resource_usage(path: str, mangled: str) -> dict | None:
+    """Registers, stack frame (spill) bytes and static shared memory of one
+    kernel instance in a built library, as ``cuobjdump -res-usage`` reads
+    them; None when the tool or the instance is not found."""
+    import re
+
     m = re.search(r"Function (\S*" + re.escape(mangled) + r"\S*):\s*\n\s*"
-                  r"REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)", out)
+                  r"REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)",
+                  res_usage_text(path))
     if not m:
         return None
     return {"function": m.group(1), "registers": int(m.group(2)),
-            "stack_bytes": int(m.group(3)), "local_bytes": int(m.group(5))}
+            "stack_bytes": int(m.group(3)),
+            "static_shared_bytes": int(m.group(4)),
+            "local_bytes": int(m.group(5))}
 
 
 def knn_block(torch):
@@ -5829,7 +5913,8 @@ def check_outside_inputs(torch, failures: list, wd: str) -> dict:
           and res["n_queries"] == len(queries)
           and res["launches"].get("int8_fold", 0) >= 2
           and "int8_exact" not in res["launches"]
-          and res["c_kernel"].split("+")[0] == "fold_mma_kernel<i8>"
+          and res["c_kernel"].split("+")[0]
+          == quant_kernel_name("int8", "fold")
           and not plain["launches"] and same == 1.0
           and metrics == rec["plain_metrics"]
           and rec["warm"]["loaded_msgpack"] and not rec["warm"]["converted"]
@@ -6108,13 +6193,17 @@ def shard_kernel_check(torch, ft, case: dict, q, shard, k: int, mask):
         else:
             kw = dict(k=k_eff, mode="exact", mask=mask)
         s_k, i_k = ft.sq8_fused_topk_raw(qc, shard, fac, **kw)
+        rec["c_kernel"] = ft.last_kernel
         s_p, i_p = ft.quantized_fused_topk_raw_reference(
             qc, shard, fac, d=shard.shape[1], op=ft._OP_I8, **kw)
         same = i_k == i_p
         rec["id_match"] = same.float().mean().item()
         rec["max_abs_err"] = (s_k - s_p).abs()[same].max().item()
-        rec["ok"] = rec["id_match"] >= (FOLD_ID_MATCH if fold else 1.0) \
-            and rec["max_abs_err"] == 0.0
+        want = quant_kernel_name("int8", "fold" if fold else "exact") + (
+            "<mask>" if mask is not None else "")
+        # the int8 fold's order is total, as the exact kernel's: bit for bit
+        rec["ok"] = (rec["id_match"] == 1.0 and rec["max_abs_err"] == 0.0
+                     and rec["c_kernel"].split("+")[0] == want)
         return rec
     if store == "binary":
         from latentrag_torch.ops.binary import binary_topk
@@ -7374,8 +7463,13 @@ def main() -> int:
     print(card, flush=True)
     t0 = time.perf_counter()
     # the kernels' three libraries (the fold and exact kernels without and
-    # with the row mask, the IVF's scan), by three nvcc processes at once
+    # with the row mask, the IVF's scan), by three nvcc processes at once,
+    # and beside them the int8 fold's replaced instance (phase 4d's
+    # yardstick), a fourth
+    split = split_script()
+    old_build = split.start_build("old")
     cuda_build.load_libraries(ft.LIBRARIES + tivf.LIBRARIES)
+    split.finish_build(old_build)
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     native.load_library()  # the C++ tokenizer's library, g++
@@ -7698,6 +7792,8 @@ def main() -> int:
                 key = f"{store}_{kernel}{masked}"
                 t = quant_times[("reference", key)]
                 big = quant_times[("capacity", key)]
+                if store == "int8" and kernel == "fold":
+                    source = "fold_i8_wgmma.cuh"  # the int8 store's own
                 kernels.append({
                     "name": f"{tag}_fused_topk_{kernel}{masked}",
                     "route": "cuda",
@@ -7713,8 +7809,12 @@ def main() -> int:
                              + (", row mask allowing 10 %" if masked else ""),
                     "capacity": {f: big[f] for f in (
                         "Q", "N", "k", "ms", "plain_ms", "library_ms",
-                        "bound_ms", "bound_by")},
+                        "bound_ms", "bound_by", "device_ms",
+                        "blocks_per_sm") if f in big},
                 })
+                for f in ("resources", "replaced_instance"):
+                    if f in big:
+                        kernels[-1][f] = big[f]
                 if key == "int8_fold":
                     # the msmarco config over MS MARCO-shaped data (3x)
                     kernels[-1]["msmarco_data_launches"] = outside[

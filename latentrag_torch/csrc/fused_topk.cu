@@ -9,10 +9,15 @@
 //                            (pallas_topk.py:162-179, _fold_body :114-159)
 //                            for bf16 (OP_BF16) and fp32 (OP_F32) stores, and
 //                            _binary_fold_kernel (:354-401) as OP_BIN; as
-//                            OP_I8 / OP_I4 the int8 and int4 stores' search
-//                            (the JAX package's sq8_topk / sq4_topk,
-//                            ops/quantization.py:35 / :147, XLA there);
-//                            fold_merge_kernel<E, MASK> merges its slabs
+//                            OP_I4 the int4 store's search (the JAX
+//                            package's sq4_topk, ops/quantization.py:147,
+//                            XLA there); fold_merge_kernel<E, MASK> merges
+//                            its slabs
+//   fold_i8_wgmma_kernel<E, MASK, WIDE> (fold_i8_wgmma.cuh) the int8
+//                            store's search (sq8_topk, ops/quantization.py:
+//                            35, XLA there), designed for Hopper: a TMA
+//                            producer warp, wgmma s8 consumers;
+//                            fold_merge_kernel merges its slabs
 //   exact_mma_kernel<KP, OP, MASK> (exact_mma.cuh) replaces _exact_kernel
 //                            (pallas_topk.py:182-221) for bf16 and fp32
 //                            stores, and as OP_BIN the exact sign-dot search
@@ -139,6 +144,7 @@ const char* lr_error_string(int code) {
 }  // extern "C"
 
 #include "fold_mma.cuh"
+#include "fold_i8_wgmma.cuh"
 #include "exact_mma.cuh"
 #if !LR_MASKED
 #include "exact_select.cuh"

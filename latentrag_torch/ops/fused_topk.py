@@ -74,7 +74,9 @@ Every store runs tensor-core kernels that write the scores and ids
 themselves: the folds in ``csrc/fold_mma.cuh``, the exact searches in
 ``csrc/exact_mma.cuh`` (batched list upkeep in both), each instantiated
 for bf16, packed binary, fp32, int8 and packed int4 operands (the last two
-on ``mma.sync`` s8 with int32 sums), and the float stores' exact
+on ``mma.sync`` s8 with int32 sums), except the int8 fold, which is
+``csrc/fold_i8_wgmma.cuh`` (a TMA producer warp, ``wgmma`` s8 consumers,
+the exact int-to-float conversion), and the float stores' exact
 search past 2048 in ``csrc/exact_select.cuh``. fp32 stores multiply in
 3xTF32 (each operand split into rounded tf32 hi and lo parts, three
 products a pair), within ~3 x 2^-22 of each exact product, the size of
@@ -132,6 +134,7 @@ _OP_TAG = {_OP_BF16: "", _OP_BIN: "<bin>", _OP_F32: "<f32>", _OP_I8: "<i8>",
 _OP_STORE = {_OP_I8: "int8", _OP_I4: "int4"}  # the launch counters' prefix
 
 _FM_TQ = 64  # queries per block of the fold kernel (FM_TQ)
+_FW_TQ = 64  # queries per block of the int8 fold (FW_TQ: wgmma's M)
 _ES_TQ = 16  # queries per block of the radix select's passes (EM_QROWS)
 # the exact tensor-core kernel splits the corpus into slabs only while each
 # keeps at least this many 128-row sub-tiles: a smaller slab does not pay
@@ -373,6 +376,12 @@ def _declare(lib, select: bool) -> None:
     lib.lr_fold_mma_occupancy.argtypes = [i, i, i]
     lib.lr_fold_mma.restype = i
     lib.lr_fold_mma.argtypes = [p, p, p] + [i] * 9 + [p] * 5
+    lib.lr_fold_i8_smem.restype = ctypes.c_size_t
+    lib.lr_fold_i8_smem.argtypes = [i, i, i]
+    lib.lr_fold_i8_occupancy.restype = i
+    lib.lr_fold_i8_occupancy.argtypes = [i, i, i]
+    lib.lr_fold_i8.restype = i
+    lib.lr_fold_i8.argtypes = [p, p, p] + [i] * 6 + [p] * 5
     lib.lr_exact_mma_queries.restype = i
     lib.lr_exact_mma_queries.argtypes = [i]
     lib.lr_exact_mma_smem.restype = ctypes.c_size_t
@@ -425,10 +434,10 @@ def _vec(corpus, d: int, op: int) -> bool:
 @functools.cache
 def _slots(index: int, kernel: str, d: int, k: int, op: int,
            masked: bool = False) -> int:
-    """Resident blocks of ``kernel`` (``fold_mma``, ``exact_mma`` or
-    ``exact_select``, whose shared memory does not depend on k) for operand
-    kind ``op`` the card holds at (d, k), the row-mask instance if
-    ``masked``."""
+    """Resident blocks of ``kernel`` (``fold_mma``, ``fold_i8`` (int8
+    only), ``exact_mma`` or ``exact_select``, whose shared memory does not
+    depend on k) for operand kind ``op`` the card holds at (d, k), the
+    row-mask instance if ``masked``."""
     lib = _library(masked)
     args = (d, op) if kernel == "exact_select" else (d, k, op)
     with torch.cuda.device(index):
@@ -452,28 +461,43 @@ def _launched(name: str, mask) -> str:
     return name + "<mask>"
 
 
+def fold_slab_plan(nq: int, n: int, block_n: int, slots: int,
+                   q_tile: int) -> tuple[int, int]:
+    """(slab_rows, n_slabs) of a fold launch: the corpus in slabs of whole
+    ``block_n`` tiles, as many as fill ``slots`` resident blocks for the
+    ceil(nq / q_tile) query tiles at hand, at least one and at most one a
+    tile. Every slab but the last holds ``slab_rows`` rows."""
+    n_tiles = -(-n // block_n)
+    want = min(n_tiles, max(1, slots // -(-nq // q_tile)))
+    slab_rows = -(-n_tiles // want) * block_n
+    return slab_rows, -(-n // slab_rows)
+
+
+def _slab_outputs(nq: int, k_eff: int, n_slabs: int, dev):
+    """A slabbed search's fp32 scores and int32 ids [nq, k_eff], and past
+    one slab the slabs' int64 lists [n_slabs, nq, k_eff] (else None)."""
+    scores = torch.empty((nq, k_eff), dtype=torch.float32, device=dev)
+    ids = torch.empty((nq, k_eff), dtype=torch.int32, device=dev)
+    part = (torch.empty((n_slabs, nq, k_eff), dtype=torch.int64, device=dev)
+            if n_slabs > 1 else None)
+    return scores, ids, part
+
+
 def _fold_mma(queries, corpus, csq, *, d, k_eff, block_n, euclid, op,
               mask=None):
     """The fold on the tensor cores (``csrc/fold_mma.cuh``) over bf16 or
-    fp32 stores, packed sign words, int8 codes or int4 nibbles (``op``; the
-    int kinds take their fp32 score factor as ``csq``), with the row mask
-    when ``mask`` is given: the corpus in slabs of whole tiles, as many as fill
-    the card's resident block slots for the query tiles at hand; the
-    kernels write the fp32 scores and int32 ids."""
+    fp32 stores, packed sign words or int4 nibbles (``op``; int4 takes its
+    fp32 score factor as ``csq``), with the row mask when ``mask`` is
+    given: the corpus in ``fold_slab_plan``'s slabs; the kernels write the
+    fp32 scores and int32 ids."""
     _require_contiguous(queries, corpus)
     nq = queries.shape[0]
     n = corpus.shape[0]
     dev = queries.device
     lib = _library(mask is not None)
     slots = _slots(dev.index, "fold_mma", d, k_eff, op, mask is not None)
-    n_tiles = -(-n // block_n)
-    want = min(n_tiles, max(1, slots // -(-nq // _FM_TQ)))
-    slab_rows = -(-n_tiles // want) * block_n
-    n_slabs = -(-n // slab_rows)
-    scores = torch.empty((nq, k_eff), dtype=torch.float32, device=dev)
-    ids = torch.empty((nq, k_eff), dtype=torch.int32, device=dev)
-    part = (torch.empty((n_slabs, nq, k_eff), dtype=torch.int64, device=dev)
-            if n_slabs > 1 else None)
+    slab_rows, n_slabs = fold_slab_plan(nq, n, block_n, slots, _FM_TQ)
+    scores, ids, part = _slab_outputs(nq, k_eff, n_slabs, dev)
     with torch.cuda.device(dev):
         code = lib.lr_fold_mma(
             queries.data_ptr(), corpus.data_ptr(),
@@ -488,6 +512,36 @@ def _fold_mma(queries, corpus, csq, *, d, k_eff, block_n, euclid, op,
     _check(lib, code, f"fold_mma_kernel{_OP_TAG[op]}")
     global last_kernel
     last_kernel = _launched(f"fold_mma_kernel{_OP_TAG[op]}", mask) + (
+        "+fold_merge_kernel" if n_slabs > 1 else "")
+    return scores, ids
+
+
+def _fold_i8(q_codes, corpus, factor, *, d, k_eff, block_n, mask=None):
+    """The int8 store's fold on Hopper (``csrc/fold_i8_wgmma.cuh``: a TMA
+    producer warp and a wgmma consumer warpgroup), with the row mask when
+    ``mask`` is given: 64 queries a block, the corpus in
+    ``fold_slab_plan``'s slabs; the kernels write the fp32 scores and int32
+    ids."""
+    _require_contiguous(q_codes, corpus)
+    nq = q_codes.shape[0]
+    n = corpus.shape[0]
+    dev = q_codes.device
+    lib = _library(mask is not None)
+    slots = _slots(dev.index, "fold_i8", d, k_eff, _OP_I8, mask is not None)
+    slab_rows, n_slabs = fold_slab_plan(nq, n, block_n, slots, _FW_TQ)
+    scores, ids, part = _slab_outputs(nq, k_eff, n_slabs, dev)
+    with torch.cuda.device(dev):
+        code = lib.lr_fold_i8(
+            q_codes.data_ptr(), corpus.data_ptr(), factor.data_ptr(),
+            nq, n, d, k_eff, block_n, slab_rows,
+            mask.data_ptr() if mask is not None else None,
+            part.data_ptr() if part is not None else None,
+            scores.data_ptr(), ids.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _check(lib, code, "fold_i8_wgmma_kernel")
+    global last_kernel
+    last_kernel = _launched("fold_i8_wgmma_kernel", mask) + (
         "+fold_merge_kernel" if n_slabs > 1 else "")
     return scores, ids
 
@@ -517,10 +571,7 @@ def _exact_mma(queries, corpus, csq, *, d, k_eff, euclid, op, mask=None):
         n, -(-nq // lib.lr_exact_mma_queries(k_eff)),
         _slots(dev.index, "exact_mma", d, k_eff, op, mask is not None))
     n_slabs = -(-n // slab_rows)
-    scores = torch.empty((nq, k_eff), dtype=torch.float32, device=dev)
-    ids = torch.empty((nq, k_eff), dtype=torch.int32, device=dev)
-    part = (torch.empty((n_slabs, nq, k_eff), dtype=torch.int64, device=dev)
-            if n_slabs > 1 else None)
+    scores, ids, part = _slab_outputs(nq, k_eff, n_slabs, dev)
     with torch.cuda.device(dev):
         code = lib.lr_exact_mma(
             queries.data_ptr(), corpus.data_ptr(),
@@ -1070,8 +1121,9 @@ def quantized_fused_topk_raw_reference(
 def _quantized_raw(q_codes, corpus, factor, *, d, k, op, mode, block_n,
                    mask):
     """The int8 / int4 kernels' entry: on a CPU tensor the plain version,
-    on a CUDA tensor the fold kernel (k <= 128) or the exact kernel (k <=
-    ``EXACT_MAX_K``), counted as ``int8_fold`` ... ``int4_exact``."""
+    on a CUDA tensor the fold kernel (k <= 128: int8 ``_fold_i8``, int4
+    ``_fold_mma``) or the exact kernel (k <= ``EXACT_MAX_K``), counted as
+    ``int8_fold`` ... ``int4_exact``."""
     if mode not in ("fold", "exact"):
         raise ValueError(f"mode must be 'fold' or 'exact', got {mode!r}")
     if q_codes.device.type == "cpu":
@@ -1086,7 +1138,10 @@ def _quantized_raw(q_codes, corpus, factor, *, d, k, op, mode, block_n,
                                 FOLD_MAX_K if fold else EXACT_MAX_K)
     _validate_mask(mask, corpus.shape[0], corpus.device)
     factor = factor.reshape(1).contiguous()
-    if fold:
+    if fold and op == _OP_I8:
+        out = _fold_i8(q_codes, corpus, factor, d=d, k_eff=k_eff,
+                       block_n=block_n, mask=mask)
+    elif fold:
         out = _fold_mma(q_codes, corpus, factor, d=d, k_eff=k_eff,
                         block_n=block_n, euclid=False, op=op, mask=mask)
     else:
@@ -1106,7 +1161,7 @@ def sq8_fused_topk_raw(
     fp32 value, ``float32(q_scale * corpus_scale)``). Returns (scores [Q, k]
     f32, ids [Q, k] i32); ``mode="fold"`` (k <= 128) scores are
     19-bit-quantized, ``mode="exact"`` scores exact, ties to the lower row.
-    On a CUDA tensor this launches ``fold_mma_kernel<E, OP_I8>`` or
+    On a CUDA tensor this launches ``fold_i8_wgmma_kernel<E, M, W>`` or
     ``exact_mma_kernel<KP, OP_I8>`` (k <= ``EXACT_MAX_K``) or raises; on a
     CPU tensor it runs ``quantized_fused_topk_raw_reference``. ``mask``
     restricts the search (see the module's docstring)."""

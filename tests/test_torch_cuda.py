@@ -888,9 +888,16 @@ def _quantized_raw(store, qc, c, fac, d, **kw):
     return ft.sq4_fused_topk_raw(qc, c, fac, d=d, **kw)
 
 
+def _quantized_kernel(store, mode):
+    """The C kernel a quantized store's fold or exact search runs."""
+    if store == "int8" and mode == "fold":
+        return "fold_i8_wgmma_kernel"
+    return f"{mode}_mma_kernel" + ("<i8>" if store == "int8" else "<i4>")
+
+
 @pytest.mark.parametrize("nq", [100, 1])
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("d", [64, 33, 384])
+@pytest.mark.parametrize("d", [64, 33, 48, 384])
 @pytest.mark.parametrize("k", [10, 40, 128, 160, 2048])
 @pytest.mark.parametrize("store", ["int8", "int4"])
 def test_quantized_kernels_match_plain(cuda, store, k, d, masked, nq):
@@ -898,13 +905,16 @@ def test_quantized_kernels_match_plain(cuda, store, k, d, masked, nq):
     (k = 160, 2048) kernels, and their row-mask instances (10 % allowed),
     against their plain versions on the same codes: scores are exact
     integer dots times one factor, so the exact kernel equals its plain
-    version bit for bit (ids and scores, ties to the lower row), and the
-    fold's keys equal the plain fold's wherever the ids do (>= 99 %; the
-    lanes keep the higher column of a tie in both). d = 33 takes the
-    element-wise loads (and int4's pad nibble), d = 384 three stages a
-    sub-tile; N = 5003 leaves a ragged tile, 100 queries a ragged query
-    tile and one query (a served search, the self-check) 63 of the 64
-    tile rows padding."""
+    version bit for bit (ids and scores, ties to the lower row), and so
+    does the int8 fold (``fold_i8_wgmma_kernel``: its order is total);
+    the int4 fold's keys equal the plain fold's wherever the ids do (>=
+    99 %; the lanes keep the higher column of a tie in both). d = 33 takes
+    the element-wise loads (and int4's pad nibble; the int8 fold's
+    producer-warp copies), d = 48 the int8 fold's TMA with a k step past
+    d, d = 384 three stages a sub-tile (and its __int2float_rn path);
+    N = 5003 leaves a ragged tile, 100 queries a ragged query tile and one
+    query (a served search, the self-check) 63 of the 64 tile rows
+    padding."""
     from latentrag_torch.ops.topk import pack_row_mask
 
     qc, c, fac, g = _quantized(cuda, store, nq, 5003, d)
@@ -915,15 +925,14 @@ def test_quantized_kernels_match_plain(cuda, store, k, d, masked, nq):
     ft.reset_launches()
     s_k, i_k = _quantized_raw(store, qc, c, fac, d, k=k, mode=mode,
                               block_n=block_n, mask=mask)
-    tag = "<i8>" if store == "int8" else "<i4>"
     assert ft.last_kernel.split("+")[0] == (
-        f"{mode}_mma_kernel{tag}" + ("<mask>" if masked else ""))
+        _quantized_kernel(store, mode) + ("<mask>" if masked else ""))
     assert ft.launches[f"{store}_{mode}"] == 1
     assert ft.launches["masked"] == int(masked)
     op = ft._OP_I8 if store == "int8" else ft._OP_I4
     s_p, i_p = ft.quantized_fused_topk_raw_reference(
         qc, c, fac, d=d, k=k, op=op, mode=mode, block_n=block_n, mask=mask)
-    if mode == "exact":
+    if mode == "exact" or store == "int8":
         assert torch.equal(i_k, i_p) and torch.equal(s_k, s_p)
     else:
         same = i_k == i_p
@@ -940,9 +949,11 @@ def test_quantized_kernels_match_plain(cuda, store, k, d, masked, nq):
 @pytest.mark.parametrize("store", ["int8", "int4"])
 def test_quantized_kernels_ties_and_unaligned(cuda, store):
     """Every 7th row a copy of row 0 (ties across lanes and tiles) and a
-    corpus whose base is not 16-byte aligned (the element-wise loads): the
-    exact kernel still equals its plain version bit for bit, ties to the
-    lower row, and the approximate route returns exact scores."""
+    corpus whose base is not 16-byte aligned (the element-wise loads; the
+    int8 fold's producer-warp copies in place of TMA): the exact kernel
+    still equals its plain version bit for bit, ties to the lower row, and
+    so does the int8 fold at k = 10, 40 and 128 (ties to the higher
+    column of a lane, then the earlier tile)."""
     qc, c, fac, _ = _quantized(cuda, store, 64, 3001, 64, dup_every=7)
     buf = torch.empty(c.numel() + 1, dtype=c.dtype, device=cuda)
     c = buf[1:].view(c.shape).copy_(c)
@@ -952,6 +963,185 @@ def test_quantized_kernels_ties_and_unaligned(cuda, store):
     s_p, i_p = ft.quantized_fused_topk_raw_reference(
         qc, c, fac, d=64, k=300, op=op, mode="exact")
     assert torch.equal(i_k, i_p) and torch.equal(s_k, s_p)
+    if store != "int8":
+        return
+    for k, block_n in ((10, 128), (40, 1024), (128, 4096)):
+        ft.reset_launches()
+        s_k, i_k = _quantized_raw(store, qc, c, fac, 64, k=k, mode="fold",
+                                  block_n=block_n)
+        assert ft.last_kernel.split("+")[0] == "fold_i8_wgmma_kernel"
+        assert ft.launches["int8_fold"] == 1
+        s_p, i_p = ft.quantized_fused_topk_raw_reference(
+            qc, c, fac, d=64, k=k, op=op, mode="fold", block_n=block_n)
+        assert torch.equal(i_k, i_p) and torch.equal(s_k, s_p)
+
+
+def _allowed_mask(cuda, n, allowed, seed):
+    """The packed row mask of ``allowed``: a share of the N rows chosen
+    at random, or "few": 5 rows, fewer than any k the tests ask for."""
+    from latentrag_torch.ops.topk import pack_row_mask
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if allowed == "few":
+        keep = torch.zeros(n, dtype=torch.bool, device=cuda)
+        keep[torch.randperm(n, generator=g, device=cuda)[:5]] = True
+    else:
+        keep = torch.rand(n, generator=g, device=cuda) < allowed
+    return pack_row_mask(keep)
+
+
+def _assert_int8_fold_bit_for_bit(qc, c, fac, k, block_n, mask=None):
+    d = c.shape[1]
+    ft.reset_launches()
+    s_k, i_k = ft.sq8_fused_topk_raw(qc, c, fac, k=k, mode="fold",
+                                     block_n=block_n, mask=mask)
+    torch.cuda.synchronize()
+    assert ft.last_kernel.split("+")[0] == (
+        "fold_i8_wgmma_kernel" + ("<mask>" if mask is not None else ""))
+    assert ft.launches["int8_fold"] == 1
+    assert ft.launches["masked"] == int(mask is not None)
+    s_p, i_p = ft.quantized_fused_topk_raw_reference(
+        qc, c, fac, d=d, k=k, op=ft._OP_I8, mode="fold", block_n=block_n,
+        mask=mask)
+    assert torch.equal(i_k, i_p)
+    assert torch.equal(s_k, s_p)
+    return s_k, i_k
+
+
+@pytest.mark.parametrize("k", [10, 40, 128])
+@pytest.mark.parametrize("d", [48, 64, 128, 256, 384])
+@pytest.mark.parametrize("n", [315, 1997, 5003, 12289])
+@pytest.mark.parametrize("nq", [1, 8, 37, 64, 2000])
+def test_int8_fold_matches_plain_bit_for_bit(cuda, nq, n, d, k):
+    """``fold_i8_wgmma_kernel`` at ``fold_plan``'s tile against the plain
+    fold on the same codes: ids equal, scores equal, at every batch the
+    store brings (1: a served query or the self-check; 8-64: coalesced
+    batches; 2000: the main path), the main path's corpora (315, 1997),
+    N = 5003 and 12289 (ragged last sub-tile and tile; 12289 leaves one
+    row in the last tile), d = 48 (a k step past d), 64, 128 and 256 (the
+    WIDE instance with the exact conversion and the skip test; 256 is the
+    widest d they take) and 384 (three stages a sub-tile,
+    ``__int2float_rn``), every list width."""
+    qc, c, fac, _ = _quantized(cuda, "int8", nq, n, d, seed=nq + n + d + k)
+    block_n = ft.fold_plan(n, k, 0.95)[0]
+    _assert_int8_fold_bit_for_bit(qc, c, fac, k, block_n)
+
+
+@pytest.mark.parametrize("allowed", [0.01, 0.1, 1.0, "few"])
+@pytest.mark.parametrize("k", [10, 40, 128])
+@pytest.mark.parametrize("d", [48, 64, 128, 256, 384])
+@pytest.mark.parametrize("nq", [37, 2000])
+def test_int8_fold_masked_matches_plain(cuda, nq, d, k, allowed):
+    """The row-mask instance against the masked plain fold, bit for bit:
+    1 %, 10 % and all rows allowed, and 5 rows (fewer than k), whose empty
+    slots must be (NEG_INF, -1); every returned row is allowed."""
+    from latentrag_torch.ops.topk import NEG_INF, unpack_row_mask
+
+    n = 5003
+    qc, c, fac, _ = _quantized(cuda, "int8", nq, n, d, seed=7 + d + k)
+    mask = _allowed_mask(cuda, n, allowed, seed=d + k)
+    block_n = ft.fold_plan(n, k, 0.95)[0]
+    s_k, i_k = _assert_int8_fold_bit_for_bit(qc, c, fac, k, block_n, mask)
+    live = i_k >= 0
+    assert bool(unpack_row_mask(mask, n)[i_k[live].long()].all())
+    assert bool((s_k[~live] == NEG_INF).all())
+    if allowed == "few":
+        assert int(live.sum(1).max()) == 5 and bool((~live).any())
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("k", [40, 128])
+@pytest.mark.parametrize("d", [512, 768, 1000, 1536])
+@pytest.mark.parametrize("nq", [37, 2000])
+def test_int8_fold_wide_dims(cuda, nq, d, k, masked):
+    """Encoder widths past the query tile's old room, where the ring
+    streams the queries' dim chunks with the corpus's: 512 and 768 (a
+    768-d encoder's store with ``ae_type none``), 1000 (rows that are not
+    whole 16-byte chunks: the producer's loads) and 1536, at k = 40 and
+    128, unmasked and with 10 % of the rows allowed, bit for bit."""
+    n = 5003
+    qc, c, fac, _ = _quantized(cuda, "int8", nq, n, d, seed=d + k + nq)
+    mask = _allowed_mask(cuda, n, 0.1, seed=d + k) if masked else None
+    block_n = ft.fold_plan(n, k, 0.95)[0]
+    _assert_int8_fold_bit_for_bit(qc, c, fac, k, block_n, mask)
+
+
+@pytest.mark.parametrize("d", [256, 257])
+def test_int8_fold_extreme_codes(cuda, d):
+    """Codes of -128 and 127, where the dot meets its bound: at d = 256 a
+    row of -128 against a query of -128 has the dot 2^22, the largest the
+    exact conversion takes; at d = 257 the kernel converts by
+    ``__int2float_rn``. Bit for bit at k = 10 and 128."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    n = 3001
+    qc = torch.randint(-128, 128, (16, d), generator=g, device=cuda,
+                       dtype=torch.int8)
+    c = torch.randint(-128, 128, (n, d), generator=g, device=cuda,
+                      dtype=torch.int8)
+    qc[0] = -128
+    c[::97] = -128
+    c[5::89] = 127
+    c[7::101] = qc[1]
+    fac = torch.tensor([3e-7], dtype=torch.float32, device=cuda)
+    assert int((qc[0].int() * c[0].int()).sum()) == d * 128 * 128
+    for k in (10, 128):
+        block_n = ft.fold_plan(n, k, 0.95)[0]
+        _, i_k = _assert_int8_fold_bit_for_bit(qc, c, fac, k, block_n)
+        assert int(i_k[0, 0]) % 97 == 0  # a row of -128 leads query 0
+
+
+@pytest.mark.parametrize("d", [128, 768])
+def test_int8_fold_wide_unaligned_queries(cuda, d):
+    """The WIDE instance with query codes on a base that is not 16-byte
+    aligned and an aligned corpus: both come by the producer's loads."""
+    qc, c, fac, _ = _quantized(cuda, "int8", 100, 3001, d, seed=d)
+    buf = torch.empty(qc.numel() + 1, dtype=qc.dtype, device=cuda)
+    qc = buf[1:].view(qc.shape).copy_(qc)
+    assert qc.data_ptr() % 16 != 0 and c.data_ptr() % 16 == 0
+    _assert_int8_fold_bit_for_bit(qc, c, fac, 40, 1024)
+
+
+@pytest.mark.parametrize("d", [64, 48])
+def test_int8_fold_crafted_lane_ties(cuda, d):
+    """Equal 19-bit keys in one lane: rows 128 apart in one 4096-row tile
+    (one lane) hold codes whose scores share a key, the higher-scoring
+    row at the lower column. The fold keeps the lane's higher column (the
+    key's tie rule: column desc), as the plain fold does, and between
+    tiles the earlier tile."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    n, nq, k = 3 * 4096, 4, 10
+    c = torch.randint(-20, 21, (n, d), generator=g, device=cuda,
+                      dtype=torch.int8)
+    qc = torch.randint(-127, 128, (nq, d), generator=g, device=cuda,
+                       dtype=torch.int8)
+    fac = torch.tensor([1e-4], dtype=torch.float32, device=cuda)
+    v = qc[0].clone()
+
+    def keys_of(rows):  # the rows' scores against query 0 and their keys
+        dots = (qc[0].int() * rows.int()).sum(1).float() * fac
+        return dots, ft._monotone_i32(dots) & ~ft._IDX_MASK
+
+    # w: v with one code moved one step toward 0, a dot |v_j| lower; the
+    # first such j (smallest |v_j| first) whose score keeps v's key
+    for j in torch.argsort(v.abs().int()).tolist():
+        if int(v[j]) == 0:
+            continue
+        w = v.clone()
+        w[j] = v[j] - (1 if v[j] > 0 else -1)
+        dots, keys = keys_of(torch.stack([v, w]))
+        if int(keys[0]) == int(keys[1]) and dots[0] > dots[1]:
+            break
+    else:
+        pytest.fail("no code step keeps the key")
+    lane = 77
+    c[lane + 128 * 3] = v          # tile 0: the best score, lower column
+    c[lane + 128 * 9] = w          # tile 0: one key, higher column
+    c[4096 + lane + 128 * 2] = w   # tile 1: the same key again
+    s_k, i_k = _assert_int8_fold_bit_for_bit(qc, c, fac, k, 4096)
+    # the lane's winner is the higher column; the next tile's copy comes
+    # after it in the list
+    assert int(i_k[0, 0]) == lane + 128 * 9
+    assert int(i_k[0, 1]) == 4096 + lane + 128 * 2
 
 
 @pytest.mark.parametrize("k", [10, 200, 2100])
