@@ -47,13 +47,15 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    at the plan, the exact kernel at k=10 and 160, bf16 and fp32 stores,
    the binary fold at 128 candidates and the exact binary kernel at
    k=160; empty slots must be (NEG_INF, -1) and every id allowed;
-2d. holds the int8 and int4 kernels (the int8 fold ``fold_i8_wgmma_kernel``,
-   TMA + ``wgmma`` s8; the int4 fold ``fold_mma_kernel<E, OP_I4>`` and the
-   exact ``exact_mma_kernel<KP, ...>``, on ``mma.sync`` s8) and their
-   row-mask instances against their plain versions at the main path's
-   shape (Q=2000, N=1997, d=64): the fold at the store's plan for top_k=10
-   under the msmarco config's recall_target 0.95, the exact kernel at k=10
-   and 160, unmasked and with 10 % of the rows allowed; scores are exact
+2d. holds the int8 and int4 kernels (the int8 fold ``fold_i8_wgmma_kernel``
+   and exact search ``exact_i8_wgmma_kernel`` up to k=256, TMA + ``wgmma``
+   s8; the int4 fold ``fold_mma_kernel<E, OP_I4>`` and the exact
+   ``exact_mma_kernel<KP, ...>``, int8 past k=256, on ``mma.sync`` s8) and
+   their row-mask instances against their plain versions at the main
+   path's shape (Q=2000, N=1997, d=64): the fold at the store's plan for
+   top_k=10 under the msmarco config's recall_target 0.95, the exact
+   kernel at k=10, 160 and 512, unmasked and with 10 % of the rows
+   allowed; scores are exact
    integer dots times one factor, so the exact kernels and the int8 fold
    must equal their plain versions bit for bit and the int4 fold its plain
    fold (ids >= 99 %, scores bit for bit at equal ids);
@@ -120,7 +122,10 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    a seeded 384->512->64 DAE .pth and 2000 synthetic examples: the int8
    fold must serve its search and self-check, the same run with the
    kernels' plain versions must give the same doc ids (by set at ties) and
-   metrics, and ``python -m latentrag_torch.serve`` on that config boots
+   metrics; then the same config at ``retrieval.top_k=150``, whose search
+   the int8 exact kernel ``exact_i8_wgmma_kernel`` serves (the fold the
+   self-check), equal to its plain twin bit for bit (doc ids, doc scores,
+   metrics); and ``python -m latentrag_torch.serve`` on that config boots
    warm and answers a JSONL search;
 3j. builds an int8 and then an int4 ``DenseRetriever`` over 8.8M seeded
    unit rows, d=64 (the config's corpus scale: 563 MB of int8 codes, or
@@ -174,6 +179,12 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    memory and stack (spill) bytes (``cuobjdump -res-usage``) and, at 8.8M,
    the time of the instance it replaced, ``fold_mma_kernel<2, OP_I8>``,
    built beside the libraries from ``scripts/torch_int8_fold_split.py``;
+   the int8 fold and exact search (k=150) at the msmarco ``main``'s shape
+   (Q=2000, N=1997); for the int8 exact search (``exact_i8_wgmma_kernel``;
+   masked at k=160 too) its instances' ``-res-usage`` and, at every shape,
+   the time of the instance it replaced, ``exact_mma_kernel<KP, OP_I8>``
+   (masked too), built beside the libraries from
+   ``scripts/torch_int8_exact_split.py``;
 4f. (after 4) times 2f's call: the wrapper, its plain version, the
    library call at 128, the profiler's device split, the bound, and the
    instance's registers and stack bytes (``cuobjdump -res-usage`` on the
@@ -1061,6 +1072,9 @@ def blocks_per_sm(ft, kernel: str, dev: int, d: int, k: int, op: int,
         name = "exact_select"
     if kernel == "fold" and op == ft._OP_I8:  # the int8 store's own fold
         name = "fold_i8"
+    if (kernel == "exact"  # and its own exact search
+            and ft.quantized_exact_kernel(op, k) == "exact_i8_wgmma_kernel"):
+        name = "exact_i8"
     return ft._slots(dev, name, d, k, op, masked) // ft._sm_count(dev)
 
 
@@ -2034,11 +2048,15 @@ def quant_case(torch, store, nq, n, d, seed):
     return q, qc, c, tq.score_factor(qs, cs), cs
 
 
-def quant_kernel_name(store: str, mode: str) -> str:
-    """The C kernel a quantized store's fold or exact search runs."""
+def quant_kernel_name(store: str, mode: str, k: int = 0) -> str:
+    """The C kernel a quantized store's fold or exact search at k runs."""
+    from latentrag_torch.ops import fused_topk as ft
+
     if store == "int8" and mode == "fold":
         return "fold_i8_wgmma_kernel"
-    return f"{mode}_mma_kernel" + ("<i8>" if store == "int8" else "<i4>")
+    if mode == "exact":
+        return ft.quantized_exact_kernel(quant_op(ft, store), k)
+    return "fold_mma_kernel<i4>"
 
 
 def quant_kernel(ft, store, qc, c, fac, d, **kw):
@@ -2082,12 +2100,14 @@ def plain_quantized(ft):
 
 def check_quantized_kernels(torch, failures: list) -> dict:
     """Phase 2d: the int8 and int4 fold and exact kernels
-    (``fold_mma_kernel<E, OP_I8 / OP_I4>``, ``exact_mma_kernel<KP, ...>``)
+    (``fold_i8_wgmma_kernel`` and ``fold_mma_kernel<E, OP_I4>``;
+    ``exact_i8_wgmma_kernel`` up to k=256, ``exact_mma_kernel<KP, ...>``)
     and their row-mask instances (10 % of the rows allowed) against their
     plain versions at the main path's corpus (N=1997, d=64): the fold at
     the store's plan for top_k=10 under the msmarco config's recall_target
     0.95 (int8: 40 candidates; int4: stage 1's 128 for 80), the exact
-    kernel at k=10 and k=160, each at every batch the main path brings:
+    kernel at k=10, k=160 and k=512 (int8: the instance past 256), each at
+    every batch the main path brings:
     Q=2000 (the pipeline), Q=1 (the build's self-check, one served query;
     63 of the 64-query tile padding) and the server's coalesced 8-64, each
     batch quantized with its own SQ8 scale. Scores are exact int32 dots
@@ -2111,7 +2131,8 @@ def check_quantized_kernels(torch, failures: list) -> dict:
                             else (None, None))
                 for mode, k, bn in (("fold", cand, block_n),
                                     ("exact", 10, 4096),
-                                    ("exact", 160, 4096)):
+                                    ("exact", 160, 4096),
+                                    ("exact", 512, 4096)):
                     ft.reset_launches()
                     s_k, i_k = quant_kernel(ft, store, qc, c, fac, d, k=k,
                                             mode=mode, block_n=bn,
@@ -2124,7 +2145,7 @@ def check_quantized_kernels(torch, failures: list) -> dict:
                     id_match = same.float().mean().item()
                     err = (s_k - s_p).abs()[same & (i_k >= 0)]
                     max_err = err.max().item() if err.numel() else 0.0
-                    want = (quant_kernel_name(store, mode)
+                    want = (quant_kernel_name(store, mode, k)
                             + ("<mask>" if masked else ""))
                     ok = (ran.split("+")[0] == want and max_err == 0.0
                           and launched[f"{store}_{mode}"] == 1
@@ -2175,7 +2196,7 @@ def msmarco_overrides(workdir: str, index: str) -> list:
     ]
 
 
-def run_msmarco(torch, workdir: str, index: str) -> dict:
+def run_msmarco(torch, workdir: str, index: str, extra=()) -> dict:
     from latentrag_torch import main as cli
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -2184,7 +2205,8 @@ def run_msmarco(torch, workdir: str, index: str) -> dict:
     rc = cli.main(["--config", os.path.join(root, MSMARCO_CONFIG),
                    "--ae_type", "dae", "--device", "cuda", "--tag",
                    f"smoke_msmarco_{index}", "--set",
-                   *msmarco_overrides(workdir, index)], results=results)
+                   *msmarco_overrides(workdir, index), *extra],
+                  results=results)
     torch.cuda.synchronize()
     if rc != 0 or len(results) != 1:
         fail(f"main --config {MSMARCO_CONFIG} returned {rc} with "
@@ -2201,10 +2223,15 @@ def check_msmarco_main(torch, failures: list) -> dict:
     0.95 and block_size 1048576, shard_corpus served on one card): the
     int8 fold must serve its search and self-check and the exact kernel
     not launch; the same run with the kernels' plain versions must give
-    the same doc ids (by set at ties) and metrics; then ``python -m
-    latentrag_torch.serve`` boots the same config warm from the first
-    run's store and answers one JSONL search. Returns the int8 fold's
-    launches in the first run."""
+    the same doc ids (by set at ties) and metrics. Then the same config at
+    ``retrieval.top_k=150`` on a store of its own (a cold build, so the
+    self-check runs): the int8 exact kernel (``exact_i8_wgmma_kernel``)
+    must serve its search and the fold its self-check, and its doc ids,
+    doc scores and metrics must equal, bit for bit, those of the same run
+    on the plain versions. Then ``python -m latentrag_torch.serve`` boots
+    the first config warm from the first run's store and answers one JSONL
+    search. Returns each run's launches: {"top_k_10": ..., "top_k_150":
+    ...}."""
     import numpy as np
 
     from latentrag_torch.ops import fused_topk as ft
@@ -2245,6 +2272,8 @@ def check_msmarco_main(torch, failures: list) -> dict:
         record("msmarco_main_path", **rec)
         if not ok:
             failures.append(f"the msmarco int8 main path: {rec}")
+        runs = {"top_k_10": launches,
+                "top_k_150": check_msmarco_top_k_150(torch, failures, wd)}
         # the server, as users start it, over the first run's store
         line = json.dumps({"query": "what is a telescope", "k": 10})
         t0 = time.perf_counter()
@@ -2270,6 +2299,53 @@ def check_msmarco_main(torch, failures: list) -> dict:
         if not ok:
             failures.append(f"the msmarco serve CLI: rc {out.returncode}, "
                             f"{len(hits)} hits, {out.stderr[-300:]}")
+    return runs
+
+
+def check_msmarco_top_k_150(torch, failures: list, wd: str) -> dict:
+    """Phase 3i at ``retrieval.top_k=150`` (stores of their own in ``wd``):
+    the int8 exact kernel on a user's entry point, held bit for bit to the
+    same run on the plain versions. Returns the run's launches."""
+    import numpy as np
+
+    from latentrag_torch.ops import fused_topk as ft
+
+    extra = ("retrieval.top_k=150",)
+    ft.reset_launches()
+    res = run_msmarco(torch, wd, "index150", extra)
+    launches, ran = dict(ft.launches), ft.last_kernel
+    with plain_quantized(ft):
+        ft.reset_launches()
+        plain = run_msmarco(torch, wd, "index150_plain", extra)
+        plain_launches = dict(ft.launches)
+    ids, pids = (np.asarray(r["retrieved_doc_ids"]) for r in (res, plain))
+    ds, pds = (np.asarray(r["doc_scores"], np.float32) for r in (res, plain))
+    rec = {"config": MSMARCO_CONFIG, "top_k": 150,
+           "n_queries": res["n_queries"], "n_corpus": res["n_corpus"],
+           "launches": launches, "c_kernel": ran,
+           "plain_launches": plain_launches,
+           "metrics": {m: v["mean"]
+                       for m, v in res["retrieval_metrics"].items()},
+           "plain_metrics": {m: v["mean"]
+                             for m, v in plain["retrieval_metrics"].items()},
+           "timings_s": res["timings"], "wall_s": res["wall_s"],
+           "doc_ids_bit_identical": bool(np.array_equal(ids, pids)),
+           "doc_scores_bit_identical": bool(np.array_equal(
+               ds.view(np.int32), pds.view(np.int32)))}
+    # the search's exact kernel ran last; the self-check's fold before it
+    rec["ok"] = ok = (launches["int8_exact"] >= 1
+                      and launches["int8_fold"] >= 1
+                      and ran.split("+")[0] == quant_kernel_name(
+                          "int8", "exact", 150)
+                      and not any(plain_launches.values())
+                      and rec["doc_ids_bit_identical"]
+                      and rec["doc_scores_bit_identical"]
+                      and rec["metrics"] == rec["plain_metrics"]
+                      and ds.shape == (res["n_queries"], 150)
+                      and bool(np.isfinite(ds).all()))
+    record("msmarco_main_path_top_k_150", **rec)
+    if not ok:
+        failures.append(f"the msmarco int8 main path at top_k=150: {rec}")
     return launches
 
 
@@ -2359,7 +2435,7 @@ def check_quantized_capacity(torch, failures: list, store: str) -> dict:
             len(set(a.tolist()) & set(b.tolist())) / k
             for a, b in zip(i, i_x)]))
         want = quant_kernel_name(
-            store, "fold" if name.startswith("fold") else "exact") \
+            store, "fold" if name.startswith("fold") else "exact", k) \
             + ("<mask>" if f else "")
         key = f"{store}_{'fold' if name.startswith('fold') else 'exact'}"
         rec = {"store": store, "search": name, "N": n, "Q": nq, "k": k,
@@ -2468,15 +2544,15 @@ def int_mm_topk(torch, qc, rows, fac, k, mask=None, block=QUANT_BLOCK):
     return run_s, run_i
 
 
-def split_script():
-    """``scripts/torch_int8_fold_split.py`` as a module: the scratch build
-    and launch of the int8 fold's replaced instance."""
+def split_script(name: str = "torch_int8_fold_split"):
+    """``scripts/<name>.py`` as a module: the scratch build and launch of
+    the int8 fold's replaced instance, or (``torch_int8_exact_split``) the
+    int8 exact search's."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "scripts", "torch_int8_fold_split.py")
-    spec = importlib.util.spec_from_file_location("torch_int8_fold_split",
-                                                  path)
+                        "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -2522,42 +2598,99 @@ def time_old_int8_fold(torch, qc, c, fac, k: int, block_n: int) -> dict:
                                 and torch.equal(s_o, s_n))}
 
 
+def exact_i8_resources(ft, masked: bool) -> dict:
+    """Registers, stack (spill) bytes and dynamic shared memory of the
+    int8 exact search's instances in their library (``cuobjdump
+    -res-usage``; the list width KP and WIDE = d > 64 in each name), with
+    the shared memory a block takes at d=64, k=10 and k=160
+    (``lr_exact_i8_smem``)."""
+    from latentrag_torch.ops import cuda_build
+
+    lib = ft.LIBRARIES[int(masked)]
+    out = {}
+    for kp in (128, 256):
+        for wide in (0, 1):
+            name = (f"exact_i8_wgmma_kernelILi{kp}ELb{int(masked)}"
+                    f"ELb{wide}E")
+            out[f"KP{kp}{'_wide' if wide else ''}"] = resource_usage(
+                cuda_build.library_path(*lib), name)
+    for k in (10, 160):
+        out[f"dynamic_shared_bytes_d64_k{k}"] = int(
+            ft._library(masked).lr_exact_i8_smem(64, k, ft._OP_I8))
+    return out
+
+
+def time_old_int8_exact(torch, qc, c, fac, k: int, mask=None) -> dict:
+    """The instance the int8 exact search replaced, ``exact_mma_kernel<KP,
+    OP_I8>`` (its row-mask instance with ``mask``; built at the start from
+    ``scripts/torch_int8_exact_split.py``), on the same call: ms by CUDA
+    events, device ms, and whether it returns the new kernel's answer."""
+    from latentrag_torch.ops import fused_topk as ft
+
+    split = split_script("torch_int8_exact_split")
+    call, plan = split.exact_call(torch, split.load("old"), qc, c, fac, k,
+                                  mask)
+    s_o, i_o = call()
+    s_n, i_n = ft.sq8_fused_topk_raw(qc, c, fac, k=k, mode="exact",
+                                     mask=mask)
+    torch.cuda.synchronize()
+    return {"kernel": "exact_mma_kernel<KP, OP_I8>"
+                      + ("<mask>" if mask is not None else ""), **plan,
+            "ms": time_ms(torch, call, reps=10),
+            "device_ms": device_split(torch, call),
+            "same_answer": bool(torch.equal(i_o, i_n)
+                                and torch.equal(s_o, s_n))}
+
+
 def time_quantized(torch) -> dict:
     """Phase 4d: the int8 and int4 kernels at the reference shape (Q=2000,
     N=315) and the capacity shape (Q=1024, N=8.8M), d=64: the fold at the
     store's plan for top_k=10 (int8: 40 candidates; int4: 128), the exact
     kernel at k=10 and k=160, and the fold and exact k=10 row-mask
-    instances with 10 % of the rows allowed; each beside its plain version
-    (at 8.8M one call), the library yardstick ``int_mm_topk`` at the
-    call's k (int4: over its codes unpacked to int8), the bound
-    (``quant_bound``), a profiler device split and the resident blocks an
-    SM. Keys: (shape, store + "_" + case)."""
+    instances with 10 % of the rows allowed (int8: exact k=160 too); and
+    the int8 fold (its plan for top_k=10) and exact search (k=150, the
+    msmarco ``main`` at top_k=150) at the msmarco ``main``'s shape (Q=2000,
+    N=1997); each beside its plain version (at 8.8M one
+    call), the library yardstick ``int_mm_topk`` at the call's k (int4:
+    over its codes unpacked to int8), the bound (``quant_bound``), a
+    profiler device split and the resident blocks an SM; the int8 exact
+    calls also beside the instance they replaced (``time_old_int8_exact``)
+    with their instances' ``-res-usage``. Keys: (shape, store + "_" +
+    case)."""
     from latentrag_torch.ops import fused_topk as ft
     from latentrag_torch.ops import quantization as tq
 
     out = {}
     for label, nq, n in (("reference", 2000, 315),
-                         ("capacity", 1024, CAPACITY_ROWS)):
+                         ("capacity", 1024, CAPACITY_ROWS),
+                         ("msmarco_main", 2000, 1997)):
         big = n > QUANT_BLOCK
         for si, store in enumerate(QUANT_STORES):
+            if label.startswith("msmarco") and store != "int8":
+                continue
             d = 64
             _, qc, c, fac, _ = quant_case(torch, store, nq, n, d, 600 + si)
             rows = c if store == "int8" else tq.sq4_unpack(c, d)
             m, words = row_mask(torch, n, 0.1, 10, 610 + si)
             block_n, cand = quant_fold_plan(ft, store, n)
-            for case, mode, k, bn, masked in (
-                    ("fold", "fold", cand, block_n, False),
-                    ("exact", "exact", 10, 4096, False),
-                    ("exact_k160", "exact", 160, 4096, False),
-                    ("fold_masked", "fold", cand, block_n, True),
-                    ("exact_masked", "exact", 10, 4096, True)):
+            cases = [("fold", "fold", cand, block_n, False),
+                     ("exact", "exact", 10, 4096, False),
+                     ("exact_k160", "exact", 160, 4096, False),
+                     ("fold_masked", "fold", cand, block_n, True),
+                     ("exact_masked", "exact", 10, 4096, True)]
+            if store == "int8":
+                cases.append(("exact_masked_k160", "exact", 160, 4096, True))
+            if label.startswith("msmarco"):  # the fold's plan, top_k=150
+                cases = [("fold", "fold", cand, block_n, False),
+                         ("exact_k150", "exact", 150, 4096, False)]
+            for case, mode, k, bn, masked in cases:
                 mk = words if masked else None
                 call = lambda: quant_kernel(  # noqa: E731
                     ft, store, qc, c, fac, d, k=k, mode=mode, block_n=bn,
                     mask=mk)
                 kern = time_ms(torch, call)
                 ran = ft.last_kernel
-                want = quant_kernel_name(store, mode) + (
+                want = quant_kernel_name(store, mode, k) + (
                     "<mask>" if masked else "")
                 if ran.split("+")[0] != want:
                     fail(f"4d {label} {store} {case} ran {ran}, not {want}")
@@ -2583,6 +2716,10 @@ def time_quantized(torch) -> dict:
                     if big and not masked:
                         rec["replaced_instance"] = time_old_int8_fold(
                             torch, qc, c, fac, cand, block_n)
+                if store == "int8" and mode == "exact":
+                    rec["resources"] = exact_i8_resources(ft, masked)
+                    rec["replaced_instance"] = time_old_int8_exact(
+                        torch, qc, c, fac, k, mk)
                 record("quant_kernel_time", **rec)
                 out[(label, f"{store}_{case}")] = rec
             del qc, c, rows
@@ -6199,7 +6336,8 @@ def shard_kernel_check(torch, ft, case: dict, q, shard, k: int, mask):
         same = i_k == i_p
         rec["id_match"] = same.float().mean().item()
         rec["max_abs_err"] = (s_k - s_p).abs()[same].max().item()
-        want = quant_kernel_name("int8", "fold" if fold else "exact") + (
+        want = quant_kernel_name("int8", "fold" if fold else "exact",
+                                 k_eff) + (
             "<mask>" if mask is not None else "")
         # the int8 fold's order is total, as the exact kernel's: bit for bit
         rec["ok"] = (rec["id_match"] == 1.0 and rec["max_abs_err"] == 0.0
@@ -7464,12 +7602,13 @@ def main() -> int:
     t0 = time.perf_counter()
     # the kernels' three libraries (the fold and exact kernels without and
     # with the row mask, the IVF's scan), by three nvcc processes at once,
-    # and beside them the int8 fold's replaced instance (phase 4d's
-    # yardstick), a fourth
-    split = split_script()
-    old_build = split.start_build("old")
+    # and beside them the int8 fold's and exact search's replaced instances
+    # (phase 4d's yardsticks), a fourth and a fifth
+    splits = [split_script(), split_script("torch_int8_exact_split")]
+    old_builds = [sp.start_build("old") for sp in splits]
     cuda_build.load_libraries(ft.LIBRARIES + tivf.LIBRARIES)
-    split.finish_build(old_build)
+    for sp, started in zip(splits, old_builds):
+        sp.finish_build(started)
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     native.load_library()  # the C++ tokenizer's library, g++
@@ -7531,11 +7670,15 @@ def main() -> int:
             torch, failures, store)
     if failures:
         fail("; ".join(failures))
-    # the int8 store's main path (the msmarco config), then both quantized
-    # stores at the config's corpus scale
-    launches["int8_fold"] = check_msmarco_main(torch, failures)["int8_fold"]
+    # the int8 store's main path (the msmarco config at top_k 10: the fold;
+    # at 150: the exact search), then both quantized stores at the config's
+    # corpus scale (their launches there beside the main path's)
+    msmarco = check_msmarco_main(torch, failures)
+    launches["int8_fold"] = msmarco["top_k_10"]["int8_fold"]
+    launches["int8_exact"] = msmarco["top_k_150"]["int8_exact"]
     if failures:
         fail("; ".join(failures))
+    capacity_launches = {}
     for store in QUANT_STORES:
         cap = check_quantized_capacity(torch, failures, store)
         if failures:
@@ -7543,7 +7686,8 @@ def main() -> int:
         for name, counts in cap.items():
             kernel = "fold" if name.startswith("fold") else "exact"
             key = f"{store}_{kernel}" + ("_masked" if "masked" in name else "")
-            if store != "int8" or key != "int8_fold":
+            capacity_launches[key] = counts[f"{store}_{kernel}"]
+            if key not in ("int8_fold", "int8_exact"):
                 launches[key] = counts[f"{store}_{kernel}"]
     # the device IVF: the msmarco store with its documented IVF (phase
     # 3k, with phase 4e's timings on it), then the cascades' stage 1
@@ -7792,8 +7936,8 @@ def main() -> int:
                 key = f"{store}_{kernel}{masked}"
                 t = quant_times[("reference", key)]
                 big = quant_times[("capacity", key)]
-                if store == "int8" and kernel == "fold":
-                    source = "fold_i8_wgmma.cuh"  # the int8 store's own
+                if store == "int8":  # the int8 store's own, k <= 256
+                    source = f"{kernel}_i8_wgmma.cuh"
                 kernels.append({
                     "name": f"{tag}_fused_topk_{kernel}{masked}",
                     "route": "cuda",
@@ -7815,10 +7959,24 @@ def main() -> int:
                 for f in ("resources", "replaced_instance"):
                     if f in big:
                         kernels[-1][f] = big[f]
+                if "replaced_instance" in t:  # the int8 exact search's
+                    kernels[-1]["replaced_instance_ms"] = t[
+                        "replaced_instance"]["ms"]
+                kernels[-1]["capacity_launches"] = capacity_launches.get(
+                    key, 0)
                 if key == "int8_fold":
                     # the msmarco config over MS MARCO-shaped data (3x)
                     kernels[-1]["msmarco_data_launches"] = outside[
                         "msmarco_data_int8_fold"]
+                if key == "int8_exact":
+                    # the same call at k=160 (8.8M: masked too), and at the
+                    # msmarco main's shape at top_k=150
+                    kernels[-1]["timings"] = [{f: r[f] for f in (
+                        "shape", "case", "Q", "N", "k", "masked", "ms",
+                        "device_ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by", "blocks_per_sm", "replaced_instance")}
+                        for (_, name), r in quant_times.items()
+                        if name.startswith("int8_exact")]
     # the device IVF's scan (the JAX package scores the probed blocks in
     # XLA there: score_group), timed on the 3k store at Q=8, auto budget
     t = ivf["times"]["Q=8 auto"]

@@ -36,8 +36,9 @@ The port of the JAX package's ``ops/pallas_topk.py``:
   searches on the card: the queries quantized with one SQ8 scale over the
   batch, the fold at ``fold_plan``'s width and candidates, the candidates
   rescored exactly in int32 and ranked with ties to the lower row (as
-  ``lax.top_k`` ranks them), the exact kernel above 128 and a blocked plain
-  search past ``EXACT_MAX_K``.
+  ``lax.top_k`` ranks them), the exact kernel above 128 (int8 up to
+  ``EXACT_I8_MAX_K``: ``exact_i8_wgmma_kernel``) and a blocked plain search
+  past ``EXACT_MAX_K``.
 * Past ``EXACT_MAX_K`` (2048) the two approximate routes take a blocked
   search on any device: the corpus scored in blocks by ``torch.matmul``
   and each block's top k merged with the running list
@@ -76,8 +77,10 @@ themselves: the folds in ``csrc/fold_mma.cuh``, the exact searches in
 for bf16, packed binary, fp32, int8 and packed int4 operands (the last two
 on ``mma.sync`` s8 with int32 sums), except the int8 fold, which is
 ``csrc/fold_i8_wgmma.cuh`` (a TMA producer warp, ``wgmma`` s8 consumers,
-the exact int-to-float conversion), and the float stores' exact
-search past 2048 in ``csrc/exact_select.cuh``. fp32 stores multiply in
+the exact int-to-float conversion), the int8 exact search up to k = 256,
+``csrc/exact_i8_wgmma.cuh`` (the same machinery, ``csrc/wgmma_i8.cuh``,
+with a skip test on the raw int32 dot and lists kept by each warp), and
+the float stores' exact search past 2048 in ``csrc/exact_select.cuh``. fp32 stores multiply in
 3xTF32 (each operand split into rounded tf32 hi and lo parts, three
 products a pair), within ~3 x 2^-22 of each exact product, the size of
 fp32 sum-order differences. The kernel sources say what bounds them on
@@ -124,6 +127,9 @@ _IDX_MASK = (1 << _IDX_BITS) - 1
 _LANES = 128
 FOLD_MAX_K = _LANES
 EXACT_MAX_K = 2048  # the exact kernels' lists; the routes block past it
+# the int8 exact search's lists on the SM (exact_i8_wgmma_kernel); past it
+# the int8 store's exact search is exact_mma_kernel<KP, OP_I8>
+EXACT_I8_MAX_K = 256
 FOLD_OVERSAMPLE = 4  # candidates per wanted row on the approximate route
 
 # operand kinds of the tensor-core kernels (OP_* in csrc/fused_topk.cu) and
@@ -134,7 +140,7 @@ _OP_TAG = {_OP_BF16: "", _OP_BIN: "<bin>", _OP_F32: "<f32>", _OP_I8: "<i8>",
 _OP_STORE = {_OP_I8: "int8", _OP_I4: "int4"}  # the launch counters' prefix
 
 _FM_TQ = 64  # queries per block of the fold kernel (FM_TQ)
-_FW_TQ = 64  # queries per block of the int8 fold (FW_TQ: wgmma's M)
+_FW_TQ = 64  # queries per block of the int8 fold and exact search (FW_TQ)
 _ES_TQ = 16  # queries per block of the radix select's passes (EM_QROWS)
 # the exact tensor-core kernel splits the corpus into slabs only while each
 # keeps at least this many 128-row sub-tiles: a smaller slab does not pay
@@ -382,6 +388,12 @@ def _declare(lib, select: bool) -> None:
     lib.lr_fold_i8_occupancy.argtypes = [i, i, i]
     lib.lr_fold_i8.restype = i
     lib.lr_fold_i8.argtypes = [p, p, p] + [i] * 6 + [p] * 5
+    lib.lr_exact_i8_smem.restype = ctypes.c_size_t
+    lib.lr_exact_i8_smem.argtypes = [i, i, i]
+    lib.lr_exact_i8_occupancy.restype = i
+    lib.lr_exact_i8_occupancy.argtypes = [i, i, i]
+    lib.lr_exact_i8.restype = i
+    lib.lr_exact_i8.argtypes = [p, p, p] + [i] * 5 + [p] * 5
     lib.lr_exact_mma_queries.restype = i
     lib.lr_exact_mma_queries.argtypes = [i]
     lib.lr_exact_mma_smem.restype = ctypes.c_size_t
@@ -434,10 +446,10 @@ def _vec(corpus, d: int, op: int) -> bool:
 @functools.cache
 def _slots(index: int, kernel: str, d: int, k: int, op: int,
            masked: bool = False) -> int:
-    """Resident blocks of ``kernel`` (``fold_mma``, ``fold_i8`` (int8
-    only), ``exact_mma`` or ``exact_select``, whose shared memory does not
-    depend on k) for operand kind ``op`` the card holds at (d, k), the
-    row-mask instance if ``masked``."""
+    """Resident blocks of ``kernel`` (``fold_mma``, ``fold_i8`` and
+    ``exact_i8`` (int8 only), ``exact_mma`` or ``exact_select``, whose
+    shared memory does not depend on k) for operand kind ``op`` the card
+    holds at (d, k), the row-mask instance if ``masked``."""
     lib = _library(masked)
     args = (d, op) if kernel == "exact_select" else (d, k, op)
     with torch.cuda.device(index):
@@ -543,6 +555,46 @@ def _fold_i8(q_codes, corpus, factor, *, d, k_eff, block_n, mask=None):
     global last_kernel
     last_kernel = _launched("fold_i8_wgmma_kernel", mask) + (
         "+fold_merge_kernel" if n_slabs > 1 else "")
+    return scores, ids
+
+
+def exact_i8_slab_plan(nq: int, n: int, slots: int) -> tuple[int, int]:
+    """(slab_rows, n_slabs) of an int8 exact launch: the corpus in slabs
+    of whole 128-row sub-tiles, as many as fill ``slots`` resident blocks
+    for the ceil(nq / 64) query tiles at hand, at least one and at most one
+    a sub-tile (``fold_slab_plan`` with 128-row tiles). Every slab but the
+    last holds ``slab_rows`` rows."""
+    return fold_slab_plan(nq, n, _LANES, slots, _FW_TQ)
+
+
+def _exact_i8(q_codes, corpus, factor, *, d, k_eff, mask=None):
+    """The int8 store's exact search on Hopper, k <= ``EXACT_I8_MAX_K``
+    (``csrc/exact_i8_wgmma.cuh``: a TMA producer warp, a wgmma consumer
+    warpgroup, a skip test on the raw dot), with the row mask when ``mask``
+    is given: 64 queries a block, the corpus in ``exact_i8_slab_plan``'s
+    slabs; the kernels write the fp32 scores and int32 ids."""
+    _require_contiguous(q_codes, corpus)
+    nq = q_codes.shape[0]
+    n = corpus.shape[0]
+    dev = q_codes.device
+    lib = _library(mask is not None)
+    slots = _slots(dev.index, "exact_i8", d, k_eff, _OP_I8,
+                   mask is not None)
+    slab_rows, n_slabs = exact_i8_slab_plan(nq, n, slots)
+    scores, ids, part = _slab_outputs(nq, k_eff, n_slabs, dev)
+    with torch.cuda.device(dev):
+        code = lib.lr_exact_i8(
+            q_codes.data_ptr(), corpus.data_ptr(), factor.data_ptr(),
+            nq, n, d, k_eff, slab_rows,
+            mask.data_ptr() if mask is not None else None,
+            part.data_ptr() if part is not None else None,
+            scores.data_ptr(), ids.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _check(lib, code, "exact_i8_wgmma_kernel")
+    global last_kernel
+    last_kernel = _launched("exact_i8_wgmma_kernel", mask) + (
+        "+exact_merge_kernel" if n_slabs > 1 else "")
     return scores, ids
 
 
@@ -1118,12 +1170,24 @@ def quantized_fused_topk_raw_reference(
                        block_n, dev, as_bool_mask(mask, n))
 
 
+def quantized_exact_kernel(op: int, k: int) -> str:
+    """The C kernel of an int8 (``op`` = ``_OP_I8``) or int4 exact search
+    at k <= ``EXACT_MAX_K`` on the card: int8 up to ``EXACT_I8_MAX_K``
+    ``exact_i8_wgmma_kernel``, past it (and every int4 search)
+    ``exact_mma_kernel<i8>`` / ``<i4>``."""
+    if op == _OP_I8 and k <= EXACT_I8_MAX_K:
+        return "exact_i8_wgmma_kernel"
+    return f"exact_mma_kernel{_OP_TAG[op]}"
+
+
 def _quantized_raw(q_codes, corpus, factor, *, d, k, op, mode, block_n,
                    mask):
     """The int8 / int4 kernels' entry: on a CPU tensor the plain version,
     on a CUDA tensor the fold kernel (k <= 128: int8 ``_fold_i8``, int4
-    ``_fold_mma``) or the exact kernel (k <= ``EXACT_MAX_K``), counted as
-    ``int8_fold`` ... ``int4_exact``."""
+    ``_fold_mma``) or the exact kernel (k <= ``EXACT_MAX_K``:
+    ``quantized_exact_kernel``'s, int8 ``_exact_i8`` up to
+    ``EXACT_I8_MAX_K``, else ``_exact_mma``), counted as ``int8_fold`` ...
+    ``int4_exact``."""
     if mode not in ("fold", "exact"):
         raise ValueError(f"mode must be 'fold' or 'exact', got {mode!r}")
     if q_codes.device.type == "cpu":
@@ -1144,6 +1208,9 @@ def _quantized_raw(q_codes, corpus, factor, *, d, k, op, mode, block_n,
     elif fold:
         out = _fold_mma(q_codes, corpus, factor, d=d, k_eff=k_eff,
                         block_n=block_n, euclid=False, op=op, mask=mask)
+    elif quantized_exact_kernel(op, k_eff) == "exact_i8_wgmma_kernel":
+        out = _exact_i8(q_codes, corpus, factor, d=d, k_eff=k_eff,
+                        mask=mask)
     else:
         out = _exact_mma(q_codes, corpus, factor, d=d, k_eff=k_eff,
                          euclid=False, op=op, mask=mask)
@@ -1161,7 +1228,8 @@ def sq8_fused_topk_raw(
     fp32 value, ``float32(q_scale * corpus_scale)``). Returns (scores [Q, k]
     f32, ids [Q, k] i32); ``mode="fold"`` (k <= 128) scores are
     19-bit-quantized, ``mode="exact"`` scores exact, ties to the lower row.
-    On a CUDA tensor this launches ``fold_i8_wgmma_kernel<E, M, W>`` or
+    On a CUDA tensor this launches ``fold_i8_wgmma_kernel<E, M, W>``,
+    ``exact_i8_wgmma_kernel<KP, M, W>`` (k <= ``EXACT_I8_MAX_K``) or
     ``exact_mma_kernel<KP, OP_I8>`` (k <= ``EXACT_MAX_K``) or raises; on a
     CPU tensor it runs ``quantized_fused_topk_raw_reference``. ``mask``
     restricts the search (see the module's docstring)."""

@@ -185,7 +185,8 @@ def scratch_source(variant: str) -> str:
     without its C interface (which would instantiate every operand kind),
     then either that header patched for ``variant`` and a C launcher of
     ``fold_mma_kernel<2, OP_I8, false>``, or (``new``, ``new_i2f``)
-    ``fold_i8_wgmma.cuh`` patched, with its own C interface."""
+    ``fold_i8_wgmma.cuh`` with ``wgmma_i8.cuh`` inlined, patched, with
+    its own C interface."""
     csrc = os.path.join(ROOT, "latentrag_torch", "csrc")
     with open(os.path.join(csrc, "fused_topk.cu"), encoding="utf-8") as f:
         prelude = f.read().split('#include "fold_mma.cuh"')[0]
@@ -195,9 +196,17 @@ def scratch_source(variant: str) -> str:
         raise RuntimeError("fold_mma.cuh's C interface not found once")
     body = body.split(_CUT)[0]
     if variant in NEW_VARIANTS:
+        # the fold's header with its shared machinery (wgmma_i8.cuh) in
+        # place of the #include, so that a patch may reach either
         with open(os.path.join(csrc, "fold_i8_wgmma.cuh"),
                   encoding="utf-8") as f:
-            return prelude + body + _patched(variant, f.read())
+            text = f.read()
+        with open(os.path.join(csrc, "wgmma_i8.cuh"), encoding="utf-8") as f:
+            shared = f.read()
+        inc = '#include "wgmma_i8.cuh"\n'
+        if text.count(inc) != 1:
+            raise RuntimeError("fold_i8_wgmma.cuh's include not found once")
+        return prelude + body + _patched(variant, text.replace(inc, shared))
     return prelude + _patched(variant, body) + _LAUNCHER
 
 

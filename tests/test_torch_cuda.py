@@ -888,11 +888,14 @@ def _quantized_raw(store, qc, c, fac, d, **kw):
     return ft.sq4_fused_topk_raw(qc, c, fac, d=d, **kw)
 
 
-def _quantized_kernel(store, mode):
-    """The C kernel a quantized store's fold or exact search runs."""
+def _quantized_kernel(store, mode, k):
+    """The C kernel a quantized store's fold or exact search at k runs."""
     if store == "int8" and mode == "fold":
         return "fold_i8_wgmma_kernel"
-    return f"{mode}_mma_kernel" + ("<i8>" if store == "int8" else "<i4>")
+    if mode == "exact":
+        return ft.quantized_exact_kernel(
+            ft._OP_I8 if store == "int8" else ft._OP_I4, k)
+    return "fold_mma_kernel<i4>"
 
 
 @pytest.mark.parametrize("nq", [100, 1])
@@ -902,8 +905,10 @@ def _quantized_kernel(store, mode):
 @pytest.mark.parametrize("store", ["int8", "int4"])
 def test_quantized_kernels_match_plain(cuda, store, k, d, masked, nq):
     """The int8 and int4 fold (k <= 128, at ``fold_plan``'s tile) and exact
-    (k = 160, 2048) kernels, and their row-mask instances (10 % allowed),
-    against their plain versions on the same codes: scores are exact
+    (k = 160, 2048: int8 ``exact_i8_wgmma_kernel`` at 160,
+    ``exact_mma_kernel<i8>`` at 2048) kernels, and their row-mask instances
+    (10 % allowed), against their plain versions on the same codes: scores
+    are exact
     integer dots times one factor, so the exact kernel equals its plain
     version bit for bit (ids and scores, ties to the lower row), and so
     does the int8 fold (``fold_i8_wgmma_kernel``: its order is total);
@@ -926,7 +931,7 @@ def test_quantized_kernels_match_plain(cuda, store, k, d, masked, nq):
     s_k, i_k = _quantized_raw(store, qc, c, fac, d, k=k, mode=mode,
                               block_n=block_n, mask=mask)
     assert ft.last_kernel.split("+")[0] == (
-        _quantized_kernel(store, mode) + ("<mask>" if masked else ""))
+        _quantized_kernel(store, mode, k) + ("<mask>" if masked else ""))
     assert ft.launches[f"{store}_{mode}"] == 1
     assert ft.launches["masked"] == int(masked)
     op = ft._OP_I8 if store == "int8" else ft._OP_I4
@@ -1142,6 +1147,150 @@ def test_int8_fold_crafted_lane_ties(cuda, d):
     # after it in the list
     assert int(i_k[0, 0]) == lane + 128 * 9
     assert int(i_k[0, 1]) == 4096 + lane + 128 * 2
+
+def _assert_int8_exact_bit_for_bit(qc, c, fac, k, mask=None):
+    """The int8 exact search at k on the card against its plain version:
+    the C kernel its k routes to, one ``int8_exact`` launch, ids and
+    scores equal."""
+    ft.reset_launches()
+    s_k, i_k = ft.sq8_fused_topk_raw(qc, c, fac, k=k, mode="exact",
+                                     mask=mask)
+    torch.cuda.synchronize()
+    k_eff = min(k, c.shape[0])
+    want = ("exact_i8_wgmma_kernel" if k_eff <= ft.EXACT_I8_MAX_K
+            else "exact_mma_kernel<i8>")
+    assert ft.last_kernel.split("+")[0] == (
+        want + ("<mask>" if mask is not None else ""))
+    assert ft.launches["int8_exact"] == 1
+    assert ft.launches["masked"] == int(mask is not None)
+    s_p, i_p = ft.quantized_fused_topk_raw_reference(
+        qc, c, fac, d=c.shape[1], k=k, op=ft._OP_I8, mode="exact",
+        mask=mask)
+    assert torch.equal(i_k, i_p)
+    assert torch.equal(s_k, s_p)
+    return s_k, i_k
+
+
+@pytest.mark.parametrize("k", [1, 10, 128, 129, 160, 256])
+@pytest.mark.parametrize("d", [33, 48, 64, 128, 384])
+@pytest.mark.parametrize("nq", [1, 63, 65, 2000])
+def test_int8_exact_matches_plain_bit_for_bit(cuda, nq, d, k):
+    """``exact_i8_wgmma_kernel`` against the plain exact search on the
+    same codes, ids and scores: one query (a served search; 63 of the 64
+    tile rows padding), 63 and 65 (a ragged query tile), 2000 (the main
+    path); d = 33 (rows that are not whole 16-byte chunks: the producer's
+    loads), 48 (a k step past d), 64, 128 and 384 (the WIDE instance, one
+    and three stages a sub-tile); k from 1 to 256, both list widths (128
+    and 256 slots) and either side of 128; N = 5003 leaves a ragged
+    sub-tile."""
+    qc, c, fac, _ = _quantized(cuda, "int8", nq, 5003, d,
+                               seed=nq + d + k)
+    _assert_int8_exact_bit_for_bit(qc, c, fac, k)
+
+
+@pytest.mark.parametrize("k", [10, 160, 256])
+def test_int8_exact_long_slabs(cuda, k):
+    """The 8.8M-row store's slabs, cut to 1M rows: 1024 queries (16 query
+    tiles) leave slabs of tens of thousands of rows, where the lists fill,
+    the skip test drops almost every half and the slabs' lists merge."""
+    qc, c, fac, _ = _quantized(cuda, "int8", 1024, 1_000_003, 64, seed=k)
+    _assert_int8_exact_bit_for_bit(qc, c, fac, k)
+    assert "+exact_merge_kernel" in ft.last_kernel
+
+
+@pytest.mark.parametrize("allowed", [0.0, 0.1, 1.0, "few"])
+@pytest.mark.parametrize("k", [10, 160, 256])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("nq", [1, 65, 2000])
+def test_int8_exact_masked_matches_plain(cuda, nq, d, k, allowed):
+    """The row-mask instance against the masked plain search, bit for bit:
+    no row, 10 % and every row allowed, and 5 rows (fewer than k), whose
+    empty slots must be (NEG_INF, -1); every returned row is allowed."""
+    from latentrag_torch.ops.topk import NEG_INF, unpack_row_mask
+
+    n = 5003
+    qc, c, fac, _ = _quantized(cuda, "int8", nq, n, d, seed=11 + d + k)
+    mask = _allowed_mask(cuda, n, allowed, seed=d + k)
+    s_k, i_k = _assert_int8_exact_bit_for_bit(qc, c, fac, k, mask)
+    live = i_k >= 0
+    assert bool(unpack_row_mask(mask, n)[i_k[live].long()].all())
+    assert bool((s_k[~live] == NEG_INF).all())
+    if allowed == "few":
+        assert int(live.sum(1).max()) == 5 and bool((~live).any())
+    if allowed == 0.0:
+        assert not bool(live.any())
+
+
+@pytest.mark.parametrize("k", [10, 160, 256])
+def test_int8_exact_extreme_codes(cuda, k):
+    """Codes of -128 and 127 at d = 256, where a row of -128 against a
+    query of -128 has the dot 2^22, and a small factor: bit for bit, the
+    row of -128 first for query 0."""
+    g = torch.Generator(device=cuda).manual_seed(k)
+    n, d = 3001, 256
+    qc = torch.randint(-128, 128, (16, d), generator=g, device=cuda,
+                       dtype=torch.int8)
+    c = torch.randint(-128, 128, (n, d), generator=g, device=cuda,
+                      dtype=torch.int8)
+    qc[0] = -128
+    c[::97] = -128
+    c[5::89] = 127
+    fac = torch.tensor([3e-7], dtype=torch.float32, device=cuda)
+    assert int((qc[0].int() * c[0].int()).sum()) == 1 << 22
+    _, i_k = _assert_int8_exact_bit_for_bit(qc, c, fac, k)
+    assert int(i_k[0, 0]) == 0  # the first row of -128 leads query 0
+
+
+@pytest.mark.parametrize("k", [10, 160, 256])
+@pytest.mark.parametrize("dup_every", [7, 1])
+def test_int8_exact_ties_to_the_lower_row(cuda, dup_every, k):
+    """Every 7th row a copy of row 0, or every row the same: equal scores
+    across halves, sub-tiles and slabs go to the lower row, bit for bit,
+    and with one vector everywhere the answer is rows 0 .. k - 1."""
+    qc, c, fac, _ = _quantized(cuda, "int8", 65, 20000, 64,
+                               dup_every=dup_every)
+    _, i_k = _assert_int8_exact_bit_for_bit(qc, c, fac, k)
+    if dup_every == 1:
+        want = torch.arange(k, dtype=torch.int32, device=cuda)
+        assert torch.equal(i_k, want.expand_as(i_k))
+
+
+def test_int8_exact_unaligned(cuda):
+    """Codes on a base that is not 16-byte aligned (the producer's loads in
+    place of TMA), corpus and queries: bit for bit at k = 160."""
+    qc, c, fac, _ = _quantized(cuda, "int8", 100, 3001, 64, seed=5)
+    for t in ("corpus", "queries"):
+        src = c if t == "corpus" else qc
+        buf = torch.empty(src.numel() + 1, dtype=src.dtype, device=cuda)
+        moved = buf[1:].view(src.shape).copy_(src)
+        assert moved.data_ptr() % 16 != 0
+        if t == "corpus":
+            _assert_int8_exact_bit_for_bit(qc, moved, fac, 160)
+        else:
+            _assert_int8_exact_bit_for_bit(moved, c, fac, 160)
+
+
+@pytest.mark.parametrize("k", [257, 512, 2048])
+def test_int8_exact_past_256_keeps_the_old_instance(cuda, k):
+    """Past k = 256 the lists of 64 queries do not fit an SM: the int8
+    store's exact search stays on ``exact_mma_kernel<i8>``, bit for bit."""
+    qc, c, fac, _ = _quantized(cuda, "int8", 65, 5003, 64, seed=k)
+    _assert_int8_exact_bit_for_bit(qc, c, fac, k)
+    assert ft.last_kernel.startswith("exact_mma_kernel<i8>")
+
+
+def test_int8_exact_occupancy(cuda):
+    """Blocks an SM as the kernel's header states them at d = 64: two up
+    to k = 120, one from k = 121, at k = 128 and at k = 256; a WIDE block at
+    k = 256 still fits."""
+    lib = ft._library()
+    assert lib.lr_exact_i8_occupancy(64, 10, ft._OP_I8) == 2
+    assert lib.lr_exact_i8_occupancy(64, 120, ft._OP_I8) == 2
+    assert lib.lr_exact_i8_occupancy(64, 121, ft._OP_I8) == 1
+    assert lib.lr_exact_i8_occupancy(64, 128, ft._OP_I8) == 1
+    assert lib.lr_exact_i8_occupancy(64, 256, ft._OP_I8) == 1
+    assert lib.lr_exact_i8_occupancy(384, 256, ft._OP_I8) == 1
+    assert lib.lr_exact_i8_occupancy(64, 257, ft._OP_I8) < 0
 
 
 @pytest.mark.parametrize("k", [10, 200, 2100])

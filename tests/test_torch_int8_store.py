@@ -89,14 +89,15 @@ def _assert_same_search(t, j, q, k, filter=None):
     return s_t, i_t
 
 
-@pytest.mark.parametrize("k", [1, 10, 20])
+@pytest.mark.parametrize("k", [1, 10, 20, 160])
 @pytest.mark.parametrize("d", [64, 33])
 @pytest.mark.parametrize("store", ["int8", "int4"])
 def test_store_matches_jax(rng, store, d, k):
     """The device operand (int8 codes, or nibbles beside host SQ8 codes)
     and its scales are the JAX store's bit for bit, and so are the
     searches: at k=20 the int4 stage 1 takes 160 candidates, past the
-    fold's 128 on the card."""
+    fold's 128 on the card, and at k=160 the int8 search is past them too
+    (``exact_i8_wgmma_kernel`` on the card; the int4 stage 1 takes 1280)."""
     _, j, t = _pair(rng, store, d)
     _assert_same_stores(t, j, store)
     q = rng.standard_normal((13, d)).astype(np.float32)
