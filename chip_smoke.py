@@ -47,18 +47,19 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    at the plan, the exact kernel at k=10 and 160, bf16 and fp32 stores,
    the binary fold at 128 candidates and the exact binary kernel at
    k=160; empty slots must be (NEG_INF, -1) and every id allowed;
-2d. holds the int8 and int4 kernels (the int8 fold ``fold_i8_wgmma_kernel``
-   and exact search ``exact_i8_wgmma_kernel`` up to k=256, TMA + ``wgmma``
-   s8; the int4 fold ``fold_mma_kernel<E, OP_I4>`` and the exact
-   ``exact_mma_kernel<KP, ...>``, int8 past k=256, on ``mma.sync`` s8) and
-   their row-mask instances against their plain versions at the main
-   path's shape (Q=2000, N=1997, d=64): the fold at the store's plan for
-   top_k=10 under the msmarco config's recall_target 0.95, the exact
-   kernel at k=10, 160 and 512, unmasked and with 10 % of the rows
-   allowed; scores are exact
-   integer dots times one factor, so the exact kernels and the int8 fold
-   must equal their plain versions bit for bit and the int4 fold its plain
-   fold (ids >= 99 %, scores bit for bit at equal ids);
+2d. holds the int8 and int4 kernels (the fold ``fold_i8_wgmma_kernel``,
+   TMA + ``wgmma`` s8, the int4 store's through ``lr_fold_i4``, whose
+   producer warpgroup sign-extends the nibbles, named
+   ``fold_i8_wgmma_kernel<i4>``; the int8 exact search
+   ``exact_i8_wgmma_kernel`` up to k=256; the exact ``exact_mma_kernel<KP,
+   ...>``, int8 past k=256, on ``mma.sync`` s8) and their row-mask
+   instances against their plain versions at the main path's shape
+   (Q=2000, N=1997, d=64) and every batch it brings (Q = 1, 8, 16, 32, 64,
+   2000): the fold at the store's plan for top_k=10 under the msmarco
+   config's recall_target 0.95, the exact kernel at k=10, 160 and 512,
+   unmasked and with 10 % of the rows allowed; scores are exact integer
+   dots times one factor and the folds' order is total, so every kernel
+   must equal its plain version bit for bit (ids and scores);
 2e. holds the device IVF's scan (``ivf_scan_kernel``, ``csrc/ivf_scan.cu``)
    against ``ivf_scan_reference``: int8, bf16, fp32, int4 and binary
    blocks over clustered ~20k-row corpora at cap 64 and 512 (d=64; also
@@ -135,7 +136,8 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    search equal bit for bit to the same search with the kernels' plain
    versions, and >= 99 % by set to the exact plain search in 1M-row
    blocks; Recall@10 against exact fp32 search reported; then saved,
-   loaded and searched again bit for bit;
+   loaded and searched again bit for bit; the int4 store's search at k=10
+   split into its stage 1 (the fold) and the host's stage 2;
 3k. the msmarco int8 store with its documented IVF (``ivf_nlist=8192``, cap
    512) over 8.8M seeded clustered rows (``check_ivf_deployment``: the
    build split, the routes the store's size gives, each routed search one
@@ -184,7 +186,13 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    masked at k=160 too) its instances' ``-res-usage`` and, at every shape,
    the time of the instance it replaced, ``exact_mma_kernel<KP, OP_I8>``
    (masked too), built beside the libraries from
-   ``scripts/torch_int8_exact_split.py``;
+   ``scripts/torch_int8_exact_split.py``; the int8 exact search past 256
+   (``exact_mma_kernel<512, OP_I8>``) at 8.8M, k=512; for the int4 fold
+   (unmasked and masked, at both shapes) its instances' ``-res-usage``,
+   the time of the instance it replaced, ``fold_mma_kernel<4, OP_I4>``,
+   built beside the libraries from ``scripts/torch_int4_fold_split.py``,
+   and its yardstick, the int8 fold over the same codes unpacked to int8
+   at the same plan;
 4f. (after 4) times 2f's call: the wrapper, its plain version, the
    library call at 128, the profiler's device split, the bound, and the
    instance's registers and stack bytes (``cuobjdump -res-usage`` on the
@@ -423,6 +431,7 @@ import tempfile
 import time
 from types import SimpleNamespace
 
+_T_START = time.perf_counter()  # the records' clock (``record``'s t)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # the card's fastest rates for the work at each store's accuracy: dense bf16
 # tensor cores; for fp32 stores 3xTF32 on the tensor cores, three TF32
@@ -461,7 +470,19 @@ def fail(msg: str) -> None:
 
 
 def record(kind: str, **fields) -> None:
-    print(json.dumps({"record": kind, **fields}), flush=True)
+    """One JSON line of the run's record, with its seconds since the
+    script started (``t``), so that each phase's share of the run shows."""
+    print(json.dumps({"record": kind,
+                      "t": round(time.perf_counter() - _T_START, 1),
+                      **fields}), flush=True)
+
+
+def stop_builds(started) -> None:
+    """Kill the scratch builds still running when the run ends early."""
+    for s in started:
+        if s is not None and s[2].poll() is None:
+            s[2].kill()
+            s[2].wait()
 
 
 def card_line() -> str:
@@ -1070,7 +1091,7 @@ def blocks_per_sm(ft, kernel: str, dev: int, d: int, k: int, op: int,
     name = {"fold": "fold_mma", "exact": "exact_mma"}[kernel]
     if kernel == "exact" and k > ft.EXACT_MAX_K:
         name = "exact_select"
-    if kernel == "fold" and op == ft._OP_I8:  # the int8 store's own fold
+    if kernel == "fold" and op in (ft._OP_I8, ft._OP_I4):  # their own fold
         name = "fold_i8"
     if (kernel == "exact"  # and its own exact search
             and ft.quantized_exact_kernel(op, k) == "exact_i8_wgmma_kernel"):
@@ -2049,14 +2070,13 @@ def quant_case(torch, store, nq, n, d, seed):
 
 
 def quant_kernel_name(store: str, mode: str, k: int = 0) -> str:
-    """The C kernel a quantized store's fold or exact search at k runs."""
+    """The C kernel a quantized store's fold or exact search at k runs
+    (the int4 fold: ``fold_i8_wgmma_kernel`` through ``lr_fold_i4``)."""
     from latentrag_torch.ops import fused_topk as ft
 
-    if store == "int8" and mode == "fold":
-        return "fold_i8_wgmma_kernel"
-    if mode == "exact":
-        return ft.quantized_exact_kernel(quant_op(ft, store), k)
-    return "fold_mma_kernel<i4>"
+    if mode == "fold":
+        return "fold_i8_wgmma_kernel" + ("" if store == "int8" else "<i4>")
+    return ft.quantized_exact_kernel(quant_op(ft, store), k)
 
 
 def quant_kernel(ft, store, qc, c, fac, d, **kw):
@@ -2100,7 +2120,7 @@ def plain_quantized(ft):
 
 def check_quantized_kernels(torch, failures: list) -> dict:
     """Phase 2d: the int8 and int4 fold and exact kernels
-    (``fold_i8_wgmma_kernel`` and ``fold_mma_kernel<E, OP_I4>``;
+    (``fold_i8_wgmma_kernel``, the int4 store's through ``lr_fold_i4``;
     ``exact_i8_wgmma_kernel`` up to k=256, ``exact_mma_kernel<KP, ...>``)
     and their row-mask instances (10 % of the rows allowed) against their
     plain versions at the main path's corpus (N=1997, d=64): the fold at
@@ -2111,10 +2131,9 @@ def check_quantized_kernels(torch, failures: list) -> dict:
     Q=2000 (the pipeline), Q=1 (the build's self-check, one served query;
     63 of the 64-query tile padding) and the server's coalesced 8-64, each
     batch quantized with its own SQ8 scale. Scores are exact int32 dots
-    times one fp32 factor, so the exact kernels must equal their plain
-    versions bit for bit (ids and scores) and the fold its plain fold on
-    >= 99 % of ids, bit for bit at equal ids. Returns the largest score
-    error at equal ids a kernel (0.0 expected)."""
+    times one fp32 factor and the folds' order is total, so every kernel
+    must equal its plain version bit for bit (ids and scores). Returns the
+    largest score error at equal ids a kernel (0.0 expected)."""
     from latentrag_torch.ops import fused_topk as ft
     from latentrag_torch.ops import quantization as tq
 
@@ -2150,11 +2169,8 @@ def check_quantized_kernels(torch, failures: list) -> dict:
                     ok = (ran.split("+")[0] == want and max_err == 0.0
                           and launched[f"{store}_{mode}"] == 1
                           and launched["masked"] == int(masked))
-                    if mode == "exact" or store == "int8":
-                        ok = (ok and torch.equal(i_k, i_p)
-                              and torch.equal(s_k, s_p))
-                    else:
-                        ok = ok and id_match >= FOLD_ID_MATCH
+                    ok = ok and torch.equal(i_k, i_p) and torch.equal(s_k,
+                                                                      s_p)
                     if masked:
                         ok = ok and masked_match(torch, m, s_k, i_k, s_p,
                                                  i_p)[0]
@@ -2364,6 +2380,36 @@ def capacity_search(torch, ft, r, q, k, spec=None) -> dict:
     return out
 
 
+def quant_search_split(torch, r, q, k) -> dict:
+    """Phase 3j's split of an int4 store's search at k: seconds of the
+    whole search (host numpy out) and of its stage 1 alone (the fold at
+    the store's plan, synchronised; medians of three), the rest the host's
+    stage 2 (the SQ8 rescore), and stage 1's device ms by the profiler."""
+    from latentrag_torch.ops.distances import prepare_for_metric
+
+    qp = prepare_for_metric(q, r.metric)
+    ok = min(r.binary_oversample * k, r._corpus_n)
+    rt = r._effective_recall_target(k)
+
+    def stage1():
+        return r._stage1(qp, ok, rt)
+
+    search, first = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.search(q, k)
+        search.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        stage1()
+        torch.cuda.synchronize()
+        first.append(time.perf_counter() - t0)
+    search_s, stage1_s = sorted(search)[1], sorted(first)[1]
+    return {"k": k, "candidates": ok, "search_s": search_s,
+            "stage1_s": stage1_s, "stage2_s": search_s - stage1_s,
+            "stage1_device_ms": device_split(torch, stage1)}
+
+
 def check_quantized_capacity(torch, failures: list, store: str) -> dict:
     """Phase 3j: a ``DenseRetriever(store_dtype=store)`` over 8.8M seeded
     unit rows, d=64 (the msmarco config's corpus scale; int8: 563 MB of
@@ -2377,7 +2423,9 @@ def check_quantized_capacity(torch, failures: list, store: str) -> dict:
     plain search (``sq8_topk`` / ``sq4_topk`` in 1M-row blocks) on >= 99 %
     of rows by set; Recall@10 against exact fp32 search is reported. The
     store is then saved, loaded into a fresh retriever, and searched again
-    bit for bit. Returns each search's launches."""
+    bit for bit. The int4 store's search at k=10 is then split into its
+    stage 1 and the host's stage 2 (``quant_search_split``). Returns each
+    search's launches (and the int4 store's ``search_split``)."""
     import numpy as np
 
     from latentrag_torch.ops import fused_topk as ft
@@ -2462,6 +2510,10 @@ def check_quantized_capacity(torch, failures: list, store: str) -> dict:
         out[name] = res["launches"]
         out.setdefault("first", (s, i))
     s0, i0 = out.pop("first")
+    if store == "int4":
+        split = quant_search_split(torch, r, q, 10)
+        record("quant_search_split", store=store, N=n, Q=nq, **split)
+        out["search_split"] = split
     host_bytes = int(r._rescore_host.nbytes) if r._rescore_host is not None \
         else 0
     with tempfile.TemporaryDirectory(prefix="lr_smoke_store_") as path:
@@ -2642,6 +2694,51 @@ def time_old_int8_exact(torch, qc, c, fac, k: int, mask=None) -> dict:
                                 and torch.equal(s_o, s_n))}
 
 
+def time_old_int4_fold(torch, qc, c, fac, d: int, k: int, block_n: int,
+                       mask=None) -> dict:
+    """The instance the int4 fold replaced, ``fold_mma_kernel<4, OP_I4>``
+    (its row-mask instance with ``mask``; built at the start from
+    ``scripts/torch_int4_fold_split.py``), on the same call: ms by CUDA
+    events, device ms, blocks an SM, and whether it returns the new
+    kernel's answer."""
+    from latentrag_torch.ops import fused_topk as ft
+
+    split = split_script("torch_int4_fold_split")
+    call, plan = split.fold_call(torch, "old", split.load("old"), qc, c, fac,
+                                 d, k, block_n, mask)
+    s_o, i_o = call()
+    s_n, i_n = ft.sq4_fused_topk_raw(qc, c, fac, d=d, k=k, mode="fold",
+                                     block_n=block_n, mask=mask)
+    torch.cuda.synchronize()
+    return {"kernel": "fold_mma_kernel<4, OP_I4>"
+                      + ("<mask>" if mask is not None else ""), **plan,
+            "ms": time_ms(torch, call, reps=10),
+            "device_ms": device_split(torch, call),
+            "same_answer": bool(torch.equal(i_o, i_n)
+                                and torch.equal(s_o, s_n))}
+
+
+def time_int4_yardstick(torch, qc, c, rows, fac, d: int, k: int,
+                        block_n: int, mask=None) -> dict:
+    """The int4 fold's yardstick: the int8 fold (``fold_i8_wgmma_kernel``
+    through ``lr_fold_i8``) over the same codes unpacked to int8, at the
+    same plan: the int4 fold's consumers do exactly its work, so the gap
+    is the producer's unpack. ms by CUDA events, device ms, and whether it
+    returns the int4 fold's answer."""
+    from latentrag_torch.ops import fused_topk as ft
+
+    call = lambda: ft.sq8_fused_topk_raw(  # noqa: E731
+        qc, rows, fac, k=k, mode="fold", block_n=block_n, mask=mask)
+    s_y, i_y = call()
+    s_n, i_n = ft.sq4_fused_topk_raw(qc, c, fac, d=d, k=k, mode="fold",
+                                     block_n=block_n, mask=mask)
+    torch.cuda.synchronize()
+    return {"kernel": "fold_i8_wgmma_kernel over int8 codes",
+            "ms": time_ms(torch, call), "device_ms": device_split(torch, call),
+            "same_answer": bool(torch.equal(i_y, i_n)
+                                and torch.equal(s_y, s_n))}
+
+
 def time_quantized(torch) -> dict:
     """Phase 4d: the int8 and int4 kernels at the reference shape (Q=2000,
     N=315) and the capacity shape (Q=1024, N=8.8M), d=64: the fold at the
@@ -2670,7 +2767,7 @@ def time_quantized(torch) -> dict:
                 continue
             d = 64
             _, qc, c, fac, _ = quant_case(torch, store, nq, n, d, 600 + si)
-            rows = c if store == "int8" else tq.sq4_unpack(c, d)
+            rows = c if store == "int8" else tq.sq4_unpack(c, d).contiguous()
             m, words = row_mask(torch, n, 0.1, 10, 610 + si)
             block_n, cand = quant_fold_plan(ft, store, n)
             cases = [("fold", "fold", cand, block_n, False),
@@ -2680,6 +2777,8 @@ def time_quantized(torch) -> dict:
                      ("exact_masked", "exact", 10, 4096, True)]
             if store == "int8":
                 cases.append(("exact_masked_k160", "exact", 160, 4096, True))
+            if store == "int8" and label == "capacity":  # past 256: the old
+                cases.append(("exact_k512", "exact", 512, 4096, False))
             if label.startswith("msmarco"):  # the fold's plan, top_k=150
                 cases = [("fold", "fold", cand, block_n, False),
                          ("exact_k150", "exact", 150, 4096, False)]
@@ -2716,7 +2815,14 @@ def time_quantized(torch) -> dict:
                     if big and not masked:
                         rec["replaced_instance"] = time_old_int8_fold(
                             torch, qc, c, fac, cand, block_n)
-                if store == "int8" and mode == "exact":
+                if store == "int4" and mode == "fold":
+                    rec["resources"] = fold_i8_resources(ft, masked)
+                    rec["replaced_instance"] = time_old_int4_fold(
+                        torch, qc, c, fac, d, cand, block_n, mk)
+                    rec["yardstick"] = time_int4_yardstick(
+                        torch, qc, c, rows, fac, d, cand, block_n, mk)
+                if (store == "int8" and mode == "exact"
+                        and k <= ft.EXACT_I8_MAX_K):
                     rec["resources"] = exact_i8_resources(ft, masked)
                     rec["replaced_instance"] = time_old_int8_exact(
                         torch, qc, c, fac, k, mk)
@@ -7601,15 +7707,22 @@ def main() -> int:
     print(card, flush=True)
     t0 = time.perf_counter()
     # the kernels' three libraries (the fold and exact kernels without and
-    # with the row mask, the IVF's scan), by three nvcc processes at once,
-    # and beside them the int8 fold's and exact search's replaced instances
-    # (phase 4d's yardsticks), a fourth and a fifth
-    splits = [split_script(), split_script("torch_int8_exact_split")]
-    old_builds = [sp.start_build("old") for sp in splits]
+    # with the row mask, the IVF's scan), by three nvcc processes at once;
+    # then the int8 fold's, the int8 exact search's and the int4 fold's
+    # replaced instances (phase 4d's yardsticks), three more, which build
+    # while phases 2 and 3 run
     cuda_build.load_libraries(ft.LIBRARIES + tivf.LIBRARIES)
-    for sp, started in zip(splits, old_builds):
-        sp.finish_build(started)
     build_s = time.perf_counter() - t0
+    splits = [split_script(), split_script("torch_int8_exact_split"),
+              split_script("torch_int4_fold_split")]
+    old_builds = [sp.start_build("old") for sp in splits]
+    atexit.register(stop_builds, old_builds)
+    # ptxas serialises every wgmma of a kernel it cannot keep asynchronous
+    # and says so (C7514): the wgmma kernels must never be built so
+    serialised = [key for key, err in cuda_build.build_messages.items()
+                  if "C7514" in err]
+    if serialised:
+        fail(f"ptxas serialised wgmma (C7514) in {serialised}")
     t0 = time.perf_counter()
     native.load_library()  # the C++ tokenizer's library, g++
     record("build", card=card, torch=torch.__version__,
@@ -7678,11 +7791,12 @@ def main() -> int:
     launches["int8_exact"] = msmarco["top_k_150"]["int8_exact"]
     if failures:
         fail("; ".join(failures))
-    capacity_launches = {}
+    capacity_launches, int4_split = {}, None
     for store in QUANT_STORES:
         cap = check_quantized_capacity(torch, failures, store)
         if failures:
             fail("; ".join(failures))
+        int4_split = cap.pop("search_split", int4_split)
         for name, counts in cap.items():
             kernel = "fold" if name.startswith("fold") else "exact"
             key = f"{store}_{kernel}" + ("_masked" if "masked" in name else "")
@@ -7697,6 +7811,10 @@ def main() -> int:
     ivf["launches"] += check_ivf_cascades(torch, failures)
     if failures:
         fail("; ".join(failures))
+    t0 = time.perf_counter()
+    for sp, started in zip(splits, old_builds):
+        sp.finish_build(started)
+    record("split_builds", wait_s=time.perf_counter() - t0)
     times = time_kernels(torch)
     knn_time = time_knn_fold(torch)
     times.update(time_binary(torch))
@@ -7936,7 +8054,8 @@ def main() -> int:
                 key = f"{store}_{kernel}{masked}"
                 t = quant_times[("reference", key)]
                 big = quant_times[("capacity", key)]
-                if store == "int8":  # the int8 store's own, k <= 256
+                if store == "int8" or kernel == "fold":
+                    # on wgmma: both folds, the int8 exact search to 256
                     source = f"{kernel}_i8_wgmma.cuh"
                 kernels.append({
                     "name": f"{tag}_fused_topk_{kernel}{masked}",
@@ -7956,12 +8075,14 @@ def main() -> int:
                         "bound_ms", "bound_by", "device_ms",
                         "blocks_per_sm") if f in big},
                 })
-                for f in ("resources", "replaced_instance"):
+                for f in ("resources", "replaced_instance", "yardstick"):
                     if f in big:
                         kernels[-1][f] = big[f]
-                if "replaced_instance" in t:  # the int8 exact search's
-                    kernels[-1]["replaced_instance_ms"] = t[
-                        "replaced_instance"]["ms"]
+                for f in ("replaced_instance", "yardstick"):  # int8 exact,
+                    if f in t:  # int4 fold
+                        kernels[-1][f + "_ms"] = t[f]["ms"]
+                if key == "int4_fold":  # phase 3j's int4 search at k=10
+                    kernels[-1]["search_split"] = int4_split
                 kernels[-1]["capacity_launches"] = capacity_launches.get(
                     key, 0)
                 if key == "int8_fold":
@@ -7974,7 +8095,8 @@ def main() -> int:
                     kernels[-1]["timings"] = [{f: r[f] for f in (
                         "shape", "case", "Q", "N", "k", "masked", "ms",
                         "device_ms", "plain_ms", "library_ms", "bound_ms",
-                        "bound_by", "blocks_per_sm", "replaced_instance")}
+                        "bound_by", "blocks_per_sm", "replaced_instance")
+                        if f in r}
                         for (_, name), r in quant_times.items()
                         if name.startswith("int8_exact")]
     # the device IVF's scan (the JAX package scores the probed blocks in

@@ -536,7 +536,7 @@ exact_i8_wgmma_kernel(const __grid_constant__ CUtensorMap map,
     const int n_sub = (row1 - row0 + TN - 1) / TN;
 
     const unsigned qbar = sm.empty + 8 * FW_NST_MAX;  // the query tile's
-    if (tid == 0) fw_init_ring(sm, nst, vec, qbar);
+    if (tid == 0) fw_init_ring(sm, nst, vec ? 1 : 32, qbar);
     if (tid >= 128) {
         // the query tile (d <= 64): by TMA (qvec, from the producer below),
         // else here; the lists emptied

@@ -1,8 +1,9 @@
-// The int8 store's fold, designed for Hopper: fold_i8_wgmma_kernel<E, MASK>
-// (+ fold_merge_kernel<E, MASK> past one slab). It replaces the JAX
-// package's sq8_topk (its ops/quantization.py:35-80: a dot_general of the
-// SQ8 codes and approx_max_k, XLA there, no Pallas kernel), which the
-// port first ran as fold_mma_kernel<E, OP_I8>, an
+// The int8 and int4 stores' fold, designed for Hopper:
+// fold_i8_wgmma_kernel<E, MASK, WIDE> (+ fold_merge_kernel<E, MASK> past
+// one slab); the int4 store's at the end of this note. For int8 it
+// replaces the JAX package's sq8_topk (its ops/quantization.py:35-80: a
+// dot_general of the SQ8 codes and approx_max_k, XLA there, no Pallas
+// kernel), which the port first ran as fold_mma_kernel<E, OP_I8>, an
 // instance of the bf16 fold's template (fold_mma.cuh). Included by
 // fused_topk.cu, whose header states the contract this kernel keeps bit
 // for bit: score(q, c) = float32(int32 dot) * factor, each step rounded to
@@ -83,6 +84,27 @@
 //     few thousand rows, as the main path's) this flush is most of the
 //     kernel's time, twice the 8 queries a warp of the old instance
 //     flushed (PERF.md section 6), and slower than it there.
+//
+// The int4 store's fold runs on the same kernel (lr_fold_i4, its runtime
+// flag i4). It replaces the JAX package's sq4_topk (its
+// ops/quantization.py:147: the nibbles unpacked, a dot_general and
+// approx_max_k, XLA there, no Pallas kernel), which the port first ran as
+// fold_mma_kernel<E, OP_I4>: 8 warps in lockstep, each 128-row stage behind
+// a cp.async barrier and a second one after every warp had sign-extended
+// its share of it into a [128][128] s8 stage, half of it empty at d = 64.
+// Its bound is the int8 fold's: 2 Q N d int8 operations at 1,979 TOPS
+// (0.58 ms at 1024 x 8.8M, d = 64; the nibbles are half the int8 store's
+// bytes), then the fold's epilogue. Once a stage is sign-extended the work
+// is the int8 fold's, so the consumers are unchanged and only the producer
+// differs: its warpgroup's four warps, idle in the int8 store's fold, load
+// the packed rows from device memory (16-byte loads, issued before the
+// wait for the slot; no ring of packed stages, which would cost the
+// second block an SM at the list of 128), sign-extend them in registers
+// (fm_s4x8) and write the s8 stages in TMA's swizzle, then fence the
+// generic proxy's writes for wgmma before their arrivals on the stage's
+// full barrier (wgmma_i8.cuh, fw_produce4). The consumers' arithmetic is
+// exact on either store (|dot| <= d x 128 x 8), so both equal their plain
+// folds bit for bit.
 
 #include "wgmma_i8.cuh"
 
@@ -271,11 +293,13 @@ __device__ __forceinline__ void fw_epilogue(
 // grid: (ceil(nq / 64), slabs of slab_rows rows, a multiple of block_n);
 // 256 threads: warps 0-3 the producer warpgroup, 4-7 the consumers (warp
 // 4 + w: queries 16 w .. 16 w + 15 of the tile). q: int8 query codes [nq,
-// d] (qmap: their TMA map when qvec); c: int8 codes [n, d] (map: their TMA
-// map when vec; WIDE: vec covers both and qvec is vec); fac: the one fp32
-// score factor; nst >= 2 ring stages. final_out (one slab):
-// write out_s / out_i; else part[slab, q, :] keys. MASK: mask is the
-// allowed rows' bits [ceil(n/32)].
+// d] (qmap: their TMA map when qvec and d <= 64); c: int8 codes [n, d]
+// (map: their TMA map when vec; WIDE: vec covers both and qvec is vec),
+// or with i4 packed nibbles [n, ceil(d / 2)] (vec: 16-byte loads; map
+// unused; WIDE: qvec the queries' 16-byte loads); fac: the one fp32 score
+// factor; nst >= 2 ring stages. final_out (one slab): write out_s /
+// out_i; else part[slab, q, :] keys. MASK: mask is the allowed rows' bits
+// [ceil(n/32)].
 template <int E, bool MASK, bool WIDE>
 __global__ void __launch_bounds__(FW_THREADS, 2)
 fold_i8_wgmma_kernel(const __grid_constant__ CUtensorMap map,
@@ -285,7 +309,7 @@ fold_i8_wgmma_kernel(const __grid_constant__ CUtensorMap map,
                      const float* __restrict__ fac,
                      const unsigned* __restrict__ mask, int nq, int n, int d,
                      int k, int block_n, int slab_rows, int nst, int vec,
-                     int qvec, int final_out, i64* __restrict__ part,
+                     int qvec, int i4, int final_out, i64* __restrict__ part,
                      float* __restrict__ out_s, int* __restrict__ out_i) {
     extern __shared__ __align__(1024) unsigned char fw_smem_raw[];
     unsigned char* smem = fw_smem_raw;
@@ -301,7 +325,8 @@ fold_i8_wgmma_kernel(const __grid_constant__ CUtensorMap map,
     const int n_sub = (row1 - row0 + TN - 1) / TN;
 
     const unsigned qbar = sm.empty + 8 * FW_NST_MAX;  // the query tile's
-    if (tid == 0) fw_init_ring(sm, nst, vec, qbar);
+    if (tid == 0)
+        fw_init_ring(sm, nst, i4 ? FW_P4_THREADS / 32 : vec ? 1 : 32, qbar);
     if (tid >= 128) {
         // the query tile (d <= 64): by TMA (qvec, from the producer below),
         // else here; the lists emptied
@@ -312,8 +337,16 @@ fold_i8_wgmma_kernel(const __grid_constant__ CUtensorMap map,
     __syncthreads();
 
     if (warp < 4) {
-        // the producer warpgroup: warp 0 fills the ring, the rest leave
+        // the producer warpgroup: int4, its 4 warps unpack the nibbles into
+        // the ring; int8, warp 0 fills it and the rest leave
         asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+        if (i4) {
+            fw_produce4<WIDE>(sm, smem, &qmap, q,
+                              reinterpret_cast<const unsigned char*>(c), nq,
+                              n, d, q0, row0, n_sub, nst, vec, qvec, qbar,
+                              tid);
+            return;
+        }
         if (warp != 0 || (vec && lane != 0)) return;
         fw_produce<WIDE>(sm, smem, &map, &qmap, q, c, nq, n, d, q0, row0,
                          n_sub, nst, vec, qvec, qbar, lane);
@@ -464,7 +497,7 @@ template <int E, bool MASK, bool WIDE>
 static int fw_launch(const void* q, const void* c, const float* fac,
                      const unsigned* mask, int nq, int n, int d, int k,
                      int block_n, int slab_rows, int nst, size_t smem,
-                     long long* part, float* out_s, int* out_i,
+                     int i4, long long* part, float* out_s, int* out_i,
                      cudaStream_t st) {
     int e = fw_prepare<E, MASK, WIDE>();
     if (e) return e;
@@ -472,19 +505,23 @@ static int fw_launch(const void* q, const void* c, const float* fac,
     // tile or its chunks (64 rows x ch bytes) by TMA where rows are whole
     // 16-byte chunks on an aligned base, swizzled as wgmma reads them;
     // rows past n or nq and dims past d read as 0. WIDE's stages take both
-    // by one route.
-    const int ch = fw_ch(d);
+    // by one route. int4 (i4): the producer warpgroup unpacks the stages
+    // from the nibbles, by 16-byte loads where a packed row is whole
+    // 16-byte pieces on an aligned base, and loads WIDE's query chunks;
+    // the query tile (d <= 64) comes by TMA as the int8 store's does
+    const int ch = fw_ch(d), w = (d + 1) >> 1;
+    const bool c16 = (reinterpret_cast<size_t>(c) & 15) == 0;
     CUtensorMap map, qmap;
     memset(&map, 0, sizeof(map));
     memset(&qmap, 0, sizeof(qmap));
-    int vec = (d & 15) == 0 && (reinterpret_cast<size_t>(c) & 15) == 0;
+    int vec = i4 ? (w & 15) == 0 && c16 : (d & 15) == 0 && c16;
     int qvec = (d & 15) == 0 && (reinterpret_cast<size_t>(q) & 15) == 0;
-    if (WIDE) vec = qvec = vec && qvec;
-    if (vec) {
+    if (WIDE && !i4) vec = qvec = vec && qvec;
+    if (vec && !i4) {
         e = fw_map(&map, c, d, n, ch, TN);
         if (e) return e;
     }
-    if (qvec) {
+    if (qvec && !(WIDE && i4)) {
         e = fw_map(&qmap, q, d, nq, ch, FW_TQ);
         if (e) return e;
     }
@@ -494,8 +531,8 @@ static int fw_launch(const void* q, const void* c, const float* fac,
     dim3 grid((nq + FW_TQ - 1) / FW_TQ, n_slabs);
     fold_i8_wgmma_kernel<E, MASK, WIDE><<<grid, FW_THREADS, smem, st>>>(
         map, qmap, (const signed char*)q, (const signed char*)c, fac, mask,
-        nq, n, d, k, block_n, slab_rows, nst, vec, qvec, n_slabs == 1, part,
-        out_s, out_i);
+        nq, n, d, k, block_n, slab_rows, nst, vec, qvec, i4, n_slabs == 1,
+        part, out_s, out_i);
     e = (int)cudaGetLastError();
     if (e || n_slabs == 1) return e;
     fold_merge_kernel<E, MASK><<<(nq + FM_WARPS - 1) / FM_WARPS, FM_THREADS, 0,
@@ -514,24 +551,40 @@ static int fw_launch(const void* q, const void* c, const float* fac,
     (d > 64 ? FW_DISPATCH_E(F, true, __VA_ARGS__)                             \
             : FW_DISPATCH_E(F, false, __VA_ARGS__))
 
+// The fold of either store (i4: the int4 store's nibbles).
+static int fw_fold(const void* q, const void* c, const float* factor, int nq,
+                   int n, int d, int k, int block_n, int slab_rows,
+                   const unsigned* mask, int i4, long long* part,
+                   float* out_s, int* out_i, void* stream) {
+    if (k < 1 || k > 128 || d < 1 || n < 1 || nq < 1 || (LR_MASK && !mask))
+        return (int)cudaErrorInvalidValue;
+    int nst = 0;
+    size_t smem = 0;
+    const int e = fw_plan(d, k, &nst, &smem);
+    if (e) return e;
+    cudaStream_t st = (cudaStream_t)stream;
+    return FW_DISPATCH(fw_launch, q, c, factor, mask, nq, n, d, k, block_n,
+                       slab_rows, nst, smem, i4, part, out_s, out_i, st);
+}
+
 extern "C" {
 
 // Dynamic shared memory of one fold_i8_wgmma_kernel block at (d, k) (op:
-// OP_I8, the only kind it takes); 0 if it fits no block.
+// OP_I8 or OP_I4, whose blocks are the same); 0 if it fits no block.
 size_t lr_fold_i8_smem(int d, int k, int op) {
     int nst = 0;
     size_t smem = 0;
-    if (op != OP_I8 || fw_plan(d, k, &nst, &smem)) return 0;
+    if ((op != OP_I8 && op != OP_I4) || fw_plan(d, k, &nst, &smem)) return 0;
     return smem;
 }
 
 // Resident fold_i8_wgmma_kernel blocks per SM at (d, k), of the library's
 // flavour (LR_MASK), on the current device (0: does not fit); a negative
-// cudaError_t on failure.
+// cudaError_t on failure. op: OP_I8 or OP_I4 (the same blocks).
 int lr_fold_i8_occupancy(int d, int k, int op) {
     int nst = 0;
     size_t smem = 0;
-    if (op != OP_I8) return -(int)cudaErrorInvalidValue;
+    if (op != OP_I8 && op != OP_I4) return -(int)cudaErrorInvalidValue;
     const int e = fw_plan(d, k, &nst, &smem);
     if (e) return e == (int)cudaErrorInvalidValue ? 0 : -e;
     return FW_DISPATCH(fw_occupancy, smem);
@@ -548,15 +601,20 @@ int lr_fold_i8(const void* q, const void* c, const float* factor, int nq,
                int n, int d, int k, int block_n, int slab_rows,
                const unsigned* mask, long long* part, float* out_s,
                int* out_i, void* stream) {
-    if (k < 1 || k > 128 || d < 1 || n < 1 || nq < 1 || (LR_MASK && !mask))
-        return (int)cudaErrorInvalidValue;
-    int nst = 0;
-    size_t smem = 0;
-    const int e = fw_plan(d, k, &nst, &smem);
-    if (e) return e;
-    cudaStream_t st = (cudaStream_t)stream;
-    return FW_DISPATCH(fw_launch, q, c, factor, mask, nq, n, d, k, block_n,
-                       slab_rows, nst, smem, part, out_s, out_i, st);
+    return fw_fold(q, c, factor, nq, n, d, k, block_n, slab_rows, mask, 0,
+                   part, out_s, out_i, stream);
+}
+
+// The int4 fold: lr_fold_i8 with c the int4 store's packed nibbles uint8
+// [n, ceil(d / 2)] (low nibble the even dim, two's complement), which
+// fold_i8_wgmma_kernel's producer warpgroup sign-extends into its s8
+// stages. Returns a cudaError_t.
+int lr_fold_i4(const void* q, const void* c, const float* factor, int nq,
+               int n, int d, int k, int block_n, int slab_rows,
+               const unsigned* mask, long long* part, float* out_s,
+               int* out_i, void* stream) {
+    return fw_fold(q, c, factor, nq, n, d, k, block_n, slab_rows, mask, 1,
+                   part, out_s, out_i, stream);
 }
 
 }  // extern "C"

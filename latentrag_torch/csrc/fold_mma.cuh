@@ -107,11 +107,12 @@
 // products), plus the splits on the CUDA cores.
 //
 // The int8 and int4 folds (<E, OP_I8>, <E, OP_I4>: the int8 and int4
-// stores; the library instantiates only the int4 fold: the int8 store's
-// fold is fold_i8_wgmma.cuh, and <E, OP_I8> stays the template's int8
-// path, which the int4 fold shares and scripts/torch_int8_fold_split.py
-// builds as the yardstick). An int8 row of 128 dims is 128 bytes, the row
-// of a bf16 stage, so
+// stores; the library instantiates neither: both stores' fold is
+// fold_i8_wgmma.cuh, and these stay the template's int paths, which the
+// exact search's <KP, OP_I4> shares (fm_stage, fm_unpack4) and
+// scripts/torch_int8_fold_split.py and scripts/torch_int4_fold_split.py
+// build as the yardsticks of the kernel that replaced them). An int8 row
+// of 128 dims is 128 bytes, the row of a bf16 stage, so
 // a stage holds 128 dims and its 16-byte chunks, swizzle and ldmatrix
 // addressing are the bf16 ones: ldmatrix .b16 hands lane (g, t) the 4
 // bytes at row g, bytes 4t .. 4t + 3, which is the s8 A layout of
@@ -1161,7 +1162,6 @@ static int fm_e(int k) { return k <= 32 ? 1 : k <= 64 ? 2 : 4; }
 #define FM_DISPATCH(F, ...)                                                   \
     (op == OP_BIN   ? FM_DISPATCH_OP(F, OP_BIN, __VA_ARGS__)                  \
      : op == OP_F32 ? FM_DISPATCH_OP(F, OP_F32, __VA_ARGS__)                  \
-     : op == OP_I4  ? FM_DISPATCH_OP(F, OP_I4, __VA_ARGS__)                   \
                     : FM_DISPATCH_OP(F, OP_BF16, __VA_ARGS__))
 
 extern "C" {
@@ -1177,19 +1177,18 @@ size_t lr_fold_mma_smem(int d, int k, int op) {
 
 // Resident fold_mma_kernel blocks per SM at (d, k, op), of the library's
 // flavour (LR_MASK), on the current device (0: does not fit); a negative
-// cudaError_t on failure (OP_I8: lr_fold_i8_occupancy's).
+// cudaError_t on failure (OP_I8 and OP_I4: lr_fold_i8_occupancy's).
 int lr_fold_mma_occupancy(int d, int k, int op) {
-    if (op == OP_I8) return -(int)cudaErrorInvalidValue;
+    if (fm_int(op)) return -(int)cudaErrorInvalidValue;
     const size_t smem = lr_fold_mma_smem(d, k, op);
     return FM_DISPATCH(fm_occupancy, smem);
 }
 
 // The fold over bf16 (op = OP_BF16: q, c bf16 [nq, d], [n, d]) or fp32
-// (OP_F32: fp32, 3xTF32 products) stores, the binary fold (OP_BIN: bf16
-// queries, c the packed sign words [n, ceil(d/32)]; euclid = 0), or the
-// int4 fold (OP_I4: int8 query codes, c packed nibbles [n, ceil(d/2)], csq
-// the one fp32 score factor; euclid = 0; OP_I8 is lr_fold_i8's, and here
-// returns cudaErrorInvalidValue):
+// (OP_F32: fp32, 3xTF32 products) stores, or the binary fold (OP_BIN: bf16
+// queries, c the packed sign words [n, ceil(d/32)]; euclid = 0); OP_I8 and
+// OP_I4 are lr_fold_i8's and lr_fold_i4's, and here return
+// cudaErrorInvalidValue:
 // fold_mma_kernel over (query tiles x slabs), then, with more than one
 // slab, fold_merge_kernel; lists of 32, 64 or 128 entries in registers,
 // the least that holds k. mask (the masked library; null in the other) is
@@ -1202,7 +1201,7 @@ int lr_fold_mma(const void* q, const void* c, const float* csq, int nq, int n,
                 int d, int k, int euclid, int block_n, int slab_rows, int vec,
                 int op, const unsigned* mask, long long* part, float* out_s,
                 int* out_i, void* stream) {
-    if (op == OP_I8) return (int)cudaErrorInvalidValue;
+    if (fm_int(op)) return (int)cudaErrorInvalidValue;
     const size_t smem = lr_fold_mma_smem(d, k, op);
     cudaStream_t st = (cudaStream_t)stream;
 #define FM_ARGS q, c, csq, mask, nq, n, d, k, euclid, block_n, slab_rows, vec, \

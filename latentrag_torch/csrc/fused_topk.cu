@@ -8,15 +8,15 @@
 //   fold_mma_kernel<E, OP, MASK> (fold_mma.cuh) replaces _fold_kernel
 //                            (pallas_topk.py:162-179, _fold_body :114-159)
 //                            for bf16 (OP_BF16) and fp32 (OP_F32) stores, and
-//                            _binary_fold_kernel (:354-401) as OP_BIN; as
-//                            OP_I4 the int4 store's search (the JAX
-//                            package's sq4_topk, ops/quantization.py:147,
-//                            XLA there); fold_merge_kernel<E, MASK> merges
-//                            its slabs
+//                            _binary_fold_kernel (:354-401) as OP_BIN;
+//                            fold_merge_kernel<E, MASK> merges its slabs
 //   fold_i8_wgmma_kernel<E, MASK, WIDE> (fold_i8_wgmma.cuh) the int8
 //                            store's search (sq8_topk, ops/quantization.py:
-//                            35, XLA there), designed for Hopper: a TMA
-//                            producer warp, wgmma s8 consumers;
+//                            35, XLA there) and the int4 store's stage 1
+//                            (sq4_topk, :147, XLA there), designed for
+//                            Hopper: a TMA producer warp (int4: the
+//                            producer warpgroup sign-extends the nibbles
+//                            into the s8 stages), wgmma s8 consumers;
 //                            fold_merge_kernel merges its slabs
 //   exact_i8_wgmma_kernel<KP, MASK, WIDE> (exact_i8_wgmma.cuh) the int8
 //                            store's exact search at k <= 256 (sq8_topk
@@ -58,12 +58,15 @@
 //   bf16 a stage at a time in shared memory. int8 (OP_I8): score(q, c) =
 //   float32(sum_j qc_j * c_j) * factor, int8 query codes qc [nq, d] against
 //   int8 corpus codes [n, d], the dot an exact int32 (mma.sync m16n8k32 s8;
-//   the int8 store's fold and exact search: wgmma m64n64k32 s8),
+//   the int8 store's fold and exact search and the int4 store's fold:
+//   wgmma m64n64k32 s8),
 //   factor = float32(q_scale * corpus_scale), one fp32 value on the device
 //   (passed in csq's place: these stores are cosine / dot only); int4
 //   (OP_I4): the same against packed nibbles uint8 [n, ceil(d/2)] (low
 //   nibble the even dim, two's complement), sign-extended to s8 a stage at
-//   a time in shared memory. Both are the JAX package's scores bit for bit.
+//   a time (the fold: in the producer warpgroup's registers; the exact
+//   search: in shared memory). Both are the JAX package's scores bit for
+//   bit.
 //   Scores become order-preserving
 //   int32 keys (_monotone_i32). Rows >= n never win.
 //   exact: the top-k of (key desc, row asc) over all rows: ties go to the lower row.

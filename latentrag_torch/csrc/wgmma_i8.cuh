@@ -1,8 +1,8 @@
 // The int8 wgmma kernels' shared machinery: fold_i8_wgmma.cuh (the int8
-// store's fold) and exact_i8_wgmma.cuh (its exact search) both stream a
-// slab of int8 corpus rows past a 64-query tile this way. Included by
-// both; fused_topk.cu's prelude (TN, i64, EMPTY64, fm_smem, fm_row16) comes
-// first.
+// and int4 stores' fold) and exact_i8_wgmma.cuh (the int8 store's exact
+// search) both stream a slab of int8 corpus rows past a 64-query tile this
+// way. Included by both; fused_topk.cu's prelude and fold_mma.cuh (TN, i64,
+// EMPTY64, fm_smem, fm_row16, fm_s4x8) come first.
 //
 //   - warp specialisation: 256 threads, a producer warpgroup (warp 0
 //     works) and a consumer warpgroup, each consumer warp 16 of the 64
@@ -17,6 +17,11 @@
 //     d. Rows whose bytes are not whole 16-byte chunks, or a base that is
 //     not 16-byte aligned, are copied by loads into the same swizzle
 //     instead (fm_row16);
+//   - the int4 store's rows are packed nibbles, which no wgmma operand
+//     takes: the producer warpgroup's four warps (fw_produce4) load them
+//     with 16-byte loads (or element-wise ones, as above), sign-extend them
+//     in registers (fm_s4x8) and write the same s8 stages, so that the
+//     consumers cannot tell the two stores apart;
 //   - the consumers issue wgmma.mma_async m64n64k32 s8.s8 -> s32 with the
 //     query tile and the stage in shared memory (fw_issue), a sub-tile's
 //     two 64-row halves into two accumulator sets; every k step is
@@ -38,6 +43,8 @@
 #define FW_TQ 64              // queries a block: wgmma's M
 #define FW_NST_MAX 8          // ring stages at most
 #define FW_BAR_BYTES 1024     // the mbarriers' region at the start
+#define FW_P4_THREADS 128     // the int4 producer's: the producer warpgroup
+                              // (all of it: the kernel launches it so)
 typedef unsigned long long u64;
 
 // Dims a stage holds: 64 when d <= 64 (a 64-byte row), else 128.
@@ -199,13 +206,13 @@ __device__ __forceinline__ void fw_step(int& slot, unsigned& phase,
     }
 }
 
-// Thread 0: the ring's barriers (full: the TMA's one arrival with its
-// bytes, or the producer warp's 32 copies; empty: the 4 consumer warps)
-// and the query tile's.
+// Thread 0: the ring's barriers (full: `arrivals`, the TMA's one arrival
+// with its bytes, the producer warp's 32 copies, or the int4 producer's 4
+// warps; empty: the 4 consumer warps) and the query tile's.
 __device__ __forceinline__ void fw_init_ring(const FwRing& sm, int nst,
-                                             int vec, unsigned qbar) {
+                                             int arrivals, unsigned qbar) {
     for (int s = 0; s < nst; ++s) {
-        fw_bar_init(sm.full + 8 * s, vec ? 1 : 32);
+        fw_bar_init(sm.full + 8 * s, arrivals);
         fw_bar_init(sm.empty + 8 * s, 4);
     }
     fw_bar_init(qbar, 1);
@@ -286,6 +293,90 @@ __device__ __forceinline__ void fw_produce(
             fw_fence_async();
             fw_bar_arrive(full);
         }
+        fw_step(slot, phase, nst);
+        if (++dci == n_dch) {
+            dci = 0;
+            ++sub;
+        }
+    }
+}
+
+// The int4 producer: the producer warpgroup's FW_P4_THREADS threads (t: 0
+// .. 127, 4 warps) turn
+// the packed nibbles of the slab's n_sub sub-tiles (rows of w = ceil(d / 2)
+// bytes, low nibble the even dim, two's complement) into the s8 stages the
+// consumers read, in the swizzle TMA gives the int8 store's (fw_swz),
+// ceil(d / ch) stages a sub-tile; d <= 64 with the query tile by one TMA
+// box (qvec), WIDE with each stage's 64 queries' chunk by loads (16 bytes
+// when qvec). A thread takes PT 16-byte pieces of packed rows a stage (32
+// dims each: two s8 chunks), pieces of neighbouring threads neighbouring in
+// memory: by one 16-byte load each when vec (rows of whole 16-byte pieces
+// on an aligned base), else byte by byte; zero past n and past w, and
+// dims past d meet zero query codes. The loads of a stage go out before
+// the wait for its slot, so they fly while the consumers finish with it;
+// then the sign extension (fm_s4x8, in registers), the stores, the proxy
+// fence that shows them to wgmma, and one arrival a warp on the stage's
+// full barrier (FW_P4_THREADS / 32 a stage).
+template <bool WIDE>
+__device__ __forceinline__ void fw_produce4(
+    const FwRing& sm, unsigned char* smem, const CUtensorMap* qmap,
+    const signed char* q, const unsigned char* c, int nq, int n, int d,
+    int q0, int row0, int n_sub, int nst, int vec, int qvec, unsigned qbar,
+    int t) {
+    constexpr int CH = WIDE ? 128 : 64;  // dims (s8 bytes) a stage row
+    constexpr int PR = CH / 32;          // packed pieces a row
+    constexpr int NT = FW_P4_THREADS;
+    constexpr int PT = TN * PR / NT;     // pieces a thread a stage: 2 or 4
+    const int w = (d + 1) >> 1, n_dch = (d + CH - 1) / CH;
+    if (!WIDE && qvec && t == 0) {  // the query tile, one box
+        fw_bar_expect(qbar, FW_TQ * 64);
+        fw_tma(sm.qs, qmap, 0, q0, qbar);
+    }
+    const int n_st = n_sub * n_dch;
+    int slot = 0, sub = 0, dci = 0;
+    unsigned phase = 0;  // the round of the slot's barriers
+    for (int st = 0; st < n_st; ++st) {
+        const int t0 = row0 + sub * TN, b0 = dci * (CH / 2);
+        uint4 p[PT];
+#pragma unroll
+        for (int u = 0; u < PT; ++u) {
+            const int v = t + NT * u, r = v / PR, b = b0 + 16 * (v % PR);
+            const int row = t0 + r;
+            const unsigned char* src = c + (size_t)row * w;
+            p[u] = row >= n || b >= w ? make_uint4(0u, 0u, 0u, 0u)
+                   : vec ? __ldg(reinterpret_cast<const uint4*>(src + b))
+                         : fm_row16(src, w, b);
+        }
+        fw_bar_wait(sm.empty + 8 * slot, phase ^ 1u);
+        unsigned char* P = smem + (sm.ring + slot * fw_stage_bytes(d) -
+                                   sm.full);
+#pragma unroll
+        for (int u = 0; u < PT; ++u) {
+            const int v = t + NT * u, r = v / PR, cc = 2 * (v % PR);
+            const uint2 a0 = fm_s4x8(p[u].x), a1 = fm_s4x8(p[u].y);
+            const uint2 a2 = fm_s4x8(p[u].z), a3 = fm_s4x8(p[u].w);
+            *reinterpret_cast<uint4*>(P + fw_swz(r, cc, CH)) =
+                make_uint4(a0.x, a0.y, a1.x, a1.y);
+            *reinterpret_cast<uint4*>(P + fw_swz(r, cc + 1, CH)) =
+                make_uint4(a2.x, a2.y, a3.x, a3.y);
+        }
+        if (WIDE) {  // the 64 queries' rows of the same chunk, zero past d
+                     // and nq
+            const int d0 = dci * CH;
+#pragma unroll 1
+            for (int v = t; v < (CH / 16) * FW_TQ; v += NT) {
+                const int r = v / (CH / 16), cc = v % (CH / 16);
+                const int dim = d0 + 16 * cc;
+                const signed char* qr = q + (size_t)(q0 + r) * d;
+                *reinterpret_cast<uint4*>(P + TN * CH + fw_swz(r, cc, CH)) =
+                    q0 + r >= nq || dim >= d ? make_uint4(0u, 0u, 0u, 0u)
+                    : qvec ? __ldg(reinterpret_cast<const uint4*>(qr + dim))
+                           : fm_row16((const unsigned char*)qr, d, dim);
+            }
+        }
+        fw_fence_async();
+        __syncwarp();
+        if ((t & 31) == 0) fw_bar_arrive(sm.full + 8 * slot);
         fw_step(slot, phase, nst);
         if (++dci == n_dch) {
             dci = 0;

@@ -37,6 +37,9 @@ _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 # seconds spent in nvcc per library, for the record of a run
 build_seconds: dict[str, float] = {}
+# what nvcc printed on stderr per library built (ptxas's warnings: C7514
+# says it serialised a kernel's wgmma), for the record of a run
+build_messages: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -111,6 +114,7 @@ def build_all(specs) -> list[str]:
     for key, out, tmp, proc, t0 in started:
         _, err = proc.communicate()
         build_seconds[key] = time.perf_counter() - t0
+        build_messages[key] = err
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {key} (exit {proc.returncode}):"
                           f"\n{err[-4000:]}")

@@ -75,12 +75,14 @@ Every store runs tensor-core kernels that write the scores and ids
 themselves: the folds in ``csrc/fold_mma.cuh``, the exact searches in
 ``csrc/exact_mma.cuh`` (batched list upkeep in both), each instantiated
 for bf16, packed binary, fp32, int8 and packed int4 operands (the last two
-on ``mma.sync`` s8 with int32 sums), except the int8 fold, which is
-``csrc/fold_i8_wgmma.cuh`` (a TMA producer warp, ``wgmma`` s8 consumers,
-the exact int-to-float conversion), the int8 exact search up to k = 256,
-``csrc/exact_i8_wgmma.cuh`` (the same machinery, ``csrc/wgmma_i8.cuh``,
-with a skip test on the raw int32 dot and lists kept by each warp), and
-the float stores' exact search past 2048 in ``csrc/exact_select.cuh``. fp32 stores multiply in
+on ``mma.sync`` s8 with int32 sums), except the int8 and int4 folds, which
+are ``csrc/fold_i8_wgmma.cuh`` (a TMA producer warp, ``wgmma`` s8
+consumers, the exact int-to-float conversion; for the int4 store the
+producer warpgroup sign-extends the nibbles into the s8 stages), the int8
+exact search up to k = 256, ``csrc/exact_i8_wgmma.cuh`` (the same
+machinery, ``csrc/wgmma_i8.cuh``, with a skip test on the raw int32 dot
+and lists kept by each warp), and the float stores' exact search past
+2048 in ``csrc/exact_select.cuh``. fp32 stores multiply in
 3xTF32 (each operand split into rounded tf32 hi and lo parts, three
 products a pair), within ~3 x 2^-22 of each exact product, the size of
 fp32 sum-order differences. The kernel sources say what bounds them on
@@ -386,8 +388,9 @@ def _declare(lib, select: bool) -> None:
     lib.lr_fold_i8_smem.argtypes = [i, i, i]
     lib.lr_fold_i8_occupancy.restype = i
     lib.lr_fold_i8_occupancy.argtypes = [i, i, i]
-    lib.lr_fold_i8.restype = i
-    lib.lr_fold_i8.argtypes = [p, p, p] + [i] * 6 + [p] * 5
+    for fn in (lib.lr_fold_i8, lib.lr_fold_i4):
+        fn.restype = i
+        fn.argtypes = [p, p, p] + [i] * 6 + [p] * 5
     lib.lr_exact_i8_smem.restype = ctypes.c_size_t
     lib.lr_exact_i8_smem.argtypes = [i, i, i]
     lib.lr_exact_i8_occupancy.restype = i
@@ -446,8 +449,8 @@ def _vec(corpus, d: int, op: int) -> bool:
 @functools.cache
 def _slots(index: int, kernel: str, d: int, k: int, op: int,
            masked: bool = False) -> int:
-    """Resident blocks of ``kernel`` (``fold_mma``, ``fold_i8`` and
-    ``exact_i8`` (int8 only), ``exact_mma`` or ``exact_select``, whose
+    """Resident blocks of ``kernel`` (``fold_mma``, ``fold_i8`` (int8 and
+    int4), ``exact_i8`` (int8 only), ``exact_mma`` or ``exact_select``, whose
     shared memory does not depend on k) for operand kind ``op`` the card
     holds at (d, k), the row-mask instance if ``masked``."""
     lib = _library(masked)
@@ -498,10 +501,9 @@ def _slab_outputs(nq: int, k_eff: int, n_slabs: int, dev):
 def _fold_mma(queries, corpus, csq, *, d, k_eff, block_n, euclid, op,
               mask=None):
     """The fold on the tensor cores (``csrc/fold_mma.cuh``) over bf16 or
-    fp32 stores, packed sign words or int4 nibbles (``op``; int4 takes its
-    fp32 score factor as ``csq``), with the row mask when ``mask`` is
-    given: the corpus in ``fold_slab_plan``'s slabs; the kernels write the
-    fp32 scores and int32 ids."""
+    fp32 stores or packed sign words (``op``), with the row mask when
+    ``mask`` is given: the corpus in ``fold_slab_plan``'s slabs; the
+    kernels write the fp32 scores and int32 ids."""
     _require_contiguous(queries, corpus)
     nq = queries.shape[0]
     n = corpus.shape[0]
@@ -528,22 +530,28 @@ def _fold_mma(queries, corpus, csq, *, d, k_eff, block_n, euclid, op,
     return scores, ids
 
 
-def _fold_i8(q_codes, corpus, factor, *, d, k_eff, block_n, mask=None):
-    """The int8 store's fold on Hopper (``csrc/fold_i8_wgmma.cuh``: a TMA
-    producer warp and a wgmma consumer warpgroup), with the row mask when
-    ``mask`` is given: 64 queries a block, the corpus in
+def _fold_i8(q_codes, corpus, factor, *, d, k_eff, block_n, op=_OP_I8,
+             mask=None):
+    """The int8 and int4 stores' fold on Hopper
+    (``csrc/fold_i8_wgmma.cuh``: a TMA producer warp and a wgmma consumer
+    warpgroup; ``op`` = ``_OP_I4``: ``lr_fold_i4``, whose producer
+    warpgroup sign-extends the packed nibbles into the s8 stages), with the
+    row mask when ``mask`` is given: 64 queries a block, the corpus in
     ``fold_slab_plan``'s slabs; the kernels write the fp32 scores and int32
-    ids."""
+    ids. ``last_kernel`` names the int4 route
+    ``fold_i8_wgmma_kernel<i4>``."""
     _require_contiguous(q_codes, corpus)
     nq = q_codes.shape[0]
     n = corpus.shape[0]
     dev = q_codes.device
     lib = _library(mask is not None)
-    slots = _slots(dev.index, "fold_i8", d, k_eff, _OP_I8, mask is not None)
+    slots = _slots(dev.index, "fold_i8", d, k_eff, op, mask is not None)
     slab_rows, n_slabs = fold_slab_plan(nq, n, block_n, slots, _FW_TQ)
     scores, ids, part = _slab_outputs(nq, k_eff, n_slabs, dev)
+    fold = lib.lr_fold_i8 if op == _OP_I8 else lib.lr_fold_i4
+    name = "fold_i8_wgmma_kernel" + ("" if op == _OP_I8 else _OP_TAG[op])
     with torch.cuda.device(dev):
-        code = lib.lr_fold_i8(
+        code = fold(
             q_codes.data_ptr(), corpus.data_ptr(), factor.data_ptr(),
             nq, n, d, k_eff, block_n, slab_rows,
             mask.data_ptr() if mask is not None else None,
@@ -551,9 +559,9 @@ def _fold_i8(q_codes, corpus, factor, *, d, k_eff, block_n, mask=None):
             scores.data_ptr(), ids.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _check(lib, code, "fold_i8_wgmma_kernel")
+    _check(lib, code, name)
     global last_kernel
-    last_kernel = _launched("fold_i8_wgmma_kernel", mask) + (
+    last_kernel = _launched(name, mask) + (
         "+fold_merge_kernel" if n_slabs > 1 else "")
     return scores, ids
 
@@ -1183,8 +1191,8 @@ def quantized_exact_kernel(op: int, k: int) -> str:
 def _quantized_raw(q_codes, corpus, factor, *, d, k, op, mode, block_n,
                    mask):
     """The int8 / int4 kernels' entry: on a CPU tensor the plain version,
-    on a CUDA tensor the fold kernel (k <= 128: int8 ``_fold_i8``, int4
-    ``_fold_mma``) or the exact kernel (k <= ``EXACT_MAX_K``:
+    on a CUDA tensor the fold kernel (k <= 128: ``_fold_i8``, either store)
+    or the exact kernel (k <= ``EXACT_MAX_K``:
     ``quantized_exact_kernel``'s, int8 ``_exact_i8`` up to
     ``EXACT_I8_MAX_K``, else ``_exact_mma``), counted as ``int8_fold`` ...
     ``int4_exact``."""
@@ -1202,12 +1210,9 @@ def _quantized_raw(q_codes, corpus, factor, *, d, k, op, mode, block_n,
                                 FOLD_MAX_K if fold else EXACT_MAX_K)
     _validate_mask(mask, corpus.shape[0], corpus.device)
     factor = factor.reshape(1).contiguous()
-    if fold and op == _OP_I8:
+    if fold:
         out = _fold_i8(q_codes, corpus, factor, d=d, k_eff=k_eff,
-                       block_n=block_n, mask=mask)
-    elif fold:
-        out = _fold_mma(q_codes, corpus, factor, d=d, k_eff=k_eff,
-                        block_n=block_n, euclid=False, op=op, mask=mask)
+                       block_n=block_n, op=op, mask=mask)
     elif quantized_exact_kernel(op, k_eff) == "exact_i8_wgmma_kernel":
         out = _exact_i8(q_codes, corpus, factor, d=d, k_eff=k_eff,
                         mask=mask)
@@ -1244,7 +1249,11 @@ def sq4_fused_topk_raw(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``sq8_fused_topk_raw`` over the int4 store's packed nibbles, uint8
     [N, ceil(d/2)] (``ops.quantization.sq4_quantize``), sign-extended to
-    int8 codes inside the kernels (``OP_I4``)."""
+    int8 codes inside the kernels: on a CUDA tensor the fold launches
+    ``fold_i8_wgmma_kernel<E, M, W>`` through ``lr_fold_i4`` (its producer
+    warpgroup unpacks the nibbles; ``last_kernel``
+    ``fold_i8_wgmma_kernel<i4>``), the exact search
+    ``exact_mma_kernel<KP, OP_I4>``."""
     return _quantized_raw(q_codes, packed, factor, d=d, k=k, op=_OP_I4,
                           mode=mode, block_n=block_n, mask=mask)
 

@@ -33,6 +33,7 @@ Run it from the repository's root on a machine with the card::
     python3 scripts/torch_int8_exact_split.py [--queries 1024] [--rows 8800000]
     python3 scripts/torch_int8_exact_split.py --variants old new new old \
         --queries 2000 --rows 1997 --ks 150
+    python3 scripts/torch_int8_exact_split.py --variants new --ks 512
 
 The variants are timed in turn, ``--rounds`` rounds over all of them at
 each k (``--ks``, default 10 and 160), so that a drift of the card's clock
@@ -331,17 +332,26 @@ def exact_call(torch, lib, qc, c, fac, k: int, mask=None):
     """A callable that launches the variant's exact search once as the
     store's wrapper did (``fused_topk._exact_slab_rows`` over m16 query
     tiles; ``mask``: the packed row mask), and the plan (slab_rows, slabs,
-    blocks an SM). ``lib`` None: the library's ``exact_i8_wgmma_kernel``
-    through ``sq8_fused_topk_raw``, with its own plan."""
+    blocks an SM). ``lib`` None: the library's kernel through
+    ``sq8_fused_topk_raw``, with its own plan (``exact_i8_wgmma_kernel``;
+    past k = 256 ``exact_mma_kernel<KP, OP_I8>``)."""
     from latentrag_torch.ops import fused_topk as ft
 
     nq, d = qc.shape
     n = c.shape[0]
     dev = qc.device
     if lib is None:
-        slots = ft._slots(dev.index, "exact_i8", d, k, ft._OP_I8,
-                          mask is not None)
-        slab_rows, n_slabs = ft.exact_i8_slab_plan(nq, n, slots)
+        masked = mask is not None
+        if k > ft.EXACT_I8_MAX_K:
+            slots = ft._slots(dev.index, "exact_mma", d, k, ft._OP_I8,
+                              masked)
+            slab_rows = ft._exact_slab_rows(
+                n, -(-nq // ft._library(masked).lr_exact_mma_queries(k)),
+                slots)
+            n_slabs = -(-n // slab_rows)
+        else:
+            slots = ft._slots(dev.index, "exact_i8", d, k, ft._OP_I8, masked)
+            slab_rows, n_slabs = ft.exact_i8_slab_plan(nq, n, slots)
         return (lambda: ft.sq8_fused_topk_raw(qc, c, fac, k=k, mode="exact",
                                               mask=mask),
                 {"slab_rows": slab_rows, "slabs": n_slabs,

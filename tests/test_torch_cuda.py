@@ -889,13 +889,12 @@ def _quantized_raw(store, qc, c, fac, d, **kw):
 
 
 def _quantized_kernel(store, mode, k):
-    """The C kernel a quantized store's fold or exact search at k runs."""
-    if store == "int8" and mode == "fold":
-        return "fold_i8_wgmma_kernel"
-    if mode == "exact":
-        return ft.quantized_exact_kernel(
-            ft._OP_I8 if store == "int8" else ft._OP_I4, k)
-    return "fold_mma_kernel<i4>"
+    """The C kernel a quantized store's fold or exact search at k runs
+    (the int4 fold: ``fold_i8_wgmma_kernel`` through ``lr_fold_i4``)."""
+    if mode == "fold":
+        return "fold_i8_wgmma_kernel" + ("" if store == "int8" else "<i4>")
+    return ft.quantized_exact_kernel(
+        ft._OP_I8 if store == "int8" else ft._OP_I4, k)
 
 
 @pytest.mark.parametrize("nq", [100, 1])
@@ -911,12 +910,13 @@ def test_quantized_kernels_match_plain(cuda, store, k, d, masked, nq):
     are exact
     integer dots times one factor, so the exact kernel equals its plain
     version bit for bit (ids and scores, ties to the lower row), and so
-    does the int8 fold (``fold_i8_wgmma_kernel``: its order is total);
-    the int4 fold's keys equal the plain fold's wherever the ids do (>=
-    99 %; the lanes keep the higher column of a tie in both). d = 33 takes
-    the element-wise loads (and int4's pad nibble; the int8 fold's
-    producer-warp copies), d = 48 the int8 fold's TMA with a k step past
-    d, d = 384 three stages a sub-tile (and its __int2float_rn path);
+    do the int8 and int4 folds (``fold_i8_wgmma_kernel``, int4 through
+    ``lr_fold_i4``: its order is total). d = 33 takes the element-wise
+    loads (and int4's pad nibble; the int8 fold's producer-warp copies,
+    the int4 producer's byte loads), d = 48 the int8 fold's TMA with a k
+    step past d (int4: 24-byte rows, byte loads), d = 384 three stages a
+    sub-tile (and its __int2float_rn path; int4: the producer's query
+    chunks);
     N = 5003 leaves a ragged tile, 100 queries a ragged query tile and one
     query (a served search, the self-check) 63 of the 64 tile rows
     padding."""
@@ -937,12 +937,7 @@ def test_quantized_kernels_match_plain(cuda, store, k, d, masked, nq):
     op = ft._OP_I8 if store == "int8" else ft._OP_I4
     s_p, i_p = ft.quantized_fused_topk_raw_reference(
         qc, c, fac, d=d, k=k, op=op, mode=mode, block_n=block_n, mask=mask)
-    if mode == "exact" or store == "int8":
-        assert torch.equal(i_k, i_p) and torch.equal(s_k, s_p)
-    else:
-        same = i_k == i_p
-        assert same.float().mean().item() >= 0.99
-        assert torch.equal(s_k[same], s_p[same])
+    assert torch.equal(i_k, i_p) and torch.equal(s_k, s_p)
     if masked:  # only allowed rows; empty slots (NEG_INF, -1)
         from latentrag_torch.ops.topk import unpack_row_mask
 
@@ -955,10 +950,11 @@ def test_quantized_kernels_match_plain(cuda, store, k, d, masked, nq):
 def test_quantized_kernels_ties_and_unaligned(cuda, store):
     """Every 7th row a copy of row 0 (ties across lanes and tiles) and a
     corpus whose base is not 16-byte aligned (the element-wise loads; the
-    int8 fold's producer-warp copies in place of TMA): the exact kernel
-    still equals its plain version bit for bit, ties to the lower row, and
-    so does the int8 fold at k = 10, 40 and 128 (ties to the higher
-    column of a lane, then the earlier tile)."""
+    int8 fold's producer-warp copies in place of TMA; the int4 producer's
+    byte loads): the exact kernel still equals its plain version bit for
+    bit, ties to the lower row, and so do the int8 and int4 folds at k =
+    10, 40 and 128 (ties to the higher column of a lane, then the earlier
+    tile)."""
     qc, c, fac, _ = _quantized(cuda, store, 64, 3001, 64, dup_every=7)
     buf = torch.empty(c.numel() + 1, dtype=c.dtype, device=cuda)
     c = buf[1:].view(c.shape).copy_(c)
@@ -968,14 +964,13 @@ def test_quantized_kernels_ties_and_unaligned(cuda, store):
     s_p, i_p = ft.quantized_fused_topk_raw_reference(
         qc, c, fac, d=64, k=300, op=op, mode="exact")
     assert torch.equal(i_k, i_p) and torch.equal(s_k, s_p)
-    if store != "int8":
-        return
     for k, block_n in ((10, 128), (40, 1024), (128, 4096)):
         ft.reset_launches()
         s_k, i_k = _quantized_raw(store, qc, c, fac, 64, k=k, mode="fold",
                                   block_n=block_n)
-        assert ft.last_kernel.split("+")[0] == "fold_i8_wgmma_kernel"
-        assert ft.launches["int8_fold"] == 1
+        assert ft.last_kernel.split("+")[0] == _quantized_kernel(
+            store, "fold", k)
+        assert ft.launches[f"{store}_fold"] == 1
         s_p, i_p = ft.quantized_fused_topk_raw_reference(
             qc, c, fac, d=64, k=k, op=op, mode="fold", block_n=block_n)
         assert torch.equal(i_k, i_p) and torch.equal(s_k, s_p)
@@ -1147,6 +1142,124 @@ def test_int8_fold_crafted_lane_ties(cuda, d):
     # after it in the list
     assert int(i_k[0, 0]) == lane + 128 * 9
     assert int(i_k[0, 1]) == 4096 + lane + 128 * 2
+
+
+def _assert_int4_fold_bit_for_bit(qc, packed, fac, d, k, block_n, mask=None):
+    """The int4 fold on the card (``fold_i8_wgmma_kernel`` through
+    ``lr_fold_i4``) against its plain version: the C kernel's name, one
+    ``int4_fold`` launch, ids and scores equal."""
+    ft.reset_launches()
+    s_k, i_k = ft.sq4_fused_topk_raw(qc, packed, fac, d=d, k=k, mode="fold",
+                                     block_n=block_n, mask=mask)
+    torch.cuda.synchronize()
+    assert ft.last_kernel.split("+")[0] == (
+        "fold_i8_wgmma_kernel<i4>" + ("<mask>" if mask is not None else ""))
+    assert ft.launches["int4_fold"] == 1 and ft.launches["int8_fold"] == 0
+    assert ft.launches["masked"] == int(mask is not None)
+    s_p, i_p = ft.quantized_fused_topk_raw_reference(
+        qc, packed, fac, d=d, k=k, op=ft._OP_I4, mode="fold",
+        block_n=block_n, mask=mask)
+    assert torch.equal(i_k, i_p)
+    assert torch.equal(s_k, s_p)
+    return s_k, i_k
+
+
+@pytest.mark.parametrize("k", [10, 40, 128])
+@pytest.mark.parametrize("d", [33, 48, 64, 128, 384])
+@pytest.mark.parametrize("n", [315, 1997, 12289])
+@pytest.mark.parametrize("nq", [1, 8, 64, 2000])
+def test_int4_fold_matches_plain_bit_for_bit(cuda, nq, n, d, k):
+    """The int4 fold at ``fold_plan``'s tile against the plain fold on the
+    same nibbles, ids and scores: the batches the store brings (1, 8, 64,
+    2000), the main path's corpora and 12289 rows (one row in the last
+    tile), d = 33 (a pad nibble; 17-byte rows: the producer's byte loads),
+    48 (24-byte rows), 64 (16-byte loads, TMA query tile), 128 and 384
+    (the WIDE instance: the producer unpacks 128-dim chunks and loads the
+    queries' chunks), every list width."""
+    qc, c, fac, _ = _quantized(cuda, "int4", nq, n, d, seed=nq + n + d + k)
+    block_n = ft.fold_plan(n, k, 0.95)[0]
+    _assert_int4_fold_bit_for_bit(qc, c, fac, d, k, block_n)
+
+
+@pytest.mark.parametrize("allowed", [0.01, 0.1, "few"])
+@pytest.mark.parametrize("k", [10, 128])
+@pytest.mark.parametrize("d", [33, 64, 384])
+@pytest.mark.parametrize("nq", [37, 2000])
+def test_int4_fold_masked_matches_plain(cuda, nq, d, k, allowed):
+    """The int4 fold's row-mask instance against the masked plain fold,
+    bit for bit; empty slots (NEG_INF, -1), every returned row allowed."""
+    from latentrag_torch.ops.topk import NEG_INF, unpack_row_mask
+
+    n = 5003
+    qc, c, fac, _ = _quantized(cuda, "int4", nq, n, d, seed=11 + d + k)
+    mask = _allowed_mask(cuda, n, allowed, seed=d + k)
+    block_n = ft.fold_plan(n, k, 0.95)[0]
+    s_k, i_k = _assert_int4_fold_bit_for_bit(qc, c, fac, d, k, block_n,
+                                             mask)
+    live = i_k >= 0
+    assert bool(unpack_row_mask(mask, n)[i_k[live].long()].all())
+    assert bool((s_k[~live] == NEG_INF).all())
+    if allowed == "few":
+        assert int(live.sum(1).max()) == 5 and bool((~live).any())
+
+
+@pytest.mark.parametrize("d", [63, 256, 257, 768])
+def test_int4_fold_extreme_codes(cuda, d):
+    """Nibbles of -8 and 7 (bytes 0x88, 0x77) against query codes of -128
+    and 127, the dot at its bound d x 128 x 8; random bytes elsewhere, so
+    that every nibble value meets the sign extension. At d = 63 the last
+    byte's high nibble is a pad the query's zero codes past d must cancel
+    (it is set to -8 here, not to the store's 0); 257 and 768 take the
+    WIDE instance (768 with ``__int2float_rn``). Bit for bit at k = 10 and
+    128, on an aligned base and on one that is not."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    n, w = 3001, (d + 1) // 2
+    qc = torch.randint(-128, 128, (16, d), generator=g, device=cuda,
+                       dtype=torch.int8)
+    c = torch.randint(0, 256, (n, w), generator=g, device=cuda,
+                      dtype=torch.int32).to(torch.uint8)
+    qc[0] = -128
+    c[::97] = 0x88
+    c[5::89] = 0x77
+    fac = torch.tensor([3e-7], dtype=torch.float32, device=cuda)
+    from latentrag_torch.ops.quantization import sq4_unpack
+
+    assert int((qc[0].int() * sq4_unpack(c[:1], d).int()).sum()) \
+        == d * 128 * 8
+    buf = torch.empty(c.numel() + 1, dtype=c.dtype, device=cuda)
+    shifted = buf[1:].view(c.shape).copy_(c)
+    for packed in (c, shifted):
+        for k in (10, 128):
+            block_n = ft.fold_plan(n, k, 0.95)[0]
+            _, i_k = _assert_int4_fold_bit_for_bit(qc, packed, fac, d, k,
+                                                   block_n)
+            assert int(i_k[0, 0]) % 97 == 0  # a row of -8 leads query 0
+
+
+def test_int4_fold_instances_have_no_stack(cuda):
+    """Every instance the int4 fold launches (``fold_i8_wgmma_kernel<E,
+    MASK, WIDE>``, E 1, 2, 4, both libraries) keeps 0 stack bytes by
+    ``cuobjdump -res-usage``: no spill in the producer's unpack at its 40
+    registers, nor in the consumers."""
+    import os
+    import re
+    import subprocess
+
+    from latentrag_torch.ops import cuda_build
+
+    ft._libraries()  # built
+    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    for masked, spec in enumerate(ft.LIBRARIES):
+        out = subprocess.run(
+            [tool, "-res-usage", cuda_build.library_path(*spec)],
+            capture_output=True, text=True, timeout=120).stdout
+        for e in (1, 2, 4):
+            for wide in (0, 1):
+                name = f"fold_i8_wgmma_kernelILi{e}ELb{masked}ELb{wide}E"
+                m = re.search(re.escape(name) + r"\S*:\s*\n\s*REG:(\d+) "
+                              r"STACK:(\d+)", out)
+                assert m, name
+                assert int(m.group(2)) == 0, (name, m.group(0))
 
 def _assert_int8_exact_bit_for_bit(qc, c, fac, k, mask=None):
     """The int8 exact search at k on the card against its plain version:

@@ -301,4 +301,6 @@ def test_both_kernel_libraries_build_at_once(tmp_path, monkeypatch):
     assert [open(p).read() for p in paths] == ["built 2\n"] * 2
     assert set(cuda_build.build_seconds) >= {"fused_topk",
                                              "fused_topk[LR_MASKED=1]"}
+    assert set(cuda_build.build_messages) >= {"fused_topk",
+                                              "fused_topk[LR_MASKED=1]"}
     assert cuda_build.build_all(ft.LIBRARIES) == paths  # nothing rebuilt
