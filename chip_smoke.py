@@ -50,9 +50,10 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
 2d. holds the int8 and int4 kernels (the fold ``fold_i8_wgmma_kernel``,
    TMA + ``wgmma`` s8, the int4 store's through ``lr_fold_i4``, whose
    producer warpgroup sign-extends the nibbles, named
-   ``fold_i8_wgmma_kernel<i4>``; the int8 exact search
-   ``exact_i8_wgmma_kernel`` up to k=256; the exact ``exact_mma_kernel<KP,
-   ...>``, int8 past k=256, on ``mma.sync`` s8) and their row-mask
+   ``fold_i8_wgmma_kernel<i4>``; the exact search ``exact_i8_wgmma_kernel``
+   up to k=256, the int4 store's through ``lr_exact_i4``, named
+   ``exact_i8_wgmma_kernel<i4>``; the exact ``exact_mma_kernel<KP, ...>``
+   past k=256, on ``mma.sync`` s8) and their row-mask
    instances against their plain versions at the main path's shape
    (Q=2000, N=1997, d=64) and every batch it brings (Q = 1, 8, 16, 32, 64,
    2000): the fold at the store's plan for top_k=10 under the msmarco
@@ -103,6 +104,12 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    ``retrieval.top_k=20``, whose 160 candidates the exact binary kernel
    serves; at each top_k a filtered search whose stage 1 runs the masked
    kernel, held to the masked plain stage 1 (3e);
+3b4. drives ``main --set retrieval.store_dtype=int4 retrieval.top_k=20``
+   on the main path's data: stage 1's 160 candidates take the int4 exact
+   search (``exact_i8_wgmma_kernel<i4>``, one ``int4_exact`` launch a
+   search, the self-check on the fold), and the same run on the kernels'
+   plain versions must give the same doc ids, doc scores and metrics bit
+   for bit;
 3c. builds a binary ``DenseRetriever`` over 1M seeded unit vectors (d=64),
    searches 1024 queries at k=10, and holds the same kernel-vs-plain
    agreement; Recall@10 against exact fp32 search is reported; then at
@@ -132,9 +139,10 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    unit rows, d=64 (the config's corpus scale: 563 MB of int8 codes, or
    282 MB of nibbles on the card and 563 MB of SQ8 codes on the host), and
    searches 1024 queries at k=10 (the fold), at 160 candidates (the exact
-   kernel) and both with a doc_ids filter (the masked instances): each
-   search equal bit for bit to the same search with the kernels' plain
-   versions, and >= 99 % by set to the exact plain search in 1M-row
+   kernel, int4's ``exact_i8_wgmma_kernel<i4>``) and both with a doc_ids
+   filter (the masked instances): each search equal to the same search
+   with the kernels' plain versions (by set at ties; the exact searches bit
+   for bit), and >= 99 % by set to the exact plain search in 1M-row
    blocks; Recall@10 against exact fp32 search reported; then saved,
    loaded and searched again bit for bit; the int4 store's search at k=10
    split into its stage 1 (the fold) and the host's stage 2;
@@ -192,7 +200,11 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    the time of the instance it replaced, ``fold_mma_kernel<4, OP_I4>``,
    built beside the libraries from ``scripts/torch_int4_fold_split.py``,
    and its yardstick, the int8 fold over the same codes unpacked to int8
-   at the same plan;
+   at the same plan; for the int4 exact search (``exact_i8_wgmma_kernel<i4>``
+   at k=10 and 160, masked at k=10) the same: its instances'
+   ``-res-usage``, the time of ``exact_mma_kernel<KP, OP_I4>`` from
+   ``scripts/torch_int4_exact_split.py`` and its yardstick, the int8
+   exact search over the unpacked codes;
 4f. (after 4) times 2f's call: the wrapper, its plain version, the
    library call at 128, the profiler's device split, the bound, and the
    instance's registers and stack bytes (``cuobjdump -res-usage`` on the
@@ -1048,26 +1060,49 @@ def time_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
+# each kernel's events in device_split's latest window (name: count)
+split_counts: dict = {}
+
+
 def device_split(torch, fn, reps: int = 5) -> dict | None:
-    """Mean device ms of each CUDA kernel ``fn`` launches, from
-    ``torch.profiler`` over ``reps`` calls after a warm-up; None when the
-    profiler records no device time here."""
-    from torch.profiler import ProfilerActivity, profile
+    """Mean device ms a call of ``fn`` spends in each CUDA kernel, from
+    ``torch.profiler`` over ``reps`` calls, after a warm-up call and a
+    profiled warm-up step (its schedule's), by kernel name up to its
+    argument list, the events of one name added up (torch's kernels in an
+    anonymous namespace share the prefix). A kernel's mean is its events'
+    mean times the launches a call makes, round(events / reps), at least
+    one: the sum over ``reps`` where every event came in, and still a
+    call's time where the profiler recorded fewer launches than were made
+    (in a long run of this script it records 2 to 4 of 5 calls' kernels,
+    fewer without the warm-up step). ``split_counts`` keeps each kernel's
+    events. None when the profiler records no device time here."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()  # the warm-up step's events are dropped
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out = {}
+        prof.step()
+    total, count = {}, {}
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", None)
         if us is None:
             us = getattr(ev, "cuda_time_total", 0)
         if us:
-            out[ev.key.split("(")[0]] = us / 1e3 / reps
-    return out or None
+            name = ev.key.split("(")[0]
+            total[name] = total.get(name, 0.0) + us / 1e3
+            count[name] = count.get(name, 0) + ev.count
+    split_counts.clear()
+    split_counts.update(count)
+    return {name: t / count[name] * max(1, round(count[name] / reps))
+            for name, t in total.items()} or None
 
 
 def bound(nq, n, d, k, dname, extra_bytes=0) -> tuple[float, str]:
@@ -1091,11 +1126,11 @@ def blocks_per_sm(ft, kernel: str, dev: int, d: int, k: int, op: int,
     name = {"fold": "fold_mma", "exact": "exact_mma"}[kernel]
     if kernel == "exact" and k > ft.EXACT_MAX_K:
         name = "exact_select"
-    if kernel == "fold" and op in (ft._OP_I8, ft._OP_I4):  # their own fold
-        name = "fold_i8"
-    if (kernel == "exact"  # and its own exact search
-            and ft.quantized_exact_kernel(op, k) == "exact_i8_wgmma_kernel"):
-        name = "exact_i8"
+    if op in (ft._OP_I8, ft._OP_I4):  # their own fold and exact search
+        if kernel == "fold":
+            name = "fold_i8"
+        elif k <= ft.EXACT_I8_MAX_K:
+            name = "exact_i8"
     return ft._slots(dev, name, d, k, op, masked) // ft._sm_count(dev)
 
 
@@ -1438,6 +1473,74 @@ def check_binary_main_path(torch, failures: list, oracle: dict,
     if max(deltas.values()) > BIN_METRIC_TOL:
         failures.append(f"binary metric deltas {deltas} > {BIN_METRIC_TOL}")
     return main_launches
+
+
+INT4_MAIN_TOP_K = 20  # stage 1's 160 candidates: past the fold's 128
+
+
+def check_int4_main_path(torch, failures: list) -> dict:
+    """Phase 3b4: ``main --ae_type vae --set retrieval.store_dtype=int4
+    retrieval.top_k=20`` on the main path's data (MiniLM-L6 bf16, the
+    seeded 384->512->64 VAE, 2000 queries, 1997 contexts): stage 1 asks for
+    binary_oversample x 20 = 160 candidates, past the fold's 128, so each
+    search runs the int4 exact search (``exact_i8_wgmma_kernel<i4>``, one
+    ``int4_exact`` launch a search; the build's self-check the fold), then
+    the host's SQ8 rescore. The same run on the kernels' plain versions (a
+    store of its own) must give the same doc ids, doc scores and metrics,
+    bit for bit. Returns the run's record."""
+    import numpy as np
+
+    from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.retrieval import DenseRetriever
+
+    top_k = INT4_MAIN_TOP_K
+    calls: list = []
+    with tempfile.TemporaryDirectory(prefix="lr_smoke_int4_") as wd:
+        write_vae(torch, f"{wd}/vae.pth")
+        ft.reset_launches()
+        with counted_calls(DenseRetriever, "search", calls):
+            res = run_main(torch, wd, "auto", store="int4", top_k=top_k)
+        launches, ran = dict(ft.launches), ft.last_kernel
+        with plain_quantized(ft):
+            ft.reset_launches()
+            plain = run_main(torch, wd, "auto", store="int4", top_k=top_k,
+                             extra=(f"retrieval.index_path={wd}/plain",))
+            plain_launches = dict(ft.launches)
+    ids, pids = (np.asarray(r["retrieved_doc_ids"]) for r in (res, plain))
+    ds, pds = (np.asarray(r["doc_scores"], np.float32) for r in (res, plain))
+    rec = {"store": "int4", "top_k": top_k, "n_queries": res["n_queries"],
+           "n_corpus": res["n_corpus"], "dim_out": res["dim_out"],
+           "launches": launches, "c_kernel": ran,
+           "search_calls": len(calls),
+           "search_call_launches": [c.launches for c in calls],
+           "plain_launches": plain_launches,
+           "metrics": {m: v["mean"]
+                       for m, v in res["retrieval_metrics"].items()},
+           "plain_metrics": {m: v["mean"]
+                             for m, v in plain["retrieval_metrics"].items()},
+           "timings_s": res["timings"], "wall_s": res["wall_s"],
+           "doc_ids_bit_identical": bool(np.array_equal(ids, pids)),
+           "doc_scores_bit_identical": bool(
+               ds.shape == pds.shape
+               and np.array_equal(ds.view(np.int32), pds.view(np.int32)))}
+    # each search one int4 exact launch and nothing else of the int4
+    # store; the self-check (k=4: 32 candidates) the fold
+    rec["ok"] = ok = (
+        len(calls) >= 1 and launches["int4_exact"] == len(calls)
+        and all(c.launches.get("int4_exact") == 1
+                and "int4_fold" not in c.launches for c in calls)
+        and launches["int4_fold"] >= 1 and launches["int4_blocked"] == 0
+        and (ran or "").split("+")[0] == quant_kernel_name(
+            "int4", "exact", ft.FOLD_MAX_K + 1)
+        and not any(plain_launches.values())
+        and rec["doc_ids_bit_identical"] and rec["doc_scores_bit_identical"]
+        and rec["metrics"] == rec["plain_metrics"]
+        and ds.shape == (res["n_queries"], top_k)
+        and bool(np.isfinite(ds).all()) and res["dim_out"] == 64)
+    record("int4_main_path", **rec)
+    if not ok:
+        failures.append(f"the int4 main path at top_k={top_k}: {rec}")
+    return rec
 
 
 def check_binary_capacity(torch, failures: list) -> None:
@@ -2071,7 +2174,8 @@ def quant_case(torch, store, nq, n, d, seed):
 
 def quant_kernel_name(store: str, mode: str, k: int = 0) -> str:
     """The C kernel a quantized store's fold or exact search at k runs
-    (the int4 fold: ``fold_i8_wgmma_kernel`` through ``lr_fold_i4``)."""
+    (the int4 fold: ``fold_i8_wgmma_kernel`` through ``lr_fold_i4``; the
+    int4 exact search to k=256: ``exact_i8_wgmma_kernel<i4>``)."""
     from latentrag_torch.ops import fused_topk as ft
 
     if mode == "fold":
@@ -2121,12 +2225,13 @@ def plain_quantized(ft):
 def check_quantized_kernels(torch, failures: list) -> dict:
     """Phase 2d: the int8 and int4 fold and exact kernels
     (``fold_i8_wgmma_kernel``, the int4 store's through ``lr_fold_i4``;
-    ``exact_i8_wgmma_kernel`` up to k=256, ``exact_mma_kernel<KP, ...>``)
-    and their row-mask instances (10 % of the rows allowed) against their
+    ``exact_i8_wgmma_kernel`` up to k=256, the int4 store's through
+    ``lr_exact_i4``; past it ``exact_mma_kernel<KP, ...>``) and their
+    row-mask instances (10 % of the rows allowed) against their
     plain versions at the main path's corpus (N=1997, d=64): the fold at
     the store's plan for top_k=10 under the msmarco config's recall_target
     0.95 (int8: 40 candidates; int4: stage 1's 128 for 80), the exact
-    kernel at k=10, k=160 and k=512 (int8: the instance past 256), each at
+    kernel at k=10, k=160 and k=512 (the instances past 256), each at
     every batch the main path brings:
     Q=2000 (the pipeline), Q=1 (the build's self-check, one served query;
     63 of the 64-query tile padding) and the server's coalesced 8-64, each
@@ -2419,7 +2524,8 @@ def check_quantized_capacity(torch, failures: list, store: str) -> dict:
     20 (int4: 160 candidates; the exact kernel), and both again with a
     doc_ids filter allowing a tenth of the rows (the masked instances).
     Each search must equal the same search with the kernels' plain
-    versions bit for bit (ids by set at ties) and agree with the exact
+    versions (ids by set at ties; the exact searches, int4's through
+    ``exact_i8_wgmma_kernel<i4>``, bit for bit) and agree with the exact
     plain search (``sq8_topk`` / ``sq4_topk`` in 1M-row blocks) on >= 99 %
     of rows by set; Recall@10 against exact fp32 search is reported. The
     store is then saved, loaded into a fresh retriever, and searched again
@@ -2464,6 +2570,9 @@ def check_quantized_capacity(torch, failures: list, store: str) -> dict:
         s, i = res["s"], res["i"]
         s_p, i_p = res["plain"]
         plain_same = float(tq.same_ids_at_ties(s, i, s_p, i_p).mean())
+        plain_bits = bool(np.array_equal(i, i_p) and np.array_equal(
+            np.asarray(s, np.float32).view(np.int32),
+            np.asarray(s_p, np.float32).view(np.int32)))
         # the exact plain search in 1M-row blocks (int4: its stage 1, then
         # the store's own host rescore)
         mask = r._filter_device_mask(f) if f else None
@@ -2482,13 +2591,16 @@ def check_quantized_capacity(torch, failures: list, store: str) -> dict:
         exact_agree = float(np.mean([
             len(set(a.tolist()) & set(b.tolist())) / k
             for a, b in zip(i, i_x)]))
+        # the kernel's k: int4, stage 1's candidates
+        kk = k if store == "int8" else min(r.binary_oversample * k, n)
         want = quant_kernel_name(
-            store, "fold" if name.startswith("fold") else "exact", k) \
+            store, "fold" if name.startswith("fold") else "exact", kk) \
             + ("<mask>" if f else "")
         key = f"{store}_{'fold' if name.startswith('fold') else 'exact'}"
         rec = {"store": store, "search": name, "N": n, "Q": nq, "k": k,
                "search_s": res["search_s"], "launches": res["launches"],
                "c_kernel": res["c_kernel"],
+               "plain_bit_identical": plain_bits,
                "plain_rows_same_by_set_at_ties": plain_same,
                "exact_plain_agreement": exact_agree}
         if name == "fold":
@@ -2498,9 +2610,12 @@ def check_quantized_capacity(torch, failures: list, store: str) -> dict:
         if f:
             rec["only_allowed"] = bool(all(int(v) % 10 == 0
                                            for v in i.ravel() if v >= 0))
+        # the exact searches (stage 1 exact, then one host rescore) equal
+        # their plain twins bit for bit
         ok = (res["c_kernel"].split("+")[0] == want
               and res["launches"][key] == 1
               and res["launches"]["masked"] == int(bool(f))
+              and (plain_bits or name.startswith("fold"))
               and plain_same == 1.0 and exact_agree >= QUANT_EXACT_AGREE
               and rec.get("only_allowed", True))
         rec["ok"] = ok
@@ -2652,10 +2767,10 @@ def time_old_int8_fold(torch, qc, c, fac, k: int, block_n: int) -> dict:
 
 def exact_i8_resources(ft, masked: bool) -> dict:
     """Registers, stack (spill) bytes and dynamic shared memory of the
-    int8 exact search's instances in their library (``cuobjdump
+    int8 and int4 exact search's instances in their library (``cuobjdump
     -res-usage``; the list width KP and WIDE = d > 64 in each name), with
     the shared memory a block takes at d=64, k=10 and k=160
-    (``lr_exact_i8_smem``)."""
+    (``lr_exact_i8_smem``, the same for both stores)."""
     from latentrag_torch.ops import cuda_build
 
     lib = ft.LIBRARIES[int(masked)]
@@ -2739,6 +2854,51 @@ def time_int4_yardstick(torch, qc, c, rows, fac, d: int, k: int,
                                 and torch.equal(s_y, s_n))}
 
 
+def time_old_int4_exact(torch, qc, c, fac, d: int, k: int,
+                        mask=None) -> dict:
+    """The instance the int4 exact search replaced, ``exact_mma_kernel<KP,
+    OP_I4>`` (its row-mask instance with ``mask``; built at the start from
+    ``scripts/torch_int4_exact_split.py``), on the same call: ms by CUDA
+    events, device ms, blocks an SM, and whether it returns the new
+    kernel's answer."""
+    from latentrag_torch.ops import fused_topk as ft
+
+    split = split_script("torch_int4_exact_split")
+    call, plan = split.exact_call(torch, "old", split.load("old"), qc, c,
+                                  fac, d, k, mask)
+    s_o, i_o = call()
+    s_n, i_n = ft.sq4_fused_topk_raw(qc, c, fac, d=d, k=k, mode="exact",
+                                     mask=mask)
+    torch.cuda.synchronize()
+    return {"kernel": "exact_mma_kernel<KP, OP_I4>"
+                      + ("<mask>" if mask is not None else ""), **plan,
+            "ms": time_ms(torch, call, reps=10),
+            "device_ms": device_split(torch, call),
+            "same_answer": bool(torch.equal(i_o, i_n)
+                                and torch.equal(s_o, s_n))}
+
+
+def time_int4_exact_yardstick(torch, qc, c, rows, fac, d: int, k: int,
+                              mask=None) -> dict:
+    """The int4 exact search's yardstick: the int8 exact search
+    (``exact_i8_wgmma_kernel`` through ``lr_exact_i8``) over the same
+    codes unpacked to int8: the int4 search's consumers do exactly its
+    work, so the gap is the producer's unpack. ms by CUDA events, device
+    ms, and whether it returns the int4 search's answer."""
+    from latentrag_torch.ops import fused_topk as ft
+
+    call = lambda: ft.sq8_fused_topk_raw(  # noqa: E731
+        qc, rows, fac, k=k, mode="exact", mask=mask)
+    s_y, i_y = call()
+    s_n, i_n = ft.sq4_fused_topk_raw(qc, c, fac, d=d, k=k, mode="exact",
+                                     mask=mask)
+    torch.cuda.synchronize()
+    return {"kernel": "exact_i8_wgmma_kernel over int8 codes",
+            "ms": time_ms(torch, call), "device_ms": device_split(torch, call),
+            "same_answer": bool(torch.equal(i_y, i_n)
+                                and torch.equal(s_y, s_n))}
+
+
 def time_quantized(torch) -> dict:
     """Phase 4d: the int8 and int4 kernels at the reference shape (Q=2000,
     N=315) and the capacity shape (Q=1024, N=8.8M), d=64: the fold at the
@@ -2752,8 +2912,10 @@ def time_quantized(torch) -> dict:
     over its codes unpacked to int8), the bound (``quant_bound``), a
     profiler device split and the resident blocks an SM; the int8 exact
     calls also beside the instance they replaced (``time_old_int8_exact``)
-    with their instances' ``-res-usage``. Keys: (shape, store + "_" +
-    case)."""
+    with their instances' ``-res-usage``, the int4 exact calls beside
+    theirs (``time_old_int4_exact``) and their yardstick, the int8 exact
+    search over the codes unpacked (``time_int4_exact_yardstick``). Keys:
+    (shape, store + "_" + case)."""
     from latentrag_torch.ops import fused_topk as ft
     from latentrag_torch.ops import quantization as tq
 
@@ -2807,6 +2969,7 @@ def time_quantized(torch) -> dict:
                        "ms": kern, "plain_ms": plain, "library_ms": lib,
                        "library_k": k, "bound_ms": b_ms, "bound_by": b_by,
                        "device_ms": device_split(torch, call),
+                       "device_events": dict(split_counts),
                        "blocks_per_sm": blocks_per_sm(
                            ft, mode, qc.device.index, d, min(k, n),
                            quant_op(ft, store), masked)}
@@ -2821,11 +2984,17 @@ def time_quantized(torch) -> dict:
                         torch, qc, c, fac, d, cand, block_n, mk)
                     rec["yardstick"] = time_int4_yardstick(
                         torch, qc, c, rows, fac, d, cand, block_n, mk)
-                if (store == "int8" and mode == "exact"
-                        and k <= ft.EXACT_I8_MAX_K):
+                if mode == "exact" and k <= ft.EXACT_I8_MAX_K:
+                    # both stores' instances: the same blocks
                     rec["resources"] = exact_i8_resources(ft, masked)
-                    rec["replaced_instance"] = time_old_int8_exact(
-                        torch, qc, c, fac, k, mk)
+                    if store == "int8":
+                        rec["replaced_instance"] = time_old_int8_exact(
+                            torch, qc, c, fac, k, mk)
+                    else:
+                        rec["replaced_instance"] = time_old_int4_exact(
+                            torch, qc, c, fac, d, k, mk)
+                        rec["yardstick"] = time_int4_exact_yardstick(
+                            torch, qc, c, rows, fac, d, k, mk)
                 record("quant_kernel_time", **rec)
                 out[(label, f"{store}_{case}")] = rec
             del qc, c, rows
@@ -7708,13 +7877,14 @@ def main() -> int:
     t0 = time.perf_counter()
     # the kernels' three libraries (the fold and exact kernels without and
     # with the row mask, the IVF's scan), by three nvcc processes at once;
-    # then the int8 fold's, the int8 exact search's and the int4 fold's
-    # replaced instances (phase 4d's yardsticks), three more, which build
-    # while phases 2 and 3 run
+    # then the int8 fold's, the int8 exact search's, the int4 fold's and
+    # the int4 exact search's replaced instances (phase 4d's yardsticks),
+    # four more, which build while phases 2 and 3 run
     cuda_build.load_libraries(ft.LIBRARIES + tivf.LIBRARIES)
     build_s = time.perf_counter() - t0
     splits = [split_script(), split_script("torch_int8_exact_split"),
-              split_script("torch_int4_fold_split")]
+              split_script("torch_int4_fold_split"),
+              split_script("torch_int4_exact_split")]
     old_builds = [sp.start_build("old") for sp in splits]
     atexit.register(stop_builds, old_builds)
     # ptxas serialises every wgmma of a kernel it cannot keep asynchronous
@@ -7772,6 +7942,10 @@ def main() -> int:
     launches["binary_exact_masked"] = bin20["filtered"]["binary_exact"]
     if failures:
         fail("; ".join(failures))
+    # phase 3b4: the int4 store's main path past the fold's candidates
+    int4_main = check_int4_main_path(torch, failures)
+    if failures:
+        fail("; ".join(failures))
     check_binary_capacity(torch, failures)
     if failures:
         fail("; ".join(failures))
@@ -7801,8 +7975,10 @@ def main() -> int:
             kernel = "fold" if name.startswith("fold") else "exact"
             key = f"{store}_{kernel}" + ("_masked" if "masked" in name else "")
             capacity_launches[key] = counts[f"{store}_{kernel}"]
-            if key not in ("int8_fold", "int8_exact"):
+            if key not in ("int8_fold", "int8_exact", "int4_exact"):
                 launches[key] = counts[f"{store}_{kernel}"]
+    # the int4 exact search's main path: phase 3b4's int4 main at top_k=20
+    launches["int4_exact"] = int4_main["launches"]["int4_exact"]
     # the device IVF: the msmarco store with its documented IVF (phase
     # 3k, with phase 4e's timings on it), then the cascades' stage 1
     ivf = check_ivf_deployment(torch, failures, main_wd)
@@ -8048,15 +8224,13 @@ def main() -> int:
     # the int8 and int4 stores' kernels (the JAX package scores them in
     # XLA: sq8_topk, sq4_topk), timed at the reference and capacity shapes
     for store, fn_line, tag in (("int8", 35, "sq8"), ("int4", 147, "sq4")):
-        for kernel, source in (("fold", "fold_mma.cuh"),
-                               ("exact", "exact_mma.cuh")):
+        for kernel in ("fold", "exact"):
+            # on wgmma: both folds and both exact searches to k = 256
+            source = f"{kernel}_i8_wgmma.cuh"
             for masked in ("", "_masked"):
                 key = f"{store}_{kernel}{masked}"
                 t = quant_times[("reference", key)]
                 big = quant_times[("capacity", key)]
-                if store == "int8" or kernel == "fold":
-                    # on wgmma: both folds, the int8 exact search to 256
-                    source = f"{kernel}_i8_wgmma.cuh"
                 kernels.append({
                     "name": f"{tag}_fused_topk_{kernel}{masked}",
                     "route": "cuda",
@@ -8078,8 +8252,8 @@ def main() -> int:
                 for f in ("resources", "replaced_instance", "yardstick"):
                     if f in big:
                         kernels[-1][f] = big[f]
-                for f in ("replaced_instance", "yardstick"):  # int8 exact,
-                    if f in t:  # int4 fold
+                for f in ("replaced_instance", "yardstick"):  # both exact
+                    if f in t:  # searches, the int4 fold
                         kernels[-1][f + "_ms"] = t[f]["ms"]
                 if key == "int4_fold":  # phase 3j's int4 search at k=10
                     kernels[-1]["search_split"] = int4_split
@@ -8089,16 +8263,18 @@ def main() -> int:
                     # the msmarco config over MS MARCO-shaped data (3x)
                     kernels[-1]["msmarco_data_launches"] = outside[
                         "msmarco_data_int8_fold"]
-                if key == "int8_exact":
-                    # the same call at k=160 (8.8M: masked too), and at the
-                    # msmarco main's shape at top_k=150
+                if key in ("int8_exact", "int4_exact"):
+                    # the same call at k=160 (8.8M: masked too), and (int8)
+                    # at the msmarco main's shape at top_k=150
                     kernels[-1]["timings"] = [{f: r[f] for f in (
                         "shape", "case", "Q", "N", "k", "masked", "ms",
                         "device_ms", "plain_ms", "library_ms", "bound_ms",
-                        "bound_by", "blocks_per_sm", "replaced_instance")
-                        if f in r}
+                        "bound_by", "blocks_per_sm", "replaced_instance",
+                        "yardstick") if f in r}
                         for (_, name), r in quant_times.items()
-                        if name.startswith("int8_exact")]
+                        if name.startswith(key)]
+                if key == "int4_exact":  # the int4 main path at top_k=20
+                    kernels[-1]["main_path"] = int4_main
     # the device IVF's scan (the JAX package scores the probed blocks in
     # XLA there: score_group), timed on the 3k store at Q=8, auto budget
     t = ivf["times"]["Q=8 auto"]

@@ -1,12 +1,17 @@
-// The int8 store's exact search, designed for Hopper:
+// The int8 and int4 stores' exact search, designed for Hopper:
 // exact_i8_wgmma_kernel<KP, MASK, WIDE> (+ exact_merge_kernel<KP> past one
-// slab), at k <= 256. It replaces the JAX package's sq8_topk past the
-// fold's 128 candidates (its ops/quantization.py:35-80: a dot_general of
-// the SQ8 codes and approx_max_k, XLA there, no Pallas kernel), which the
-// port first ran as exact_mma_kernel<KP, OP_I8>, an instance of the bf16
-// exact search's template (exact_mma.cuh); past k = 256 that instance
-// stays. Included by fused_topk.cu after exact_mma.cuh, whose contract it
-// keeps bit for bit: the top k of float32(int32 dot) * factor (each step
+// slab), at k <= 256. It replaces the JAX package's sq8_topk and sq4_topk
+// past the fold's 128 candidates (its ops/quantization.py:35-80 and
+// :144-200: a dot_general of the SQ8 codes, or of the unpacked nibbles,
+// and approx_max_k, XLA there, no Pallas kernel), which the port first ran
+// as exact_mma_kernel<KP, OP_I8> / <KP, OP_I4>, instances of the bf16
+// exact search's template (exact_mma.cuh); past k = 256 those instances
+// stay. The int4 store (lr_exact_i4, a runtime flag i4 of the kernel, no
+// template instance of its own) has its packed nibbles sign-extended into
+// the s8 stages by the producer warpgroup's four warps (wgmma_i8.cuh's
+// fw_produce4, the int4 fold's producer), so that the consumers below run
+// unchanged. Included by fused_topk.cu after exact_mma.cuh, whose contract
+// it keeps bit for bit: the top k of float32(int32 dot) * factor (each step
 // rounded to nearest, as the JAX package rounds it), ties to the lower
 // row, as keys monotone_i32(score) << 32 | INT_MAX - row (EMPTY64 an empty
 // slot); with the row mask, slots no allowed row fills are (LR_NEG_INF,
@@ -36,9 +41,11 @@
 //   - a skip test on the raw int32 dot (ew_select): each thread holds, for
 //     its rows g and g + 8 of its warp's 16 queries, the least dot whose
 //     score could still reach the list's k-th key as of the last flush
-//     (fw_threshold: exact for factor > 0 and |dot| < 2^24, so d <= 1024;
-//     two dots may round to one fp32 score, so it admits equal scores and
-//     the exact key compare decides). A row's largest dot of a half against
+//     (fw_threshold: exact for factor > 0 and |dot| < 2^24: int8, |dot|
+//     <= d x 128 x 128, so d <= 1024; int4, |dot| <= d x 128 x 8, within
+//     it for every d up to that limit too; two dots may round to one fp32
+//     score, so it admits equal scores and the exact key compare
+//     decides). A row's largest dot of a half against
 //     it, and a warp vote, skip the row's 16 scores a thread on a few
 //     integer instructions;
 //   - only dots at or above it are converted, keyed and compared with the
@@ -504,10 +511,12 @@ __device__ __forceinline__ bool ew_append(const int (&a)[32],
 // grid: (ceil(nq / 64), slabs of slab_rows rows, a multiple of 128); 256
 // threads: warps 0-3 the producer warpgroup, 4-7 the consumers (warp 4 +
 // w: queries 16 w .. 16 w + 15 of the tile). q: int8 query codes [nq, d]
-// (qmap: their TMA map when qvec); c: int8 codes [n, d] (map: their TMA
-// map when vec; WIDE: vec covers both and qvec is vec); fac: the one fp32
-// score factor; k <= KP (128 or 256); buf: buffer keys a query (64 to
-// 128); nst >= 2 ring stages. final_out (one slab): write out_s / out_i;
+// (qmap: their TMA map when qvec, but for i4 and WIDE); c: int8 codes [n,
+// d] (map: their TMA map when vec; WIDE: vec covers both and qvec is vec),
+// or with i4 packed nibbles [n, ceil(d / 2)] (vec: 16-byte loads; map
+// unused; WIDE: qvec the queries' 16-byte loads); fac: the one fp32 score
+// factor; k <= KP (128 or 256); buf: buffer keys a query (64 to 128); nst
+// >= 2 ring stages. final_out (one slab): write out_s / out_i;
 // else part[slab, q, :] keys. MASK: mask is the allowed rows' bits
 // [ceil(n/32)].
 template <int KP, bool MASK, bool WIDE>
@@ -519,7 +528,7 @@ exact_i8_wgmma_kernel(const __grid_constant__ CUtensorMap map,
                       const float* __restrict__ fac,
                       const unsigned* __restrict__ mask, int nq, int n,
                       int d, int k, int buf, int slab_rows, int nst, int vec,
-                      int qvec, int final_out, i64* __restrict__ part,
+                      int qvec, int i4, int final_out, i64* __restrict__ part,
                       float* __restrict__ out_s, int* __restrict__ out_i) {
     constexpr int E = KP / 32;  // fm_offer's list slots a lane
     extern __shared__ __align__(1024) unsigned char ew_smem_raw[];
@@ -536,7 +545,8 @@ exact_i8_wgmma_kernel(const __grid_constant__ CUtensorMap map,
     const int n_sub = (row1 - row0 + TN - 1) / TN;
 
     const unsigned qbar = sm.empty + 8 * FW_NST_MAX;  // the query tile's
-    if (tid == 0) fw_init_ring(sm, nst, vec ? 1 : 32, qbar);
+    if (tid == 0)
+        fw_init_ring(sm, nst, i4 ? FW_P4_THREADS / 32 : vec ? 1 : 32, qbar);
     if (tid >= 128) {
         // the query tile (d <= 64): by TMA (qvec, from the producer below),
         // else here; the lists emptied
@@ -547,8 +557,16 @@ exact_i8_wgmma_kernel(const __grid_constant__ CUtensorMap map,
     __syncthreads();
 
     if (warp < 4) {
-        // the producer warpgroup: warp 0 fills the ring, the rest leave
+        // the producer warpgroup: int4, its 4 warps unpack the nibbles into
+        // the ring; int8, warp 0 fills it and the rest leave
         asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+        if (i4) {
+            fw_produce4<WIDE>(sm, smem, &qmap, q,
+                              reinterpret_cast<const unsigned char*>(c), nq,
+                              n, d, q0, row0, n_sub, nst, vec, qvec, qbar,
+                              tid);
+            return;
+        }
         if (warp != 0 || (vec && lane != 0)) return;
         fw_produce<WIDE>(sm, smem, &map, &qmap, q, c, nq, n, d, q0, row0,
                          n_sub, nst, vec, qvec, qbar, lane);
@@ -715,26 +733,31 @@ static int ew_occupancy(size_t smem) {
 template <int KP, bool MASK, bool WIDE>
 static int ew_launch(const void* q, const void* c, const float* fac,
                      const unsigned* mask, int nq, int n, int d, int k,
-                     int slab_rows, int nst, int buf, size_t smem,
+                     int slab_rows, int nst, int buf, size_t smem, int i4,
                      long long* part, float* out_s, int* out_i,
                      cudaStream_t st) {
     int e = ew_prepare<KP, MASK, WIDE>();
     if (e) return e;
     // the corpus's stages and the query tile or its chunks by TMA where
     // rows are whole 16-byte chunks on an aligned base (fold_i8_wgmma's
-    // maps); else by the producer's loads
-    const int ch = fw_ch(d);
+    // maps); else by the producer's loads. int4 (i4), as the int4 fold
+    // takes them: the producer warpgroup unpacks the stages from the
+    // nibbles, by 16-byte loads where a packed row is whole 16-byte pieces
+    // on an aligned base, and loads WIDE's query chunks; the query tile (d
+    // <= 64) comes by TMA as the int8 store's does
+    const int ch = fw_ch(d), w = (d + 1) >> 1;
+    const bool c16 = (reinterpret_cast<size_t>(c) & 15) == 0;
     CUtensorMap map, qmap;
     memset(&map, 0, sizeof(map));
     memset(&qmap, 0, sizeof(qmap));
-    int vec = (d & 15) == 0 && (reinterpret_cast<size_t>(c) & 15) == 0;
+    int vec = i4 ? (w & 15) == 0 && c16 : (d & 15) == 0 && c16;
     int qvec = (d & 15) == 0 && (reinterpret_cast<size_t>(q) & 15) == 0;
-    if (WIDE) vec = qvec = vec && qvec;
-    if (vec) {
+    if (WIDE && !i4) vec = qvec = vec && qvec;
+    if (vec && !i4) {
         e = fw_map(&map, c, d, n, ch, TN);
         if (e) return e;
     }
-    if (qvec) {
+    if (qvec && !(WIDE && i4)) {
         e = fw_map(&qmap, q, d, nq, ch, FW_TQ);
         if (e) return e;
     }
@@ -742,7 +765,7 @@ static int ew_launch(const void* q, const void* c, const float* fac,
     dim3 grid((nq + FW_TQ - 1) / FW_TQ, n_slabs);
     exact_i8_wgmma_kernel<KP, MASK, WIDE><<<grid, FW_THREADS, smem, st>>>(
         map, qmap, (const signed char*)q, (const signed char*)c, fac, mask,
-        nq, n, d, k, buf, slab_rows, nst, vec, qvec, n_slabs == 1, part,
+        nq, n, d, k, buf, slab_rows, nst, vec, qvec, i4, n_slabs == 1, part,
         out_s, out_i);
     e = (int)cudaGetLastError();
     if (e || n_slabs == 1) return e;
@@ -760,24 +783,43 @@ static int ew_launch(const void* q, const void* c, const float* fac,
     (d > 64 ? EW_DISPATCH_KP(F, true, __VA_ARGS__)                            \
             : EW_DISPATCH_KP(F, false, __VA_ARGS__))
 
+// The exact search of either store (i4: the int4 store's nibbles).
+static int ew_exact(const void* q, const void* c, const float* factor,
+                    int nq, int n, int d, int k, int slab_rows,
+                    const unsigned* mask, int i4, long long* part,
+                    float* out_s, int* out_i, void* stream) {
+    if (k < 1 || k > 256 || d < 1 || n < 1 || nq < 1 || slab_rows < 1 ||
+        slab_rows % TN || (LR_MASK && !mask))
+        return (int)cudaErrorInvalidValue;
+    int nst = 0, buf = 0;
+    size_t smem = 0;
+    const int e = ew_plan(d, k, &nst, &buf, &smem);
+    if (e) return e;
+    cudaStream_t st = (cudaStream_t)stream;
+    return EW_DISPATCH(ew_launch, q, c, factor, mask, nq, n, d, k,
+                       slab_rows, nst, buf, smem, i4, part, out_s, out_i, st);
+}
+
 extern "C" {
 
 // Dynamic shared memory of one exact_i8_wgmma_kernel block at (d, k) (op:
-// OP_I8, the only kind it takes); 0 if it fits no block.
+// OP_I8 or OP_I4, whose blocks are the same); 0 if it fits no block.
 size_t lr_exact_i8_smem(int d, int k, int op) {
     int nst = 0, buf = 0;
     size_t smem = 0;
-    if (op != OP_I8 || ew_plan(d, k, &nst, &buf, &smem)) return 0;
+    if ((op != OP_I8 && op != OP_I4) || ew_plan(d, k, &nst, &buf, &smem))
+        return 0;
     return smem;
 }
 
 // Resident exact_i8_wgmma_kernel blocks per SM at (d, k <= 256), of the
 // library's flavour (LR_MASK), on the current device (0: does not fit); a
-// negative cudaError_t on failure.
+// negative cudaError_t on failure. op: OP_I8 or OP_I4 (the same blocks).
 int lr_exact_i8_occupancy(int d, int k, int op) {
     int nst = 0, buf = 0;
     size_t smem = 0;
-    if (op != OP_I8 || k < 1 || k > 256) return -(int)cudaErrorInvalidValue;
+    if ((op != OP_I8 && op != OP_I4) || k < 1 || k > 256)
+        return -(int)cudaErrorInvalidValue;
     const int e = ew_plan(d, k, &nst, &buf, &smem);
     if (e) return e == (int)cudaErrorInvalidValue ? 0 : -e;
     return EW_DISPATCH(ew_occupancy, smem);
@@ -793,16 +835,19 @@ int lr_exact_i8_occupancy(int d, int k, int op) {
 int lr_exact_i8(const void* q, const void* c, const float* factor, int nq,
                 int n, int d, int k, int slab_rows, const unsigned* mask,
                 long long* part, float* out_s, int* out_i, void* stream) {
-    if (k < 1 || k > 256 || d < 1 || n < 1 || nq < 1 || slab_rows < 1 ||
-        slab_rows % TN || (LR_MASK && !mask))
-        return (int)cudaErrorInvalidValue;
-    int nst = 0, buf = 0;
-    size_t smem = 0;
-    const int e = ew_plan(d, k, &nst, &buf, &smem);
-    if (e) return e;
-    cudaStream_t st = (cudaStream_t)stream;
-    return EW_DISPATCH(ew_launch, q, c, factor, mask, nq, n, d, k,
-                       slab_rows, nst, buf, smem, part, out_s, out_i, st);
+    return ew_exact(q, c, factor, nq, n, d, k, slab_rows, mask, 0, part,
+                    out_s, out_i, stream);
+}
+
+// The int4 exact search: lr_exact_i8 with c the int4 store's packed
+// nibbles uint8 [n, ceil(d / 2)] (low nibble the even dim, two's
+// complement), which exact_i8_wgmma_kernel's producer warpgroup
+// sign-extends into its s8 stages. Returns a cudaError_t.
+int lr_exact_i4(const void* q, const void* c, const float* factor, int nq,
+                int n, int d, int k, int slab_rows, const unsigned* mask,
+                long long* part, float* out_s, int* out_i, void* stream) {
+    return ew_exact(q, c, factor, nq, n, d, k, slab_rows, mask, 1, part,
+                    out_s, out_i, stream);
 }
 
 }  // extern "C"

@@ -19,11 +19,13 @@
 //                            into the s8 stages), wgmma s8 consumers;
 //                            fold_merge_kernel merges its slabs
 //   exact_i8_wgmma_kernel<KP, MASK, WIDE> (exact_i8_wgmma.cuh) the int8
-//                            store's exact search at k <= 256 (sq8_topk
-//                            past the fold's 128 candidates), on the same
-//                            machinery (wgmma_i8.cuh) with a skip test on
-//                            the raw dot and lists owned by a warp;
-//                            exact_merge_kernel merges its slabs
+//                            and int4 stores' exact search at k <= 256
+//                            (sq8_topk / sq4_topk past the fold's 128
+//                            candidates), on the same machinery
+//                            (wgmma_i8.cuh; int4 through lr_exact_i4, the
+//                            int4 fold's producer warpgroup) with a skip
+//                            test on the raw dot and lists owned by a
+//                            warp; exact_merge_kernel merges its slabs
 //   exact_mma_kernel<KP, OP, MASK> (exact_mma.cuh) replaces _exact_kernel
 //                            (pallas_topk.py:182-221) for bf16 and fp32
 //                            stores, and as OP_BIN the exact sign-dot search
@@ -31,7 +33,7 @@
 //                            where the binary store's stage 1 asks for more
 //                            candidates than the fold's 128 lanes hold, and
 //                            as OP_I8 / OP_I4 sq8_topk / sq4_topk past them
-//                            (OP_I8 past k = 256 only);
+//                            (past k = 256 only);
 //                            exact_merge_kernel<KP> merges its slabs. The TPU
 //                            grid ran the corpus tiles in order and carried
 //                            the running top-k in VMEM; here slabs run in
@@ -58,15 +60,15 @@
 //   bf16 a stage at a time in shared memory. int8 (OP_I8): score(q, c) =
 //   float32(sum_j qc_j * c_j) * factor, int8 query codes qc [nq, d] against
 //   int8 corpus codes [n, d], the dot an exact int32 (mma.sync m16n8k32 s8;
-//   the int8 store's fold and exact search and the int4 store's fold:
-//   wgmma m64n64k32 s8),
+//   both stores' folds and exact searches at k <= 256: wgmma m64n64k32
+//   s8),
 //   factor = float32(q_scale * corpus_scale), one fp32 value on the device
 //   (passed in csq's place: these stores are cosine / dot only); int4
 //   (OP_I4): the same against packed nibbles uint8 [n, ceil(d/2)] (low
 //   nibble the even dim, two's complement), sign-extended to s8 a stage at
-//   a time (the fold: in the producer warpgroup's registers; the exact
-//   search: in shared memory). Both are the JAX package's scores bit for
-//   bit.
+//   a time (the fold and the exact search at k <= 256: in the producer
+//   warpgroup's registers; past 256: in shared memory). Both are the JAX
+//   package's scores bit for bit.
 //   Scores become order-preserving
 //   int32 keys (_monotone_i32). Rows >= n never win.
 //   exact: the top-k of (key desc, row asc) over all rows: ties go to the lower row.

@@ -312,11 +312,15 @@ __device__ __forceinline__ void fw_produce(
 // dims each: two s8 chunks), pieces of neighbouring threads neighbouring in
 // memory: by one 16-byte load each when vec (rows of whole 16-byte pieces
 // on an aligned base), else byte by byte; zero past n and past w, and
-// dims past d meet zero query codes. The loads of a stage go out before
-// the wait for its slot, so they fly while the consumers finish with it;
-// then the sign extension (fm_s4x8, in registers), the stores, the proxy
-// fence that shows them to wgmma, and one arrival a warp on the stage's
-// full barrier (FW_P4_THREADS / 32 a stage).
+// dims past d meet zero query codes. Piece u of thread t is piece t % PR
+// of row t / PR + u NT / PR: NT / PR (32 or 64 rows) is a multiple of 8,
+// so every piece of a thread lands at the same two swizzled chunk offsets
+// of its rows, computed once (offsets kept for each piece spilled at 40
+// registers in the exact search's WIDE instances). The loads of a stage go
+// out before the wait for its slot, so they fly while the consumers finish
+// with it; then the sign extension (fm_s4x8, in registers), the stores,
+// the proxy fence that shows them to wgmma, and one arrival a warp on the
+// stage's full barrier (FW_P4_THREADS / 32 a stage).
 template <bool WIDE>
 __device__ __forceinline__ void fw_produce4(
     const FwRing& sm, unsigned char* smem, const CUtensorMap* qmap,
@@ -327,7 +331,13 @@ __device__ __forceinline__ void fw_produce4(
     constexpr int PR = CH / 32;          // packed pieces a row
     constexpr int NT = FW_P4_THREADS;
     constexpr int PT = TN * PR / NT;     // pieces a thread a stage: 2 or 4
+    constexpr int RU = NT / PR;          // rows from one piece to the next
+    static_assert(RU % 8 == 0, "a piece's rows share the swizzle");
     const int w = (d + 1) >> 1, n_dch = (d + CH - 1) / CH;
+    // the thread's row and piece of a row, and its two chunks' offsets in
+    // a stage (row r0 + u RU at u RU CH bytes further)
+    const int r0 = t / PR, pc = t % PR;
+    const int o0 = fw_swz(r0, 2 * pc, CH), o1 = fw_swz(r0, 2 * pc + 1, CH);
     if (!WIDE && qvec && t == 0) {  // the query tile, one box
         fw_bar_expect(qbar, FW_TQ * 64);
         fw_tma(sm.qs, qmap, 0, q0, qbar);
@@ -336,12 +346,11 @@ __device__ __forceinline__ void fw_produce4(
     int slot = 0, sub = 0, dci = 0;
     unsigned phase = 0;  // the round of the slot's barriers
     for (int st = 0; st < n_st; ++st) {
-        const int t0 = row0 + sub * TN, b0 = dci * (CH / 2);
+        const int t0 = row0 + sub * TN, b = dci * (CH / 2) + 16 * pc;
         uint4 p[PT];
 #pragma unroll
         for (int u = 0; u < PT; ++u) {
-            const int v = t + NT * u, r = v / PR, b = b0 + 16 * (v % PR);
-            const int row = t0 + r;
+            const int row = t0 + r0 + u * RU;
             const unsigned char* src = c + (size_t)row * w;
             p[u] = row >= n || b >= w ? make_uint4(0u, 0u, 0u, 0u)
                    : vec ? __ldg(reinterpret_cast<const uint4*>(src + b))
@@ -352,12 +361,11 @@ __device__ __forceinline__ void fw_produce4(
                                    sm.full);
 #pragma unroll
         for (int u = 0; u < PT; ++u) {
-            const int v = t + NT * u, r = v / PR, cc = 2 * (v % PR);
             const uint2 a0 = fm_s4x8(p[u].x), a1 = fm_s4x8(p[u].y);
             const uint2 a2 = fm_s4x8(p[u].z), a3 = fm_s4x8(p[u].w);
-            *reinterpret_cast<uint4*>(P + fw_swz(r, cc, CH)) =
+            *reinterpret_cast<uint4*>(P + u * RU * CH + o0) =
                 make_uint4(a0.x, a0.y, a1.x, a1.y);
-            *reinterpret_cast<uint4*>(P + fw_swz(r, cc + 1, CH)) =
+            *reinterpret_cast<uint4*>(P + u * RU * CH + o1) =
                 make_uint4(a2.x, a2.y, a3.x, a3.y);
         }
         if (WIDE) {  // the 64 queries' rows of the same chunk, zero past d

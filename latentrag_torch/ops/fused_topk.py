@@ -36,9 +36,9 @@ The port of the JAX package's ``ops/pallas_topk.py``:
   searches on the card: the queries quantized with one SQ8 scale over the
   batch, the fold at ``fold_plan``'s width and candidates, the candidates
   rescored exactly in int32 and ranked with ties to the lower row (as
-  ``lax.top_k`` ranks them), the exact kernel above 128 (int8 up to
-  ``EXACT_I8_MAX_K``: ``exact_i8_wgmma_kernel``) and a blocked plain search
-  past ``EXACT_MAX_K``.
+  ``lax.top_k`` ranks them), the exact kernel above 128 (up to
+  ``EXACT_I8_MAX_K``: ``exact_i8_wgmma_kernel``, the int4 store's through
+  ``lr_exact_i4``) and a blocked plain search past ``EXACT_MAX_K``.
 * Past ``EXACT_MAX_K`` (2048) the two approximate routes take a blocked
   search on any device: the corpus scored in blocks by ``torch.matmul``
   and each block's top k merged with the running list
@@ -79,7 +79,7 @@ on ``mma.sync`` s8 with int32 sums), except the int8 and int4 folds, which
 are ``csrc/fold_i8_wgmma.cuh`` (a TMA producer warp, ``wgmma`` s8
 consumers, the exact int-to-float conversion; for the int4 store the
 producer warpgroup sign-extends the nibbles into the s8 stages), the int8
-exact search up to k = 256, ``csrc/exact_i8_wgmma.cuh`` (the same
+and int4 exact search up to k = 256, ``csrc/exact_i8_wgmma.cuh`` (the same
 machinery, ``csrc/wgmma_i8.cuh``, with a skip test on the raw int32 dot
 and lists kept by each warp), and the float stores' exact search past
 2048 in ``csrc/exact_select.cuh``. fp32 stores multiply in
@@ -129,8 +129,8 @@ _IDX_MASK = (1 << _IDX_BITS) - 1
 _LANES = 128
 FOLD_MAX_K = _LANES
 EXACT_MAX_K = 2048  # the exact kernels' lists; the routes block past it
-# the int8 exact search's lists on the SM (exact_i8_wgmma_kernel); past it
-# the int8 store's exact search is exact_mma_kernel<KP, OP_I8>
+# the int8 and int4 exact search's lists on the SM (exact_i8_wgmma_kernel);
+# past it the stores' exact search is exact_mma_kernel<KP, OP_I8 / OP_I4>
 EXACT_I8_MAX_K = 256
 FOLD_OVERSAMPLE = 4  # candidates per wanted row on the approximate route
 
@@ -395,8 +395,9 @@ def _declare(lib, select: bool) -> None:
     lib.lr_exact_i8_smem.argtypes = [i, i, i]
     lib.lr_exact_i8_occupancy.restype = i
     lib.lr_exact_i8_occupancy.argtypes = [i, i, i]
-    lib.lr_exact_i8.restype = i
-    lib.lr_exact_i8.argtypes = [p, p, p] + [i] * 5 + [p] * 5
+    for fn in (lib.lr_exact_i8, lib.lr_exact_i4):
+        fn.restype = i
+        fn.argtypes = [p, p, p] + [i] * 5 + [p] * 5
     lib.lr_exact_mma_queries.restype = i
     lib.lr_exact_mma_queries.argtypes = [i]
     lib.lr_exact_mma_smem.restype = ctypes.c_size_t
@@ -449,8 +450,8 @@ def _vec(corpus, d: int, op: int) -> bool:
 @functools.cache
 def _slots(index: int, kernel: str, d: int, k: int, op: int,
            masked: bool = False) -> int:
-    """Resident blocks of ``kernel`` (``fold_mma``, ``fold_i8`` (int8 and
-    int4), ``exact_i8`` (int8 only), ``exact_mma`` or ``exact_select``, whose
+    """Resident blocks of ``kernel`` (``fold_mma``, ``fold_i8`` and
+    ``exact_i8`` (int8 and int4), ``exact_mma`` or ``exact_select``, whose
     shared memory does not depend on k) for operand kind ``op`` the card
     holds at (d, k), the row-mask instance if ``masked``."""
     lib = _library(masked)
@@ -575,23 +576,27 @@ def exact_i8_slab_plan(nq: int, n: int, slots: int) -> tuple[int, int]:
     return fold_slab_plan(nq, n, _LANES, slots, _FW_TQ)
 
 
-def _exact_i8(q_codes, corpus, factor, *, d, k_eff, mask=None):
-    """The int8 store's exact search on Hopper, k <= ``EXACT_I8_MAX_K``
-    (``csrc/exact_i8_wgmma.cuh``: a TMA producer warp, a wgmma consumer
-    warpgroup, a skip test on the raw dot), with the row mask when ``mask``
-    is given: 64 queries a block, the corpus in ``exact_i8_slab_plan``'s
-    slabs; the kernels write the fp32 scores and int32 ids."""
+def _exact_i8(q_codes, corpus, factor, *, d, k_eff, op=_OP_I8, mask=None):
+    """The int8 and int4 stores' exact search on Hopper, k <=
+    ``EXACT_I8_MAX_K`` (``csrc/exact_i8_wgmma.cuh``: a TMA producer warp, a
+    wgmma consumer warpgroup, a skip test on the raw dot; ``op`` =
+    ``_OP_I4``: ``lr_exact_i4``, whose producer warpgroup sign-extends the
+    packed nibbles into the s8 stages), with the row mask when ``mask`` is
+    given: 64 queries a block, the corpus in ``exact_i8_slab_plan``'s
+    slabs; the kernels write the fp32 scores and int32 ids.
+    ``last_kernel`` names the int4 route ``exact_i8_wgmma_kernel<i4>``."""
     _require_contiguous(q_codes, corpus)
     nq = q_codes.shape[0]
     n = corpus.shape[0]
     dev = q_codes.device
     lib = _library(mask is not None)
-    slots = _slots(dev.index, "exact_i8", d, k_eff, _OP_I8,
-                   mask is not None)
+    slots = _slots(dev.index, "exact_i8", d, k_eff, op, mask is not None)
     slab_rows, n_slabs = exact_i8_slab_plan(nq, n, slots)
     scores, ids, part = _slab_outputs(nq, k_eff, n_slabs, dev)
+    exact = lib.lr_exact_i8 if op == _OP_I8 else lib.lr_exact_i4
+    name = "exact_i8_wgmma_kernel" + ("" if op == _OP_I8 else _OP_TAG[op])
     with torch.cuda.device(dev):
-        code = lib.lr_exact_i8(
+        code = exact(
             q_codes.data_ptr(), corpus.data_ptr(), factor.data_ptr(),
             nq, n, d, k_eff, slab_rows,
             mask.data_ptr() if mask is not None else None,
@@ -599,9 +604,9 @@ def _exact_i8(q_codes, corpus, factor, *, d, k_eff, mask=None):
             scores.data_ptr(), ids.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _check(lib, code, "exact_i8_wgmma_kernel")
+    _check(lib, code, name)
     global last_kernel
-    last_kernel = _launched("exact_i8_wgmma_kernel", mask) + (
+    last_kernel = _launched(name, mask) + (
         "+exact_merge_kernel" if n_slabs > 1 else "")
     return scores, ids
 
@@ -1180,11 +1185,15 @@ def quantized_fused_topk_raw_reference(
 
 def quantized_exact_kernel(op: int, k: int) -> str:
     """The C kernel of an int8 (``op`` = ``_OP_I8``) or int4 exact search
-    at k <= ``EXACT_MAX_K`` on the card: int8 up to ``EXACT_I8_MAX_K``
-    ``exact_i8_wgmma_kernel``, past it (and every int4 search)
-    ``exact_mma_kernel<i8>`` / ``<i4>``."""
-    if op == _OP_I8 and k <= EXACT_I8_MAX_K:
-        return "exact_i8_wgmma_kernel"
+    at k <= ``EXACT_MAX_K`` on the card: up to ``EXACT_I8_MAX_K``
+    ``exact_i8_wgmma_kernel`` (the int4 store's through ``lr_exact_i4``,
+    named ``exact_i8_wgmma_kernel<i4>``), past it ``exact_mma_kernel<i8>``
+    / ``<i4>``."""
+    if op not in _OP_STORE:
+        raise ValueError(f"not an int8 or int4 operand kind: {op}")
+    if k <= EXACT_I8_MAX_K:
+        return "exact_i8_wgmma_kernel" + ("" if op == _OP_I8
+                                          else _OP_TAG[op])
     return f"exact_mma_kernel{_OP_TAG[op]}"
 
 
@@ -1193,8 +1202,8 @@ def _quantized_raw(q_codes, corpus, factor, *, d, k, op, mode, block_n,
     """The int8 / int4 kernels' entry: on a CPU tensor the plain version,
     on a CUDA tensor the fold kernel (k <= 128: ``_fold_i8``, either store)
     or the exact kernel (k <= ``EXACT_MAX_K``:
-    ``quantized_exact_kernel``'s, int8 ``_exact_i8`` up to
-    ``EXACT_I8_MAX_K``, else ``_exact_mma``), counted as ``int8_fold`` ...
+    ``quantized_exact_kernel``'s, ``_exact_i8`` up to ``EXACT_I8_MAX_K``,
+    either store, else ``_exact_mma``), counted as ``int8_fold`` ...
     ``int4_exact``."""
     if mode not in ("fold", "exact"):
         raise ValueError(f"mode must be 'fold' or 'exact', got {mode!r}")
@@ -1213,8 +1222,8 @@ def _quantized_raw(q_codes, corpus, factor, *, d, k, op, mode, block_n,
     if fold:
         out = _fold_i8(q_codes, corpus, factor, d=d, k_eff=k_eff,
                        block_n=block_n, op=op, mask=mask)
-    elif quantized_exact_kernel(op, k_eff) == "exact_i8_wgmma_kernel":
-        out = _exact_i8(q_codes, corpus, factor, d=d, k_eff=k_eff,
+    elif k_eff <= EXACT_I8_MAX_K:
+        out = _exact_i8(q_codes, corpus, factor, d=d, k_eff=k_eff, op=op,
                         mask=mask)
     else:
         out = _exact_mma(q_codes, corpus, factor, d=d, k_eff=k_eff,
@@ -1252,8 +1261,11 @@ def sq4_fused_topk_raw(
     int8 codes inside the kernels: on a CUDA tensor the fold launches
     ``fold_i8_wgmma_kernel<E, M, W>`` through ``lr_fold_i4`` (its producer
     warpgroup unpacks the nibbles; ``last_kernel``
-    ``fold_i8_wgmma_kernel<i4>``), the exact search
-    ``exact_mma_kernel<KP, OP_I4>``."""
+    ``fold_i8_wgmma_kernel<i4>``), the exact search up to
+    ``EXACT_I8_MAX_K`` ``exact_i8_wgmma_kernel<KP, M, W>`` through
+    ``lr_exact_i4`` (the same producer; ``last_kernel``
+    ``exact_i8_wgmma_kernel<i4>``), past it ``exact_mma_kernel<KP,
+    OP_I4>``."""
     return _quantized_raw(q_codes, packed, factor, d=d, k=k, op=_OP_I4,
                           mode=mode, block_n=block_n, mask=mask)
 

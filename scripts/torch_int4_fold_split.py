@@ -224,12 +224,11 @@ _EARLY_PATCHES = [(
                                    sm.full);
 #pragma unroll
         for (int u = 0; u < PT; ++u) {
-            const int v = t + NT * u, r = v / PR, cc = 2 * (v % PR);
             const uint2 a0 = fm_s4x8(p[u].x), a1 = fm_s4x8(p[u].y);
             const uint2 a2 = fm_s4x8(p[u].z), a3 = fm_s4x8(p[u].w);
-            *reinterpret_cast<uint4*>(P + fw_swz(r, cc, CH)) =
+            *reinterpret_cast<uint4*>(P + u * RU * CH + o0) =
                 make_uint4(a0.x, a0.y, a1.x, a1.y);
-            *reinterpret_cast<uint4*>(P + fw_swz(r, cc + 1, CH)) =
+            *reinterpret_cast<uint4*>(P + u * RU * CH + o1) =
                 make_uint4(a2.x, a2.y, a3.x, a3.y);
         }
 """,
@@ -250,10 +249,8 @@ _EARLY_PATCHES = [(
                                    sm.full);
 #pragma unroll
         for (int u = 0; u < PT; ++u) {
-            const int v = t + NT * u, r = v / PR, cc = 2 * (v % PR);
-            *reinterpret_cast<uint4*>(P + fw_swz(r, cc, CH)) = xs[2 * u];
-            *reinterpret_cast<uint4*>(P + fw_swz(r, cc + 1, CH)) =
-                xs[2 * u + 1];
+            *reinterpret_cast<uint4*>(P + u * RU * CH + o0) = xs[2 * u];
+            *reinterpret_cast<uint4*>(P + u * RU * CH + o1) = xs[2 * u + 1];
         }
 """)]
 # the sign extension by a biased add, no multiply: a nibble v (in the low

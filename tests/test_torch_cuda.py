@@ -1261,70 +1261,101 @@ def test_int4_fold_instances_have_no_stack(cuda):
                 assert m, name
                 assert int(m.group(2)) == 0, (name, m.group(0))
 
-def _assert_int8_exact_bit_for_bit(qc, c, fac, k, mask=None):
-    """The int8 exact search at k on the card against its plain version:
-    the C kernel its k routes to, one ``int8_exact`` launch, ids and
-    scores equal."""
+
+def _assert_int8_exact_bit_for_bit(qc, c, fac, k, mask=None, store="int8",
+                                   d=None):
+    """The int8 (or, ``store="int4"``, the int4: ``c`` the packed nibbles
+    of ``d`` dims) exact search at k on the card against its plain
+    version: the C kernel its k routes to (up to 256
+    ``exact_i8_wgmma_kernel``, the int4 store's through ``lr_exact_i4``,
+    named ``exact_i8_wgmma_kernel<i4>``; past it ``exact_mma_kernel<i8>`` /
+    ``<i4>``), one ``int8_exact`` / ``int4_exact`` launch, ids and scores
+    equal."""
+    d = c.shape[1] if store == "int8" else d
+    op = ft._OP_I8 if store == "int8" else ft._OP_I4
     ft.reset_launches()
-    s_k, i_k = ft.sq8_fused_topk_raw(qc, c, fac, k=k, mode="exact",
-                                     mask=mask)
+    s_k, i_k = _quantized_raw(store, qc, c, fac, d, k=k, mode="exact",
+                              mask=mask)
     torch.cuda.synchronize()
     k_eff = min(k, c.shape[0])
-    want = ("exact_i8_wgmma_kernel" if k_eff <= ft.EXACT_I8_MAX_K
-            else "exact_mma_kernel<i8>")
+    tag = "" if store == "int8" else "<i4>"
+    want = ("exact_i8_wgmma_kernel" + tag if k_eff <= ft.EXACT_I8_MAX_K
+            else "exact_mma_kernel" + ("<i8>" if store == "int8" else tag))
     assert ft.last_kernel.split("+")[0] == (
         want + ("<mask>" if mask is not None else ""))
-    assert ft.launches["int8_exact"] == 1
+    assert ft.launches[f"{store}_exact"] == 1
+    assert ft.launches["int8_exact" if store == "int4" else "int4_exact"] \
+        == 0
     assert ft.launches["masked"] == int(mask is not None)
     s_p, i_p = ft.quantized_fused_topk_raw_reference(
-        qc, c, fac, d=c.shape[1], k=k, op=ft._OP_I8, mode="exact",
-        mask=mask)
+        qc, c, fac, d=d, k=k, op=op, mode="exact", mask=mask)
     assert torch.equal(i_k, i_p)
     assert torch.equal(s_k, s_p)
     return s_k, i_k
 
 
-@pytest.mark.parametrize("k", [1, 10, 128, 129, 160, 256])
-@pytest.mark.parametrize("d", [33, 48, 64, 128, 384])
-@pytest.mark.parametrize("nq", [1, 63, 65, 2000])
-def test_int8_exact_matches_plain_bit_for_bit(cuda, nq, d, k):
+# (store, nq, d, k): the int8 store's grid, then the int4 store's, whose
+# odd widths make packed rows that are not whole 16-byte pieces (d = 33,
+# 63, 65: the producer's byte loads; 63 a pad nibble) and whose k are
+# past the fold's 128 candidates, where its store takes the exact search
+_EXACT_CASES = (
+    [("int8", nq, d, k) for nq in (1, 63, 65, 2000)
+     for d in (33, 48, 64, 128, 384) for k in (1, 10, 128, 129, 160, 256)]
+    + [("int4", nq, d, k) for nq in (1, 8, 64, 2000)
+       for d in (33, 63, 64, 65, 384) for k in (10, 129, 160, 256)])
+
+
+@pytest.mark.parametrize("store,nq,d,k", _EXACT_CASES)
+def test_int8_exact_matches_plain_bit_for_bit(cuda, store, nq, d, k):
     """``exact_i8_wgmma_kernel`` against the plain exact search on the
-    same codes, ids and scores: one query (a served search; 63 of the 64
-    tile rows padding), 63 and 65 (a ragged query tile), 2000 (the main
-    path); d = 33 (rows that are not whole 16-byte chunks: the producer's
-    loads), 48 (a k step past d), 64, 128 and 384 (the WIDE instance, one
-    and three stages a sub-tile); k from 1 to 256, both list widths (128
-    and 256 slots) and either side of 128; N = 5003 leaves a ragged
-    sub-tile."""
-    qc, c, fac, _ = _quantized(cuda, "int8", nq, 5003, d,
-                               seed=nq + d + k)
-    _assert_int8_exact_bit_for_bit(qc, c, fac, k)
+    same codes, ids and scores, over the int8 store's codes and (through
+    ``lr_exact_i4``) the int4 store's nibbles: one query (a served search;
+    63 of the 64 tile rows padding), 8, 63, 64 and 65 (a ragged query
+    tile), 2000 (the main path); d = 33 (rows that are not whole 16-byte
+    chunks: the producer's loads), 48 (a k step past d), 63 and 65 (int4:
+    a pad nibble, byte loads, and 65 the WIDE instance's ragged chunk), 64,
+    128 and 384 (the WIDE instance, one and three stages a sub-tile); k
+    from 1 to 256, both list widths (128 and 256 slots) and either side of
+    128; N = 5003 leaves a ragged sub-tile."""
+    qc, c, fac, _ = _quantized(cuda, store, nq, 5003, d,
+                               seed=nq + d + k + (store == "int4"))
+    _assert_int8_exact_bit_for_bit(qc, c, fac, k, store=store, d=d)
 
 
 @pytest.mark.parametrize("k", [10, 160, 256])
-def test_int8_exact_long_slabs(cuda, k):
+@pytest.mark.parametrize("store", ["int8", "int4"])
+def test_int8_exact_long_slabs(cuda, store, k):
     """The 8.8M-row store's slabs, cut to 1M rows: 1024 queries (16 query
     tiles) leave slabs of tens of thousands of rows, where the lists fill,
-    the skip test drops almost every half and the slabs' lists merge."""
-    qc, c, fac, _ = _quantized(cuda, "int8", 1024, 1_000_003, 64, seed=k)
-    _assert_int8_exact_bit_for_bit(qc, c, fac, k)
+    the skip test drops almost every half and the slabs' lists merge;
+    both stores."""
+    qc, c, fac, _ = _quantized(cuda, store, 1024, 1_000_003, 64, seed=k)
+    _assert_int8_exact_bit_for_bit(qc, c, fac, k, store=store, d=64)
     assert "+exact_merge_kernel" in ft.last_kernel
 
 
-@pytest.mark.parametrize("allowed", [0.0, 0.1, 1.0, "few"])
-@pytest.mark.parametrize("k", [10, 160, 256])
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("nq", [1, 65, 2000])
-def test_int8_exact_masked_matches_plain(cuda, nq, d, k, allowed):
-    """The row-mask instance against the masked plain search, bit for bit:
-    no row, 10 % and every row allowed, and 5 rows (fewer than k), whose
-    empty slots must be (NEG_INF, -1); every returned row is allowed."""
+# (store, nq, d, k, allowed): the int8 store's grid, then the int4
+# store's at k past the fold's candidates, 1 % allowed too
+_EXACT_MASKED_CASES = (
+    [("int8", nq, d, k, a) for nq in (1, 65, 2000) for d in (64, 128)
+     for k in (10, 160, 256) for a in (0.0, 0.1, 1.0, "few")]
+    + [("int4", nq, d, k, a) for nq in (1, 65, 2000) for d in (63, 64, 384)
+       for k in (129, 160, 256) for a in (0.0, 0.01, 0.1, 1.0, "few")])
+
+
+@pytest.mark.parametrize("store,nq,d,k,allowed", _EXACT_MASKED_CASES)
+def test_int8_exact_masked_matches_plain(cuda, store, nq, d, k, allowed):
+    """The row-mask instance against the masked plain search, bit for bit,
+    both stores: no row, 1 % (int4), 10 % and every row allowed, and 5
+    rows (fewer than k), whose empty slots must be (NEG_INF, -1); every
+    returned row is allowed."""
     from latentrag_torch.ops.topk import NEG_INF, unpack_row_mask
 
     n = 5003
-    qc, c, fac, _ = _quantized(cuda, "int8", nq, n, d, seed=11 + d + k)
+    qc, c, fac, _ = _quantized(cuda, store, nq, n, d, seed=11 + d + k)
     mask = _allowed_mask(cuda, n, allowed, seed=d + k)
-    s_k, i_k = _assert_int8_exact_bit_for_bit(qc, c, fac, k, mask)
+    s_k, i_k = _assert_int8_exact_bit_for_bit(qc, c, fac, k, mask,
+                                              store=store, d=d)
     live = i_k >= 0
     assert bool(unpack_row_mask(mask, n)[i_k[live].long()].all())
     assert bool((s_k[~live] == NEG_INF).all())
@@ -1335,75 +1366,148 @@ def test_int8_exact_masked_matches_plain(cuda, nq, d, k, allowed):
 
 
 @pytest.mark.parametrize("k", [10, 160, 256])
-def test_int8_exact_extreme_codes(cuda, k):
-    """Codes of -128 and 127 at d = 256, where a row of -128 against a
-    query of -128 has the dot 2^22, and a small factor: bit for bit, the
-    row of -128 first for query 0."""
-    g = torch.Generator(device=cuda).manual_seed(k)
-    n, d = 3001, 256
+@pytest.mark.parametrize("store,d", [("int8", 256), ("int4", 63),
+                                     ("int4", 256), ("int4", 257),
+                                     ("int4", 768)])
+def test_int8_exact_extreme_codes(cuda, store, d, k):
+    """Codes at their bounds and a small factor: int8, -128 and 127 at d =
+    256, where a row of -128 against a query of -128 has the dot 2^22;
+    int4, nibbles of -8 and 7 (bytes 0x88, 0x77) against query codes of
+    -128 and 127, the dot at d x 128 x 8, random bytes elsewhere so that
+    every nibble value meets the sign extension (d = 63: the last byte's
+    high nibble a pad of -8 that the query's zero codes past d must
+    cancel; 257 and 768 the WIDE instance), on an aligned base and on one
+    that is not. Bit for bit, a row of -128 (-8) first for query 0."""
+    g = torch.Generator(device=cuda).manual_seed(k + d)
+    n = 3001
     qc = torch.randint(-128, 128, (16, d), generator=g, device=cuda,
                        dtype=torch.int8)
-    c = torch.randint(-128, 128, (n, d), generator=g, device=cuda,
-                      dtype=torch.int8)
     qc[0] = -128
-    c[::97] = -128
-    c[5::89] = 127
     fac = torch.tensor([3e-7], dtype=torch.float32, device=cuda)
-    assert int((qc[0].int() * c[0].int()).sum()) == 1 << 22
-    _, i_k = _assert_int8_exact_bit_for_bit(qc, c, fac, k)
-    assert int(i_k[0, 0]) == 0  # the first row of -128 leads query 0
+    if store == "int8":
+        c = torch.randint(-128, 128, (n, d), generator=g, device=cuda,
+                          dtype=torch.int8)
+        c[::97] = -128
+        c[5::89] = 127
+        assert int((qc[0].int() * c[0].int()).sum()) == 1 << 22
+        _, i_k = _assert_int8_exact_bit_for_bit(qc, c, fac, k)
+        assert int(i_k[0, 0]) == 0  # the first row of -128 leads query 0
+        return
+    from latentrag_torch.ops.quantization import sq4_unpack
+
+    c = torch.randint(0, 256, (n, (d + 1) // 2), generator=g, device=cuda,
+                      dtype=torch.int32).to(torch.uint8)
+    c[::97] = 0x88
+    c[5::89] = 0x77
+    assert int((qc[0].int() * sq4_unpack(c[:1], d).int()).sum()) \
+        == d * 128 * 8
+    buf = torch.empty(c.numel() + 1, dtype=c.dtype, device=cuda)
+    shifted = buf[1:].view(c.shape).copy_(c)
+    for packed in (c, shifted):
+        _, i_k = _assert_int8_exact_bit_for_bit(qc, packed, fac, k,
+                                                store=store, d=d)
+        assert int(i_k[0, 0]) == 0  # the first row of -8 leads query 0
 
 
 @pytest.mark.parametrize("k", [10, 160, 256])
 @pytest.mark.parametrize("dup_every", [7, 1])
-def test_int8_exact_ties_to_the_lower_row(cuda, dup_every, k):
+@pytest.mark.parametrize("store", ["int8", "int4"])
+def test_int8_exact_ties_to_the_lower_row(cuda, store, dup_every, k):
     """Every 7th row a copy of row 0, or every row the same: equal scores
     across halves, sub-tiles and slabs go to the lower row, bit for bit,
-    and with one vector everywhere the answer is rows 0 .. k - 1."""
-    qc, c, fac, _ = _quantized(cuda, "int8", 65, 20000, 64,
+    and with one vector everywhere the answer is rows 0 .. k - 1; both
+    stores."""
+    qc, c, fac, _ = _quantized(cuda, store, 65, 20000, 64,
                                dup_every=dup_every)
-    _, i_k = _assert_int8_exact_bit_for_bit(qc, c, fac, k)
+    _, i_k = _assert_int8_exact_bit_for_bit(qc, c, fac, k, store=store,
+                                            d=64)
     if dup_every == 1:
         want = torch.arange(k, dtype=torch.int32, device=cuda)
         assert torch.equal(i_k, want.expand_as(i_k))
 
 
-def test_int8_exact_unaligned(cuda):
+@pytest.mark.parametrize("store,d", [("int8", 64), ("int4", 64),
+                                     ("int4", 128)])
+def test_int8_exact_unaligned(cuda, store, d):
     """Codes on a base that is not 16-byte aligned (the producer's loads in
-    place of TMA), corpus and queries: bit for bit at k = 160."""
-    qc, c, fac, _ = _quantized(cuda, "int8", 100, 3001, 64, seed=5)
+    place of TMA or of 16-byte loads), corpus and queries: bit for bit at
+    k = 160; int4 also at d = 128 (the WIDE instance's query chunks)."""
+    qc, c, fac, _ = _quantized(cuda, store, 100, 3001, d, seed=5)
     for t in ("corpus", "queries"):
         src = c if t == "corpus" else qc
         buf = torch.empty(src.numel() + 1, dtype=src.dtype, device=cuda)
         moved = buf[1:].view(src.shape).copy_(src)
         assert moved.data_ptr() % 16 != 0
         if t == "corpus":
-            _assert_int8_exact_bit_for_bit(qc, moved, fac, 160)
+            _assert_int8_exact_bit_for_bit(qc, moved, fac, 160, store=store,
+                                           d=d)
         else:
-            _assert_int8_exact_bit_for_bit(moved, c, fac, 160)
+            _assert_int8_exact_bit_for_bit(moved, c, fac, 160, store=store,
+                                           d=d)
 
 
 @pytest.mark.parametrize("k", [257, 512, 2048])
-def test_int8_exact_past_256_keeps_the_old_instance(cuda, k):
-    """Past k = 256 the lists of 64 queries do not fit an SM: the int8
-    store's exact search stays on ``exact_mma_kernel<i8>``, bit for bit."""
-    qc, c, fac, _ = _quantized(cuda, "int8", 65, 5003, 64, seed=k)
-    _assert_int8_exact_bit_for_bit(qc, c, fac, k)
-    assert ft.last_kernel.startswith("exact_mma_kernel<i8>")
+@pytest.mark.parametrize("store", ["int8", "int4"])
+def test_int8_exact_past_256_keeps_the_old_instance(cuda, store, k):
+    """Past k = 256 the lists of 64 queries do not fit an SM: both stores'
+    exact search stays on ``exact_mma_kernel<i8>`` / ``<i4>``, bit for
+    bit."""
+    qc, c, fac, _ = _quantized(cuda, store, 65, 5003, 64, seed=k)
+    _assert_int8_exact_bit_for_bit(qc, c, fac, k, store=store, d=64)
+    assert ft.last_kernel.startswith(
+        "exact_mma_kernel" + ("<i8>" if store == "int8" else "<i4>"))
 
 
-def test_int8_exact_occupancy(cuda):
-    """Blocks an SM as the kernel's header states them at d = 64: two up
-    to k = 120, one from k = 121, at k = 128 and at k = 256; a WIDE block at
-    k = 256 still fits."""
+@pytest.mark.parametrize("op", [ft._OP_I8, ft._OP_I4])
+def test_int8_exact_occupancy(cuda, op):
+    """Blocks an SM as the kernel's header states them at d = 64, for
+    either store (the same blocks): two up to k = 120, one from k = 121,
+    at k = 128 and at k = 256; a WIDE block at k = 256 still fits; the old
+    template's entry refuses both stores at k <= 256."""
     lib = ft._library()
-    assert lib.lr_exact_i8_occupancy(64, 10, ft._OP_I8) == 2
-    assert lib.lr_exact_i8_occupancy(64, 120, ft._OP_I8) == 2
-    assert lib.lr_exact_i8_occupancy(64, 121, ft._OP_I8) == 1
-    assert lib.lr_exact_i8_occupancy(64, 128, ft._OP_I8) == 1
-    assert lib.lr_exact_i8_occupancy(64, 256, ft._OP_I8) == 1
-    assert lib.lr_exact_i8_occupancy(384, 256, ft._OP_I8) == 1
-    assert lib.lr_exact_i8_occupancy(64, 257, ft._OP_I8) < 0
+    assert lib.lr_exact_i8_occupancy(64, 10, op) == 2
+    assert lib.lr_exact_i8_occupancy(64, 120, op) == 2
+    assert lib.lr_exact_i8_occupancy(64, 121, op) == 1
+    assert lib.lr_exact_i8_occupancy(64, 128, op) == 1
+    assert lib.lr_exact_i8_occupancy(64, 256, op) == 1
+    assert lib.lr_exact_i8_occupancy(384, 256, op) == 1
+    assert lib.lr_exact_i8_occupancy(64, 257, op) < 0
+    assert lib.lr_exact_i8_smem(64, 160, op) == lib.lr_exact_i8_smem(
+        64, 160, ft._OP_I8)
+    for k in (1, 128, 256):
+        assert lib.lr_exact_mma_occupancy(64, k, op) == -1
+    assert lib.lr_exact_mma_occupancy(64, 512, op) >= 1
+
+
+def test_exact_i8_wgmma_instances_have_no_stack(cuda):
+    """Every instance either store's exact search launches
+    (``exact_i8_wgmma_kernel<KP, MASK, WIDE>``, KP 128 and 256, both
+    libraries) keeps 0 stack bytes by ``cuobjdump -res-usage``: no spill in
+    the int4 producer's unpack at its 40 registers, nor in the consumers;
+    and no library holds ``exact_mma_kernel<128 | 256, OP_I4>`` any
+    more."""
+    import os
+    import re
+    import subprocess
+
+    from latentrag_torch.ops import cuda_build
+
+    ft._libraries()  # built
+    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    for masked, spec in enumerate(ft.LIBRARIES):
+        out = subprocess.run(
+            [tool, "-res-usage", cuda_build.library_path(*spec)],
+            capture_output=True, text=True, timeout=120).stdout
+        for kp in (128, 256):
+            for wide in (0, 1):
+                name = (f"exact_i8_wgmma_kernelILi{kp}ELb{masked}"
+                        f"ELb{wide}E")
+                m = re.search(re.escape(name) + r"\S*:\s*\n\s*REG:(\d+) "
+                              r"STACK:(\d+)", out)
+                assert m, name
+                assert int(m.group(2)) == 0, (name, m.group(0))
+            assert f"exact_mma_kernelILi{kp}ELi4E" not in out
+        assert "exact_mma_kernelILi512ELi4E" in out
 
 
 @pytest.mark.parametrize("k", [10, 200, 2100])

@@ -1,8 +1,10 @@
-"""The int8 store's exact search on Hopper (``csrc/exact_i8_wgmma.cuh``) on
+"""The int8 and int4 stores' exact search on Hopper
+(``csrc/exact_i8_wgmma.cuh``; the int4 store's through ``lr_exact_i4``) on
 the CPU: the wrapper's slab plan as a pure function, the route by k, the
-build's sources, a numpy model of the kernel's skip threshold, and the
-split script's scratch copies of the replaced instance. The kernel itself
-runs only on the card (``tests/test_torch_cuda.py -k int8_exact``)."""
+build's sources and entries, a numpy model of the kernel's skip threshold,
+and the split scripts' scratch copies of the replaced instances. The
+kernel itself runs only on the card (``tests/test_torch_cuda.py -k
+int8_exact``)."""
 
 import importlib.util
 import os
@@ -55,17 +57,39 @@ def test_int8_exact_route_cases(k, want):
     assert ft.quantized_exact_kernel(ft._OP_I8, k) == want
 
 
+@pytest.mark.parametrize("k,want", [
+    (1, "exact_i8_wgmma_kernel<i4>"), (10, "exact_i8_wgmma_kernel<i4>"),
+    (129, "exact_i8_wgmma_kernel<i4>"), (160, "exact_i8_wgmma_kernel<i4>"),
+    (256, "exact_i8_wgmma_kernel<i4>"), (257, "exact_mma_kernel<i4>"),
+    (512, "exact_mma_kernel<i4>"), (2048, "exact_mma_kernel<i4>"),
+])
+def test_int4_exact_route_cases(k, want):
+    """The int4 store's exact search takes the int8 store's kernel up to
+    k = 256 (its stage 1 at top_k 17-32: 136-256 candidates) and the old
+    instance past it (top_k 33 on: 264 and more)."""
+    assert ft.quantized_exact_kernel(ft._OP_I4, k) == want
+
+
 def test_exact_route_by_k():
-    """Every k of the exact routes: int8 up to ``EXACT_I8_MAX_K`` (256) on
-    the new kernel, past it on ``exact_mma_kernel<i8>``; int4 always on
-    ``exact_mma_kernel<i4>``."""
+    """Every k of the exact routes: both stores up to ``EXACT_I8_MAX_K``
+    (256) on the new kernel (int4 through ``lr_exact_i4``, named
+    ``exact_i8_wgmma_kernel<i4>``), past it on ``exact_mma_kernel<i8>`` /
+    ``<i4>``."""
     assert ft.EXACT_I8_MAX_K == 256
     for k in range(1, ft.EXACT_MAX_K + 1):
-        want = ("exact_i8_wgmma_kernel" if k <= 256
-                else "exact_mma_kernel<i8>")
-        assert ft.quantized_exact_kernel(ft._OP_I8, k) == want
-        assert ft.quantized_exact_kernel(ft._OP_I4, k) == \
-            "exact_mma_kernel<i4>"
+        new = k <= 256
+        assert ft.quantized_exact_kernel(ft._OP_I8, k) == (
+            "exact_i8_wgmma_kernel" if new else "exact_mma_kernel<i8>")
+        assert ft.quantized_exact_kernel(ft._OP_I4, k) == (
+            "exact_i8_wgmma_kernel<i4>" if new else "exact_mma_kernel<i4>")
+
+
+@pytest.mark.parametrize("op", [ft._OP_BF16, ft._OP_BIN, ft._OP_F32])
+def test_exact_route_refuses_float_stores(op):
+    """The route by k names the quantized stores' kernels only: a float or
+    binary operand kind has no int8 exact route to name."""
+    with pytest.raises(ValueError):
+        ft.quantized_exact_kernel(op, 160)
 
 
 def test_build_lists_the_new_headers():
@@ -76,6 +100,51 @@ def test_build_lists_the_new_headers():
     for h in ("exact_i8_wgmma.cuh", "wgmma_i8.cuh", "fold_i8_wgmma.cuh",
               "exact_mma.cuh"):
         assert h in srcs
+
+
+def _csrc(name: str) -> str:
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "latentrag_torch", "csrc", name)
+    with open(path, encoding="utf-8") as f:
+        return f.read()
+
+
+class _Fn:
+    """A stand-in for a ctypes function: its declared types."""
+
+    restype = argtypes = None
+
+
+class _Lib:
+    """A stand-in for a ctypes library: every attribute a ``_Fn``."""
+
+    def __getattr__(self, name):
+        fn = _Fn()
+        setattr(self, name, fn)
+        return fn
+
+
+@pytest.mark.parametrize("select", [False, True])
+def test_build_lists_the_int4_entry(select):
+    """The library's C interface has ``lr_exact_i4`` beside
+    ``lr_exact_i8`` (the same arguments, the kernel's i4 flag set), both
+    libraries declare it as ``lr_exact_i8`` is declared, and the old
+    template routes the int4 store only past k = 256 (its lists of 512 and
+    more), so ``exact_mma_kernel<128 | 256, OP_I4>`` leave the build."""
+    src = _csrc("exact_i8_wgmma.cuh")
+    assert src.count("int lr_exact_i4(const void* q, const void* c,") == 1
+    assert "return ew_exact(q, c, factor, nq, n, d, k, slab_rows, mask, 1," \
+        in src
+    lib = _Lib()
+    ft._declare(lib, select)
+    assert lib.lr_exact_i4.argtypes == lib.lr_exact_i8.argtypes
+    assert lib.lr_exact_i4.restype is lib.lr_exact_i8.restype
+    assert len(lib.lr_exact_i4.argtypes) == 13
+    mma = _csrc("exact_mma.cuh")
+    assert "EM_DISPATCH_BIG(F, OP_I4, __VA_ARGS__)" in mma
+    assert "EM_DISPATCH_OP(F, OP_I4" not in mma
+    assert mma.count("if ((op == OP_I8 || op == OP_I4) && kp <= 256) "
+                     "return -1;") == 2
 
 
 def _score(dots, factor):
@@ -144,6 +213,19 @@ def _split_script():
 _SPLIT = _split_script()
 
 
+def _int4_split_script():
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "torch_int4_exact_split.py")
+    spec = importlib.util.spec_from_file_location("torch_int4_exact_split",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_SPLIT4 = _int4_split_script()
+
+
 @pytest.mark.parametrize("variant", _SPLIT.VARIANTS + _SPLIT.NEW_VARIANTS)
 def test_split_variants_patch_the_current_headers(variant):
     """Each scratch copy of ``scripts/torch_int8_exact_split.py`` (the
@@ -159,3 +241,26 @@ def test_split_variants_patch_the_current_headers(variant):
     else:
         assert "int lr_split_exact(" in src
         assert ("lr_split_thr" in src) == (variant == "oracle")
+
+
+@pytest.mark.parametrize("variant", _SPLIT4.OLD_VARIANTS
+                         + _SPLIT4.NEW_VARIANTS)
+def test_int4_split_variants_patch_the_current_headers(variant):
+    """Each scratch copy of ``scripts/torch_int4_exact_split.py``: the
+    replaced ``exact_mma_kernel<KP, OP_I4>`` (``chip_smoke.py`` phase 4d
+    times ``old``) and its products cut, an int4 launcher of the KP = 128
+    and 256 instances that no longer instantiates the int8 ones and stops
+    before the headers' C interfaces; the new kernel's copies, the int8
+    script's, with the ``lr_exact_i4`` they are launched through."""
+    src = _SPLIT4.scratch_source(variant)
+    assert "int lr_exact_mma(" not in src and "int lr_fold_mma(" not in src
+    if variant in _SPLIT4.NEW_VARIANTS:
+        assert "int lr_exact_i4(" in src and "int lr_split_exact(" not in src
+        return
+    launcher = src.split('extern "C" {')[-1]
+    assert "int lr_split_exact(" in launcher
+    assert "OP_I4" in launcher and "OP_I8" not in launcher
+    assert "lr_split_thr" not in src
+    cut = "asm volatile(\"\" : \"+f\"(acc[0][0])"
+    assert (cut in src) == (variant == "old_noproducts")
+    assert _SPLIT4.library_path(variant).endswith(".so")
