@@ -60,7 +60,16 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    config's recall_target 0.95, the exact kernel at k=10, 160 and 512,
    unmasked and with 10 % of the rows allowed; scores are exact integer
    dots times one factor and the folds' order is total, so every kernel
-   must equal its plain version bit for bit (ids and scores);
+   must equal its plain version bit for bit (ids and scores); past
+   k=256 the exact search ``exact_i8_select_kernel`` (a sampled
+   threshold, one TMA + wgmma buffer pass, a radix fallback, a sort;
+   ``<i4>`` the int4 store's) over the card tests' grid
+   (``check_quantized_select``: k in {257, 320, 512, 1000, 2048}, its
+   "all" and sampled routes, Q = 1, 65, 2000, masks of 10 % of 100k and
+   20k rows, fewer allowed rows than k and none, d = 33, 48, 63, 384, the
+   radix route forced to the same bits at k=512) and on crafted corpora
+   whose sampled threshold fails (the device's fallback count equal to
+   the queries built to fall back and to the plan's plain model's);
 2e. holds the device IVF's scan (``ivf_scan_kernel``, ``csrc/ivf_scan.cu``)
    against ``ivf_scan_reference``: int8, bf16, fp32, int4 and binary
    blocks over clustered ~20k-row corpora at cap 64 and 512 (d=64; also
@@ -109,7 +118,12 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    search (``exact_i8_wgmma_kernel<i4>``, one ``int4_exact`` launch a
    search, the self-check on the fold), and the same run on the kernels'
    plain versions must give the same doc ids, doc scores and metrics bit
-   for bit;
+   for bit; then the same at ``retrieval.top_k=40``, whose 320 candidates
+   take ``exact_i8_select_kernel<i4>`` (every ``int4_exact`` launch must
+   name it); and, after 3o, on 3o's cross-encoder, ``main --set
+   retrieval.store_dtype=int4 retrieval.rerank=cross`` at top_k 10
+   (candidate_k 40, stage 1 at 320 on ``exact_i8_select_kernel<i4>``),
+   its docs and doc scores bit for bit MaxSim's over its own logits;
 3c. builds a binary ``DenseRetriever`` over 1M seeded unit vectors (d=64),
    searches 1024 queries at k=10, and holds the same kernel-vs-plain
    agreement; Recall@10 against exact fp32 search is reported; then at
@@ -133,8 +147,10 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    metrics; then the same config at ``retrieval.top_k=150``, whose search
    the int8 exact kernel ``exact_i8_wgmma_kernel`` serves (the fold the
    self-check), equal to its plain twin bit for bit (doc ids, doc scores,
-   metrics); and ``python -m latentrag_torch.serve`` on that config boots
-   warm and answers a JSONL search;
+   metrics), and at ``retrieval.top_k=300``, whose search
+   ``exact_i8_select_kernel`` serves, the same; and ``python -m
+   latentrag_torch.serve`` on that config boots warm and answers a JSONL
+   search;
 3j. builds an int8 and then an int4 ``DenseRetriever`` over 8.8M seeded
    unit rows, d=64 (the config's corpus scale: 563 MB of int8 codes, or
    282 MB of nibbles on the card and 563 MB of SQ8 codes on the host), and
@@ -194,8 +210,13 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
    masked at k=160 too) its instances' ``-res-usage`` and, at every shape,
    the time of the instance it replaced, ``exact_mma_kernel<KP, OP_I8>``
    (masked too), built beside the libraries from
-   ``scripts/torch_int8_exact_split.py``; the int8 exact search past 256
-   (``exact_mma_kernel<512, OP_I8>``) at 8.8M, k=512; for the int4 fold
+   ``scripts/torch_int8_exact_split.py``; past k=256 both stores' exact
+   search (``exact_i8_select_kernel``, ``time_quantized_select``) at 8.8M,
+   k = 320, 512 (masked too), 1024 and 2048, and at 2000×1997, k=320,
+   each beside the instance it replaced, ``exact_mma_kernel<KP, OP_I8 /
+   OP_I4>`` at KP 512-2048, built beside the libraries from
+   ``scripts/torch_int_exact_select_split.py``, with its plan and
+   fallbacks; for the int4 fold
    (unmasked and masked, at both shapes) its instances' ``-res-usage``,
    the time of the instance it replaced, ``fold_mma_kernel<4, OP_I4>``,
    built beside the libraries from ``scripts/torch_int4_fold_split.py``,
@@ -1126,11 +1147,13 @@ def blocks_per_sm(ft, kernel: str, dev: int, d: int, k: int, op: int,
     name = {"fold": "fold_mma", "exact": "exact_mma"}[kernel]
     if kernel == "exact" and k > ft.EXACT_MAX_K:
         name = "exact_select"
-    if op in (ft._OP_I8, ft._OP_I4):  # their own fold and exact search
+    if op in (ft._OP_I8, ft._OP_I4):  # their own fold and exact searches
         if kernel == "fold":
             name = "fold_i8"
         elif k <= ft.EXACT_I8_MAX_K:
             name = "exact_i8"
+        else:  # the buffer pass of the select past 256
+            name = "exact_i8_select"
     return ft._slots(dev, name, d, k, op, masked) // ft._sm_count(dev)
 
 
@@ -1475,30 +1498,55 @@ def check_binary_main_path(torch, failures: list, oracle: dict,
     return main_launches
 
 
-INT4_MAIN_TOP_K = 20  # stage 1's 160 candidates: past the fold's 128
+# the int4 main path's top_k: 20 gives stage 1 160 candidates (past the
+# fold's 128: exact_i8_wgmma_kernel<i4>), 40 gives it 320 (past 256:
+# exact_i8_select_kernel<i4>)
+INT4_MAIN_TOP_KS = (20, 40)
 
 
-def check_int4_main_path(torch, failures: list) -> dict:
+@contextlib.contextmanager
+def exact_kernel_names(ft):
+    """The C kernel each int8 / int4 exact search (``_quantized_raw`` at
+    mode "exact") ran while open, as ``ft.last_kernel`` names it."""
+    names: list = []
+    real = ft._quantized_raw
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        if kw.get("mode") == "exact":
+            names.append(ft.last_kernel)
+        return out
+
+    ft._quantized_raw = spy
+    try:
+        yield names
+    finally:
+        ft._quantized_raw = real
+
+
+def check_int4_main_path(torch, failures: list, top_k: int) -> dict:
     """Phase 3b4: ``main --ae_type vae --set retrieval.store_dtype=int4
-    retrieval.top_k=20`` on the main path's data (MiniLM-L6 bf16, the
+    retrieval.top_k=<top_k>`` on the main path's data (MiniLM-L6 bf16, the
     seeded 384->512->64 VAE, 2000 queries, 1997 contexts): stage 1 asks for
-    binary_oversample x 20 = 160 candidates, past the fold's 128, so each
-    search runs the int4 exact search (``exact_i8_wgmma_kernel<i4>``, one
-    ``int4_exact`` launch a search; the build's self-check the fold), then
-    the host's SQ8 rescore. The same run on the kernels' plain versions (a
-    store of its own) must give the same doc ids, doc scores and metrics,
-    bit for bit. Returns the run's record."""
+    binary_oversample x top_k candidates, 160 at top_k 20 (past the fold's
+    128: ``exact_i8_wgmma_kernel<i4>``) and 320 at 40 (past 256:
+    ``exact_i8_select_kernel<i4>``, its "all" route), so each search runs
+    one ``int4_exact`` launch of that kernel (the build's self-check the
+    fold), then the host's SQ8 rescore. The same run on the kernels' plain
+    versions (a store of its own) must give the same doc ids, doc scores
+    and metrics, bit for bit. Returns the run's record."""
     import numpy as np
 
     from latentrag_torch.ops import fused_topk as ft
     from latentrag_torch.retrieval import DenseRetriever
 
-    top_k = INT4_MAIN_TOP_K
     calls: list = []
+    t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="lr_smoke_int4_") as wd:
         write_vae(torch, f"{wd}/vae.pth")
         ft.reset_launches()
-        with counted_calls(DenseRetriever, "search", calls):
+        with counted_calls(DenseRetriever, "search", calls), \
+                exact_kernel_names(ft) as names:
             res = run_main(torch, wd, "auto", store="int4", top_k=top_k)
         launches, ran = dict(ft.launches), ft.last_kernel
         with plain_quantized(ft):
@@ -1508,9 +1556,12 @@ def check_int4_main_path(torch, failures: list) -> dict:
             plain_launches = dict(ft.launches)
     ids, pids = (np.asarray(r["retrieved_doc_ids"]) for r in (res, plain))
     ds, pds = (np.asarray(r["doc_scores"], np.float32) for r in (res, plain))
-    rec = {"store": "int4", "top_k": top_k, "n_queries": res["n_queries"],
+    cand = 8 * top_k  # the store's binary_oversample
+    want = quant_kernel_name("int4", "exact", cand)
+    rec = {"store": "int4", "top_k": top_k, "stage1_candidates": cand,
+           "n_queries": res["n_queries"],
            "n_corpus": res["n_corpus"], "dim_out": res["dim_out"],
-           "launches": launches, "c_kernel": ran,
+           "launches": launches, "c_kernel": ran, "exact_kernels": names,
            "search_calls": len(calls),
            "search_call_launches": [c.launches for c in calls],
            "plain_launches": plain_launches,
@@ -1523,24 +1574,79 @@ def check_int4_main_path(torch, failures: list) -> dict:
            "doc_scores_bit_identical": bool(
                ds.shape == pds.shape
                and np.array_equal(ds.view(np.int32), pds.view(np.int32)))}
-    # each search one int4 exact launch and nothing else of the int4
-    # store; the self-check (k=4: 32 candidates) the fold
+    if cand > ft.EXACT_I8_MAX_K:
+        rec["select"] = ft.last_select
+    # each search one int4 exact launch of the kernel its candidates route
+    # to, and nothing else of the int4 store; the self-check (k=4: 32
+    # candidates) the fold
     rec["ok"] = ok = (
         len(calls) >= 1 and launches["int4_exact"] == len(calls)
         and all(c.launches.get("int4_exact") == 1
                 and "int4_fold" not in c.launches for c in calls)
         and launches["int4_fold"] >= 1 and launches["int4_blocked"] == 0
-        and (ran or "").split("+")[0] == quant_kernel_name(
-            "int4", "exact", ft.FOLD_MAX_K + 1)
+        and len(names) == launches["int4_exact"]
+        and all(name.split("+")[0] == want for name in names)
         and not any(plain_launches.values())
         and rec["doc_ids_bit_identical"] and rec["doc_scores_bit_identical"]
         and rec["metrics"] == rec["plain_metrics"]
         and ds.shape == (res["n_queries"], top_k)
         and bool(np.isfinite(ds).all()) and res["dim_out"] == 64)
+    rec["phase_s"] = time.perf_counter() - t_phase
     record("int4_main_path", **rec)
     if not ok:
         failures.append(f"the int4 main path at top_k={top_k}: {rec}")
     return rec
+
+
+def check_int4_rerank_main(torch, failures: list, workdir: str) -> int:
+    """Phase 3b4, reranked (after 3o, whose seeded cross-encoder it
+    reads): ``main --set retrieval.store_dtype=int4 retrieval.rerank=cross``
+    at top_k 10: candidate_k 40, so stage 1 asks for 320 candidates and
+    every ``int4_exact`` launch is ``exact_i8_select_kernel<i4>`` (the
+    self-check the fold); 3o's checks on its docs: 40 rescored pairs a
+    query, the run's docs and doc scores bit for bit MaxSim's over its own
+    logits. Returns the run's ``int4_exact`` launches."""
+    import numpy as np
+
+    from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.pipeline import aggregate_docs
+
+    t_phase = time.perf_counter()
+    extra = ["retrieval.store_dtype=int4", "retrieval.rerank=cross",
+             f"retrieval.index_path={workdir}/index_rerank_int4"]
+    with rescore_calls() as calls, exact_kernel_names(ft) as names:
+        res, launches = run_counted(torch, workdir, "auto", extra)
+    call = calls[0]
+    own_scores, own_docs = aggregate_docs(
+        call.out, call.idx, range(len(call.texts)), res["top_k"],
+        call.reranker.scorer.device)
+    plumbing = (own_docs == res["retrieved_doc_ids"]
+                and np.array_equal(own_scores, res["doc_scores"]))
+    want = quant_kernel_name("int4", "exact", 8 * res["candidate_k"])
+    rec = {"store": "int4", "top_k": res["top_k"],
+           "candidate_k": res["candidate_k"],
+           "stage1_candidates": 8 * res["candidate_k"],
+           "n_queries": res["n_queries"], "n_corpus": res["n_corpus"],
+           "pairs": int((call.idx >= 0).sum()), "launches": launches,
+           "exact_kernels": names, "select": ft.last_select,
+           "docs_bit_for_bit_maxsim_of_own_logits": plumbing,
+           "rerank_s": res["timings"]["rerank_s"], "wall_s": res["wall_s"],
+           "metrics": {m: v["mean"]
+                       for m, v in res["retrieval_metrics"].items()}}
+    rec["ok"] = ok = (
+        res["candidate_k"] == 40 and rec["pairs"] == res["n_queries"] * 40
+        and launches.get("int4_exact", 0) >= 1
+        and launches.get("int4_fold", 0) >= 1
+        and len(names) == launches["int4_exact"]
+        and all(name.split("+")[0] == want for name in names)
+        and plumbing)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    record("int4_rerank_main_path", **rec)
+    if not ok:
+        failures.append(f"the reranked int4 main path: {rec}")
+    del call, calls
+    torch.cuda.empty_cache()
+    return launches.get("int4_exact", 0)
 
 
 def check_binary_capacity(torch, failures: list) -> None:
@@ -2295,6 +2401,155 @@ def check_quantized_kernels(torch, failures: list) -> dict:
     return worst
 
 
+# phase 2d's grid of the int stores' exact search past k = 256
+# (exact_i8_select_kernel): (N, allowed) over its routes, every k the card
+# tests take, and (store, d) at the widths that take other loads
+SELECT_KS = (257, 320, 512, 1000, 2048)
+SELECT_SHAPES = ((5003, None), (20011, None), (100_000, 0.1),
+                 (20011, 0.1), (20011, "fewer_than_k"), (20011, "none"))
+SELECT_WIDTHS = (("int8", 33), ("int8", 48), ("int8", 384), ("int4", 33),
+                 ("int4", 48), ("int4", 63), ("int4", 384))
+SELECT_CRAFTED_ROWS = 200_003
+
+
+def crafted_select_case(torch, kind, store, nq, n, k):
+    """Codes on which the select's sampled threshold fails (as
+    ``tests/test_torch_exact_i8_select.py`` builds them): "overshoot",
+    every s-th row (the sample) lifted to the top code on dims 0-7, which
+    the even queries weigh by 127, so that only the sample reaches their
+    threshold (fewer than k keys: they fall back); "ties", every row one of
+    two vectors (a tie group past C holds every query's threshold). Returns
+    (query codes, corpus codes or nibbles, factor, d, the queries built to
+    fall back)."""
+    from latentrag_torch.ops import fused_topk as ft
+
+    g = torch.Generator(device="cuda").manual_seed(n + k)
+    d = 32
+    top = 127 if store == "int8" else 7
+    qc = torch.randint(-100, 101, (nq, d), generator=g, device="cuda",
+                       dtype=torch.int8)
+    qc[:, :8] = torch.where(torch.arange(nq, device="cuda") % 2 == 0, 127,
+                            0).to(torch.int8)[:, None]
+    if kind == "overshoot":
+        stride = ft.quantized_select_plan(nq, n, k)[1]
+        codes = torch.randint(-top + 1, top, (n, d), generator=g,
+                              device="cuda", dtype=torch.int8)
+        codes[::stride, :8] = top
+        want = torch.arange(nq, device="cuda") % 2 == 0
+    else:
+        pair = torch.randint(-top + 1, top, (2, d), generator=g,
+                             device="cuda", dtype=torch.int8)
+        codes = pair[torch.randint(0, 2, (n,), generator=g, device="cuda")]
+        want = torch.ones(nq, dtype=torch.bool, device="cuda")
+    if store == "int4":
+        lo = codes[:, 0::2].to(torch.int32)
+        hi = codes[:, 1::2].to(torch.int32)
+        codes = ((lo & 0xF) | ((hi & 0xF) << 4)).to(torch.uint8)
+    fac = torch.tensor([1e-3], dtype=torch.float32, device="cuda")
+    return qc, codes.contiguous(), fac, d, want
+
+
+def check_quantized_select(torch, failures: list) -> dict:
+    """Phase 2d, past k = 256: ``exact_i8_select_kernel`` (a sampled
+    threshold, one TMA + wgmma buffer pass, a radix fallback, a sort; the
+    int4 store's through the int4 fold's producer warpgroup) and its
+    row-mask instances against the plain exact search, bit for bit (ids
+    and scores): both stores at d=64 over every k of SELECT_KS, on its
+    "all" route (N=5003 <= C), the sampled route (N=20011, 10 % of 100k
+    rows allowed), a filter of 2000 rows (sampled: fewer than m allowed
+    rows in the sample, so every allowed row is buffered), fewer allowed
+    rows than k and none, at Q=1, 65 and 2000 (unmasked) or 65 (masked); the widths of
+    SELECT_WIDTHS at k=320 and 2048; each holding the route the plan picks
+    (``ft.last_select``), no fallback, the C kernel that ran, and at k=512
+    the radix route (``route="radix"``) to the same bits; then the crafted
+    corpora (SELECT_CRAFTED_ROWS rows, Q=128, k=257, 512, 2048), whose
+    device fallback count (``ft.select_fallbacks()``) must equal the
+    queries built to fall back and the plan's plain model's. Returns the
+    largest score error at equal ids a store (0.0 expected)."""
+    from latentrag_torch.ops import fused_topk as ft
+
+    worst = {}
+
+    def one(store, qc, c, fac, d, k, words, m, label, want_fell=0):
+        op = quant_op(ft, store)
+        ft.reset_launches()
+        s_k, i_k = quant_kernel(ft, store, qc, c, fac, d, k=k, mode="exact",
+                                mask=words)
+        torch.cuda.synchronize()
+        ran, launched, plan = ft.last_kernel, dict(ft.launches), \
+            dict(ft.last_select)
+        fell = ft.select_fallbacks()
+        s_p, i_p = quant_plain(ft, store, qc, c, fac, d, k=k, mode="exact",
+                               mask=words)
+        same = i_k == i_p
+        err = (s_k - s_p).abs()[same & (i_k >= 0)]
+        max_err = err.max().item() if err.numel() else 0.0
+        n_allowed = c.shape[0] if m is None else int(m.sum())
+        route = "all" if c.shape[0] <= ft._EI_CAPACITY else "sampled"
+        # a filtered sample's search reads the mask too
+        n_masked = 0 if words is None else 1 + (route == "sampled")
+        ok = (ran.split("+")[0] == quant_kernel_name(store, "exact", k)
+              + ("<mask>" if words is not None else "")
+              and launched[f"{store}_exact"] == 1
+              and launched["masked"] == n_masked
+              and plan["route"] == route and fell == want_fell
+              and torch.equal(i_k, i_p) and torch.equal(s_k, s_p))
+        if m is not None:
+            ok = ok and masked_match(torch, m, s_k, i_k, s_p, i_p)[0]
+        radix = None
+        if k == 512 and words is None and label != "crafted":
+            s_r, i_r = ft._exact_i8_select(qc, c, fac.reshape(1), d=d,
+                                           k_eff=k, op=op, route="radix")
+            radix = bool(torch.equal(s_r, s_k) and torch.equal(i_r, i_k))
+            ok = ok and radix
+        worst[store] = max(worst.get(store, 0.0), max_err)
+        rec = {"store": store, "case": label, "Q": qc.shape[0],
+               "N": c.shape[0], "d": d, "k": k, "allowed": n_allowed,
+               "masked": words is not None, "c_kernel": ran, "plan": plan,
+               "fallbacks": fell, "same_as_radix": radix,
+               "id_match": same.float().mean().item(), "max_abs_err": max_err,
+               "ok": ok}
+        record("quant_select_check", **rec)
+        if not ok:
+            failures.append(f"quantized select check {rec}")
+
+    t0 = time.perf_counter()
+    for si, store in enumerate(QUANT_STORES):
+        for n, allowed in SELECT_SHAPES:
+            _, qall, c, fac, _ = quant_case(torch, store, 2000, n, 64,
+                                            530 + si)
+            m, words = (row_mask(torch, n, allowed, 320, 540 + si)
+                        if allowed is not None else (None, None))
+            for nq in ((1, 65, 2000) if allowed is None else (65,)):
+                for k in SELECT_KS:
+                    one(store, qall[:nq].contiguous(), c, fac, 64, k, words,
+                        m, f"N={n} allowed={allowed}")
+            del qall, c
+        for store_w, d in SELECT_WIDTHS:
+            if store_w != store:
+                continue
+            _, qc, c, fac, _ = quant_case(torch, store, 65, 20011, d,
+                                          550 + d)
+            for k in (320, 2048):
+                one(store, qc, c, fac, d, k, None, None, f"d={d}")
+        for kind in ("overshoot", "ties"):
+            for k in (257, 512, 2048):
+                qc, c, fac, d, want = crafted_select_case(
+                    torch, kind, store, 128, SELECT_CRAFTED_ROWS, k)
+                model = ft.quantized_select_reference(
+                    qc, c, fac, d=d, k=k, op=quant_op(ft, store))[2]
+                if not torch.equal(model, want):
+                    failures.append(f"the select's model on the {kind} "
+                                    f"{store} corpus at k={k} flags "
+                                    f"{int(model.sum())} queries, not "
+                                    f"{int(want.sum())}")
+                one(store, qc, c, fac, d, k, None, None, "crafted",
+                    want_fell=int(want.sum()))
+        torch.cuda.empty_cache()
+    record("quant_select_phase", seconds=time.perf_counter() - t0)
+    return {f"{store}_exact_select": v for store, v in worst.items()}
+
+
 def write_dae(torch, path: str) -> None:
     from latentrag_torch.models import DenoisingAutoencoder
 
@@ -2394,7 +2649,8 @@ def check_msmarco_main(torch, failures: list) -> dict:
         if not ok:
             failures.append(f"the msmarco int8 main path: {rec}")
         runs = {"top_k_10": launches,
-                "top_k_150": check_msmarco_top_k_150(torch, failures, wd)}
+                "top_k_150": check_msmarco_top_k(torch, failures, wd, 150),
+                "top_k_300": check_msmarco_top_k(torch, failures, wd, 300)}
         # the server, as users start it, over the first run's store
         line = json.dumps({"query": "what is a telescope", "k": 10})
         t0 = time.perf_counter()
@@ -2423,25 +2679,27 @@ def check_msmarco_main(torch, failures: list) -> dict:
     return runs
 
 
-def check_msmarco_top_k_150(torch, failures: list, wd: str) -> dict:
-    """Phase 3i at ``retrieval.top_k=150`` (stores of their own in ``wd``):
-    the int8 exact kernel on a user's entry point, held bit for bit to the
-    same run on the plain versions. Returns the run's launches."""
+def check_msmarco_top_k(torch, failures: list, wd: str, top_k: int) -> dict:
+    """Phase 3i at ``retrieval.top_k=150`` and 300 (stores of their own in
+    ``wd``): the int8 exact kernels on a user's entry point
+    (``exact_i8_wgmma_kernel`` at 150, ``exact_i8_select_kernel`` at 300),
+    held bit for bit to the same run on the plain versions. Returns the
+    run's launches."""
     import numpy as np
 
     from latentrag_torch.ops import fused_topk as ft
 
-    extra = ("retrieval.top_k=150",)
+    extra = (f"retrieval.top_k={top_k}",)
     ft.reset_launches()
-    res = run_msmarco(torch, wd, "index150", extra)
+    res = run_msmarco(torch, wd, f"index{top_k}", extra)
     launches, ran = dict(ft.launches), ft.last_kernel
     with plain_quantized(ft):
         ft.reset_launches()
-        plain = run_msmarco(torch, wd, "index150_plain", extra)
+        plain = run_msmarco(torch, wd, f"index{top_k}_plain", extra)
         plain_launches = dict(ft.launches)
     ids, pids = (np.asarray(r["retrieved_doc_ids"]) for r in (res, plain))
     ds, pds = (np.asarray(r["doc_scores"], np.float32) for r in (res, plain))
-    rec = {"config": MSMARCO_CONFIG, "top_k": 150,
+    rec = {"config": MSMARCO_CONFIG, "top_k": top_k,
            "n_queries": res["n_queries"], "n_corpus": res["n_corpus"],
            "launches": launches, "c_kernel": ran,
            "plain_launches": plain_launches,
@@ -2457,16 +2715,19 @@ def check_msmarco_top_k_150(torch, failures: list, wd: str) -> dict:
     rec["ok"] = ok = (launches["int8_exact"] >= 1
                       and launches["int8_fold"] >= 1
                       and ran.split("+")[0] == quant_kernel_name(
-                          "int8", "exact", 150)
+                          "int8", "exact", top_k)
                       and not any(plain_launches.values())
                       and rec["doc_ids_bit_identical"]
                       and rec["doc_scores_bit_identical"]
                       and rec["metrics"] == rec["plain_metrics"]
-                      and ds.shape == (res["n_queries"], 150)
+                      and ds.shape == (res["n_queries"], top_k)
                       and bool(np.isfinite(ds).all()))
-    record("msmarco_main_path_top_k_150", **rec)
+    if top_k > ft.EXACT_I8_MAX_K:
+        rec["select"] = ft.last_select
+    record(f"msmarco_main_path_top_k_{top_k}", **rec)
     if not ok:
-        failures.append(f"the msmarco int8 main path at top_k=150: {rec}")
+        failures.append(f"the msmarco int8 main path at top_k={top_k}: "
+                        f"{rec}")
     return launches
 
 
@@ -2899,6 +3160,105 @@ def time_int4_exact_yardstick(torch, qc, c, rows, fac, d: int, k: int,
                                 and torch.equal(s_y, s_n))}
 
 
+# phase 4d's calls of the int stores' exact search past k = 256
+# (exact_i8_select_kernel): (shape, Q, N, k, allowed)
+SELECT_TIMED = (
+    [("capacity", 1024, CAPACITY_ROWS, k, None) for k in (320, 512, 1024,
+                                                           2048)]
+    + [("capacity", 1024, CAPACITY_ROWS, 512, 0.1),
+       ("msmarco_main", 2000, 1997, 320, None)])
+
+
+def time_old_select(torch, store, qc, c, fac, d: int, k: int,
+                    mask=None) -> dict:
+    """The instance the int stores' exact search past 256 replaced,
+    ``exact_mma_kernel<KP, OP_I8 / OP_I4>`` at KP 512-2048 (its row-mask
+    instance with ``mask``; built at the start from
+    ``scripts/torch_int_exact_select_split.py``), on the same call, its
+    scratch copy launched first: ms by CUDA events, device ms, its plan,
+    and whether it returns the new kernel's answer."""
+    from latentrag_torch.ops import fused_topk as ft
+
+    split = split_script("torch_int_exact_select_split")
+    call, plan = split.exact_call(torch, "old", split.load("old", store), qc,
+                                  c, fac, d, k, store, mask)
+    s_o, i_o = call()
+    s_n, i_n = quant_kernel(ft, store, qc, c, fac, d, k=k, mode="exact",
+                            mask=mask)
+    torch.cuda.synchronize()
+    return {"kernel": f"exact_mma_kernel<KP, {split.STORES[store]}>"
+                      + ("<mask>" if mask is not None else ""), **plan,
+            "ms": time_ms(torch, call, reps=5, warmup=1),
+            "device_ms": device_split(torch, call, reps=3),
+            "same_answer": bool(torch.equal(i_o, i_n)
+                                and torch.equal(s_o, s_n))}
+
+
+def time_quantized_select(torch) -> dict:
+    """Phase 4d past k = 256: ``exact_i8_select_kernel`` (int8, and int4
+    through the unpacking producer) at Q=1024, N=8.8M, d=64, k=320, 512,
+    1024 and 2048 (masked, 10 % allowed, at 512), and at the reranked int4
+    main's shape (Q=2000, N=1997, k=320: its "all" route); each beside the
+    instance it replaced (``time_old_select``, the same call), its plain
+    version (one call), the library yardstick ``int_mm_topk`` (int4: over
+    the codes unpacked), the bound (``quant_bound``), a profiler device
+    split, the plan (``ft.last_select``), the queries that fell back and
+    the buffer pass's blocks an SM. Keys: (shape, store, k, masked)."""
+    from latentrag_torch.ops import fused_topk as ft
+    from latentrag_torch.ops import quantization as tq
+
+    out = {}
+    t_phase = time.perf_counter()
+    d = 64
+    for si, store in enumerate(QUANT_STORES):
+        for shape in ("capacity", "msmarco_main"):
+            cases = [c for c in SELECT_TIMED if c[0] == shape]
+            nq, n = cases[0][1], cases[0][2]
+            big = n > QUANT_BLOCK
+            _, qc, c, fac, _ = quant_case(torch, store, nq, n, d, 620 + si)
+            rows = c if store == "int8" else tq.sq4_unpack(c, d).contiguous()
+            m, words = row_mask(torch, n, 0.1, 10, 630 + si)
+            for _, _, _, k, allowed in cases:
+                mk = words if allowed else None
+                call = lambda: quant_kernel(  # noqa: E731
+                    ft, store, qc, c, fac, d, k=k, mode="exact", mask=mk)
+                kern = time_ms(torch, call)
+                ran, plan = ft.last_kernel, dict(ft.last_select)
+                fell = ft.select_fallbacks()
+                want = quant_kernel_name(store, "exact", k) + (
+                    "<mask>" if allowed else "")
+                if ran.split("+")[0] != want:
+                    fail(f"4d {shape} {store} k={k} ran {ran}, not {want}")
+                plain = time_ms(torch, lambda: quant_plain(
+                    ft, store, qc, c, fac, d, k=k, mode="exact", mask=mk),
+                    reps=1 if big else 10, warmup=0 if big else 1)
+                lib = time_ms(torch, lambda: int_mm_topk(
+                    torch, qc, rows, fac, k, m if allowed else None),
+                    reps=3 if big else 25, warmup=1)
+                b_ms, b_by = quant_bound(nq, n, d, k, store,
+                                         n / 8 if allowed else 0)
+                rec = {"shape": shape, "store": store, "case": f"exact_k{k}"
+                       + ("_masked" if allowed else ""), "mode": "exact",
+                       "Q": nq, "N": n, "d": d, "k": k,
+                       "masked": bool(allowed), "c_kernel": ran,
+                       "plan": plan, "fallbacks": fell,
+                       "ms": kern, "plain_ms": plain, "library_ms": lib,
+                       "library_k": k, "bound_ms": b_ms, "bound_by": b_by,
+                       "device_ms": device_split(torch, call),
+                       "device_events": dict(split_counts),
+                       "blocks_per_sm": blocks_per_sm(
+                           ft, "exact", qc.device.index, d, k,
+                           quant_op(ft, store), bool(allowed)),
+                       "replaced_instance": time_old_select(
+                           torch, store, qc, c, fac, d, k, mk)}
+                record("quant_select_time", **rec)
+                out[(shape, store, k, bool(allowed))] = rec
+            del qc, c, rows
+            torch.cuda.empty_cache()
+    record("quant_select_time_phase", seconds=time.perf_counter() - t_phase)
+    return out
+
+
 def time_quantized(torch) -> dict:
     """Phase 4d: the int8 and int4 kernels at the reference shape (Q=2000,
     N=315) and the capacity shape (Q=1024, N=8.8M), d=64: the fold at the
@@ -2939,8 +3299,6 @@ def time_quantized(torch) -> dict:
                      ("exact_masked", "exact", 10, 4096, True)]
             if store == "int8":
                 cases.append(("exact_masked_k160", "exact", 160, 4096, True))
-            if store == "int8" and label == "capacity":  # past 256: the old
-                cases.append(("exact_k512", "exact", 512, 4096, False))
             if label.startswith("msmarco"):  # the fold's plan, top_k=150
                 cases = [("fold", "fold", cand, block_n, False),
                          ("exact_k150", "exact", 150, 4096, False)]
@@ -7882,11 +8240,15 @@ def main() -> int:
     # four more, which build while phases 2 and 3 run
     cuda_build.load_libraries(ft.LIBRARIES + tivf.LIBRARIES)
     build_s = time.perf_counter() - t0
-    splits = [split_script(), split_script("torch_int8_exact_split"),
-              split_script("torch_int4_fold_split"),
-              split_script("torch_int4_exact_split")]
-    old_builds = [sp.start_build("old") for sp in splits]
-    atexit.register(stop_builds, old_builds)
+    # and the int stores' exact search past 256's, one a store, two more
+    select_split = split_script("torch_int_exact_select_split")
+    old_builds = [(sp, sp.start_build("old")) for sp in (
+        split_script(), split_script("torch_int8_exact_split"),
+        split_script("torch_int4_fold_split"),
+        split_script("torch_int4_exact_split"))] + [
+        (select_split, select_split.start_build("old", store))
+        for store in QUANT_STORES]
+    atexit.register(stop_builds, [started for _, started in old_builds])
     # ptxas serialises every wgmma of a kernel it cannot keep asynchronous
     # and says so (C7514): the wgmma kernels must never be built so
     serialised = [key for key, err in cuda_build.build_messages.items()
@@ -7906,6 +8268,7 @@ def main() -> int:
     worst.update(check_binary_kernel(torch, failures))
     worst.update(check_masked_kernels(torch, failures))
     worst.update(check_quantized_kernels(torch, failures))
+    worst.update(check_quantized_select(torch, failures))
     worst.update(check_ivf_scan(torch, failures))
     worst["fold_fp32_knn"] = check_knn_fold(torch, failures)  # phase 2f
     if failures:
@@ -7942,10 +8305,13 @@ def main() -> int:
     launches["binary_exact_masked"] = bin20["filtered"]["binary_exact"]
     if failures:
         fail("; ".join(failures))
-    # phase 3b4: the int4 store's main path past the fold's candidates
-    int4_main = check_int4_main_path(torch, failures)
-    if failures:
-        fail("; ".join(failures))
+    # phase 3b4: the int4 store's main path past the fold's candidates, to
+    # 256 (top_k 20) and past it (top_k 40)
+    int4_mains = {}
+    for top_k in INT4_MAIN_TOP_KS:
+        int4_mains[top_k] = check_int4_main_path(torch, failures, top_k)
+        if failures:
+            fail("; ".join(failures))
     check_binary_capacity(torch, failures)
     if failures:
         fail("; ".join(failures))
@@ -7963,6 +8329,7 @@ def main() -> int:
     msmarco = check_msmarco_main(torch, failures)
     launches["int8_fold"] = msmarco["top_k_10"]["int8_fold"]
     launches["int8_exact"] = msmarco["top_k_150"]["int8_exact"]
+    launches["int8_exact_select"] = msmarco["top_k_300"]["int8_exact"]
     if failures:
         fail("; ".join(failures))
     capacity_launches, int4_split = {}, None
@@ -7978,7 +8345,9 @@ def main() -> int:
             if key not in ("int8_fold", "int8_exact", "int4_exact"):
                 launches[key] = counts[f"{store}_{kernel}"]
     # the int4 exact search's main path: phase 3b4's int4 main at top_k=20
-    launches["int4_exact"] = int4_main["launches"]["int4_exact"]
+    # (past 256: at top_k=40, and the reranked int4 main after 3o)
+    launches["int4_exact"] = int4_mains[20]["launches"]["int4_exact"]
+    launches["int4_exact_select"] = int4_mains[40]["launches"]["int4_exact"]
     # the device IVF: the msmarco store with its documented IVF (phase
     # 3k, with phase 4e's timings on it), then the cascades' stage 1
     ivf = check_ivf_deployment(torch, failures, main_wd)
@@ -7988,7 +8357,7 @@ def main() -> int:
     if failures:
         fail("; ".join(failures))
     t0 = time.perf_counter()
-    for sp, started in zip(splits, old_builds):
+    for sp, started in old_builds:
         sp.finish_build(started)
     record("split_builds", wait_s=time.perf_counter() - t0)
     times = time_kernels(torch)
@@ -7996,6 +8365,7 @@ def main() -> int:
     times.update(time_binary(torch))
     masked_times = time_masked(torch)
     quant_times = time_quantized(torch)
+    select_times = time_quantized_select(torch)
     # phase 3h runs last: its server threads and its profiled load must not
     # touch phase 4's device splits
     serve_launches = check_serving(torch, failures, main_wd)
@@ -8017,6 +8387,10 @@ def main() -> int:
     # and serve; each drive's fold launches read with the counts at 0
     slice_launches = {"rerank_main": check_rerank_main(torch, failures,
                                                        main_wd)}
+    if failures:
+        fail("; ".join(failures))
+    # phase 3b4's reranked int4 main on 3o's cross-encoder: stage 1 at 320
+    int4_rerank_launches = check_int4_rerank_main(torch, failures, main_wd)
     if failures:
         fail("; ".join(failures))
     slice_launches.update(check_chunked_main(torch, failures, main_wd))
@@ -8274,7 +8648,38 @@ def main() -> int:
                         for (_, name), r in quant_times.items()
                         if name.startswith(key)]
                 if key == "int4_exact":  # the int4 main path at top_k=20
-                    kernels[-1]["main_path"] = int4_main
+                    kernels[-1]["main_path"] = int4_mains[20]
+    # the int stores' exact search past k = 256 (exact_i8_select_kernel;
+    # sq8_topk / sq4_topk past 256 rows), timed at 1024 x 8.8M, k=512;
+    # launches: the msmarco main at top_k=300 (int8), the int4 main at
+    # top_k=40 (int4; and the reranked int4 main's, 3b4)
+    for store, fn_line, tag in (("int8", 35, "sq8"), ("int4", 147, "sq4")):
+        t = select_times[("capacity", store, 512, False)]
+        kernels.append({
+            "name": f"{tag}_fused_topk_exact_select",
+            "route": "cuda",
+            "source": "latentrag_torch/csrc/exact_i8_select.cuh",
+            "replaces": f"latentrag_tpu/ops/quantization.py:{fn_line}",
+            "launches": launches[f"{store}_exact_select"],
+            "max_abs_err": worst[f"{store}_exact_select"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "shape": f"Q=1024 N={CAPACITY_ROWS} d=64 k=512 {store} codes, "
+                     "int8 query codes",
+            "timings": [{f: r[f] for f in (
+                "shape", "Q", "N", "k", "masked", "ms", "device_ms",
+                "plain_ms", "library_ms", "bound_ms", "bound_by", "plan",
+                "fallbacks", "blocks_per_sm")}
+                | {"replaced_ms": r["replaced_instance"]["ms"],
+                   "replaced_device_ms": r["replaced_instance"]["device_ms"],
+                   "replaced_same_answer":
+                       r["replaced_instance"]["same_answer"]}
+                for (_, st, _, _), r in select_times.items() if st == store],
+        })
+        if store == "int4":
+            kernels[-1]["rerank_main_launches"] = int4_rerank_launches
+            kernels[-1]["main_path"] = int4_mains[40]
     # the device IVF's scan (the JAX package scores the probed blocks in
     # XLA there: score_group), timed on the 3k store at Q=8, auto budget
     t = ivf["times"]["Q=8 auto"]

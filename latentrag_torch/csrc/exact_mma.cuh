@@ -3,13 +3,13 @@
 // (exact_mma_kernel<KP, OP_BF16>) and fp32 stores (<KP, OP_F32>), and for
 // the packed binary store (<KP, OP_BIN>: the exact sign-dot search
 // binary_topk, the JAX package's ops/binary.py:129, which the binary store
-// calls past the fold's 128 candidates), and for the int8 and int4 stores
-// (<KP, OP_I8>, <KP, OP_I4>: sq8_topk / sq4_topk, the JAX package's
-// ops/quantization.py:35 / :147, past the fold's 128 candidates; both only
-// past k = 256, where exact_i8_wgmma.cuh's lists no longer fit; the int8
-// scores of fold_mma.cuh, exact int32 dots times one fp32 factor, so the
-// lists hold the JAX package's scores bit for bit and rank their frequent
-// ties to the lower row as lax.top_k does). Included by fused_topk.cu after
+// calls past the fold's 128 candidates). The template still has the int8
+// and int4 bodies (<KP, OP_I8>, <KP, OP_I4>: fold_mma.cuh's exact int32
+// dots times one fp32 factor), which served those stores until
+// exact_i8_wgmma.cuh (k <= 256) and exact_i8_select.cuh (past 256) took
+// them; no library instantiates them, only the split scripts' scratch
+// copies (scripts/torch_int8_exact_split.py, torch_int4_exact_split.py,
+// torch_int_exact_select_split.py). Included by fused_topk.cu after
 // fold_mma.cuh, whose stage machinery it reuses unchanged: the 3-stage
 // swizzled cp.async ring of 128-byte rows (64 bf16 or 32 fp32 dims), the
 // binary word stages unpacked to +-1 bf16 (0x3F80 / 0xBF80), ldmatrix, and
@@ -504,13 +504,12 @@ static int em_kp(int k) {
     (kp == 128   ? F<128, O, LR_MASK>(__VA_ARGS__)                            \
      : kp == 256 ? F<256, O, LR_MASK>(__VA_ARGS__)                            \
                  : EM_DISPATCH_BIG(F, O, __VA_ARGS__))
-// int8 and int4 lists of 512 and more only: exact_i8_wgmma_kernel takes
-// both stores at k <= 256 (the callers refuse them here first)
+// bf16, fp32 and binary only: the int8 and int4 stores' exact search is
+// exact_i8_wgmma_kernel's and exact_i8_select_kernel's (the callers refuse
+// them here first)
 #define EM_DISPATCH(F, ...)                                                   \
     (op == OP_BIN   ? EM_DISPATCH_OP(F, OP_BIN, __VA_ARGS__)                  \
      : op == OP_F32 ? EM_DISPATCH_OP(F, OP_F32, __VA_ARGS__)                  \
-     : op == OP_I8  ? EM_DISPATCH_BIG(F, OP_I8, __VA_ARGS__)                  \
-     : op == OP_I4  ? EM_DISPATCH_BIG(F, OP_I4, __VA_ARGS__)                  \
                     : EM_DISPATCH_OP(F, OP_BF16, __VA_ARGS__))
 
 extern "C" {
@@ -524,35 +523,32 @@ size_t lr_exact_mma_smem(int d, int k, int op) {
 
 // Resident exact_mma_kernel blocks per SM at (d, k, op), of the library's
 // flavour (LR_MASK), on the current device (0: does not fit); a negative
-// cudaError_t on failure; -1 past k = 2048, and for int8 and int4 at k <=
-// 256 (exact_i8_wgmma_kernel's).
+// cudaError_t on failure; -1 past k = 2048, and for int8 and int4
+// (exact_i8_wgmma_kernel's and exact_i8_select_kernel's).
 int lr_exact_mma_occupancy(int d, int k, int op) {
-    if (k < 1 || k > 2048) return -1;
+    if (k < 1 || k > 2048 || op == OP_I8 || op == OP_I4) return -1;
     const int kp = em_kp(k);
-    if ((op == OP_I8 || op == OP_I4) && kp <= 256) return -1;
     const size_t smem = em_smem_bytes(d, kp, op);
     return EM_DISPATCH(em_occupancy, smem);
 }
 
 // The exact search over bf16 (op = OP_BF16: q, c bf16 [nq, d], [n, d]) or
-// fp32 (OP_F32: fp32, 3xTF32 products) stores, the exact sign-dot search
+// fp32 (OP_F32: fp32, 3xTF32 products) stores, or the exact sign-dot search
 // (OP_BIN: bf16 queries, c the packed sign words [n, ceil(d/32)]; euclid =
-// 0), or the int8 and int4 searches (OP_I8 / OP_I4: int8 query codes, c
-// int8 codes or packed nibbles, csq the one fp32 score factor; euclid = 0): exact_mma_kernel over (query tiles x slabs), then, with more than
+// 0): exact_mma_kernel over (query tiles x slabs), then, with more than
 // one slab, exact_merge_kernel. csq is the rows' norms^2 (euclid only).
 // mask (the masked library; null in the other) is the allowed rows' bits,
 // as lr_fold_mma's;
 // slots past the allowed rows come out as (LR_NEG_INF, -1). part is
 // [slabs, nq, k] int64 scratch (unused with one slab). Returns a
-// cudaError_t, -1 past k = 2048 and for int8 and int4 at k <= 256
-// (lr_exact_i8's and lr_exact_i4's).
+// cudaError_t, -1 past k = 2048 and for int8 and int4 (lr_exact_i8's,
+// lr_exact_i4's and lr_exact_i8_select's).
 int lr_exact_mma(const void* q, const void* c, const float* csq,
                  int nq, int n, int d, int k, int euclid,
                  int slab_rows, int vec, int op, const unsigned* mask,
                  long long* part, float* out_s, int* out_i, void* stream) {
-    if (k < 1 || k > 2048) return -1;
+    if (k < 1 || k > 2048 || op == OP_I8 || op == OP_I4) return -1;
     const int kp = em_kp(k);
-    if ((op == OP_I8 || op == OP_I4) && kp <= 256) return -1;
     const size_t smem = em_smem_bytes(d, kp, op);
     cudaStream_t st = (cudaStream_t)stream;
 #define EM_ARGS q, c, csq, mask, nq, n, d, k, euclid, slab_rows, vec, part, \

@@ -296,10 +296,12 @@ exact_select_kernel(const void* __restrict__ qp,
     }
 }
 
-// Need k, count 0 and empty histograms for every query, no fallback yet;
-// the prefix is 0, or with `thr` (the sample's scores [nq, rank]) the key
-// of the query's rank-th sampled score with no row bits.
-__global__ void exact_select_init(int nq, int k, const float* thr, int rank,
+// Need k (with `kmin`, a device int: min(k, *kmin)), count 0 and empty
+// histograms for every query, no fallback yet; the prefix is 0, or with
+// `thr` (the sample's scores [nq, rank]) the key of the query's rank-th
+// sampled score with no row bits.
+__global__ void exact_select_init(int nq, int k, const int* kmin,
+                                  const float* thr, int rank,
                                   unsigned long long* pre, int* need,
                                   int* cnt, int* hist, int* nfell) {
     const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -309,7 +311,7 @@ __global__ void exact_select_init(int nq, int k, const float* thr, int rank,
         pre[e] = thr ? (unsigned long long)es_u32(thr[e * rank + rank - 1])
                            << 32
                      : 0ull;
-        need[e] = k;
+        need[e] = kmin ? min(k, *kmin) : k;
         cnt[e] = 0;
     }
     if (e == 0) *nfell = 0;
@@ -317,12 +319,14 @@ __global__ void exact_select_init(int nq, int k, const float* thr, int rank,
 
 // After the buffer pass: a query with k <= count <= cap is done (need 0;
 // its buffer holds its top k); any other falls back: prefix 0, need k,
-// count 0, flagged in fell and counted in nfell.
-__global__ void exact_select_check(int nq, int k, int cap,
+// count 0, flagged in fell and counted in nfell. With `kmin` (a device
+// int) k is min(k, *kmin).
+__global__ void exact_select_check(int nq, int k, const int* kmin, int cap,
                                    unsigned long long* pre, int* need,
                                    int* cnt, int* fell, int* nfell) {
     const int q = blockIdx.x * blockDim.x + threadIdx.x;
     if (q >= nq) return;
+    if (kmin) k = min(k, *kmin);
     const int c = cnt[q];
     const bool ok = c >= k && c <= cap;
     fell[q] = !ok;
@@ -361,9 +365,11 @@ __global__ void exact_select_scan(int nq, int shift, unsigned long long fill,
 }
 
 // One block per query: its min(cnt, width) keys of a buffer of width
-// entries, padded with empty keys to w = es_width of their count, sorted
-// descending by a bitonic network, in shared memory when width <=
-// ES_SORT_SMEM, else in place in `keys`; then the best k scores and ids.
+// entries, padded with empty keys to w = es_width of their count (of k
+// where fewer: a filtered search of the int stores that allowed fewer than
+// k rows), sorted descending by a bitonic network, in shared memory when
+// width <= ES_SORT_SMEM, else in place in `keys`; then the best k scores
+// and ids, an empty slot as (LR_NEG_INF, -1).
 __global__ void __launch_bounds__(FM_THREADS)
 exact_select_sort(i64* __restrict__ keys, int width,
                   const int* __restrict__ cnt, int k,
@@ -372,7 +378,7 @@ exact_select_sort(i64* __restrict__ keys, int width,
     const int q = blockIdx.x, tid = threadIdx.x;
     i64* row = keys + (size_t)q * width;
     i64* X = width <= ES_SORT_SMEM ? (i64*)smem : row;
-    const int nv = min(cnt[q], width), w = es_width(nv);
+    const int nv = min(cnt[q], width), w = es_width(max(nv, k));
     for (int i = tid; i < w; i += FM_THREADS)
         X[i] = i < nv ? row[i] : EMPTY64;
     __syncthreads();
@@ -393,8 +399,7 @@ exact_select_sort(i64* __restrict__ keys, int width,
     }
     for (int i = tid; i < k; i += FM_THREADS) {
         const size_t o = (size_t)q * k + i;
-        out_s[o] = em_score(X[i]);
-        out_i[o] = em_row(X[i]);
+        em_out(X[i], out_s + o, out_i + o);
     }
 }
 
@@ -465,16 +470,16 @@ static int es_launch(const void* q, const void* c, const float* csq, int nq,
 
     exact_select_init<<<(unsigned)(((size_t)nq * ES_BINS + FM_THREADS - 1) /
                                    FM_THREADS),
-                        FM_THREADS, 0, st>>>(nq, k, thr, rank, pre, need,
-                                             cnt, hist, nfell);
+                        FM_THREADS, 0, st>>>(nq, k, nullptr, thr, rank, pre,
+                                             need, cnt, hist, nfell);
     if ((e = (int)cudaGetLastError())) return e;
     if (cap) {  // the buffer pass and its check
         exact_select_kernel<OP, true><<<grid, FM_THREADS, smem, st>>>(
             q, c, csq, nq, n, d, euclid, slab_rows, vec, 0, 0ull, pre, need,
             hist, cnt, keys, width, nullptr);
         if ((e = (int)cudaGetLastError())) return e;
-        exact_select_check<<<nqb, FM_THREADS, 0, st>>>(nq, k, cap, pre, need,
-                                                       cnt, fell, nfell);
+        exact_select_check<<<nqb, FM_THREADS, 0, st>>>(
+            nq, k, nullptr, cap, pre, need, cnt, fell, nfell);
         if ((e = (int)cudaGetLastError())) return e;
     }
     // row digits: the bits of n - 1, in whole bytes
@@ -504,6 +509,9 @@ static int es_launch(const void* q, const void* c, const float* csq, int nq,
     return (int)cudaGetLastError();
 }
 
+// The float stores' C interface, in the library without the row mask only
+// (the rest of this header serves exact_i8_select.cuh in both).
+#if !LR_MASKED
 extern "C" {
 
 size_t lr_exact_select_smem(int d, int op) { return es_smem_bytes(d, op); }
@@ -555,3 +563,4 @@ int lr_exact_select(const void* q, const void* c, const float* csq, int nq,
 }
 
 }  // extern "C"
+#endif  // !LR_MASKED

@@ -26,14 +26,17 @@
 //                            int4 fold's producer warpgroup) with a skip
 //                            test on the raw dot and lists owned by a
 //                            warp; exact_merge_kernel merges its slabs
+//   exact_i8_select_kernel<HIST, MASK, WIDE> (exact_i8_select.cuh) the
+//                            int8 and int4 stores' exact search past k =
+//                            256, on the same machinery with no lists: a
+//                            sampled threshold, one buffer pass, a radix
+//                            fallback (HIST) and exact_select.cuh's sort
 //   exact_mma_kernel<KP, OP, MASK> (exact_mma.cuh) replaces _exact_kernel
 //                            (pallas_topk.py:182-221) for bf16 and fp32
 //                            stores, and as OP_BIN the exact sign-dot search
 //                            binary_topk (the JAX package's ops/binary.py:129)
 //                            where the binary store's stage 1 asks for more
-//                            candidates than the fold's 128 lanes hold, and
-//                            as OP_I8 / OP_I4 sq8_topk / sq4_topk past them
-//                            (past k = 256 only);
+//                            candidates than the fold's 128 lanes hold;
 //                            exact_merge_kernel<KP> merges its slabs. The TPU
 //                            grid ran the corpus tiles in order and carried
 //                            the running top-k in VMEM; here slabs run in
@@ -129,8 +132,8 @@
 #define DCH 64         // bf16 feature dims per shared-memory stage (32 fp32)
 // The build compiles this file twice, into two libraries, by two nvcc
 // processes at once: LR_MASKED=0 (the default) instantiates the kernels
-// without the row mask and the exact select, LR_MASKED=1 the row-mask
-// instances of the fold and exact kernels (a filtered search). The C
+// without the row mask and the float stores' exact select, LR_MASKED=1 the
+// row-mask instances of the fold and exact kernels (a filtered search). The C
 // functions are the same in both; asked for the other flavour, they
 // return cudaErrorInvalidValue.
 #ifndef LR_MASKED
@@ -160,6 +163,5 @@ const char* lr_error_string(int code) {
 #include "fold_i8_wgmma.cuh"
 #include "exact_mma.cuh"
 #include "exact_i8_wgmma.cuh"
-#if !LR_MASKED
 #include "exact_select.cuh"
-#endif
+#include "exact_i8_select.cuh"

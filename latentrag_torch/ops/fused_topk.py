@@ -38,7 +38,9 @@ The port of the JAX package's ``ops/pallas_topk.py``:
   rescored exactly in int32 and ranked with ties to the lower row (as
   ``lax.top_k`` ranks them), the exact kernel above 128 (up to
   ``EXACT_I8_MAX_K``: ``exact_i8_wgmma_kernel``, the int4 store's through
-  ``lr_exact_i4``) and a blocked plain search past ``EXACT_MAX_K``.
+  ``lr_exact_i4``; past it to ``EXACT_MAX_K``: ``exact_i8_select_kernel``,
+  a sampled threshold, one buffer pass and a sort, ``_exact_i8_select``)
+  and a blocked plain search past ``EXACT_MAX_K``.
 * Past ``EXACT_MAX_K`` (2048) the two approximate routes take a blocked
   search on any device: the corpus scored in blocks by ``torch.matmul``
   and each block's top k merged with the running list
@@ -74,19 +76,20 @@ fold included.
 Every store runs tensor-core kernels that write the scores and ids
 themselves: the folds in ``csrc/fold_mma.cuh``, the exact searches in
 ``csrc/exact_mma.cuh`` (batched list upkeep in both), each instantiated
-for bf16, packed binary, fp32, int8 and packed int4 operands (the last two
-on ``mma.sync`` s8 with int32 sums), except the int8 and int4 folds, which
-are ``csrc/fold_i8_wgmma.cuh`` (a TMA producer warp, ``wgmma`` s8
-consumers, the exact int-to-float conversion; for the int4 store the
-producer warpgroup sign-extends the nibbles into the s8 stages), the int8
-and int4 exact search up to k = 256, ``csrc/exact_i8_wgmma.cuh`` (the same
-machinery, ``csrc/wgmma_i8.cuh``, with a skip test on the raw int32 dot
-and lists kept by each warp), and the float stores' exact search past
-2048 in ``csrc/exact_select.cuh``. fp32 stores multiply in
-3xTF32 (each operand split into rounded tf32 hi and lo parts, three
-products a pair), within ~3 x 2^-22 of each exact product, the size of
-fp32 sum-order differences. The kernel sources say what bounds them on
-the H100 and what their designs do about that.
+for bf16, packed binary and fp32 operands, and the int8 and int4 stores'
+kernels on Hopper's TMA and ``wgmma`` s8: the folds in
+``csrc/fold_i8_wgmma.cuh`` (a TMA producer warp, ``wgmma`` s8 consumers,
+the exact int-to-float conversion; for the int4 store the producer
+warpgroup sign-extends the nibbles into the s8 stages), the exact search
+up to k = 256 in ``csrc/exact_i8_wgmma.cuh`` (the same machinery,
+``csrc/wgmma_i8.cuh``, with a skip test on the raw int32 dot and lists
+kept by each warp) and past it in ``csrc/exact_i8_select.cuh`` (the same
+machinery with no lists: a sampled threshold, one buffer pass, a sort);
+the float stores' exact search past 2048 is ``csrc/exact_select.cuh``.
+fp32 stores multiply in 3xTF32 (each operand split into rounded tf32 hi
+and lo parts, three products a pair), within ~3 x 2^-22 of each exact
+product, the size of fp32 sum-order differences. The kernel sources say
+what bounds them on the H100 and what their designs do about that.
 
 ``launches`` counts kernel launches per kernel (``fold``, ``exact``,
 ``binary_fold``, ``binary_exact``, ``int8_fold``, ``int8_exact``,
@@ -121,7 +124,13 @@ from .quantization import (
     sq4_unpack,
     sq8_queries,
 )
-from .topk import NEG_INF, as_bool_mask, order_keys
+from .topk import (
+    NEG_INF,
+    as_bool_mask,
+    decode_keys,
+    order_keys,
+    pack_row_mask,
+)
 
 _MIN_I32 = -(2**31) + 1
 _IDX_BITS = 13  # tile-local column bits => block_n <= 8192
@@ -130,7 +139,7 @@ _LANES = 128
 FOLD_MAX_K = _LANES
 EXACT_MAX_K = 2048  # the exact kernels' lists; the routes block past it
 # the int8 and int4 exact search's lists on the SM (exact_i8_wgmma_kernel);
-# past it the stores' exact search is exact_mma_kernel<KP, OP_I8 / OP_I4>
+# past it the stores' exact search is exact_i8_select_kernel's
 EXACT_I8_MAX_K = 256
 FOLD_OVERSAMPLE = 4  # candidates per wanted row on the approximate route
 
@@ -156,13 +165,19 @@ _EM_MIN_SLAB_SUBTILES = 8
 _ES_SORT_SMEM = 16384
 _ES_SAMPLE_RANK = 256
 _ES_BUFFER_BYTES = 1 << 30
+# the int stores' exact search past EXACT_I8_MAX_K (exact_i8_select.cuh):
+# buffers of 8192 keys a query at every k up to EXACT_MAX_K, so that the
+# sample stays 1/15-1/19 of the rows (quantized_select_plan)
+_EI_CAPACITY = 8192
+_EMPTY64 = -(2**63)  # an empty key (EMPTY64)
 
 launches = {"fold": 0, "exact": 0, "binary_fold": 0, "binary_exact": 0,
             "int8_fold": 0, "int8_exact": 0, "int4_fold": 0, "int4_exact": 0,
             "blocked": 0, "binary_blocked": 0, "int8_blocked": 0,
             "int4_blocked": 0, "ivf_scan": 0, "masked": 0}
 last_kernel: str | None = None
-# the latest exact select's plan: route, sample stride and rank, capacity
+# the latest exact select's plan (float past EXACT_MAX_K, int8 / int4 past
+# EXACT_I8_MAX_K): route, sample stride and rank, capacity
 last_select: dict | None = None
 _select_fell: torch.Tensor | None = None  # its device count of fallbacks
 
@@ -406,9 +421,18 @@ def _declare(lib, select: bool) -> None:
     lib.lr_exact_mma_occupancy.argtypes = [i, i, i]
     lib.lr_exact_mma.restype = i
     lib.lr_exact_mma.argtypes = [p, p, p] + [i] * 8 + [p] * 5
+    lib.lr_exact_i8_select_smem.restype = ctypes.c_size_t
+    lib.lr_exact_i8_select_smem.argtypes = [i, i]
+    lib.lr_exact_i8_select_occupancy.restype = i
+    lib.lr_exact_i8_select_occupancy.argtypes = [i, i, i]
+    lib.lr_exact_i8_select_scratch.restype = ctypes.c_size_t
+    lib.lr_exact_i8_select_scratch.argtypes = [i, i, i]
+    lib.lr_exact_i8_select.restype = i
+    lib.lr_exact_i8_select.argtypes = [p, p, p] + [i] * 4 + [p, i, i] \
+        + [p, i, p, i] + [p] * 4
     lib.lr_error_string.restype = ctypes.c_char_p
     lib.lr_error_string.argtypes = [i]
-    if not select:  # the masked library has no exact select
+    if not select:  # the masked library has no float exact select
         return
     lib.lr_exact_select_smem.restype = ctypes.c_size_t
     lib.lr_exact_select_smem.argtypes = [i, i]
@@ -451,11 +475,14 @@ def _vec(corpus, d: int, op: int) -> bool:
 def _slots(index: int, kernel: str, d: int, k: int, op: int,
            masked: bool = False) -> int:
     """Resident blocks of ``kernel`` (``fold_mma``, ``fold_i8`` and
-    ``exact_i8`` (int8 and int4), ``exact_mma`` or ``exact_select``, whose
-    shared memory does not depend on k) for operand kind ``op`` the card
-    holds at (d, k), the row-mask instance if ``masked``."""
+    ``exact_i8`` (int8 and int4), ``exact_mma``, ``exact_select`` or
+    ``exact_i8_select`` (its buffer pass), the last two with shared memory
+    that does not depend on k) for operand kind ``op`` the card holds at
+    (d, k), the row-mask instance if ``masked``."""
     lib = _library(masked)
-    args = (d, op) if kernel == "exact_select" else (d, k, op)
+    args, smem_args = {"exact_select": ((d, op), (d, op)),
+                       "exact_i8_select": ((d, op, 0), (d, 0))}.get(
+        kernel, ((d, k, op), (d, k, op)))
     with torch.cuda.device(index):
         per_sm = getattr(lib, f"lr_{kernel}_occupancy")(*args)
     if per_sm < 0:
@@ -463,7 +490,7 @@ def _slots(index: int, kernel: str, d: int, k: int, op: int,
     if per_sm == 0:
         raise ValueError(
             f"d={d}, k={k} needs more shared memory than one block has "
-            f"({getattr(lib, f'lr_{kernel}_smem')(*args[:3])} bytes)"
+            f"({getattr(lib, f'lr_{kernel}_smem')(*smem_args)} bytes)"
         )
     return per_sm * _sm_count(index)
 
@@ -621,9 +648,8 @@ def _exact_slab_rows(n: int, q_tiles: int, slots: int) -> int:
 
 
 def _exact_mma(queries, corpus, csq, *, d, k_eff, euclid, op, mask=None):
-    """The exact search over bf16 or fp32 stores, the exact sign-dot
-    search over packed sign words, or the int8 / int4 search (``op``; the
-    int kinds take their fp32 score factor as ``csq``), on the tensor cores
+    """The exact search over bf16 or fp32 stores, or the exact sign-dot
+    search over packed sign words (``op``), on the tensor cores
     (``csrc/exact_mma.cuh``), with the row mask when ``mask`` is given,
     k <= 2048, the corpus in slabs (``_exact_slab_rows``); the kernels
     write the fp32 scores and int32 ids."""
@@ -671,17 +697,15 @@ def _blocked_topk(queries, corpus, k_eff, metric, mask=None):
     return _sentinel(s, i.to(torch.int32))
 
 
-def _select_plan(nq: int, n: int, k: int) -> tuple[str, int, int, int]:
-    """(route, sample stride s, sample rank m, capacity C) of the exact
-    search past ``EXACT_MAX_K`` at Q=nq, N=n, k, from the shapes alone
-    (``csrc/exact_select.cuh`` states the arithmetic). C = 2 es_width(k)
-    keys a query. ``"radix"`` (s = m = C = 0) where C passes the 16384
-    keys a sort block holds (k > 8192) or Q C 8 bytes pass 1 GiB;
-    ``"all"`` (s = m = 0) where N <= C: the buffer takes every row;
-    else ``"sampled"``: the threshold is the m-th best score of every s-th
-    row, with T = (9k + 7C) / 16 the count aimed at, s = ceil(T / 256),
-    m = ceil(T / s)."""
-    cap = 2 * (1 << (k - 1).bit_length())
+def _buffer_plan(nq: int, n: int, k: int,
+                 cap: int) -> tuple[str, int, int, int]:
+    """(route, sample stride s, sample rank m, capacity C) of an exact
+    select with buffers of ``cap`` keys a query at Q=nq over n rows:
+    ``"radix"`` (s = m = C = 0) where C passes the 16384 keys a sort block
+    holds or Q C 8 bytes pass 1 GiB; ``"all"`` (s = m = 0) where N <= C:
+    the buffer takes every row; else ``"sampled"``: the threshold is the
+    m-th best score of every s-th row, with T = (9k + 7C) / 16 the count
+    aimed at, s = ceil(T / 256), m = ceil(T / s)."""
     if cap > _ES_SORT_SMEM or nq * cap * 8 > _ES_BUFFER_BYTES:
         return "radix", 0, 0, 0
     if n <= cap:
@@ -691,10 +715,20 @@ def _select_plan(nq: int, n: int, k: int) -> tuple[str, int, int, int]:
     return "sampled", stride, -(-target // stride), cap
 
 
+def _select_plan(nq: int, n: int, k: int) -> tuple[str, int, int, int]:
+    """The plan of the float stores' exact search past ``EXACT_MAX_K``
+    (``csrc/exact_select.cuh`` states the arithmetic): ``_buffer_plan``
+    with C = 2 es_width(k) keys a query, so k > 8192 takes the radix
+    route."""
+    return _buffer_plan(nq, n, k, 2 * (1 << (k - 1).bit_length()))
+
+
 def select_fallbacks() -> int | None:
-    """Queries of the latest exact search past ``EXACT_MAX_K`` on the card
-    that fell back from its buffer to the radix passes (None on the radix
-    route). Reads a device counter, so it waits for that search."""
+    """Queries of the latest exact select on the card (a float store's
+    search past ``EXACT_MAX_K``, an int8 / int4 store's past
+    ``EXACT_I8_MAX_K``) that fell back from its buffer to the radix passes
+    (None on the radix route). Reads a device counter, so it waits for that
+    search."""
     if _select_fell is None:
         return None
     return int(_select_fell.item())
@@ -1183,18 +1217,165 @@ def quantized_fused_topk_raw_reference(
                        block_n, dev, as_bool_mask(mask, n))
 
 
+def quantized_select_plan(nq: int, n: int,
+                          k: int) -> tuple[str, int, int, int]:
+    """The plan of the int8 / int4 exact search past ``EXACT_I8_MAX_K``
+    (``exact_i8_select_kernel``; ``csrc/exact_i8_select.cuh`` states the
+    arithmetic) at Q=nq over the corpus's n rows (a filter does not change
+    it: its allowed rows are counted on the card): ``_buffer_plan`` with C
+    = 8192 keys a query at every k to ``EXACT_MAX_K``, so that the sample
+    is 1/15-1/19 of the rows (s = 15-19 for k = 257-2048); the radix route
+    only past 16384 queries."""
+    return _buffer_plan(nq, n, k, _EI_CAPACITY)
+
+
+def quantized_select_reference(
+    q_codes: torch.Tensor, corpus: torch.Tensor, factor: torch.Tensor, *,
+    d: int, k: int, op: int, mask: torch.Tensor | None = None,
+    route: str = "auto", block_size: int = 1 << 20,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None, tuple]:
+    """The plain model of ``exact_i8_select_kernel``'s plan, step by step,
+    on any device: (scores [Q, k] f32, ids [Q, k] i32, the queries that
+    fall back (bool [Q]; None on the radix route), the plan).
+    ``quantized_select_plan`` picks the route from the shapes; on
+    ``"sampled"`` each query's threshold is the m-th best score of the
+    allowed rows among every s-th row (NEG_INF where fewer than m are
+    allowed), a key with no row bits (every row tying it is taken); the
+    buffer counts the allowed keys at or above it (every allowed key on
+    ``"all"``); a
+    query whose count is not in [min(k, allowed rows), C] falls back to the
+    exact top k (the radix select's), any other takes the best k of its
+    buffer, padded with (NEG_INF, -1). Equal to the plain exact search
+    (``quantized_fused_topk_raw_reference``) bit for bit, whichever route
+    a query takes."""
+    k_eff = _validate_quantized(q_codes, corpus, factor, d, k, op,
+                                max_k=None)
+    n = corpus.shape[0]
+    nq = q_codes.shape[0]
+    _validate_mask(mask, n, corpus.device)
+    dev = q_codes.device
+    allowed = as_bool_mask(mask, n)
+    n_allowed = n if allowed is None else int(allowed.sum())
+    plan = (quantized_select_plan(nq, n, k_eff) if route == "auto"
+            else ("radix", 0, 0, 0))
+    name, stride, rank, cap = plan
+    rows_of = _code_rows(corpus, d, op)
+    pre = torch.full((nq,), _EMPTY64, dtype=torch.int64, device=dev)
+    if name == "sampled":
+        sample = corpus[::stride]
+        thr = quantized_topk(
+            q_codes, sample.shape[0], _code_rows(sample, d, op), factor,
+            rank, block_size=block_size,
+            mask=None if allowed is None else allowed[::stride])[0]
+        pre = _monotone_i32(thr[:, rank - 1]).long() << 32
+    count = torch.zeros(nq, dtype=torch.int64, device=dev)
+    best = {"buffer": None, "exact": None}
+    for base in range(0, n, block_size):
+        end = min(base + block_size, n)
+        sc = quantized_scores(q_codes, rows_of(base, end), factor)
+        keys = order_keys(sc, torch.arange(base, end, device=dev)[None, :])
+        live = ~torch.isnan(sc)
+        if allowed is not None:
+            live = live & allowed[None, base:end]
+        buffered = live & (keys >= pre[:, None])
+        count += buffered.sum(dim=1)
+        for name_, keep in (("buffer", buffered), ("exact", live)):
+            top = torch.topk(torch.where(keep, keys, _EMPTY64),
+                             min(k_eff, end - base), dim=1)[0]
+            if best[name_] is not None:
+                top = torch.cat([best[name_], top], dim=1)
+                top = torch.topk(top, min(k_eff, top.shape[1]), dim=1)[0]
+            best[name_] = top
+    fell = None
+    out = best["exact"]
+    if name != "radix":
+        fell = (count < min(k_eff, n_allowed)) | (count > cap)
+        out = torch.where(fell[:, None], best["exact"], best["buffer"])
+    out = torch.nn.functional.pad(out, (0, k_eff - out.shape[1]),
+                                  value=_EMPTY64)
+    empty = out == _EMPTY64
+    s, i = decode_keys(torch.where(empty, 0, out))
+    return (torch.where(empty, NEG_INF, s),
+            torch.where(empty, -1, i).to(torch.int32), fell, plan)
+
+
+def _exact_i8_select(q_codes, corpus, factor, *, d, k_eff, op, mask=None,
+                     route="auto"):
+    """The int8 and int4 stores' exact search past ``EXACT_I8_MAX_K`` on
+    Hopper (``csrc/exact_i8_select.cuh``), with the row mask when ``mask``
+    is given: ``quantized_select_plan`` picks the route from the shapes;
+    on ``"sampled"`` ``_exact_i8`` takes the m best scores of a contiguous
+    copy of every s-th row (with a filter, of its allowed rows among them:
+    the threshold is NEG_INF where fewer than m are), and the m-th places
+    each query's threshold; one buffer pass on the TMA + wgmma machinery
+    (64 queries a block, the corpus in ``exact_i8_slab_plan``'s slabs)
+    keeps the keys at or above it in a buffer of C keys and counts them; a
+    query whose count is not in [min(k, allowed rows), C] falls back to the
+    radix select of its k-th key on the card (the allowed rows are counted
+    there too: the host never waits); a sort writes the best k. ``"all"``
+    keeps every allowed row; ``"radix"`` runs the radix select
+    for every query. The private ``route="radix"`` forces it, so that
+    checks can hold the routes to each other bit for bit.
+    ``last_kernel`` names the int4 route ``exact_i8_select_kernel<i4>``;
+    ``last_select`` and ``select_fallbacks()`` read as the float select's."""
+    _require_contiguous(q_codes, corpus)
+    nq = q_codes.shape[0]
+    n = corpus.shape[0]
+    dev = q_codes.device
+    masked = mask is not None
+    lib = _library(masked)
+    allowed = as_bool_mask(mask, n)
+    kmin = (None if allowed is None else  # min(k, allowed rows), on the card
+            allowed.sum(dtype=torch.int32).clamp_(max=k_eff))
+    name, stride, rank, cap = (
+        quantized_select_plan(nq, n, k_eff) if route == "auto"
+        else ("radix", 0, 0, 0))
+    tag = "" if op == _OP_I8 else _OP_TAG[op]
+    thr = None
+    if name == "sampled":  # the sample's m best scores, best first
+        thr = _exact_i8(
+            q_codes, corpus[::stride].contiguous(), factor, d=d, k_eff=rank,
+            op=op, mask=None if allowed is None else pack_row_mask(
+                allowed[::stride].contiguous()))[0]
+    slab_rows = exact_i8_slab_plan(
+        nq, n, _slots(dev.index, "exact_i8_select", d, k_eff, op, masked))[0]
+    scratch = torch.empty(lib.lr_exact_i8_select_scratch(nq, k_eff, cap),
+                          dtype=torch.uint8, device=dev)
+    scores = torch.empty((nq, k_eff), dtype=torch.float32, device=dev)
+    ids = torch.empty((nq, k_eff), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.lr_exact_i8_select(
+            q_codes.data_ptr(), corpus.data_ptr(), factor.data_ptr(),
+            nq, n, d, k_eff, kmin.data_ptr() if masked else None,
+            slab_rows, cap,
+            thr.data_ptr() if thr is not None else None, rank,
+            mask.data_ptr() if masked else None, op,
+            scratch.data_ptr(), scores.data_ptr(), ids.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _check(lib, code, "exact_i8_select_kernel" + tag)
+    global last_kernel, last_select, _select_fell
+    last_kernel = _launched("exact_i8_select_kernel" + tag, mask) + (
+        "+exact_i8_wgmma_kernel" + tag + ("<mask>" if masked else "")
+        if thr is not None else "")
+    last_select = {"route": name, "stride": stride, "rank": rank,
+                   "capacity": cap}
+    _select_fell = scratch[:4].view(torch.int32) if cap else None
+    return scores, ids
+
+
 def quantized_exact_kernel(op: int, k: int) -> str:
     """The C kernel of an int8 (``op`` = ``_OP_I8``) or int4 exact search
     at k <= ``EXACT_MAX_K`` on the card: up to ``EXACT_I8_MAX_K``
     ``exact_i8_wgmma_kernel`` (the int4 store's through ``lr_exact_i4``,
-    named ``exact_i8_wgmma_kernel<i4>``), past it ``exact_mma_kernel<i8>``
-    / ``<i4>``."""
+    named ``exact_i8_wgmma_kernel<i4>``), past it
+    ``exact_i8_select_kernel`` / ``<i4>``."""
     if op not in _OP_STORE:
         raise ValueError(f"not an int8 or int4 operand kind: {op}")
+    tag = "" if op == _OP_I8 else _OP_TAG[op]
     if k <= EXACT_I8_MAX_K:
-        return "exact_i8_wgmma_kernel" + ("" if op == _OP_I8
-                                          else _OP_TAG[op])
-    return f"exact_mma_kernel{_OP_TAG[op]}"
+        return "exact_i8_wgmma_kernel" + tag
+    return "exact_i8_select_kernel" + tag
 
 
 def _quantized_raw(q_codes, corpus, factor, *, d, k, op, mode, block_n,
@@ -1203,7 +1384,7 @@ def _quantized_raw(q_codes, corpus, factor, *, d, k, op, mode, block_n,
     on a CUDA tensor the fold kernel (k <= 128: ``_fold_i8``, either store)
     or the exact kernel (k <= ``EXACT_MAX_K``:
     ``quantized_exact_kernel``'s, ``_exact_i8`` up to ``EXACT_I8_MAX_K``,
-    either store, else ``_exact_mma``), counted as ``int8_fold`` ...
+    else ``_exact_i8_select``, either store), counted as ``int8_fold`` ...
     ``int4_exact``."""
     if mode not in ("fold", "exact"):
         raise ValueError(f"mode must be 'fold' or 'exact', got {mode!r}")
@@ -1226,8 +1407,8 @@ def _quantized_raw(q_codes, corpus, factor, *, d, k, op, mode, block_n,
         out = _exact_i8(q_codes, corpus, factor, d=d, k_eff=k_eff, op=op,
                         mask=mask)
     else:
-        out = _exact_mma(q_codes, corpus, factor, d=d, k_eff=k_eff,
-                         euclid=False, op=op, mask=mask)
+        out = _exact_i8_select(q_codes, corpus, factor, d=d, k_eff=k_eff,
+                               op=op, mask=mask)
     launches[f"{_OP_STORE[op]}_{mode}"] += 1
     return out
 
@@ -1244,7 +1425,7 @@ def sq8_fused_topk_raw(
     19-bit-quantized, ``mode="exact"`` scores exact, ties to the lower row.
     On a CUDA tensor this launches ``fold_i8_wgmma_kernel<E, M, W>``,
     ``exact_i8_wgmma_kernel<KP, M, W>`` (k <= ``EXACT_I8_MAX_K``) or
-    ``exact_mma_kernel<KP, OP_I8>`` (k <= ``EXACT_MAX_K``) or raises; on a
+    ``exact_i8_select_kernel<H, M, W>`` (k <= ``EXACT_MAX_K``) or raises; on a
     CPU tensor it runs ``quantized_fused_topk_raw_reference``. ``mask``
     restricts the search (see the module's docstring)."""
     return _quantized_raw(q_codes, codes, factor, d=codes.shape[1], k=k,
@@ -1264,8 +1445,9 @@ def sq4_fused_topk_raw(
     ``fold_i8_wgmma_kernel<i4>``), the exact search up to
     ``EXACT_I8_MAX_K`` ``exact_i8_wgmma_kernel<KP, M, W>`` through
     ``lr_exact_i4`` (the same producer; ``last_kernel``
-    ``exact_i8_wgmma_kernel<i4>``), past it ``exact_mma_kernel<KP,
-    OP_I4>``."""
+    ``exact_i8_wgmma_kernel<i4>``), past it ``exact_i8_select_kernel<H, M,
+    W>`` with ``op`` OP_I4 (the same producer; ``last_kernel``
+    ``exact_i8_select_kernel<i4>``)."""
     return _quantized_raw(q_codes, packed, factor, d=d, k=k, op=_OP_I4,
                           mode=mode, block_n=block_n, mask=mask)
 

@@ -904,8 +904,8 @@ def _quantized_kernel(store, mode, k):
 @pytest.mark.parametrize("store", ["int8", "int4"])
 def test_quantized_kernels_match_plain(cuda, store, k, d, masked, nq):
     """The int8 and int4 fold (k <= 128, at ``fold_plan``'s tile) and exact
-    (k = 160, 2048: int8 ``exact_i8_wgmma_kernel`` at 160,
-    ``exact_mma_kernel<i8>`` at 2048) kernels, and their row-mask instances
+    (k = 160, 2048: ``exact_i8_wgmma_kernel`` at 160,
+    ``exact_i8_select_kernel`` at 2048) kernels, and their row-mask instances
     (10 % allowed), against their plain versions on the same codes: scores
     are exact
     integer dots times one factor, so the exact kernel equals its plain
@@ -1268,25 +1268,24 @@ def _assert_int8_exact_bit_for_bit(qc, c, fac, k, mask=None, store="int8",
     of ``d`` dims) exact search at k on the card against its plain
     version: the C kernel its k routes to (up to 256
     ``exact_i8_wgmma_kernel``, the int4 store's through ``lr_exact_i4``,
-    named ``exact_i8_wgmma_kernel<i4>``; past it ``exact_mma_kernel<i8>`` /
-    ``<i4>``), one ``int8_exact`` / ``int4_exact`` launch, ids and scores
-    equal."""
+    named ``exact_i8_wgmma_kernel<i4>``; past it
+    ``exact_i8_select_kernel`` / ``<i4>``), one ``int8_exact`` /
+    ``int4_exact`` launch, the launches that read a mask (a filtered
+    select's sample search reads it too), ids and scores equal."""
     d = c.shape[1] if store == "int8" else d
     op = ft._OP_I8 if store == "int8" else ft._OP_I4
     ft.reset_launches()
     s_k, i_k = _quantized_raw(store, qc, c, fac, d, k=k, mode="exact",
                               mask=mask)
     torch.cuda.synchronize()
-    k_eff = min(k, c.shape[0])
-    tag = "" if store == "int8" else "<i4>"
-    want = ("exact_i8_wgmma_kernel" + tag if k_eff <= ft.EXACT_I8_MAX_K
-            else "exact_mma_kernel" + ("<i8>" if store == "int8" else tag))
+    want = _quantized_kernel(store, "exact", min(k, c.shape[0]))
     assert ft.last_kernel.split("+")[0] == (
         want + ("<mask>" if mask is not None else ""))
     assert ft.launches[f"{store}_exact"] == 1
     assert ft.launches["int8_exact" if store == "int4" else "int4_exact"] \
         == 0
-    assert ft.launches["masked"] == int(mask is not None)
+    sampled = "+exact_i8_wgmma_kernel" in ft.last_kernel
+    assert ft.launches["masked"] == (0 if mask is None else 1 + sampled)
     s_p, i_p = ft.quantized_fused_topk_raw_reference(
         qc, c, fac, d=d, k=k, op=op, mode="exact", mask=mask)
     assert torch.equal(i_k, i_p)
@@ -1446,24 +1445,165 @@ def test_int8_exact_unaligned(cuda, store, d):
                                            d=d)
 
 
+# (store, nq, n, d, k): past k = 256 both stores' exact search is
+# exact_i8_select_kernel: N = 5003 <= C its "all" route, N = 20011 (ragged)
+# the sampled route; one query, a ragged query tile, 2000 (the main
+# path's); d = 33 / 48 / 63 (int4: byte loads, a pad nibble), 64, 384
+# (WIDE, three stages a sub-tile)
+_SELECT_CASES = (
+    [(store, nq, n, 64, k) for store in ("int8", "int4")
+     for nq in (1, 65, 2000) for n in (5003, 20011)
+     for k in (257, 320, 512, 1000, 2048)]
+    + [("int8", 65, 20011, d, k) for d in (33, 48, 384) for k in (320, 2048)]
+    + [("int4", 65, 20011, d, k) for d in (33, 48, 63, 384)
+       for k in (320, 2048)])
+
+
+@pytest.mark.parametrize("store,nq,n,d,k", _SELECT_CASES)
+def test_int8_exact_select_matches_plain_bit_for_bit(cuda, store, nq, n, d,
+                                                      k):
+    """``exact_i8_select_kernel`` (k = 257-2048) against the plain exact
+    search, ids and scores, over the int8 codes and (its producer
+    warpgroup's unpack) the int4 nibbles: the route its plan picks
+    (``ft.last_select``; the sample's search ``exact_i8_wgmma_kernel`` on
+    the sampled route), no query falling back on rows in random order, and
+    the same bits from the radix route forced for every query."""
+    qc, c, fac, _ = _quantized(cuda, store, nq, n, d, seed=nq + n + d + k)
+    s_k, i_k = _assert_int8_exact_bit_for_bit(qc, c, fac, k, store=store,
+                                              d=d)
+    route = "all" if n <= 8192 else "sampled"
+    assert ft.last_select["route"] == route
+    assert ft.last_kernel.endswith("+exact_i8_wgmma_kernel"
+                                   + ("<i4>" if store == "int4" else "")) \
+        == (route == "sampled")
+    assert ft.select_fallbacks() == 0
+    op = ft._OP_I8 if store == "int8" else ft._OP_I4
+    s_r, i_r = ft._exact_i8_select(qc, c, fac.reshape(1), d=d, k_eff=k,
+                                   op=op, route="radix")
+    assert ft.select_fallbacks() is None
+    assert torch.equal(s_r, s_k) and torch.equal(i_r, i_k)
+
+
+# (store, d, n, k, allowed): 10 % of 100k rows, of 20k (2000 allowed:
+# fewer than m in the sample, so every allowed row is buffered), every row,
+# 5 rows (fewer than k) and none; every case on the sampled route
+_SELECT_MASKED_CASES = (
+    [(store, d, n, k, a) for store, d in (("int8", 64), ("int4", 63))
+     for n, a in ((100_000, 0.1), (20_011, 0.1), (20_011, 1.0),
+                  (20_011, "few"), (20_011, 0.0))
+     for k in (320, 2048)]
+    + [("int8", 384, 100_000, 512, 0.1), ("int4", 384, 100_000, 512, 0.1)])
+
+
+@pytest.mark.parametrize("store,d,n,k,allowed", _SELECT_MASKED_CASES)
+def test_int8_exact_select_masked_matches_plain(cuda, store, d, n, k,
+                                                allowed):
+    """The select's row-mask instances against the masked plain search,
+    bit for bit: the plan is the shapes', the sample's search reads the
+    mask (its own row-mask instance), and a filter that allows fewer rows
+    than k leaves the rest of the slots (NEG_INF, -1) without a fallback
+    (the allowed rows counted on the card)."""
+    from latentrag_torch.ops.topk import NEG_INF, unpack_row_mask
+
+    qc, c, fac, _ = _quantized(cuda, store, 65, n, d, seed=n + k + d)
+    mask = _allowed_mask(cuda, n, allowed, seed=k + d)
+    s_k, i_k = _assert_int8_exact_bit_for_bit(qc, c, fac, k, mask,
+                                              store=store, d=d)
+    live = i_k >= 0
+    n_allowed = int(unpack_row_mask(mask, n).sum())
+    assert bool(unpack_row_mask(mask, n)[i_k[live].long()].all())
+    assert bool((s_k[~live] == NEG_INF).all())
+    assert int(live.sum(1).max()) == min(k, n_allowed)
+    assert ft.last_select["route"] == "sampled"
+    assert ft.last_kernel.endswith(
+        "+exact_i8_wgmma_kernel" + ("<i4>" if store == "int4" else "")
+        + "<mask>")
+    assert ft.select_fallbacks() == 0
+
+
+@pytest.mark.parametrize("store,d", [("int8", 64), ("int4", 64),
+                                     ("int4", 128)])
+def test_int8_exact_select_unaligned(cuda, store, d):
+    """Codes on a base that is not 16-byte aligned, corpus and queries
+    (the producer's loads in place of TMA or of 16-byte loads; int4 at d =
+    128 the WIDE instance's query chunks): bit for bit at k = 320 on the
+    sampled route."""
+    qc, c, fac, _ = _quantized(cuda, store, 100, 20011, d, seed=7)
+    for t in ("corpus", "queries"):
+        src = c if t == "corpus" else qc
+        buf = torch.empty(src.numel() + 1, dtype=src.dtype, device=cuda)
+        moved = buf[1:].view(src.shape).copy_(src)
+        assert moved.data_ptr() % 16 != 0
+        if t == "corpus":
+            _assert_int8_exact_bit_for_bit(qc, moved, fac, 320, store=store,
+                                           d=d)
+        else:
+            _assert_int8_exact_bit_for_bit(moved, c, fac, 320, store=store,
+                                           d=d)
+        assert ft.last_select["route"] == "sampled"
+
+
+def _crafted_select_case(cuda, kind, store, nq, n, k):
+    """Codes whose sampled threshold fails (as
+    ``tests/test_torch_exact_i8_select.py`` builds them on the CPU):
+    "overshoot", every s-th row (the sample) lifted to the top code on dims
+    0-7, which the even queries weigh by 127, so that only the sample
+    reaches their threshold (m < k keys: they fall back); "ties", every row
+    one of two vectors (a tie group past C holds every query's threshold).
+    Returns (query codes, corpus codes or nibbles, factor, d, the queries
+    built to fall back)."""
+    g = torch.Generator(device=cuda).manual_seed(n + k)
+    d = 32
+    top = 127 if store == "int8" else 7
+    qc = torch.randint(-100, 101, (nq, d), generator=g, device=cuda,
+                       dtype=torch.int8)
+    qc[:, :8] = torch.where(torch.arange(nq, device=cuda) % 2 == 0, 127,
+                            0).to(torch.int8)[:, None]
+    if kind == "overshoot":
+        stride = ft.quantized_select_plan(nq, n, k)[1]
+        codes = torch.randint(-top + 1, top, (n, d), generator=g,
+                              device=cuda, dtype=torch.int8)
+        codes[::stride, :8] = top
+        want = torch.arange(nq, device=cuda) % 2 == 0
+    else:
+        pair = torch.randint(-top + 1, top, (2, d), generator=g, device=cuda,
+                             dtype=torch.int8)
+        codes = pair[torch.randint(0, 2, (n,), generator=g, device=cuda)]
+        want = torch.ones(nq, dtype=torch.bool, device=cuda)
+    if store == "int4":
+        lo, hi = codes[:, 0::2].to(torch.int32), codes[:, 1::2].to(torch.int32)
+        codes = ((lo & 0xF) | ((hi & 0xF) << 4)).to(torch.uint8)
+    fac = torch.tensor([1e-3], dtype=torch.float32, device=cuda)
+    return qc, codes.contiguous(), fac, d, want
+
+
 @pytest.mark.parametrize("k", [257, 512, 2048])
+@pytest.mark.parametrize("kind", ["overshoot", "ties"])
 @pytest.mark.parametrize("store", ["int8", "int4"])
-def test_int8_exact_past_256_keeps_the_old_instance(cuda, store, k):
-    """Past k = 256 the lists of 64 queries do not fit an SM: both stores'
-    exact search stays on ``exact_mma_kernel<i8>`` / ``<i4>``, bit for
-    bit."""
-    qc, c, fac, _ = _quantized(cuda, store, 65, 5003, 64, seed=k)
-    _assert_int8_exact_bit_for_bit(qc, c, fac, k, store=store, d=64)
-    assert ft.last_kernel.startswith(
-        "exact_mma_kernel" + ("<i8>" if store == "int8" else "<i4>"))
+def test_int8_exact_select_crafted_fallbacks(cuda, store, kind, k):
+    """Corpora on which the sampled threshold fails (200k rows, 128
+    queries: two query tiles, slabs of the radix passes): the device's
+    fallback count equals the queries built to fall back and the plan's
+    plain model's count, and the fallen queries' radix passes keep the
+    answer the plain search's bit for bit."""
+    n = 200_003
+    qc, c, fac, d, want = _crafted_select_case(cuda, kind, store, 128, n, k)
+    _assert_int8_exact_bit_for_bit(qc, c, fac, k, store=store, d=d)
+    assert ft.last_select["route"] == "sampled"
+    op = ft._OP_I8 if store == "int8" else ft._OP_I4
+    fell = ft.quantized_select_reference(qc, c, fac, d=d, k=k, op=op)[2]
+    assert torch.equal(fell, want)
+    assert ft.select_fallbacks() == int(want.sum())
 
 
 @pytest.mark.parametrize("op", [ft._OP_I8, ft._OP_I4])
 def test_int8_exact_occupancy(cuda, op):
-    """Blocks an SM as the kernel's header states them at d = 64, for
-    either store (the same blocks): two up to k = 120, one from k = 121,
-    at k = 128 and at k = 256; a WIDE block at k = 256 still fits; the old
-    template's entry refuses both stores at k <= 256."""
+    """Blocks an SM as the kernels' headers state them at d = 64, for
+    either store (the same blocks): ``exact_i8_wgmma_kernel`` two up to k =
+    120, one from k = 121, at k = 128 and at k = 256; a WIDE block at k =
+    256 still fits; ``exact_i8_select_kernel``'s buffer pass two at every
+    k (d = 64 and 384), its histogram passes two at d = 64 and one WIDE;
+    the old template's entry refuses both stores at every k."""
     lib = ft._library()
     assert lib.lr_exact_i8_occupancy(64, 10, op) == 2
     assert lib.lr_exact_i8_occupancy(64, 120, op) == 2
@@ -1474,17 +1614,23 @@ def test_int8_exact_occupancy(cuda, op):
     assert lib.lr_exact_i8_occupancy(64, 257, op) < 0
     assert lib.lr_exact_i8_smem(64, 160, op) == lib.lr_exact_i8_smem(
         64, 160, ft._OP_I8)
-    for k in (1, 128, 256):
+    for k in (1, 128, 256, 257, 512, 1024, 2048):
         assert lib.lr_exact_mma_occupancy(64, k, op) == -1
-    assert lib.lr_exact_mma_occupancy(64, 512, op) >= 1
+    for masked in (False, True):
+        sel = ft._library(masked)
+        assert sel.lr_exact_i8_select_occupancy(64, op, 0) == 2
+        assert sel.lr_exact_i8_select_occupancy(384, op, 0) == 2
+        assert sel.lr_exact_i8_select_occupancy(64, op, 1) == 2
+        assert sel.lr_exact_i8_select_occupancy(384, op, 1) == 1
 
 
 def test_exact_i8_wgmma_instances_have_no_stack(cuda):
     """Every instance either store's exact search launches
-    (``exact_i8_wgmma_kernel<KP, MASK, WIDE>``, KP 128 and 256, both
-    libraries) keeps 0 stack bytes by ``cuobjdump -res-usage``: no spill in
-    the int4 producer's unpack at its 40 registers, nor in the consumers;
-    and no library holds ``exact_mma_kernel<128 | 256, OP_I4>`` any
+    (``exact_i8_wgmma_kernel<KP, MASK, WIDE>``, KP 128 and 256, and
+    ``exact_i8_select_kernel<HIST, MASK, WIDE>``, both libraries) keeps 0
+    stack bytes by ``cuobjdump -res-usage``: no spill in the int4
+    producer's unpack at its 40 registers, nor in the consumers; and no
+    library holds ``exact_mma_kernel<KP, OP_I8 | OP_I4>`` at any KP any
     more."""
     import os
     import re
@@ -1506,8 +1652,17 @@ def test_exact_i8_wgmma_instances_have_no_stack(cuda):
                               r"STACK:(\d+)", out)
                 assert m, name
                 assert int(m.group(2)) == 0, (name, m.group(0))
-            assert f"exact_mma_kernelILi{kp}ELi4E" not in out
-        assert "exact_mma_kernelILi512ELi4E" in out
+        for hist in (0, 1):
+            for wide in (0, 1):
+                name = (f"exact_i8_select_kernelILb{hist}ELb{masked}"
+                        f"ELb{wide}E")
+                m = re.search(re.escape(name) + r"\S*:\s*\n\s*REG:(\d+) "
+                              r"STACK:(\d+)", out)
+                assert m, name
+                assert int(m.group(2)) == 0, (name, m.group(0))
+        for kp in (128, 256, 512, 1024, 2048):
+            for op in (3, 4):
+                assert f"exact_mma_kernelILi{kp}ELi{op}E" not in out
 
 
 @pytest.mark.parametrize("k", [10, 200, 2100])

@@ -1,10 +1,11 @@
 """The int8 and int4 stores' exact search on Hopper
-(``csrc/exact_i8_wgmma.cuh``; the int4 store's through ``lr_exact_i4``) on
-the CPU: the wrapper's slab plan as a pure function, the route by k, the
-build's sources and entries, a numpy model of the kernel's skip threshold,
-and the split scripts' scratch copies of the replaced instances. The
-kernel itself runs only on the card (``tests/test_torch_cuda.py -k
-int8_exact``)."""
+(``csrc/exact_i8_wgmma.cuh`` to k = 256, ``csrc/exact_i8_select.cuh`` past
+it; the int4 store's through the same kernels) on the CPU: the wrapper's
+slab plan as a pure function, the route by k, the build's sources and
+entries, a numpy model of the kernel's skip threshold, and the split
+scripts' scratch copies of the replaced instances. The kernels themselves
+run only on the card (``tests/test_torch_cuda.py -k int8_exact``); the
+select's plan and its plain model: ``tests/test_torch_exact_i8_select.py``."""
 
 import importlib.util
 import os
@@ -50,8 +51,8 @@ def test_exact_i8_slab_plan_covers_the_corpus(nq, n, slots):
 @pytest.mark.parametrize("k,want", [
     (1, "exact_i8_wgmma_kernel"), (129, "exact_i8_wgmma_kernel"),
     (160, "exact_i8_wgmma_kernel"), (256, "exact_i8_wgmma_kernel"),
-    (257, "exact_mma_kernel<i8>"), (512, "exact_mma_kernel<i8>"),
-    (2048, "exact_mma_kernel<i8>"),
+    (257, "exact_i8_select_kernel"), (512, "exact_i8_select_kernel"),
+    (2048, "exact_i8_select_kernel"),
 ])
 def test_int8_exact_route_cases(k, want):
     assert ft.quantized_exact_kernel(ft._OP_I8, k) == want
@@ -60,28 +61,28 @@ def test_int8_exact_route_cases(k, want):
 @pytest.mark.parametrize("k,want", [
     (1, "exact_i8_wgmma_kernel<i4>"), (10, "exact_i8_wgmma_kernel<i4>"),
     (129, "exact_i8_wgmma_kernel<i4>"), (160, "exact_i8_wgmma_kernel<i4>"),
-    (256, "exact_i8_wgmma_kernel<i4>"), (257, "exact_mma_kernel<i4>"),
-    (512, "exact_mma_kernel<i4>"), (2048, "exact_mma_kernel<i4>"),
+    (256, "exact_i8_wgmma_kernel<i4>"), (257, "exact_i8_select_kernel<i4>"),
+    (512, "exact_i8_select_kernel<i4>"), (2048, "exact_i8_select_kernel<i4>"),
 ])
 def test_int4_exact_route_cases(k, want):
-    """The int4 store's exact search takes the int8 store's kernel up to
-    k = 256 (its stage 1 at top_k 17-32: 136-256 candidates) and the old
-    instance past it (top_k 33 on: 264 and more)."""
+    """The int4 store's exact search takes the int8 store's kernels: up to
+    k = 256 ``exact_i8_wgmma_kernel`` (its stage 1 at top_k 17-32: 136-256
+    candidates), past it ``exact_i8_select_kernel`` (top_k 33 on: 264 and
+    more; the reranked store from top_k 9)."""
     assert ft.quantized_exact_kernel(ft._OP_I4, k) == want
 
 
 def test_exact_route_by_k():
     """Every k of the exact routes: both stores up to ``EXACT_I8_MAX_K``
-    (256) on the new kernel (int4 through ``lr_exact_i4``, named
-    ``exact_i8_wgmma_kernel<i4>``), past it on ``exact_mma_kernel<i8>`` /
-    ``<i4>``."""
+    (256) on ``exact_i8_wgmma_kernel`` (int4 through ``lr_exact_i4``, named
+    ``exact_i8_wgmma_kernel<i4>``), past it on ``exact_i8_select_kernel``
+    / ``<i4>``."""
     assert ft.EXACT_I8_MAX_K == 256
     for k in range(1, ft.EXACT_MAX_K + 1):
-        new = k <= 256
-        assert ft.quantized_exact_kernel(ft._OP_I8, k) == (
-            "exact_i8_wgmma_kernel" if new else "exact_mma_kernel<i8>")
-        assert ft.quantized_exact_kernel(ft._OP_I4, k) == (
-            "exact_i8_wgmma_kernel<i4>" if new else "exact_mma_kernel<i4>")
+        kernel = ("exact_i8_wgmma_kernel" if k <= 256
+                  else "exact_i8_select_kernel")
+        assert ft.quantized_exact_kernel(ft._OP_I8, k) == kernel
+        assert ft.quantized_exact_kernel(ft._OP_I4, k) == kernel + "<i4>"
 
 
 @pytest.mark.parametrize("op", [ft._OP_BF16, ft._OP_BIN, ft._OP_F32])
@@ -98,7 +99,7 @@ def test_build_lists_the_new_headers():
     both flavours."""
     srcs = cuda_build.sources("fused_topk")
     for h in ("exact_i8_wgmma.cuh", "wgmma_i8.cuh", "fold_i8_wgmma.cuh",
-              "exact_mma.cuh"):
+              "exact_mma.cuh", "exact_select.cuh", "exact_i8_select.cuh"):
         assert h in srcs
 
 
@@ -129,8 +130,8 @@ def test_build_lists_the_int4_entry(select):
     """The library's C interface has ``lr_exact_i4`` beside
     ``lr_exact_i8`` (the same arguments, the kernel's i4 flag set), both
     libraries declare it as ``lr_exact_i8`` is declared, and the old
-    template routes the int4 store only past k = 256 (its lists of 512 and
-    more), so ``exact_mma_kernel<128 | 256, OP_I4>`` leave the build."""
+    template routes neither int store at any k, so no
+    ``exact_mma_kernel<KP, OP_I8 | OP_I4>`` stays in the build."""
     src = _csrc("exact_i8_wgmma.cuh")
     assert src.count("int lr_exact_i4(const void* q, const void* c,") == 1
     assert "return ew_exact(q, c, factor, nq, n, d, k, slab_rows, mask, 1," \
@@ -141,9 +142,10 @@ def test_build_lists_the_int4_entry(select):
     assert lib.lr_exact_i4.restype is lib.lr_exact_i8.restype
     assert len(lib.lr_exact_i4.argtypes) == 13
     mma = _csrc("exact_mma.cuh")
-    assert "EM_DISPATCH_BIG(F, OP_I4, __VA_ARGS__)" in mma
-    assert "EM_DISPATCH_OP(F, OP_I4" not in mma
-    assert mma.count("if ((op == OP_I8 || op == OP_I4) && kp <= 256) "
+    for op in ("OP_I8", "OP_I4"):
+        assert f"EM_DISPATCH_BIG(F, {op}" not in mma
+        assert f"EM_DISPATCH_OP(F, {op}" not in mma
+    assert mma.count("if (k < 1 || k > 2048 || op == OP_I8 || op == OP_I4) "
                      "return -1;") == 2
 
 

@@ -154,8 +154,8 @@ def test_approx_route_matches_jax(rng, store, allowed, k):
     versions: the fold at ``fold_plan``'s width and candidates, rescored
     exactly (k=10), the exact kernel's plain version (k=200; k=256, the
     last that ``exact_i8_wgmma_kernel`` takes, the int4 cascade's stage 1
-    at top_k 32; k=257, the first on ``exact_mma_kernel``, its stage 1 at
-    top_k 33 asking for 264) and the blocked search (k=2100). Scores equal
+    at top_k 32; k=257, the first on ``exact_i8_select_kernel``, its stage
+    1 at top_k 33 asking for 264) and the blocked search (k=2100). Scores equal
     the JAX function's bit for bit and ids by set at ties; empty slots
     (the mask) are (NEG_INF, -1)."""
     d = 33 if store == "int4" else 32
